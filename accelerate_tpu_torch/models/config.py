@@ -1,0 +1,330 @@
+"""Model architecture config and presets.
+
+A copy of ``accelerate_tpu/models/config.py`` (the port imports nothing
+of the JAX package): the same fields, validation and presets, so one
+config describes the same model in both packages. Fields whose feature is
+not ported yet are accepted here and rejected by the model that would
+need them (models/transformer.py), with a pointer to ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+SUPPORTED_ROPE_TYPES = ("default", "llama3", "linear")
+# required rope_scaling keys per type (beyond rope_type itself)
+_ROPE_REQUIRED_KEYS = {
+    "default": (),
+    "linear": ("factor",),
+    "llama3": (
+        "factor",
+        "low_freq_factor",
+        "high_freq_factor",
+        "original_max_position_embeddings",
+    ),
+}
+
+
+def rope_type(scaling: Optional[dict]) -> str:
+    """The rope_type of an HF-style ``rope_scaling`` dict (accepting the
+    legacy ``type`` key), ``"default"`` when absent — the ONE place this
+    extraction lives (used by config validation, hf interop, and the rope
+    implementation)."""
+    if not scaling:
+        return "default"
+    return scaling.get("rope_type", scaling.get("type", "default"))
+
+
+def validate_rope_scaling(scaling: Optional[dict]) -> None:
+    """Reject unsupported types AND missing parameters up front: a
+    scaling dict that only fails at trace time (KeyError inside jit)
+    would defeat the loader's fail-loudly contract."""
+    rt = rope_type(scaling)
+    if rt not in SUPPORTED_ROPE_TYPES:
+        raise ValueError(
+            f"unsupported rope_scaling type {rt!r}; "
+            f"supported: {', '.join(SUPPORTED_ROPE_TYPES)}"
+        )
+    missing = [k for k in _ROPE_REQUIRED_KEYS[rt] if k not in (scaling or {})]
+    if missing:
+        raise ValueError(
+            f"rope_scaling type {rt!r} requires keys {missing} "
+            f"(got {sorted(scaling)})"
+        )
+
+
+@dataclass
+class TransformerConfig:
+    # model family: "llama" (the modern default — RMSNorm/rope/SwiGLU,
+    # models/transformer.py) or "gpt2" (classic — LayerNorm/learned
+    # positions/biases/GELU, models/gpt2.py). Selects the HF parameter
+    # mapping in utils/hf_interop.py; build the matching module class
+    # (CausalLM vs GPT2LM).
+    arch: str = "llama"
+    vocab_size: int = 32000
+    hidden_size: int = 512
+    intermediate_size: int = 1408
+    num_layers: int = 4
+    # encoder-decoder models (Seq2SeqLM): decoder depth; None -> num_layers
+    num_decoder_layers: Optional[int] = None
+    num_heads: int = 8
+    num_kv_heads: Optional[int] = None  # None -> num_heads (MHA); < heads -> GQA
+    # bias on the q/k/v projections ONLY (the Qwen2 family convention —
+    # o_proj and the MLP stay bias-free); selects the matching HF mapping
+    qkv_bias: bool = False
+    head_dim: Optional[int] = None  # None -> hidden_size // num_heads
+    max_seq_len: int = 2048
+    rope_theta: float = 500000.0
+    # HF-style rope frequency scaling (Llama-3.1+ ships
+    # ``{"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+    # "high_freq_factor": 4.0, "original_max_position_embeddings": 8192}``);
+    # supported rope_types: "llama3", "linear", "default"/None. Applied in
+    # models/transformer.rope — keep in sync with transformers'
+    # _compute_llama3_parameters so HF checkpoints logits-match.
+    rope_scaling: Optional[dict] = None
+    rms_norm_eps: float = 1e-5
+    # Gemma-family math switches (key layout is Llama's; only the math
+    # differs — utils/hf_interop.py maps model_type "gemma" onto these):
+    # RMSNorm multiplies by (1 + scale) with zero-init scales,
+    norm_offset: bool = False
+    # the MLP gate activation ("silu" = Llama/Mixtral, "gelu_tanh" =
+    # Gemma's gelu_pytorch_tanh),
+    mlp_activation: str = "silu"
+    # and embedding outputs scale by sqrt(hidden_size).
+    embed_scale: bool = False
+    tie_embeddings: bool = False
+    # False -> bidirectional self-attention (BERT-family encoders)
+    causal: bool = True
+    # sliding-window attention band (Mistral / sliding Qwen2): each query
+    # sees at most the last `sliding_window` keys, self included — HF
+    # semantics (kv_idx > q_idx - sliding_window AND causal). Applies to
+    # EVERY layer (per-layer mixes are rejected by utils/hf_interop.py —
+    # the nn.scan layout compiles one homogeneous layer body). xla and
+    # flash attention honor it (flash skips below-band kv blocks: work
+    # scales with S*window); ring attention rejects it.
+    sliding_window: Optional[int] = None
+    # Gemma-2 family switches (utils/hf_interop.py maps model_type
+    # "gemma2" onto these, on top of the Gemma-1 trio above):
+    # per-layer window pattern (tuple of int-or-None, len num_layers —
+    # Gemma-2 alternates sliding/full). Heterogeneous patterns ride the
+    # scan as a per-layer traced window, which only the xla attention
+    # path supports; homogeneous patterns should use sliding_window.
+    layer_windows: Optional[tuple] = None
+    # attention scale = query_pre_attn_scalar**-0.5 (Gemma-2 sets 256,
+    # decoupled from head_dim); None -> head_dim**-0.5
+    query_pre_attn_scalar: Optional[float] = None
+    # tanh soft-capping: s -> cap * tanh(s / cap) on attention scores
+    # (before masking) and on final logits
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    # Gemma-2 block: norms AFTER attention and the MLP too (4 per block)
+    post_norms: bool = False
+    attention_impl: Optional[str] = None  # None=auto | xla | flash | ring
+    # MoE (Mixtral family); 0 experts = dense MLP
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    # "auto" (default): "ragged" at every ep (falls back to "capacity"
+    # only on jax versions without partial-manual shard_map). "ragged":
+    # grouped-matmul dispatch (jax.lax.ragged_dot) — exact math at ep==1
+    # (no padding, no drops), measured FASTER than capacity at bench
+    # shapes (ops/moe.py docstring numbers); under ep>1 it runs the
+    # shard-capacity EP schedule (ops/moe.moe_ragged_ep — ragged-packed
+    # local experts, per-SHARD headroom: at equal capacity_factor it
+    # drops 3-10x fewer tokens and moves ~2x fewer collective bytes than
+    # "capacity", measured numbers in moe_ragged_ep's docstring).
+    # "capacity": GShard-style static-shape dispatch — FLOPs scale with
+    # K*capacity_factor, overflow tokens drop per expert. "dense": every
+    # expert sees every token (the exact-math test oracle, O(E) FLOPs)
+    moe_dispatch: str = "auto"
+    moe_capacity_factor: float = 2.0
+    # fp8 projections: e4m3 fwd / e5m2 bwd matmuls (ops/fp8.py) — the
+    # TransformerEngine capability; pair with mixed_precision="fp8"
+    fp8: bool = False
+    # remat: None | "full" | "dots" — trades FLOPs for HBM
+    remat: Optional[str] = None
+    # fused Pallas step kernels (ops/fused.py): RMSNorm -> QKV -> rope in
+    # one kernel per attention block. Param tree and checkpoints are
+    # identical either way; numerics match the unfused chain to fp32
+    # tolerance (exact-shape fallback to the unfused path when a shape the
+    # kernel can't tile comes through, and interpret mode on CPU)
+    fused_kernels: bool = False
+    # scan over layers: one compiled layer body, num_layers iterations —
+    # keeps compile time flat in depth (essential at 8B+)
+    scan_layers: bool = True
+    dtype: str = "float32"  # activation dtype at apply time
+
+    def __post_init__(self):
+        if self.arch not in ("llama", "gpt2"):
+            raise ValueError(
+                f"unknown arch {self.arch!r}; supported: llama, gpt2"
+            )
+        if self.mlp_activation not in ("silu", "gelu_tanh"):
+            raise ValueError(
+                f"unknown mlp_activation {self.mlp_activation!r}; "
+                "supported: silu, gelu_tanh"
+            )
+        # an unsupported/underspecified rope_scaling silently ignored (or
+        # crashing only at trace time) would pass every weight check and
+        # still diverge from the source model
+        validate_rope_scaling(self.rope_scaling)
+        if self.sliding_window is not None:
+            if self.sliding_window <= 0:
+                raise ValueError(
+                    f"sliding_window must be positive, got {self.sliding_window}"
+                )
+            if not self.causal:
+                raise ValueError(
+                    "sliding_window requires causal attention (the band is "
+                    "a causal-mask refinement)"
+                )
+            if self.attention_impl == "ring":
+                raise ValueError(
+                    "sliding_window is not supported by ring attention — "
+                    "use attention_impl 'flash'/'xla'/None (flash's "
+                    "band-skip already bounds work and memory at "
+                    "window << seq)"
+                )
+        if self.layer_windows is not None:
+            self.layer_windows = tuple(self.layer_windows)
+            if len(self.layer_windows) != self.num_layers:
+                raise ValueError(
+                    f"layer_windows has {len(self.layer_windows)} entries "
+                    f"for {self.num_layers} layers"
+                )
+            if self.sliding_window is not None:
+                raise ValueError(
+                    "set either sliding_window (homogeneous) or "
+                    "layer_windows (per-layer), not both"
+                )
+            if not self.causal:
+                raise ValueError("layer_windows requires causal attention")
+            if self.attention_impl in ("ring", "flash"):
+                raise ValueError(
+                    "per-layer windows ride the scan as traced values, "
+                    "which only the xla attention path supports — use "
+                    "attention_impl 'xla' or None"
+                )
+        if self.num_kv_heads is None:
+            self.num_kv_heads = self.num_heads
+        if self.head_dim is None:
+            if self.hidden_size % self.num_heads:
+                raise ValueError(
+                    f"hidden_size {self.hidden_size} is not a multiple of "
+                    f"num_heads {self.num_heads}"
+                )
+            self.head_dim = self.hidden_size // self.num_heads
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(
+                f"num_heads {self.num_heads} is not a multiple of "
+                f"num_kv_heads {self.num_kv_heads}"
+            )
+
+    # ------------------------------------------------------------------ #
+    # presets (BASELINE.md model families)
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def tiny(cls, **kw) -> "TransformerConfig":
+        kw.setdefault("vocab_size", 1024)
+        kw.setdefault("hidden_size", 128)
+        kw.setdefault("intermediate_size", 352)
+        kw.setdefault("num_layers", 2)
+        kw.setdefault("num_heads", 4)
+        kw.setdefault("max_seq_len", 256)
+        return cls(**kw)
+
+    @classmethod
+    def bert_base(cls, **kw) -> "TransformerConfig":
+        """BERT-base shape (the reference's nlp_example.py fine-tune target,
+        examples/nlp_example.py: bert-base-cased). Bidirectional attention;
+        rope replaces learned positions — the TPU build's encoder idiom."""
+        kw.setdefault("vocab_size", 30522)
+        kw.setdefault("hidden_size", 768)
+        kw.setdefault("intermediate_size", 3072)
+        kw.setdefault("num_layers", 12)
+        kw.setdefault("num_heads", 12)
+        kw.setdefault("max_seq_len", 512)
+        kw.setdefault("causal", False)
+        kw.setdefault("tie_embeddings", True)
+        return cls(**kw)
+
+    @classmethod
+    def gpt2(cls, **kw) -> "TransformerConfig":
+        """The FAITHFUL classic architecture (models/gpt2.GPT2LM):
+        learned positions, LayerNorm, biases, GELU — real ``gpt2`` hub
+        checkpoints load with matching logits."""
+        kw.setdefault("arch", "gpt2")
+        kw.setdefault("vocab_size", 50257)
+        kw.setdefault("hidden_size", 768)
+        kw.setdefault("intermediate_size", 3072)
+        kw.setdefault("num_layers", 12)
+        kw.setdefault("num_heads", 12)
+        kw.setdefault("max_seq_len", 1024)
+        kw.setdefault("rms_norm_eps", 1e-5)
+        kw.setdefault("tie_embeddings", True)
+        return cls(**kw)
+
+    @classmethod
+    def llama3_8b(cls, **kw) -> "TransformerConfig":
+        kw.setdefault("vocab_size", 128256)
+        kw.setdefault("hidden_size", 4096)
+        kw.setdefault("intermediate_size", 14336)
+        kw.setdefault("num_layers", 32)
+        kw.setdefault("num_heads", 32)
+        kw.setdefault("num_kv_heads", 8)
+        kw.setdefault("max_seq_len", 8192)
+        return cls(**kw)
+
+    @classmethod
+    def llama3_70b(cls, **kw) -> "TransformerConfig":
+        kw.setdefault("vocab_size", 128256)
+        kw.setdefault("hidden_size", 8192)
+        kw.setdefault("intermediate_size", 28672)
+        kw.setdefault("num_layers", 80)
+        kw.setdefault("num_heads", 64)
+        kw.setdefault("num_kv_heads", 8)
+        kw.setdefault("max_seq_len", 8192)
+        return cls(**kw)
+
+    @classmethod
+    def qwen2_7b(cls, **kw) -> "TransformerConfig":
+        """Qwen2-7B shape (the qkv-bias interop family)."""
+        kw.setdefault("vocab_size", 152064)
+        kw.setdefault("hidden_size", 3584)
+        kw.setdefault("intermediate_size", 18944)
+        kw.setdefault("num_layers", 28)
+        kw.setdefault("num_heads", 28)
+        kw.setdefault("num_kv_heads", 4)
+        kw.setdefault("max_seq_len", 32768)
+        kw.setdefault("rope_theta", 1000000.0)
+        kw.setdefault("qkv_bias", True)
+        return cls(**kw)
+
+    @classmethod
+    def t5_base(cls, **kw) -> "TransformerConfig":
+        """T5-base shape family (reference megatron t5 parser
+        utils/megatron_lm.py:1717): 12+12 layers, 768 hidden. SwiGLU/rope
+        replace relu/relative-bias — capability parity, modernized arch."""
+        kw.setdefault("vocab_size", 32128)
+        kw.setdefault("hidden_size", 768)
+        kw.setdefault("intermediate_size", 2048)
+        kw.setdefault("num_layers", 12)
+        kw.setdefault("num_decoder_layers", 12)
+        kw.setdefault("num_heads", 12)
+        kw.setdefault("max_seq_len", 512)
+        kw.setdefault("tie_embeddings", True)
+        return cls(**kw)
+
+    @classmethod
+    def mixtral_8x7b(cls, **kw) -> "TransformerConfig":
+        kw.setdefault("vocab_size", 32000)
+        kw.setdefault("hidden_size", 4096)
+        kw.setdefault("intermediate_size", 14336)
+        kw.setdefault("num_layers", 32)
+        kw.setdefault("num_heads", 32)
+        kw.setdefault("num_kv_heads", 8)
+        kw.setdefault("num_experts", 8)
+        kw.setdefault("num_experts_per_tok", 2)
+        kw.setdefault("max_seq_len", 4096)
+        return cls(**kw)

@@ -1,0 +1,276 @@
+"""Decoder-only transformer (Llama family): the training path.
+
+Port of ``accelerate_tpu/models/transformer.py`` (``RMSNorm`` :47,
+``_scale_rope_freqs`` :80, ``rope`` :113, ``Attention`` :246, ``MLP`` :491,
+``Block`` :671, ``_apply_layer_stack`` :803, ``CausalLM`` :861 with
+``loss_fn`` :938) as ``nn.Module``s. Parameters are fp32 and named after
+the reference's module tree (``layers.<i>.attn.q_proj.weight`` for
+``layers/attn/q_proj/kernel``); ``utils/weights.params_from_jax`` carries
+a flax tree over. Each projection computes in ``config.dtype``, casting
+its inputs and weights as flax's ``Dense(dtype=...)`` does. The layer
+stack is a ``ModuleList`` run in a loop (the reference's ``nn.scan``).
+
+Not ported yet, and rejected when asked for (ROADMAP.md): the fused
+RMSNorm->QKV->rope prologue (``fused_kernels``), fp8 projections, MoE,
+the GPT-2 architecture, the Gemma/Gemma-2 switches, remat policies other
+than ``"full"``, the decode, paged and LoRA paths, and the BERT
+``SequenceClassifier``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import dot_product_attention
+from ..state import resolve_device
+from .config import TransformerConfig, rope_type
+
+# flax's truncated_normal divides by the std of a unit normal cut at +-2
+_TRUNC_STD = 0.87962566103423978
+
+
+def _dtype(config: TransformerConfig) -> torch.dtype:
+    return getattr(torch, config.dtype)
+
+
+def _unsupported(cfg: TransformerConfig) -> Optional[str]:
+    if cfg.arch != "llama":
+        return f"arch={cfg.arch!r} (queue A8)"
+    if cfg.fused_kernels:
+        return "fused_kernels=True: the fused prologue kernel B5 (queue B)"
+    if cfg.fp8:
+        return "fp8 projections (queue A8)"
+    if cfg.num_experts > 0:
+        return "MoE layers (queue A7)"
+    if cfg.remat not in (None, "full"):
+        return f"remat={cfg.remat!r}: only 'full' maps onto torch.utils.checkpoint"
+    if cfg.attention_impl == "ring":
+        return "ring attention (queue A7)"
+    gemma = [name for name, on in (
+        ("norm_offset", cfg.norm_offset), ("embed_scale", cfg.embed_scale),
+        ("mlp_activation", cfg.mlp_activation != "silu"), ("post_norms", cfg.post_norms),
+        ("attn_softcap", cfg.attn_softcap is not None),
+        ("final_softcap", cfg.final_softcap is not None),
+        ("query_pre_attn_scalar", cfg.query_pre_attn_scalar is not None),
+        ("layer_windows", cfg.layer_windows is not None),
+    ) if on]
+    if gemma:
+        return f"the Gemma/Gemma-2 switches {gemma} (queue A8)"
+    return None
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with fp32 parameters that computes in ``compute_dtype``
+    (flax ``Dense(dtype=..., param_dtype=float32)``), initialised
+    lecun-normal like the reference."""
+
+    def __init__(self, in_features, out_features, bias, compute_dtype, device, generator):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = compute_dtype
+        std = in_features ** -0.5 / _TRUNC_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(
+                self.weight, std=std, a=-2 * std, b=2 * std, generator=generator
+            )
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, config: TransformerConfig, dim: int, device=None):
+        super().__init__()
+        self.eps = config.rms_norm_eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
+        return (y * self.weight).to(x.dtype)
+
+
+def _scale_rope_freqs(freqs: torch.Tensor, scaling: Optional[dict]) -> torch.Tensor:
+    """HF-style rope frequency scaling of the inverse frequencies
+    (``llama3`` as transformers' ``_compute_llama3_parameters``, ``linear``
+    as position interpolation)."""
+    rt = rope_type(scaling)
+    if rt == "default":
+        return freqs
+    factor = float(scaling["factor"])
+    if rt == "linear":
+        return freqs / factor
+    if rt == "llama3":
+        low = float(scaling["low_freq_factor"])
+        high = float(scaling["high_freq_factor"])
+        old_len = float(scaling["original_max_position_embeddings"])
+        wavelen = 2.0 * math.pi / freqs
+        smooth = (old_len / wavelen - low) / (high - low)
+        smoothed = (1.0 - smooth) * freqs / factor + smooth * freqs
+        scaled = torch.where(wavelen > old_len / low, freqs / factor, freqs)
+        is_medium = (wavelen <= old_len / low) & (wavelen >= old_len / high)
+        return torch.where(is_medium, smoothed, scaled)
+    raise ValueError(f"unsupported rope_scaling type {rt!r}")
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         scaling: Optional[dict] = None) -> torch.Tensor:
+    """Rotary position embedding (rotate-half), x: (B, S, H, D),
+    positions: (B, S); computed in fp32, returned in x's dtype."""
+    d = x.shape[-1]
+    exponent = torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
+    freqs = _scale_rope_freqs(1.0 / (theta ** exponent), scaling)
+    angles = positions[:, :, None, None].float() * freqs  # (B, S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, config: TransformerConfig, device=None, generator=None):
+        super().__init__()
+        cfg = self.config = config
+        dt, e = _dtype(cfg), cfg.hidden_size
+        q_dim = cfg.num_heads * cfg.head_dim
+        kv_dim = cfg.num_kv_heads * cfg.head_dim
+        kw = dict(compute_dtype=dt, device=device, generator=generator)
+        self.q_proj = Dense(e, q_dim, cfg.qkv_bias, **kw)
+        self.k_proj = Dense(e, kv_dim, cfg.qkv_bias, **kw)
+        self.v_proj = Dense(e, kv_dim, cfg.qkv_bias, **kw)
+        self.o_proj = Dense(q_dim, e, False, **kw)
+
+    def forward(self, x, positions):
+        cfg = self.config
+        b, s = x.shape[:2]
+        q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        out = dot_product_attention(
+            q, k, v, causal=cfg.causal, implementation=cfg.attention_impl,
+            window=cfg.sliding_window,
+        )
+        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+
+
+class MLP(nn.Module):
+    """SwiGLU feed-forward (Llama family)."""
+
+    def __init__(self, config: TransformerConfig, device=None, generator=None):
+        super().__init__()
+        dt, e, f = _dtype(config), config.hidden_size, config.intermediate_size
+        kw = dict(compute_dtype=dt, device=device, generator=generator)
+        self.gate_proj = Dense(e, f, False, **kw)
+        self.up_proj = Dense(e, f, False, **kw)
+        self.down_proj = Dense(f, e, False, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class Block(nn.Module):
+    def __init__(self, config: TransformerConfig, device=None, generator=None):
+        super().__init__()
+        e = config.hidden_size
+        self.attn_norm = RMSNorm(config, e, device)
+        self.attn = Attention(config, device, generator)
+        self.mlp_norm = RMSNorm(config, e, device)
+        self.mlp = MLP(config, device, generator)
+
+    def forward(self, x, positions):
+        h = x + self.attn(self.attn_norm(x), positions)
+        return h + self.mlp(self.mlp_norm(h))
+
+
+class CausalLM(nn.Module):
+    """The language model: embed -> L x Block -> norm -> lm_head.
+
+    ``forward(input_ids, positions=None) -> logits`` in
+    ``config.dtype``. Parameters are made on ``device`` (CUDA unless the
+    caller passes ``device="cpu"``; raises without a CUDA device) from
+    ``generator`` (a fresh one seeded 0 when none is given).
+    """
+
+    def __init__(self, config: TransformerConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        why = _unsupported(config)
+        if why is not None:
+            raise NotImplementedError(f"not ported yet: {why}; see ROADMAP.md")
+        self.config = config
+        device = resolve_device(cpu=False) if device is None else torch.device(device)
+        if generator is None:
+            generator = torch.Generator(device).manual_seed(0)
+        e = config.hidden_size
+        self.embed = nn.Embedding(config.vocab_size, e, device=device)
+        with torch.no_grad():
+            self.embed.weight.normal_(0.0, 0.02, generator=generator)
+        self.layers = nn.ModuleList(
+            Block(config, device, generator) for _ in range(config.num_layers)
+        )
+        self.final_norm = RMSNorm(config, e, device)
+        if not config.tie_embeddings:
+            self.lm_head = Dense(e, config.vocab_size, False, _dtype(config), device,
+                                 generator)
+
+    def forward(self, input_ids, positions=None, decode=False, paged=None):
+        if decode or paged is not None:
+            raise NotImplementedError(
+                "the decode and paged paths are not ported yet (ROADMAP.md, queue A9)"
+            )
+        cfg = self.config
+        dt = _dtype(cfg)
+        if positions is None:
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+            positions = positions[None, :].expand(input_ids.shape)
+        x = F.embedding(input_ids, self.embed.weight.to(dt))
+        for layer in self.layers:
+            if cfg.remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(layer, x, positions, use_reentrant=False)
+            else:
+                x = layer(x, positions)
+        x = self.final_norm(x)
+        if cfg.tie_embeddings:
+            return x.to(dt) @ self.embed.weight.to(dt).t()
+        return self.lm_head(x)
+
+    @staticmethod
+    def loss_fn(model: "CausalLM"):
+        """Next-token cross-entropy closure for ``Accelerator.unified_step``:
+        ``loss_fn(params, batch)`` with ``params`` a name -> tensor dict of
+        the model's parameters and ``batch`` {input_ids, [loss_mask]}."""
+
+        def fn(params, batch):
+            ids = batch["input_ids"]
+            logits = torch.func.functional_call(model, params, (ids,))
+            targets = ids[:, 1:]
+            logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+            nll = -logp.gather(-1, targets[..., None])[..., 0]
+            mask = batch.get("loss_mask")
+            if mask is not None:
+                mask = mask[:, 1:].float()
+                return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+            return nll.mean()
+
+        return fn
+
+
+class SequenceClassifier(nn.Module):
+    """The BERT-family encoder classifier of the reference
+    (``transformer.py:961``): not ported yet."""
+
+    def __init__(self, config: TransformerConfig, *args, **kwargs):
+        raise NotImplementedError(
+            "SequenceClassifier (the BERT path) is not ported yet: ROADMAP.md, queue A5"
+        )

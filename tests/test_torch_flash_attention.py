@@ -1,0 +1,123 @@
+"""The port's flash attention (its plain versions, on the CPU) against the
+JAX reference's Pallas kernels run in interpret mode.
+
+The same numpy inputs go through ``accelerate_tpu.ops.flash_attention``
+(interpret mode, 16 x 16 blocks so that several blocks and the block skips
+run) and ``accelerate_tpu_torch.ops.flash_attention``: O, lse, and dq/dk/dv
+through the port's ``autograd.Function``. On a CUDA tensor the same
+wrappers launch the hand-written kernels; chip_smoke.py holds those
+against these plain versions on the card.
+
+Tolerance: fp32 on both sides; online softmax over blocks against the
+plain version's one-pass softmax, and different summation orders: 1e-5
+absolute + 1e-5 relative on O and lse; gradients divided by the largest
+reference magnitude, then 1e-5 absolute.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from accelerate_tpu.ops import flash_attention as jfa  # noqa: E402
+from accelerate_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+
+TOL = 1e-5
+BLOCK = 16
+NEG_INF = -1e30
+
+CASES = {
+    "causal_gqa": dict(),
+    "noncausal_gqa": dict(causal=False),
+    "causal_mha": dict(Hkv=4),
+    "window": dict(window=20),
+    "kv_lengths_with_zero": dict(causal=False, lens=[0, 37]),
+    "kv_lengths_causal": dict(lens=[48, 5]),
+    "q_shorter_than_kv": dict(S=16, Skv=48),
+    "q_longer_than_kv": dict(S=48, Skv=32),
+}
+
+
+def _inputs(B=2, S=48, Skv=None, H=4, Hkv=2, D=32, seed=0):
+    Skv = S if Skv is None else Skv
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)
+    dout = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    return q, k, v, dout
+
+
+def _jax_reference(q, k, v, dout, causal, lens, window):
+    """O, lse (B, H, S) and (dq, dk, dv) from the Pallas kernels."""
+    lengths = None if lens is None else jnp.asarray(lens, jnp.int32)
+    scale = q.shape[-1] ** -0.5
+    qt, kt, vt = (jnp.swapaxes(jnp.asarray(x), 1, 2) for x in (q, k, v))
+
+    def loss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal=causal, kv_lengths=lengths,
+                                  window=window, block_q=BLOCK, block_k=BLOCK)
+        return jnp.sum(out * dout), out
+
+    with jfa.kernel_interpret_mode():
+        _, lse = jfa._fwd(qt, kt, vt, lengths, scale, causal, BLOCK, BLOCK, window)
+        grads, out = jax.grad(loss, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+        )
+    return np.asarray(out), np.asarray(lse[..., 0]), [np.asarray(g) for g in grads]
+
+
+def _port(q, k, v, dout, causal, lens, window):
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, kv_lengths=lengths, window=window)
+    (out * torch.from_numpy(dout)).sum().backward()
+    _, lse = tfa.flash_fwd(tq.detach(), tk.detach(), tv.detach(), q.shape[-1] ** -0.5,
+                           causal, lengths, window)
+    return out.detach().numpy(), lse.numpy(), [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_flash_matches_pallas_interpret(case):
+    kw = dict(CASES[case])
+    causal, lens, window = kw.pop("causal", True), kw.pop("lens", None), kw.pop("window", None)
+    inputs = _inputs(**kw)
+    want_o, want_lse, want_grads = _jax_reference(*inputs, causal, lens, window)
+    got_o, got_lse, got_grads = _port(*inputs, causal, lens, window)
+    np.testing.assert_allclose(got_o, want_o, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got_lse, want_lse, atol=TOL, rtol=TOL)
+    for name, got, want in zip("qkv", got_grads, want_grads):
+        scale = np.abs(want).max() + 1e-12
+        np.testing.assert_allclose(got / scale, want / scale, atol=TOL, err_msg=f"d{name}")
+
+
+def test_fully_masked_rows_zero_output_and_grads():
+    """q longer than kv, causal: the first S - Skv rows see no key. They
+    return 0 with lse = NEG_INF and get zero dq; the plain softmax path
+    would give the mean of v there instead."""
+    q, k, v, dout = _inputs(S=48, Skv=32)
+    out, lse, (dq, _, _) = _port(q, k, v, dout, True, None, None)
+    masked = 48 - 32
+    assert np.all(out[:, :masked] == 0.0)
+    assert np.all(lse[:, :, :masked] == np.float32(NEG_INF))
+    assert np.all(dq[:, :masked] == 0.0)
+    assert np.all(np.isfinite(dq)) and np.abs(dq[:, masked:]).max() > 0
+
+
+def test_wrappers_count_no_launch_on_cpu():
+    """On CPU tensors the wrappers take the plain versions: no launch."""
+    before = [w.launches for w in tfa.KERNEL_WRAPPERS]
+    _port(*_inputs(B=1, S=16), True, None, None)
+    assert [w.launches for w in tfa.KERNEL_WRAPPERS] == before
+
+
+def test_rejects_bad_arguments():
+    q = torch.zeros(1, 16, 2, 16)
+    with pytest.raises(ValueError, match="causal"):
+        tfa.flash_attention(q, q, q, causal=False, window=4)
+    with pytest.raises(ValueError, match="positive"):
+        tfa.flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError, match="kv_lengths"):
+        tfa.flash_attention(q, q, q, kv_lengths=torch.tensor([1, 2]))

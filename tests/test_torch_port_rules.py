@@ -1,0 +1,173 @@
+"""Rules the PyTorch port keeps, checked without JAX.
+
+* Every module of ``accelerate_tpu_torch``, ``chip_smoke.py`` and
+  ``tools/flash_mutants.py`` import in a process where ``jax`` and
+  ``accelerate_tpu`` cannot be imported.
+* Entry points default to CUDA and raise without it; they never fall
+  back to the CPU unless asked (``cpu=True``).
+* What is not ported yet raises NotImplementedError instead of taking
+  another path silently.
+* Dispatch to the flash kernels follows the reference's shape predicate,
+  with a CUDA device in place of the TPU backend.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+import accelerate_tpu_torch as port
+from accelerate_tpu_torch.ops import attention
+from accelerate_tpu_torch.ops import flash_attention as fa
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def reset_port_singletons():
+    yield
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+
+
+def _run_blocked(code: str) -> subprocess.CompletedProcess:
+    """Run ``code`` in a fresh interpreter where importing jax, flax, optax
+    or accelerate_tpu fails."""
+    prelude = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "optax", "accelerate_tpu"):
+            sys.modules[name] = None
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run([sys.executable, "-c", prelude + code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_every_module_and_chip_smoke_import_without_jax():
+    code = textwrap.dedent("""
+        import importlib, pkgutil
+        import accelerate_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            accelerate_tpu_torch.__path__, "accelerate_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        for script in ("chip_smoke.py", "tools/flash_mutants.py"):
+            spec = importlib.util.spec_from_file_location("script", script)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        print(len(names), "modules")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0, result.stderr
+    assert int(result.stdout.split()[0]) >= 12
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    result = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                            text=True, timeout=300)
+    assert result.returncode != 0
+    assert '"ok"' not in result.stdout
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.Accelerator()
+    acc = port.Accelerator(cpu=True)
+    assert acc.device == torch.device("cpu")
+    cfg = port.TransformerConfig.tiny(num_layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port.CausalLM(cfg)
+    model = port.CausalLM(cfg, device="cpu")
+    assert {p.device for p in model.parameters()} == {torch.device("cpu")}
+
+
+@pytest.mark.parametrize("field,value", [
+    ("fused_kernels", True),
+    ("fp8", True),
+    ("num_experts", 4),
+    ("arch", "gpt2"),
+    ("remat", "dots"),
+    ("attention_impl", "ring"),
+    # the Gemma / Gemma-2 switches
+    ("norm_offset", True),
+    ("embed_scale", True),
+    ("mlp_activation", "gelu_tanh"),
+    ("post_norms", True),
+    ("attn_softcap", 50.0),
+    ("final_softcap", 30.0),
+    ("query_pre_attn_scalar", 24.0),
+    ("layer_windows", (8, None)),
+])
+def test_unported_model_features_raise(field, value):
+    cfg = port.TransformerConfig.tiny(**{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.CausalLM(cfg, device="cpu")
+
+
+def test_decode_path_raises():
+    model = port.CausalLM(port.TransformerConfig.tiny(num_layers=1), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model(torch.zeros(1, 4, dtype=torch.long), decode=True)
+
+
+def test_unported_accelerator_and_model_paths_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.Accelerator(mixed_precision="fp8", cpu=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.Accelerator(cpu=True, parallelism_plugin=object())
+    from accelerate_tpu_torch.models.transformer import SequenceClassifier
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SequenceClassifier(port.TransformerConfig.bert_base())
+
+
+def test_prepare_wraps_a_schedule_frozen_while_accumulating():
+    acc = port.Accelerator(gradient_accumulation_steps=2, cpu=True)
+    sched = acc.prepare(lambda step: 0.1 * (step + 1))
+    assert isinstance(sched, port.AcceleratedScheduler)
+    acc.gradient_state.sync_gradients = False  # an accumulating call
+    sched.step()
+    assert sched.get_lr() == [0.1]
+    acc.gradient_state.sync_gradients = True
+    sched.step()
+    assert sched.get_lr() == [pytest.approx(0.2)]
+    assert sched.get_last_lr() == [pytest.approx(0.1)]
+
+
+def test_flash_eligibility_is_the_reference_shape_predicate():
+    cuda = torch.device("cuda")
+    assert attention.flash_self_attention_eligible(2048, cuda)
+    assert attention.flash_self_attention_eligible(256, cuda)
+    assert not attention.flash_self_attention_eligible(128, cuda)  # S < 256
+    assert not attention.flash_self_attention_eligible(320, cuda)  # S % 128 != 0
+    assert not attention.flash_self_attention_eligible(2048, torch.device("cpu"))
+
+
+def test_auto_dispatch_on_cpu_takes_the_plain_path():
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 256, 4, 16, generator=g)
+    k = torch.randn(1, 256, 2, 16, generator=g)
+    before = [w.launches for w in fa.KERNEL_WRAPPERS]
+    out = attention.dot_product_attention(q, k, k, causal=True)
+    torch.testing.assert_close(out, attention.xla_attention(q, k, k, causal=True))
+    assert [w.launches for w in fa.KERNEL_WRAPPERS] == before
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.dot_product_attention(q, k, k, implementation="ring")
+
+
+def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():
+    """The argument checks run before any launch, so they are testable
+    without a card: a CPU tensor in the kernel check is refused."""
+    q = torch.zeros(1, 16, 2, 24)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        fa._check_inputs(q, q, q, None, None, True)
