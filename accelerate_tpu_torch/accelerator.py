@@ -8,7 +8,8 @@ device. The step keeps the reference's contract and arithmetic:
 cast to the policy's compute dtype while the fp32 masters receive fp32
 gradients (``_cast_floating`` :1667); K-step accumulation sums into an fp32
 buffer; every K-th call takes the mean, unscales and checks it (fp16),
-clips it to ``max_grad_norm`` by the global norm, applies AdamW, and on a
+clips it to ``max_grad_norm`` by the global norm, applies AdamW (one fused
+kernel launch over every leaf for a ``fused_adamw`` optimizer), and on a
 non-finite step holds params and optimizer state.
 
 PyTorch runs eagerly, so there is no compiled program: the step is a
@@ -27,6 +28,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from .data_loader import DataLoaderShard, prepare_data_loader, send_to_device
+from .ops.fused import maybe_fused_epilogue
 from .optimizer import (
     AcceleratedOptimizer,
     AdamW,
@@ -157,8 +159,16 @@ class Accelerator:
                 mean_grads = {k: a.div_(num_accum) for k, a in accum.items()}
             mean_grads, finite, new_ls = unscale_and_check(mean_grads, ls, policy)
             gnorm = global_norm(mean_grads)
+            scale_c = None
             if max_grad_norm is not None:
                 scale_c = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
+            # fused epilogue (ops/fused.py): for a fused_adamw optimizer the
+            # clip multiply -> moment update -> apply -> non-finite hold tail
+            # runs as one kernel launch, bitwise the plain chain below in fp32
+            if maybe_fused_epilogue(optimizer.optimizer, mean_grads, opt_state, params,
+                                    clip_scale=scale_c, finite=finite) is not None:
+                return new_ls, gnorm, finite
+            if scale_c is not None:
                 for g in mean_grads.values():
                     g.mul_(scale_c)
             if finite:  # fp16 overflow: keep params and optimizer state

@@ -1,7 +1,8 @@
 """Decoder-only transformer (Llama family): the training path.
 
 Port of ``accelerate_tpu/models/transformer.py`` (``RMSNorm`` :47,
-``_scale_rope_freqs`` :80, ``rope`` :113, ``Attention`` :246, ``MLP`` :491,
+``rope`` :113 with ``_scale_rope_freqs`` :80 in ``ops/rope.py``,
+``Attention`` :246, ``MLP`` :491,
 ``Block`` :671, ``_apply_layer_stack`` :803, ``CausalLM`` :861 with
 ``loss_fn`` :938) as ``nn.Module``s. Parameters are fp32 and named after
 the reference's module tree (``layers.<i>.attn.q_proj.weight`` for
@@ -9,17 +10,18 @@ the reference's module tree (``layers.<i>.attn.q_proj.weight`` for
 a flax tree over. Each projection computes in ``config.dtype``, casting
 its inputs and weights as flax's ``Dense(dtype=...)`` does. The layer
 stack is a ``ModuleList`` run in a loop (the reference's ``nn.scan``).
+``fused_kernels=True`` runs each layer's RMSNorm -> q/k/v -> rope as the
+fused prologue kernel (``ops/fused.py``) where its shape gate allows, with
+the same parameters (the reference's :271-319 and :701-710).
 
-Not ported yet, and rejected when asked for (ROADMAP.md): the fused
-RMSNorm->QKV->rope prologue (``fused_kernels``), fp8 projections, MoE,
-the GPT-2 architecture, the Gemma/Gemma-2 switches, remat policies other
-than ``"full"``, the decode, paged and LoRA paths, and the BERT
-``SequenceClassifier``.
+Not ported yet, and rejected when asked for (ROADMAP.md): fp8
+projections, MoE, the GPT-2 architecture, the Gemma/Gemma-2 switches,
+remat policies other than ``"full"``, the decode, paged and LoRA paths,
+and the BERT ``SequenceClassifier``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -27,9 +29,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import fused as fused_ops
 from ..ops.attention import dot_product_attention
+from ..ops.rope import rope_inv_freqs
 from ..state import resolve_device
-from .config import TransformerConfig, rope_type
+from .config import TransformerConfig
 
 # flax's truncated_normal divides by the std of a unit normal cut at +-2
 _TRUNC_STD = 0.87962566103423978
@@ -42,8 +46,6 @@ def _dtype(config: TransformerConfig) -> torch.dtype:
 def _unsupported(cfg: TransformerConfig) -> Optional[str]:
     if cfg.arch != "llama":
         return f"arch={cfg.arch!r} (queue A8)"
-    if cfg.fused_kernels:
-        return "fused_kernels=True: the fused prologue kernel B5 (queue B)"
     if cfg.fp8:
         return "fp8 projections (queue A8)"
     if cfg.num_experts > 0:
@@ -99,36 +101,11 @@ class RMSNorm(nn.Module):
         return (y * self.weight).to(x.dtype)
 
 
-def _scale_rope_freqs(freqs: torch.Tensor, scaling: Optional[dict]) -> torch.Tensor:
-    """HF-style rope frequency scaling of the inverse frequencies
-    (``llama3`` as transformers' ``_compute_llama3_parameters``, ``linear``
-    as position interpolation)."""
-    rt = rope_type(scaling)
-    if rt == "default":
-        return freqs
-    factor = float(scaling["factor"])
-    if rt == "linear":
-        return freqs / factor
-    if rt == "llama3":
-        low = float(scaling["low_freq_factor"])
-        high = float(scaling["high_freq_factor"])
-        old_len = float(scaling["original_max_position_embeddings"])
-        wavelen = 2.0 * math.pi / freqs
-        smooth = (old_len / wavelen - low) / (high - low)
-        smoothed = (1.0 - smooth) * freqs / factor + smooth * freqs
-        scaled = torch.where(wavelen > old_len / low, freqs / factor, freqs)
-        is_medium = (wavelen <= old_len / low) & (wavelen >= old_len / high)
-        return torch.where(is_medium, smoothed, scaled)
-    raise ValueError(f"unsupported rope_scaling type {rt!r}")
-
-
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
          scaling: Optional[dict] = None) -> torch.Tensor:
     """Rotary position embedding (rotate-half), x: (B, S, H, D),
     positions: (B, S); computed in fp32, returned in x's dtype."""
-    d = x.shape[-1]
-    exponent = torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
-    freqs = _scale_rope_freqs(1.0 / (theta ** exponent), scaling)
+    freqs = rope_inv_freqs(x.shape[-1], theta, scaling, x.device)
     angles = positions[:, :, None, None].float() * freqs  # (B, S, 1, D/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -149,14 +126,35 @@ class Attention(nn.Module):
         self.v_proj = Dense(e, kv_dim, cfg.qkv_bias, **kw)
         self.o_proj = Dense(q_dim, e, False, **kw)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, pre_norm_scale=None):
+        """``pre_norm_scale``: the Block handed over the raw residual stream
+        and its norm scale (``fused_kernels``). The fused prologue runs when
+        its shape gate allows; otherwise the norm is applied here and the
+        unfused chain follows."""
         cfg = self.config
         b, s = x.shape[:2]
-        q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-        k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        dt = _dtype(cfg)
+        fused = pre_norm_scale is not None and fused_ops.prologue_supported(
+            cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, b, s, x.shape[-1],
+            device=x.device, dtype=dt,
+        )
+        if fused:
+            q, k, v = fused_ops.fused_qkv_prologue(
+                x, pre_norm_scale, self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
+                self.q_proj.bias, self.k_proj.bias, self.v_proj.bias, positions,
+                eps=cfg.rms_norm_eps, norm_offset=cfg.norm_offset, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, theta=cfg.rope_theta,
+                scaling=cfg.rope_scaling, dtype=dt,
+            )
+        else:
+            if pre_norm_scale is not None:
+                x = fused_ops.rms_norm_reference(x, pre_norm_scale, eps=cfg.rms_norm_eps,
+                                                 norm_offset=cfg.norm_offset)
+            q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+            k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+            v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+            q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+            k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         out = dot_product_attention(
             q, k, v, causal=cfg.causal, implementation=cfg.attention_impl,
             window=cfg.sliding_window,
@@ -182,6 +180,7 @@ class MLP(nn.Module):
 class Block(nn.Module):
     def __init__(self, config: TransformerConfig, device=None, generator=None):
         super().__init__()
+        self.fused_kernels = config.fused_kernels
         e = config.hidden_size
         self.attn_norm = RMSNorm(config, e, device)
         self.attn = Attention(config, device, generator)
@@ -189,7 +188,13 @@ class Block(nn.Module):
         self.mlp = MLP(config, device, generator)
 
     def forward(self, x, positions):
-        h = x + self.attn(self.attn_norm(x), positions)
+        if self.fused_kernels:
+            # the fused prologue normalises inside its kernel: hand Attention
+            # the raw residual stream and the norm's scale
+            attn_out = self.attn(x, positions, pre_norm_scale=self.attn_norm.weight)
+        else:
+            attn_out = self.attn(self.attn_norm(x), positions)
+        h = x + attn_out
         return h + self.mlp(self.mlp_norm(h))
 
 

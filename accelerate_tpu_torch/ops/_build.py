@@ -5,6 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 this file, on first use and never at import, and loaded with ``ctypes``.
 The hash covers the source and the flags, so an edited source is rebuilt
 and a stale library is never loaded. The build directory is not committed.
+``bind`` types a library's functions once; ``launch`` calls one on the
+current stream and raises on the error code it returns.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -90,3 +94,39 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+# ---------------------------------------------------------------------- #
+# the C interface every source shares: pointers and the stream as void*,
+# dtypes by these codes, a cudaError code returned, and an exported
+# ``const char* <prefix>_error_string(int)``
+# ---------------------------------------------------------------------- #
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def bind(name: str, signatures: dict, error_string: str, returns: dict = None) -> ctypes.CDLL:
+    """``load(name)`` with its functions typed once: each of ``signatures``
+    (function -> argtypes) returns an int error code, unless ``returns``
+    gives its restype."""
+    lib = load(name)
+    if not getattr(lib, "_typed", False):
+        for fn_name, argtypes in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = (returns or {}).get(fn_name, ctypes.c_int)
+        lib.error_string = getattr(lib, error_string)
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def launch(lib: ctypes.CDLL, fn_name: str, *args, device) -> None:
+    """Call ``fn_name(*args, stream)`` on ``device``'s current stream;
+    raise on a non-zero cudaError."""
+    with torch.cuda.device(device):
+        err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn_name} launch failed: cudaError {err} ({lib.error_string(err).decode()})"
+        )

@@ -1,9 +1,11 @@
-// Flash attention for Hopper (sm_90a): forward, dq backward, dk/dv backward.
+// Flash attention for Hopper (sm_90a): forward, dq backward, dk/dv backward,
+// and the single-pass backward.
 //
-// Replaces the three Pallas TPU kernels of accelerate_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel     <- _fwd_kernel      (online-softmax forward, O and lse)
-//   flash_bwd_dq_kernel  <- _bwd_dq_kernel   (dq = sum_k ds . k)
-//   flash_bwd_dkv_kernel <- _bwd_dkv_kernel  (dk = sum_q ds^T . q, dv = sum_q p^T . do)
+// Replaces the four Pallas TPU kernels of accelerate_tpu/ops/flash_attention.py:
+//   flash_fwd_kernel       <- _fwd_kernel        (online-softmax forward, O and lse)
+//   flash_bwd_dq_kernel    <- _bwd_dq_kernel     (dq = sum_k ds . k)
+//   flash_bwd_dkv_kernel   <- _bwd_dkv_kernel    (dk = sum_q ds^T . q, dv = sum_q p^T . do)
+//   flash_bwd_fused_kernel <- _bwd_fused_kernel  (dq, dk and dv from one pass)
 //
 // Layout: q/o/do/dq are (B, S, H, D) and k/v/dk/dv are (B, Skv, Hkv, D), all
 // contiguous; lse and delta are (B, H, S) float32. Query head h reads kv head
@@ -32,6 +34,7 @@
 //   forward: 2 products, 4*B*H*S*S*D/2 FLOP = 68.7 GFLOP -> 69 us (operations)
 //   dq:      3 products, 103 GFLOP -> 104 us (operations)
 //   dk/dv:   4 products, 137 GFLOP -> 139 us (operations)
+//   fused:   5 products, 172 GFLOP -> 174 us (operations; dq + dk/dv: 243 us)
 // Each moves under 100 MB, so bytes bound none of them (< 30 us). What this
 // design leaves on the table: wmma fragments round-trip through shared
 // memory, loads are synchronous (no cp.async/TMA pipeline) and the shared
@@ -189,6 +192,7 @@ struct Params {
   void* o;             // forward: o; dq: dq; dkv: dk
   void* o2;            // dkv: dv
   float* lse;          // forward only
+  float* dq_acc;       // fused backward: zeroed (B, S, H, D) fp32 dq
   int B, S, Skv, H, Hkv, D;
   float scale;
   int causal;
@@ -524,9 +528,111 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Params p) {
 }
 
 // ------------------------------------------------------------------------
+// single-pass backward: dq, dk and dv
+// ------------------------------------------------------------------------
+// The dk/dv kernel's CTA (one kv tile of one kv head, sweeping the G query
+// heads of its group and every visible q tile) also forms each pair's dq
+// contribution ds . k and adds it to a zeroed fp32 (B, S, H, D) buffer with
+// vector atomics. Per pair: 5 products (s, dp, dv, dk, dq) against 7 for
+// the dq + dk/dv pair of kernels, and q, k, v, do are read once. The
+// reference keeps per-head dk/dv partials and sums the group outside the
+// kernel because a TPU output block may only be revisited in consecutive
+// grid steps (accelerate_tpu/ops/flash_attention.py:393-417); a CTA here
+// owns its dk/dv tile, so no partials are needed. dq's sum over kv tiles
+// runs in whatever order the atomics land: not bitwise reproducible.
+template <typename T>
+struct FusedSmem {
+  T *k, *v, *q, *dout, *p, *ds;
+  float *s, *dp, *dk, *dv, *dq, *lse, *delta;
+  __host__ __device__ static size_t carve(unsigned char* base, int D, FusedSmem* out) {
+    constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
+    Carve c(base);
+    FusedSmem s;
+    s.k = c.take<T>(BK * ld_t<T>(D));
+    s.v = c.take<T>(BK * ld_t<T>(D));
+    s.q = c.take<T>(BQ * ld_t<T>(D));
+    s.dout = c.take<T>(BQ * ld_t<T>(D));
+    s.p = c.take<T>(BQ * ld_t<T>(BK));
+    s.ds = c.take<T>(BQ * ld_t<T>(BK));
+    s.s = c.take<float>(BQ * ld_f(BK));
+    s.dp = c.take<float>(BQ * ld_f(BK));
+    s.dk = c.take<float>(BK * ld_f(D));
+    s.dv = c.take<float>(BK * ld_f(D));
+    s.dq = c.take<float>(BQ * ld_f(D));
+    s.lse = c.take<float>(BQ);
+    s.delta = c.take<float>(BQ);
+    if (out) *out = s;
+    return c.off;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_fused_kernel(Params p) {
+  constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  FusedSmem<T> sm;
+  FusedSmem<T>::carve(smem, p.D, &sm);
+  const int D = p.D, LT = ld_t<T>(D), LP = ld_t<T>(BK), LS = ld_f(BK), LO = ld_f(D);
+  const int ik = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = p.H / p.Hkv;
+  const int k0 = ik * BK, krows = min(BK, p.Skv - k0);
+  const int offset = p.Skv - p.S;
+  const int qstride = p.H * D, kstride = p.Hkv * D;
+  const size_t kbase = ((size_t)b * p.Skv * p.Hkv + hk) * D;
+  const int kv_valid = kv_valid_of(p, b);
+  // q rows that see any column of this tile: [r_lo, r_hi)
+  int r_lo = 0, r_hi = 0;
+  if (k0 < kv_valid) {
+    const int kmax = min(k0 + BK, kv_valid) - 1;
+    r_lo = p.causal ? max(0, k0 - offset) : 0;
+    r_hi = p.S;
+    if (p.window > 0) r_hi = min(r_hi, max(0, kmax - offset + p.window));
+  }
+  const int t_begin = r_lo / BQ, t_end = r_hi > r_lo ? (r_hi + BQ - 1) / BQ : t_begin;
+
+  load_tile(sm.k, LT, static_cast<const T*>(p.k) + kbase, kstride, k0, BK, p.Skv, D);
+  load_tile(sm.v, LT, static_cast<const T*>(p.v) + kbase, kstride, k0, BK, p.Skv, D);
+  zero_f(sm.dk, BK * LO);
+  zero_f(sm.dv, BK * LO);
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    const size_t qbase = ((size_t)b * p.S * p.H + h) * D;
+    for (int it = t_begin; it < t_end; ++it) {
+      const int q0 = it * BQ, qrows = min(BQ, p.S - q0), qmax = q0 + qrows - 1;
+      load_tile(sm.q, LT, static_cast<const T*>(p.q) + qbase, qstride, q0, BQ, p.S, D);
+      load_tile(sm.dout, LT, static_cast<const T*>(p.dout) + qbase, qstride, q0, BQ, p.S, D);
+      load_rowstats(sm.lse, sm.delta, p, b, h, q0, BQ);
+      __syncthreads();
+      mm<T, false, true, false>(sm.q, LT, sm.k, LT, sm.s, LS, BQ, BK, D);     // s = q k^T
+      mm<T, false, true, false>(sm.dout, LT, sm.v, LT, sm.dp, LS, BQ, BK, D);  // dp = do v^T
+      __syncthreads();
+      bwd_elements<T, BQ, BK>(p, sm.s, sm.dp, LS, sm.lse, sm.delta, sm.p, sm.ds, LP, q0, k0,
+                              straddles(p, k0, BK, q0, qmax, kv_valid, offset), kv_valid,
+                              offset);
+      __syncthreads();
+      mm<T, true, false, true>(sm.p, LP, sm.dout, LT, sm.dv, LO, BK, D, BQ);   // dv += p^T do
+      mm<T, true, false, true>(sm.ds, LP, sm.q, LT, sm.dk, LO, BK, D, BQ);     // dk += ds^T q
+      mm<T, false, false, false>(sm.ds, LP, sm.k, LT, sm.dq, LO, BQ, D, BK);   // dq_pair = ds k
+      __syncthreads();
+      float* DQ = p.dq_acc + qbase;
+      const int v4 = D / 4;
+      for (int i = threadIdx.x; i < qrows * v4; i += NTHREADS) {
+        const int r = i / v4, d = (i % v4) * 4;
+        const float* src = sm.dq + r * LO + d;
+        atomicAdd(reinterpret_cast<float4*>(DQ + (size_t)(q0 + r) * qstride + d),
+                  make_float4(src[0], src[1], src[2], src[3]));
+      }
+    }
+  }
+  __syncthreads();
+  store_tile(static_cast<T*>(p.o) + kbase, kstride, sm.dk, LO, k0, krows, D);
+  store_tile(static_cast<T*>(p.o2) + kbase, kstride, sm.dv, LO, k0, krows, D);
+}
+
+// ------------------------------------------------------------------------
 // launchers
 // ------------------------------------------------------------------------
-enum Kind { FWD = 0, DQ = 1, DKV = 2 };
+enum Kind { FWD = 0, DQ = 1, DKV = 2, FUSED = 3 };
 
 template <typename T>
 cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
@@ -542,9 +648,13 @@ cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
     bytes = DqSmem<T>::carve(nullptr, p.D, nullptr);
     fn = reinterpret_cast<const void*>(&flash_bwd_dq_kernel<T>);
     grid = dim3((p.S + BQ - 1) / BQ, p.H, p.B);
-  } else {
+  } else if (kind == DKV) {
     bytes = DkvSmem<T>::carve(nullptr, p.D, nullptr);
     fn = reinterpret_cast<const void*>(&flash_bwd_dkv_kernel<T>);
+    grid = dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B);
+  } else {
+    bytes = FusedSmem<T>::carve(nullptr, p.D, nullptr);
+    fn = reinterpret_cast<const void*>(&flash_bwd_fused_kernel<T>);
     grid = dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B);
   }
   cudaError_t err =
@@ -628,6 +738,24 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   p.o = dk;
   p.o2 = dv;
   return (int)dispatch(DKV, dtype, p, stream);
+}
+
+extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* delta, const int* lengths,
+                               float* dq_acc, void* dk, void* dv, int B, int S, int Skv, int H,
+                               int Hkv, int D, float scale, int causal, int window, int dtype,
+                               void* stream) {
+  Params p = make_params(B, S, Skv, H, Hkv, D, scale, causal, window, lengths);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse_in = lse;
+  p.delta = delta;
+  p.dq_acc = dq_acc;
+  p.o = dk;
+  p.o2 = dv;
+  return (int)dispatch(FUSED, dtype, p, stream);
 }
 
 extern "C" const char* flash_error_string(int err) {

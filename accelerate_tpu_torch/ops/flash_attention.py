@@ -1,13 +1,17 @@
 """Flash attention: hand-written Hopper kernels, forward and backward.
 
-Port of ``accelerate_tpu/ops/flash_attention.py``. The three Pallas TPU
-kernels of its default path become CUDA kernels in
-``csrc/flash_attention.cu`` (built with nvcc for sm_90a, bound with ctypes):
+Port of ``accelerate_tpu/ops/flash_attention.py``. Its four Pallas TPU
+kernels become CUDA kernels in ``csrc/flash_attention.cu`` (built with nvcc
+for sm_90a, bound with ctypes):
 
-* ``flash_fwd``      <- ``_fwd_kernel``:     O and lse = m + log l
-* ``flash_bwd_dq``   <- ``_bwd_dq_kernel``:  dq
-* ``flash_bwd_dkv``  <- ``_bwd_dkv_kernel``: dk, dv (no atomics: one CTA
+* ``flash_fwd``       <- ``_fwd_kernel``:       O and lse = m + log l
+* ``flash_bwd_dq``    <- ``_bwd_dq_kernel``:    dq
+* ``flash_bwd_dkv``   <- ``_bwd_dkv_kernel``:   dk, dv (no atomics: one CTA
   owns a kv tile and sweeps its GQA group and every q tile)
+* ``flash_bwd_fused`` <- ``_bwd_fused_kernel``: dq, dk and dv in one pass
+  (the dk/dv CTA also adds each pair's dq into an fp32 buffer with
+  atomics); taken by the backward when ``FUSED_BWD`` is True, as in the
+  reference
 
 Beside each kernel sits its plain PyTorch version (``*_reference``): the
 same function with the same masks, sentinels and rounding points, computed
@@ -32,8 +36,13 @@ from . import _build
 
 NEG_INF = -1e30  # large-negative instead of -inf: avoids NaN from inf - inf
 
-# the kernel takes these dtypes, by its own codes
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The reference's module switch (``FUSED_BWD`` :418): the autograd backward
+# takes the single-pass kernel instead of dq + dk/dv when True. The
+# reference also gates it on ``S * D * 4 <= _FUSED_DQ_SCRATCH_LIMIT`` (:419,
+# :556), a limit of TPU VMEM that holds the full-sequence dq scratch; here
+# dq accumulates in device memory, so there is no such limit.
+FUSED_BWD = False
+
 _MAX_HEAD_DIM = 128
 
 
@@ -129,6 +138,28 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale, causal=True,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_fused_reference(q, k, v, dout, lse, delta, scale, causal=True,
+                              kv_lengths=None, window=None):
+    """Plain version of the single-pass backward (``_bwd_fused_kernel``
+    :455-481): p and ds formed once; ds = p (dp - delta) scale rounded to
+    k's dtype, p rounded to do's dtype before p^T . do; dq = ds . k and the
+    per-head dk, dv summed in fp32 over each kv head's group; returned in
+    q's, k's and v's dtypes."""
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    p = _probs(_scores(q, k, scale, causal, kv_lengths, window), lse)
+    vr = _repeat_heads(v, g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vr.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(k.dtype)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.float(), _repeat_heads(k, g).float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(), dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.float(), q.float())
+    dk = dk.reshape(B, Skv, Hkv, g, D).sum(dim=3)
+    dv = dv.reshape(B, Skv, Hkv, g, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_delta(out, dout):
     """delta = rowsum(dout * out) in fp32, (B, H, S) — computed outside the
     kernels, as the reference does (``_bwd``)."""
@@ -144,20 +175,8 @@ _SIGNATURES = {
     "flash_fwd": [_P] * 6 + _SHAPE_ARGS,
     "flash_bwd_dq": [_P] * 8 + _SHAPE_ARGS,
     "flash_bwd_dkv": [_P] * 9 + _SHAPE_ARGS,
+    "flash_bwd_fused": [_P] * 10 + _SHAPE_ARGS,
 }
-
-
-def _kernels() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    if not getattr(lib, "_typed", False):
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        lib.flash_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
 
 
 def _require(cond, msg):
@@ -180,7 +199,7 @@ def _check_inputs(q, k, v, kv_lengths, window, causal, dout=None):
         if t is not None:
             _check_tensor(name, t, q)
     _require(dout is None or dout.shape == q.shape, "dout must have q's shape")
-    _require(q.dtype in _DTYPE_CODES, f"dtype {q.dtype} not in {list(_DTYPE_CODES)}")
+    _require(q.dtype in _build.DTYPE_CODES, f"dtype {q.dtype} not in {list(_build.DTYPE_CODES)}")
     B, S, H, D = q.shape
     _require(k.shape == v.shape, f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     _require(k.shape[0] == B and k.shape[3] == D, "q and k differ in batch or head_dim")
@@ -206,19 +225,10 @@ def _check_stats(q, *stats):
 def _launch(name, tensors, q, k, scale, causal, window):
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    lib = _kernels()
+    lib = _build.bind("flash_attention", _SIGNATURES, "flash_error_string")
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, name)(
-            *ptrs, B, S, Skv, H, Hkv, D, float(scale), int(causal),
-            int(window or 0), _DTYPE_CODES[q.dtype], stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: cudaError {err} "
-            f"({lib.flash_error_string(err).decode()})"
-        )
+    _build.launch(lib, name, *ptrs, B, S, Skv, H, Hkv, D, float(scale), int(causal),
+                  int(window or 0), _build.DTYPE_CODES[q.dtype], device=q.device)
 
 
 def flash_fwd(q, k, v, scale, causal=True, kv_lengths=None, window=None):
@@ -266,18 +276,38 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=None
     return dk, dv
 
 
+def flash_bwd_fused(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=None,
+                    window=None):
+    """(dq, dk, dv) — the single-pass kernel on CUDA tensors, its plain
+    version on CPU tensors. dq is summed in a zeroed fp32 buffer by the
+    kernel's atomics, then cast to q's dtype."""
+    if not q.is_cuda:
+        return flash_bwd_fused_reference(q, k, v, dout, lse, delta, scale, causal,
+                                         kv_lengths, window)
+    _check_inputs(q, k, v, kv_lengths, window, causal, dout)
+    _check_stats(q, lse, delta)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_fused", (q, k, v, dout, lse, delta, kv_lengths, dq_acc, dk, dv), q,
+            k, scale, causal, window)
+    flash_bwd_fused.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
-KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+flash_bwd_fused.launches = 0
+KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_bwd_fused)
 
 
 # ---------------------------------------------------------------------- #
 # public entry with autograd
 # ---------------------------------------------------------------------- #
 class FlashAttention(torch.autograd.Function):
-    """The forward kernel joined to its two backward kernels (the
-    reference's ``jax.custom_vjp`` around ``_flash``)."""
+    """The forward kernel joined to its backward kernels (the reference's
+    ``jax.custom_vjp`` around ``_flash``): dq + dk/dv, or the single-pass
+    kernel when ``FUSED_BWD`` is True."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lengths, scale, causal, window):
@@ -292,8 +322,11 @@ class FlashAttention(torch.autograd.Function):
         dout = dout.contiguous()
         delta = attention_delta(out, dout)
         args = (ctx.scale, ctx.causal, kv_lengths, ctx.window)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, *args)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, *args)
+        if FUSED_BWD:
+            dq, dk, dv = flash_bwd_fused(q, k, v, dout, lse, delta, *args)
+        else:
+            dq = flash_bwd_dq(q, k, v, dout, lse, delta, *args)
+            dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, *args)
         return dq, dk, dv, None, None, None, None
 
 

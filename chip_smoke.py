@@ -5,18 +5,29 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
 
-1. build:  compile the port's CUDA sources with nvcc for sm_90a.
-2. kernels: hold each flash-attention kernel (forward, dq, dk/dv) against
-   its plain PyTorch version on the card, at the main path's shape in bf16
-   and on small cases (non-causal, one kv head per query head, window,
-   kv lengths with an empty row, kv longer than q, fp32 at a tight
-   tolerance); time kernel, plain version and, where one PyTorch call
-   computes the same function, that call.
-3. small model: a tiny CausalLM through the kernels on the card against
-   the same weights through the plain path on the CPU.
+1. build:  compile the port's CUDA sources (flash_attention.cu, fused.cu)
+   with nvcc for sm_90a, one nvcc per source, all started together.
+2. kernels: hold each kernel against its plain PyTorch version on the
+   card. The flash kernels (forward, dq, dk/dv and the single-pass
+   backward, the latter also against dq + dk/dv) at the main path's shape
+   in bf16 and on small cases (non-causal, one kv head per query head,
+   window, kv lengths with an empty row, kv longer than q, fp32 at a tight
+   tolerance); the fused prologue at the main shape, with a bias, at a GQA
+   width whose column tile is 256, on rows that do not fill a tile, in
+   fp16 and fp32; the AdamW epilogue BIT FOR BIT on the main path's 39
+   leaf shapes plus an odd-sized and a 0-d leaf, finite and held. Time
+   kernel, plain version and, where one PyTorch call computes the same
+   function (SDPA's forward for B1, ``torch._fused_adamw_`` for the
+   epilogue), that call; else a named yardstick.
+3. small models: a tiny CausalLM through the kernels on the card against
+   the same weights through the plain path on the CPU; then a tiny
+   ``fused_kernels=True`` CausalLM with ``fused_adamw`` and the single-pass
+   backward trained 3 steps on the card against the CPU, from three seeds.
 4. main path: a Llama-3-8B-width CausalLM (4 layers) trained for a few
    ``Accelerator.unified_step``s in bf16 with AdamW and clipping, with
    every kernel launch counter set to 0 just before and read just after.
+5. fused path: the same model with ``fused_kernels=True``, ``fused_adamw``
+   and ``flash_attention.FUSED_BWD = True``, counters read the same way.
 
 Prints one JSON line describing the kernels, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -24,7 +35,11 @@ CUDA device; exits non-zero without one.
 
     python3 chip_smoke.py --check-only
 
-runs phases 1 and 2 without the timings (for tools/flash_mutants.py).
+runs phases 1 and 2 without the timings, and
+
+    python3 chip_smoke.py --small-only
+
+phases 1 and 3 (both for tools/flash_mutants.py).
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -37,6 +52,7 @@ rows, which see few keys.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -48,17 +64,32 @@ MAIN = dict(B=2, S=2048, H=32, Hkv=8, D=128)  # llama3_8b attention at the main 
 STEPS = 5
 NUM_LAYERS = 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # limits about 3x the largest reading of a correct kernel on an H100
 # (PERF.md): worst row error, see above, and lse's max abs error
 TOL = {"bfloat16": 0.1, "float16": 1e-2, "float32": 1e-5}
 LSE_TOL = {"bfloat16": 5e-6, "float16": 5e-6, "float32": 2e-6}
-SOURCE = "accelerate_tpu_torch/ops/csrc/flash_attention.cu"
-KERNELS = {  # wrapper name -> (kernel name, the Pallas kernel it replaces)
-    "flash_fwd": ("flash_fwd_kernel", "accelerate_tpu/ops/flash_attention.py:150"),
-    "flash_bwd_dq": ("flash_bwd_dq_kernel", "accelerate_tpu/ops/flash_attention.py:269"),
-    "flash_bwd_dkv": ("flash_bwd_dkv_kernel", "accelerate_tpu/ops/flash_attention.py:325"),
+PROLOGUE_TOL = {"bfloat16": 0.05, "float16": 5e-3, "float32": 1e-5}  # the same row error
+SMALL_UPDATE_TOL = 3e-4  # |card - CPU| / |CPU update| of the tiny fused model's params
+SMALL_SEEDS = (0, 1, 2)  # weights and batches of the tiny fused model
+FLASH_SRC = "accelerate_tpu_torch/ops/csrc/flash_attention.cu"
+FUSED_SRC = "accelerate_tpu_torch/ops/csrc/fused.cu"
+KERNELS = {  # wrapper name -> (kernel name, the Pallas kernel it replaces, source)
+    "flash_fwd": ("flash_fwd_kernel", "accelerate_tpu/ops/flash_attention.py:150", FLASH_SRC),
+    "flash_bwd_dq": ("flash_bwd_dq_kernel", "accelerate_tpu/ops/flash_attention.py:269",
+                     FLASH_SRC),
+    "flash_bwd_dkv": ("flash_bwd_dkv_kernel", "accelerate_tpu/ops/flash_attention.py:325",
+                      FLASH_SRC),
+    "flash_bwd_fused": ("flash_bwd_fused_kernel", "accelerate_tpu/ops/flash_attention.py:422",
+                        FLASH_SRC),
+    "qkv_prologue": ("qkv_prologue_kernel", "accelerate_tpu/ops/fused.py:214", FUSED_SRC),
+    "adamw_epilogue": ("adamw_kernel", "accelerate_tpu/ops/fused.py:426", FUSED_SRC),
 }
+LLAMA3_ROPE = dict(theta=500000.0, scaling={
+    "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+    "original_max_position_embeddings": 8192,
+})
 
 
 def fail(msg: str) -> None:
@@ -125,9 +156,10 @@ def make_inputs(torch, B, S, H, Hkv, D, dtype, Skv=None, seed=0):
 
 def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
                window=None, lens=None):
-    """All three kernels against their plain versions on one case. Returns
-    the case's readings (printed as one JSON line) and the max abs error of
-    each kernel's outputs."""
+    """All four flash kernels against their plain versions on one case, and
+    the single-pass backward against dq + dk/dv. Returns the case's
+    readings (printed as one JSON line) and the max abs error of each
+    kernel's outputs."""
     q, k, v, dout = make_inputs(torch, B, S, H, Hkv, D, dtype, Skv)
     kv_lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
     scale = D ** -0.5
@@ -139,17 +171,25 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
     ref_dq = fa.flash_bwd_dq_reference(q, k, v, dout, ref_lse, delta, *args)
     dk, dv = fa.flash_bwd_dkv(q, k, v, dout, ref_lse, delta, *args)
     ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, dout, ref_lse, delta, *args)
+    fdq, fdk, fdv = fa.flash_bwd_fused(q, k, v, dout, ref_lse, delta, *args)
+    ref_fdq, ref_fdk, ref_fdv = fa.flash_bwd_fused_reference(q, k, v, dout, ref_lse, delta,
+                                                             *args)
     torch.cuda.synchronize()
     tag = str(dtype).replace("torch.", "")
-    pairs = {"o": (out, ref_out), "dq": (dq, ref_dq), "dk": (dk, ref_dk), "dv": (dv, ref_dv)}
+    pairs = {"o": (out, ref_out), "dq": (dq, ref_dq), "dk": (dk, ref_dk), "dv": (dv, ref_dv),
+             "fused_dq": (fdq, ref_fdq), "fused_dk": (fdk, ref_fdk), "fused_dv": (fdv, ref_fdv)}
+    # the single-pass kernel against the two-pass kernels on the same inputs
+    two_pass = {"fused_dq": (fdq, dq), "fused_dk": (fdk, dk), "fused_dv": (fdv, dv)}
     errs = {k: row_err(torch, *gw) for k, gw in pairs.items()}
+    vs_two_pass = {k: row_err(torch, *gw) for k, gw in two_pass.items()}
     lse_err = float((lse - ref_lse).abs().max())
     bad = [k for k, e in errs.items() if not e <= TOL[tag]]
+    bad += [f"{k}_vs_two_pass" for k, e in vs_two_pass.items() if not e <= TOL[tag]]
     if not lse_err <= LSE_TOL[tag]:
         bad.append("lse")
     reading = {
-        "case": name, "dtype": tag, "row_err": errs, "row_limit": TOL[tag],
-        "lse_abs_err": lse_err, "lse_limit": LSE_TOL[tag], "bad": bad,
+        "case": name, "dtype": tag, "row_err": errs, "row_err_vs_two_pass": vs_two_pass,
+        "row_limit": TOL[tag], "lse_abs_err": lse_err, "lse_limit": LSE_TOL[tag], "bad": bad,
         # the global max|err| / max|plain|, for comparison only
         "global_rel_err": {k: rel_err(torch, *gw) for k, gw in pairs.items()},
     }
@@ -158,7 +198,92 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
         "flash_fwd": absmax(out, ref_out),
         "flash_bwd_dq": absmax(dq, ref_dq),
         "flash_bwd_dkv": max(absmax(dk, ref_dk), absmax(dv, ref_dv)),
+        "flash_bwd_fused": max(absmax(fdq, ref_fdq), absmax(fdk, ref_fdk),
+                               absmax(fdv, ref_fdv)),
     }
+
+
+def prologue_inputs(torch, fused, B, S, E, H, Hkv, D, dtype, bias=False, seed=0):
+    """Raw residual stream, norm scale, (out, in) weights, biases and the
+    rope tables (llama3 scaling, theta 500000) for the prologue on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *shape, sd=1.0: torch.randn(*shape, generator=g, device="cuda") * sd  # noqa
+    x = randn(B, S, E).to(dtype)
+    scale = 1.0 + randn(E, sd=0.1)
+    ws = [randn(n * D, E, sd=E ** -0.5).to(dtype) for n in (H, Hkv, Hkv)]
+    bs = [randn(n * D, sd=0.5).to(dtype) if bias else None for n in (H, Hkv, Hkv)]
+    positions = torch.arange(S, device="cuda")[None].expand(B, S)
+    inv = fused.rope_inv_freqs(D, LLAMA3_ROPE["theta"], LLAMA3_ROPE["scaling"], "cuda")
+    cosd, sind = fused._rope_tables(positions, inv)
+    statics = dict(eps=1e-5, norm_offset=False, num_heads=H, num_kv_heads=Hkv, head_dim=D,
+                   dtype=dtype)
+    return (x, scale, *ws, *bs, cosd.contiguous(), sind.contiguous()), statics
+
+
+def check_prologue_case(torch, fused, name, **kw):
+    """The prologue kernel against its plain version on the card, q, k and
+    v row by row. Returns the reading and the max abs error."""
+    args, statics = prologue_inputs(torch, fused, **kw)
+    got = fused.qkv_prologue(*args, **statics)
+    want = fused._prologue_reference_tables(*args, **statics)
+    torch.cuda.synchronize()
+    tag = str(kw["dtype"]).replace("torch.", "")
+    errs = {n: row_err(torch, gt, w) for n, gt, w in zip("qkv", got, want)}
+    reading = {
+        "case": f"prologue_{name}", "dtype": tag, "col_block": fused._col_block(
+            kw["H"], kw["Hkv"], kw["D"]), "row_err": errs, "row_limit": PROLOGUE_TOL[tag],
+        "bad": [n for n, e in errs.items() if not e <= PROLOGUE_TOL[tag]],
+    }
+    return reading, max(float((gt.float() - w.float()).abs().max()) for gt, w in zip(got, want))
+
+
+def main_tree_shapes(cfg) -> list[tuple]:
+    """The parameter shapes of the main path's CausalLM, in its order."""
+    E, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    layer = [(E,), (q, E), (kv, E), (kv, E), (E, q), (E,), (F, E), (F, E), (E, F)]
+    return [(V, E)] + layer * cfg.num_layers + [(E,), (V, E)]
+
+
+def epilogue_leaf(torch, shape, seed):
+    """g, p, mu, nu of one fp32 leaf, made anew from ``seed`` whenever asked."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    make = lambda sd: torch.randn(shape, generator=g, device="cuda") * sd  # noqa: E731
+    return make(3.0), make(1.0), make(0.1), make(0.01).abs()
+
+
+def check_epilogue(torch, port, fused, rep: Report) -> None:
+    """The epilogue kernel BIT FOR BIT against its plain version on the main
+    path's 39 leaf shapes (1.92e9 values, one launch) plus an odd-sized and
+    a 0-d leaf: first held (finite = 0: nothing may change), then finite.
+    The plain version runs leaf by leaf on inputs made anew from the same
+    seed, so only one copy of the tree is on the card."""
+    cfg = port.TransformerConfig.llama3_8b(num_layers=NUM_LAYERS)
+    shapes = main_tree_shapes(cfg) + [(1000003,), ()]
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4)
+    leaves = [epilogue_leaf(torch, shape, i) for i, shape in enumerate(shapes)]
+    cols = [list(c) for c in zip(*leaves)]
+    for finite in (False, True):
+        row = fused.epilogue_scalars(hp["b1"], hp["b2"], 3, -3e-4, finite, "cuda")
+        fused.adamw_epilogue(*cols, row, **hp)
+        torch.cuda.synchronize()
+        worst, mismatched = 0.0, []
+        for i, shape in enumerate(shapes):
+            want = list(epilogue_leaf(torch, shape, i))
+            fused.adamw_leaf_reference(*want, row, **hp)
+            for name, got, w in zip(("p", "mu", "nu"), leaves[i][1:], want[1:]):
+                if not torch.equal(got, w):
+                    mismatched.append(f"{name} of leaf {i} {shape}")
+                    worst = max(worst, float((got - w).abs().max()))
+            del want
+        rep.line(f"adamw_epilogue {'finite' if finite else 'held'} over {len(shapes)} leaves, "
+                 f"{sum(math.prod(s) for s in shapes)} values: "
+                 f"{'bitwise' if not mismatched else f'{len(mismatched)} leaves differ'}")
+        if mismatched:
+            fail(f"adamw_epilogue ({'finite' if finite else 'held'}) is not bitwise its plain "
+                 f"version: {mismatched[:6]}, max abs diff {worst}")
+    del leaves, cols
+    torch.cuda.empty_cache()
 
 
 def visible_pairs(torch, S, Skv, causal) -> int:
@@ -168,7 +293,7 @@ def visible_pairs(torch, S, Skv, causal) -> int:
     return int(keep.sum())
 
 
-def kernel_phase(torch, fa, rep: Report, check_only: bool = False) -> list[dict]:
+def kernel_phase(torch, port, fa, fused, rep: Report, check_only: bool = False) -> list[dict]:
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
@@ -193,20 +318,51 @@ def kernel_phase(torch, fa, rep: Report, check_only: bool = False) -> list[dict]
         if reading["bad"]:
             failed.append(f"{name}: {reading['bad']}")
     main_abs_errs = abs_errs
-    # no fallback: a CUDA tensor the kernel does not take is refused, never
+    pro_main = dict(B=MAIN["B"], S=MAIN["S"], E=4096, H=MAIN["H"], Hkv=MAIN["Hkv"], D=MAIN["D"])
+    prologue_cases = [
+        ("bias", dict(B=1, S=256, E=512, H=8, Hkv=2, D=64, dtype=bf16, bias=True)),
+        ("gqa_14_2_tile256", dict(B=1, S=128, E=1024, H=14, Hkv=2, D=128, dtype=bf16)),
+        ("rows_not_filling_a_tile", dict(B=1, S=200, E=512, H=8, Hkv=4, D=64, dtype=bf16)),
+        ("fp16", dict(B=1, S=256, E=512, H=8, Hkv=2, D=64, dtype=torch.float16, bias=True)),
+        ("fp32", dict(B=1, S=200, E=256, H=4, Hkv=2, D=64, dtype=torch.float32, bias=True)),
+        ("main_bf16", dict(**pro_main, dtype=bf16)),
+    ]
+    for name, kw in prologue_cases:
+        reading, pro_abs_err = check_prologue_case(torch, fused, name, **kw)
+        rep.line(json.dumps(reading))
+        if reading["bad"]:
+            failed.append(f"prologue {name}: {reading['bad']}")
+    main_abs_errs["qkv_prologue"] = pro_abs_err
+    # no fallback: a CUDA tensor a kernel does not take is refused, never
     # routed to the plain version
     q, k, v, _ = make_inputs(torch, 1, 64, 2, 1, 64, bf16)
     strided = q.transpose(1, 2).contiguous().transpose(1, 2)
     d40 = tuple(x[..., :40].contiguous() for x in (q, k, v))  # head_dim not a multiple of 16
-    for name, args in (("strided q", (strided, k, v)), ("head_dim 40", d40)):
+    pargs, pstat = prologue_inputs(torch, fused, B=1, S=64, E=256, H=4, Hkv=2, D=40, dtype=bf16)
+    leaf = [torch.ones(8, device="cuda") for _ in range(4)]
+    refusals = (
+        ("forward: strided q", lambda: fa.flash_fwd(strided, k, v, 0.125, True)),
+        ("forward: head_dim 40", lambda: fa.flash_fwd(*d40, 0.125, True)),
+        ("single-pass backward: strided q", lambda: fa.flash_bwd_fused(
+            strided, k, v, q, *(torch.zeros(1, 2, 64, device="cuda"),) * 2, 0.125)),
+        ("prologue: head_dim 40 (an 80-column tile)", lambda: fused.qkv_prologue(*pargs,
+                                                                                 **pstat)),
+        ("epilogue: a bf16 leaf", lambda: fused.adamw_epilogue(
+            [leaf[0].to(bf16)], [leaf[1]], [leaf[2]], [leaf[3]],
+            fused.epilogue_scalars(0.9, 0.999, 1, -1e-3, True, "cuda"), b1=0.9, b2=0.999,
+            eps=1e-8, eps_root=0.0, weight_decay=1e-4)),
+    )
+    for name, call in refusals:
         try:
-            fa.flash_fwd(*args, 0.125, True)
+            call()
         except ValueError:
             continue
-        fail(f"the forward wrapper took an input its kernel does not: {name}")
-    rep.line("kernel wrappers refuse a strided q and head_dim 40")
+        fail(f"a kernel wrapper took an input its kernel does not: {name}")
+    rep.line(f"kernel wrappers refuse: {'; '.join(n for n, _ in refusals)}")
     if failed:
         fail(f"kernel outputs beyond tolerance: {'; '.join(failed)}")
+    check_epilogue(torch, port, fused, rep)
+    main_abs_errs["adamw_epilogue"] = 0.0  # bitwise, or the check failed
     if check_only:
         return []
 
@@ -226,6 +382,9 @@ def kernel_phase(torch, fa, rep: Report, check_only: bool = False) -> list[dict]
         "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, True),
                           lambda: fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale,
                                                              True)),
+        "flash_bwd_fused": (lambda: fa.flash_bwd_fused(q, k, v, dout, lse, delta, scale, True),
+                            lambda: fa.flash_bwd_fused_reference(q, k, v, dout, lse, delta,
+                                                                 scale, True)),
     }
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -236,31 +395,48 @@ def kernel_phase(torch, fa, rep: Report, check_only: bool = False) -> list[dict]
     qo = B * S * H * D * e  # q, o, do or dq
     kv = B * S * Hkv * D * e  # k, v, dk or dv
     stat = B * H * S * 4  # lse or delta
-    work = {  # (FLOP, bytes): each input read once, each output written once
-        "flash_fwd": (2 * 2 * D * pairs, qo + 2 * kv + qo + stat),
-        "flash_bwd_dq": (3 * 2 * D * pairs, 2 * qo + 2 * kv + 2 * stat + qo),
-        "flash_bwd_dkv": (4 * 2 * D * pairs, 2 * qo + 2 * kv + 2 * stat + 2 * kv),
+    work = {  # (FLOP, bytes, peak FLOP/s): each input read once, each output written once
+        "flash_fwd": (2 * 2 * D * pairs, qo + 2 * kv + qo + stat, PEAK_BF16_FLOPS),
+        "flash_bwd_dq": (3 * 2 * D * pairs, 2 * qo + 2 * kv + 2 * stat + qo, PEAK_BF16_FLOPS),
+        "flash_bwd_dkv": (4 * 2 * D * pairs, 2 * qo + 2 * kv + 2 * stat + 2 * kv,
+                          PEAK_BF16_FLOPS),
+        "flash_bwd_fused": (5 * 2 * D * pairs, 2 * qo + 2 * kv + 2 * stat + qo + 2 * kv,
+                            PEAK_BF16_FLOPS),
     }
+
+    # the prologue at the main path's shape
+    pargs, pstat = prologue_inputs(torch, fused, **pro_main, dtype=bf16, seed=2)
+    kernel_fns["qkv_prologue"] = (lambda: fused.qkv_prologue(*pargs, **pstat),
+                                  lambda: fused._prologue_reference_tables(*pargs, **pstat))
+    rows_, E = B * S, pro_main["E"]
+    W = (H + 2 * Hkv) * D
+    work["qkv_prologue"] = (2 * rows_ * E * W,
+                            rows_ * E * e + W * E * e + E * 4 + 2 * rows_ * D * 4 + rows_ * W * e,
+                            PEAK_BF16_FLOPS)
+    xn = fused.rms_norm_reference(pargs[0], pargs[1], eps=1e-5, norm_offset=False)
+    wcat = torch.cat(pargs[2:5])
+    linear_ms = time_ms(torch, lambda: F.linear(xn, wcat), 20, flush)
+    del xn, wcat
+
     rows = []
-    for wrapper, (kernel_name, replaces) in KERNELS.items():
+    for wrapper, (kernel_name, replaces, source) in KERNELS.items():
+        if wrapper == "adamw_epilogue":
+            continue
         kfn, pfn = kernel_fns[wrapper]
         ms = time_ms(torch, kfn, 20, flush)
         plain_ms = time_ms(torch, pfn, 5, flush)
-        flops, nbytes = work[wrapper]
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        rows.append({
-            "name": kernel_name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": None, "max_abs_err": main_abs_errs[wrapper], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_fwd if wrapper == "flash_fwd" else None,
-        })
-        rep.line(f"{kernel_name} at {MAIN} bf16 causal: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-                 f"bound {max(t_ops, t_bytes):.4f} ms by {rows[-1]['bound_by']}, "
-                 f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        rows.append(kernel_row(wrapper, ms, plain_ms, *work[wrapper], main_abs_errs[wrapper],
+                               library_fwd if wrapper == "flash_fwd" else None))
+        rep.line(f"{kernel_name} at the main shape (bf16): {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                 f"bound {rows[-1]['bound_ms']:.4f} ms by {rows[-1]['bound_by']}, "
+                 f"{work[wrapper][0] / ms / 1e9:.1f} TFLOP/s)")
+    del pargs
+    rep.line(f"yardstick for qkv_prologue_kernel: F.linear of the pre-normed bf16 x "
+             f"({rows_}, {E}) against the concatenated ({W}, {E}) weight (cuBLAS alone, no "
+             f"norm, bias or rope) {linear_ms:.4f} ms")
 
     # the backward as a whole against SDPA's (a yardstick: no single
-    # PyTorch call computes dq alone or dk/dv alone)
+    # PyTorch call computes dq alone, dk/dv alone or the single pass)
     qg, kg, vg = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
     dout_t = dout.transpose(1, 2)
 
@@ -274,10 +450,66 @@ def kernel_phase(torch, fa, rep: Report, check_only: bool = False) -> list[dict]
         fa.flash_bwd_dq(q, k, v, dout, l, d, scale, True)
         fa.flash_bwd_dkv(q, k, v, dout, l, d, scale, True)
 
+    def port_fwd_fused_bwd():
+        o, l = fa.flash_fwd(q, k, v, scale, True)
+        fa.flash_bwd_fused(q, k, v, dout, l, fa.attention_delta(o, dout), scale, True)
+
     rep.line(f"fwd+bwd at {MAIN}: port kernels {time_ms(torch, port_fwd_bwd, 10, flush):.4f} ms, "
-             f"F.scaled_dot_product_attention {time_ms(torch, sdpa_fwd_bwd, 10, flush):.4f} ms "
-             "(yardstick only)")
+             f"with the single-pass backward {time_ms(torch, port_fwd_fused_bwd, 10, flush):.4f} "
+             f"ms, F.scaled_dot_product_attention {time_ms(torch, sdpa_fwd_bwd, 10, flush):.4f} "
+             "ms (yardstick only)")
+    del q, k, v, dout, out, lse, delta, qg, kg, vg, dout_t
+    rows.append(time_epilogue(torch, port, fused, rep, flush, main_abs_errs["adamw_epilogue"]))
     return rows
+
+
+def kernel_row(wrapper, ms, plain_ms, flops, nbytes, peak, max_abs_err, library_ms) -> dict:
+    kernel_name, replaces, source = KERNELS[wrapper]
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {
+        "name": kernel_name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def time_epilogue(torch, port, fused, rep: Report, flush, max_abs_err) -> dict:
+    """The epilogue kernel, its plain version and the library call
+    ``torch._fused_adamw_`` over the main path's 39 leaves. PyTorch's fused
+    AdamW (with eps_root 0, as here) computes the same update, p (1 - lr wd)
+    - (lr / bc1) mu' / (sqrt(nu') / sqrt(bc2) + eps), and its ``found_inf``
+    holds a non-finite step; only the rounding order differs from optax's,
+    so it is not bitwise the plain version and the port cannot call it."""
+    cfg = port.TransformerConfig.llama3_8b(num_layers=NUM_LAYERS)
+    shapes = main_tree_shapes(cfg)
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4)
+    cols = [list(c) for c in zip(*(epilogue_leaf(torch, s, i) for i, s in enumerate(shapes)))]
+    row = fused.epilogue_scalars(hp["b1"], hp["b2"], 3, -3e-4, True, "cuda")
+    ms = time_ms(torch, lambda: fused.adamw_epilogue(*cols, row, **hp), 5, flush)
+
+    def plain():
+        for leaf in zip(*cols):
+            fused.adamw_leaf_reference(*leaf, row, **hp)
+
+    plain_ms = time_ms(torch, plain, 3, flush)
+    g, p, mu, nu = cols
+    steps = [torch.full((), 3.0, device="cuda") for _ in p]
+    found_inf = torch.zeros((), device="cuda")
+    library_ms = time_ms(torch, lambda: torch._fused_adamw_(
+        p, g, mu, nu, [], steps, lr=3e-4, beta1=0.9, beta2=0.999, weight_decay=1e-4, eps=1e-8,
+        amsgrad=False, maximize=False, found_inf=found_inf), 5, flush)
+    n = sum(math.prod(s) for s in shapes)
+    del cols, g, p, mu, nu
+    torch.cuda.empty_cache()
+    # 28 B per value: read g, p, mu, nu, write p, mu, nu; ~15 fp32 operations each
+    out = kernel_row("adamw_epilogue", ms, plain_ms, 15 * n, 28 * n, PEAK_FP32_FLOPS,
+                     max_abs_err, library_ms)
+    rep.line(f"adamw_kernel over the main path's {len(shapes)} leaves ({n} values, one launch): "
+             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms by "
+             f"{out['bound_by']}, {28 * n / ms / 1e6:.1f} GB/s); library "
+             f"torch._fused_adamw_ over the same tensors {library_ms:.4f} ms")
+    return out
 
 
 def small_model_phase(torch, port, rep: Report) -> None:
@@ -304,10 +536,92 @@ def small_model_phase(torch, port, rep: Report) -> None:
         fail("small model: the card's kernels disagree with the CPU plain path")
 
 
-def main_path_phase(torch, port, fa, rep: Report) -> dict:
+def small_fused_phase(torch, port, fa, fused, rep: Report, seed: int) -> None:
+    """A tiny fused_kernels=True CausalLM with fused_adamw and the
+    single-pass backward, 3 unified_steps in fp32 on the card (prologue,
+    flash forward, single-pass backward and epilogue kernels) against the
+    same weights and batches, made from ``seed``, on the CPU's plain path."""
+    cfg = port.TransformerConfig.tiny(vocab_size=512, hidden_size=128, num_heads=4,
+                                      num_kv_heads=2, attention_impl="flash",
+                                      fused_kernels=True)
+    init = port.CausalLM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    ids = torch.randint(0, cfg.vocab_size, (3, 2, 96),
+                        generator=torch.Generator().manual_seed(seed + 1)).numpy()
+    dataset = [{"input_ids": ids[i // 2][i % 2]} for i in range(6)]
+    runs = {}
+    wrappers = (*fa.KERNEL_WRAPPERS, *fused.KERNEL_WRAPPERS)
+    fa.FUSED_BWD = True
+    try:
+        for device in ("cpu", "cuda"):
+            port.AcceleratorState._reset_state(reset_partial_state=True)
+            port.GradientState._reset_state()
+            acc = port.Accelerator(cpu=device == "cpu")
+            model = port.CausalLM(cfg, device=device)
+            model.load_state_dict(init.state_dict())
+            model, opt, loader = acc.prepare(model, port.fused_adamw(1e-3),
+                                             port.DataLoader(dataset, batch_size=2))
+            step = acc.unified_step(port.CausalLM.loss_fn(model), opt, max_grad_norm=1.0)
+            carry = acc.init_carry(model, opt)
+            for w in wrappers:
+                w.launches = 0
+            curve = []
+            for batch in loader:
+                carry, m = step(carry, batch)
+                curve.append((float(m["loss"]), float(m["grad_norm"])))
+            launches = {w.__name__: w.launches for w in wrappers}
+            runs[device] = (curve, {k: t.detach().cpu() for k, t in carry["params"].items()},
+                            launches)
+    finally:
+        fa.FUSED_BWD = False
+        port.AcceleratorState._reset_state(reset_partial_state=True)
+        port.GradientState._reset_state()
+    (cpu_curve, cpu_params, _), (gpu_curve, gpu_params, launches) = runs["cpu"], runs["cuda"]
+    curve_err = max(abs(a - b) / abs(b) for ga, gb in zip(gpu_curve, cpu_curve)
+                    for a, b in zip(ga, gb))
+    # AdamW divides each moment by its root: an element whose gradient is
+    # near zero moves by up to lr on a last-bit difference in the gradient,
+    # so neither the largest element error nor a small leaf's error says
+    # much (final_norm's 128 values read 2.6e-3 of their update on a correct
+    # card). A wrong kernel moves many elements; the error's norm over the
+    # update's norm, over the whole tree, sees that.
+    init_params = init.state_dict()
+    diff = math.sqrt(sum(float((gpu_params[k] - cpu_params[k]).square().sum())
+                         for k in cpu_params))
+    update = math.sqrt(sum(float((cpu_params[k] - init_params[k]).square().sum())
+                           for k in cpu_params))
+    update_err = diff / (update + 1e-30)
+    leaf_err = {k: float((gpu_params[k] - cpu_params[k]).norm()
+                         / ((cpu_params[k] - init_params[k]).norm() + 1e-30)) for k in cpu_params}
+    worst = max(leaf_err, key=leaf_err.get)
+    param_err = max(rel_err(torch, gpu_params[k], cpu_params[k]) for k in cpu_params)
+    rep.line(f"small fused model fp32, seed {seed}, 3 steps: losses/grad norms card "
+             f"{gpu_curve} vs CPU {cpu_curve} (max rel err {curve_err:.3g}); final params: "
+             f"|card - CPU| / |CPU update| {update_err:.3g} over the tree, at most "
+             f"{leaf_err[worst]:.3g} in one leaf ({worst}), max element error over the "
+             f"tensor's max {param_err:.3g}; card launches {json.dumps(launches)}")
+    want = {"flash_fwd": 6, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_fused": 6,
+            "qkv_prologue": 6, "adamw_epilogue": 3}  # 2 layers x 3 steps; one epilogue a step
+    if launches != want:
+        fail(f"small fused model launches {launches}, want {want}")
+    if not (len(gpu_curve) == 3 and curve_err <= 1e-4 and update_err <= SMALL_UPDATE_TOL):
+        fail(f"small fused model (seed {seed}): the card's kernels disagree with the CPU "
+             f"plain path: losses/grad norms {curve_err:.3g} (limit 1e-4), params "
+             f"{update_err:.3g} of the update (limit {SMALL_UPDATE_TOL})")
+
+
+def main_path_phase(torch, port, wrappers, rep: Report, fused_path: bool = False) -> dict:
+    """The main path (``fused_path`` False: unfused model, adamw, two-pass
+    backward) or the fused path (``fused_kernels=True``, ``fused_adamw``,
+    ``FUSED_BWD``), trained for STEPS steps with every launch counter in
+    ``wrappers`` set to 0 just before and read just after. Returns the
+    counts."""
+    name = "fused path" if fused_path else "main path"
     cfg = port.TransformerConfig.llama3_8b(num_layers=NUM_LAYERS, dtype="bfloat16",
-                                           max_seq_len=MAIN["S"])
-    torch.cuda.empty_cache()  # hand back what the kernel phase's plain versions cached
+                                           max_seq_len=MAIN["S"], fused_kernels=fused_path)
+    gc.collect()
+    torch.cuda.empty_cache()  # hand back what earlier phases cached
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
     acc = port.Accelerator(mixed_precision="bf16")
     t0 = time.perf_counter()
     model = port.CausalLM(cfg, device=acc.device,
@@ -317,15 +631,18 @@ def main_path_phase(torch, port, fa, rep: Report) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (MAIN["B"], MAIN["S"]),
                            generator=torch.Generator().manual_seed(0)).numpy()
     dataset = [{"input_ids": tokens[i % MAIN["B"]]} for i in range(STEPS * MAIN["B"])]
-    model, opt, loader = acc.prepare(model, port.adamw(3e-4),
+    if [tuple(p.shape) for p in model.parameters()] != main_tree_shapes(cfg):
+        fail(f"{name}: the model's parameter shapes are not main_tree_shapes'")
+    optimizer = (port.fused_adamw if fused_path else port.adamw)(3e-4)
+    model, opt, loader = acc.prepare(model, optimizer,
                                      port.DataLoader(dataset, batch_size=MAIN["B"]))
     step = acc.unified_step(port.CausalLM.loss_fn(model), opt, max_grad_norm=1.0)
     carry = acc.init_carry(model, opt)
     torch.cuda.synchronize()
-    rep.line(f"main path set-up: {n_params} params ({cfg.num_layers} layers at llama3_8b "
+    rep.line(f"{name} set-up: {n_params} params ({cfg.num_layers} layers at llama3_8b "
              f"width), {time.perf_counter() - t0:.2f} s")
 
-    for wrapper in fa.KERNEL_WRAPPERS:
+    for wrapper in wrappers:
         wrapper.launches = 0
     torch.cuda.reset_peak_memory_stats()
     losses, norms, times = [], [], []
@@ -336,30 +653,36 @@ def main_path_phase(torch, port, fa, rep: Report) -> dict:
         norms.append(float(metrics["grad_norm"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = {w.__name__: w.launches for w in fa.KERNEL_WRAPPERS}
+    launches = {w.__name__: w.launches for w in wrappers}
     peak = torch.cuda.max_memory_allocated()
 
     steady = statistics.median(times[1:])  # the first step pays one-time set-up
     tokens_per_step = MAIN["B"] * MAIN["S"]
-    rep.line(f"main path losses {losses}, grad norms {norms}")
-    rep.line(f"main path step seconds {times}; median of steps 2-{STEPS} {steady} s, "
+    rep.line(f"{name} losses {losses}, grad norms {norms}")
+    rep.line(f"{name} step seconds {times}; median of steps 2-{STEPS} {steady} s, "
              f"{tokens_per_step / steady} tokens/s; peak memory {peak / 2**30} GiB")
-    rep.line(f"main path kernel launches {json.dumps(launches)}")
+    rep.line(f"{name} kernel launches {json.dumps(launches)}")
     if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
-        fail(f"main path losses not finite: {losses}")
+        fail(f"{name} losses not finite: {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"main path loss did not fall on a repeated batch: {losses}")
+        fail(f"{name} loss did not fall on a repeated batch: {losses}")
     if carry["opt_step"] != STEPS:
-        fail(f"main path took {carry['opt_step']} optimizer steps, not {STEPS}")
-    want = NUM_LAYERS * STEPS
-    if any(n != want for n in launches.values()):
-        fail(f"main path kernel launches {launches}, want {want} each")
-    profile_step(torch, step, carry, batch, rep)
+        fail(f"{name} took {carry['opt_step']} optimizer steps, not {STEPS}")
+    per_layer = NUM_LAYERS * STEPS
+    if fused_path:  # one epilogue launch a step, over every leaf
+        want = {"flash_fwd": per_layer, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "flash_bwd_fused": per_layer, "qkv_prologue": per_layer, "adamw_epilogue": STEPS}
+    else:
+        want = {"flash_fwd": per_layer, "flash_bwd_dq": per_layer, "flash_bwd_dkv": per_layer,
+                "flash_bwd_fused": 0, "qkv_prologue": 0, "adamw_epilogue": 0}
+    if launches != want:
+        fail(f"{name} kernel launches {launches}, want {want}")
+    profile_step(torch, step, carry, batch, rep, name)
     return launches
 
 
-def profile_step(torch, step, carry, batch, rep: Report) -> None:
-    """One more step of the main path (after its counts were read) under
+def profile_step(torch, step, carry, batch, rep: Report, name: str) -> None:
+    """One more step of the path (after its counts were read) under
     torch.profiler: device time by kernel group, the optimizer epilogue's
     device range, and the device's busy share of the step's wall time (the
     profiler's own cost included)."""
@@ -380,21 +703,26 @@ def profile_step(torch, step, carry, batch, rep: Report) -> None:
             kernels[evt.key] = evt.self_device_time_total / 1e3
     busy_ms = sum(kernels.values())
     if busy_ms == 0:
-        rep.line("profiled step: the profiler saw no device time (not measured)")
+        rep.line(f"{name} profiled step: the profiler saw no device time (not measured)")
         return
-    groups = {"flash attention kernels": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
-    for name, ms in kernels.items():
-        if "flash_" in name and "_kernel" in name:
+    groups = {"flash attention kernels": 0.0, "prologue kernel": 0.0, "epilogue kernel": 0.0,
+              "matmul (cuBLAS)": 0.0, "other": 0.0}
+    for key, ms in kernels.items():
+        if "flash_" in key and "_kernel" in key:
             groups["flash attention kernels"] += ms
-        elif any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        elif "qkv_prologue_kernel" in key:
+            groups["prologue kernel"] += ms
+        elif "adamw_kernel" in key:
+            groups["epilogue kernel"] += ms
+        elif any(t in key.lower() for t in ("gemm", "nvjet", "xmma", "cutlass")):
             groups["matmul (cuBLAS)"] += ms
         else:
             groups["other"] += ms
-    rep.line(f"profiled step: wall {wall_ms} ms, device busy {busy_ms} ms "
+    rep.line(f"{name} profiled step: wall {wall_ms} ms, device busy {busy_ms} ms "
              f"({100 * busy_ms / wall_ms} %), by kernel group ms {json.dumps(groups)}, "
              f"optimizer epilogue (unified_step.sync_apply) {epilogue_ms} ms on the device")
-    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        rep.line(f"profiled step: {ms} ms {name[:110]}")
+    for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        rep.line(f"{name} profiled step: {ms} ms {key[:110]}")
 
 
 def main() -> None:
@@ -406,6 +734,7 @@ def main() -> None:
         import accelerate_tpu_torch as port
         from accelerate_tpu_torch.ops import _build
         from accelerate_tpu_torch.ops import flash_attention as fa
+        from accelerate_tpu_torch.ops import fused
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -415,21 +744,40 @@ def main() -> None:
              f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    seconds = _build.build(["flash_attention"])
+    sources = ["flash_attention", "fused"]
+    seconds = _build.build(sources)
     rep.line(f"build: {json.dumps(seconds)} s per source, {time.perf_counter() - t0:.2f} s in all")
-    for line in _build.BUILD_LOGS.get("flash_attention", "").splitlines():
-        if "registers" in line or "spill" in line:
-            rep.line(f"ptxas: {line.strip()}")
+    for source in sources:
+        for line in _build.BUILD_LOGS.get(source, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                rep.line(f"ptxas {source}: {line.strip()}")
 
-    rows = kernel_phase(torch, fa, rep, check_only="--check-only" in sys.argv[1:])
+    def small_models():
+        small_model_phase(torch, port, rep)
+        for seed in SMALL_SEEDS:
+            small_fused_phase(torch, port, fa, fused, rep, seed)
+
+    if "--small-only" in sys.argv[1:]:
+        small_models()
+        rep.line("small-only: the small models on the card agree with the CPU")
+        return
+    rows = kernel_phase(torch, port, fa, fused, rep, check_only="--check-only" in sys.argv[1:])
     if not rows:
         rep.line("check-only: every kernel case within tolerance")
         return
-    small_model_phase(torch, port, rep)
-    launches = main_path_phase(torch, port, fa, rep)
-    wrapper_of = {kernel: wrapper for wrapper, (kernel, _) in KERNELS.items()}
+    small_models()
+    wrappers = (*fa.KERNEL_WRAPPERS, *fused.KERNEL_WRAPPERS)
+    launches = main_path_phase(torch, port, wrappers, rep)
+    fa.FUSED_BWD = True  # the reference's switch, on for the fused path
+    try:
+        fused_launches = main_path_phase(torch, port, wrappers, rep, fused_path=True)
+    finally:
+        fa.FUSED_BWD = False
+    runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
+    wrapper_of = {kernel: wrapper for wrapper, (kernel, _, _) in KERNELS.items()}
     for row in rows:
-        row["launches"] = launches[wrapper_of[row["name"]]]
+        wrapper = wrapper_of[row["name"]]
+        row["launches"] = (fused_launches if wrapper in runs_on_fused_path else launches)[wrapper]
 
     print(json.dumps({"kernels": rows}))
     print(rep.card)

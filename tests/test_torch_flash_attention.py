@@ -6,7 +6,9 @@ The same numpy inputs go through ``accelerate_tpu.ops.flash_attention``
 run) and ``accelerate_tpu_torch.ops.flash_attention``: O, lse, and dq/dk/dv
 through the port's ``autograd.Function``. On a CUDA tensor the same
 wrappers launch the hand-written kernels; chip_smoke.py holds those
-against these plain versions on the card.
+against these plain versions on the card. The single-pass backward (B4)
+runs with both packages' ``FUSED_BWD`` switched on: the reference's
+``_bwd_fused`` against the port's ``flash_bwd_fused`` plain version.
 
 Tolerance: fp32 on both sides; online softmax over blocks against the
 plain version's one-pass softmax, and different summation orders: 1e-5
@@ -51,7 +53,8 @@ def _inputs(B=2, S=48, Skv=None, H=4, Hkv=2, D=32, seed=0):
 
 
 def _jax_reference(q, k, v, dout, causal, lens, window):
-    """O, lse (B, H, S) and (dq, dk, dv) from the Pallas kernels."""
+    """O, lse (B, H, S) and (dq, dk, dv) from the Pallas kernels (the
+    single-pass backward when ``jfa.FUSED_BWD`` is True)."""
     lengths = None if lens is None else jnp.asarray(lens, jnp.int32)
     scale = q.shape[-1] ** -0.5
     qt, kt, vt = (jnp.swapaxes(jnp.asarray(x), 1, 2) for x in (q, k, v))
@@ -91,6 +94,43 @@ def test_plain_flash_matches_pallas_interpret(case):
     for name, got, want in zip("qkv", got_grads, want_grads):
         scale = np.abs(want).max() + 1e-12
         np.testing.assert_allclose(got / scale, want / scale, atol=TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_single_pass_backward_matches_pallas_interpret(case):
+    """B4: both packages' FUSED_BWD switched on; dq, dk, dv."""
+    kw = dict(CASES[case])
+    causal, lens, window = kw.pop("causal", True), kw.pop("lens", None), kw.pop("window", None)
+    inputs = _inputs(**kw)
+    old = jfa.FUSED_BWD, tfa.FUSED_BWD
+    jfa.FUSED_BWD = tfa.FUSED_BWD = True
+    try:
+        _, _, want_grads = _jax_reference(*inputs, causal, lens, window)
+        before = [w.launches for w in tfa.KERNEL_WRAPPERS]
+        _, _, got_grads = _port(*inputs, causal, lens, window)
+        assert [w.launches for w in tfa.KERNEL_WRAPPERS] == before  # the CPU takes the plain path
+    finally:
+        jfa.FUSED_BWD, tfa.FUSED_BWD = old
+    for name, got, want in zip("qkv", got_grads, want_grads):
+        scale = np.abs(want).max() + 1e-12
+        np.testing.assert_allclose(got / scale, want / scale, atol=TOL, err_msg=f"d{name}")
+
+
+def test_single_pass_plain_version_matches_the_two_pass_one():
+    """flash_bwd_fused_reference gives what dq + dk/dv give, with the same
+    rounding points, in bf16 too."""
+    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(S=40, Skv=48))
+    lens = torch.tensor([48, 21], dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        q_, k_, v_, do_ = (x.to(dtype) for x in (q, k, v, dout))
+        args = (32 ** -0.5, True, lens, 30)
+        out, lse = tfa.flash_fwd(q_, k_, v_, *args)
+        delta = tfa.attention_delta(out, do_)
+        dq, dk, dv = tfa.flash_bwd_fused(q_, k_, v_, do_, lse, delta, *args)
+        assert torch.equal(dq, tfa.flash_bwd_dq(q_, k_, v_, do_, lse, delta, *args))
+        want_dk, want_dv = tfa.flash_bwd_dkv(q_, k_, v_, do_, lse, delta, *args)
+        assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+        assert dq.dtype == dk.dtype == dv.dtype == dtype
 
 
 def test_fully_masked_rows_zero_output_and_grads():

@@ -9,6 +9,8 @@
   another path silently.
 * Dispatch to the flash kernels follows the reference's shape predicate,
   with a CUDA device in place of the TPU backend.
+* Every kernel wrapper takes its plain version on CPU tensors without
+  counting a launch, and refuses what its kernel does not take.
 """
 
 import os
@@ -23,6 +25,7 @@ import torch
 import accelerate_tpu_torch as port
 from accelerate_tpu_torch.ops import attention
 from accelerate_tpu_torch.ops import flash_attention as fa
+from accelerate_tpu_torch.ops import fused
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -65,7 +68,7 @@ def test_every_module_and_chip_smoke_import_without_jax():
     """)
     result = _run_blocked(code)
     assert result.returncode == 0, result.stderr
-    assert int(result.stdout.split()[0]) >= 12
+    assert int(result.stdout.split()[0]) >= 13  # ops.fused among them
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -92,7 +95,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fused_kernels", True),
     ("fp8", True),
     ("num_experts", 4),
     ("arch", "gpt2"),
@@ -171,3 +173,50 @@ def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():
     q = torch.zeros(1, 16, 2, 24)
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         fa._check_inputs(q, q, q, None, None, True)
+
+
+def _tiny_prologue_args(rows=16, hidden=64, heads=4, kv_heads=2, d=16):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, rows, hidden, generator=g)
+    ws = [torch.randn(n * d, hidden, generator=g) * 0.1 for n in (heads, kv_heads, kv_heads)]
+    cos, sin = fused._rope_tables(torch.arange(rows)[None], fused.rope_inv_freqs(d, 1e4, None))
+    statics = dict(eps=1e-6, norm_offset=False, num_heads=heads, num_kv_heads=kv_heads,
+                   head_dim=d, dtype=torch.float32)
+    return (x, torch.ones(hidden), *ws, None, None, None, cos, sin), statics
+
+
+def test_fused_wrappers_count_no_launch_on_cpu():
+    args, statics = _tiny_prologue_args()
+    before = [w.launches for w in (*fused.KERNEL_WRAPPERS, *fa.KERNEL_WRAPPERS)]
+    q, k, v = fused.qkv_prologue(*args, **statics)
+    assert q.shape == (1, 16, 4, 16) and k.shape == v.shape == (1, 16, 2, 16)
+    leaves = [torch.ones(3, 5), torch.ones(()), torch.ones(7)]
+    row = fused.epilogue_scalars(0.9, 0.999, 1, -1e-3, True, "cpu")
+    fused.adamw_epilogue(leaves, [t.clone() for t in leaves], [t * 0 for t in leaves],
+                         [t * 0 for t in leaves], row, b1=0.9, b2=0.999, eps=1e-8,
+                         eps_root=0.0, weight_decay=1e-4)
+    qa = torch.randn(1, 16, 2, 16)
+    out, lse = fa.flash_fwd(qa, qa, qa, 0.25)
+    fa.flash_bwd_fused(qa, qa, qa, qa, lse, fa.attention_delta(out, qa), 0.25)
+    assert [w.launches for w in (*fused.KERNEL_WRAPPERS, *fa.KERNEL_WRAPPERS)] == before
+
+
+def test_fused_kernel_checks_refuse_what_the_kernels_do_not_take():
+    args, statics = _tiny_prologue_args()
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        fused._check_prologue(args[0], args[1], args[2:5], args[5:8], *args[8:],
+                              4, 2, 16, torch.float32)
+    leaves = [(torch.ones(3),) * 4]
+    with pytest.raises(ValueError, match="row"):
+        fused._check_epilogue(leaves, torch.zeros(1, 8))
+    # the CUDA shape gate: the kernel's column tile is whole heads, a
+    # multiple of 64 and at most 512; hidden a multiple of 64; even head_dim
+    cuda = torch.device("cuda")
+    assert fused.prologue_supported(32, 8, 128, 2, 2048, 4096, device=cuda)
+    assert fused.prologue_supported(14, 2, 128, 1, 64, 4096, device=cuda)  # a 256 tile
+    assert not fused.prologue_supported(4, 2, 40, 1, 64, 256, device=cuda)  # 80-column tile
+    assert not fused.prologue_supported(4, 2, 15, 1, 64, 256, device=cuda)  # odd head_dim
+    assert not fused.prologue_supported(4, 2, 64, 1, 64, 96, device=cuda)  # hidden 96
+    assert not fused.prologue_supported(4, 2, 64, 1, 64, 256, device=cuda,
+                                        dtype=torch.float64)
+    assert fused.prologue_supported(4, 2, 40, 1, 64, 256, device="cpu")  # no kernel limits

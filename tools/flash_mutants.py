@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Plant faults in the flash-attention kernels and check that
-chip_smoke.py's kernel comparison rejects each one.
+"""Plant faults in the port's kernels and check that chip_smoke.py's kernel
+checks reject each one.
 
     python3 tools/flash_mutants.py
 
 Needs one CUDA device. For each mutant it copies the port and
 chip_smoke.py into ``accelerate_tpu_torch/ops/build/mutants/<name>/`` (the
-gitignored build directory), applies one text edit to the copy's
-``csrc/flash_attention.cu`` and runs the copy's ``chip_smoke.py
---check-only``; all copies build and run together. The unedited copy
-("control") must pass. Every mutant must fail, and must fail at the main
-path's shape (case ``main_bf16_causal``) on the outputs it spoils, so the
-check at that shape is shown to catch it on its own. Prints one JSON line
-per copy with its main-shape readings (the per-row error that is checked
-and, for comparison, the global max|err| / max|plain|), and exits 1 when a
-mutant was not caught or the control failed. The copies are removed at
-the end.
+gitignored build directory) and applies one text edit to one CUDA source of
+the copy. All copies build together; then each copy's checks run one at a
+time (the epilogue's bitwise check holds about 50 GB of the card):
+``chip_smoke.py --check-only`` (the kernel cases) and, for some copies,
+``chip_smoke.py --small-only`` (the tiny models trained on the card against
+the CPU). The unedited copy ("control") must pass both. Every mutant must
+fail each of its checks: the kernel check at the main path's shape on the
+outputs it spoils (the flash and prologue faults by the case at that shape,
+``main_bf16_causal`` or ``prologue_main_bf16``; the epilogue faults by the
+bitwise check on the main path's 39 leaves), the small-model check by the
+tiny fused model's comparison. Prints one JSON line per check with its
+readings (for a case, the per-row error that is checked and the global
+max|err| / max|plain| where the case reports one; otherwise the failure),
+and exits 1 when a mutant was not caught or the control failed. The copies
+are removed at the end.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 WORK = REPO / "accelerate_tpu_torch" / "ops" / "build" / "mutants"
-SOURCE = Path("accelerate_tpu_torch/ops/csrc/flash_attention.cu")
+FLASH = Path("accelerate_tpu_torch/ops/csrc/flash_attention.cu")
+FUSED = Path("accelerate_tpu_torch/ops/csrc/fused.cu")
+FLASH_CASE, PROLOGUE_CASE = "main_bf16_causal", "prologue_main_bf16"
 
 FWD_LOOP = """  for (int it = t_begin; it < t_end; ++it) {
     const int k0 = it * BK;
@@ -37,75 +44,119 @@ DQ_LOOP = """  for (int it = t_begin; it < t_end; ++it) {
     const int k0 = it * BK;
     load_tile(sm.k, LT, static_cast<const T*>(p.k) + kbase, kstride, k0, BK, p.Skv, D);"""
 DKV_LOOP = """      const int q0 = it * BQ, qmax = min(q0 + BQ, p.S) - 1;"""
+FUSED_DQ_ADD = """      float* DQ = p.dq_acc + qbase;"""
+ROPE_PARTNER = "proj_at<T>(accs, LA, bias, r, j < half ? n + half : n - half, lc0)"
+EPI_HOLD = "  if (row[4] == 0.f) return;  // not finite: p, mu and nu stay as they are"
+EPI_MU = "  const float mu2 = __fadd_rn(__fmul_rn(c.omb1, g), __fmul_rn(c.b1, mu));"
+EPI_ROOT = "float u = __fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(__fadd_rn(nhat, c.eps_root)), c.eps));"
+CHECK, SMALL = "--check-only", "--small-only"
+SMALL_FAILS = (SMALL, None, "small fused model")
 
-# name -> (text in the source, its replacement, outputs the main case must flag)
+# name -> (source, text in it, its replacement, checks), a check being
+# (chip_smoke.py's flag, the case at the main shape or None, what must be
+# flagged: outputs of the case, or a text of the failure)
 MUTANTS = {
-    "control": (None, None, []),
+    "control": (None, None, None, [(CHECK, FLASH_CASE, []), (SMALL, None, None)]),
     # the online softmax never rescales what earlier kv tiles accumulated
-    "fwd_no_rescale": ("const float corr = expf(m_prev - m_new);", "const float corr = 1.f;",
-                       ["o"]),
+    "fwd_no_rescale": (FLASH, "const float corr = expf(m_prev - m_new);",
+                       "const float corr = 1.f;", [(CHECK, FLASH_CASE, ["o"])]),
     # the last q tile of every head skips its first kv tile
-    "fwd_drop_tile": (FWD_LOOP, FWD_LOOP.replace(
+    "fwd_drop_tile": (FLASH, FWD_LOOP, FWD_LOOP.replace(
         "const int k0 = it * BK;",
         "if (iq == (int)gridDim.x - 1 && it == t_begin) continue;\n    const int k0 = it * BK;"),
-        ["o"]),
-    "dq_drop_tile": (DQ_LOOP, DQ_LOOP.replace(
+        [(CHECK, FLASH_CASE, ["o"])]),
+    "dq_drop_tile": (FLASH, DQ_LOOP, DQ_LOOP.replace(
         "const int k0 = it * BK;",
         "if (iq == (int)gridDim.x - 1 && it == t_begin) continue;\n    const int k0 = it * BK;"),
-        ["dq"]),
+        [(CHECK, FLASH_CASE, ["dq"])]),
     # the first kv tile skips the last q tile of every query head
-    "dkv_drop_tile": (DKV_LOOP, "      if (ik == 0 && it == t_end - 1) continue;\n" + DKV_LOOP,
-                      ["dk", "dv"]),
+    "dkv_drop_tile": (FLASH, DKV_LOOP, "      if (ik == 0 && it == t_end - 1) continue;\n"
+                      + DKV_LOOP, [(CHECK, FLASH_CASE, ["dk", "dv"])]),
+    # single pass: the first kv tile's dq contribution to the last q tile
+    # of every query head is dropped
+    "fused_drop_dq_tile": (FLASH, FUSED_DQ_ADD, "      if (ik == 0 && it == t_end - 1) continue;\n"
+                           + FUSED_DQ_ADD, [(CHECK, FLASH_CASE, ["fused_dq"])]),
+    # prologue: rope takes its partner column from the next head
+    "prologue_partner_off_by_a_head": (
+        FUSED, ROPE_PARTNER,
+        "proj_at<T>(accs, LA, bias, r, ((j < half ? n + half : n - half) + D) % c, lc0)",
+        [(CHECK, PROLOGUE_CASE, ["q", "k"]), SMALL_FAILS]),
+    # epilogue: a step that is not finite is applied anyway
+    "epilogue_ignores_hold": (FUSED, EPI_HOLD, "  // (the hold is gone)",
+                              [(CHECK, None, "adamw_epilogue (held) is not bitwise")]),
+    # epilogue: the first moment's product contracted into an fma
+    "epilogue_fma_mu": (FUSED, EPI_MU, "  const float mu2 = fmaf(c.omb1, g, __fmul_rn(c.b1, mu));",
+                        [(CHECK, None, "adamw_epilogue (finite) is not bitwise")]),
+    # epilogue: eps inside the root, sqrt(nu_hat + eps) (another AdamW)
+    "epilogue_eps_in_root": (FUSED, EPI_ROOT,
+                             "float u = __fdiv_rn(mhat, __fsqrt_rn(__fadd_rn(nhat, c.eps)));",
+                             [SMALL_FAILS]),
 }
 
 
-def make_copy(name: str, old, new) -> Path:
+def make_copy(name: str, source, old, new) -> Path:
     root = WORK / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(REPO / "accelerate_tpu_torch", root / "accelerate_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy2(REPO / "chip_smoke.py", root / "chip_smoke.py")
     if old is not None:
-        src = root / SOURCE
+        src = root / source
         text = src.read_text()
         if text.count(old) != 1:
-            raise SystemExit(f"{name}: the text to replace is not in {SOURCE} exactly once")
+            raise SystemExit(f"{name}: the text to replace is not in {source} exactly once")
         src.write_text(text.replace(old, new))
     return root
 
 
-def main_reading(stdout: str):
+def reading_of(stdout: str, case: str):
     for line in stdout.splitlines():
-        at = line.find('{"case": "main_bf16_causal"')
+        at = line.find(f'{{"case": "{case}"')
         if at >= 0:
             return json.loads(line[at:])
     return None
 
 
 def main() -> None:
-    procs = {}
-    for name, (old, new, _) in MUTANTS.items():
-        root = make_copy(name, old, new)
-        procs[name] = subprocess.Popen(
-            [sys.executable, "chip_smoke.py", "--check-only"], cwd=root,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    roots = {name: make_copy(name, *spec[:3]) for name, spec in MUTANTS.items()}
+    build = ("from accelerate_tpu_torch.ops import _build; "
+             "_build.build(['flash_attention', 'fused'])")
+    builds = {name: subprocess.Popen([sys.executable, "-c", build], cwd=root,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+              for name, root in roots.items()}
+    for name, proc in builds.items():
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise SystemExit(f"{name}: the build failed:\n{log[-3000:]}")
     missed = []
-    for name, proc in procs.items():
-        out, err = proc.communicate(timeout=900)
-        reading = main_reading(out)
-        want = MUTANTS[name][2]
-        if name == "control":
-            ok = proc.returncode == 0 and reading is not None and not reading["bad"]
-        else:
-            ok = (proc.returncode != 0 and reading is not None
-                  and all(k in reading["bad"] for k in want))
-        print(json.dumps({
-            "mutant": name, "caught_at_main_shape" if name != "control" else "passes": ok,
-            "rc": proc.returncode, "main": reading,
-        }), flush=True)
-        if not ok:
-            missed.append(name)
-            print(err[-3000:], file=sys.stderr)
+    for name, (_, _, _, checks) in MUTANTS.items():
+        for flag, case, want in checks:
+            proc = subprocess.run([sys.executable, "chip_smoke.py", flag], cwd=roots[name],
+                                  capture_output=True, text=True, timeout=900)
+            if case is None:  # a failure's text, or a clean pass for the control
+                reading = next((line for line in proc.stderr.splitlines() if "FAIL" in line),
+                               None)
+                if name == "control":
+                    ok = proc.returncode == 0 and reading is None
+                else:
+                    ok = proc.returncode != 0 and reading is not None and want in reading
+            else:
+                reading = reading_of(proc.stdout, case)
+                if name == "control":
+                    ok = proc.returncode == 0 and reading is not None and not reading["bad"]
+                else:
+                    ok = (proc.returncode != 0 and reading is not None
+                          and all(k in reading["bad"] for k in want))
+            if flag == SMALL:  # the tiny fused models' readings, pass or fail
+                reading = [line[line.find("small fused"):] for line in proc.stdout.splitlines()
+                           if "small fused model fp32" in line] + [reading]
+            print(json.dumps({
+                "mutant": name, "check": flag, "caught" if name != "control" else "passes": ok,
+                "rc": proc.returncode, "reading": reading,
+            }), flush=True)
+            if not ok:
+                missed.append(f"{name} {flag}")
+                print(proc.stderr[-3000:], file=sys.stderr)
     shutil.rmtree(WORK, ignore_errors=True)
     if missed:
         print(f"flash_mutants: FAIL: {missed}", file=sys.stderr)
