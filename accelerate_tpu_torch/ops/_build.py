@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` beside
 this file, on first use and never at import, and loaded with ``ctypes``.
-The hash covers the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded. The build directory is not committed.
+The hash covers the source, the headers beside it and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+The build directory is not committed.
 ``bind`` types a library's functions once; ``launch`` calls one on the
 current stream and raises on the error code it returns.
 """
@@ -48,8 +49,12 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every ``csrc/*.cuh`` header (sorted by name) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh"), key=lambda p: p.name):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -2,10 +2,14 @@
 // and the single-pass backward.
 //
 // Replaces the four Pallas TPU kernels of accelerate_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel       <- _fwd_kernel        (online-softmax forward, O and lse)
-//   flash_bwd_dq_kernel    <- _bwd_dq_kernel     (dq = sum_k ds . k)
-//   flash_bwd_dkv_kernel   <- _bwd_dkv_kernel    (dk = sum_q ds^T . q, dv = sum_q p^T . do)
-//   flash_bwd_fused_kernel <- _bwd_fused_kernel  (dq, dk and dv from one pass)
+//   flash_fwd_kernel, flash_fwd_wmma_kernel              <- _fwd_kernel (:150)
+//       online-softmax forward, O and lse
+//   flash_bwd_dq_kernel                                  <- _bwd_dq_kernel (:269)
+//       dq = sum_k ds . k
+//   flash_bwd_dkv_kernel                                 <- _bwd_dkv_kernel (:325)
+//       dk = sum_q ds^T . q, dv = sum_q p^T . do
+//   flash_bwd_fused_kernel, flash_bwd_fused_wmma_kernel  <- _bwd_fused_kernel (:422)
+//       dq, dk and dv from one pass
 //
 // Layout: q/o/do/dq are (B, S, H, D) and k/v/dk/dv are (B, Skv, Hkv, D), all
 // contiguous; lse and delta are (B, H, S) float32. Query head h reads kv head
@@ -17,29 +21,61 @@
 // gets O = 0 and lse = NEG_INF, and the backward kernels zero p where
 // lse <= NEG_INF / 2, so such rows get zero gradients.
 //
-// Design (first port, FA2-shaped and simple): one CTA of 16 warps per
-// (q tile, head, batch) for the forward and dq, per (kv tile, kv head, batch)
-// for dk/dv. Tiles are staged in shared memory, products run on the tensor
-// cores through nvcuda::wmma (bf16/fp16 in, fp32 out) and the fp32 tiles
-// (scores, accumulators) live in shared memory, so the per-row softmax
-// rescale is plain shared-memory arithmetic. The dk/dv CTA owns its kv tile
-// and loops over the G query heads of its group and every visible q tile,
-// so no atomics are needed. Tiles wholly above the diagonal, below the
-// window band or in the padded kv tail are skipped; the element mask is
-// applied only to tiles that straddle an edge. float32 inputs take a scalar
-// fp32 path (no TF32) with smaller tiles; it exists for exact comparisons.
-//
 // Bounds on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM), causal,
 // at B=2 S=2048 H=32 Hkv=8 D=128 (half the S x S products are visible):
 //   forward: 2 products, 4*B*H*S*S*D/2 FLOP = 68.7 GFLOP -> 69 us (operations)
 //   dq:      3 products, 103 GFLOP -> 104 us (operations)
 //   dk/dv:   4 products, 137 GFLOP -> 139 us (operations)
 //   fused:   5 products, 172 GFLOP -> 174 us (operations; dq + dk/dv: 243 us)
-// Each moves under 100 MB, so bytes bound none of them (< 30 us). What this
-// design leaves on the table: wmma fragments round-trip through shared
-// memory, loads are synchronous (no cp.async/TMA pipeline) and the shared
-// tiles hold one or two CTAs per SM at D=128; wgmma, TMA and warp
-// specialisation are later work.
+// Each moves under 100 MB, so bytes bound none of them (< 30 us): the
+// tensor cores' rate is the limit, and only wgmma reaches it.
+//
+// Two designs, chosen before the launch from the dtype and head_dim alone
+// (ops/flash_attention.py kernel_design() states the same rule):
+//
+// wgmma (bf16/fp16, head_dim 64 or 128): flash_fwd_kernel and
+// flash_bwd_fused_kernel, built from hopper.cuh. 256 threads, two
+// warpgroups, one CTA per SM. Products are wgmma with fp32 accumulators in
+// registers; the softmax (scale, mask on straddling tiles, row max by quad
+// shuffles, exp2, the running sum and the rescale of O) runs on those
+// registers, and p, rounded to 16 bits in registers, is the A operand of
+// the next product. Streamed tiles arrive by TMA into two-stage rings: the
+// launcher builds a 4-D tensor map {D, heads, seq, batch} per tensor on
+// every call (a box is 64 columns, the 128 bytes a 128-byte swizzle takes,
+// so a head_dim-128 tile is two boxes; rows past seq are zero-filled
+// inside their own batch row) and passes it by value; thread 0 asks for a
+// tile, which lands in the swizzle wgmma reads and completes on its stage's
+// mbarrier, so the copy of the next tile is in flight while this one is
+// multiplied and no thread spends instructions on it. The forward CTA
+// holds 128 q rows (64 a warpgroup) and streams 128-row K and V tiles;
+// blockIdx.x runs from the last q tile down, so the longest causal rows
+// start first. The single-pass backward CTA owns a 128-row kv tile of one
+// kv head (64 rows a warpgroup) with dK and dV in registers for its whole
+// sweep over the G query heads of its group and every visible 64-row q
+// tile; it works transposed (kv rows are the accumulator rows): S^T = K Q^T
+// and dP^T = V dO^T from shared memory, P^T and dS^T formed in registers
+// with lse and delta broadcast along the columns, dV += P^T dO and dK +=
+// dS^T Q with P^T and dS^T as register A operands (dO and Q MN-major). dS^T
+// is written once to shared memory as a 16-bit tile; dQ_pair = dS K is one
+// more wgmma (each warpgroup half of head_dim), added to the fp32 dq buffer
+// by 16-byte vector reductions from registers. What this design leaves for
+// later: warp specialisation (a producer warp and setmaxnreg), pingpong
+// scheduling of the two warpgroups so one's softmax overlaps the other's
+// products, a persistent grid, and a TMA reduce-add for dq.
+//
+// wmma (float32, other head dims, and dq, dk/dv for every dtype):
+// flash_fwd_wmma_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel and
+// flash_bwd_fused_wmma_kernel, the first port's FA2-shaped design: one CTA
+// of 16 warps per (q tile, head, batch) for the forward and dq, per (kv
+// tile, kv head, batch) for dk/dv and the single pass. Tiles are staged in
+// shared memory by synchronous loads, products run through nvcuda::wmma
+// (bf16/fp16 in, fp32 out) and the fp32 tiles (scores, accumulators) live
+// in shared memory. float32 inputs take a scalar fp32 path (no TF32) with
+// smaller tiles; it exists for exact comparisons.
+//
+// Both designs skip tiles wholly above the diagonal, below the window band
+// or in the padded kv tail, and apply the element mask only to tiles that
+// straddle an edge.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -48,6 +84,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -259,7 +297,7 @@ struct FwdSmem {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
+__global__ void __launch_bounds__(NTHREADS) flash_fwd_wmma_kernel(Params p) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   FwdSmem<T> sm;
@@ -567,7 +605,7 @@ struct FusedSmem {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_fused_kernel(Params p) {
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_fused_wmma_kernel(Params p) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   FusedSmem<T> sm;
@@ -630,45 +668,542 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_fused_kernel(Params p) {
 }
 
 // ------------------------------------------------------------------------
+// the wgmma design (bf16 / fp16, head_dim 64 or 128)
+// ------------------------------------------------------------------------
+constexpr int WG_THREADS = 256;  // two warpgroups
+constexpr float LOG2E = 1.4426950408889634f;
+
+// the shared tiles of the forward, byte offsets from a 1024-aligned base
+template <int D>
+struct FwdTiles {
+  static constexpr int BQ = 128, BK = 128;
+  static constexpr int Q = 0;
+  static constexpr int KV = BK * D * 2;  // one K or V stage
+  static constexpr int K = BQ * D * 2;   // stage s at K + s * KV
+  static constexpr int V = K + 2 * KV;
+  static constexpr int BAR = V + 2 * KV;  // mbarriers: Q, K stages 0 and 1, V stages 0 and 1
+  static constexpr int BYTES = BAR + 5 * 8;
+};
+
+// Fragment coordinates of accumulator register i (see hopper.cuh): the row
+// half (0: row, 1: row + 8) and the column within the tile.
+__device__ __forceinline__ int frag_half(int i) { return (i / 2) % 2; }
+__device__ __forceinline__ int frag_col(int i, int lane) {
+  return 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_fwd_kernel(Params p, const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv) {
+  using L = FwdTiles<D>;
+  constexpr int BQ = L::BQ, BK = L::BK;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t base = (hk::smem_u32(smem_raw) + 1023) & ~1023u;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int nq = gridDim.x, iq = nq - 1 - blockIdx.x;  // the longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hkv = h / (p.H / p.Hkv);
+  const int q0 = iq * BQ, qrows = min(BQ, p.S - q0), qmax = q0 + qrows - 1;
+  const int offset = p.Skv - p.S;
+  const int qstride = p.H * D;
+  const int kv_valid = kv_valid_of(p, b);
+  int c_lo, c_hi;
+  visible_cols(p, q0, qmax, kv_valid, offset, &c_lo, &c_hi);
+  const int t_begin = c_lo / BK, t_end = c_hi > c_lo ? (c_hi + BK - 1) / BK : t_begin;
+  const int ntiles = t_end - t_begin;
+
+  // Q once, and K and V through separate two-stage rings, by TMA: thread 0
+  // asks for a tile and the copy completes on its stage's mbarrier. The
+  // k-th fill of a stage is phase k of its barrier, so tile n is waited for
+  // with parity (n / 2) & 1. One __syncthreads a tile hands stages back:
+  // after the one at the top of tile n, K's stage of tile n (its S was
+  // waited for in tile n - 1) and V's stage of tile n - 1 (its P V
+  // likewise) are free, and K of tile n + 2 and V of tile n + 1 are asked
+  // for; each has a tile's products and softmax to land. Rows past the end
+  // are zeros. A CTA with no tile asks for nothing.
+  const uint32_t bar_q = base + L::BAR, bar_k = bar_q + 8, bar_v = bar_q + 24;
+  const bool leader = threadIdx.x == 0;
+  if (leader) {
+    for (int i = 0; i < 5; ++i) hk::mbar_init(bar_q + 8 * i, 1);
+    hk::mbar_fence_init();
+  }
+  __syncthreads();
+  auto load_k = [&](int n) {
+    if (leader && n < ntiles) {
+      hk::mbar_expect_tx(bar_k + 8 * (n & 1), BK * D * 2);
+      hk::tma_tile<BK, D>(base + L::K + (n & 1) * L::KV, &tk, hkv, (t_begin + n) * BK, b,
+                          bar_k + 8 * (n & 1));
+    }
+  };
+  auto load_v = [&](int n) {
+    if (leader && n < ntiles) {
+      hk::mbar_expect_tx(bar_v + 8 * (n & 1), BK * D * 2);
+      hk::tma_tile<BK, D>(base + L::V + (n & 1) * L::KV, &tv, hkv, (t_begin + n) * BK, b,
+                          bar_v + 8 * (n & 1));
+    }
+  };
+  auto wait_k = [&](int n) { hk::mbar_wait(bar_k + 8 * (n & 1), (n >> 1) & 1); };
+  auto wait_v = [&](int n) { hk::mbar_wait(bar_v + 8 * (n & 1), (n >> 1) & 1); };
+  if (leader && ntiles > 0) {
+    hk::mbar_expect_tx(bar_q, BQ * D * 2);
+    hk::tma_tile<BQ, D>(base + L::Q, &tq, h, q0, b, bar_q);
+  }
+  load_k(0);
+  load_v(0);
+  load_k(1);
+
+  // this thread's two rows: q0 + row0 and q0 + row0 + 8
+  const int row0 = wg * 64 + warp * 16 + lane / 4;
+  hk::Acc<BK> s;
+  hk::Acc<D> o;
+  o.zero();
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+  uint32_t pa[BK / 16][4];  // p of the tile whose P V is next, rounded to T
+  // S = Q K^T of tile n into s, this warpgroup's 64 rows (not waited for)
+  auto issue_s = [&](int n) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hk::wgmma_ss<T, 0, 0>(s, hk::desc_kmajor<BQ>(base + L::Q, wg * 64, kk),
+                            hk::desc_kmajor<BK>(base + L::K + (n & 1) * L::KV, 0, kk), kk > 0);
+  };
+  // the online softmax of tile n on the registers: s becomes p, m and l
+  // move on, corr is the factor for what O holds so far
+  auto softmax = [&](int n) {
+    const int k0 = (t_begin + n) * BK;
+    const bool masked = straddles(p, k0, BK, q0, qmax, kv_valid, offset);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      float x = s.d[i] * p.scale;
+      if (masked && !keep(p, q0 + row0 + 8 * frag_half(i), k0 + frag_col(i, lane), kv_valid,
+                          offset))
+        x = NEG_INF;
+      s.d[i] = x;
+      mx[frag_half(i)] = fmaxf(mx[frag_half(i)], x);
+    }
+    float ml[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m_new = fmaxf(m[hh], quad_max(mx[hh]));
+      corr[hh] = exp2f((m[hh] - m_new) * LOG2E);
+      // a row with no visible column yet keeps p = 0, never exp(0) = 1
+      ml[hh] = m_new <= NEG_INF * 0.5f ? 0.f : m_new * LOG2E;
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const float pv = exp2f(fmaf(s.d[i], LOG2E, -ml[frag_half(i)]));
+      sum[frag_half(i)] += pv;
+      s.d[i] = pv;
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * corr[hh] + sum[hh];
+  };
+
+  if (ntiles > 0) {  // tile 0's scores and softmax
+    hk::mbar_wait(bar_q, 0);
+    wait_k(0);
+    s.fence();
+    hk::wgmma_fence();
+    issue_s(0);
+    hk::wgmma_commit();
+    hk::wgmma_wait<0>();
+    s.fence();
+    softmax(0);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hk::pack_a<T>(s, kk, pa[kk]);  // tile 0's p
+  }
+  // O += P V of tile n: p in registers is the A operand, V MN-major
+  auto issue_pv = [&](int n) {
+    const int stage = n & 1;  // the ring stage that holds tile n
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hk::wgmma_rs<T, 1>(o, pa[kk], hk::desc_mnmajor<BK>(base + L::V + stage * L::KV, 0, kk), 1);
+  };
+  // Per tile n but the last: S of tile n + 1 and P V of tile n go to the
+  // tensor cores together, and the softmax of tile n + 1 runs while P V
+  // does.
+  for (int n = 0; n + 1 < ntiles; ++n) {
+    __syncthreads();  // every thread is done with K's stage of tile n, V's of n - 1
+    load_k(n + 2);
+    load_v(n + 1);
+    wait_k(n + 1);
+    wait_v(n);
+    s.fence();
+    o.fence();
+    hk::wgmma_fence();
+    issue_s(n + 1);
+    hk::wgmma_commit();
+    issue_pv(n);
+    hk::wgmma_commit();
+    hk::wgmma_wait<1>();  // S of tile n + 1 is done; P V may still run
+    s.fence();
+    softmax(n + 1);
+    hk::wgmma_wait<0>();
+    o.fence();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o.d[i] *= corr[frag_half(i)];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hk::pack_a<T>(s, kk, pa[kk]);
+  }
+  if (ntiles > 0) {  // the last tile's P V
+    wait_v(ntiles - 1);
+    o.fence();
+    hk::wgmma_fence();
+    issue_pv(ntiles - 1);
+    hk::wgmma_commit();
+    hk::wgmma_wait<0>();
+    o.fence();
+  }
+
+  uint16_t* O = static_cast<uint16_t*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
+  float* lse = p.lse + ((size_t)b * p.H + h) * p.S;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = quad_sum(l[hh]);
+    lt = lt == 0.f ? 1.f : lt;
+    const float inv = 1.f / lt;
+    const int row = q0 + row0 + 8 * hh;
+    if (row >= p.S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(O + (size_t)row * qstride + 8 * j + 2 * (lane % 4)) =
+          hk::pack2<T>(o.d[4 * j + 2 * hh] * inv, o.d[4 * j + 2 * hh + 1] * inv);
+    if (lane % 4 == 0) lse[row] = m[hh] + logf(lt);
+  }
+}
+
+// the shared tiles of the single-pass backward, byte offsets from a
+// 1024-aligned base
+template <int D>
+struct BwdTiles {
+  static constexpr int BQ = 64, BK = 128;
+  static constexpr int K = 0;
+  static constexpr int V = BK * D * 2;
+  static constexpr int QS = BQ * D * 2;  // one Q or dO stage
+  static constexpr int Q = 2 * BK * D * 2;  // stage s at Q + s * QS
+  static constexpr int DO = Q + 2 * QS;
+  static constexpr int DS = DO + 2 * QS;        // dS^T, BK x BQ, 16-bit
+  static constexpr int LSE = DS + BK * BQ * 2;  // stage s at LSE + s * BQ * 4
+  static constexpr int DELTA = LSE + 2 * BQ * 4;
+  static constexpr int BAR = DELTA + 2 * BQ * 4;  // mbarriers: K and V, Q/dO stages 0 and 1
+  static constexpr int BYTES = BAR + 3 * 8;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_fused_kernel(Params p, const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo) {
+  using L = BwdTiles<D>;
+  constexpr int BQ = L::BQ, BK = L::BK;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t base = (hk::smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - hk::smem_u32(smem_raw));
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int ik = blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;  // kv tile 0, the longest, first
+  const int G = p.H / p.Hkv;
+  const int k0 = ik * BK;
+  const int offset = p.Skv - p.S;
+  const int qstride = p.H * D, kstride = p.Hkv * D;
+  const size_t kbase = ((size_t)b * p.Skv * p.Hkv + hkv) * D;
+  const int kv_valid = kv_valid_of(p, b);
+  // q rows that see any column of this tile: [r_lo, r_hi)
+  int r_lo = 0, r_hi = 0;
+  if (k0 < kv_valid) {
+    const int kmax = min(k0 + BK, kv_valid) - 1;
+    r_lo = p.causal ? max(0, k0 - offset) : 0;
+    r_hi = p.S;
+    if (p.window > 0) r_hi = min(r_hi, max(0, kmax - offset + p.window));
+  }
+  const int t_begin = r_lo / BQ, t_end = r_hi > r_lo ? (r_hi + BQ - 1) / BQ : t_begin;
+  const int nt = t_end - t_begin, total = G * nt;  // (query head, q tile) pairs, head-major
+
+  // K and V once, then Q and dO of pair n into ring stage n & 1, by TMA:
+  // thread 0 asks for the tiles and they complete on an mbarrier (K and V's,
+  // or the stage's, whose k-th fill is phase k: pair n waits with parity
+  // (n / 2) & 1). lse and delta of pair n come by 4-byte cp.async from
+  // threads 0-127: a tensor map's row stride must be a multiple of 16
+  // bytes, and S * 4 is not for every S. Rows past S are zeros (lse and
+  // delta too): their p
+  // multiplies zero dO and their dS is p (0 - 0) scale = 0, so they add
+  // nothing, and their dq is not stored. A CTA with no pair asks for
+  // nothing.
+  const uint32_t bar_kv = base + L::BAR, bar_qd = bar_kv + 8;  // stage s at bar_qd + 8 s
+  const bool leader = threadIdx.x == 0;
+  if (leader) {
+    for (int i = 0; i < 3; ++i) hk::mbar_init(bar_kv + 8 * i, 1);
+    hk::mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int n) {
+    const int h = hkv * G + n / nt, q0 = (t_begin + n % nt) * BQ, stage = n & 1;
+    if (leader) {
+      const uint32_t bar = bar_qd + 8 * stage;
+      hk::mbar_expect_tx(bar, 2 * BQ * D * 2);
+      hk::tma_tile<BQ, D>(base + L::Q + stage * L::QS, &tq, h, q0, b, bar);
+      hk::tma_tile<BQ, D>(base + L::DO + stage * L::QS, &tdo, h, q0, b, bar);
+    }
+    const int r = threadIdx.x % BQ;
+    const bool valid = q0 + r < p.S;
+    const size_t at = ((size_t)b * p.H + h) * p.S + (valid ? q0 + r : 0);
+    if (threadIdx.x < BQ)
+      hk::cp_async4(base + L::LSE + stage * BQ * 4 + r * 4, p.lse_in + at, valid);
+    else if (threadIdx.x < 2 * BQ)
+      hk::cp_async4(base + L::DELTA + stage * BQ * 4 + r * 4, p.delta + at, valid);
+  };
+  if (total > 0) {
+    if (leader) {
+      hk::mbar_expect_tx(bar_kv, 2 * BK * D * 2);
+      hk::tma_tile<BK, D>(base + L::K, &tk, hkv, k0, b, bar_kv);
+      hk::tma_tile<BK, D>(base + L::V, &tv, hkv, k0, b, bar_kv);
+    }
+    issue(0);
+  }
+  hk::cp_async_commit();
+
+  // this thread's two kv rows of the tile: krow0 and krow0 + 8
+  const int krow0 = wg * 64 + warp * 16 + lane / 4;
+  hk::Acc<D> dk, dv;
+  dk.zero();
+  dv.zero();
+  for (int n = 0; n < total; ++n) {
+    if (n + 1 < total) {  // pair n + 1 into the other stage, in flight while n is used
+      issue(n + 1);
+      hk::cp_async_commit();
+      hk::cp_async_wait<1>();
+    } else {
+      hk::cp_async_wait<0>();
+    }
+    __syncthreads();  // lse and delta of pair n are there for every thread
+    if (n == 0) hk::mbar_wait(bar_kv, 0);
+    hk::mbar_wait(bar_qd + 8 * (n & 1), (n >> 1) & 1);
+    const int h = hkv * G + n / nt, q0 = (t_begin + n % nt) * BQ, stage = n & 1;
+    const int qmax = min(q0 + BQ, p.S) - 1;
+    const uint32_t qt = base + L::Q + stage * L::QS, dot = base + L::DO + stage * L::QS;
+    const float* lse_s = reinterpret_cast<const float*>(sbase + L::LSE + stage * BQ * 4);
+    const float* delta_s = reinterpret_cast<const float*>(sbase + L::DELTA + stage * BQ * 4);
+
+    // S^T = K Q^T and dP^T = V dO^T, this warpgroup's 64 kv rows
+    hk::Acc<BQ> st, dpt;
+    st.fence();
+    dpt.fence();
+    hk::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hk::wgmma_ss<T, 0, 0>(st, hk::desc_kmajor<BK>(base + L::K, wg * 64, kk),
+                            hk::desc_kmajor<BQ>(qt, 0, kk), kk > 0);
+    hk::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hk::wgmma_ss<T, 0, 0>(dpt, hk::desc_kmajor<BK>(base + L::V, wg * 64, kk),
+                            hk::desc_kmajor<BQ>(dot, 0, kk), kk > 0);
+    hk::wgmma_commit();
+    hk::wgmma_wait<1>();  // S^T is done; dP^T may still run
+    st.fence();
+
+    // P^T = exp(S^T scale - lse), lse along the columns (q rows)
+    const bool masked = straddles(p, k0, BK, q0, qmax, kv_valid, offset);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int c = frag_col(i, lane);
+      float x = st.d[i] * p.scale;
+      if (masked && !keep(p, q0 + c, k0 + krow0 + 8 * frag_half(i), kv_valid, offset))
+        x = NEG_INF;
+      const float lv = lse_s[c];
+      st.d[i] = lv <= NEG_INF * 0.5f ? 0.f : exp2f(fmaf(x, LOG2E, -lv * LOG2E));
+    }
+    hk::wgmma_wait<0>();
+    dpt.fence();
+    // dS^T = P^T (dP^T - delta) scale
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const float dl = delta_s[frag_col(i, lane)];
+      dpt.d[i] = st.d[i] * (dpt.d[i] - dl) * p.scale;
+    }
+
+    // dV += P^T dO and dK += dS^T Q: P^T (rounded to dO's type) and dS^T
+    // (rounded to K's) are the register A operands; dO and Q MN-major
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hk::pack_a<T>(st, kk, pa[kk]);
+      hk::pack_a<T>(dpt, kk, sa[kk]);
+    }
+    dk.fence();
+    dv.fence();
+    hk::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hk::wgmma_rs<T, 1>(dv, pa[kk], hk::desc_mnmajor<BQ>(dot, 0, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hk::wgmma_rs<T, 1>(dk, sa[kk], hk::desc_mnmajor<BQ>(qt, 0, kk), 1);
+    hk::wgmma_commit();
+
+    // dS^T to shared memory once, as a 16-bit tile of BK kv rows x BQ q rows
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = krow0 + 8 * (i % 2), c = 16 * kk + 8 * (i / 2) + 2 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(sbase + L::DS + hk::swizzled<BK>(r, c)) = sa[kk][i];
+      }
+    hk::fence_proxy_async();
+    __syncthreads();
+
+    // dq_pair = dS K over the whole kv tile, this warpgroup's half of
+    // head_dim: dS (q x kv) and K (kv x d) both MN-major from shared memory
+    hk::Acc<D / 2> dq;
+    dq.fence();
+    hk::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hk::wgmma_ss<T, 1, 1>(dq, hk::desc_mnmajor<BK>(base + L::DS, 0, kk),
+                            hk::desc_mnmajor<BK>(base + L::K, wg * (D / 2), kk), kk > 0);
+    hk::wgmma_commit();
+    hk::wgmma_wait<0>();  // dV and dK are done too
+    dq.fence();
+    dk.fence();
+    dv.fence();
+
+    // add dq_pair to the fp32 buffer, 4 consecutive floats a reduction:
+    // lanes 2i and 2i + 1 swap halves so that the even lane holds 4 columns
+    // of row r and the odd lane 4 columns of row r + 8
+    float* DQ = p.dq_acc + ((size_t)b * p.S * p.H + h) * D + wg * (D / 2);
+    const bool odd = lane & 1;
+    const int qrow = q0 + warp * 16 + lane / 4 + (odd ? 8 : 0);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const float s0 = odd ? dq.d[4 * j] : dq.d[4 * j + 2];
+      const float s1 = odd ? dq.d[4 * j + 1] : dq.d[4 * j + 3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      const float4 v = odd ? make_float4(r0, r1, dq.d[4 * j + 2], dq.d[4 * j + 3])
+                           : make_float4(dq.d[4 * j], dq.d[4 * j + 1], r0, r1);
+      const int col = 8 * j + 2 * (lane % 4) - (odd ? 2 : 0);
+      if (qrow < p.S) atomicAdd(reinterpret_cast<float4*>(DQ + (size_t)qrow * qstride + col), v);
+    }
+    __syncthreads();  // stage n and the dS^T tile are free again
+  }
+
+  uint16_t* dK = static_cast<uint16_t*>(p.o) + kbase;
+  uint16_t* dV = static_cast<uint16_t*>(p.o2) + kbase;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = k0 + krow0 + 8 * hh;
+    if (row >= p.Skv) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t at = (size_t)row * kstride + 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(dK + at) =
+          hk::pack2<T>(dk.d[4 * j + 2 * hh], dk.d[4 * j + 2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(dV + at) =
+          hk::pack2<T>(dv.d[4 * j + 2 * hh], dv.d[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
 // launchers
 // ------------------------------------------------------------------------
 enum Kind { FWD = 0, DQ = 1, DKV = 2, FUSED = 3 };
 
-template <typename T>
-cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
-  constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
-  size_t bytes;
-  const void* fn;
-  dim3 grid;
-  if (kind == FWD) {
-    bytes = FwdSmem<T>::carve(nullptr, p.D, nullptr);
-    fn = reinterpret_cast<const void*>(&flash_fwd_kernel<T>);
-    grid = dim3((p.S + BQ - 1) / BQ, p.H, p.B);
-  } else if (kind == DQ) {
-    bytes = DqSmem<T>::carve(nullptr, p.D, nullptr);
-    fn = reinterpret_cast<const void*>(&flash_bwd_dq_kernel<T>);
-    grid = dim3((p.S + BQ - 1) / BQ, p.H, p.B);
-  } else if (kind == DKV) {
-    bytes = DkvSmem<T>::carve(nullptr, p.D, nullptr);
-    fn = reinterpret_cast<const void*>(&flash_bwd_dkv_kernel<T>);
-    grid = dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B);
-  } else {
-    bytes = FusedSmem<T>::carve(nullptr, p.D, nullptr);
-    fn = reinterpret_cast<const void*>(&flash_bwd_fused_kernel<T>);
-    grid = dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B);
-  }
+// args points at the kernel's parameters, in order
+cudaError_t launch_args(const void* fn, dim3 grid, int threads, size_t bytes, void** args,
+                        cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  void* args[] = {const_cast<Params*>(&p)};
-  err = cudaLaunchKernel(fn, grid, dim3(NTHREADS), args, bytes, stream);
+  err = cudaLaunchKernel(fn, grid, dim3(threads), args, bytes, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+cudaError_t launch_fn(const void* fn, dim3 grid, int threads, size_t bytes, const Params& p,
+                      cudaStream_t stream) {
+  void* args[] = {const_cast<Params*>(&p)};
+  return launch_args(fn, grid, threads, bytes, args, stream);
+}
+
+// Whether a launch takes the wgmma design: the forward and the single pass
+// for bf16/fp16 (dtype codes 1, 2) at head_dim 64 or 128. kernel_design()
+// in ops/flash_attention.py states the same rule; chip_smoke.py checks
+// through flash_design below that the two agree.
+bool wgmma_design(Kind kind, int dtype, int D) {
+  return (kind == FWD || kind == FUSED) && (dtype == 1 || dtype == 2) && (D == 64 || D == 128);
+}
+
+// the wgmma design: the tensor maps are built on every call and passed by
+// value (__grid_constant__); 1024 bytes of slack align the tiles' base
+template <typename T, int D>
+cudaError_t launch_wgmma(Kind kind, const Params& p, cudaStream_t stream) {
+  const bool fwd = kind == FWD;
+  const int q_rows = fwd ? FwdTiles<D>::BQ : BwdTiles<D>::BQ;
+  const int kv_rows = fwd ? FwdTiles<D>::BK : BwdTiles<D>::BK;
+  Params args_p = p;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = hk::tmap_bshd(&tq, p.q, p.B, p.S, p.H, D, q_rows)) != cudaSuccess ||
+      (err = hk::tmap_bshd(&tk, p.k, p.B, p.Skv, p.Hkv, D, kv_rows)) != cudaSuccess ||
+      (err = hk::tmap_bshd(&tv, p.v, p.B, p.Skv, p.Hkv, D, kv_rows)) != cudaSuccess)
+    return err;
+  if (fwd) {
+    void* args[] = {&args_p, &tq, &tk, &tv};
+    return launch_args(reinterpret_cast<const void*>(&flash_fwd_kernel<T, D>),
+                       dim3((p.S + q_rows - 1) / q_rows, p.H, p.B), WG_THREADS,
+                       FwdTiles<D>::BYTES + 1024, args, stream);
+  }
+  if ((err = hk::tmap_bshd(&tdo, p.dout, p.B, p.S, p.H, D, q_rows)) != cudaSuccess) return err;
+  void* args[] = {&args_p, &tq, &tk, &tv, &tdo};
+  return launch_args(reinterpret_cast<const void*>(&flash_bwd_fused_kernel<T, D>),
+                     dim3((p.Skv + kv_rows - 1) / kv_rows, p.Hkv, p.B), WG_THREADS,
+                     BwdTiles<D>::BYTES + 1024, args, stream);
+}
+
+template <typename T>
+cudaError_t launch_wgmma_d(Kind kind, const Params& p, cudaStream_t stream) {
+  return p.D == 128 ? launch_wgmma<T, 128>(kind, p, stream) : launch_wgmma<T, 64>(kind, p, stream);
+}
+
+// the wmma design
+template <typename T>
+cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
+  constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
+  if (kind == FWD)
+    return launch_fn(reinterpret_cast<const void*>(&flash_fwd_wmma_kernel<T>),
+                     dim3((p.S + BQ - 1) / BQ, p.H, p.B), NTHREADS,
+                     FwdSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
+  if (kind == DQ)
+    return launch_fn(reinterpret_cast<const void*>(&flash_bwd_dq_kernel<T>),
+                     dim3((p.S + BQ - 1) / BQ, p.H, p.B), NTHREADS,
+                     DqSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
+  if (kind == DKV)
+    return launch_fn(reinterpret_cast<const void*>(&flash_bwd_dkv_kernel<T>),
+                     dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B), NTHREADS,
+                     DkvSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
+  return launch_fn(reinterpret_cast<const void*>(&flash_bwd_fused_wmma_kernel<T>),
+                   dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B), NTHREADS,
+                   FusedSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
 }
 
 // dtype codes: 0 float32, 1 bfloat16, 2 float16
 cudaError_t dispatch(Kind kind, int dtype, const Params& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma_design(kind, dtype, p.D))
+    return dtype == 1 ? launch_wgmma_d<__nv_bfloat16>(kind, p, s)
+                      : launch_wgmma_d<__half>(kind, p, s);
   switch (dtype) {
     case 0: return launch<float>(kind, p, s);
     case 1: return launch<__nv_bfloat16>(kind, p, s);
@@ -756,6 +1291,12 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, cons
   p.o = dk;
   p.o2 = dv;
   return (int)dispatch(FUSED, dtype, p, stream);
+}
+
+// 1 when flash_fwd (kind 0) or flash_bwd_fused (kind 3) launches the wgmma
+// design for this dtype code and head_dim, else 0 (the wmma design)
+extern "C" int flash_design(int kind, int dtype, int D) {
+  return wgmma_design(static_cast<Kind>(kind), dtype, D) ? 1 : 0;
 }
 
 extern "C" const char* flash_error_string(int err) {

@@ -9,15 +9,23 @@ for sm_90a, bound with ctypes):
 * ``flash_bwd_dkv``   <- ``_bwd_dkv_kernel``:   dk, dv (no atomics: one CTA
   owns a kv tile and sweeps its GQA group and every q tile)
 * ``flash_bwd_fused`` <- ``_bwd_fused_kernel``: dq, dk and dv in one pass
-  (the dk/dv CTA also adds each pair's dq into an fp32 buffer with
-  atomics); taken by the backward when ``FUSED_BWD`` is True, as in the
+  (the dk/dv CTA also adds each pair's dq into an fp32 buffer with vector
+  reductions); taken by the backward when ``FUSED_BWD`` is True, as in the
   reference
+
+The forward and the single pass have two designs, chosen before the launch
+by ``kernel_design`` from the dtype and head_dim alone: ``"wgmma"`` (Hopper
+wgmma, the softmax in registers, tiles streamed by TMA) for bf16/fp16 at
+head_dim 64 or 128, ``"wmma"`` (the first port's kernels) otherwise. dq and
+dk/dv are wmma.
 
 Beside each kernel sits its plain PyTorch version (``*_reference``): the
 same function with the same masks, sentinels and rounding points, computed
 densely. A wrapper takes the plain version only for a tensor on the CPU;
 for a CUDA tensor it launches its kernel or raises. Each wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches``; ``flash_fwd`` and
+``flash_bwd_fused`` also count them in ``<wrapper>.by_design``, under
+``kernel_design``'s answer at the launch.
 
 Layout: the public function takes (batch, seq, heads, head_dim) like
 ``ops.attention``; the kernels read that layout directly. lse and delta
@@ -44,6 +52,18 @@ NEG_INF = -1e30  # large-negative instead of -inf: avoids NaN from inf - inf
 FUSED_BWD = False
 
 _MAX_HEAD_DIM = 128
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def kernel_design(dtype: torch.dtype, head_dim: int) -> str:
+    """The design the forward and the single-pass kernels take for these
+    inputs: ``"wgmma"`` for bf16/fp16 at head_dim 64 or 128, else
+    ``"wmma"``. ``wgmma_design`` in csrc/flash_attention.cu applies the same
+    rule at the launch; its export ``flash_design`` lets a run on the card
+    check that the two agree."""
+    if dtype in (torch.bfloat16, torch.float16) and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "wmma"
 
 
 # ---------------------------------------------------------------------- #
@@ -176,6 +196,7 @@ _SIGNATURES = {
     "flash_bwd_dq": [_P] * 8 + _SHAPE_ARGS,
     "flash_bwd_dkv": [_P] * 9 + _SHAPE_ARGS,
     "flash_bwd_fused": [_P] * 10 + _SHAPE_ARGS,
+    "flash_design": [_I, _I, _I],
 }
 
 
@@ -242,6 +263,7 @@ def flash_fwd(q, k, v, scale, causal=True, kv_lengths=None, window=None):
                       device=q.device)
     _launch("flash_fwd", (q, k, v, kv_lengths, out, lse), q, k, scale, causal, window)
     flash_fwd.launches += 1
+    flash_fwd.by_design[kernel_design(q.dtype, q.shape[3])] += 1
     return out, lse
 
 
@@ -280,7 +302,7 @@ def flash_bwd_fused(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=No
                     window=None):
     """(dq, dk, dv) — the single-pass kernel on CUDA tensors, its plain
     version on CPU tensors. dq is summed in a zeroed fp32 buffer by the
-    kernel's atomics, then cast to q's dtype."""
+    kernel's vector reductions, then cast to q's dtype."""
     if not q.is_cuda:
         return flash_bwd_fused_reference(q, k, v, dout, lse, delta, scale, causal,
                                          kv_lengths, window)
@@ -291,6 +313,7 @@ def flash_bwd_fused(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=No
     _launch("flash_bwd_fused", (q, k, v, dout, lse, delta, kv_lengths, dq_acc, dk, dv), q,
             k, scale, causal, window)
     flash_bwd_fused.launches += 1
+    flash_bwd_fused.by_design[kernel_design(q.dtype, q.shape[3])] += 1
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -298,6 +321,8 @@ flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_fused.launches = 0
+flash_fwd.by_design = {"wgmma": 0, "wmma": 0}
+flash_bwd_fused.by_design = {"wgmma": 0, "wmma": 0}
 KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_bwd_fused)
 
 

@@ -10,24 +10,32 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. kernels: hold each kernel against its plain PyTorch version on the
    card. The flash kernels (forward, dq, dk/dv and the single-pass
    backward, the latter also against dq + dk/dv) at the main path's shape
-   in bf16 and on small cases (non-causal, one kv head per query head,
-   window, kv lengths with an empty row, kv longer than q, fp32 at a tight
-   tolerance); the fused prologue at the main shape, with a bias, at a GQA
+   in bf16 and on small cases that reach the edges of both designs (bf16
+   and fp16 at head_dim 64 and 128, S = 129 and 255, a window across a
+   128-row tile, kv lengths with an empty row, one and four query heads a
+   kv head, kv longer or shorter than q, non-causal, head_dim 96 on the
+   wmma design, fp32 at a tight tolerance), each case's launches counted
+   by design (``kernel_design``'s answer at the launch, first held against
+   the C launcher's own rule); the fused prologue at the main shape, with a bias, at a GQA
    width whose column tile is 256, on rows that do not fill a tile, in
    fp16 and fp32; the AdamW epilogue BIT FOR BIT on the main path's 39
    leaf shapes plus an odd-sized and a 0-d leaf, finite and held. Time
    kernel, plain version and, where one PyTorch call computes the same
-   function (SDPA's forward for B1, ``torch._fused_adamw_`` for the
-   epilogue), that call; else a named yardstick.
+   function (SDPA's forward for B1, PyTorch's flash-attention backward op
+   for B4, ``torch._fused_adamw_`` for the epilogue), that call; else a
+   named yardstick.
 3. small models: a tiny CausalLM through the kernels on the card against
    the same weights through the plain path on the CPU; then a tiny
    ``fused_kernels=True`` CausalLM with ``fused_adamw`` and the single-pass
    backward trained 3 steps on the card against the CPU, from three seeds.
 4. main path: a Llama-3-8B-width CausalLM (4 layers) trained for a few
    ``Accelerator.unified_step``s in bf16 with AdamW and clipping, with
-   every kernel launch counter set to 0 just before and read just after.
+   every kernel launch counter set to 0 just before and read just after;
+   then one profiled step, whose kernel names must be the path's kernels.
 5. fused path: the same model with ``fused_kernels=True``, ``fused_adamw``
-   and ``flash_attention.FUSED_BWD = True``, counters read the same way.
+   and ``flash_attention.FUSED_BWD = True``, counters and profiled step
+   read the same way; its loss curve must stay within PATH_LOSS_TOL of the
+   main path's.
 
 Prints one JSON line describing the kernels, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -55,6 +63,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +75,7 @@ NUM_LAYERS = 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+SPIN_CYCLES = 4_000_000  # about 2 ms of the SM clock: longer than a wrapper's host work
 # limits about 3x the largest reading of a correct kernel on an H100
 # (PERF.md): worst row error, see above, and lse's max abs error
 TOL = {"bfloat16": 0.1, "float16": 1e-2, "float32": 1e-5}
@@ -73,18 +83,29 @@ LSE_TOL = {"bfloat16": 5e-6, "float16": 5e-6, "float32": 2e-6}
 PROLOGUE_TOL = {"bfloat16": 0.05, "float16": 5e-3, "float32": 1e-5}  # the same row error
 SMALL_UPDATE_TOL = 3e-4  # |card - CPU| / |CPU update| of the tiny fused model's params
 SMALL_SEEDS = (0, 1, 2)  # weights and batches of the tiny fused model
+# |fused path loss - main path loss| / main path loss, by step: about 3x the
+# largest reading over seeds and repeats of tools/path_bisect.py (PERF.md)
+PATH_LOSS_TOL = (5e-5, 3e-4, 2e-3, 3e-3, 1e-2)
 FLASH_SRC = "accelerate_tpu_torch/ops/csrc/flash_attention.cu"
 FUSED_SRC = "accelerate_tpu_torch/ops/csrc/fused.cu"
-KERNELS = {  # wrapper name -> (kernel name, the Pallas kernel it replaces, source)
-    "flash_fwd": ("flash_fwd_kernel", "accelerate_tpu/ops/flash_attention.py:150", FLASH_SRC),
+# wrapper name -> (kernel name, the Pallas kernel it replaces, source, its
+# design; None: two designs, the row says which one the main shape's case
+# launched, from the wrapper's per-design counter)
+KERNELS = {
+    # the wmma design of B1 and B4 (fp32, other head dims) launches as
+    # flash_fwd_wmma_kernel and flash_bwd_fused_wmma_kernel
+    "flash_fwd": ("flash_fwd_kernel", "accelerate_tpu/ops/flash_attention.py:150", FLASH_SRC,
+                  None),
     "flash_bwd_dq": ("flash_bwd_dq_kernel", "accelerate_tpu/ops/flash_attention.py:269",
-                     FLASH_SRC),
+                     FLASH_SRC, "wmma"),
     "flash_bwd_dkv": ("flash_bwd_dkv_kernel", "accelerate_tpu/ops/flash_attention.py:325",
-                      FLASH_SRC),
+                      FLASH_SRC, "wmma"),
     "flash_bwd_fused": ("flash_bwd_fused_kernel", "accelerate_tpu/ops/flash_attention.py:422",
-                        FLASH_SRC),
-    "qkv_prologue": ("qkv_prologue_kernel", "accelerate_tpu/ops/fused.py:214", FUSED_SRC),
-    "adamw_epilogue": ("adamw_kernel", "accelerate_tpu/ops/fused.py:426", FUSED_SRC),
+                        FLASH_SRC, None),
+    "qkv_prologue": ("qkv_prologue_kernel", "accelerate_tpu/ops/fused.py:214", FUSED_SRC,
+                     "wmma"),
+    "adamw_epilogue": ("adamw_kernel", "accelerate_tpu/ops/fused.py:426", FUSED_SRC,
+                       "elementwise"),
 }
 LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
@@ -115,13 +136,17 @@ class Report:
 
 def time_ms(torch, fn, iters: int, flush) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each after an
-    L2 flush, by CUDA events around the call alone."""
+    L2 flush, by CUDA events around the call alone. A spin kernel queued
+    between the flush and the start event keeps the card busy while the
+    host prepares the call, so the host's time before the first kernel of
+    ``fn`` reaches the card is not counted as the card's."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
-        flush()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -157,10 +182,14 @@ def make_inputs(torch, B, S, H, Hkv, D, dtype, Skv=None, seed=0):
 def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
                window=None, lens=None):
     """All four flash kernels against their plain versions on one case, and
-    the single-pass backward against dq + dk/dv. Returns the case's
-    readings (printed as one JSON line) and the max abs error of each
-    kernel's outputs."""
+    the single-pass backward against dq + dk/dv. The forward and the single
+    pass must each count one launch under ``fa.kernel_design``'s design
+    (the rule's answer at the launch; ``check_design_rule`` holds it against
+    the C launcher's). Returns the case's readings (printed as one JSON
+    line) and the max abs error of each kernel's outputs."""
     q, k, v, dout = make_inputs(torch, B, S, H, Hkv, D, dtype, Skv)
+    designed = (fa.flash_fwd, fa.flash_bwd_fused)
+    before = [dict(w.by_design) for w in designed]
     kv_lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
     scale = D ** -0.5
     args = (scale, causal, kv_lengths, window)
@@ -175,6 +204,9 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
     ref_fdq, ref_fdk, ref_fdv = fa.flash_bwd_fused_reference(q, k, v, dout, ref_lse, delta,
                                                              *args)
     torch.cuda.synchronize()
+    ran = {w.__name__: [d for d, n in w.by_design.items() if n != b[d]]
+           for w, b in zip(designed, before)}
+    design = fa.kernel_design(dtype, D)
     tag = str(dtype).replace("torch.", "")
     pairs = {"o": (out, ref_out), "dq": (dq, ref_dq), "dk": (dk, ref_dk), "dv": (dv, ref_dv),
              "fused_dq": (fdq, ref_fdq), "fused_dk": (fdk, ref_fdk), "fused_dv": (fdv, ref_fdv)}
@@ -187,8 +219,10 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
     bad += [f"{k}_vs_two_pass" for k, e in vs_two_pass.items() if not e <= TOL[tag]]
     if not lse_err <= LSE_TOL[tag]:
         bad.append("lse")
+    bad += [f"{w}_design" for w, got in ran.items() if got != [design]]
     reading = {
-        "case": name, "dtype": tag, "row_err": errs, "row_err_vs_two_pass": vs_two_pass,
+        "case": name, "dtype": tag, "design": design, "launched": ran, "row_err": errs,
+        "row_err_vs_two_pass": vs_two_pass,
         "row_limit": TOL[tag], "lse_abs_err": lse_err, "lse_limit": LSE_TOL[tag], "bad": bad,
         # the global max|err| / max|plain|, for comparison only
         "global_rel_err": {k: rel_err(torch, *gw) for k, gw in pairs.items()},
@@ -293,19 +327,44 @@ def visible_pairs(torch, S, Skv, causal) -> int:
     return int(keep.sum())
 
 
-def kernel_phase(torch, port, fa, fused, rep: Report, check_only: bool = False) -> list[dict]:
+def check_design_rule(fa, build, rep: Report) -> None:
+    """``fa.kernel_design``, by which the wrappers count launches, against
+    ``flash_design``, the rule the C launcher takes its design by, for the
+    forward and the single pass at every dtype and head_dim they take."""
+    lib = build.bind("flash_attention", fa._SIGNATURES, "flash_error_string")
+    kinds = {"flash_fwd": 0, "flash_bwd_fused": 3}  # the launcher's Kind codes
+    wrong = [(w, str(dtype), D) for w, kind in kinds.items()
+             for dtype, code in build.DTYPE_CODES.items() for D in range(16, 129, 16)
+             if (lib.flash_design(kind, code, D) == 1) != (fa.kernel_design(dtype, D) == "wgmma")]
+    if wrong:
+        fail(f"kernel_design and the C launcher's flash_design disagree on {wrong}")
+    rep.line("kernel_design agrees with the C launcher's flash_design for the forward and the "
+             "single pass at every dtype and head_dim")
+
+
+def kernel_phase(torch, port, fa, fused, build, rep: Report,
+                 check_only: bool = False) -> list[dict]:
     import torch.nn.functional as F
 
-    bf16 = torch.bfloat16
+    check_design_rule(fa, build, rep)
+    bf16, fp16 = torch.bfloat16, torch.float16
     cases = [
         ("noncausal", dict(B=2, S=200, H=4, Hkv=2, D=64, dtype=bf16, causal=False)),
         ("mha_g1", dict(B=2, S=200, H=4, Hkv=4, D=128, dtype=bf16)),
+        ("gqa_g4", dict(B=2, S=200, H=8, Hkv=2, D=128, dtype=bf16)),
         ("window", dict(B=2, S=200, H=4, Hkv=2, D=64, dtype=bf16, window=50)),
+        ("window_across_128_rows", dict(B=2, S=384, H=4, Hkv=2, D=128, dtype=bf16, window=160)),
         ("kv_lengths_zero_row", dict(B=2, S=200, H=4, Hkv=2, D=64, dtype=bf16,
                                      causal=False, lens=[0, 130])),
+        ("kv_lengths_zero_row_d128", dict(B=2, S=200, H=4, Hkv=2, D=128, dtype=bf16,
+                                          lens=[0, 130])),
         ("kv_longer_than_q", dict(B=2, S=64, Skv=200, H=4, Hkv=2, D=64, dtype=bf16)),
         ("q_longer_than_kv", dict(B=2, S=200, Skv=100, H=4, Hkv=2, D=64, dtype=bf16)),
-        ("fp16", dict(B=2, S=200, H=4, Hkv=2, D=64, dtype=torch.float16)),
+        ("s129_d128", dict(B=2, S=129, H=4, Hkv=2, D=128, dtype=bf16)),
+        ("s255_d64", dict(B=2, S=255, H=4, Hkv=2, D=64, dtype=bf16)),
+        ("fp16", dict(B=2, S=200, H=4, Hkv=2, D=64, dtype=fp16)),
+        ("fp16_d128_s255", dict(B=2, S=255, H=4, Hkv=1, D=128, dtype=fp16)),
+        ("d96_wmma", dict(B=2, S=200, H=4, Hkv=2, D=96, dtype=bf16)),
         ("fp32", dict(B=2, S=100, H=4, Hkv=2, D=64, dtype=torch.float32)),
         ("fp32_window_lengths", dict(B=2, S=100, H=4, Hkv=2, D=128, dtype=torch.float32,
                                      window=30, lens=[100, 7])),
@@ -317,7 +376,7 @@ def kernel_phase(torch, port, fa, fused, rep: Report, check_only: bool = False) 
         rep.line(json.dumps(reading))
         if reading["bad"]:
             failed.append(f"{name}: {reading['bad']}")
-    main_abs_errs = abs_errs
+    main_abs_errs, main_launched = abs_errs, reading["launched"]
     pro_main = dict(B=MAIN["B"], S=MAIN["S"], E=4096, H=MAIN["H"], Hkv=MAIN["Hkv"], D=MAIN["D"])
     prologue_cases = [
         ("bias", dict(B=1, S=256, E=512, H=8, Hkv=2, D=64, dtype=bf16, bias=True)),
@@ -389,6 +448,8 @@ def kernel_phase(torch, port, fa, fused, rep: Report, check_only: bool = False) 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
+    library_bwd = time_library_bwd(torch, q, k, v, dout, scale, flush, rep)
+    library = {"flash_fwd": library_fwd, "flash_bwd_fused": library_bwd}
 
     pairs = visible_pairs(torch, S, S, True) * B * H
     e = 2  # bytes per bf16 element
@@ -419,14 +480,15 @@ def kernel_phase(torch, port, fa, fused, rep: Report, check_only: bool = False) 
     del xn, wcat
 
     rows = []
-    for wrapper, (kernel_name, replaces, source) in KERNELS.items():
+    for wrapper, (kernel_name, _, _, design) in KERNELS.items():
         if wrapper == "adamw_epilogue":
             continue
         kfn, pfn = kernel_fns[wrapper]
         ms = time_ms(torch, kfn, 20, flush)
         plain_ms = time_ms(torch, pfn, 5, flush)
-        rows.append(kernel_row(wrapper, ms, plain_ms, *work[wrapper], main_abs_errs[wrapper],
-                               library_fwd if wrapper == "flash_fwd" else None))
+        design = design or "+".join(main_launched[wrapper])
+        rows.append(kernel_row(wrapper, design, ms, plain_ms, *work[wrapper],
+                               main_abs_errs[wrapper], library.get(wrapper)))
         rep.line(f"{kernel_name} at the main shape (bf16): {ms:.4f} ms (plain {plain_ms:.4f} ms, "
                  f"bound {rows[-1]['bound_ms']:.4f} ms by {rows[-1]['bound_by']}, "
                  f"{work[wrapper][0] / ms / 1e9:.1f} TFLOP/s)")
@@ -463,11 +525,34 @@ def kernel_phase(torch, port, fa, fused, rep: Report, check_only: bool = False) 
     return rows
 
 
-def kernel_row(wrapper, ms, plain_ms, flops, nbytes, peak, max_abs_err, library_ms) -> dict:
-    kernel_name, replaces, source = KERNELS[wrapper]
+def time_library_bwd(torch, q, k, v, dout, scale, flush, rep: Report):
+    """One call of PyTorch's flash-attention backward op at the main shape:
+    B4's library time. It is fed the output, logsumexp and philox values of
+    its own forward op, with k and v expanded to the query heads (the op
+    takes no GQA); it returns dq, dk and dv per query head, so the GQA sum
+    that B4 also does is not in it."""
+    G = q.shape[2] // k.shape[2]
+    qt, dt = q.transpose(1, 2), dout.transpose(1, 2)
+    ke, ve = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(qt, ke, ve, 0.0, True, False,
+                                                             scale=scale)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    ms = time_ms(torch, lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dt, qt, ke, ve, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True, seed, offset,
+        scale=scale), 20, flush)
+    rep.line(f"library for flash_bwd_fused_kernel: "
+             f"torch.ops.aten._scaled_dot_product_flash_attention_backward at the main shape "
+             f"(k, v expanded to {q.shape[2]} heads) {ms:.4f} ms")
+    return ms
+
+
+def kernel_row(wrapper, design, ms, plain_ms, flops, nbytes, peak, max_abs_err,
+               library_ms) -> dict:
+    kernel_name, replaces, source, _ = KERNELS[wrapper]
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return {
-        "name": kernel_name, "route": "cuda", "source": source, "replaces": replaces,
+        "name": kernel_name, "route": "cuda", "design": design, "source": source,
+        "replaces": replaces,
         "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
@@ -503,8 +588,8 @@ def time_epilogue(torch, port, fused, rep: Report, flush, max_abs_err) -> dict:
     del cols, g, p, mu, nu
     torch.cuda.empty_cache()
     # 28 B per value: read g, p, mu, nu, write p, mu, nu; ~15 fp32 operations each
-    out = kernel_row("adamw_epilogue", ms, plain_ms, 15 * n, 28 * n, PEAK_FP32_FLOPS,
-                     max_abs_err, library_ms)
+    out = kernel_row("adamw_epilogue", KERNELS["adamw_epilogue"][3], ms, plain_ms, 15 * n,
+                     28 * n, PEAK_FP32_FLOPS, max_abs_err, library_ms)
     rep.line(f"adamw_kernel over the main path's {len(shapes)} leaves ({n} values, one launch): "
              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms by "
              f"{out['bound_by']}, {28 * n / ms / 1e6:.1f} GB/s); library "
@@ -562,8 +647,7 @@ def small_fused_phase(torch, port, fa, fused, rep: Report, seed: int) -> None:
                                              port.DataLoader(dataset, batch_size=2))
             step = acc.unified_step(port.CausalLM.loss_fn(model), opt, max_grad_norm=1.0)
             carry = acc.init_carry(model, opt)
-            for w in wrappers:
-                w.launches = 0
+            reset_counts(wrappers)
             curve = []
             for batch in loader:
                 carry, m = step(carry, batch)
@@ -609,42 +693,48 @@ def small_fused_phase(torch, port, fa, fused, rep: Report, seed: int) -> None:
              f"{update_err:.3g} of the update (limit {SMALL_UPDATE_TOL})")
 
 
-def main_path_phase(torch, port, wrappers, rep: Report, fused_path: bool = False) -> dict:
-    """The main path (``fused_path`` False: unfused model, adamw, two-pass
-    backward) or the fused path (``fused_kernels=True``, ``fused_adamw``,
-    ``FUSED_BWD``), trained for STEPS steps with every launch counter in
-    ``wrappers`` set to 0 just before and read just after. Returns the
-    counts."""
-    name = "fused path" if fused_path else "main path"
+def reset_counts(wrappers) -> None:
+    """Every launch counter to 0, the flash wrappers' per-design ones too."""
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "by_design"):
+            w.by_design = dict.fromkeys(w.by_design, 0)
+
+
+def build_path(torch, port, fused_kernels: bool, fused_optimizer: bool, seed: int = 0):
+    """The 4-layer llama3_8b-width CausalLM in bf16 (``fused_kernels`` as
+    given) with ``fused_adamw`` or ``adamw`` (lr 3e-4) and global-norm
+    clipping at 1.0, its weights and one batch of synthetic tokens made
+    from ``seed``; the batch repeats every step, so the loss must fall.
+    Returns the step, its carry, the loader and the parameter count."""
     cfg = port.TransformerConfig.llama3_8b(num_layers=NUM_LAYERS, dtype="bfloat16",
-                                           max_seq_len=MAIN["S"], fused_kernels=fused_path)
+                                           max_seq_len=MAIN["S"], fused_kernels=fused_kernels)
     gc.collect()
     torch.cuda.empty_cache()  # hand back what earlier phases cached
     port.AcceleratorState._reset_state(reset_partial_state=True)
     port.GradientState._reset_state()
     acc = port.Accelerator(mixed_precision="bf16")
-    t0 = time.perf_counter()
     model = port.CausalLM(cfg, device=acc.device,
-                          generator=torch.Generator(device=acc.device).manual_seed(0))
+                          generator=torch.Generator(device=acc.device).manual_seed(seed))
     n_params = sum(p.numel() for p in model.parameters())
-    # one batch of synthetic tokens, repeated every step: the loss must fall
     tokens = torch.randint(0, cfg.vocab_size, (MAIN["B"], MAIN["S"]),
-                           generator=torch.Generator().manual_seed(0)).numpy()
+                           generator=torch.Generator().manual_seed(seed)).numpy()
     dataset = [{"input_ids": tokens[i % MAIN["B"]]} for i in range(STEPS * MAIN["B"])]
     if [tuple(p.shape) for p in model.parameters()] != main_tree_shapes(cfg):
-        fail(f"{name}: the model's parameter shapes are not main_tree_shapes'")
-    optimizer = (port.fused_adamw if fused_path else port.adamw)(3e-4)
+        fail("the path's parameter shapes are not main_tree_shapes'")
+    optimizer = (port.fused_adamw if fused_optimizer else port.adamw)(3e-4)
     model, opt, loader = acc.prepare(model, optimizer,
                                      port.DataLoader(dataset, batch_size=MAIN["B"]))
     step = acc.unified_step(port.CausalLM.loss_fn(model), opt, max_grad_norm=1.0)
     carry = acc.init_carry(model, opt)
     torch.cuda.synchronize()
-    rep.line(f"{name} set-up: {n_params} params ({cfg.num_layers} layers at llama3_8b "
-             f"width), {time.perf_counter() - t0:.2f} s")
+    return step, carry, loader, n_params
 
-    for wrapper in wrappers:
-        wrapper.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+
+def run_steps(torch, step, carry, loader):
+    """Every batch of ``loader`` through ``step``. Returns the carry, the
+    last batch, the losses, the grad norms and each step's seconds (host
+    clock around the step, ending in a synchronise)."""
     losses, norms, times = [], [], []
     for batch in loader:
         t0 = time.perf_counter()
@@ -653,7 +743,26 @@ def main_path_phase(torch, port, wrappers, rep: Report, fused_path: bool = False
         norms.append(float(metrics["grad_norm"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    return carry, batch, losses, norms, times
+
+
+def main_path_phase(torch, port, wrappers, rep: Report, fused_path: bool = False):
+    """The main path (``fused_path`` False: unfused model, adamw, two-pass
+    backward) or the fused path (``fused_kernels=True``, ``fused_adamw``,
+    ``FUSED_BWD``), trained for STEPS steps with every launch counter in
+    ``wrappers`` set to 0 just before and read just after. Returns the
+    counts and the losses."""
+    name = "fused path" if fused_path else "main path"
+    t0 = time.perf_counter()
+    step, carry, loader, n_params = build_path(torch, port, fused_path, fused_path)
+    rep.line(f"{name} set-up: {n_params} params ({NUM_LAYERS} layers at llama3_8b "
+             f"width), {time.perf_counter() - t0:.2f} s")
+
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    carry, batch, losses, norms, times = run_steps(torch, step, carry, loader)
     launches = {w.__name__: w.launches for w in wrappers}
+    by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
     peak = torch.cuda.max_memory_allocated()
 
     steady = statistics.median(times[1:])  # the first step pays one-time set-up
@@ -661,7 +770,7 @@ def main_path_phase(torch, port, wrappers, rep: Report, fused_path: bool = False
     rep.line(f"{name} losses {losses}, grad norms {norms}")
     rep.line(f"{name} step seconds {times}; median of steps 2-{STEPS} {steady} s, "
              f"{tokens_per_step / steady} tokens/s; peak memory {peak / 2**30} GiB")
-    rep.line(f"{name} kernel launches {json.dumps(launches)}")
+    rep.line(f"{name} kernel launches {json.dumps(launches)}, by design {json.dumps(by_design)}")
     if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
         fail(f"{name} losses not finite: {losses}")
     if not losses[-1] < losses[0]:
@@ -677,15 +786,38 @@ def main_path_phase(torch, port, wrappers, rep: Report, fused_path: bool = False
                 "flash_bwd_fused": 0, "qkv_prologue": 0, "adamw_epilogue": 0}
     if launches != want:
         fail(f"{name} kernel launches {launches}, want {want}")
-    profile_step(torch, step, carry, batch, rep, name)
-    return launches
+    # the forward and the single pass counted under the wgmma design only
+    want_design = {w: {"wgmma": want[w], "wmma": 0} for w in by_design}
+    if by_design != want_design:
+        fail(f"{name} launches by design {by_design}, want {want_design}")
+    ran = profile_step(torch, step, carry, batch, rep, name)
+    # the profiler names the kernels that ran: the wgmma ones, no wmma twin
+    want_ran = {KERNELS[w][0] for w, n in want.items() if n}
+    if ran is None:
+        rep.line(f"{name} profiled step: kernel names not checked (no device time seen)")
+    elif ran != want_ran:
+        fail(f"{name} profiled step ran the port's kernels {sorted(ran)}, want {sorted(want_ran)}")
+    return launches, losses
 
 
-def profile_step(torch, step, carry, batch, rep: Report, name: str) -> None:
+def check_path_losses(losses, fused_losses, rep: Report) -> None:
+    """The fused path computes the main path's step with other kernels and
+    other summation orders: its loss curve stays within PATH_LOSS_TOL of
+    the main path's, step by step."""
+    rel = [abs(f - m) / abs(m) for f, m in zip(fused_losses, losses)]
+    rep.line(f"fused path against main path: relative loss difference by step {rel}, "
+             f"limits {list(PATH_LOSS_TOL)}")
+    if len(rel) != len(PATH_LOSS_TOL) or any(not r <= lim for r, lim in zip(rel, PATH_LOSS_TOL)):
+        fail(f"the fused path's losses {fused_losses} left the main path's {losses}: "
+             f"relative differences {rel}, limits {list(PATH_LOSS_TOL)}")
+
+
+def profile_step(torch, step, carry, batch, rep: Report, name: str):
     """One more step of the path (after its counts were read) under
     torch.profiler: device time by kernel group, the optimizer epilogue's
     device range, and the device's busy share of the step's wall time (the
-    profiler's own cost included)."""
+    profiler's own cost included). Returns the names of the port's kernels
+    that ran, or None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -704,7 +836,7 @@ def profile_step(torch, step, carry, batch, rep: Report, name: str) -> None:
     busy_ms = sum(kernels.values())
     if busy_ms == 0:
         rep.line(f"{name} profiled step: the profiler saw no device time (not measured)")
-        return
+        return None
     groups = {"flash attention kernels": 0.0, "prologue kernel": 0.0, "epilogue kernel": 0.0,
               "matmul (cuBLAS)": 0.0, "other": 0.0}
     for key, ms in kernels.items():
@@ -723,6 +855,8 @@ def profile_step(torch, step, carry, batch, rep: Report, name: str) -> None:
              f"optimizer epilogue (unified_step.sync_apply) {epilogue_ms} ms on the device")
     for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         rep.line(f"{name} profiled step: {ms} ms {key[:110]}")
+    return {m.group(1) for key in kernels
+            for m in [re.search(r"\b((?:flash|qkv|adamw)\w*_kernel)\b", key)] if m}
 
 
 def main() -> None:
@@ -749,7 +883,7 @@ def main() -> None:
     rep.line(f"build: {json.dumps(seconds)} s per source, {time.perf_counter() - t0:.2f} s in all")
     for source in sources:
         for line in _build.BUILD_LOGS.get(source, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(t in line for t in ("registers", "spill", "Compiling entry", "Performance")):
                 rep.line(f"ptxas {source}: {line.strip()}")
 
     def small_models():
@@ -761,20 +895,23 @@ def main() -> None:
         small_models()
         rep.line("small-only: the small models on the card agree with the CPU")
         return
-    rows = kernel_phase(torch, port, fa, fused, rep, check_only="--check-only" in sys.argv[1:])
+    rows = kernel_phase(torch, port, fa, fused, _build, rep,
+                        check_only="--check-only" in sys.argv[1:])
     if not rows:
         rep.line("check-only: every kernel case within tolerance")
         return
     small_models()
     wrappers = (*fa.KERNEL_WRAPPERS, *fused.KERNEL_WRAPPERS)
-    launches = main_path_phase(torch, port, wrappers, rep)
+    launches, losses = main_path_phase(torch, port, wrappers, rep)
     fa.FUSED_BWD = True  # the reference's switch, on for the fused path
     try:
-        fused_launches = main_path_phase(torch, port, wrappers, rep, fused_path=True)
+        fused_launches, fused_losses = main_path_phase(torch, port, wrappers, rep,
+                                                       fused_path=True)
     finally:
         fa.FUSED_BWD = False
+    check_path_losses(losses, fused_losses, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
-    wrapper_of = {kernel: wrapper for wrapper, (kernel, _, _) in KERNELS.items()}
+    wrapper_of = {spec[0]: wrapper for wrapper, spec in KERNELS.items()}
     for row in rows:
         wrapper = wrapper_of[row["name"]]
         row["launches"] = (fused_launches if wrapper in runs_on_fused_path else launches)[wrapper]

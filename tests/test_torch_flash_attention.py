@@ -39,6 +39,11 @@ CASES = {
     "kv_lengths_causal": dict(lens=[48, 5]),
     "q_shorter_than_kv": dict(S=16, Skv=48),
     "q_longer_than_kv": dict(S=48, Skv=32),
+    # the edges of the card's 128-row tiles: one full tile and a ragged 16
+    # (the reference's block must divide S, so 144 and not 129), and a
+    # window whose band crosses row 128
+    "s144_ragged_tile": dict(B=1, S=144, H=2, Hkv=1),
+    "window_across_128_rows": dict(B=1, S=144, H=2, Hkv=1, window=40),
 }
 
 
@@ -151,6 +156,28 @@ def test_wrappers_count_no_launch_on_cpu():
     before = [w.launches for w in tfa.KERNEL_WRAPPERS]
     _port(*_inputs(B=1, S=16), True, None, None)
     assert [w.launches for w in tfa.KERNEL_WRAPPERS] == before
+
+
+@pytest.mark.parametrize("dtype,head_dim,design", [
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.float16, 128, "wgmma"),
+    (torch.float16, 64, "wgmma"),
+    (torch.float32, 128, "wmma"),
+    (torch.float32, 64, "wmma"),
+    (torch.bfloat16, 16, "wmma"),
+    (torch.bfloat16, 32, "wmma"),
+    (torch.bfloat16, 48, "wmma"),
+    (torch.float16, 80, "wmma"),
+    (torch.bfloat16, 96, "wmma"),
+    (torch.float16, 112, "wmma"),
+])
+def test_kernel_design_is_a_function_of_dtype_and_head_dim(dtype, head_dim, design):
+    """The forward and the single pass take the wgmma design for 16-bit
+    types at head_dim 64 or 128 and the wmma design otherwise, decided
+    before any launch (chip_smoke.py reads the C launcher's choice from
+    the counters and holds it to this)."""
+    assert tfa.kernel_design(dtype, head_dim) == design
 
 
 def test_rejects_bad_arguments():

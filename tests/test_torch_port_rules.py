@@ -1,8 +1,9 @@
 """Rules the PyTorch port keeps, checked without JAX.
 
-* Every module of ``accelerate_tpu_torch``, ``chip_smoke.py`` and
-  ``tools/flash_mutants.py`` import in a process where ``jax`` and
-  ``accelerate_tpu`` cannot be imported.
+* Every module of ``accelerate_tpu_torch``, ``chip_smoke.py`` and the
+  tools (``tools/port_copies.py``, ``flash_mutants.py``,
+  ``flash_variants.py``, ``path_bisect.py``) import in a process where
+  ``jax`` and ``accelerate_tpu`` cannot be imported.
 * Entry points default to CUDA and raise without it; they never fall
   back to the CPU unless asked (``cpu=True``).
 * What is not ported yet raises NotImplementedError instead of taking
@@ -58,7 +59,9 @@ def test_every_module_and_chip_smoke_import_without_jax():
             accelerate_tpu_torch.__path__, "accelerate_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        for script in ("chip_smoke.py", "tools/flash_mutants.py"):
+        sys.path.insert(0, "tools")  # where the tools import their shared helper from
+        for script in ("chip_smoke.py", "tools/port_copies.py", "tools/flash_mutants.py",
+                       "tools/flash_variants.py", "tools/path_bisect.py"):
             spec = importlib.util.spec_from_file_location("script", script)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")
@@ -165,6 +168,26 @@ def test_auto_dispatch_on_cpu_takes_the_plain_path():
     assert [w.launches for w in fa.KERNEL_WRAPPERS] == before
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.dot_product_attention(q, k, k, implementation="ring")
+
+
+def test_build_target_changes_when_a_header_changes(tmp_path, monkeypatch):
+    """The library's name hashes the .cu and every csrc/*.cuh, so an edited
+    header is rebuilt and never loads a stale library."""
+    import shutil
+
+    from accelerate_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._target("flash_attention")
+    assert before == _build._target("flash_attention")  # stable
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    after = _build._target("flash_attention")
+    assert after != before and after.parent == before.parent
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    assert _build._target("flash_attention") != after
 
 
 def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():

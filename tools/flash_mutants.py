@@ -31,20 +31,23 @@ import subprocess
 import sys
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parent.parent
-WORK = REPO / "accelerate_tpu_torch" / "ops" / "build" / "mutants"
+from port_copies import BUILD, build_copies, make_copy
+
+WORK = BUILD / "mutants"
 FLASH = Path("accelerate_tpu_torch/ops/csrc/flash_attention.cu")
 FUSED = Path("accelerate_tpu_torch/ops/csrc/fused.cu")
 FLASH_CASE, PROLOGUE_CASE = "main_bf16_causal", "prologue_main_bf16"
 
-FWD_LOOP = """  for (int it = t_begin; it < t_end; ++it) {
-    const int k0 = it * BK;
-    load_tile(sm.k, LT, K, kstride, k0, BK, p.Skv, D);"""
+FWD_STAGE = "    const int stage = n & 1;  // the ring stage that holds tile n"
+FWD_RESCALE = "      corr[hh] = exp2f((m[hh] - m_new) * LOG2E);"
+FWD_FIRST_P = "    for (int kk = 0; kk < BK / 16; ++kk) hk::pack_a<T>(s, kk, pa[kk]);  // tile 0's p"
 DQ_LOOP = """  for (int it = t_begin; it < t_end; ++it) {
     const int k0 = it * BK;
     load_tile(sm.k, LT, static_cast<const T*>(p.k) + kbase, kstride, k0, BK, p.Skv, D);"""
 DKV_LOOP = """      const int q0 = it * BQ, qmax = min(q0 + BQ, p.S) - 1;"""
-FUSED_DQ_ADD = """      float* DQ = p.dq_acc + qbase;"""
+FUSED_DQ_ADD = "    float* DQ = p.dq_acc + ((size_t)b * p.S * p.H + h) * D + wg * (D / 2);"
+FUSED_DS = "      dpt.d[i] = st.d[i] * (dpt.d[i] - dl) * p.scale;"
+SKIP = "    if ({}) {{\n      __syncthreads();\n      continue;\n    }}\n"
 ROPE_PARTNER = "proj_at<T>(accs, LA, bias, r, j < half ? n + half : n - half, lc0)"
 EPI_HOLD = "  if (row[4] == 0.f) return;  // not finite: p, mu and nu stay as they are"
 EPI_MU = "  const float mu2 = __fadd_rn(__fmul_rn(c.omb1, g), __fmul_rn(c.b1, mu));"
@@ -57,14 +60,17 @@ SMALL_FAILS = (SMALL, None, "small fused model")
 # flagged: outputs of the case, or a text of the failure)
 MUTANTS = {
     "control": (None, None, None, [(CHECK, FLASH_CASE, []), (SMALL, None, None)]),
-    # the online softmax never rescales what earlier kv tiles accumulated
-    "fwd_no_rescale": (FLASH, "const float corr = expf(m_prev - m_new);",
-                       "const float corr = 1.f;", [(CHECK, FLASH_CASE, ["o"])]),
-    # the last q tile of every head skips its first kv tile
-    "fwd_drop_tile": (FLASH, FWD_LOOP, FWD_LOOP.replace(
-        "const int k0 = it * BK;",
-        "if (iq == (int)gridDim.x - 1 && it == t_begin) continue;\n    const int k0 = it * BK;"),
-        [(CHECK, FLASH_CASE, ["o"])]),
+    # B1 (wgmma): the online softmax never rescales what earlier kv tiles
+    # accumulated
+    "fwd_no_rescale": (FLASH, FWD_RESCALE, "      corr[hh] = 1.f;", [(CHECK, FLASH_CASE, ["o"])]),
+    # B1: the last q tile of every head drops its first kv tile's p V
+    "fwd_drop_tile": (FLASH, FWD_FIRST_P, FWD_FIRST_P + "\n    if (iq == nq - 1)\n"
+                      "#pragma unroll\n      for (int kk = 0; kk < BK / 16; ++kk) pa[kk][0] = pa[kk][1] = "
+                      "pa[kk][2] = pa[kk][3] = 0u;", [(CHECK, FLASH_CASE, ["o"])]),
+    # B1: the products read the other ring stage, the one being filled with
+    # the next tile (or, on the last tile, the previous one)
+    "fwd_stale_stage": (FLASH, FWD_STAGE, FWD_STAGE.replace("n & 1", "(n + 1) & 1"),
+                        [(CHECK, FLASH_CASE, ["o"])]),
     "dq_drop_tile": (FLASH, DQ_LOOP, DQ_LOOP.replace(
         "const int k0 = it * BK;",
         "if (iq == (int)gridDim.x - 1 && it == t_begin) continue;\n    const int k0 = it * BK;"),
@@ -72,10 +78,14 @@ MUTANTS = {
     # the first kv tile skips the last q tile of every query head
     "dkv_drop_tile": (FLASH, DKV_LOOP, "      if (ik == 0 && it == t_end - 1) continue;\n"
                       + DKV_LOOP, [(CHECK, FLASH_CASE, ["dk", "dv"])]),
-    # single pass: the first kv tile's dq contribution to the last q tile
-    # of every query head is dropped
-    "fused_drop_dq_tile": (FLASH, FUSED_DQ_ADD, "      if (ik == 0 && it == t_end - 1) continue;\n"
+    # B4 (wgmma): the first kv tile's dq contribution to the last q tile of
+    # the last query head of each group is dropped
+    "fused_drop_dq_tile": (FLASH, FUSED_DQ_ADD, SKIP.format("ik == 0 && n == total - 1")
                            + FUSED_DQ_ADD, [(CHECK, FLASH_CASE, ["fused_dq"])]),
+    # B4: dS = p (dp - delta) scale loses its delta on each CTA's last pair
+    # (the last q tile of the last query head of its group)
+    "fused_no_delta_last_tile": (FLASH, FUSED_DS, FUSED_DS.replace(
+        "- dl)", "- (n == total - 1 ? 0.f : dl))"), [(CHECK, FLASH_CASE, ["fused_dq", "fused_dk"])]),
     # prologue: rope takes its partner column from the next head
     "prologue_partner_off_by_a_head": (
         FUSED, ROPE_PARTNER,
@@ -94,21 +104,6 @@ MUTANTS = {
 }
 
 
-def make_copy(name: str, source, old, new) -> Path:
-    root = WORK / name
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(REPO / "accelerate_tpu_torch", root / "accelerate_tpu_torch",
-                    ignore=shutil.ignore_patterns("build", "__pycache__"))
-    shutil.copy2(REPO / "chip_smoke.py", root / "chip_smoke.py")
-    if old is not None:
-        src = root / source
-        text = src.read_text()
-        if text.count(old) != 1:
-            raise SystemExit(f"{name}: the text to replace is not in {source} exactly once")
-        src.write_text(text.replace(old, new))
-    return root
-
-
 def reading_of(stdout: str, case: str):
     for line in stdout.splitlines():
         at = line.find(f'{{"case": "{case}"')
@@ -118,16 +113,9 @@ def reading_of(stdout: str, case: str):
 
 
 def main() -> None:
-    roots = {name: make_copy(name, *spec[:3]) for name, spec in MUTANTS.items()}
-    build = ("from accelerate_tpu_torch.ops import _build; "
-             "_build.build(['flash_attention', 'fused'])")
-    builds = {name: subprocess.Popen([sys.executable, "-c", build], cwd=root,
-                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-              for name, root in roots.items()}
-    for name, proc in builds.items():
-        log, _ = proc.communicate(timeout=900)
-        if proc.returncode != 0:
-            raise SystemExit(f"{name}: the build failed:\n{log[-3000:]}")
+    roots = {name: make_copy(WORK / name, [] if source is None else [(source, old, new)])
+             for name, (source, old, new, _) in MUTANTS.items()}
+    build_copies(roots, ["flash_attention", "fused"])
     missed = []
     for name, (_, _, _, checks) in MUTANTS.items():
         for flag, case, want in checks:

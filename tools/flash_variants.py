@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Time build-time variants of the wgmma flash kernels (the forward and the
+single-pass backward) at the main path's shape, to split a kernel's time
+among its parts.
+
+    python3 tools/flash_variants.py
+
+Needs one CUDA device. Each variant is a copy of the port under the
+gitignored ``accelerate_tpu_torch/ops/build/variants/<name>/`` with text
+edits to ``flash_attention.cu`` (tools/port_copies.py: each must match the
+source exactly once, so a kernel rewrite must update them). Most variants
+take one part of a kernel out, so their outputs are wrong by design and
+only their time is read; ``wmma_design`` keeps the function and times the
+first port's kernels beside the wgmma ones in the same call. The committed
+source never carries such a switch. All copies build together (one
+``nvcc`` each); each library is loaded with ctypes and its
+``flash_fwd`` and ``flash_bwd_fused`` are timed at B=2, S=2048, H=32,
+Hkv=8, D=128, bf16, causal, as chip_smoke.py times them (median of 20
+launches, each after an L2 flush), in two rounds with the variants
+interleaved. Prints one JSON line a variant (its times, and the forward's
+row error against the plain version: base-sized for a variant that keeps
+the function, large for one that takes a part out), then the card's name
+and power limit. The copies are removed at the end.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import shutil
+import sys
+
+from port_copies import BUILD, REPO, build_copies, library, make_copy
+
+WORK = BUILD / "variants"
+FLASH = "accelerate_tpu_torch/ops/csrc/flash_attention.cu"
+
+NTILES = "  const int ntiles = t_end - t_begin;"
+NPAIRS = "  const int nt = t_end - t_begin, total = G * nt;"
+# the forward's copies and waits of K and V; the single pass's of Q and dO
+COPY_K = "    if (leader && n < ntiles) {\n      hk::mbar_expect_tx(bar_k"
+COPY_V = "    if (leader && n < ntiles) {\n      hk::mbar_expect_tx(bar_v"
+WAIT_K = "  auto wait_k = [&](int n) { hk::mbar_wait("
+WAIT_V = "  auto wait_v = [&](int n) { hk::mbar_wait("
+WAIT_QD = "    hk::mbar_wait(bar_qd + 8 * (n & 1), (n >> 1) & 1);"
+BWD_NEXT = "    if (n + 1 < total) {  // pair n + 1"
+DQ_ADD = "if (qrow < p.S) atomicAdd("
+DESIGN = "bool wgmma_design(Kind kind, int dtype, int D) {\n  return "
+
+# name -> (what it changes, [(old, new)] edits of flash_attention.cu)
+VARIANTS = {
+    "base": ("the committed source", []),
+    "wmma_design": ("every launch takes the wmma design (flash_fwd_wmma_kernel, "
+                    "flash_bwd_fused_wmma_kernel), the kernels before the wgmma ones",
+                    [(DESIGN, DESIGN + "false && ")]),
+    "no_tiles": ("every CTA skips its loop: launch, Q/K/V loads, epilogue stores",
+                 [(NTILES, "  const int ntiles = 0;"),
+                  (NPAIRS, "  const int nt = t_end - t_begin, total = 0 * G * nt;")]),
+    "fwd_no_stream": ("forward: only kv tiles 0 and 1 are copied; later tiles reuse "
+                      "their stage's stale data",
+                      [(COPY_K, COPY_K.replace("n < ntiles", "n < min(ntiles, 2)")),
+                       (COPY_V, COPY_V.replace("n < ntiles", "n < min(ntiles, 2)")),
+                       (WAIT_K, WAIT_K.replace("{ hk", "{ if (n < 2) hk")),
+                       (WAIT_V, WAIT_V.replace("{ hk", "{ if (n < 2) hk"))]),
+    "fwd_no_s": ("forward: S = Q K^T of tiles 1.. is not issued",
+                 [("    issue_s(n + 1);\n", "")]),
+    "fwd_no_pv": ("forward: O += P V of tiles 0..n-2 is not issued",
+                  [("    issue_pv(n);\n", "")]),
+    "fwd_no_softmax": ("forward: the softmax of tiles 1.. is skipped (P = raw S)",
+                       [("    softmax(n + 1);\n", "")]),
+    "bwd_no_stream": ("single pass: only pairs 0 and 1 are copied; later pairs reuse "
+                      "their stage's stale data",
+                      [(BWD_NEXT, BWD_NEXT.replace("n + 1 < total", "n + 1 < min(total, 2)")),
+                       (WAIT_QD, "    if (n < 2)\n  " + WAIT_QD)]),
+    "bwd_no_dq_add": ("single pass: dq_pair is formed but never added to the buffer",
+                      [(DQ_ADD, "if (qrow < 0) atomicAdd(")]),
+}
+
+
+def main() -> None:
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_variants: no CUDA device")
+
+    roots = {name: make_copy(WORK / name, [(FLASH, old, new) for old, new in edits])
+             for name, (_, edits) in VARIANTS.items()}
+    logs = build_copies(roots, ["flash_attention"])
+    libs, notes = {}, {}
+    for name, log in logs.items():
+        # spills, and wgmma serialised by ptxas (warning C7514)
+        notes[name] = sorted({line.strip()[-160:] for line in log.splitlines()
+                              if re.search(r"[1-9][0-9]* bytes spill", line)
+                              or "C7514" in line})
+        lib = ctypes.CDLL(str(library(roots[name], "flash_attention")))
+        for fn, argtypes in fa._SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+        lib.flash_error_string.argtypes = [ctypes.c_int]
+        lib.flash_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+
+    B, S, H, Hkv, D = (cs.MAIN[k] for k in ("B", "S", "H", "Hkv", "D"))
+    q, k, v, dout = cs.make_inputs(torch, B, S, H, Hkv, D, torch.bfloat16)
+    scale = D ** -0.5
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, scale, True)
+    delta = fa.attention_delta(ref_out, dout)
+    o, lse = torch.empty_like(q), torch.empty_like(ref_lse)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    shape = (B, S, S, H, Hkv, D, scale, 1, 0, _build.DTYPE_CODES[torch.bfloat16])
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def fwd(lib):
+        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(),
+                            lse.data_ptr(), *shape, stream())
+        assert err == 0, lib.flash_error_string(err)
+
+    def bwd(lib):
+        err = lib.flash_bwd_fused(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                  ref_lse.data_ptr(), delta.data_ptr(), None, dq.data_ptr(),
+                                  dk.data_ptr(), dv.data_ptr(), *shape, stream())
+        assert err == 0, lib.flash_error_string(err)
+
+    o_err = {}
+    for name, lib in libs.items():
+        fwd(lib)
+        torch.cuda.synchronize()
+        o_err[name] = cs.row_err(torch, o, ref_out)
+    times = {name: {"fwd_ms": [], "bwd_ms": []} for name in libs}
+    for _ in range(2):
+        for name, lib in libs.items():
+            times[name]["fwd_ms"].append(cs.time_ms(torch, lambda: fwd(lib), 20, flush_buf.zero_))
+            times[name]["bwd_ms"].append(cs.time_ms(torch, lambda: bwd(lib), 20, flush_buf.zero_))
+    for name, (what, _) in VARIANTS.items():
+        print(json.dumps({"variant": name, "what": what, **times[name],
+                          "fwd_o_row_err": o_err[name], "ptxas": notes[name]}), flush=True)
+    print(cs.card())
+    shutil.rmtree(WORK, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()
