@@ -4,9 +4,9 @@
 // Replaces the four Pallas TPU kernels of accelerate_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel, flash_fwd_wmma_kernel              <- _fwd_kernel (:150)
 //       online-softmax forward, O and lse
-//   flash_bwd_dq_kernel                                  <- _bwd_dq_kernel (:269)
+//   flash_bwd_dq_kernel, flash_bwd_dq_wmma_kernel        <- _bwd_dq_kernel (:269)
 //       dq = sum_k ds . k
-//   flash_bwd_dkv_kernel                                 <- _bwd_dkv_kernel (:325)
+//   flash_bwd_dkv_kernel, flash_bwd_dkv_wmma_kernel      <- _bwd_dkv_kernel (:325)
 //       dk = sum_q ds^T . q, dv = sum_q p^T . do
 //   flash_bwd_fused_kernel, flash_bwd_fused_wmma_kernel  <- _bwd_fused_kernel (:422)
 //       dq, dk and dv from one pass
@@ -30,41 +30,54 @@
 // Each moves under 100 MB, so bytes bound none of them (< 30 us): the
 // tensor cores' rate is the limit, and only wgmma reaches it.
 //
-// Two designs, chosen before the launch from the dtype and head_dim alone
-// (ops/flash_attention.py kernel_design() states the same rule):
+// Two designs, chosen before the launch from the dtype and head_dim alone,
+// the same rule for all four kernels (ops/flash_attention.py
+// kernel_design() states it too):
 //
-// wgmma (bf16/fp16, head_dim 64 or 128): flash_fwd_kernel and
-// flash_bwd_fused_kernel, built from hopper.cuh. 256 threads, two
-// warpgroups, one CTA per SM. Products are wgmma with fp32 accumulators in
-// registers; the softmax (scale, mask on straddling tiles, row max by quad
-// shuffles, exp2, the running sum and the rescale of O) runs on those
-// registers, and p, rounded to 16 bits in registers, is the A operand of
-// the next product. Streamed tiles arrive by TMA into two-stage rings: the
-// launcher builds a 4-D tensor map {D, heads, seq, batch} per tensor on
-// every call (a box is 64 columns, the 128 bytes a 128-byte swizzle takes,
-// so a head_dim-128 tile is two boxes; rows past seq are zero-filled
-// inside their own batch row) and passes it by value; thread 0 asks for a
-// tile, which lands in the swizzle wgmma reads and completes on its stage's
-// mbarrier, so the copy of the next tile is in flight while this one is
-// multiplied and no thread spends instructions on it. The forward CTA
-// holds 128 q rows (64 a warpgroup) and streams 128-row K and V tiles;
-// blockIdx.x runs from the last q tile down, so the longest causal rows
-// start first. The single-pass backward CTA owns a 128-row kv tile of one
-// kv head (64 rows a warpgroup) with dK and dV in registers for its whole
-// sweep over the G query heads of its group and every visible 64-row q
-// tile; it works transposed (kv rows are the accumulator rows): S^T = K Q^T
-// and dP^T = V dO^T from shared memory, P^T and dS^T formed in registers
-// with lse and delta broadcast along the columns, dV += P^T dO and dK +=
-// dS^T Q with P^T and dS^T as register A operands (dO and Q MN-major). dS^T
-// is written once to shared memory as a 16-bit tile; dQ_pair = dS K is one
-// more wgmma (each warpgroup half of head_dim), added to the fp32 dq buffer
-// by 16-byte vector reductions from registers. What this design leaves for
-// later: warp specialisation (a producer warp and setmaxnreg), pingpong
-// scheduling of the two warpgroups so one's softmax overlaps the other's
-// products, a persistent grid, and a TMA reduce-add for dq.
+// wgmma (bf16/fp16, head_dim 64 or 128): flash_fwd_kernel,
+// flash_bwd_dq_kernel, flash_bwd_dkv_kernel and flash_bwd_fused_kernel,
+// built from hopper.cuh. 256 threads, two warpgroups, one CTA per SM.
+// Products are wgmma with fp32 accumulators in registers; the softmax (scale,
+// mask on straddling tiles, row max by quad shuffles, exp2, the running sum
+// and the rescale of O) and the backward's p and ds run on those registers,
+// and p or ds, rounded to 16 bits in registers, is the A operand of the next
+// product. Streamed tiles arrive by TMA into two-stage rings: the launcher
+// builds a 4-D tensor map {D, heads, seq, batch} per tensor on every call (a
+// box is 64 columns, the 128 bytes a 128-byte swizzle takes, so a
+// head_dim-128 tile is two boxes; rows past seq are zero-filled inside their
+// own batch row) and passes it by value; thread 0 asks for a tile, which
+// lands in the swizzle wgmma reads and completes on its stage's mbarrier, so
+// the copy of the next tile is in flight while this one is multiplied and no
+// thread spends instructions on it.
+//   - The q-major CTAs (forward, dq) hold 128 q rows (64 a warpgroup) and
+//     stream kv tiles; blockIdx.x runs from the last q tile down, so the
+//     longest causal rows start first. The forward streams 128-row K and V
+//     tiles. dq streams 64-row K and V tiles (its S, dP and dQ accumulators
+//     take 32 + 32 + D / 2 registers a thread): S = Q K^T and dP = dO V^T
+//     from shared memory, P and dS formed in registers with lse and delta
+//     along the rows, dQ += dS K with K MN-major, left in flight under the
+//     next tile's S and dP; dQ stays in registers over the whole sweep and
+//     is written once, with no atomics.
+//   - The kv-major CTAs (dk/dv and the single pass, one templated body) own
+//     a 128-row kv tile of one kv head (64 rows a warpgroup) with dK and dV
+//     in registers for the whole sweep over the G query heads of its group
+//     and every visible 64-row q tile; they work transposed (kv rows are the
+//     accumulator rows): S^T = K Q^T and dP^T = V dO^T from shared memory,
+//     P^T and dS^T formed in registers with lse and delta broadcast along
+//     the columns, dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+//     register A operands (dO and Q MN-major). The single pass also writes
+//     dS^T once to shared memory as a 16-bit tile; dQ_pair = dS K is one more
+//     wgmma (each warpgroup half of head_dim), added to the fp32 dq buffer by
+//     16-byte vector reductions from registers. dk/dv is the same body with
+//     that part compiled out, so its dk and dv are the single pass's bit for
+//     bit.
+// What this design leaves for later: warp specialisation (a producer warp
+// and setmaxnreg), pingpong scheduling of the two warpgroups so one's
+// softmax overlaps the other's products, a persistent grid, and a TMA
+// reduce-add for the single pass's dq.
 //
-// wmma (float32, other head dims, and dq, dk/dv for every dtype):
-// flash_fwd_wmma_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel and
+// wmma (float32 and other head dims): flash_fwd_wmma_kernel,
+// flash_bwd_dq_wmma_kernel, flash_bwd_dkv_wmma_kernel and
 // flash_bwd_fused_wmma_kernel, the first port's FA2-shaped design: one CTA
 // of 16 warps per (q tile, head, batch) for the forward and dq, per (kv
 // tile, kv head, batch) for dk/dv and the single pass. Tiles are staged in
@@ -442,7 +455,7 @@ struct DqSmem {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Params p) {
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_wmma_kernel(Params p) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   DqSmem<T> sm;
@@ -512,7 +525,7 @@ struct DkvSmem {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Params p) {
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_wmma_kernel(Params p) {
   constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
   DkvSmem<T> sm;
@@ -883,9 +896,158 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-// the shared tiles of the single-pass backward, byte offsets from a
-// 1024-aligned base
+// the shared tiles of the dq backward, byte offsets from a 1024-aligned
+// base: Q and dO once, K and V of a kv tile in each ring stage
 template <int D>
+struct DqTiles {
+  static constexpr int BQ = 128, BK = 64;
+  static constexpr int STAGES = 2;
+  static constexpr int Q = 0;
+  static constexpr int DO = BQ * D * 2;
+  static constexpr int KV = BK * D * 2;  // one K or V tile
+  static constexpr int STAGE = 2 * KV;   // K, then V
+  static constexpr int K = 2 * BQ * D * 2;  // stage s at K + s * STAGE
+  static constexpr int BAR = K + STAGES * STAGE;  // mbarriers: Q and dO, then one a stage
+  static constexpr int BYTES = BAR + (1 + STAGES) * 8;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dq_kernel(Params p, const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo) {
+  using L = DqTiles<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, STAGES = L::STAGES;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t base = (hk::smem_u32(smem_raw) + 1023) & ~1023u;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int nq = gridDim.x, iq = nq - 1 - blockIdx.x;  // the longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hkv = h / (p.H / p.Hkv);
+  const int q0 = iq * BQ, qrows = min(BQ, p.S - q0), qmax = q0 + qrows - 1;
+  const int offset = p.Skv - p.S;
+  const int qstride = p.H * D;
+  const int kv_valid = kv_valid_of(p, b);
+  int c_lo, c_hi;
+  visible_cols(p, q0, qmax, kv_valid, offset, &c_lo, &c_hi);
+  const int t_begin = c_lo / BK, t_end = c_hi > c_lo ? (c_hi + BK - 1) / BK : t_begin;
+  const int nkv = t_end - t_begin;  // the kv tiles this q tile sees
+
+  // Q and dO once, then K and V of kv tile n into ring stage n % STAGES, by
+  // TMA, each completing on its mbarrier (a stage's k-th fill is phase k:
+  // tile n waits with parity (n / STAGES) & 1). Tile n's stage is read by
+  // S and dP of tile n and by its dS K, which retires in tile n + 1; so the
+  // barrier after that retirement hands the stage of tile n - 1 back, and
+  // tile n - 1 + STAGES is asked for. Rows past the end are zeros. A CTA
+  // with no tile asks for nothing.
+  const uint32_t bar_qdo = base + L::BAR, bar_ring = bar_qdo + 8;  // stage s at bar_ring + 8 s
+  const bool leader = threadIdx.x == 0;
+  if (leader) {
+    for (int i = 0; i < 1 + STAGES; ++i) hk::mbar_init(bar_qdo + 8 * i, 1);
+    hk::mbar_fence_init();
+  }
+  __syncthreads();
+  auto load_kv = [&](int n) {
+    if (leader && n < nkv) {
+      const uint32_t bar = bar_ring + 8 * (n % STAGES), at = base + L::K + (n % STAGES) * L::STAGE;
+      hk::mbar_expect_tx(bar, 2 * BK * D * 2);
+      hk::tma_tile<BK, D>(at, &tk, hkv, (t_begin + n) * BK, b, bar);
+      hk::tma_tile<BK, D>(at + L::KV, &tv, hkv, (t_begin + n) * BK, b, bar);
+    }
+  };
+  if (leader && nkv > 0) {
+    hk::mbar_expect_tx(bar_qdo, 2 * BQ * D * 2);
+    hk::tma_tile<BQ, D>(base + L::Q, &tq, h, q0, b, bar_qdo);
+    hk::tma_tile<BQ, D>(base + L::DO, &tdo, h, q0, b, bar_qdo);
+  }
+  for (int n = 0; n < STAGES; ++n) load_kv(n);
+
+  // this thread's two rows, q0 + row0 and q0 + row0 + 8: their lse (times
+  // log2 e) and delta, once; rows past S get lse = NEG_INF, so p = 0 there
+  const int row0 = wg * 64 + warp * 16 + lane / 4;
+  float lse2[2], dl[2];
+  bool no_col[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + row0 + 8 * hh;
+    const size_t at = ((size_t)b * p.H + h) * p.S + row;
+    const float lv = row < p.S ? p.lse_in[at] : NEG_INF;
+    no_col[hh] = lv <= NEG_INF * 0.5f;
+    lse2[hh] = lv * LOG2E;
+    dl[hh] = row < p.S ? p.delta[at] : 0.f;
+  }
+  hk::Acc<BK> s, dp;
+  hk::Acc<D> dq;
+  dq.zero();
+  uint32_t da[BK / 16][4];  // dS of the tile whose dS K is in flight, rounded to T
+  if (nkv > 0) hk::mbar_wait(bar_qdo, 0);
+  for (int n = 0; n < nkv; ++n) {
+    const uint32_t kt = base + L::K + (n % STAGES) * L::STAGE, vt = kt + L::KV;
+    hk::mbar_wait(bar_ring + 8 * (n % STAGES), (n / STAGES) & 1);
+    // S = Q K^T and dP = dO V^T, this warpgroup's 64 rows
+    s.fence();
+    dp.fence();
+    hk::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hk::wgmma_ss<T, 0, 0>(s, hk::desc_kmajor<BQ>(base + L::Q, wg * 64, kk),
+                            hk::desc_kmajor<BK>(kt, 0, kk), kk > 0);
+    hk::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hk::wgmma_ss<T, 0, 0>(dp, hk::desc_kmajor<BQ>(base + L::DO, wg * 64, kk),
+                            hk::desc_kmajor<BK>(vt, 0, kk), kk > 0);
+    hk::wgmma_commit();
+    hk::wgmma_wait<1>();  // S is done, and tile n - 1's dS K, issued before it
+    s.fence();
+    __syncthreads();  // no warpgroup reads tile n - 1's stage any more
+    if (n > 0) load_kv(n - 1 + STAGES);
+
+    // P = exp(S scale - lse), lse along the rows
+    const int k0 = (t_begin + n) * BK;
+    const bool masked = straddles(p, k0, BK, q0, qmax, kv_valid, offset);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      float x = s.d[i] * p.scale;
+      if (masked && !keep(p, q0 + row0 + 8 * frag_half(i), k0 + frag_col(i, lane), kv_valid,
+                          offset))
+        x = NEG_INF;
+      s.d[i] = no_col[frag_half(i)] ? 0.f : exp2f(fmaf(x, LOG2E, -lse2[frag_half(i)]));
+    }
+    hk::wgmma_wait<0>();
+    dp.fence();
+    // dS = P (dP - delta) scale, rounded to K's type: the A operand of dS K
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) dp.d[i] = s.d[i] * (dp.d[i] - dl[frag_half(i)]) * p.scale;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hk::pack_a<T>(dp, kk, da[kk]);
+    // dQ += dS K, K MN-major; it runs on under tile n + 1's S and dP
+    dq.fence();
+    hk::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hk::wgmma_rs<T, 1>(dq, da[kk], hk::desc_mnmajor<BK>(kt, 0, kk), 1);  // dQ += dS K
+    hk::wgmma_commit();
+  }
+  hk::wgmma_wait<0>();
+  dq.fence();
+
+  uint16_t* dQ = static_cast<uint16_t*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + row0 + 8 * hh;
+    if (row >= p.S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dQ + (size_t)row * qstride + 8 * j + 2 * (lane % 4)) =
+          hk::pack2<T>(dq.d[4 * j + 2 * hh], dq.d[4 * j + 2 * hh + 1]);
+  }
+}
+
+// the shared tiles of the kv-major backward (dk/dv; the single pass with
+// kDq), byte offsets from a 1024-aligned base
+template <int D, bool kDq>
 struct BwdTiles {
   static constexpr int BQ = 64, BK = 128;
   static constexpr int K = 0;
@@ -893,20 +1055,21 @@ struct BwdTiles {
   static constexpr int QS = BQ * D * 2;  // one Q or dO stage
   static constexpr int Q = 2 * BK * D * 2;  // stage s at Q + s * QS
   static constexpr int DO = Q + 2 * QS;
-  static constexpr int DS = DO + 2 * QS;        // dS^T, BK x BQ, 16-bit
-  static constexpr int LSE = DS + BK * BQ * 2;  // stage s at LSE + s * BQ * 4
+  static constexpr int DS = DO + 2 * QS;  // the single pass's dS^T, BK x BQ, 16-bit
+  static constexpr int LSE = DS + (kDq ? BK * BQ * 2 : 0);  // stage s at LSE + s * BQ * 4
   static constexpr int DELTA = LSE + 2 * BQ * 4;
   static constexpr int BAR = DELTA + 2 * BQ * 4;  // mbarriers: K and V, Q/dO stages 0 and 1
   static constexpr int BYTES = BAR + 3 * 8;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(WG_THREADS, 1)
-    flash_bwd_fused_kernel(Params p, const __grid_constant__ CUtensorMap tq,
-                           const __grid_constant__ CUtensorMap tk,
-                           const __grid_constant__ CUtensorMap tv,
-                           const __grid_constant__ CUtensorMap tdo) {
-  using L = BwdTiles<D>;
+// The body of flash_bwd_dkv_kernel (kDq false) and flash_bwd_fused_kernel
+// (kDq true): dk/dv's products and their order are the same in both, so the
+// two kernels' dk and dv agree bit for bit.
+template <typename T, int D, bool kDq>
+__device__ __forceinline__ void bwd_kv_tile(const Params& p, const CUtensorMap& tq,
+                                            const CUtensorMap& tk, const CUtensorMap& tv,
+                                            const CUtensorMap& tdo) {
+  using L = BwdTiles<D, kDq>;
   constexpr int BQ = L::BQ, BK = L::BK;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t base = (hk::smem_u32(smem_raw) + 1023) & ~1023u;
@@ -916,7 +1079,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int G = p.H / p.Hkv;
   const int k0 = ik * BK;
   const int offset = p.Skv - p.S;
-  const int qstride = p.H * D, kstride = p.Hkv * D;
+  const int kstride = p.Hkv * D;
   const size_t kbase = ((size_t)b * p.Skv * p.Hkv + hkv) * D;
   const int kv_valid = kv_valid_of(p, b);
   // q rows that see any column of this tile: [r_lo, r_hi)
@@ -936,10 +1099,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   // (n / 2) & 1). lse and delta of pair n come by 4-byte cp.async from
   // threads 0-127: a tensor map's row stride must be a multiple of 16
   // bytes, and S * 4 is not for every S. Rows past S are zeros (lse and
-  // delta too): their p
-  // multiplies zero dO and their dS is p (0 - 0) scale = 0, so they add
-  // nothing, and their dq is not stored. A CTA with no pair asks for
-  // nothing.
+  // delta too): their p multiplies zero dO and their dS is p (0 - 0) scale
+  // = 0, so they add nothing, and the single pass does not store their dq.
+  // A CTA with no pair asks for nothing.
   const uint32_t bar_kv = base + L::BAR, bar_qd = bar_kv + 8;  // stage s at bar_qd + 8 s
   const bool leader = threadIdx.x == 0;
   if (leader) {
@@ -989,7 +1151,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     __syncthreads();  // lse and delta of pair n are there for every thread
     if (n == 0) hk::mbar_wait(bar_kv, 0);
     hk::mbar_wait(bar_qd + 8 * (n & 1), (n >> 1) & 1);
-    const int h = hkv * G + n / nt, q0 = (t_begin + n % nt) * BQ, stage = n & 1;
+    const int q0 = (t_begin + n % nt) * BQ, stage = n & 1;
     const int qmax = min(q0 + BQ, p.S) - 1;
     const uint32_t qt = base + L::Q + stage * L::QS, dot = base + L::DO + stage * L::QS;
     const float* lse_s = reinterpret_cast<const float*>(sbase + L::LSE + stage * BQ * 4);
@@ -1052,50 +1214,58 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       hk::wgmma_rs<T, 1>(dk, sa[kk], hk::desc_mnmajor<BQ>(qt, 0, kk), 1);
     hk::wgmma_commit();
 
-    // dS^T to shared memory once, as a 16-bit tile of BK kv rows x BQ q rows
+    if constexpr (kDq) {
+      // dS^T to shared memory once, as a 16-bit tile of BK kv rows x BQ q rows
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk)
+      for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = krow0 + 8 * (i % 2), c = 16 * kk + 8 * (i / 2) + 2 * (lane % 4);
-        *reinterpret_cast<uint32_t*>(sbase + L::DS + hk::swizzled<BK>(r, c)) = sa[kk][i];
+        for (int i = 0; i < 4; ++i) {
+          const int r = krow0 + 8 * (i % 2), c = 16 * kk + 8 * (i / 2) + 2 * (lane % 4);
+          *reinterpret_cast<uint32_t*>(sbase + L::DS + hk::swizzled<BK>(r, c)) = sa[kk][i];
+        }
+      hk::fence_proxy_async();
+      __syncthreads();
+
+      // dq_pair = dS K over the whole kv tile, this warpgroup's half of
+      // head_dim: dS (q x kv) and K (kv x d) both MN-major from shared memory
+      hk::Acc<D / 2> dq;
+      dq.fence();
+      hk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hk::wgmma_ss<T, 1, 1>(dq, hk::desc_mnmajor<BK>(base + L::DS, 0, kk),
+                              hk::desc_mnmajor<BK>(base + L::K, wg * (D / 2), kk), kk > 0);
+      hk::wgmma_commit();
+      hk::wgmma_wait<0>();  // dV and dK are done too
+      dq.fence();
+      dk.fence();
+      dv.fence();
+
+      // add dq_pair to the fp32 buffer, 4 consecutive floats a reduction:
+      // lanes 2i and 2i + 1 swap halves so that the even lane holds 4 columns
+      // of row r and the odd lane 4 columns of row r + 8
+      const int h = hkv * G + n / nt, qstride = p.H * D;
+      float* DQ = p.dq_acc + ((size_t)b * p.S * p.H + h) * D + wg * (D / 2);
+      const bool odd = lane & 1;
+      const int qrow = q0 + warp * 16 + lane / 4 + (odd ? 8 : 0);
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        const float s0 = odd ? dq.d[4 * j] : dq.d[4 * j + 2];
+        const float s1 = odd ? dq.d[4 * j + 1] : dq.d[4 * j + 3];
+        const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        const float4 v = odd ? make_float4(r0, r1, dq.d[4 * j + 2], dq.d[4 * j + 3])
+                             : make_float4(dq.d[4 * j], dq.d[4 * j + 1], r0, r1);
+        const int col = 8 * j + 2 * (lane % 4) - (odd ? 2 : 0);
+        if (qrow < p.S)
+          atomicAdd(reinterpret_cast<float4*>(DQ + (size_t)qrow * qstride + col), v);
       }
-    hk::fence_proxy_async();
-    __syncthreads();
-
-    // dq_pair = dS K over the whole kv tile, this warpgroup's half of
-    // head_dim: dS (q x kv) and K (kv x d) both MN-major from shared memory
-    hk::Acc<D / 2> dq;
-    dq.fence();
-    hk::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      hk::wgmma_ss<T, 1, 1>(dq, hk::desc_mnmajor<BK>(base + L::DS, 0, kk),
-                            hk::desc_mnmajor<BK>(base + L::K, wg * (D / 2), kk), kk > 0);
-    hk::wgmma_commit();
-    hk::wgmma_wait<0>();  // dV and dK are done too
-    dq.fence();
-    dk.fence();
-    dv.fence();
-
-    // add dq_pair to the fp32 buffer, 4 consecutive floats a reduction:
-    // lanes 2i and 2i + 1 swap halves so that the even lane holds 4 columns
-    // of row r and the odd lane 4 columns of row r + 8
-    float* DQ = p.dq_acc + ((size_t)b * p.S * p.H + h) * D + wg * (D / 2);
-    const bool odd = lane & 1;
-    const int qrow = q0 + warp * 16 + lane / 4 + (odd ? 8 : 0);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const float s0 = odd ? dq.d[4 * j] : dq.d[4 * j + 2];
-      const float s1 = odd ? dq.d[4 * j + 1] : dq.d[4 * j + 3];
-      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-      const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-      const float4 v = odd ? make_float4(r0, r1, dq.d[4 * j + 2], dq.d[4 * j + 3])
-                           : make_float4(dq.d[4 * j], dq.d[4 * j + 1], r0, r1);
-      const int col = 8 * j + 2 * (lane % 4) - (odd ? 2 : 0);
-      if (qrow < p.S) atomicAdd(reinterpret_cast<float4*>(DQ + (size_t)qrow * qstride + col), v);
+    } else {
+      hk::wgmma_wait<0>();  // dV and dK are done
+      dk.fence();
+      dv.fence();
     }
-    __syncthreads();  // stage n and the dS^T tile are free again
+    __syncthreads();  // stage n (and the single pass's dS^T tile) is free again
   }
 
   uint16_t* dK = static_cast<uint16_t*>(p.o) + kbase;
@@ -1113,6 +1283,24 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           hk::pack2<T>(dv.d[4 * j + 2 * hh], dv.d[4 * j + 2 * hh + 1]);
     }
   }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dkv_kernel(Params p, const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo) {
+  bwd_kv_tile<T, D, false>(p, tq, tk, tv, tdo);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_fused_kernel(Params p, const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo) {
+  bwd_kv_tile<T, D, true>(p, tq, tk, tv, tdo);
 }
 
 // ------------------------------------------------------------------------
@@ -1137,21 +1325,41 @@ cudaError_t launch_fn(const void* fn, dim3 grid, int threads, size_t bytes, cons
   return launch_args(fn, grid, threads, bytes, args, stream);
 }
 
-// Whether a launch takes the wgmma design: the forward and the single pass
-// for bf16/fp16 (dtype codes 1, 2) at head_dim 64 or 128. kernel_design()
-// in ops/flash_attention.py states the same rule; chip_smoke.py checks
-// through flash_design below that the two agree.
-bool wgmma_design(Kind kind, int dtype, int D) {
-  return (kind == FWD || kind == FUSED) && (dtype == 1 || dtype == 2) && (D == 64 || D == 128);
+// Whether a launch takes the wgmma design: bf16/fp16 (dtype codes 1, 2) at
+// head_dim 64 or 128, for every kind. kernel_design() in
+// ops/flash_attention.py states the same rule; chip_smoke.py checks through
+// flash_design below that the two agree.
+bool wgmma_design(int dtype, int D) {
+  return (dtype == 1 || dtype == 2) && (D == 64 || D == 128);
 }
 
-// the wgmma design: the tensor maps are built on every call and passed by
-// value (__grid_constant__); 1024 bytes of slack align the tiles' base
+// the wgmma design: the tensor maps (boxes of each kernel's q and kv tile
+// rows) are built on every call and passed by value (__grid_constant__);
+// 1024 bytes of slack align the tiles' base
 template <typename T, int D>
 cudaError_t launch_wgmma(Kind kind, const Params& p, cudaStream_t stream) {
-  const bool fwd = kind == FWD;
-  const int q_rows = fwd ? FwdTiles<D>::BQ : BwdTiles<D>::BQ;
-  const int kv_rows = fwd ? FwdTiles<D>::BK : BwdTiles<D>::BK;
+  int q_rows, kv_rows, bytes;
+  const void* fn;
+  if (kind == FWD) {
+    q_rows = FwdTiles<D>::BQ, kv_rows = FwdTiles<D>::BK, bytes = FwdTiles<D>::BYTES;
+    fn = reinterpret_cast<const void*>(&flash_fwd_kernel<T, D>);
+  } else if (kind == DQ) {
+    q_rows = DqTiles<D>::BQ, kv_rows = DqTiles<D>::BK, bytes = DqTiles<D>::BYTES;
+    fn = reinterpret_cast<const void*>(&flash_bwd_dq_kernel<T, D>);
+  } else if (kind == DKV) {
+    q_rows = BwdTiles<D, false>::BQ, kv_rows = BwdTiles<D, false>::BK;
+    bytes = BwdTiles<D, false>::BYTES;
+    fn = reinterpret_cast<const void*>(&flash_bwd_dkv_kernel<T, D>);
+  } else {
+    q_rows = BwdTiles<D, true>::BQ, kv_rows = BwdTiles<D, true>::BK;
+    bytes = BwdTiles<D, true>::BYTES;
+    fn = reinterpret_cast<const void*>(&flash_bwd_fused_kernel<T, D>);
+  }
+  // q-major CTAs (forward, dq): one a q tile of a query head; kv-major
+  // (dk/dv, single pass): one a kv tile of a kv head
+  const dim3 grid = kind == FWD || kind == DQ
+                        ? dim3((p.S + q_rows - 1) / q_rows, p.H, p.B)
+                        : dim3((p.Skv + kv_rows - 1) / kv_rows, p.Hkv, p.B);
   Params args_p = p;
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err;
@@ -1159,17 +1367,13 @@ cudaError_t launch_wgmma(Kind kind, const Params& p, cudaStream_t stream) {
       (err = hk::tmap_bshd(&tk, p.k, p.B, p.Skv, p.Hkv, D, kv_rows)) != cudaSuccess ||
       (err = hk::tmap_bshd(&tv, p.v, p.B, p.Skv, p.Hkv, D, kv_rows)) != cudaSuccess)
     return err;
-  if (fwd) {
+  if (kind == FWD) {
     void* args[] = {&args_p, &tq, &tk, &tv};
-    return launch_args(reinterpret_cast<const void*>(&flash_fwd_kernel<T, D>),
-                       dim3((p.S + q_rows - 1) / q_rows, p.H, p.B), WG_THREADS,
-                       FwdTiles<D>::BYTES + 1024, args, stream);
+    return launch_args(fn, grid, WG_THREADS, bytes + 1024, args, stream);
   }
   if ((err = hk::tmap_bshd(&tdo, p.dout, p.B, p.S, p.H, D, q_rows)) != cudaSuccess) return err;
   void* args[] = {&args_p, &tq, &tk, &tv, &tdo};
-  return launch_args(reinterpret_cast<const void*>(&flash_bwd_fused_kernel<T, D>),
-                     dim3((p.Skv + kv_rows - 1) / kv_rows, p.Hkv, p.B), WG_THREADS,
-                     BwdTiles<D>::BYTES + 1024, args, stream);
+  return launch_args(fn, grid, WG_THREADS, bytes + 1024, args, stream);
 }
 
 template <typename T>
@@ -1186,11 +1390,11 @@ cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
                      dim3((p.S + BQ - 1) / BQ, p.H, p.B), NTHREADS,
                      FwdSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
   if (kind == DQ)
-    return launch_fn(reinterpret_cast<const void*>(&flash_bwd_dq_kernel<T>),
+    return launch_fn(reinterpret_cast<const void*>(&flash_bwd_dq_wmma_kernel<T>),
                      dim3((p.S + BQ - 1) / BQ, p.H, p.B), NTHREADS,
                      DqSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
   if (kind == DKV)
-    return launch_fn(reinterpret_cast<const void*>(&flash_bwd_dkv_kernel<T>),
+    return launch_fn(reinterpret_cast<const void*>(&flash_bwd_dkv_wmma_kernel<T>),
                      dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B), NTHREADS,
                      DkvSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
   return launch_fn(reinterpret_cast<const void*>(&flash_bwd_fused_wmma_kernel<T>),
@@ -1201,7 +1405,7 @@ cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
 // dtype codes: 0 float32, 1 bfloat16, 2 float16
 cudaError_t dispatch(Kind kind, int dtype, const Params& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wgmma_design(kind, dtype, p.D))
+  if (wgmma_design(dtype, p.D))
     return dtype == 1 ? launch_wgmma_d<__nv_bfloat16>(kind, p, s)
                       : launch_wgmma_d<__half>(kind, p, s);
   switch (dtype) {
@@ -1293,10 +1497,12 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, cons
   return (int)dispatch(FUSED, dtype, p, stream);
 }
 
-// 1 when flash_fwd (kind 0) or flash_bwd_fused (kind 3) launches the wgmma
-// design for this dtype code and head_dim, else 0 (the wmma design)
+// 1 when a launch of this kind (0 flash_fwd, 1 flash_bwd_dq, 2
+// flash_bwd_dkv, 3 flash_bwd_fused) takes the wgmma design for this dtype
+// code and head_dim, 0 when it takes the wmma design, -1 for no such kind
 extern "C" int flash_design(int kind, int dtype, int D) {
-  return wgmma_design(static_cast<Kind>(kind), dtype, D) ? 1 : 0;
+  if (kind < FWD || kind > FUSED) return -1;
+  return wgmma_design(dtype, D) ? 1 : 0;
 }
 
 extern "C" const char* flash_error_string(int err) {

@@ -13,19 +13,20 @@ for sm_90a, bound with ctypes):
   reductions); taken by the backward when ``FUSED_BWD`` is True, as in the
   reference
 
-The forward and the single pass have two designs, chosen before the launch
-by ``kernel_design`` from the dtype and head_dim alone: ``"wgmma"`` (Hopper
-wgmma, the softmax in registers, tiles streamed by TMA) for bf16/fp16 at
-head_dim 64 or 128, ``"wmma"`` (the first port's kernels) otherwise. dq and
-dk/dv are wmma.
+Each kernel has two designs, chosen before the launch by ``kernel_design``
+from the dtype and head_dim alone, by one rule for all four: ``"wgmma"``
+(Hopper wgmma, softmax or p and ds in registers, tiles streamed by TMA) for
+bf16/fp16 at head_dim 64 or 128, ``"wmma"`` (the first port's kernels)
+otherwise. The wgmma dk/dv kernel is the single pass's body without its dq
+part, so the two give the same dk and dv bit for bit; the wgmma dq kernel
+keeps dq in registers over its q tile's sweep (no atomics).
 
 Beside each kernel sits its plain PyTorch version (``*_reference``): the
 same function with the same masks, sentinels and rounding points, computed
 densely. A wrapper takes the plain version only for a tensor on the CPU;
 for a CUDA tensor it launches its kernel or raises. Each wrapper counts its
-kernel launches in ``<wrapper>.launches``; ``flash_fwd`` and
-``flash_bwd_fused`` also count them in ``<wrapper>.by_design``, under
-``kernel_design``'s answer at the launch.
+kernel launches in ``<wrapper>.launches`` and in ``<wrapper>.by_design``,
+under ``kernel_design``'s answer at the launch.
 
 Layout: the public function takes (batch, seq, heads, head_dim) like
 ``ops.attention``; the kernels read that layout directly. lse and delta
@@ -56,11 +57,11 @@ WGMMA_HEAD_DIMS = (64, 128)
 
 
 def kernel_design(dtype: torch.dtype, head_dim: int) -> str:
-    """The design the forward and the single-pass kernels take for these
-    inputs: ``"wgmma"`` for bf16/fp16 at head_dim 64 or 128, else
-    ``"wmma"``. ``wgmma_design`` in csrc/flash_attention.cu applies the same
-    rule at the launch; its export ``flash_design`` lets a run on the card
-    check that the two agree."""
+    """The design every flash kernel (forward, dq, dk/dv and the single
+    pass) takes for these inputs: ``"wgmma"`` for bf16/fp16 at head_dim 64
+    or 128, else ``"wmma"``. ``wgmma_design`` in csrc/flash_attention.cu
+    applies the same rule at the launch; its export ``flash_design`` (by
+    kernel kind) lets a run on the card check that the two agree."""
     if dtype in (torch.bfloat16, torch.float16) and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "wmma"
@@ -243,13 +244,17 @@ def _check_stats(q, *stats):
                  "lse/delta must be contiguous (batch, heads, seq) float32 on q's device")
 
 
-def _launch(name, tensors, q, k, scale, causal, window):
+def _launch(wrapper, tensors, q, k, scale, causal, window):
+    """The C function of ``wrapper``'s name on ``tensors``; one launch is
+    counted on the wrapper, in total and under ``kernel_design``'s design."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     lib = _build.bind("flash_attention", _SIGNATURES, "flash_error_string")
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
-    _build.launch(lib, name, *ptrs, B, S, Skv, H, Hkv, D, float(scale), int(causal),
-                  int(window or 0), _build.DTYPE_CODES[q.dtype], device=q.device)
+    _build.launch(lib, wrapper.__name__, *ptrs, B, S, Skv, H, Hkv, D, float(scale),
+                  int(causal), int(window or 0), _build.DTYPE_CODES[q.dtype], device=q.device)
+    wrapper.launches += 1
+    wrapper.by_design[kernel_design(q.dtype, D)] += 1
 
 
 def flash_fwd(q, k, v, scale, causal=True, kv_lengths=None, window=None):
@@ -261,9 +266,7 @@ def flash_fwd(q, k, v, scale, causal=True, kv_lengths=None, window=None):
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
                       device=q.device)
-    _launch("flash_fwd", (q, k, v, kv_lengths, out, lse), q, k, scale, causal, window)
-    flash_fwd.launches += 1
-    flash_fwd.by_design[kernel_design(q.dtype, q.shape[3])] += 1
+    _launch(flash_fwd, (q, k, v, kv_lengths, out, lse), q, k, scale, causal, window)
     return out, lse
 
 
@@ -276,9 +279,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=None,
     _check_inputs(q, k, v, kv_lengths, window, causal, dout)
     _check_stats(q, lse, delta)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", (q, k, v, dout, lse, delta, kv_lengths, dq), q, k, scale,
+    _launch(flash_bwd_dq, (q, k, v, dout, lse, delta, kv_lengths, dq), q, k, scale,
             causal, window)
-    flash_bwd_dq.launches += 1
     return dq
 
 
@@ -292,9 +294,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=None
     _check_inputs(q, k, v, kv_lengths, window, causal, dout)
     _check_stats(q, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", (q, k, v, dout, lse, delta, kv_lengths, dk, dv), q, k,
+    _launch(flash_bwd_dkv, (q, k, v, dout, lse, delta, kv_lengths, dk, dv), q, k,
             scale, causal, window)
-    flash_bwd_dkv.launches += 1
     return dk, dv
 
 
@@ -310,20 +311,16 @@ def flash_bwd_fused(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=No
     _check_stats(q, lse, delta)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_fused", (q, k, v, dout, lse, delta, kv_lengths, dq_acc, dk, dv), q,
+    _launch(flash_bwd_fused, (q, k, v, dout, lse, delta, kv_lengths, dq_acc, dk, dv), q,
             k, scale, causal, window)
-    flash_bwd_fused.launches += 1
-    flash_bwd_fused.by_design[kernel_design(q.dtype, q.shape[3])] += 1
     return dq_acc.to(q.dtype), dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_fused.launches = 0
-flash_fwd.by_design = {"wgmma": 0, "wmma": 0}
-flash_bwd_fused.by_design = {"wgmma": 0, "wmma": 0}
 KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_bwd_fused)
+for _wrapper in KERNEL_WRAPPERS:
+    _wrapper.launches = 0
+    _wrapper.by_design = {"wgmma": 0, "wmma": 0}
+del _wrapper
 
 
 # ---------------------------------------------------------------------- #

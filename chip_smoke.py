@@ -11,19 +11,22 @@ Phases, each fatal on failure (exit code 1, no result line):
    card. The flash kernels (forward, dq, dk/dv and the single-pass
    backward, the latter also against dq + dk/dv) at the main path's shape
    in bf16 and on small cases that reach the edges of both designs (bf16
-   and fp16 at head_dim 64 and 128, S = 129 and 255, a window across a
-   128-row tile, kv lengths with an empty row, one and four query heads a
-   kv head, kv longer or shorter than q, non-causal, head_dim 96 on the
-   wmma design, fp32 at a tight tolerance), each case's launches counted
-   by design (``kernel_design``'s answer at the launch, first held against
-   the C launcher's own rule); the fused prologue at the main shape, with a bias, at a GQA
-   width whose column tile is 256, on rows that do not fill a tile, in
-   fp16 and fp32; the AdamW epilogue BIT FOR BIT on the main path's 39
-   leaf shapes plus an odd-sized and a 0-d leaf, finite and held. Time
-   kernel, plain version and, where one PyTorch call computes the same
-   function (SDPA's forward for B1, PyTorch's flash-attention backward op
-   for B4, ``torch._fused_adamw_`` for the epilogue), that call; else a
-   named yardstick.
+   and fp16 at head_dim 64 and 128, S = 129, 255 and 300, a window across a
+   128-row tile and across dq's 64-row kv tiles, kv lengths with an empty
+   row, one and four query heads a kv head, kv longer or shorter than q,
+   non-causal, head_dim 96 on the wmma design, fp32 at a tight tolerance),
+   each case's launches of all four counted by design (``kernel_design``'s
+   answer at the launch, first held against the C launcher's own rule);
+   where dk/dv and the single pass both take the wgmma design, dk/dv's dk
+   and dv must equal the single pass's bit for bit, and dq and dk/dv,
+   launched twice, must give the same bits twice; the fused prologue at
+   the main shape, with a bias, at a GQA width whose column tile is 256, on
+   rows that do not fill a tile, in fp16 and fp32; the AdamW epilogue BIT
+   FOR BIT on the main path's 39 leaf shapes plus an odd-sized and a 0-d
+   leaf, finite and held. Time kernel, plain version and, where one
+   PyTorch call computes the same function (SDPA's forward for B1,
+   PyTorch's flash-attention backward op for B4, ``torch._fused_adamw_``
+   for the epilogue), that call; else a named yardstick.
 3. small models: a tiny CausalLM through the kernels on the card against
    the same weights through the plain path on the CPU; then a tiny
    ``fused_kernels=True`` CausalLM with ``fused_adamw`` and the single-pass
@@ -92,14 +95,14 @@ FUSED_SRC = "accelerate_tpu_torch/ops/csrc/fused.cu"
 # design; None: two designs, the row says which one the main shape's case
 # launched, from the wrapper's per-design counter)
 KERNELS = {
-    # the wmma design of B1 and B4 (fp32, other head dims) launches as
-    # flash_fwd_wmma_kernel and flash_bwd_fused_wmma_kernel
+    # the wmma design of B1-B4 (fp32, other head dims) launches as
+    # flash_fwd_wmma_kernel, flash_bwd_dq_wmma_kernel, ...
     "flash_fwd": ("flash_fwd_kernel", "accelerate_tpu/ops/flash_attention.py:150", FLASH_SRC,
                   None),
     "flash_bwd_dq": ("flash_bwd_dq_kernel", "accelerate_tpu/ops/flash_attention.py:269",
-                     FLASH_SRC, "wmma"),
+                     FLASH_SRC, None),
     "flash_bwd_dkv": ("flash_bwd_dkv_kernel", "accelerate_tpu/ops/flash_attention.py:325",
-                      FLASH_SRC, "wmma"),
+                      FLASH_SRC, None),
     "flash_bwd_fused": ("flash_bwd_fused_kernel", "accelerate_tpu/ops/flash_attention.py:422",
                         FLASH_SRC, None),
     "qkv_prologue": ("qkv_prologue_kernel", "accelerate_tpu/ops/fused.py:214", FUSED_SRC,
@@ -182,14 +185,16 @@ def make_inputs(torch, B, S, H, Hkv, D, dtype, Skv=None, seed=0):
 def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
                window=None, lens=None):
     """All four flash kernels against their plain versions on one case, and
-    the single-pass backward against dq + dk/dv. The forward and the single
-    pass must each count one launch under ``fa.kernel_design``'s design
-    (the rule's answer at the launch; ``check_design_rule`` holds it against
-    the C launcher's). Returns the case's readings (printed as one JSON
-    line) and the max abs error of each kernel's outputs."""
+    the single-pass backward against dq + dk/dv. Each kernel must count its
+    launches under ``fa.kernel_design``'s design alone (the rule's answer at
+    the launch; ``check_design_rule`` holds it against the C launcher's).
+    On the wgmma design dk/dv's dk and dv must equal the single pass's bit
+    for bit (one body, the single pass's dq part compiled out of dk/dv), and
+    dq and dk/dv, which use no atomics, must give the same bits when
+    launched again on the same inputs. Returns the case's readings (printed
+    as one JSON line) and the max abs error of each kernel's outputs."""
     q, k, v, dout = make_inputs(torch, B, S, H, Hkv, D, dtype, Skv)
-    designed = (fa.flash_fwd, fa.flash_bwd_fused)
-    before = [dict(w.by_design) for w in designed]
+    before = [dict(w.by_design) for w in fa.KERNEL_WRAPPERS]
     kv_lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
     scale = D ** -0.5
     args = (scale, causal, kv_lengths, window)
@@ -203,9 +208,12 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
     fdq, fdk, fdv = fa.flash_bwd_fused(q, k, v, dout, ref_lse, delta, *args)
     ref_fdq, ref_fdk, ref_fdv = fa.flash_bwd_fused_reference(q, k, v, dout, ref_lse, delta,
                                                              *args)
+    # dq and dk/dv once more on the same inputs
+    dq2 = fa.flash_bwd_dq(q, k, v, dout, ref_lse, delta, *args)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, ref_lse, delta, *args)
     torch.cuda.synchronize()
     ran = {w.__name__: [d for d, n in w.by_design.items() if n != b[d]]
-           for w, b in zip(designed, before)}
+           for w, b in zip(fa.KERNEL_WRAPPERS, before)}
     design = fa.kernel_design(dtype, D)
     tag = str(dtype).replace("torch.", "")
     pairs = {"o": (out, ref_out), "dq": (dq, ref_dq), "dk": (dk, ref_dk), "dv": (dv, ref_dv),
@@ -220,9 +228,17 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
     if not lse_err <= LSE_TOL[tag]:
         bad.append("lse")
     bad += [f"{w}_design" for w, got in ran.items() if got != [design]]
+    # bit for bit: dk/dv against the single pass on the wgmma design (None
+    # on the wmma design, whose two kernels differ), dq and dk/dv against
+    # their second launch
+    bitwise = {"dk_equals_fused": torch.equal(dk, fdk) if design == "wgmma" else None,
+               "dv_equals_fused": torch.equal(dv, fdv) if design == "wgmma" else None,
+               "dq_repeats": torch.equal(dq, dq2),
+               "dk_repeats": torch.equal(dk, dk2), "dv_repeats": torch.equal(dv, dv2)}
+    bad += [k for k, same in bitwise.items() if same is False]
     reading = {
         "case": name, "dtype": tag, "design": design, "launched": ran, "row_err": errs,
-        "row_err_vs_two_pass": vs_two_pass,
+        "row_err_vs_two_pass": vs_two_pass, "bitwise": bitwise,
         "row_limit": TOL[tag], "lse_abs_err": lse_err, "lse_limit": LSE_TOL[tag], "bad": bad,
         # the global max|err| / max|plain|, for comparison only
         "global_rel_err": {k: rel_err(torch, *gw) for k, gw in pairs.items()},
@@ -329,17 +345,18 @@ def visible_pairs(torch, S, Skv, causal) -> int:
 
 def check_design_rule(fa, build, rep: Report) -> None:
     """``fa.kernel_design``, by which the wrappers count launches, against
-    ``flash_design``, the rule the C launcher takes its design by, for the
-    forward and the single pass at every dtype and head_dim they take."""
+    ``flash_design``, the rule the C launcher takes its design by, for each
+    of the four kernels at every dtype and head_dim they take."""
     lib = build.bind("flash_attention", fa._SIGNATURES, "flash_error_string")
-    kinds = {"flash_fwd": 0, "flash_bwd_fused": 3}  # the launcher's Kind codes
+    # the launcher's Kind codes
+    kinds = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2, "flash_bwd_fused": 3}
     wrong = [(w, str(dtype), D) for w, kind in kinds.items()
              for dtype, code in build.DTYPE_CODES.items() for D in range(16, 129, 16)
-             if (lib.flash_design(kind, code, D) == 1) != (fa.kernel_design(dtype, D) == "wgmma")]
+             if lib.flash_design(kind, code, D) != (fa.kernel_design(dtype, D) == "wgmma")]
     if wrong:
         fail(f"kernel_design and the C launcher's flash_design disagree on {wrong}")
-    rep.line("kernel_design agrees with the C launcher's flash_design for the forward and the "
-             "single pass at every dtype and head_dim")
+    rep.line("kernel_design agrees with the C launcher's flash_design for the forward, dq, "
+             "dk/dv and the single pass at every dtype and head_dim")
 
 
 def kernel_phase(torch, port, fa, fused, build, rep: Report,
@@ -353,6 +370,8 @@ def kernel_phase(torch, port, fa, fused, build, rep: Report,
         ("mha_g1", dict(B=2, S=200, H=4, Hkv=4, D=128, dtype=bf16)),
         ("gqa_g4", dict(B=2, S=200, H=8, Hkv=2, D=128, dtype=bf16)),
         ("window", dict(B=2, S=200, H=4, Hkv=2, D=64, dtype=bf16, window=50)),
+        # dq's 64-row kv tiles: a partial last tile, window edges inside tiles, G = 4
+        ("gqa_g4_window_d64_s300", dict(B=2, S=300, H=8, Hkv=2, D=64, dtype=bf16, window=100)),
         ("window_across_128_rows", dict(B=2, S=384, H=4, Hkv=2, D=128, dtype=bf16, window=160)),
         ("kv_lengths_zero_row", dict(B=2, S=200, H=4, Hkv=2, D=64, dtype=bf16,
                                      causal=False, lens=[0, 130])),
@@ -402,6 +421,10 @@ def kernel_phase(torch, port, fa, fused, build, rep: Report,
     refusals = (
         ("forward: strided q", lambda: fa.flash_fwd(strided, k, v, 0.125, True)),
         ("forward: head_dim 40", lambda: fa.flash_fwd(*d40, 0.125, True)),
+        ("dq: strided q", lambda: fa.flash_bwd_dq(
+            strided, k, v, q, *(torch.zeros(1, 2, 64, device="cuda"),) * 2, 0.125)),
+        ("dk/dv: head_dim 40", lambda: fa.flash_bwd_dkv(
+            *d40, d40[0], *(torch.zeros(1, 2, 64, device="cuda"),) * 2, 0.125)),
         ("single-pass backward: strided q", lambda: fa.flash_bwd_fused(
             strided, k, v, q, *(torch.zeros(1, 2, 64, device="cuda"),) * 2, 0.125)),
         ("prologue: head_dim 40 (an 80-column tile)", lambda: fused.qkv_prologue(*pargs,
@@ -496,6 +519,18 @@ def kernel_phase(torch, port, fa, fused, build, rep: Report,
     rep.line(f"yardstick for qkv_prologue_kernel: F.linear of the pre-normed bf16 x "
              f"({rows_}, {E}) against the concatenated ({W}, {E}) weight (cuBLAS alone, no "
              f"norm, bias or rope) {linear_ms:.4f} ms")
+
+    # dq + dk/dv against the single pass and PyTorch's flash backward op (a
+    # yardstick: no single PyTorch call computes dq alone or dk/dv alone)
+    def two_pass_bwd():
+        fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, True)
+        fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, True)
+
+    two_pass_ms = time_ms(torch, two_pass_bwd, 20, flush)
+    rep.line(f"flash_bwd_dq_kernel + flash_bwd_dkv_kernel at the main shape (bf16): "
+             f"{two_pass_ms:.4f} ms, {(3 + 4) * 2 * D * pairs / two_pass_ms / 1e9:.1f} TFLOP/s; "
+             f"yardstick: PyTorch's flash backward op {library_bwd:.4f} ms (all of dq, dk, dv, "
+             f"no GQA sum)")
 
     # the backward as a whole against SDPA's (a yardstick: no single
     # PyTorch call computes dq alone, dk/dv alone or the single pass)
@@ -786,7 +821,7 @@ def main_path_phase(torch, port, wrappers, rep: Report, fused_path: bool = False
                 "flash_bwd_fused": 0, "qkv_prologue": 0, "adamw_epilogue": 0}
     if launches != want:
         fail(f"{name} kernel launches {launches}, want {want}")
-    # the forward and the single pass counted under the wgmma design only
+    # every flash kernel counted under the wgmma design only
     want_design = {w: {"wgmma": want[w], "wmma": 0} for w in by_design}
     if by_design != want_design:
         fail(f"{name} launches by design {by_design}, want {want_design}")

@@ -44,6 +44,9 @@ CASES = {
     # window whose band crosses row 128
     "s144_ragged_tile": dict(B=1, S=144, H=2, Hkv=1),
     "window_across_128_rows": dict(B=1, S=144, H=2, Hkv=1, window=40),
+    # four query heads a kv head under a window, as the card's dq case
+    # with 64-row kv tiles has it
+    "gqa4_window": dict(B=1, S=80, H=8, Hkv=2, window=36),
 }
 
 
@@ -152,10 +155,18 @@ def test_fully_masked_rows_zero_output_and_grads():
 
 
 def test_wrappers_count_no_launch_on_cpu():
-    """On CPU tensors the wrappers take the plain versions: no launch."""
-    before = [w.launches for w in tfa.KERNEL_WRAPPERS]
+    """On CPU tensors the wrappers take the plain versions: no launch, in
+    the total or in any design's count, for the forward, dq, dk/dv and the
+    single pass alike."""
+    assert [w.__name__ for w in tfa.KERNEL_WRAPPERS] == [
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused"]
+    assert all(set(w.by_design) == {"wgmma", "wmma"} for w in tfa.KERNEL_WRAPPERS)
+    before = [(w.launches, dict(w.by_design)) for w in tfa.KERNEL_WRAPPERS]
     _port(*_inputs(B=1, S=16), True, None, None)
-    assert [w.launches for w in tfa.KERNEL_WRAPPERS] == before
+    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(B=1, S=16))
+    lse = torch.zeros(1, 4, 16)
+    tfa.flash_bwd_fused(q, k, v, dout, lse, lse, 0.25)
+    assert [(w.launches, dict(w.by_design)) for w in tfa.KERNEL_WRAPPERS] == before
 
 
 @pytest.mark.parametrize("dtype,head_dim,design", [
@@ -173,11 +184,15 @@ def test_wrappers_count_no_launch_on_cpu():
     (torch.float16, 112, "wmma"),
 ])
 def test_kernel_design_is_a_function_of_dtype_and_head_dim(dtype, head_dim, design):
-    """The forward and the single pass take the wgmma design for 16-bit
-    types at head_dim 64 or 128 and the wmma design otherwise, decided
-    before any launch (chip_smoke.py reads the C launcher's choice from
-    the counters and holds it to this)."""
+    """All four flash kernels (forward, dq, dk/dv and the single pass) take
+    the wgmma design for 16-bit types at head_dim 64 or 128 and the wmma
+    design otherwise, by one rule decided before any launch: the design
+    depends on nothing but the dtype and head_dim (chip_smoke.py holds the C
+    launcher's per-kernel rule, ``flash_design``, to this, and reads each
+    wrapper's ``by_design`` counts against it)."""
     assert tfa.kernel_design(dtype, head_dim) == design
+    for wrapper in tfa.KERNEL_WRAPPERS:
+        assert design in wrapper.by_design
 
 
 def test_rejects_bad_arguments():

@@ -13,8 +13,10 @@ time (the epilogue's bitwise check holds about 50 GB of the card):
 ``chip_smoke.py --small-only`` (the tiny models trained on the card against
 the CPU). The unedited copy ("control") must pass both. Every mutant must
 fail each of its checks: the kernel check at the main path's shape on the
-outputs it spoils (the flash and prologue faults by the case at that shape,
-``main_bf16_causal`` or ``prologue_main_bf16``; the epilogue faults by the
+outputs it spoils (the wgmma flash and the prologue faults by the case at
+that shape, ``main_bf16_causal`` or ``prologue_main_bf16``; the faults of
+the first port's wmma dq and dk/dv kernels, which only other head dims and
+fp32 reach, by ``d96_wmma`` and ``fp32``; the epilogue faults by the
 bitwise check on the main path's 39 leaves), the small-model check by the
 tiny fused model's comparison. Prints one JSON line per check with its
 readings (for a case, the per-row error that is checked and the global
@@ -37,6 +39,7 @@ WORK = BUILD / "mutants"
 FLASH = Path("accelerate_tpu_torch/ops/csrc/flash_attention.cu")
 FUSED = Path("accelerate_tpu_torch/ops/csrc/fused.cu")
 FLASH_CASE, PROLOGUE_CASE = "main_bf16_causal", "prologue_main_bf16"
+WMMA_CASES = ("d96_wmma", "fp32")  # bf16 at head_dim 96, and fp32: the wmma kernels
 
 FWD_STAGE = "    const int stage = n & 1;  // the ring stage that holds tile n"
 FWD_RESCALE = "      corr[hh] = exp2f((m[hh] - m_new) * LOG2E);"
@@ -45,9 +48,13 @@ DQ_LOOP = """  for (int it = t_begin; it < t_end; ++it) {
     const int k0 = it * BK;
     load_tile(sm.k, LT, static_cast<const T*>(p.k) + kbase, kstride, k0, BK, p.Skv, D);"""
 DKV_LOOP = """      const int q0 = it * BQ, qmax = min(q0 + BQ, p.S) - 1;"""
-FUSED_DQ_ADD = "    float* DQ = p.dq_acc + ((size_t)b * p.S * p.H + h) * D + wg * (D / 2);"
+FUSED_DQ_ADD = "      float* DQ = p.dq_acc + ((size_t)b * p.S * p.H + h) * D + wg * (D / 2);"
 FUSED_DS = "      dpt.d[i] = st.d[i] * (dpt.d[i] - dl) * p.scale;"
+KV_PAIR = "    // S^T = K Q^T and dP^T = V dO^T, this warpgroup's 64 kv rows\n"
 SKIP = "    if ({}) {{\n      __syncthreads();\n      continue;\n    }}\n"
+DQ_PACK = "    for (int kk = 0; kk < BK / 16; ++kk) hk::pack_a<T>(dp, kk, da[kk]);"
+DQ_STAGE = "hk::desc_mnmajor<BK>(kt, 0, kk), 1);  // dQ += dS K"
+DQ_DS = "dp.d[i] = s.d[i] * (dp.d[i] - dl[frag_half(i)]) * p.scale;"
 ROPE_PARTNER = "proj_at<T>(accs, LA, bias, r, j < half ? n + half : n - half, lc0)"
 EPI_HOLD = "  if (row[4] == 0.f) return;  // not finite: p, mu and nu stay as they are"
 EPI_MU = "  const float mu2 = __fadd_rn(__fmul_rn(c.omb1, g), __fmul_rn(c.b1, mu));"
@@ -56,8 +63,9 @@ CHECK, SMALL = "--check-only", "--small-only"
 SMALL_FAILS = (SMALL, None, "small fused model")
 
 # name -> (source, text in it, its replacement, checks), a check being
-# (chip_smoke.py's flag, the case at the main shape or None, what must be
-# flagged: outputs of the case, or a text of the failure)
+# (chip_smoke.py's flag, the case or cases that must flag it (all of them)
+# or None, what must be flagged: outputs or checks of each case, or a text
+# of the failure)
 MUTANTS = {
     "control": (None, None, None, [(CHECK, FLASH_CASE, []), (SMALL, None, None)]),
     # B1 (wgmma): the online softmax never rescales what earlier kv tiles
@@ -71,19 +79,42 @@ MUTANTS = {
     # the next tile (or, on the last tile, the previous one)
     "fwd_stale_stage": (FLASH, FWD_STAGE, FWD_STAGE.replace("n & 1", "(n + 1) & 1"),
                         [(CHECK, FLASH_CASE, ["o"])]),
+    # B2 (wgmma): the last q tile of every head drops its first kv tile's dS K
+    "dq_wgmma_drop_tile": (FLASH, DQ_PACK, DQ_PACK + "\n    if (iq == nq - 1 && n == 0)\n"
+                           "#pragma unroll\n      for (int kk = 0; kk < BK / 16; ++kk) da[kk][0] = "
+                           "da[kk][1] = da[kk][2] = da[kk][3] = 0u;",
+                           [(CHECK, FLASH_CASE, ["dq"])]),
+    # B2: dS K reads K from the other ring stage, the one being filled with
+    # a later tile (or holding an earlier one)
+    "dq_stale_stage": (FLASH, DQ_STAGE, DQ_STAGE.replace(
+        "(kt, 0, kk)", "(base + L::K + ((n + 1) % STAGES) * L::STAGE, 0, kk)"),
+        [(CHECK, FLASH_CASE, ["dq"])]),
+    # B2: dS = p (dp - delta) scale loses its delta
+    "dq_no_delta": (FLASH, DQ_DS, DQ_DS.replace("(dp.d[i] - dl[frag_half(i)])", "dp.d[i]"),
+                    [(CHECK, FLASH_CASE, ["dq"])]),
+    # B3 (wgmma; not B4, whose body it shares): the first kv tile skips its
+    # last pair, the last q tile of the last query head of its group. One
+    # pair of 128 moves dk and dv by about the row limit, so the case must
+    # flag the bitwise check against B4.
+    "dkv_wgmma_drop_pair": (FLASH, KV_PAIR, SKIP.format("!kDq && ik == 0 && n == total - 1")
+                            + KV_PAIR, [(CHECK, FLASH_CASE, ["dk_equals_fused",
+                                                            "dv_equals_fused"])]),
+    # B2 and B3 (wmma, the first port's): the last q tile of each head skips
+    # its first kv tile
     "dq_drop_tile": (FLASH, DQ_LOOP, DQ_LOOP.replace(
         "const int k0 = it * BK;",
         "if (iq == (int)gridDim.x - 1 && it == t_begin) continue;\n    const int k0 = it * BK;"),
-        [(CHECK, FLASH_CASE, ["dq"])]),
+        [(CHECK, WMMA_CASES, ["dq"])]),
     # the first kv tile skips the last q tile of every query head
     "dkv_drop_tile": (FLASH, DKV_LOOP, "      if (ik == 0 && it == t_end - 1) continue;\n"
-                      + DKV_LOOP, [(CHECK, FLASH_CASE, ["dk", "dv"])]),
+                      + DKV_LOOP, [(CHECK, WMMA_CASES, ["dk", "dv"])]),
     # B4 (wgmma): the first kv tile's dq contribution to the last q tile of
     # the last query head of each group is dropped
     "fused_drop_dq_tile": (FLASH, FUSED_DQ_ADD, SKIP.format("ik == 0 && n == total - 1")
                            + FUSED_DQ_ADD, [(CHECK, FLASH_CASE, ["fused_dq"])]),
-    # B4: dS = p (dp - delta) scale loses its delta on each CTA's last pair
-    # (the last q tile of the last query head of its group)
+    # B4 and B3 (one body): dS = p (dp - delta) scale loses its delta on
+    # each CTA's last pair (the last q tile of the last query head of its
+    # group)
     "fused_no_delta_last_tile": (FLASH, FUSED_DS, FUSED_DS.replace(
         "- dl)", "- (n == total - 1 ? 0.f : dl))"), [(CHECK, FLASH_CASE, ["fused_dq", "fused_dk"])]),
     # prologue: rope takes its partner column from the next head
@@ -129,12 +160,15 @@ def main() -> None:
                 else:
                     ok = proc.returncode != 0 and reading is not None and want in reading
             else:
-                reading = reading_of(proc.stdout, case)
+                cases = (case,) if isinstance(case, str) else case
+                readings = [reading_of(proc.stdout, c) for c in cases]
                 if name == "control":
-                    ok = proc.returncode == 0 and reading is not None and not reading["bad"]
+                    ok = proc.returncode == 0 and all(r is not None and not r["bad"]
+                                                      for r in readings)
                 else:
-                    ok = (proc.returncode != 0 and reading is not None
-                          and all(k in reading["bad"] for k in want))
+                    ok = proc.returncode != 0 and all(
+                        r is not None and all(k in r["bad"] for k in want) for r in readings)
+                reading = readings[0] if len(readings) == 1 else readings
             if flag == SMALL:  # the tiny fused models' readings, pass or fail
                 reading = [line[line.find("small fused"):] for line in proc.stdout.splitlines()
                            if "small fused model fp32" in line] + [reading]

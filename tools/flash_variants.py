@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time build-time variants of the wgmma flash kernels (the forward and the
-single-pass backward) at the main path's shape, to split a kernel's time
-among its parts.
+"""Time build-time variants of the wgmma flash kernels (the forward, dq,
+dk/dv and the single-pass backward) at the main path's shape, to split a
+kernel's time among its parts.
 
     python3 tools/flash_variants.py
 
@@ -13,14 +13,14 @@ take one part of a kernel out, so their outputs are wrong by design and
 only their time is read; ``wmma_design`` keeps the function and times the
 first port's kernels beside the wgmma ones in the same call. The committed
 source never carries such a switch. All copies build together (one
-``nvcc`` each); each library is loaded with ctypes and its
-``flash_fwd`` and ``flash_bwd_fused`` are timed at B=2, S=2048, H=32,
-Hkv=8, D=128, bf16, causal, as chip_smoke.py times them (median of 20
-launches, each after an L2 flush), in two rounds with the variants
-interleaved. Prints one JSON line a variant (its times, and the forward's
-row error against the plain version: base-sized for a variant that keeps
-the function, large for one that takes a part out), then the card's name
-and power limit. The copies are removed at the end.
+``nvcc`` each); each library is loaded with ctypes and its ``flash_fwd``,
+``flash_bwd_dq``, ``flash_bwd_dkv`` and ``flash_bwd_fused`` are timed at
+B=2, S=2048, H=32, Hkv=8, D=128, bf16, causal, as chip_smoke.py times
+them (median of 20 launches, each after an L2 flush), in two rounds with
+the variants interleaved. Prints one JSON line a variant (its times, and
+the row errors of O, dq and dk against the plain versions: base-sized for
+a variant that keeps the function, large for one that takes a part out),
+then the card's name and power limit. The copies are removed at the end.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ WORK = BUILD / "variants"
 FLASH = "accelerate_tpu_torch/ops/csrc/flash_attention.cu"
 
 NTILES = "  const int ntiles = t_end - t_begin;"
+NKV = "  const int nkv = t_end - t_begin;"
 NPAIRS = "  const int nt = t_end - t_begin, total = G * nt;"
 # the forward's copies and waits of K and V; the single pass's of Q and dO
 COPY_K = "    if (leader && n < ntiles) {\n      hk::mbar_expect_tx(bar_k"
@@ -45,18 +46,26 @@ WAIT_K = "  auto wait_k = [&](int n) { hk::mbar_wait("
 WAIT_V = "  auto wait_v = [&](int n) { hk::mbar_wait("
 WAIT_QD = "    hk::mbar_wait(bar_qd + 8 * (n & 1), (n >> 1) & 1);"
 BWD_NEXT = "    if (n + 1 < total) {  // pair n + 1"
-DQ_ADD = "if (qrow < p.S) atomicAdd("
-DESIGN = "bool wgmma_design(Kind kind, int dtype, int D) {\n  return "
+DQ_ADD = "if (qrow < p.S)\n          atomicAdd("
+DESIGN = "bool wgmma_design(int dtype, int D) {\n  return "
+DQ_STAGES = "  static constexpr int STAGES = 2;"
+DQ_END = "    hk::wgmma_commit();\n  }\n  hk::wgmma_wait<0>();\n  dq.fence();\n"
 
 # name -> (what it changes, [(old, new)] edits of flash_attention.cu)
 VARIANTS = {
     "base": ("the committed source", []),
     "wmma_design": ("every launch takes the wmma design (flash_fwd_wmma_kernel, "
+                    "flash_bwd_dq_wmma_kernel, flash_bwd_dkv_wmma_kernel, "
                     "flash_bwd_fused_wmma_kernel), the kernels before the wgmma ones",
                     [(DESIGN, DESIGN + "false && ")]),
     "no_tiles": ("every CTA skips its loop: launch, Q/K/V loads, epilogue stores",
-                 [(NTILES, "  const int ntiles = 0;"),
+                 [(NTILES, "  const int ntiles = 0;"), (NKV, "  const int nkv = 0;"),
                   (NPAIRS, "  const int nt = t_end - t_begin, total = 0 * G * nt;")]),
+    "dq_three_stages": ("dq: a three-stage K/V ring (a tile's copy has two tiles' "
+                        "work to land, not one)", [(DQ_STAGES, DQ_STAGES.replace("2", "3"))]),
+    "dq_no_overlap": ("dq: each tile's dS K retires before the next tile's S and dP "
+                      "are issued", [(DQ_END, DQ_END.replace("commit();\n", "commit();\n"
+                                                             "    hk::wgmma_wait<0>();\n", 1))]),
     "fwd_no_stream": ("forward: only kv tiles 0 and 1 are copied; later tiles reuse "
                       "their stage's stale data",
                       [(COPY_K, COPY_K.replace("n < ntiles", "n < min(ntiles, 2)")),
@@ -111,7 +120,8 @@ def main() -> None:
     ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, scale, True)
     delta = fa.attention_delta(ref_out, dout)
     o, lse = torch.empty_like(q), torch.empty_like(ref_lse)
-    dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")  # the single pass's
+    dq16 = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     flush_buf = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     shape = (B, S, S, H, Hkv, D, scale, 1, 0, _build.DTYPE_CODES[torch.bfloat16])
@@ -130,19 +140,37 @@ def main() -> None:
                                   dk.data_ptr(), dv.data_ptr(), *shape, stream())
         assert err == 0, lib.flash_error_string(err)
 
-    o_err = {}
+    def dq_kernel(lib):
+        err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                               ref_lse.data_ptr(), delta.data_ptr(), None, dq16.data_ptr(),
+                               *shape, stream())
+        assert err == 0, lib.flash_error_string(err)
+
+    def dkv_kernel(lib):
+        err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                ref_lse.data_ptr(), delta.data_ptr(), None, dk.data_ptr(),
+                                dv.data_ptr(), *shape, stream())
+        assert err == 0, lib.flash_error_string(err)
+
+    ref_dq = fa.flash_bwd_dq_reference(q, k, v, dout, ref_lse, delta, scale, True)
+    ref_dk, _ = fa.flash_bwd_dkv_reference(q, k, v, dout, ref_lse, delta, scale, True)
+    errs = {}
     for name, lib in libs.items():
         fwd(lib)
+        dq_kernel(lib)
+        dkv_kernel(lib)
         torch.cuda.synchronize()
-        o_err[name] = cs.row_err(torch, o, ref_out)
-    times = {name: {"fwd_ms": [], "bwd_ms": []} for name in libs}
+        errs[name] = {"o": cs.row_err(torch, o, ref_out), "dq": cs.row_err(torch, dq16, ref_dq),
+                      "dk": cs.row_err(torch, dk, ref_dk)}
+    kernels = {"fwd_ms": fwd, "dq_ms": dq_kernel, "dkv_ms": dkv_kernel, "bwd_ms": bwd}
+    times = {name: {key: [] for key in kernels} for name in libs}
     for _ in range(2):
         for name, lib in libs.items():
-            times[name]["fwd_ms"].append(cs.time_ms(torch, lambda: fwd(lib), 20, flush_buf.zero_))
-            times[name]["bwd_ms"].append(cs.time_ms(torch, lambda: bwd(lib), 20, flush_buf.zero_))
+            for key, fn in kernels.items():
+                times[name][key].append(cs.time_ms(torch, lambda: fn(lib), 20, flush_buf.zero_))
     for name, (what, _) in VARIANTS.items():
         print(json.dumps({"variant": name, "what": what, **times[name],
-                          "fwd_o_row_err": o_err[name], "ptxas": notes[name]}), flush=True)
+                          "row_err": errs[name], "ptxas": notes[name]}), flush=True)
     print(cs.card())
     shutil.rmtree(WORK, ignore_errors=True)
 
