@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// TMA copies into 128-byte-swizzled shared tiles (the tensor map on the
-// host, the copy and its mbarrier on the device), 4-byte cp.async, the
-// shared-memory matrix descriptor that wgmma reads those tiles through, and
-// the wgmma instructions themselves (A from shared memory or from
-// registers, fp32 accumulators in registers).
+// TMA copies into 128-byte-swizzled shared tiles (4-D and 2-D tensor maps on
+// the host, the copy and its mbarriers on the device), 4-byte cp.async,
+// ldmatrix, the shared-memory matrix descriptor that wgmma reads those tiles
+// through, and the wgmma instructions themselves (A from shared memory or
+// from registers, fp32 accumulators in registers).
 //
 // Tile layout. A tile of R rows by C 16-bit columns (C a multiple of 64) is
 // stored as C / 64 panels of R rows x 128 bytes, panel after panel; the
@@ -41,20 +41,15 @@ namespace hk {
 // ---------------------------------------------------------------------- //
 // host: tensor maps for TMA
 // ---------------------------------------------------------------------- //
-// A contiguous (batch, seq, heads, D) tensor of 16-bit elements as a 4-D
-// tensor map {D, heads, seq, batch} whose box is 64 columns (128 bytes, the
-// widest a 128-byte swizzle takes) of `rows` rows of one head of one batch
-// row. A box that runs past seq is zero-filled inside its own batch row.
 // cuTensorMapEncodeTiled lives in libcuda, not in the runtime; it is reached
 // through the runtime's entry-point query, so the library links only the
 // runtime.
-inline cudaError_t tmap_bshd(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
-                             int D, int rows) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+using TmapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline cudaError_t tmap_encoder(TmapEncode* out) {
+  static TmapEncode encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -67,19 +62,51 @@ inline cudaError_t tmap_bshd(CUtensorMap* map, const void* ptr, int batch, int s
 #endif
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<TmapEncode>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// 16-bit elements, boxes 64 columns wide (128 bytes, the widest a 128-byte
+// swizzle takes); dims and box innermost first, strides in bytes of dims 1..
+inline cudaError_t tmap_16bit(CUtensorMap* map, const void* ptr, int rank,
+                              const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box) {
+  TmapEncode encode;
+  const cudaError_t err = tmap_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT16, rank, const_cast<void*>(ptr),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A contiguous (batch, seq, heads, D) tensor of 16-bit elements as a 4-D
+// tensor map {D, heads, seq, batch} whose box is 64 columns of `rows` rows
+// of one head of one batch row. A box that runs past seq is zero-filled
+// inside its own batch row.
+inline cudaError_t tmap_bshd(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
+                             int D, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)seq,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)seq * heads * D * 2};  // bytes, dims 1-3
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tmap_16bit(map, ptr, 4, dims, strides, box);
+}
+
+// A contiguous (rows, cols) matrix of 16-bit elements as a 2-D tensor map
+// {cols, rows} whose box is 64 columns x box_rows rows (box_rows <= 256).
+// Rows past the end land as zeros.
+inline cudaError_t tmap_2d(CUtensorMap* map, const void* ptr, int rows, int cols,
+                           int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return tmap_16bit(map, ptr, 2, dims, strides, box);
 }
 
 template <typename T>
@@ -119,6 +146,15 @@ __device__ __forceinline__ uint32_t swizzled(int r, int c) {
   return (c / 64) * (R * 128) + r * 128 + ((((c % 64) / 8) ^ (r % 8)) << 4) + (c % 8) * 2;
 }
 
+// Four 8x8 matrices of 16-bit elements from shared memory, one row address
+// a thread (lane l gives row l % 8 of matrix l / 8); register i of lane l
+// holds row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of matrix i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // ---------------------------------------------------------------------- //
 // mbarriers and TMA: one thread asks for a whole tile; the copy engine
 // writes it in the 128-byte swizzle and reports its bytes to an mbarrier
@@ -135,6 +171,10 @@ __device__ __forceinline__ void mbar_fence_init() {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+// arrive once (a consumer handing a stage back)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 // wait until the phase with this parity has completed (the barrier's phase
 // differs from `parity`). A copy that never lands would hang the card: after
@@ -164,6 +204,24 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, int c
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from 16-byte-aligned global memory into shared
+// memory at dst (16-byte aligned) by the copy engine, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// the 2-D box at (c0, c1) of a tensor map, as tma_load_4d
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
 // R rows from row row0 of head `head`, batch `batch` of a (batch, seq,
@@ -263,6 +321,20 @@ __device__ __forceinline__ void pack_a(const Acc<N>& acc, int kk, uint32_t (&a)[
 #define HK_ACC_32 HK_ACC8(0), HK_ACC8(8), HK_ACC8(16), HK_ACC8(24)
 #define HK_ACC_16 HK_ACC8(0), HK_ACC8(8)
 
+#define HK_ACC_128                                                                 \
+  HK_ACC_64, HK_ACC8(64), HK_ACC8(72), HK_ACC8(80), HK_ACC8(88), HK_ACC8(96), \
+      HK_ACC8(104), HK_ACC8(112), HK_ACC8(120)
+#define HK_REGS_128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, " \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, " \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, " \
+  "%126, %127}"
 #define HK_REGS_64                                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "    \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
@@ -315,9 +387,16 @@ __device__ __forceinline__ void wgmma_ss(Acc<N>& acc, uint64_t da, uint64_t db, 
 template <typename T, int TB, int N>
 __device__ __forceinline__ void wgmma_rs(Acc<N>& acc, const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 128 || N == 64, "m64n128 or m64n64");
+  static_assert(N == 256 || N == 128 || N == 64, "m64n256, m64n128 or m64n64");
   float* d = acc.d;
-  if constexpr (N == 128) {
+  if constexpr (N == 256) {
+    if constexpr (kBf16<T>)
+      HK_RS_BODY("256", "bf16", HK_REGS_128, HK_ACC_128, "128, %129, %130, %131", "132", "133",
+                 "134");
+    else
+      HK_RS_BODY("256", "f16", HK_REGS_128, HK_ACC_128, "128, %129, %130, %131", "132", "133",
+                 "134");
+  } else if constexpr (N == 128) {
     if constexpr (kBf16<T>)
       HK_RS_BODY("128", "bf16", HK_REGS_64, HK_ACC_64, "64, %65, %66, %67", "68", "69", "70");
     else

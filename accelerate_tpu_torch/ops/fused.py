@@ -5,8 +5,12 @@ CUDA kernels in ``csrc/fused.cu`` (built with nvcc for sm_90a, bound with
 ctypes):
 
 * ``qkv_prologue``   <- ``_prologue_call``'s kernel (:214): RMSNorm ->
-  x.[Wq|Wk|Wv] + bias -> rope on the q and k columns, in one kernel that
-  reads the three (out, in) weights in place and writes q, k and v.
+  x.[Wq|Wk|Wv] + bias -> rope on the q and k columns, reading the three
+  (out, in) weights in place and writing q, k and v. Two designs, chosen
+  before the launch by ``prologue_kernel_design``: ``"wgmma"`` (a pre-pass
+  writes each row's rstd, then a TMA-fed wgmma GEMM applies the norm on its
+  A operand and rope on its accumulator registers) for bf16/fp16 at
+  head_dim 64 or 128, ``"wmma"`` (the first port's kernel) otherwise.
 * ``adamw_epilogue`` <- ``_adamw_leaf_kernel``'s kernel (:426): AdamW in
   optax's operation order plus the non-finite hold, in ONE launch over
   every leaf of the tree (the reference launches once per leaf), updating
@@ -17,7 +21,8 @@ Beside each kernel sits its plain PyTorch version: ``prologue_reference``
 the epilogue wrapper applies leaf by leaf. A wrapper takes the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches its
 kernel or raises. Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``; the prologue's also in ``qkv_prologue.by_design``,
+under ``prologue_kernel_design``'s answer at the launch.
 
 ``fused_qkv_prologue`` is a ``torch.autograd.Function`` whose backward
 differentiates the plain chain (the reference's ``custom_vjp`` does
@@ -41,7 +46,8 @@ from ..optimizer import AdamW
 from . import _build
 from .rope import rope_inv_freqs
 
-_MAX_COL_BLOCK = 512  # shared-memory tiles of the prologue kernel
+_MAX_COL_BLOCK = 512  # shared-memory tiles of the prologue's wmma design
+WGMMA_HEAD_DIMS = (64, 128)  # rope's partner D/2 columns away in the thread's registers
 
 
 # copied from accelerate_tpu/ops/flash_attention.py:66-80 (the port imports
@@ -127,16 +133,31 @@ def prologue_reference(x, scale, wq, wk, wv, bq, bk, bv, positions, inv_freqs, *
     )
 
 
-def _col_block(num_heads: int, num_kv_heads: int, head_dim: int) -> int:
-    """Widest weight-column tile <= 512 that is a whole number of heads
-    AND divides both the q and k/v column spans, so no tile straddles the
-    q/k/v boundaries and rope's partner column is in the tile."""
+def _col_block(num_heads: int, num_kv_heads: int, head_dim: int, limit: int = 512) -> int:
+    """Widest weight-column tile <= ``limit`` that is a whole number of
+    heads AND divides both the q and k/v column spans, so no tile straddles
+    the q/k/v boundaries and rope's partner column is in the tile. The
+    wmma design's tile (limit 512, the reference's); the wgmma design's is
+    ``limit=256`` (``pro_wgmma_tile`` in csrc/fused.cu)."""
     g = math.gcd(num_heads, num_kv_heads)
     best = head_dim
     for m in range(1, g + 1):
-        if g % m == 0 and m * head_dim <= 512:
+        if g % m == 0 and m * head_dim <= limit:
             best = m * head_dim
     return best
+
+
+def prologue_kernel_design(dtype: torch.dtype, num_heads: int, num_kv_heads: int,
+                           head_dim: int, hidden: int) -> str:
+    """The design the prologue kernel takes for these inputs: ``"wgmma"``
+    for bf16/fp16 at head_dim 64 or 128 with hidden a multiple of 64, else
+    ``"wmma"``. ``pro_wgmma_design`` in csrc/fused.cu applies the same rule
+    at the launch; its export ``prologue_design`` lets a run on the card
+    check that the two agree."""
+    if (dtype in (torch.bfloat16, torch.float16) and head_dim in WGMMA_HEAD_DIMS
+            and num_heads > 0 and num_kv_heads > 0 and hidden > 0 and hidden % 64 == 0):
+        return "wgmma"
+    return "wmma"
 
 
 def prologue_supported(num_heads: int, num_kv_heads: int, head_dim: int, batch: int,
@@ -163,8 +184,10 @@ def prologue_supported(num_heads: int, num_kv_heads: int, head_dim: int, batch: 
 # ---------------------------------------------------------------------- #
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    # x mult wq wk wv bq bk bv cos sin q k v, rows E H Hkv D col_block, eps, dtype, stream
-    "fused_qkv_prologue": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
+    # x mult wq wk wv bq bk bv cos sin q k v rstd, rows E H Hkv D col_block, eps, dtype,
+    # stream
+    "fused_qkv_prologue": [_P] * 14 + [_I] * 6 + [_F, _I, _P],
+    "prologue_design": [_I] * 5,
     # table, n_leaves, n_chunks, row, b1 b2 (1-b1) (1-b2) eps eps_root wd, stream
     "adamw_epilogue": [_P, _I, _L, _P] + [_F] * 7 + [_P],
     "adamw_chunk_elements": [],
@@ -209,6 +232,39 @@ def _check_prologue(x, mult, ws, bs, cosd, sind, num_heads, num_kv_heads, head_d
     return rows, hidden, c
 
 
+def prologue_launch(x, scale, wq, wk, wv, bq, bk, bv, cosd, sind, q, k, v, *, eps: float,
+                    norm_offset: bool, num_heads: int, num_kv_heads: int, head_dim: int,
+                    dtype) -> str:
+    """Launch the prologue kernel on CUDA tensors into the given (B, S, H, D)
+    / (B, S, Hkv, D) outputs, uncounted; returns the design it took.
+    ``qkv_prologue`` is the counted entry; a check on the card calls this
+    to write into outputs it placed itself."""
+    # the multiplier in the scale's own dtype, as rms_norm_reference forms it
+    mult = ((1.0 + scale) if norm_offset else scale).float().contiguous()
+    if mult.data_ptr() % 16:
+        mult = mult.clone()  # the wgmma design copies it in 16-byte-aligned slices
+    ws = [w.to(dtype) for w in (wq, wk, wv)]
+    bs = [None if b is None else b.to(dtype) for b in (bq, bk, bv)]
+    rows, hidden, c = _check_prologue(x, mult, ws, bs, cosd, sind, num_heads, num_kv_heads,
+                                      head_dim, dtype)
+    shapes = ((num_heads, q), (num_kv_heads, k), (num_kv_heads, v))
+    for n, out in shapes:
+        _require(out.device == x.device and out.dtype == dtype and out.is_contiguous()
+                 and tuple(out.shape) == (*x.shape[:2], n, head_dim),
+                 f"an output must be a contiguous {(*x.shape[:2], n, head_dim)} {dtype}")
+    design = prologue_kernel_design(dtype, num_heads, num_kv_heads, head_dim, hidden)
+    rstd = (torch.empty(rows, dtype=torch.float32, device=x.device) if design == "wgmma"
+            else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _build.launch(
+        _kernels(), "fused_qkv_prologue", x.data_ptr(), mult.data_ptr(), *map(ptr, ws),
+        *map(ptr, bs), cosd.data_ptr(), sind.data_ptr(), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), ptr(rstd), rows, hidden, num_heads, num_kv_heads, head_dim, c,
+        float(eps), _build.DTYPE_CODES[dtype], device=x.device,
+    )
+    return design
+
+
 def qkv_prologue(x, scale, wq, wk, wv, bq, bk, bv, cosd, sind, *, eps: float,
                  norm_offset: bool, num_heads: int, num_kv_heads: int, head_dim: int,
                  dtype):
@@ -219,24 +275,13 @@ def qkv_prologue(x, scale, wq, wk, wv, bq, bk, bv, cosd, sind, *, eps: float,
               num_kv_heads=num_kv_heads, head_dim=head_dim, dtype=dtype)
     if not x.is_cuda:
         return _prologue_reference_tables(x, scale, wq, wk, wv, bq, bk, bv, cosd, sind, **kw)
-    # the multiplier in the scale's own dtype, as rms_norm_reference forms it
-    mult = ((1.0 + scale) if norm_offset else scale).float().contiguous()
-    ws = [w.to(dtype) for w in (wq, wk, wv)]
-    bs = [None if b is None else b.to(dtype) for b in (bq, bk, bv)]
-    rows, hidden, c = _check_prologue(x, mult, ws, bs, cosd, sind, num_heads, num_kv_heads,
-                                      head_dim, dtype)
     b, s = x.shape[:2]
     q = torch.empty(b, s, num_heads, head_dim, dtype=dtype, device=x.device)
     k = torch.empty(b, s, num_kv_heads, head_dim, dtype=dtype, device=x.device)
     v = torch.empty_like(k)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _build.launch(
-        _kernels(), "fused_qkv_prologue", x.data_ptr(), mult.data_ptr(), *map(ptr, ws),
-        *map(ptr, bs), cosd.data_ptr(), sind.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), rows, hidden, num_heads, num_kv_heads, head_dim, c, float(eps),
-        _build.DTYPE_CODES[dtype], device=x.device,
-    )
+    design = prologue_launch(x, scale, wq, wk, wv, bq, bk, bv, cosd, sind, q, k, v, **kw)
     qkv_prologue.launches += 1
+    qkv_prologue.by_design[design] += 1
     return q, k, v
 
 
@@ -395,6 +440,7 @@ def adamw_epilogue(grads, params, mus, nus, row, *, b1, b2, eps, eps_root, weigh
 
 
 qkv_prologue.launches = 0
+qkv_prologue.by_design = {"wgmma": 0, "wmma": 0}
 adamw_epilogue.launches = 0
 KERNEL_WRAPPERS = (qkv_prologue, adamw_epilogue)
 

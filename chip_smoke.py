@@ -20,8 +20,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    where dk/dv and the single pass both take the wgmma design, dk/dv's dk
    and dv must equal the single pass's bit for bit, and dq and dk/dv,
    launched twice, must give the same bits twice; the fused prologue at
-   the main shape, with a bias, at a GQA width whose column tile is 256, on
-   rows that do not fill a tile, in fp16 and fp32; the AdamW epilogue BIT
+   the main shape and on cases that reach the edges of both designs (D 64
+   in 64-, 128-, 192- and 256-column tiles, D 128 in 128- and 256-column
+   tiles, with and without a bias, rows that fill no 128-row tile or end
+   past a tile edge, E = 320 and 64, fp16; D 96 and fp32 on the wmma
+   design), each counted by design (first held against the C launcher's
+   rule), launched twice for the same bits and into outputs followed by
+   guard rows that must stay as they were; the AdamW epilogue BIT
    FOR BIT on the main path's 39 leaf shapes plus an odd-sized and a 0-d
    leaf, finite and held. Time kernel, plain version and, where one
    PyTorch call computes the same function (SDPA's forward for B1,
@@ -105,8 +110,11 @@ KERNELS = {
                       FLASH_SRC, None),
     "flash_bwd_fused": ("flash_bwd_fused_kernel", "accelerate_tpu/ops/flash_attention.py:422",
                         FLASH_SRC, None),
+    # the wgmma design launches qkv_prologue_rstd_kernel, then
+    # qkv_prologue_kernel; the wmma design (fp32, other head dims)
+    # qkv_prologue_wmma_kernel
     "qkv_prologue": ("qkv_prologue_kernel", "accelerate_tpu/ops/fused.py:214", FUSED_SRC,
-                     "wmma"),
+                     None),
     "adamw_epilogue": ("adamw_kernel", "accelerate_tpu/ops/fused.py:426", FUSED_SRC,
                        "elementwise"),
 }
@@ -270,19 +278,54 @@ def prologue_inputs(torch, fused, B, S, E, H, Hkv, D, dtype, bias=False, seed=0)
     return (x, scale, *ws, *bs, cosd.contiguous(), sind.contiguous()), statics
 
 
+GUARD = -768.0  # what the prologue's guard rows hold (exact in bf16 and fp16)
+
+
+def guarded_outputs(torch, B, S, widths, dtype):
+    """q, k and v as (B, S, n, D) views into one buffer, each followed by 128
+    rows of GUARD (a tile's rows past the end would land there); returns the
+    views and the guards."""
+    rows = B * S
+    span = [(rows + 128) * n * d for n, d in widths]
+    buf = torch.full((sum(span),), GUARD, dtype=dtype, device="cuda")
+    views, guards, at = [], [], 0
+    for (n, d), size in zip(widths, span):
+        views.append(buf[at:at + rows * n * d].view(B, S, n, d))
+        guards.append(buf[at + rows * n * d:at + size])
+        at += size
+    return views, guards
+
+
 def check_prologue_case(torch, fused, name, **kw):
     """The prologue kernel against its plain version on the card, q, k and
-    v row by row. Returns the reading and the max abs error."""
+    v row by row, counted under ``prologue_kernel_design``'s design alone.
+    Launched again on the same inputs into outputs followed by guard rows,
+    it must give the same bits (no atomics) and leave every guard as it
+    was (no store past the last row). Returns the reading and the max abs
+    error."""
     args, statics = prologue_inputs(torch, fused, **kw)
+    before = dict(fused.qkv_prologue.by_design)
     got = fused.qkv_prologue(*args, **statics)
     want = fused._prologue_reference_tables(*args, **statics)
+    ran = [d for d, n in fused.qkv_prologue.by_design.items() if n != before[d]]
+    widths = [(n, kw["D"]) for n in (kw["H"], kw["Hkv"], kw["Hkv"])]
+    again, guards = guarded_outputs(torch, kw["B"], kw["S"], widths, kw["dtype"])
+    fused.prologue_launch(*args, *again, **statics)
     torch.cuda.synchronize()
     tag = str(kw["dtype"]).replace("torch.", "")
+    design = fused.prologue_kernel_design(kw["dtype"], kw["H"], kw["Hkv"], kw["D"], kw["E"])
     errs = {n: row_err(torch, gt, w) for n, gt, w in zip("qkv", got, want)}
+    bitwise = {"repeats": all(torch.equal(a, b) for a, b in zip(got, again)),
+               "guards_intact": all(bool((g == GUARD).all()) for g in guards)}
+    bad = [n for n, e in errs.items() if not e <= PROLOGUE_TOL[tag]]
+    bad += [k for k, same in bitwise.items() if not same]
+    if ran != [design]:
+        bad.append("design")
+    limit = 256 if design == "wgmma" else 512
     reading = {
-        "case": f"prologue_{name}", "dtype": tag, "col_block": fused._col_block(
-            kw["H"], kw["Hkv"], kw["D"]), "row_err": errs, "row_limit": PROLOGUE_TOL[tag],
-        "bad": [n for n, e in errs.items() if not e <= PROLOGUE_TOL[tag]],
+        "case": f"prologue_{name}", "dtype": tag, "design": design, "launched": ran,
+        "col_block": fused._col_block(kw["H"], kw["Hkv"], kw["D"], limit=limit),
+        "row_err": errs, "row_limit": PROLOGUE_TOL[tag], "bitwise": bitwise, "bad": bad,
     }
     return reading, max(float((gt.float() - w.float()).abs().max()) for gt, w in zip(got, want))
 
@@ -359,11 +402,30 @@ def check_design_rule(fa, build, rep: Report) -> None:
              "dk/dv and the single pass at every dtype and head_dim")
 
 
+def check_prologue_design_rule(fused, build, rep: Report) -> None:
+    """``fused.prologue_kernel_design``, by which the prologue wrapper counts
+    launches, against ``prologue_design``, the rule the C launcher takes its
+    design by, at every dtype, even head_dim from 16 to 128 and a few head
+    counts and hidden sizes."""
+    lib = fused._kernels()
+    shapes = [(32, 8, 4096), (8, 1, 320), (14, 2, 1024), (6, 3, 512), (4, 2, 96), (8, 8, 64)]
+    wrong = [(str(dtype), H, Hkv, D, E) for dtype, code in build.DTYPE_CODES.items()
+             for D in range(16, 129, 2) for H, Hkv, E in shapes
+             if lib.prologue_design(code, H, Hkv, D, E)
+             != (fused.prologue_kernel_design(dtype, H, Hkv, D, E) == "wgmma")]
+    if wrong:
+        fail(f"prologue_kernel_design and the C launcher's prologue_design disagree on "
+             f"{wrong[:8]}")
+    rep.line("prologue_kernel_design agrees with the C launcher's prologue_design at every "
+             "dtype and even head_dim 16-128")
+
+
 def kernel_phase(torch, port, fa, fused, build, rep: Report,
                  check_only: bool = False) -> list[dict]:
     import torch.nn.functional as F
 
     check_design_rule(fa, build, rep)
+    check_prologue_design_rule(fused, build, rep)
     bf16, fp16 = torch.bfloat16, torch.float16
     cases = [
         ("noncausal", dict(B=2, S=200, H=4, Hkv=2, D=64, dtype=bf16, causal=False)),
@@ -395,14 +457,28 @@ def kernel_phase(torch, port, fa, fused, build, rep: Report,
         rep.line(json.dumps(reading))
         if reading["bad"]:
             failed.append(f"{name}: {reading['bad']}")
-    main_abs_errs, main_launched = abs_errs, reading["launched"]
+    main_abs_errs, main_launched = abs_errs, dict(reading["launched"])
     pro_main = dict(B=MAIN["B"], S=MAIN["S"], E=4096, H=MAIN["H"], Hkv=MAIN["Hkv"], D=MAIN["D"])
+    # wgmma design: bf16/fp16 at D 64 and 128; wmma: fp32 and D 96
     prologue_cases = [
         ("bias", dict(B=1, S=256, E=512, H=8, Hkv=2, D=64, dtype=bf16, bias=True)),
         ("gqa_14_2_tile256", dict(B=1, S=128, E=1024, H=14, Hkv=2, D=128, dtype=bf16)),
         ("rows_not_filling_a_tile", dict(B=1, S=200, E=512, H=8, Hkv=4, D=64, dtype=bf16)),
         ("fp16", dict(B=1, S=256, E=512, H=8, Hkv=2, D=64, dtype=torch.float16, bias=True)),
         ("fp32", dict(B=1, S=200, E=256, H=4, Hkv=2, D=64, dtype=torch.float32, bias=True)),
+        # rope's partner 32 columns away, in a 64-column tile and in a 192-column
+        # tile (three 64-wide wgmmas)
+        ("d64_tile64", dict(B=1, S=256, E=512, H=4, Hkv=1, D=64, dtype=bf16)),
+        ("d64_tile192", dict(B=1, S=256, E=512, H=6, Hkv=3, D=64, dtype=bf16, bias=True)),
+        ("tile128_h8_hkv1", dict(B=1, S=256, E=512, H=8, Hkv=1, D=128, dtype=bf16)),
+        # rows that fill no 128-row tile, and rows past a tile edge
+        ("rows_s200", dict(B=1, S=200, E=512, H=8, Hkv=2, D=128, dtype=bf16)),
+        ("rows_s300", dict(B=1, S=300, E=1024, H=32, Hkv=8, D=128, dtype=bf16)),
+        # E not a multiple of the ring's depth x 64; E of one k-step
+        ("e320", dict(B=1, S=256, E=320, H=8, Hkv=2, D=64, dtype=bf16)),
+        ("e64_s130", dict(B=1, S=130, E=64, H=4, Hkv=2, D=64, dtype=torch.float16)),
+        ("bias_d128", dict(B=2, S=128, E=512, H=8, Hkv=2, D=128, dtype=bf16, bias=True)),
+        ("d96_wmma", dict(B=1, S=200, E=512, H=8, Hkv=2, D=96, dtype=bf16, bias=True)),
         ("main_bf16", dict(**pro_main, dtype=bf16)),
     ]
     for name, kw in prologue_cases:
@@ -411,6 +487,7 @@ def kernel_phase(torch, port, fa, fused, build, rep: Report,
         if reading["bad"]:
             failed.append(f"prologue {name}: {reading['bad']}")
     main_abs_errs["qkv_prologue"] = pro_abs_err
+    main_launched["qkv_prologue"] = reading["launched"]
     # no fallback: a CUDA tensor a kernel does not take is refused, never
     # routed to the plain version
     q, k, v, _ = make_inputs(torch, 1, 64, 2, 1, 64, bf16)
@@ -828,6 +905,8 @@ def main_path_phase(torch, port, wrappers, rep: Report, fused_path: bool = False
     ran = profile_step(torch, step, carry, batch, rep, name)
     # the profiler names the kernels that ran: the wgmma ones, no wmma twin
     want_ran = {KERNELS[w][0] for w, n in want.items() if n}
+    if want["qkv_prologue"]:  # the wgmma design's pre-pass
+        want_ran.add("qkv_prologue_rstd_kernel")
     if ran is None:
         rep.line(f"{name} profiled step: kernel names not checked (no device time seen)")
     elif ran != want_ran:
@@ -877,7 +956,7 @@ def profile_step(torch, step, carry, batch, rep: Report, name: str):
     for key, ms in kernels.items():
         if "flash_" in key and "_kernel" in key:
             groups["flash attention kernels"] += ms
-        elif "qkv_prologue_kernel" in key:
+        elif "qkv_prologue" in key and "_kernel" in key:  # the pre-pass too
             groups["prologue kernel"] += ms
         elif "adamw_kernel" in key:
             groups["epilogue kernel"] += ms

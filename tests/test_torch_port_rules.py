@@ -243,3 +243,39 @@ def test_fused_kernel_checks_refuse_what_the_kernels_do_not_take():
     assert not fused.prologue_supported(4, 2, 64, 1, 64, 256, device=cuda,
                                         dtype=torch.float64)
     assert fused.prologue_supported(4, 2, 40, 1, 64, 256, device="cpu")  # no kernel limits
+
+
+@pytest.mark.parametrize("dtype,heads,kv_heads,head_dim,hidden,design", [
+    (torch.bfloat16, 32, 8, 128, 4096, "wgmma"),  # llama3_8b
+    (torch.float16, 32, 8, 128, 4096, "wgmma"),
+    (torch.bfloat16, 8, 2, 64, 512, "wgmma"),
+    (torch.bfloat16, 8, 1, 128, 320, "wgmma"),  # E not a multiple of the ring's 4 x 64
+    (torch.bfloat16, 14, 2, 128, 1024, "wgmma"),
+    (torch.float32, 32, 8, 128, 4096, "wmma"),  # the scalar fp32 path
+    (torch.bfloat16, 8, 2, 96, 512, "wmma"),
+    (torch.float16, 8, 2, 32, 512, "wmma"),
+    (torch.bfloat16, 4, 2, 64, 96, "wmma"),  # hidden not a multiple of 64
+])
+def test_prologue_kernel_design_rule(dtype, heads, kv_heads, head_dim, hidden, design):
+    """The prologue takes the wgmma design for 16-bit types at head_dim 64 or
+    128 with hidden a multiple of 64, and the wmma design otherwise, decided
+    before any launch from these inputs alone (chip_smoke.py holds the C
+    launcher's ``prologue_design`` to this, and reads the wrapper's
+    ``by_design`` counts against it)."""
+    assert fused.prologue_kernel_design(dtype, heads, kv_heads, head_dim, hidden) == design
+    assert design in fused.qkv_prologue.by_design
+
+
+@pytest.mark.parametrize("heads,kv_heads,head_dim,tile", [
+    (32, 8, 128, 256), (8, 1, 128, 128), (14, 2, 128, 256), (8, 2, 64, 128),
+    (4, 1, 64, 64), (6, 3, 64, 192), (32, 8, 64, 256), (12, 6, 64, 192),
+])
+def test_prologue_wgmma_tile_is_whole_heads_dividing_both_spans(heads, kv_heads, head_dim,
+                                                               tile):
+    """The wgmma design's column tile: the widest whole number of heads <= 256
+    that divides the q span and the k/v span, a multiple of 64 at head_dim 64
+    and 128 (one wgmma width or three)."""
+    got = fused._col_block(heads, kv_heads, head_dim, limit=256)
+    assert got == tile
+    assert got % head_dim == 0 and got % 64 == 0
+    assert (heads * head_dim) % got == 0 and (kv_heads * head_dim) % got == 0

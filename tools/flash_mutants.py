@@ -15,10 +15,13 @@ the CPU). The unedited copy ("control") must pass both. Every mutant must
 fail each of its checks: the kernel check at the main path's shape on the
 outputs it spoils (the wgmma flash and the prologue faults by the case at
 that shape, ``main_bf16_causal`` or ``prologue_main_bf16``; the faults of
-the first port's wmma dq and dk/dv kernels, which only other head dims and
-fp32 reach, by ``d96_wmma`` and ``fp32``; the epilogue faults by the
-bitwise check on the main path's 39 leaves), the small-model check by the
-tiny fused model's comparison. Prints one JSON line per check with its
+the first port's wmma kernels, which only other head dims and fp32 reach,
+by ``d96_wmma`` and ``fp32`` (the prologue's: ``prologue_d96_wmma`` and
+``prologue_fp32``); a prologue store past the last row by the guard rows of
+the cases whose rows end inside a tile, ``prologue_rows_s200`` and
+``prologue_rows_s300``; the epilogue faults by the bitwise check on the
+main path's 39 leaves), the small-model check by the tiny fused model's
+comparison. Prints one JSON line per check with its
 readings (for a case, the per-row error that is checked and the global
 max|err| / max|plain| where the case reports one; otherwise the failure),
 and exits 1 when a mutant was not caught or the control failed. The copies
@@ -40,6 +43,8 @@ FLASH = Path("accelerate_tpu_torch/ops/csrc/flash_attention.cu")
 FUSED = Path("accelerate_tpu_torch/ops/csrc/fused.cu")
 FLASH_CASE, PROLOGUE_CASE = "main_bf16_causal", "prologue_main_bf16"
 WMMA_CASES = ("d96_wmma", "fp32")  # bf16 at head_dim 96, and fp32: the wmma kernels
+PROLOGUE_WMMA_CASES = ("prologue_d96_wmma", "prologue_fp32")
+PARTIAL_ROW_CASES = ("prologue_rows_s200", "prologue_rows_s300")  # a partial 128-row tile
 
 FWD_STAGE = "    const int stage = n & 1;  // the ring stage that holds tile n"
 FWD_RESCALE = "      corr[hh] = exp2f((m[hh] - m_new) * LOG2E);"
@@ -56,6 +61,12 @@ DQ_PACK = "    for (int kk = 0; kk < BK / 16; ++kk) hk::pack_a<T>(dp, kk, da[kk]
 DQ_STAGE = "hk::desc_mnmajor<BK>(kt, 0, kk), 1);  // dQ += dS K"
 DQ_DS = "dp.d[i] = s.d[i] * (dp.d[i] - dl[frag_half(i)]) * p.scale;"
 ROPE_PARTNER = "proj_at<T>(accs, LA, bias, r, j < half ? n + half : n - half, lc0)"
+PRO_W_STAGE = "const uint32_t wt = base + (i % S) * L::STAGE + L::X;"
+PRO_NORM = ("a[kk][q] = hk::pack2<T>((v.x * rs[q % 2]) * mq[q / 2].x, "
+            "(v.y * rs[q % 2]) * mq[q / 2].y);")
+PRO_RSTD = "rs[h] = row < p.rows ? p.rstd[row] : 0.f;"
+PRO_PAIR = "const float x1 = at(j1, h, e), x2 = at(j2, h, e);"
+PRO_STORE = "if (row >= p.rows) continue;  // a partial row tile stores its rows only"
 EPI_HOLD = "  if (row[4] == 0.f) return;  // not finite: p, mu and nu stay as they are"
 EPI_MU = "  const float mu2 = __fadd_rn(__fmul_rn(c.omb1, g), __fmul_rn(c.b1, mu));"
 EPI_ROOT = "float u = __fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(__fadd_rn(nhat, c.eps_root)), c.eps));"
@@ -117,11 +128,31 @@ MUTANTS = {
     # group)
     "fused_no_delta_last_tile": (FLASH, FUSED_DS, FUSED_DS.replace(
         "- dl)", "- (n == total - 1 ? 0.f : dl))"), [(CHECK, FLASH_CASE, ["fused_dq", "fused_dk"])]),
-    # prologue: rope takes its partner column from the next head
+    # prologue (wmma design: D 96 and fp32): rope takes its partner column
+    # from the next head
     "prologue_partner_off_by_a_head": (
         FUSED, ROPE_PARTNER,
         "proj_at<T>(accs, LA, bias, r, ((j < half ? n + half : n - half) + D) % c, lc0)",
-        [(CHECK, PROLOGUE_CASE, ["q", "k"]), SMALL_FAILS]),
+        [(CHECK, PROLOGUE_WMMA_CASES, ["q", "k"]), SMALL_FAILS]),
+    # prologue (wgmma design): the products read the W tile of the other ring
+    # stage, one being filled with a later k-step (or holding an earlier one)
+    "prologue_w_other_stage": (FUSED, PRO_W_STAGE, PRO_W_STAGE.replace("(i % S)", "((i + 1) % S)"),
+                               [(CHECK, PROLOGUE_CASE, ["q", "k", "v"])]),
+    # the last k-step's fragments are zeros: its products add nothing
+    "prologue_drop_last_k": (FUSED, PRO_NORM, PRO_NORM + "\n        if (i == nk - 1) a[kk][q] = 0u;",
+                             [(CHECK, PROLOGUE_CASE, ["q", "k", "v"])]),
+    # each row normalised by its neighbour's rstd
+    "prologue_rstd_neighbour_row": (FUSED, PRO_RSTD, PRO_RSTD.replace("p.rstd[row]",
+                                                                      "p.rstd[row ^ 1]"),
+                                    [(CHECK, PROLOGUE_CASE, ["q", "k", "v"])]),
+    # rope's partner read from the thread's register of the other row (8 rows
+    # away) instead of the same row's
+    "prologue_partner_wrong_register": (FUSED, PRO_PAIR, PRO_PAIR.replace(
+        "x2 = at(j2, h, e)", "x2 = at(j2, 1 - h, e)"), [(CHECK, PROLOGUE_CASE, ["q", "k"])]),
+    # a partial row tile stores one row past its last; the main shape has no
+    # partial tile, so the cases that end inside a tile must flag their guards
+    "prologue_stores_past_last_row": (FUSED, PRO_STORE, PRO_STORE.replace(
+        "row >= p.rows", "row >= p.rows + 1"), [(CHECK, PARTIAL_ROW_CASES, ["guards_intact"])]),
     # epilogue: a step that is not finite is applied anyway
     "epilogue_ignores_hold": (FUSED, EPI_HOLD, "  // (the hold is gone)",
                               [(CHECK, None, "adamw_epilogue (held) is not bitwise")]),
