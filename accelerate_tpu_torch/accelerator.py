@@ -1,9 +1,13 @@
-"""The Accelerator: prepare, then one train step.
+"""The Accelerator: prepare, one train step, checkpoints and metrics.
 
 Port of ``accelerate_tpu/accelerator.py`` (``__init__`` :88-205,
-``prepare`` :297-424, ``unified_step`` :429-748 in its unfused mode with
-``_sync_apply`` :505-554, ``init_carry`` :1146) for one process on one
-device. The step keeps the reference's contract and arithmetic:
+``print`` :291, ``prepare`` :297-424, ``unified_step`` :429-748 in its
+unfused mode with ``_sync_apply`` :505-554, ``init_carry`` :1146,
+``sync_from_carry`` :1225, ``gather``/``gather_for_metrics`` :1375-1407,
+``register_for_checkpointing``/``save_state``/``load_state`` :1434-1506,
+``save_model`` :1508, ``get_state_dict`` :1520, ``skip_first_batches``
+:1558, ``set_seed`` :1561) for one process on one device. The step keeps
+the reference's contract and arithmetic:
 ``step_fn(carry, batch) -> (carry, metrics)``; the loss runs on parameters
 cast to the policy's compute dtype while the fp32 masters receive fp32
 gradients (``_cast_floating`` :1667); K-step accumulation sums into an fp32
@@ -23,11 +27,19 @@ import functools
 import inspect
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
 
-from .data_loader import DataLoaderShard, prepare_data_loader, send_to_device
+from . import checkpointing
+from .data_loader import (
+    DataLoaderShard,
+    prepare_data_loader,
+    send_to_device,
+    skip_first_batches,
+)
+from .logging import get_logger
 from .ops.fused import maybe_fused_epilogue
 from .optimizer import (
     AcceleratedOptimizer,
@@ -39,7 +51,11 @@ from .optimizer import (
 )
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
-from .utils.dataclasses import GradientAccumulationPlugin
+from .utils import operations
+from .utils.dataclasses import GradientAccumulationPlugin, ProjectConfiguration
+from .utils.random import KeyChain, set_seed
+
+logger = get_logger(__name__)
 
 
 def _cast_floating(tree: Any, dtype: torch.dtype) -> Any:
@@ -66,7 +82,8 @@ def _is_schedule(obj: Any) -> bool:
 
 class Accelerator:
     """One instance per training script, on one device: CUDA unless
-    ``cpu=True``."""
+    ``cpu=True``. ``seed`` seeds the accelerator's own generator
+    (``keys``), which checkpoints carry."""
 
     def __init__(
         self,
@@ -74,20 +91,43 @@ class Accelerator:
         gradient_accumulation_steps: int = 1,
         cpu: bool = False,
         parallelism_plugin: Any = None,
+        project_config: Optional[ProjectConfiguration] = None,
+        project_dir: Optional[str] = None,
+        seed: int = 0,
     ):
         if parallelism_plugin is not None:
             raise NotImplementedError(
                 "sharded and pipelined training is not ported yet: ROADMAP.md, queue A7"
             )
+        self.project_configuration = project_config or ProjectConfiguration(
+            project_dir=project_dir)
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
         self.gradient_state = GradientState(
             GradientAccumulationPlugin(num_steps=gradient_accumulation_steps)
         )
+        self.keys = KeyChain(seed)
         self._optimizers: list[AcceleratedOptimizer] = []
+        self._schedulers: list[AcceleratedScheduler] = []
+        self._dataloaders: list[DataLoaderShard] = []
+        self._custom_objects: list[Any] = []
+        self.step = 0  # train-step calls, micro steps included (host mirror)
 
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    # one process on one device
+    is_main_process = True
+    process_index = 0
+    num_processes = 1
+
+    @property
+    def sync_gradients(self) -> bool:
+        return self.gradient_state.sync_gradients
+
+    def print(self, *args, **kwargs) -> None:
+        """``print`` on the main process (here, always)."""
+        print(*args, **kwargs)
 
     # ------------------------------------------------------------------ #
     # prepare
@@ -118,15 +158,17 @@ class Accelerator:
                 obj.init(dict(model.named_parameters()))
             if _is_schedule(obj):
                 result[i] = AcceleratedScheduler(obj)
+                self._schedulers.append(result[i])
         return result[0] if len(result) == 1 else tuple(result)
 
     def prepare_model(self, model: nn.Module) -> nn.Module:
         return model.to(device=self.device)
 
     def prepare_data_loader(self, dataloader: Any) -> DataLoaderShard:
-        if isinstance(dataloader, DataLoaderShard):
-            return dataloader
-        return prepare_data_loader(dataloader, self.state)
+        if not isinstance(dataloader, DataLoaderShard):
+            dataloader = prepare_data_loader(dataloader, self.state)
+        self._dataloaders.append(dataloader)
+        return dataloader
 
     # ------------------------------------------------------------------ #
     # the train step
@@ -215,6 +257,7 @@ class Accelerator:
             new_carry["opt_step"] = carry["opt_step"] + int(is_sync)
             if ls is not None:
                 new_carry["loss_scale"] = ls
+            self.step += 1
             self.gradient_state.sync_gradients = is_sync
             metrics = {
                 "loss": loss.detach().float(),
@@ -254,3 +297,97 @@ class Accelerator:
         if policy.uses_loss_scaling:
             carry["loss_scale"] = init_loss_scale(policy, self.device)
         return carry
+
+    def sync_from_carry(self, carry: dict) -> None:
+        """Set ``step`` and ``sync_gradients`` from the carry's counters."""
+        micro = int(carry["micro_step"])
+        self.step = int(carry["opt_step"]) * self.gradient_state.num_steps + micro
+        self.gradient_state.sync_gradients = micro == 0
+
+    # ------------------------------------------------------------------ #
+    # metrics
+    # ------------------------------------------------------------------ #
+    def gather(self, tensor: Any) -> Any:
+        return operations.gather(tensor)
+
+    def gather_for_metrics(self, input_data: Any, use_gather_object: bool = False) -> Any:
+        """Gather eval outputs; on the last batch of a loader whose tail
+        wrapped around, only the first ``remainder`` rows are real, and
+        the rest are dropped."""
+        if use_gather_object or not _all_tensor_leaves(input_data):
+            data = operations.gather_object(input_data)
+            return [x for sub in data for x in (sub if isinstance(sub, list) else [sub])]
+        data = operations.gather(input_data)
+        remainder = self.gradient_state.remainder
+        if self.gradient_state.end_of_dataloader and remainder > 0:
+
+            def _adjust(t):
+                if t.dim() == 0:  # a scalar carries no repeated rows
+                    logger.warning_once("gather_for_metrics got a 0-d leaf at the end of the "
+                                        "dataloader; returning it un-truncated")
+                    return t
+                return t[:remainder]
+
+            data = operations.recursively_apply(_adjust, data)
+        return data
+
+    def reduce(self, tensor: Any, reduction: str = "sum", scale: float = 1.0) -> Any:
+        return operations.reduce(tensor, reduction, scale)
+
+    def pad_across_processes(self, tensor: Any, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False) -> Any:
+        return operations.pad_across_processes(tensor, dim, pad_index, pad_first)
+
+    # ------------------------------------------------------------------ #
+    # checkpoints
+    # ------------------------------------------------------------------ #
+    def register_for_checkpointing(self, *objects: Any) -> None:
+        """Objects with ``state_dict``/``load_state_dict`` that
+        ``save_state`` and ``load_state`` carry along."""
+        invalid = [o for o in objects
+                   if not (hasattr(o, "state_dict") and hasattr(o, "load_state_dict"))]
+        if invalid:
+            raise ValueError("All `objects` must include a `state_dict` and `load_state_dict` "
+                             f"function to be stored; got {invalid}")
+        self._custom_objects.extend(objects)
+
+    def save_state(self, output_dir: Optional[str] = None, carry: Any = None,
+                   block: bool = True, **kwargs) -> str:
+        """Checkpoint the training state (``checkpointing.save_accelerator_state``);
+        returns the committed directory."""
+        if not block:
+            raise NotImplementedError(
+                "save_state(block=False), the background writer, is not ported yet: "
+                "ROADMAP.md, queue A6")
+        return checkpointing.save_accelerator_state(self, output_dir, carry=carry, **kwargs)
+
+    def load_state(self, input_dir: Optional[str] = None, carry: Any = None, **kwargs) -> Any:
+        """Restore a checkpoint into ``carry`` (its tensors in place) and
+        return the restored carry."""
+        return checkpointing.load_accelerator_state(self, input_dir, carry=carry, **kwargs)
+
+    def save_model(self, params: Any, save_directory: str, max_shard_size: str = "10GB",
+                   safe_serialization: bool = True) -> None:
+        checkpointing.save_model_weights(params, save_directory, max_shard_size=max_shard_size,
+                                         safe_serialization=safe_serialization)
+
+    def get_state_dict(self, params: Any, unwrap: bool = True) -> dict[str, torch.Tensor]:
+        """Every tensor of a module or parameter tree, by name, on the host."""
+        return checkpointing._to_named_tensors(params)
+
+    def unwrap_model(self, model: Any, keep_fp32_wrapper: bool = True) -> Any:
+        """No wrapper is put around a prepared model: the model itself."""
+        return model
+
+    def skip_first_batches(self, dataloader: DataLoaderShard, num_batches: int = 0):
+        return skip_first_batches(dataloader, num_batches)
+
+    def set_seed(self, seed: int) -> torch.Generator:
+        self.keys = KeyChain(seed)
+        return set_seed(seed)
+
+
+def _all_tensor_leaves(tree: Any) -> bool:
+    leaves = []
+    operations.recursively_apply(leaves.append, tree, test_type=lambda x: True)
+    return bool(leaves) and all(isinstance(x, (torch.Tensor, np.ndarray)) for x in leaves)

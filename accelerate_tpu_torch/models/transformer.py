@@ -1,10 +1,11 @@
-"""Decoder-only transformer (Llama family): the training path.
+"""The Llama-family transformer: the causal LM and the encoder classifier.
 
 Port of ``accelerate_tpu/models/transformer.py`` (``RMSNorm`` :47,
 ``rope`` :113 with ``_scale_rope_freqs`` :80 in ``ops/rope.py``,
 ``Attention`` :246, ``MLP`` :491,
 ``Block`` :671, ``_apply_layer_stack`` :803, ``CausalLM`` :861 with
-``loss_fn`` :938) as ``nn.Module``s. Parameters are fp32 and named after
+``loss_fn`` :938, ``SequenceClassifier`` :961 with ``loss_fn`` :1067) as
+``nn.Module``s. Parameters are fp32 and named after
 the reference's module tree (``layers.<i>.attn.q_proj.weight`` for
 ``layers/attn/q_proj/kernel``); ``utils/weights.params_from_jax`` carries
 a flax tree over. Each projection computes in ``config.dtype``, casting
@@ -17,7 +18,7 @@ the same parameters (the reference's :271-319 and :701-710).
 Not ported yet, and rejected when asked for (ROADMAP.md): fp8
 projections, MoE, the GPT-2 architecture, the Gemma/Gemma-2 switches,
 remat policies other than ``"full"``, the decode, paged and LoRA paths,
-and the BERT ``SequenceClassifier``.
+and ``fused_kernels=True`` on the classifier.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import fused as fused_ops
-from ..ops.attention import dot_product_attention
+from ..ops.attention import dot_product_attention, flash_self_attention_eligible
 from ..ops.rope import rope_inv_freqs
 from ..state import resolve_device
 from .config import TransformerConfig
@@ -126,11 +127,14 @@ class Attention(nn.Module):
         self.v_proj = Dense(e, kv_dim, cfg.qkv_bias, **kw)
         self.o_proj = Dense(q_dim, e, False, **kw)
 
-    def forward(self, x, positions, pre_norm_scale=None):
-        """``pre_norm_scale``: the Block handed over the raw residual stream
-        and its norm scale (``fused_kernels``). The fused prologue runs when
-        its shape gate allows; otherwise the norm is applied here and the
-        unfused chain follows."""
+    def forward(self, x, positions, mask=None, kv_lengths=None, pre_norm_scale=None):
+        """``mask``: a (B, 1, 1, S) bool key mask (True = attend);
+        ``kv_lengths``: (B,) int32 right-padding lengths; both go to
+        ``dot_product_attention``, which routes a mask to the plain path and
+        lengths to either. ``pre_norm_scale``: the Block handed over the raw
+        residual stream and its norm scale (``fused_kernels``). The fused
+        prologue runs when its shape gate allows; otherwise the norm is
+        applied here and the unfused chain follows."""
         cfg = self.config
         b, s = x.shape[:2]
         dt = _dtype(cfg)
@@ -156,8 +160,8 @@ class Attention(nn.Module):
             q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
             k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         out = dot_product_attention(
-            q, k, v, causal=cfg.causal, implementation=cfg.attention_impl,
-            window=cfg.sliding_window,
+            q, k, v, mask=mask, causal=cfg.causal, kv_lengths=kv_lengths,
+            implementation=cfg.attention_impl, window=cfg.sliding_window,
         )
         return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
 
@@ -187,15 +191,40 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(config, e, device)
         self.mlp = MLP(config, device, generator)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, mask=None, kv_lengths=None):
         if self.fused_kernels:
             # the fused prologue normalises inside its kernel: hand Attention
             # the raw residual stream and the norm's scale
-            attn_out = self.attn(x, positions, pre_norm_scale=self.attn_norm.weight)
+            attn_out = self.attn(x, positions, mask, kv_lengths,
+                                 pre_norm_scale=self.attn_norm.weight)
         else:
-            attn_out = self.attn(self.attn_norm(x), positions)
+            attn_out = self.attn(self.attn_norm(x), positions, mask, kv_lengths)
         h = x + attn_out
         return h + self.mlp(self.mlp_norm(h))
+
+
+def _layer_stack(model: nn.Module, x, positions, mask=None, kv_lengths=None):
+    """x through ``model.layers`` (the reference's ``_apply_layer_stack``),
+    each layer under ``torch.utils.checkpoint`` when ``remat="full"``."""
+    for layer in model.layers:
+        if model.config.remat == "full" and torch.is_grad_enabled():
+            x = checkpoint(layer, x, positions, mask, kv_lengths, use_reentrant=False)
+        else:
+            x = layer(x, positions, mask, kv_lengths)
+    return x
+
+
+def _embed_and_layers(model: nn.Module, config: TransformerConfig, device, generator):
+    """The embedding, the Block stack and the final norm that the causal LM
+    and the classifier share, made on ``device`` from ``generator``."""
+    e = config.hidden_size
+    model.embed = nn.Embedding(config.vocab_size, e, device=device)
+    with torch.no_grad():
+        model.embed.weight.normal_(0.0, 0.02, generator=generator)
+    model.layers = nn.ModuleList(
+        Block(config, device, generator) for _ in range(config.num_layers)
+    )
+    model.final_norm = RMSNorm(config, e, device)
 
 
 class CausalLM(nn.Module):
@@ -217,17 +246,10 @@ class CausalLM(nn.Module):
         device = resolve_device(cpu=False) if device is None else torch.device(device)
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
-        e = config.hidden_size
-        self.embed = nn.Embedding(config.vocab_size, e, device=device)
-        with torch.no_grad():
-            self.embed.weight.normal_(0.0, 0.02, generator=generator)
-        self.layers = nn.ModuleList(
-            Block(config, device, generator) for _ in range(config.num_layers)
-        )
-        self.final_norm = RMSNorm(config, e, device)
+        _embed_and_layers(self, config, device, generator)
         if not config.tie_embeddings:
-            self.lm_head = Dense(e, config.vocab_size, False, _dtype(config), device,
-                                 generator)
+            self.lm_head = Dense(config.hidden_size, config.vocab_size, False, _dtype(config),
+                                 device, generator)
 
     def forward(self, input_ids, positions=None, decode=False, paged=None):
         if decode or paged is not None:
@@ -239,12 +261,7 @@ class CausalLM(nn.Module):
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device)
             positions = positions[None, :].expand(input_ids.shape)
-        x = F.embedding(input_ids, self.embed.weight.to(dt))
-        for layer in self.layers:
-            if cfg.remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(layer, x, positions, use_reentrant=False)
-            else:
-                x = layer(x, positions)
+        x = _layer_stack(self, F.embedding(input_ids, self.embed.weight.to(dt)), positions)
         x = self.final_norm(x)
         if cfg.tie_embeddings:
             return x.to(dt) @ self.embed.weight.to(dt).t()
@@ -272,10 +289,83 @@ class CausalLM(nn.Module):
 
 
 class SequenceClassifier(nn.Module):
-    """The BERT-family encoder classifier of the reference
-    (``transformer.py:961``): not ported yet."""
+    """The encoder classifier, the BERT-family fine-tune target (the
+    reference's ``examples/nlp_example.py``): embed -> L x Block (run with
+    ``config.causal=False``) -> norm -> masked mean-pool -> tanh ``pooler``
+    -> fp32 ``classifier``.
 
-    def __init__(self, config: TransformerConfig, *args, **kwargs):
-        raise NotImplementedError(
-            "SequenceClassifier (the BERT path) is not ported yet: ROADMAP.md, queue A5"
-        )
+    ``forward(input_ids, attention_mask=None) -> (B, num_labels)`` fp32
+    logits, ``attention_mask`` 1 for a real token and 0 for padding.
+
+    The mask is routed as the reference routes it: where the flash kernels
+    run (``attention_impl="flash"``, or auto-dispatch choosing them) it is
+    taken as right padding and lowered to per-row lengths, ``kv_lengths``;
+    every other path applies the exact (B, 1, 1, S) key mask, right for
+    any 0/1 pattern. On the flash path a row whose mask is not a prefix
+    (left padding, holes) is set to NaN after the layers, so a wrong mask
+    fails loudly; such masks need ``attention_impl="xla"``.
+
+    Parameters are made on ``device`` (CUDA unless the caller passes
+    ``device="cpu"``) from ``generator`` (a fresh one seeded 0 if none).
+    """
+
+    def __init__(self, config: TransformerConfig, num_labels: int = 2, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        why = _unsupported(config)
+        if why is None and config.fused_kernels:
+            why = "fused_kernels=True on the classifier (the fused BERT path, queue A5)"
+        if why is not None:
+            raise NotImplementedError(f"not ported yet: {why}; see ROADMAP.md")
+        self.config = config
+        self.num_labels = num_labels
+        device = resolve_device(cpu=False) if device is None else torch.device(device)
+        if generator is None:
+            generator = torch.Generator(device).manual_seed(0)
+        _embed_and_layers(self, config, device, generator)
+        e = config.hidden_size
+        self.pooler = Dense(e, e, True, _dtype(config), device, generator)
+        # logits in fp32: the softmax cross-entropy is where precision matters
+        self.classifier = Dense(e, num_labels, True, torch.float32, device, generator)
+
+    def forward(self, input_ids, attention_mask=None):
+        cfg = self.config
+        b, s = input_ids.shape
+        positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
+        mask4d = kv_lengths = is_prefix = None
+        if attention_mask is not None:
+            keep = attention_mask > 0
+            use_flash = cfg.attention_impl == "flash" or (
+                cfg.attention_impl is None
+                and flash_self_attention_eligible(s, input_ids.device))
+            if use_flash:
+                # the flash wrapper takes a contiguous (B,) int32 tensor
+                kv_lengths = keep.sum(dim=-1, dtype=torch.int32).contiguous()
+                is_prefix = (keep[:, 1:] <= keep[:, :-1]).all(dim=-1)
+            else:
+                mask4d = keep[:, None, None, :]
+        x = F.embedding(input_ids, self.embed.weight.to(_dtype(cfg)))
+        x = _layer_stack(self, x, positions, mask4d, kv_lengths)
+        if is_prefix is not None:
+            x = torch.where(is_prefix[:, None, None], x, torch.full_like(x, float("nan")))
+        x = self.final_norm(x)
+        if attention_mask is None:
+            pooled = x.mean(dim=1)
+        else:
+            w = attention_mask[:, :, None].to(x.dtype)
+            pooled = (x * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
+        return self.classifier(torch.tanh(self.pooler(pooled)))
+
+    @staticmethod
+    def loss_fn(model: "SequenceClassifier"):
+        """Cross-entropy closure for ``Accelerator.unified_step``:
+        ``loss_fn(params, batch)`` with batch keys ``{input_ids, labels,
+        [attention_mask]}``; the mean softmax cross-entropy of the fp32
+        logits against the integer labels."""
+
+        def fn(params, batch):
+            logits = torch.func.functional_call(
+                model, params, (batch["input_ids"], batch.get("attention_mask")))
+            return F.cross_entropy(logits.float(), batch["labels"].long())
+
+        return fn

@@ -147,3 +147,19 @@ class AcceleratedOptimizer:
 
     def apply_gradients(self, grads: Params, params: Params, opt_state: dict) -> None:
         self.optimizer.apply_(grads, opt_state, params)
+
+    def state_dict(self) -> Optional[dict]:
+        """The optimizer state: ``{"count", "mu", "nu"}``."""
+        return self.opt_state
+
+    def load_state_dict(self, state: dict) -> None:
+        """Take ``state``'s count and copy its moments into the current
+        state's tensors (or adopt them when there is none yet)."""
+        if self.opt_state is None:
+            self.opt_state = state
+            return
+        with torch.no_grad():
+            for key in ("mu", "nu"):
+                for name, t in self.opt_state[key].items():
+                    t.copy_(state[key][name])
+        self.opt_state["count"] = int(state["count"])

@@ -106,9 +106,11 @@ class AcceleratorState:
 
 
 class GradientState:
-    """Gradient-accumulation bookkeeping shared by the Accelerator and the
-    scheduler: the accumulation length and whether the last step was an
-    optimizer boundary."""
+    """Gradient-accumulation bookkeeping shared by the Accelerator, the
+    scheduler and the loaders: the accumulation length, whether the last
+    step was an optimizer boundary, and the loader being iterated, whose
+    ``end_of_dataloader`` and ``remainder`` ``gather_for_metrics`` reads
+    (reference ``state.py:450-475``)."""
 
     _shared_state: dict[str, Any] = {}
 
@@ -119,12 +121,34 @@ class GradientState:
         if not self.initialized:
             self.sync_gradients = True
             self.num_steps = 1
+            self.active_dataloader = None
+            self.dataloader_references: list[Any] = [None]
         if gradient_accumulation_plugin is not None:
             self.num_steps = gradient_accumulation_plugin.num_steps
 
     @property
     def initialized(self) -> bool:
         return "sync_gradients" in self.__dict__
+
+    @property
+    def end_of_dataloader(self) -> bool:
+        return self.active_dataloader is not None and getattr(
+            self.active_dataloader, "end_of_dataloader", False)
+
+    @property
+    def remainder(self) -> int:
+        if self.active_dataloader is None:
+            return -1
+        return getattr(self.active_dataloader, "remainder", -1)
+
+    def _add_dataloader(self, dataloader) -> None:
+        self.dataloader_references.append(dataloader)
+        self.active_dataloader = dataloader
+
+    def _remove_dataloader(self, dataloader) -> None:
+        if dataloader in self.dataloader_references:
+            self.dataloader_references.remove(dataloader)
+        self.active_dataloader = self.dataloader_references[-1]
 
     @staticmethod
     def _reset_state():

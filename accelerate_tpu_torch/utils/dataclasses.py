@@ -1,8 +1,9 @@
 """Config dataclasses and enums of the training slice.
 
-Port of ``accelerate_tpu/utils/dataclasses.py:65-225``: the precision and
-distributed-type enums, the mixed-precision policy with torch dtypes, and
-gradient accumulation in its unfused mode. One process on one device:
+Port of ``accelerate_tpu/utils/dataclasses.py:65-225`` and ``:238``: the
+precision and distributed-type enums, the mixed-precision policy with torch
+dtypes, gradient accumulation in its unfused mode, and the project
+configuration that names checkpoints. One process on one device:
 sharding plugins, process groups and the launcher's environment variables
 come with a later slice (ROADMAP.md).
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -70,3 +71,25 @@ class GradientAccumulationPlugin:
     def __post_init__(self):
         if self.num_steps < 1:
             raise ValueError("num_steps must be >= 1")
+
+
+@dataclass
+class ProjectConfiguration:
+    """Where ``save_state`` puts checkpoints: with
+    ``automatic_checkpoint_naming`` they go to
+    ``<project_dir>/checkpoints/checkpoint_<iteration>``, keeping at most
+    ``total_limit`` of them."""
+
+    project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0
+
+    def set_directories(self, project_dir: Optional[str] = None) -> None:
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        self.set_directories(self.project_dir)

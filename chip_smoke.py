@@ -14,12 +14,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    and fp16 at head_dim 64 and 128, S = 129, 255 and 300, a window across a
    128-row tile and across dq's 64-row kv tiles, kv lengths with an empty
    row, one and four query heads a kv head, kv longer or shorter than q,
-   non-causal, head_dim 96 on the wmma design, fp32 at a tight tolerance),
-   each case's launches of all four counted by design (``kernel_design``'s
+   non-causal, head_dim 96 on the wmma design, fp32 at a tight tolerance,
+   and bert_base's shape: B 4, S 512, 12 heads of 64, non-causal, lengths
+   512/300/129/0, bf16 and fp16), each case's launches of all four counted
+   by design (``kernel_design``'s
    answer at the launch, first held against the C launcher's own rule);
    where dk/dv and the single pass both take the wgmma design, dk/dv's dk
    and dv must equal the single pass's bit for bit, and dq and dk/dv,
-   launched twice, must give the same bits twice; the fused prologue at
+   launched again into outputs filled with NaN, must give the same bits; the fused prologue at
    the main shape and on cases that reach the edges of both designs (D 64
    in 64-, 128-, 192- and 256-column tiles, D 128 in 128- and 256-column
    tiles, with and without a bias, rows that fill no 128-row tile or end
@@ -31,7 +33,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    leaf, finite and held. Time kernel, plain version and, where one
    PyTorch call computes the same function (SDPA's forward for B1,
    PyTorch's flash-attention backward op for B4, ``torch._fused_adamw_``
-   for the epilogue), that call; else a named yardstick.
+   for the epilogue), that call; else a named yardstick. B1-B3 also at the
+   BERT phase's shape (B 32, S 512, seeded lengths), SDPA with the key
+   mask as B1's library call.
 3. small models: a tiny CausalLM through the kernels on the card against
    the same weights through the plain path on the CPU; then a tiny
    ``fused_kernels=True`` CausalLM with ``fused_adamw`` and the single-pass
@@ -44,9 +48,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    and ``flash_attention.FUSED_BWD = True``, counters and profiled step
    read the same way; its loss curve must stay within PATH_LOSS_TOL of the
    main path's.
+6. BERT phase: the bert_base ``SequenceClassifier`` (full width and depth)
+   at B 32, S 512, where auto-dispatch itself takes B1-B3 non-causal with
+   ``kv_lengths``: 6 ``unified_step``s and an eval pass with exact launch
+   counts and one profiled step; then 3 steps, ``save_state``, a fresh
+   accelerator and model, ``load_state``, ``skip_first_batches(3)`` and 3
+   steps, which must equal the uninterrupted run bit for bit.
+7. example: ``accelerate_tpu_torch/examples/checkpointing.py`` for one
+   bert_base epoch (S 128: no kernel of the port), its ``epoch_0``
+   re-evaluated in a fresh accelerator to the same accuracy, and one
+   profiled step of its shape.
 
-Prints one JSON line describing the kernels, then the card's name and power
-limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
+Prints one JSON line describing the kernels (each with the shape it was
+timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
 CUDA device; exits non-zero without one.
 
     python3 chip_smoke.py --check-only
@@ -55,7 +69,11 @@ runs phases 1 and 2 without the timings, and
 
     python3 chip_smoke.py --small-only
 
-phases 1 and 3 (both for tools/flash_mutants.py).
+phases 1 and 3 (both for tools/flash_mutants.py), and
+
+    python3 chip_smoke.py --bert-only
+
+phase 1, the BERT-shape kernel cases and timings, and phases 6 and 7.
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -71,6 +89,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -118,6 +137,15 @@ KERNELS = {
     "adamw_epilogue": ("adamw_kernel", "accelerate_tpu/ops/fused.py:426", FUSED_SRC,
                        "elementwise"),
 }
+# the BERT phase: bert_base at its max_seq_len, the kernels' BERT shape
+BERT = dict(B=32, S=512, H=12, D=64, steps=6, eval_rows=100, eval_batch=32)
+BERT_CASES = [  # B1-B3 non-causal, right-padded, G = 1 at head_dim 64; a row of length 0
+    ("bert_noncausal_lengths_d64_g1", dict(B=4, S=512, H=12, Hkv=12, D=64, causal=False,
+                                           lens=[512, 300, 129, 0])),
+    ("bert_noncausal_lengths_d64_g1_fp16", dict(B=4, S=512, H=12, Hkv=12, D=64, causal=False,
+                                                lens=[512, 300, 129, 0])),
+]
+WRAPPER_OF = {spec[0]: wrapper for wrapper, spec in KERNELS.items()}  # kernel -> wrapper
 LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     "original_max_position_embeddings": 8192,
@@ -216,9 +244,15 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
     fdq, fdk, fdv = fa.flash_bwd_fused(q, k, v, dout, ref_lse, delta, *args)
     ref_fdq, ref_fdk, ref_fdv = fa.flash_bwd_fused_reference(q, k, v, dout, ref_lse, delta,
                                                              *args)
-    # dq and dk/dv once more on the same inputs
-    dq2 = fa.flash_bwd_dq(q, k, v, dout, ref_lse, delta, *args)
-    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, ref_lse, delta, *args)
+    # dq and dk/dv once more on the same inputs, into outputs filled with NaN
+    # first (the wrappers' outputs start as whatever the memory held): an
+    # element a kernel leaves unwritten reads NaN and fails the repeat check
+    nan = float("nan")
+    dq2, dk2, dv2 = torch.full_like(q, nan), torch.full_like(k, nan), torch.full_like(v, nan)
+    fa._launch(fa.flash_bwd_dq, (q, k, v, dout, ref_lse, delta, kv_lengths, dq2), q, k, scale,
+               causal, window)
+    fa._launch(fa.flash_bwd_dkv, (q, k, v, dout, ref_lse, delta, kv_lengths, dk2, dv2), q, k,
+               scale, causal, window)
     torch.cuda.synchronize()
     ran = {w.__name__: [d for d, n in w.by_design.items() if n != b[d]]
            for w, b in zip(fa.KERNEL_WRAPPERS, before)}
@@ -450,13 +484,9 @@ def kernel_phase(torch, port, fa, fused, build, rep: Report,
         ("fp32_window_lengths", dict(B=2, S=100, H=4, Hkv=2, D=128, dtype=torch.float32,
                                      window=30, lens=[100, 7])),
     ]
+    cases += bert_cases(torch)
     cases.append(("main_bf16_causal", dict(**MAIN, dtype=bf16)))
-    failed = []
-    for name, kw in cases:  # every case runs; the phase fails after the last
-        reading, abs_errs = check_case(torch, fa, name, **kw)
-        rep.line(json.dumps(reading))
-        if reading["bad"]:
-            failed.append(f"{name}: {reading['bad']}")
+    failed, reading, abs_errs = run_cases(torch, fa, cases, rep)
     main_abs_errs, main_launched = abs_errs, dict(reading["launched"])
     pro_main = dict(B=MAIN["B"], S=MAIN["S"], E=4096, H=MAIN["H"], Hkv=MAIN["Hkv"], D=MAIN["D"])
     # wgmma design: bf16/fp16 at D 64 and 128; wmma: fp32 and D 96
@@ -973,6 +1003,358 @@ def profile_step(torch, step, carry, batch, rep: Report, name: str):
             for m in [re.search(r"\b((?:flash|qkv|adamw)\w*_kernel)\b", key)] if m}
 
 
+def bert_cases(torch) -> list:
+    dtypes = (torch.bfloat16, torch.float16)
+    return [(name, dict(kw, dtype=dt)) for (name, kw), dt in zip(BERT_CASES, dtypes)]
+
+
+def run_cases(torch, fa, cases, rep: Report):
+    """Every flash case through ``check_case``, each reading printed.
+    Returns the failures and the last case's reading and max abs errors."""
+    failed = []
+    for name, kw in cases:  # every case runs; the caller fails after the last
+        reading, abs_errs = check_case(torch, fa, name, **kw)
+        rep.line(json.dumps(reading))
+        if reading["bad"]:
+            failed.append(f"{name}: {reading['bad']}")
+    return failed, reading, abs_errs
+
+
+def bert_lengths(B: int, S: int, seed: int):
+    """Right-padding lengths drawn from [64, S], seeded; the first is S."""
+    import numpy as np
+
+    lens = np.random.default_rng(seed).integers(64, S + 1, size=B)
+    lens[0] = S
+    return lens
+
+
+def time_bert_kernels(torch, fa, rep: Report) -> list[dict]:
+    """B1-B3 at the BERT phase's shape (B 32, S 512, 12 heads, head_dim 64,
+    bf16, non-causal, seeded right-padding lengths): each output's max abs
+    error against the plain version on these inputs, and the times of
+    kernel, plain version and, for B1, SDPA with the (B, 1, 1, S) key mask.
+    Bounds count the visible pairs (every query row against its row's real
+    keys) and read k and v up to each row's length."""
+    import torch.nn.functional as F
+
+    B, S, H, D = (BERT[k] for k in ("B", "S", "H", "D"))
+    lens = bert_lengths(B, S, seed=3)
+    q, k, v, dout = make_inputs(torch, B, S, H, H, D, torch.bfloat16, seed=3)
+    kvl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = D ** -0.5
+    args = (scale, False, kvl)
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    delta = fa.attention_delta(out, dout)
+    absmax = lambda a, b: float((a.float() - b.float()).abs().max())  # noqa: E731
+    ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, *args)
+    abs_errs = {
+        "flash_fwd": absmax(out, ref_out),
+        "flash_bwd_dq": absmax(fa.flash_bwd_dq(q, k, v, dout, lse, delta, *args),
+                               fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta, *args)),
+        "flash_bwd_dkv": max(absmax(a, b) for a, b in zip(
+            fa.flash_bwd_dkv(q, k, v, dout, lse, delta, *args),
+            fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, *args))),
+    }
+    del ref_out, ref_lse
+    scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB of L2
+    flush = scratch.zero_
+    fns = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *args),
+                      lambda: fa.flash_fwd_reference(q, k, v, *args)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, *args),
+                         lambda: fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta, *args)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, *args),
+                          lambda: fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, *args)),
+    }
+    keep = (torch.arange(S, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep), 20, flush)
+    pairs = int(lens.sum()) * S * H
+    e = 2
+    qo, kv_full = B * S * H * D * e, B * S * H * D * e
+    kv_real, stat = int(lens.sum()) * H * D * e, B * H * S * 4
+    work = {  # (FLOP, bytes): inputs read once (k, v up to each length), outputs written once
+        "flash_fwd": (2 * 2 * D * pairs, qo + 2 * kv_real + qo + stat),
+        "flash_bwd_dq": (3 * 2 * D * pairs, 2 * qo + 2 * kv_real + 2 * stat + qo),
+        "flash_bwd_dkv": (4 * 2 * D * pairs, 2 * qo + 2 * kv_real + 2 * stat + 2 * kv_full),
+    }
+    rows = []
+    for wrapper, (kfn, pfn) in fns.items():
+        ms = time_ms(torch, kfn, 20, flush)
+        plain_ms = time_ms(torch, pfn, 3, flush)
+        row = kernel_row(wrapper, fa.kernel_design(torch.bfloat16, D), ms, plain_ms,
+                         *work[wrapper], PEAK_BF16_FLOPS, abs_errs[wrapper],
+                         library_fwd if wrapper == "flash_fwd" else None)
+        row["shape"] = (f"bert_base B{B} S{S} H{H} Hkv{H} D{D} bf16 non-causal, kv_lengths "
+                        f"{int(lens.min())}-{int(lens.max())} (mean {float(lens.mean())})")
+        rows.append(row)
+        rep.line(f"{KERNELS[wrapper][0]} at the BERT shape: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+                 f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                 f"{work[wrapper][0] / ms / 1e9:.1f} TFLOP/s of visible pairs)")
+    rep.line(f"library for flash_fwd_kernel at the BERT shape: F.scaled_dot_product_attention "
+             f"with the (B, 1, 1, S) key mask {library_fwd:.4f} ms")
+
+    qg, kg, vg = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+    dout_t = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+        torch.autograd.grad(o, (qg, kg, vg), dout_t)
+
+    def port_fwd_bwd():
+        o, l = fa.flash_fwd(q, k, v, *args)
+        d = fa.attention_delta(o, dout)
+        fa.flash_bwd_dq(q, k, v, dout, l, d, *args)
+        fa.flash_bwd_dkv(q, k, v, dout, l, d, *args)
+
+    rep.line(f"fwd+bwd at the BERT shape: port kernels {time_ms(torch, port_fwd_bwd, 10, flush):.4f} "
+             f"ms, F.scaled_dot_product_attention with the key mask "
+             f"{time_ms(torch, sdpa_fwd_bwd, 10, flush):.4f} ms (yardstick only)")
+    return rows
+
+
+def bert_rows(n: int, vocab: int, seed: int) -> list[dict]:
+    """Right-padded rows of the classifier's batch keys, seeded: lengths in
+    [64, S] with the first row at S, ids past a row's length 0."""
+    import numpy as np
+
+    S = BERT["S"]
+    lens = bert_lengths(n, S, seed)
+    rng = np.random.default_rng(seed + 1)
+    mask = (np.arange(S)[None, :] < lens[:, None]).astype(np.int32)
+    ids = rng.integers(4, vocab, size=(n, S)).astype(np.int32) * mask
+    labels = rng.integers(0, 2, size=n).astype(np.int32)
+    return [{"input_ids": ids[i], "attention_mask": mask[i], "labels": labels[i]}
+            for i in range(n)]
+
+
+def bert_trainer(torch, port, seed: int):
+    """bert_base at full width and depth, bf16 compute with fp32 masters,
+    adamw with the examples' warmup-cosine schedule and weight decay 0.01,
+    clip 1.0; a shuffled torch loader of the training rows and an eval
+    loader whose size is not a multiple of its batch."""
+    from torch.utils.data import DataLoader as TorchLoader
+
+    from accelerate_tpu_torch.examples.nlp_example import collate_fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    acc = port.Accelerator(mixed_precision="bf16")
+    cfg = port.TransformerConfig.bert_base(dtype="bfloat16")
+    model = port.SequenceClassifier(cfg, num_labels=2, device=acc.device,
+                                    generator=torch.Generator(acc.device).manual_seed(seed))
+    B = BERT["B"]
+    train = TorchLoader(bert_rows(BERT["steps"] * B, cfg.vocab_size, seed=11), batch_size=B,
+                        shuffle=True, collate_fn=collate_fn)
+    evals = TorchLoader(bert_rows(BERT["eval_rows"], cfg.vocab_size, seed=12),
+                        batch_size=BERT["eval_batch"], shuffle=False, collate_fn=collate_fn)
+    schedule = port.warmup_cosine_decay_schedule(0.0, 2e-4, 2, BERT["steps"])
+    model, opt, train, evals = acc.prepare(model, port.adamw(schedule, weight_decay=0.01),
+                                           train, evals)
+    step = acc.unified_step(port.SequenceClassifier.loss_fn(model), opt, max_grad_norm=1.0)
+    return acc, model, opt, train, evals, step, acc.init_carry(model, opt)
+
+
+def train_bert(torch, step, carry, loader, n: int):
+    """At most ``n`` batches of ``loader`` through ``step``: the carry, the
+    losses, each step's seconds (host clock ending in a synchronise), the
+    real tokens (the attention mask's sum) of each batch, and the last
+    batch."""
+    losses, times, real = [], [], []
+    for i, batch in enumerate(loader):
+        if i == n:
+            break
+        t0 = time.perf_counter()
+        carry, metrics = step(carry, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        real.append(int(batch["attention_mask"].sum()))
+        last = batch
+    return carry, losses, times, real, last
+
+
+def bert_phase(torch, port, wrappers, rep: Report) -> dict:
+    """The BERT path: bert_base (12 layers, 768 wide, 12 heads of 64) at
+    B 32, S 512, where auto-dispatch itself takes B1-B3 (non-causal, the
+    mask lowered to kv_lengths): 6 unified_steps and one eval pass, with
+    every launch counter set to 0 just before and read just after; then the
+    resume: 3 steps, save_state, a fresh accelerator and a model from
+    another seed, load_state, skip_first_batches(3), 3 steps, which must
+    equal the uninterrupted run bit for bit. Returns the launch counts."""
+    import tempfile
+
+    B, S, steps = BERT["B"], BERT["S"], BERT["steps"]
+    t0 = time.perf_counter()
+    acc, model, opt, train, evals, step, carry = bert_trainer(torch, port, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    rep.line(f"bert phase set-up: {n_params} params (bert_base: 12 layers, hidden 768, 12 heads "
+             f"of 64), {time.perf_counter() - t0:.2f} s")
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    carry, losses, times, real, batch = train_bert(torch, step, carry, train, steps)
+    peak = torch.cuda.max_memory_allocated()
+    correct = total = 0
+    with torch.no_grad():
+        for batch in evals:
+            pred = model(batch["input_ids"], batch["attention_mask"]).argmax(dim=-1)
+            pred, ref = acc.gather_for_metrics((pred, batch["labels"]))
+            correct += int((pred == ref).sum())
+            total += int(ref.shape[0])
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
+
+    steady = statistics.median(times[1:])
+    real_per_step = statistics.mean(real[1:])
+    rep.line(f"bert phase losses {losses}")
+    rep.line(f"bert phase step seconds {times}; median of steps 2-{steps} {steady} s, "
+             f"{B * S / steady} tokens/s padded (B*S), {real_per_step / steady} tokens/s real "
+             f"(mask sum, {real_per_step} a step); peak memory {peak / 2**30} GiB")
+    rep.line(f"bert phase eval: {total} rows gathered of {BERT['eval_rows']} (batch "
+             f"{BERT['eval_batch']}), accuracy {correct / max(total, 1)}")
+    rep.line(f"bert phase kernel launches {json.dumps(launches)}, by design {json.dumps(by_design)}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"bert phase losses not finite: {losses}")
+    if carry["opt_step"] != steps:
+        fail(f"bert phase took {carry['opt_step']} optimizer steps, not {steps}")
+    if total != BERT["eval_rows"]:
+        fail(f"bert phase: gather_for_metrics returned {total} rows, not {BERT['eval_rows']}")
+    n_eval = math.ceil(BERT["eval_rows"] / BERT["eval_batch"])
+    layers = model.config.num_layers
+    want = {"flash_fwd": layers * (steps + n_eval), "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps, "flash_bwd_fused": 0, "qkv_prologue": 0,
+            "adamw_epilogue": 0}
+    if launches != want:
+        fail(f"bert phase kernel launches {launches}, want {want}")
+    want_design = {w: {"wgmma": want[w], "wmma": 0} for w in by_design}
+    if by_design != want_design:
+        fail(f"bert phase launches by design {by_design}, want {want_design}")
+    straight = {k: t.detach().clone() for k, t in carry["params"].items()}
+    # one more step under the profiler (after the counts were read): the
+    # port's kernels in it must be B1-B3's wgmma ones
+    ran = profile_step(torch, step, carry, batch, rep, "bert phase")
+    want_ran = {KERNELS[w][0] for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if ran is not None and ran != want_ran:
+        fail(f"bert phase profiled step ran the port's kernels {sorted(ran)}, want "
+             f"{sorted(want_ran)}")
+    del acc, model, opt, train, evals, step, carry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        acc, _, _, train, _, step, carry = bert_trainer(torch, port, seed=0)
+        carry, first, *_ = train_bert(torch, step, carry, train, 3)
+        t0 = time.perf_counter()
+        out = acc.save_state(os.path.join(tmp, "step_3"), carry=carry)
+        save_s = time.perf_counter() - t0
+        del acc, train, step, carry
+        acc, model, _, train, _, step, carry = bert_trainer(torch, port, seed=1)
+        t0 = time.perf_counter()
+        carry = acc.load_state(out, carry=carry)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+        carry, rest, *_ = train_bert(torch, step, carry, acc.skip_first_batches(train, 3), 3)
+    diffs = {k: float((carry["params"][k].detach() - t).abs().max()) for k, t in straight.items()}
+    unequal = [k for k, t in straight.items() if not torch.equal(carry["params"][k].detach(), t)]
+    rep.line(f"bert resume: save_state {save_s} s, load_state {load_s} s, {size} bytes; losses "
+             f"of steps 4-6 resumed {rest} vs straight {losses[3:]}; params bitwise equal "
+             f"{len(straight) - len(unequal)} of {len(straight)}, largest difference "
+             f"{max(diffs.values())}")
+    if first != losses[:3] or rest != losses[3:] or unequal:
+        fail(f"bert resume is not bit for bit the uninterrupted run: losses {first + rest} vs "
+             f"{losses}, {len(unequal)} params differ ({unequal[:4]}), largest "
+             f"{max(diffs.values())}")
+    del acc, model, train, step, carry, straight
+    return launches
+
+
+def example_phase(torch, port, wrappers, rep: Report) -> None:
+    """``accelerate_tpu_torch/examples/checkpointing.py``'s training function
+    at bert_base width, bf16, one epoch (its config's ``num_epochs``; the
+    example reads ``TESTING_NUM_EPOCHS`` only with its tiny model),
+    ``--checkpointing_steps epoch``: step time and tokens/s from the train
+    step's calls, the epoch's accuracy; then ``epoch_0`` loaded into a fresh
+    accelerator and a model from another seed must give the same accuracy.
+    At S 128 both packages take plain attention: B1-B3 launch 0 times."""
+    import argparse
+    import tempfile
+
+    from accelerate_tpu_torch.examples import checkpointing as example
+    from accelerate_tpu_torch.examples import nlp_example
+
+    stamps, real = [], []
+
+    class TimedAccelerator(port.Accelerator):
+        """Stamps the host clock as each train step is called (the queue of
+        launches holds the host back to the card's pace)."""
+
+        def unified_step(self, *a, **kw):
+            step = super().unified_step(*a, **kw)
+
+            def timed(carry, batch):
+                stamps.append(time.perf_counter())
+                real.append(batch["attention_mask"].sum())
+                return step(carry, batch)
+
+            return timed
+
+    config = {"lr": 2e-4, "num_epochs": 1, "seed": 42, "batch_size": 16}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = argparse.Namespace(cpu=False, mixed_precision="bf16", gradient_accumulation_steps=1,
+                                  checkpointing_steps="epoch", output_dir=tmp,
+                                  resume_from_checkpoint=None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        port.AcceleratorState._reset_state(reset_partial_state=True)
+        port.GradientState._reset_state()
+        reset_counts(wrappers)
+        example.Accelerator = TimedAccelerator
+        try:
+            t0 = time.perf_counter()
+            metric = example.training_function(config, args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            example.Accelerator = port.Accelerator
+        launches = {w.__name__: w.launches for w in wrappers}
+        gaps = [b - a for a, b in zip(stamps[10:], stamps[11:])]
+        step_s = statistics.median(gaps)
+        real_per_step = float(torch.stack(real).float().mean())
+        rep.line(f"example checkpointing.py (bert_base, bf16, B 16, S 128, 1 epoch): "
+                 f"{len(stamps)} steps, {wall} s in all (data, set-up, the epoch, eval, "
+                 f"save_state), train steps {stamps[-1] - stamps[0]} s from first to last call, "
+                 f"step {step_s} s (median gap between calls after the 10th), "
+                 f"{16 * 128 / step_s} tokens/s padded, {real_per_step / step_s} tokens/s real; "
+                 f"accuracy {metric['accuracy']}; launches {json.dumps(launches)}")
+        flash = {w: n for w, n in launches.items() if w.startswith("flash_")}
+        if any(flash.values()):
+            fail(f"example: the flash kernels launched at S 128: {flash}")
+
+        port.AcceleratorState._reset_state(reset_partial_state=True)
+        port.GradientState._reset_state()
+        acc = port.Accelerator(mixed_precision="bf16")
+        model, cfg = nlp_example.model_and_config(acc, seed=7)
+        train, evals = nlp_example.get_dataloaders(acc, config["batch_size"], cfg)
+        model, opt, train, evals = acc.prepare(model, port.adamw(2e-4, weight_decay=0.01),
+                                               train, evals)
+        carry = acc.load_state(os.path.join(tmp, "epoch_0"), carry=acc.init_carry(model, opt))
+        again = nlp_example.evaluate(acc, model, evals)
+        rep.line(f"example epoch_0 loaded into a fresh accelerator: accuracy {again['accuracy']} "
+                 f"(trained {metric['accuracy']}), opt_step {carry['opt_step']}")
+        if again != metric:
+            fail(f"example: epoch_0 re-evaluates to {again}, the epoch gave {metric}")
+        # one step of the example's shape under the profiler: device busy share
+        step = acc.unified_step(port.SequenceClassifier.loss_fn(model), opt, max_grad_norm=1.0)
+        ran = profile_step(torch, step, carry, next(iter(train)), rep, "example")
+        if ran:
+            fail(f"example profiled step ran the port's kernels {sorted(ran)}, want none")
+        del acc, model, opt, train, evals, carry, step
+
+
 def main() -> None:
     import torch
 
@@ -1009,13 +1391,26 @@ def main() -> None:
         small_models()
         rep.line("small-only: the small models on the card agree with the CPU")
         return
+    wrappers = (*fa.KERNEL_WRAPPERS, *fused.KERNEL_WRAPPERS)
+    if "--bert-only" in sys.argv[1:]:
+        failed = run_cases(torch, fa, bert_cases(torch), rep)[0]
+        if failed:
+            fail(f"kernel outputs beyond tolerance: {'; '.join(failed)}")
+        rows = time_bert_kernels(torch, fa, rep)
+        bert_launches = bert_phase(torch, port, wrappers, rep)
+        example_phase(torch, port, wrappers, rep)
+        for row in rows:
+            row["launches"] = bert_launches[WRAPPER_OF[row["name"]]]
+        print(json.dumps({"kernels": rows}))
+        rep.line("bert-only: the BERT kernel cases, the BERT phase and the example passed")
+        return
     rows = kernel_phase(torch, port, fa, fused, _build, rep,
                         check_only="--check-only" in sys.argv[1:])
     if not rows:
         rep.line("check-only: every kernel case within tolerance")
         return
+    bert_rows_ = time_bert_kernels(torch, fa, rep)
     small_models()
-    wrappers = (*fa.KERNEL_WRAPPERS, *fused.KERNEL_WRAPPERS)
     launches, losses = main_path_phase(torch, port, wrappers, rep)
     fa.FUSED_BWD = True  # the reference's switch, on for the fused path
     try:
@@ -1024,13 +1419,17 @@ def main() -> None:
     finally:
         fa.FUSED_BWD = False
     check_path_losses(losses, fused_losses, rep)
+    bert_launches = bert_phase(torch, port, wrappers, rep)
+    example_phase(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
-    wrapper_of = {spec[0]: wrapper for wrapper, spec in KERNELS.items()}
     for row in rows:
-        wrapper = wrapper_of[row["name"]]
+        wrapper = WRAPPER_OF[row["name"]]
+        row["shape"] = "llama3_8b main shape" if wrapper != "adamw_epilogue" else "main path leaves"
         row["launches"] = (fused_launches if wrapper in runs_on_fused_path else launches)[wrapper]
+    for row in bert_rows_:
+        row["launches"] = bert_launches[WRAPPER_OF[row["name"]]]
 
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + bert_rows_}))
     print(rep.card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

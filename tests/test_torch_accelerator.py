@@ -169,3 +169,126 @@ def test_prepared_loader_matches_jax_batches():
         assert len(jbatches) == len(pbatches) == 3
         for jb, pb in zip(jbatches, pbatches):
             np.testing.assert_array_equal(pb, jb)
+
+
+class PairDataset:
+    """Right-padded rows of a BERT-shaped task: ids, attention_mask, label."""
+
+    def __init__(self, n, vocab, seq=SEQ, seed=0):
+        rng = np.random.default_rng(seed)
+        self.ids = rng.integers(1, vocab, size=(n, seq)).astype(np.int32)
+        lens = rng.integers(4, seq + 1, size=n)
+        self.mask = (np.arange(seq)[None, :] < lens[:, None]).astype(np.int32)
+        self.ids *= self.mask
+        self.labels = rng.integers(0, 2, size=n).astype(np.int32)
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        return {"input_ids": self.ids[i], "attention_mask": self.mask[i],
+                "labels": self.labels[i]}
+
+
+def _collate(items):
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+@pytest.mark.parametrize("drop_last", [False, True], ids=["tail_wraps", "drop_last"])
+def test_prepared_torch_loader_matches_jax_batches(drop_last):
+    """A shuffled ``torch.utils.data.DataLoader`` (no ``shuffle`` attribute:
+    its sampler is a RandomSampler) prepared by the port yields the
+    reference's batches, epoch by epoch, and the same ``remainder`` for the
+    short tail the reference wraps around."""
+    from torch.utils.data import DataLoader as TorchLoader
+
+    dataset = TokenDataset(21, MODEL["vocab_size"])
+    make = lambda: TorchLoader(dataset, batch_size=BATCH, shuffle=True,  # noqa: E731
+                               drop_last=drop_last, collate_fn=_collate)
+    jax_pkg.state.AcceleratorState._reset_state(reset_partial_state=True)
+    jloader = jax_pkg.Accelerator().prepare(make())
+    ploader = port.Accelerator(cpu=True).prepare(make())
+    n = 2 if drop_last else 3
+    assert len(jloader) == len(ploader) == n
+    for epoch in range(2):
+        jloader.set_epoch(epoch)
+        ploader.set_epoch(epoch)
+        jbatches = [np.asarray(b["input_ids"]) for b in jloader]
+        pbatches = [b["input_ids"].numpy() for b in ploader]
+        assert len(jbatches) == len(pbatches) == n
+        for jb, pb in zip(jbatches, pbatches):
+            np.testing.assert_array_equal(pb, jb)
+        assert ploader.remainder == jloader.remainder == (0 if drop_last else 21 - 2 * BATCH)
+    assert not np.array_equal(pbatches[0], dataset.ids[:BATCH])  # shuffled
+
+
+CLS_MODEL = dict(MODEL, causal=False, num_kv_heads=4)
+
+
+def _run_classifier_jax(dataset, params, schedule_args):
+    from accelerate_tpu.models.transformer import SequenceClassifier as JaxClassifier
+
+    jax_pkg.state.AcceleratorState._reset_state(reset_partial_state=True)
+    jax_pkg.state.GradientState._reset_state()
+    acc = jax_pkg.Accelerator()
+    model = JaxClassifier(JaxConfig(**CLS_MODEL))
+    schedule = optax.warmup_cosine_decay_schedule(*schedule_args)
+    params, opt, loader = acc.prepare(jax.tree.map(jnp.asarray, params),
+                                      optax.adamw(schedule, weight_decay=0.01),
+                                      jax_pkg.DataLoader(dataset, batch_size=BATCH))
+    step = acc.unified_step(JaxClassifier.loss_fn(model), opt, max_grad_norm=1.0)
+    carry = acc.init_carry(params, opt)
+    curve = []
+    for batch in loader:
+        carry, m = step(carry, batch)
+        curve.append((float(m["loss"]), float(m["grad_norm"]), bool(m["grads_finite"])))
+    final = jax.tree.map(np.asarray, carry["params"])
+    return curve, port.params_from_jax(final, port.TransformerConfig(**CLS_MODEL))
+
+
+def test_classifier_five_steps_match_jax():
+    """Five unified_steps of SequenceClassifier.loss_fn on right-padded
+    rows with adamw(warmup_cosine_decay_schedule(...), weight_decay=0.01)
+    and clip 1.0 (the examples' optimizer): losses, grad norms and final
+    params at 2e-5."""
+    from accelerate_tpu.models.transformer import SequenceClassifier as JaxClassifier
+
+    dataset = PairDataset(STEPS * BATCH, MODEL["vocab_size"])
+    jmodel = JaxClassifier(JaxConfig(**CLS_MODEL))
+    sample = {k: jnp.asarray(v[:1]) for k, v in _collate([dataset[0]]).items()}
+    params = jax.tree.map(np.asarray, nn.unbox(jmodel.init(
+        jax.random.PRNGKey(0), sample["input_ids"], sample["attention_mask"])["params"]))
+    schedule_args = (0.0, LR, 2, STEPS)
+    jax_run = _run_classifier_jax(dataset, params, schedule_args)
+
+    acc = port.Accelerator(cpu=True)
+    model = port.SequenceClassifier(port.TransformerConfig(**CLS_MODEL), device="cpu")
+    model.load_state_dict(port.params_from_jax(params, model.config), strict=True)
+    model, opt, loader = acc.prepare(
+        model, port.adamw(port.warmup_cosine_decay_schedule(*schedule_args), weight_decay=0.01),
+        port.DataLoader(dataset, batch_size=BATCH))
+    step = acc.unified_step(port.SequenceClassifier.loss_fn(model), opt, max_grad_norm=1.0)
+    carry = acc.init_carry(model, opt)
+    curve = []
+    for batch in loader:
+        carry, m = step(carry, batch)
+        curve.append((float(m["loss"]), float(m["grad_norm"]), bool(m["grads_finite"])))
+    _compare(jax_run, (curve, {k: p.detach() for k, p in carry["params"].items()}),
+             2e-5, 2e-5, 2e-5)
+    assert acc.step == STEPS and carry["opt_state"]["count"] == STEPS
+
+
+@pytest.mark.parametrize("args", [
+    (0.0, 2e-4, 256, 1024),  # the examples' schedule: 16384 rows, batch 16, one epoch
+    (0.0, 1e-3, 2, 12),
+    (1e-5, 3e-4, 7, 33, 1e-6, 2.0),
+], ids=["examples", "short", "end_value_exponent"])
+def test_warmup_cosine_decay_schedule_matches_optax(args):
+    """The port's schedule equals optax's at every step of a run and past
+    its end, to one float32 ulp of the peak (optax's float32 cosine is not
+    correctly rounded, the port's is)."""
+    want = optax.warmup_cosine_decay_schedule(*args)
+    got = port.warmup_cosine_decay_schedule(*args)
+    ulp = np.spacing(np.float32(args[1]))
+    for count in range(args[3] + 5):
+        assert abs(got(count) - float(want(count))) <= ulp, count

@@ -160,3 +160,122 @@ def test_bf16_compute_matches_jax_within_bf16_rounding():
         scale = float(want[name].abs().max()) + 1e-12
         err = float((got.float() - want[name]).abs().max()) / scale
         assert err <= 5e-2, (name, err)
+
+
+# ---------------------------------------------------------------------- #
+# SequenceClassifier (the BERT encoder path)
+# ---------------------------------------------------------------------- #
+from accelerate_tpu.models.transformer import SequenceClassifier as JaxClassifier  # noqa: E402
+from accelerate_tpu_torch import SequenceClassifier  # noqa: E402
+
+CLS_SEQ = 32  # a multiple of the reference's 16-row interpret-mode blocks
+CLS_LENS = np.array([CLS_SEQ, 19])  # one full row, one right-padded
+
+
+def _cls_kw(**kw):
+    return _tiny(causal=False, num_kv_heads=4, **kw)
+
+
+def _cls_setup(kw, seed=0):
+    cfg = JaxConfig(**_cls_kw(**kw))
+    ids = _ids(cfg.vocab_size, seq=CLS_SEQ, seed=seed)
+    mask = (np.arange(CLS_SEQ)[None, :] < CLS_LENS[:, None]).astype(np.int32)
+    xla = JaxClassifier(JaxConfig(**_cls_kw(**dict(kw, attention_impl="xla"))))
+    params = nn.unbox(xla.init(jax.random.PRNGKey(seed), jnp.asarray(ids),
+                               jnp.asarray(mask))["params"])
+    return cfg, JaxClassifier(cfg), params, ids, mask
+
+
+def _torch_classifier(kw, params):
+    model = SequenceClassifier(TransformerConfig(**_cls_kw(**kw)), device="cpu")
+    model.load_state_dict(params_from_jax(params, model.config), strict=True)
+    return model
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_classifier_logits_loss_and_grads_match_jax(impl, padded):
+    """The port's classifier on weights carried by params_from_jax: on the
+    flash route the mask becomes kv_lengths into the plain flash version
+    (JAX: its Pallas kernels in interpret mode), on the xla route the dense
+    key mask. Logits, loss and every grad at 2e-5."""
+    kw = dict(attention_impl=impl)
+    cfg, jmodel, params, ids, mask = _cls_setup(kw)
+    labels = np.array([1, 0], np.int32)
+    batch = {"input_ids": ids, "labels": labels}
+    if padded:
+        batch["attention_mask"] = mask
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    with kernel_interpret_mode():
+        jlogits = jmodel.apply({"params": params}, jbatch["input_ids"],
+                               jbatch.get("attention_mask"))
+        jloss, jgrads = jax.value_and_grad(JaxClassifier.loss_fn(jmodel))(params, jbatch)
+
+    model = _torch_classifier(kw, params)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    logits = model(tbatch["input_ids"], tbatch.get("attention_mask"))
+    assert logits.dtype == torch.float32 and logits.shape == (2, 2)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               atol=ATOL, rtol=RTOL)
+    tparams = dict(model.named_parameters())
+    loss = SequenceClassifier.loss_fn(model)(tparams, tbatch)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=ATOL, rtol=RTOL)
+    names = list(tparams)
+    grads = torch.autograd.grad(loss, [tparams[n] for n in names])
+    _assert_grads_close(dict(zip(names, grads)),
+                        params_from_jax(jax.tree.map(np.asarray, jgrads), model.config))
+
+
+def test_classifier_flash_padding_matches_xla():
+    """Mirror of tests/test_models.py::test_classifier_flash_padding_matches_xla:
+    a right-padded mask lowered to kv_lengths on the flash route gives the
+    dense-mask xla route's logits (2e-5 here, fp32 plain versions on both)."""
+    cfg, _, params, ids, _ = _cls_setup(dict(attention_impl="xla"))
+    lens = np.array([CLS_SEQ, 21])
+    mask = torch.from_numpy((np.arange(CLS_SEQ)[None, :] < lens[:, None]).astype(np.int32))
+    tids = torch.from_numpy(ids)
+    xla = _torch_classifier(dict(attention_impl="xla"), params)(tids, mask)
+    flash = _torch_classifier(dict(attention_impl="flash"), params)(tids, mask)
+    np.testing.assert_allclose(flash.detach().numpy(), xla.detach().numpy(),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_classifier_left_padding_poisons_flash_rows():
+    """Mirror of tests/test_models.py::test_classifier_left_padding_poisons_flash_rows:
+    a left-padded (non-prefix) row is NaN on the flash route and finite on
+    the xla route; the right-padded row is finite on both."""
+    _, _, params, ids, _ = _cls_setup(dict(attention_impl="xla"))
+    mask = np.ones((2, CLS_SEQ), np.int32)
+    mask[1, :5] = 0
+    tids, tmask = torch.from_numpy(ids), torch.from_numpy(mask)
+    flash = _torch_classifier(dict(attention_impl="flash"), params)(tids, tmask).detach()
+    xla = _torch_classifier(dict(attention_impl="xla"), params)(tids, tmask).detach()
+    assert torch.isfinite(flash[0]).all() and torch.isnan(flash[1]).all()
+    assert torch.isfinite(xla).all()
+
+
+def test_classifier_remat_passes_the_mask_through_checkpoint():
+    """remat="full" runs each layer under torch.utils.checkpoint with the
+    mask and the lengths as arguments: same logits and grads, bit for bit."""
+    _, _, params, ids, mask = _cls_setup(dict(attention_impl="xla"))
+    batch = {"input_ids": torch.from_numpy(ids), "labels": torch.tensor([0, 1]),
+             "attention_mask": torch.from_numpy(mask)}
+    for impl in ("xla", "flash"):
+        out = []
+        for remat in (None, "full"):
+            model = _torch_classifier(dict(attention_impl=impl, remat=remat), params)
+            tparams = dict(model.named_parameters())
+            loss = SequenceClassifier.loss_fn(model)(tparams, batch)
+            out.append((loss.detach(), torch.autograd.grad(loss, list(tparams.values()))))
+        assert torch.equal(out[0][0], out[1][0])
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+@pytest.mark.parametrize("scan", [True, False], ids=["scanned", "unrolled"])
+def test_bridge_covers_every_classifier_parameter(scan):
+    _, _, params, _, _ = _cls_setup(dict(scan_layers=scan))
+    model = SequenceClassifier(TransformerConfig(**_cls_kw(scan_layers=scan)), device="cpu")
+    state = params_from_jax(params, model.config)
+    assert {"pooler.weight", "pooler.bias", "classifier.weight", "classifier.bias"} <= set(state)
+    assert set(state) == set(model.state_dict())
+    model.load_state_dict(state, strict=True)

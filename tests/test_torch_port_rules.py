@@ -1,9 +1,11 @@
 """Rules the PyTorch port keeps, checked without JAX.
 
-* Every module of ``accelerate_tpu_torch``, ``chip_smoke.py`` and the
-  tools (``tools/port_copies.py``, ``flash_mutants.py``,
-  ``flash_variants.py``, ``path_bisect.py``) import in a process where
-  ``jax`` and ``accelerate_tpu`` cannot be imported.
+* Every module of ``accelerate_tpu_torch`` (its examples included),
+  ``chip_smoke.py`` and the tools (``tools/port_copies.py``,
+  ``flash_mutants.py``, ``flash_variants.py``, ``path_bisect.py``) import
+  in a process where ``jax``, ``accelerate_tpu`` and ``safetensors``
+  cannot be imported, and no import statement in them names one (the
+  card's machine has neither JAX nor ``safetensors``).
 * Entry points default to CUDA and raise without it; they never fall
   back to the CPU unless asked (``cpu=True``).
 * What is not ported yet raises NotImplementedError instead of taking
@@ -39,11 +41,12 @@ def reset_port_singletons():
 
 
 def _run_blocked(code: str) -> subprocess.CompletedProcess:
-    """Run ``code`` in a fresh interpreter where importing jax, flax, optax
-    or accelerate_tpu fails."""
+    """Run ``code`` in a fresh interpreter where importing jax, flax, optax,
+    accelerate_tpu, safetensors or ml_dtypes fails."""
     prelude = textwrap.dedent("""
         import sys
-        for name in ("jax", "jaxlib", "flax", "optax", "accelerate_tpu"):
+        for name in ("jax", "jaxlib", "flax", "optax", "accelerate_tpu", "safetensors",
+                     "ml_dtypes"):
             sys.modules[name] = None
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -64,14 +67,38 @@ def test_every_module_and_chip_smoke_import_without_jax():
                        "tools/flash_variants.py", "tools/path_bisect.py"):
             spec = importlib.util.spec_from_file_location("script", script)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
-        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "flax", "optax", "safetensors")
                   and sys.modules[m] is not None]
         assert not leaked, leaked
         print(len(names), "modules")
     """)
     result = _run_blocked(code)
     assert result.returncode == 0, result.stderr
-    assert int(result.stdout.split()[0]) >= 13  # ops.fused among them
+    assert int(result.stdout.split()[0]) >= 25  # checkpointing and the examples among them
+
+
+FORBIDDEN_IMPORTS = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu", "safetensors")
+
+
+def test_no_import_statement_names_jax_the_reference_or_safetensors():
+    """Also imports inside functions, which importing a module does not run."""
+    import ast
+
+    files = sorted((REPO / "accelerate_tpu_torch").rglob("*.py"))
+    files += [REPO / "chip_smoke.py", *sorted((REPO / "tools").glob("*.py"))]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in FORBIDDEN_IMPORTS]
+    assert len(files) > 25 and not bad, bad
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -130,10 +157,26 @@ def test_unported_accelerator_and_model_paths_raise():
         port.Accelerator(mixed_precision="fp8", cpu=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.Accelerator(cpu=True, parallelism_plugin=object())
-    from accelerate_tpu_torch.models.transformer import SequenceClassifier
-
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SequenceClassifier(port.TransformerConfig.bert_base())
+        port.SequenceClassifier(port.TransformerConfig.tiny(causal=False, fused_kernels=True),
+                                device="cpu")
+
+
+def test_sequence_classifier_builds_and_runs_on_the_cpu():
+    """The classifier is ported: bert_base's layout at a tiny width builds
+    on the CPU, and a padded batch gives finite fp32 logits and loss."""
+    cfg = port.TransformerConfig.bert_base(vocab_size=64, hidden_size=32,
+                                           intermediate_size=64, num_layers=1, num_heads=2)
+    assert cfg.causal is False and cfg.head_dim == 16
+    model = port.SequenceClassifier(cfg, num_labels=3, device="cpu")
+    ids = torch.randint(0, 64, (2, 8), generator=torch.Generator().manual_seed(0))
+    mask = torch.tensor([[1] * 8, [1] * 5 + [0] * 3])
+    logits = model(ids, mask)
+    assert logits.shape == (2, 3) and logits.dtype == torch.float32
+    loss = port.SequenceClassifier.loss_fn(model)(
+        dict(model.named_parameters()),
+        {"input_ids": ids, "attention_mask": mask, "labels": torch.tensor([0, 2])})
+    assert torch.isfinite(logits).all() and torch.isfinite(loss)
 
 
 def test_prepare_wraps_a_schedule_frozen_while_accumulating():

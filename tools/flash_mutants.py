@@ -17,7 +17,9 @@ outputs it spoils (the wgmma flash and the prologue faults by the case at
 that shape, ``main_bf16_causal`` or ``prologue_main_bf16``; the faults of
 the first port's wmma kernels, which only other head dims and fp32 reach,
 by ``d96_wmma`` and ``fp32`` (the prologue's: ``prologue_d96_wmma`` and
-``prologue_fp32``); a prologue store past the last row by the guard rows of
+``prologue_fp32``); a dk/dv tile past a padded row's length left unwritten
+by the BERT-shape case ``bert_noncausal_lengths_d64_g1``, the only case
+with a kv tile wholly past a non-zero length; a prologue store past the last row by the guard rows of
 the cases whose rows end inside a tile, ``prologue_rows_s200`` and
 ``prologue_rows_s300``; the epilogue faults by the bitwise check on the
 main path's 39 leaves), the small-model check by the tiny fused model's
@@ -45,6 +47,7 @@ FLASH_CASE, PROLOGUE_CASE = "main_bf16_causal", "prologue_main_bf16"
 WMMA_CASES = ("d96_wmma", "fp32")  # bf16 at head_dim 96, and fp32: the wmma kernels
 PROLOGUE_WMMA_CASES = ("prologue_d96_wmma", "prologue_fp32")
 PARTIAL_ROW_CASES = ("prologue_rows_s200", "prologue_rows_s300")  # a partial 128-row tile
+BERT_CASE = "bert_noncausal_lengths_d64_g1"  # lengths 512, 300, 129, 0 in 128-row kv tiles
 
 FWD_STAGE = "    const int stage = n & 1;  // the ring stage that holds tile n"
 FWD_RESCALE = "      corr[hh] = exp2f((m[hh] - m_new) * LOG2E);"
@@ -56,6 +59,7 @@ DKV_LOOP = """      const int q0 = it * BQ, qmax = min(q0 + BQ, p.S) - 1;"""
 FUSED_DQ_ADD = "      float* DQ = p.dq_acc + ((size_t)b * p.S * p.H + h) * D + wg * (D / 2);"
 FUSED_DS = "      dpt.d[i] = st.d[i] * (dpt.d[i] - dl) * p.scale;"
 KV_PAIR = "    // S^T = K Q^T and dP^T = V dO^T, this warpgroup's 64 kv rows\n"
+KV_STORE = "  uint16_t* dK = static_cast<uint16_t*>(p.o) + kbase;"
 SKIP = "    if ({}) {{\n      __syncthreads();\n      continue;\n    }}\n"
 DQ_PACK = "    for (int kk = 0; kk < BK / 16; ++kk) hk::pack_a<T>(dp, kk, da[kk]);"
 DQ_STAGE = "hk::desc_mnmajor<BK>(kt, 0, kk), 1);  // dQ += dS K"
@@ -110,6 +114,13 @@ MUTANTS = {
     "dkv_wgmma_drop_pair": (FLASH, KV_PAIR, SKIP.format("!kDq && ik == 0 && n == total - 1")
                             + KV_PAIR, [(CHECK, FLASH_CASE, ["dk_equals_fused",
                                                             "dv_equals_fused"])]),
+    # B3 (wgmma, not B4): a kv tile wholly past its row's length, in a row
+    # with some real keys, returns without storing its dk and dv (zeros): they
+    # keep what the memory held. Only the BERT case has such a tile; its
+    # repeat launch into NaN-filled outputs reads NaN there.
+    "dkv_padded_tile_unwritten": (FLASH, KV_STORE, "  if (!kDq && total == 0 && kv_valid > 0) "
+                                  "return;\n" + KV_STORE,
+                                  [(CHECK, BERT_CASE, ["dk_repeats", "dv_repeats"])]),
     # B2 and B3 (wmma, the first port's): the last q tile of each head skips
     # its first kv tile
     "dq_drop_tile": (FLASH, DQ_LOOP, DQ_LOOP.replace(
