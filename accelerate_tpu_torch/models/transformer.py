@@ -5,10 +5,14 @@ Port of ``accelerate_tpu/models/transformer.py`` (``RMSNorm`` :47,
 ``Attention`` :246, ``MLP`` :491,
 ``Block`` :671, ``_apply_layer_stack`` :803, ``CausalLM`` :861 with
 ``loss_fn`` :938, ``SequenceClassifier`` :961 with ``loss_fn`` :1067) as
-``nn.Module``s. Parameters are fp32 and named after
-the reference's module tree (``layers.<i>.attn.q_proj.weight`` for
-``layers/attn/q_proj/kernel``); ``utils/weights.params_from_jax`` carries
-a flax tree over. Each projection computes in ``config.dtype``, casting
+``nn.Module``s, with the decode paths of ``Attention`` (:346-470): the
+dense decode cache (``DecodeCache``, written in place at its index) and
+the paged KV cache (``ops/attention.PagedKVCache`` through block tables).
+The reference keeps either cache as flax cache variables made on first
+call; here it is an explicit object passed to ``CausalLM.forward``.
+Parameters are fp32 and named after the reference's module tree
+(``layers.<i>.attn.q_proj.weight`` for ``layers/attn/q_proj/kernel``);
+``utils/weights.params_from_jax`` carries a flax tree over. Each projection computes in ``config.dtype``, casting
 its inputs and weights as flax's ``Dense(dtype=...)`` does. The layer
 stack is a ``ModuleList`` run in a loop (the reference's ``nn.scan``).
 ``fused_kernels=True`` runs each layer's RMSNorm -> q/k/v -> rope as the
@@ -17,12 +21,13 @@ the same parameters (the reference's :271-319 and :701-710).
 
 Not ported yet, and rejected when asked for (ROADMAP.md): fp8
 projections, MoE, the GPT-2 architecture, the Gemma/Gemma-2 switches,
-remat policies other than ``"full"``, the decode, paged and LoRA paths,
-and ``fused_kernels=True`` on the classifier.
+remat policies other than ``"full"``, the LoRA path, and
+``fused_kernels=True`` on the classifier.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -31,7 +36,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import fused as fused_ops
-from ..ops.attention import dot_product_attention, flash_self_attention_eligible
+from ..ops.attention import (
+    PagedKVCache,
+    PagedKVState,
+    dot_product_attention,
+    flash_self_attention_eligible,
+    paged_attention,
+    paged_update,
+    xla_attention,
+)
 from ..ops.rope import rope_inv_freqs
 from ..state import resolve_device
 from .config import TransformerConfig
@@ -114,6 +127,55 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
+@dataclass
+class DecodeCache:
+    """The dense decode cache of every layer (the reference's
+    ``cached_key``/``cached_value``/``cache_index``): one stacked tensor a
+    side, (num_layers, B, max_seq_len, kv_heads, head_dim) in the compute
+    dtype, and the write index as a 0-d int64 tensor on the same device, so
+    that a captured decode step reads and advances it on the card."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    index: torch.Tensor
+
+    @classmethod
+    def zeros(cls, config: TransformerConfig, batch_size: int, device) -> "DecodeCache":
+        shape = (config.num_layers, batch_size, config.max_seq_len, config.num_kv_heads,
+                 config.head_dim)
+        dt = _dtype(config)
+        return cls(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros((), dtype=torch.long, device=device))
+
+    def reset(self) -> None:
+        """Back to empty, in place (a captured step keeps its tensors)."""
+        self.key.zero_()
+        self.value.zero_()
+        self.index.zero_()
+
+
+def _decode_attention(q, k, v, positions, kv, window):
+    """The decode branch of ``Attention``: write this call's k/v into the
+    layer's cache, then attend over the whole cache with the band anchored
+    at global positions. ``kv`` is (key, value, paged) of one layer: the
+    block pools and the call's ``PagedKVState``, or the dense cache's
+    (B, max_seq_len, Hkv, D) slices and None."""
+    key, value, paged = kv
+    if paged is not None:
+        paged_update(key, value, k, v, paged)
+        return paged_attention(q, key, value, paged, window=window)
+    write = positions[0]  # the dense cache's positions are the same in every row
+    key.index_copy_(1, write, k.to(key.dtype))
+    value.index_copy_(1, write, v.to(value.dtype))
+    cols = torch.arange(key.shape[1], device=q.device)[None, None, None, :]
+    rows = write[None, None, :, None]
+    keep = cols <= rows  # positions not yet written are masked
+    if window is not None:
+        keep = keep & (cols > rows - window)
+    return xla_attention(q, key, value, mask=keep)
+
+
 class Attention(nn.Module):
     def __init__(self, config: TransformerConfig, device=None, generator=None):
         super().__init__()
@@ -127,18 +189,20 @@ class Attention(nn.Module):
         self.v_proj = Dense(e, kv_dim, cfg.qkv_bias, **kw)
         self.o_proj = Dense(q_dim, e, False, **kw)
 
-    def forward(self, x, positions, mask=None, kv_lengths=None, pre_norm_scale=None):
+    def forward(self, x, positions, mask=None, kv_lengths=None, pre_norm_scale=None, kv=None):
         """``mask``: a (B, 1, 1, S) bool key mask (True = attend);
         ``kv_lengths``: (B,) int32 right-padding lengths; both go to
         ``dot_product_attention``, which routes a mask to the plain path and
         lengths to either. ``pre_norm_scale``: the Block handed over the raw
         residual stream and its norm scale (``fused_kernels``). The fused
-        prologue runs when its shape gate allows; otherwise the norm is
-        applied here and the unfused chain follows."""
+        prologue runs when its shape gate allows and not under decode, as in
+        the reference; otherwise the norm is applied here and the unfused
+        chain follows. ``kv``: this layer's decode cache (see
+        ``_decode_attention``)."""
         cfg = self.config
         b, s = x.shape[:2]
         dt = _dtype(cfg)
-        fused = pre_norm_scale is not None and fused_ops.prologue_supported(
+        fused = pre_norm_scale is not None and kv is None and fused_ops.prologue_supported(
             cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, b, s, x.shape[-1],
             device=x.device, dtype=dt,
         )
@@ -159,6 +223,9 @@ class Attention(nn.Module):
             v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
             q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
             k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        if kv is not None:
+            out = _decode_attention(q, k, v, positions, kv, cfg.sliding_window)
+            return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
         out = dot_product_attention(
             q, k, v, mask=mask, causal=cfg.causal, kv_lengths=kv_lengths,
             implementation=cfg.attention_impl, window=cfg.sliding_window,
@@ -191,14 +258,14 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(config, e, device)
         self.mlp = MLP(config, device, generator)
 
-    def forward(self, x, positions, mask=None, kv_lengths=None):
+    def forward(self, x, positions, mask=None, kv_lengths=None, kv=None):
         if self.fused_kernels:
             # the fused prologue normalises inside its kernel: hand Attention
             # the raw residual stream and the norm's scale
             attn_out = self.attn(x, positions, mask, kv_lengths,
-                                 pre_norm_scale=self.attn_norm.weight)
+                                 pre_norm_scale=self.attn_norm.weight, kv=kv)
         else:
-            attn_out = self.attn(self.attn_norm(x), positions, mask, kv_lengths)
+            attn_out = self.attn(self.attn_norm(x), positions, mask, kv_lengths, kv=kv)
         h = x + attn_out
         return h + self.mlp(self.mlp_norm(h))
 
@@ -231,9 +298,14 @@ class CausalLM(nn.Module):
     """The language model: embed -> L x Block -> norm -> lm_head.
 
     ``forward(input_ids, positions=None) -> logits`` in
-    ``config.dtype``. Parameters are made on ``device`` (CUDA unless the
-    caller passes ``device="cpu"``; raises without a CUDA device) from
-    ``generator`` (a fresh one seeded 0 when none is given).
+    ``config.dtype``. ``forward(ids, decode=True, cache=DecodeCache)``
+    writes into the dense decode cache at its index and advances it;
+    ``forward(ids, decode=True, paged=PagedKVState, cache=PagedKVCache)``
+    writes through the block tables. Under decode ``positions`` is
+    ignored: token i sits at the cache's index + i, or cache_len + i of its
+    slot, as in the reference. Parameters are made on ``device`` (CUDA
+    unless the caller passes ``device="cpu"``; raises without a CUDA
+    device) from ``generator`` (a fresh one seeded 0 when none is given).
     """
 
     def __init__(self, config: TransformerConfig, device=None,
@@ -251,21 +323,41 @@ class CausalLM(nn.Module):
             self.lm_head = Dense(config.hidden_size, config.vocab_size, False, _dtype(config),
                                  device, generator)
 
-    def forward(self, input_ids, positions=None, decode=False, paged=None):
-        if decode or paged is not None:
-            raise NotImplementedError(
-                "the decode and paged paths are not ported yet (ROADMAP.md, queue A9)"
-            )
+    def forward(self, input_ids, positions=None, decode=False,
+                paged: Optional[PagedKVState] = None, cache=None):
         cfg = self.config
         dt = _dtype(cfg)
-        if positions is None:
-            positions = torch.arange(input_ids.shape[1], device=input_ids.device)
-            positions = positions[None, :].expand(input_ids.shape)
-        x = _layer_stack(self, F.embedding(input_ids, self.embed.weight.to(dt)), positions)
+        x = F.embedding(input_ids, self.embed.weight.to(dt))
+        if decode:
+            x = self._decode_layers(x, paged, cache)
+        elif paged is not None or cache is not None:
+            raise ValueError("a paged state or a cache is read only with decode=True")
+        else:
+            if positions is None:
+                positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+                positions = positions[None, :].expand(input_ids.shape)
+            x = _layer_stack(self, x, positions)
         x = self.final_norm(x)
         if cfg.tie_embeddings:
             return x.to(dt) @ self.embed.weight.to(dt).t()
         return self.lm_head(x)
+
+    def _decode_layers(self, x, paged, cache):
+        b, s = x.shape[:2]
+        ar = torch.arange(s, device=x.device)
+        if paged is not None:
+            if not isinstance(cache, PagedKVCache):
+                raise ValueError("paged decode needs the block pools: cache=PagedKVCache")
+            positions = paged.cache_len[:, None].long() + ar[None, :]
+        else:
+            if not isinstance(cache, DecodeCache):
+                raise ValueError("decode=True needs a cache: models.generation.init_cache")
+            positions = (cache.index + ar)[None, :].expand(b, s)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, positions, kv=(cache.key[i], cache.value[i], paged))
+        if paged is None:
+            cache.index += s
+        return x
 
     @staticmethod
     def loss_fn(model: "CausalLM"):

@@ -1,18 +1,125 @@
-"""Attention entry point and its plain path.
+"""Attention entry point, its plain path and the paged KV cache.
 
-Port of ``accelerate_tpu/ops/attention.py:208-399``: the causal and
-length masks, the plain (``xla``) attention that works for every mask,
-and ``dot_product_attention``, which picks the flash kernels by the
-reference's own predicate. Shapes are (batch, seq, heads, head_dim), kv
-(batch, seq_kv, kv_heads, head_dim). The paged decode path waits for the
-serving slice (ROADMAP.md, queue A9).
+Port of ``accelerate_tpu/ops/attention.py``: the causal and length masks,
+the plain (``xla``) attention that works for every mask, and
+``dot_product_attention``, which picks the flash kernels by the
+reference's own predicate (:208-399); the paged decode path,
+``PagedKVState`` (:28), ``paged_update`` (:95) and ``paged_attention``
+(:155), with ``PagedKVCache`` holding the pools the reference keeps as
+flax cache variables. Shapes are (batch, seq, heads, head_dim), kv
+(batch, seq_kv, kv_heads, head_dim). The paged path is gathers and
+scatters in the reference (XLA, no Pallas) and plain PyTorch here, with
+static shapes and no host sync so that a decode step can be captured as
+one CUDA graph. Pools stored as int8 (``kv_dtype="int8"``,
+``quantize_kv`` :75) are not ported yet (ROADMAP.md, queue A9).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+
+@dataclass
+class PagedKVState:
+    """Per-call view of the paged KV cache (block tables).
+
+    ``block_table`` (B, max_blocks) int: pool indices per slot, in sequence
+    order; table entry t holds global positions [t*block_size,
+    (t+1)*block_size). Unused entries point at block 0, the reserved
+    garbage block the allocator never hands out. ``cache_len`` (B,) int:
+    tokens already written for the slot; this call's token i lands at
+    global position cache_len + i. ``lengths`` (B,) int: valid tokens in
+    this call (prefill: the prompt inside its padded bucket; decode: 1 for
+    a seated slot, 0 for an empty one); writes beyond it go to block 0.
+    """
+
+    block_table: torch.Tensor
+    cache_len: torch.Tensor
+    lengths: torch.Tensor
+    num_blocks: int
+    block_size: int
+    kv_dtype: str = "native"
+
+    def __post_init__(self):
+        if self.kv_dtype == "int8":
+            raise NotImplementedError(
+                "int8 paged KV (quantize_kv) is not ported yet (ROADMAP.md, queue A9)")
+        if self.kv_dtype != "native":
+            raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
+
+
+@dataclass
+class PagedKVCache:
+    """The block pools of every layer, one stacked tensor each:
+    (num_layers, num_blocks, block_size, kv_heads, head_dim), no batch
+    dim, so sequences of any length share them. Written in place."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+
+    @classmethod
+    def zeros(cls, num_layers: int, num_blocks: int, block_size: int, kv_heads: int,
+              head_dim: int, dtype: torch.dtype, device) -> "PagedKVCache":
+        shape = (num_layers, num_blocks, block_size, kv_heads, head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+    @property
+    def nbytes(self) -> int:
+        return self.key.nbytes + self.value.nbytes
+
+
+def _slot_positions(state: PagedKVState, s: int) -> torch.Tensor:
+    """(B, s) global positions cache_len + i of this call's tokens."""
+    ar = torch.arange(s, device=state.cache_len.device)
+    return state.cache_len[:, None].long() + ar[None, :]
+
+
+def paged_update(key_pool: torch.Tensor, value_pool: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, state: PagedKVState) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter one call's K/V (B, S, Hkv, D) into one layer's pools
+    (num_blocks, block_size, Hkv, D), in place; returns the pools. Token i
+    of slot b goes to table entry (cache_len[b] + i) // block_size at
+    offset (cache_len[b] + i) % block_size; tokens at or past lengths[b]
+    go to block 0. Padding rows of several slots may write the same place
+    of block 0, which is harmless because nothing reads it unmasked."""
+    b, s = k.shape[:2]
+    bs = state.block_size
+    pos = _slot_positions(state, s)
+    valid = torch.arange(s, device=k.device)[None, :] < state.lengths[:, None]
+    entry = (pos // bs).clamp(0, state.block_table.shape[1] - 1)
+    blocks = state.block_table.long().gather(1, entry)
+    blocks = torch.where(valid, blocks, torch.zeros_like(blocks))
+    index = (blocks.reshape(-1), (pos % bs).reshape(-1))
+    key_pool.index_put_(index, k.reshape(b * s, *k.shape[2:]).to(key_pool.dtype))
+    value_pool.index_put_(index, v.reshape(b * s, *v.shape[2:]).to(value_pool.dtype))
+    return key_pool, value_pool
+
+
+def paged_attention(q: torch.Tensor, key_pool: torch.Tensor, value_pool: torch.Tensor,
+                    state: PagedKVState, scale: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Attention read through the block table: each slot's blocks are
+    gathered into a (B, max_blocks*block_size, Hkv, D) view, so gathered
+    column j is global position j, and the plain path runs over it with the
+    band anchored at global positions: the query at position r sees column
+    c iff c <= r (and c > r - window under a sliding window). Table entries
+    past a slot's blocks point at block 0, whose columns sit past every
+    row and are masked."""
+    b, s = q.shape[:2]
+    width = state.block_table.shape[1] * state.block_size
+    table = state.block_table.long()
+    k = key_pool[table].reshape(b, width, *key_pool.shape[2:])
+    v = value_pool[table].reshape(b, width, *value_pool.shape[2:])
+    rows = _slot_positions(state, s)[:, None, :, None]
+    cols = torch.arange(width, device=q.device)[None, None, None, :]
+    keep = cols <= rows  # (B, 1, S, width)
+    if window is not None:
+        keep = keep & (cols > rows - window)
+    return xla_attention(q, k, v, mask=keep, scale=scale)
 
 
 def make_causal_mask(

@@ -58,6 +58,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    bert_base epoch (S 128: no kernel of the port), its ``epoch_0``
    re-evaluated in a fresh accelerator to the same accuracy, and one
    profiled step of its shape.
+8. serving: ``generate``, ``make_generate_fn`` and the continuous-batching
+   ``ServingEngine`` (``max_slots`` 4, ``block_size`` 16) on the reference's
+   5.5 B ``decode`` config at full width and depth (24 layers), bf16
+   weights made on the card from a seed. Checks: the engine's decode step
+   replayed as a CUDA graph equals the eager step bit for bit (logits and
+   pools, 8 steps of a 4-slot batch at mixed depths), and so does
+   ``make_generate_fn``'s; a 2-layer fp32 model's greedy tokens are the
+   same through the engine and ``generate`` on the card and on the CPU;
+   paged and dense prefill give the same first-token logits within
+   SERVE_PREFILL_TOL; blocks no table held keep the sentinel the pools were
+   filled with, and the trace's tokens do not change between its warm and
+   timed runs; the decode step is built once and prefill buckets stay
+   within log2(max_seq_len); no kernel of the port launches. Prints
+   s/token of ``make_generate_fn`` (B 1, prompt 128, 64 new tokens) and of
+   the eager ``generate`` beside the weights-read bound, the engine's
+   useful tokens/s on the 8-request long-tailed trace of
+   ``benchmarks/measure.py:_run_serve`` against fixed batches of
+   ``make_generate_fn``, peak memory, KV bytes per token and the device's
+   busy share of one profiled decode step and one engine step.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -73,7 +92,12 @@ phases 1 and 3 (both for tools/flash_mutants.py), and
 
     python3 chip_smoke.py --bert-only
 
-phase 1, the BERT-shape kernel cases and timings, and phases 6 and 7.
+phase 1, the BERT-shape kernel cases and timings, and phases 6 and 7, and
+
+    python3 chip_smoke.py --serve-only
+
+phase 8 alone (the serving path runs no kernel of the port, so nothing is
+built).
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -146,6 +170,20 @@ BERT_CASES = [  # B1-B3 non-causal, right-padded, G = 1 at head_dim 64; a row of
                                                 lens=[512, 300, 129, 0])),
 ]
 WRAPPER_OF = {spec[0]: wrapper for wrapper, spec in KERNELS.items()}  # kernel -> wrapper
+# the reference's ``decode`` config (accelerate_tpu/benchmarks/registry.py:289-297):
+# 5,496,836,096 params, 96 KiB of bf16 KV a token
+DECODE_CFG = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=24,
+                  num_heads=32, num_kv_heads=8, max_seq_len=512, dtype="bfloat16")
+# the reference's serve and decode variants (registry.py:318-328)
+SERVE = dict(max_slots=4, block_size=16, n_requests=8, seed=0, prompt=128, new_tokens=64,
+             reps=3, graph_steps=8)
+# paged against dense prefill, first-token logits in bf16: worst row's max
+# error over its RMS. An H100 read 0.0 on all 8 prompts (the padded and
+# unpadded products picked the same cuBLAS kernels), so the limit is not 3x
+# the reading but a few bf16 spacings (2^-8) of a logit row (PERF.md)
+SERVE_PREFILL_TOL = 0.02
+SENTINEL = -768.0  # what the pools hold before the trace (exact in bf16)
+CARD = "cuda"  # where the serving phase puts its models
 LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     "original_max_position_embeddings": 8192,
@@ -1355,6 +1393,353 @@ def example_phase(torch, port, wrappers, rep: Report) -> None:
         del acc, model, opt, train, evals, carry, step
 
 
+def decode_model(torch, port, seed: int = 0):
+    """The ``decode`` config at full width and depth, built on the meta
+    device and given bf16 weights on the card from a seeded generator: std
+    0.02 for matrices and 1 for vectors, as ``benchmarks/measure.py:430-437``
+    makes them, with no fp32 copy."""
+    cfg = port.TransformerConfig(**DECODE_CFG)
+    model = port.CausalLM(cfg, device="meta", generator=torch.Generator())
+    g = torch.Generator(CARD).manual_seed(seed)
+    model.load_state_dict({
+        name: torch.empty(p.shape, dtype=torch.bfloat16, device=CARD).normal_(
+            0.0, 0.02 if p.ndim > 1 else 1.0, generator=g)
+        for name, p in model.named_parameters()}, assign=True)
+    return model.requires_grad_(False)
+
+
+def serve_trace(vocab: int, max_seq_len: int):
+    """The long-tailed request trace exactly as ``measure.py:_run_serve``
+    (:626-638) draws it: prompts of 4-64 tokens, a quarter of the requests
+    with 32-64 new tokens and the rest with 4-8."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE["seed"])
+    max_prompt = max(8, min(max_seq_len // 4, 64))
+    long_new = min(64, max_seq_len - max_prompt)
+    trace = []
+    for _ in range(SERVE["n_requests"]):
+        p = int(rng.integers(4, max_prompt + 1))
+        if rng.random() < 0.25:
+            n = int(rng.integers(long_new // 2, long_new + 1))
+        else:
+            n = int(rng.integers(4, 9))
+        trace.append((rng.integers(0, vocab, p).astype(np.int64), n))
+    return trace
+
+
+def profile_call(torch, fn, rep: Report, name: str) -> None:
+    """``fn()`` once under torch.profiler: wall time (host clock, ending in a
+    synchronise), device busy time (every CUDA kernel's self time) and their
+    share, and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {evt.key: evt.self_device_time_total / 1e3 for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA}
+    busy_ms = sum(kernels.values())
+    if busy_ms == 0:
+        rep.line(f"{name} profiled: the profiler saw no device time (busy share not measured)")
+        return
+    matmul_ms = sum(ms for key, ms in kernels.items()
+                    if any(t in key.lower() for t in ("gemm", "nvjet", "xmma", "cutlass")))
+    rep.line(f"{name} profiled: wall {wall_ms} ms, device busy {busy_ms} ms "
+             f"({100 * busy_ms / wall_ms} %): matmul (cuBLAS) {matmul_ms} ms, the other "
+             f"{len(kernels)} kernel names {busy_ms - matmul_ms} ms")
+    for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        rep.line(f"{name} profiled: {ms} ms {key[:110]}")
+
+
+def replay_ms(torch, program, n: int = 20) -> float:
+    """Device time of one replay of a built step: CUDA events around ``n``
+    replays queued back to back, so no host time sits between them."""
+    program()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        program()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def replay_against_eager(torch, run_step, state, steps: int):
+    """``run_step(eager, prev_logits) -> logits`` ``steps`` times by graph
+    replay and again by the eager step, from the same copy of the ``state``
+    tensors (caches and input buffers, written in place). Returns whether the logits of every
+    step and the final state are equal bit for bit, and the largest
+    difference."""
+    start = [t.clone() for t in state]
+    runs = []
+    for eager in (False, True):
+        for t, s in zip(state, start):
+            t.copy_(s)
+        logits, prev = [], None
+        for _ in range(steps):
+            prev = run_step(eager, prev).clone()
+            logits.append(prev)
+        runs.append((logits, [t.clone() for t in state]))
+    (graph_logits, graph_state), (eager_logits, eager_state) = runs
+    pairs = list(zip(graph_logits, eager_logits)) + list(zip(graph_state, eager_state))
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    worst = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    return equal, worst
+
+
+def small_serving_check(torch, port, rep: Report) -> None:
+    """A 2-layer fp32 model of the tiny widths: greedy tokens through the
+    engine and ``generate`` on the card and through both on the CPU must be
+    the same (paged against dense, card against CPU)."""
+    from accelerate_tpu_torch.models.generation import generate
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    cfg = port.TransformerConfig.tiny(num_layers=2, max_seq_len=64, dtype="float32")
+    cpu = port.CausalLM(cfg, device="cpu")
+    card_model = port.CausalLM(cfg, device=CARD)
+    card_model.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    outs = {}
+    for length in (5, 13, 29):
+        ids = torch.randint(0, cfg.vocab_size, (2, length), generator=g)
+        for where, model in (("card", card_model), ("cpu", cpu)):
+            engine = ServingEngine(model, max_slots=2, block_size=8)
+            outs.setdefault(f"{where} engine", []).append(
+                engine.generate(ids, max_new_tokens=12).cpu())
+            outs.setdefault(f"{where} generate", []).append(
+                generate(model, ids, max_new_tokens=12).cpu())
+    want = outs["cpu generate"]
+    same = {name: all(torch.equal(a, b) for a, b in zip(got, want)) for name, got in outs.items()}
+    rep.line(f"serve small fp32 model (2 layers, tiny widths): greedy tokens equal to the CPU's "
+             f"generate {json.dumps(same)}")
+    if not all(same.values()):
+        fail(f"serve small model: greedy tokens differ from the CPU's generate: {same}")
+
+
+def paged_against_dense(torch, model, trace, rep: Report) -> None:
+    """First-token logits of each trace prompt from a paged prefill (bucket
+    padded, through a scattered block table) and from a dense prefill of
+    the whole prompt, held by the worst row's max error over its RMS."""
+    from accelerate_tpu_torch.models.generation import init_cache
+    from accelerate_tpu_torch.ops.attention import PagedKVState
+
+    bs = SERVE["block_size"]
+    width = -(-model.config.max_seq_len // bs)
+    pools = init_cache(model, num_blocks=9, block_size=bs)
+    errs = []
+    with torch.no_grad():
+        for prompt, _ in trace:
+            p = len(prompt)
+            bucket = 1 << (p - 1).bit_length()
+            ids = torch.zeros((1, bucket), dtype=torch.long, device=CARD)
+            ids[0, :p] = torch.from_numpy(prompt)
+            table = torch.zeros((1, width), dtype=torch.long, device=CARD)
+            table[0, :4] = torch.tensor([7, 2, 5, 3])  # 64 tokens at most
+            state = PagedKVState(table, torch.zeros(1, dtype=torch.long, device=CARD),
+                                 torch.tensor([p], device=CARD), num_blocks=9, block_size=bs)
+            paged = model(ids, decode=True, paged=state, cache=pools)[0, p - 1].float()
+            dense = model(ids[:, :p], decode=True, cache=init_cache(model, 1))[0, -1].float()
+            rms = dense.square().mean().sqrt()
+            errs.append(float((paged - dense).abs().max() / rms))
+    rep.line(f"serve paged against dense prefill (bf16, {len(trace)} prompts of "
+             f"{[len(p) for p, _ in trace]} tokens): first-token logits max error over RMS "
+             f"{errs}, largest {max(errs)}, limit {SERVE_PREFILL_TOL}")
+    if not max(errs) <= SERVE_PREFILL_TOL:
+        fail(f"serve: paged prefill left dense prefill: {max(errs)} > {SERVE_PREFILL_TOL}")
+
+
+def serve_phase(torch, port, wrappers, rep: Report) -> None:
+    """The serving path on the ``decode`` config: see phase 8 in the module
+    docstring. Every launch counter is set to 0 before and read after."""
+    import numpy as np
+
+    from accelerate_tpu_torch.models.generation import generate, make_generate_fn
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts(wrappers)
+    small_serving_check(torch, port, rep)
+    t0 = time.perf_counter()
+    model = decode_model(torch, port)
+    torch.cuda.synchronize()
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.nbytes for p in model.parameters())
+    bound_ms = weights / PEAK_BYTES * 1e3
+    rep.line(f"serve set-up: decode config (registry.py:289-297), {n_params} params, "
+             f"{weights} bytes of bf16 weights, {time.perf_counter() - t0:.2f} s")
+    trace = serve_trace(cfg.vocab_size, cfg.max_seq_len)
+    paged_against_dense(torch, model, trace, rep)
+
+    # generate: B 1, prompt 128, 64 new tokens (registry.py:318)
+    B, P, N, reps = 1, SERVE["prompt"], SERVE["new_tokens"], SERVE["reps"]
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P)))
+    gen = make_generate_fn(model, max_new_tokens=N)
+    timings = {}
+    for name, call in (("make_generate_fn (decode as one CUDA graph)", lambda: gen(ids)),
+                       ("generate (eager)", lambda: generate(model, ids, max_new_tokens=N))):
+        call()[:, -1].cpu()  # warm: builds and captures
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = call()
+            out[:, -1].cpu()
+        s_tok = (time.perf_counter() - t0) / (reps * N)
+        timings[name] = s_tok
+        rep.line(f"serve {name}: B {B}, prompt {P}, {N} new tokens, {reps} reps: {s_tok} s/token "
+                 f"({1e3 * s_tok / bound_ms} x the weights-read bound {bound_ms} ms); peak memory "
+                 f"{torch.cuda.max_memory_allocated() / 2**30} GiB")
+    if gen.trace_counts()["decode"] != 1:
+        fail(f"serve: make_generate_fn built its decode step {gen.trace_counts()} times")
+    cache, token, program = gen.decode_programs[B]
+    token.copy_(out[:, -1:].to(token.device))
+    profile_call(torch, lambda: program().argmax(-1), rep, "serve make_generate_fn decode step")
+    cache.index.fill_(P)
+    rep.line(f"serve make_generate_fn decode step, replays back to back (B {B}, cache index "
+             f"{P}): {replay_ms(torch, program)} ms each on the device")
+
+    def dense_step(eager, prev):
+        if prev is not None:
+            token.copy_(prev.argmax(-1)[:, None])
+        return program.fn() if eager else program()
+
+    equal, worst = replay_against_eager(torch, dense_step,
+                                        [cache.key, cache.value, cache.index, token],
+                                        SERVE["graph_steps"])
+    rep.line(f"serve make_generate_fn: {SERVE['graph_steps']} decode steps by graph replay "
+             f"against the eager step: bit for bit {equal} (largest difference {worst})")
+    if not equal:
+        fail("serve: make_generate_fn's graph replay is not its eager step bit for bit")
+    del gen, cache, token, program
+
+    # the engine over the trace: warm run, timed run
+    engine = ServingEngine(model, max_slots=SERVE["max_slots"], block_size=SERVE["block_size"])
+    engine.cache.key.fill_(SENTINEL)
+    engine.cache.value.fill_(SENTINEL)
+    held = set()
+    allocate = engine.pool.allocate
+
+    def recorded(n):
+        blocks = allocate(n)
+        held.update(blocks)
+        return blocks
+
+    engine.pool.allocate = recorded
+    useful = sum(n for _, n in trace)
+
+    def run_engine():
+        rids = [engine.add_request(p, max_new_tokens=n) for p, n in trace]
+        for _ in engine.stream():
+            pass
+        torch.cuda.synchronize()
+        return [engine.result(r) for r in rids]
+
+    warm = run_engine()
+    warm_counts = engine.trace_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timed = run_engine()
+    engine_s = time.perf_counter() - t0
+    engine_peak = torch.cuda.max_memory_allocated()
+    counts = engine.trace_counts()
+    engine_tps = useful / engine_s
+    rep.line(f"serve engine: {len(trace)} requests (prompts {[len(p) for p, _ in trace]}, new "
+             f"tokens {[n for _, n in trace]}), {useful} useful new tokens in {engine_s} s: "
+             f"{engine_tps} tokens/s; peak memory {engine_peak / 2**30} GiB; kv_bytes_per_token "
+             f"{engine.kv_bytes_per_token}; pool {engine.num_blocks} blocks of "
+             f"{engine.block_size}; builds after warm {warm_counts}, after timed {counts}")
+    if warm_counts["decode"] != 1 or warm_counts["prefill"] > math.log2(cfg.max_seq_len):
+        fail(f"serve: after the warm run the engine's builds are {warm_counts}")
+    if counts != warm_counts:
+        fail(f"serve: the timed run rebuilt programs: {warm_counts} -> {counts}")
+    if timed != warm or [len(t) for t in timed] != [n for _, n in trace]:
+        fail("serve: the trace's tokens changed between its warm and timed runs")
+    unused = sorted(set(range(1, engine.num_blocks)) - held)
+    kept = all(bool((pool[:, unused] == SENTINEL).all())
+               for pool in (engine.cache.key, engine.cache.value))
+    rep.line(f"serve garbage routing: {len(held)} blocks held by a table, the other "
+             f"{len(unused)} (block 0 aside) still all sentinel: {kept}")
+    if not unused or not kept:
+        fail("serve: a block no table held was written")
+    engine.pool.allocate = allocate
+
+    # one profiled step() in steady decode: 4 seated slots, no admission
+    long = [engine.add_request(p, max_new_tokens=48) for p, _ in trace[:SERVE["max_slots"]]]
+    engine.step()
+    engine.step()
+    profile_call(torch, engine.step, rep, "serve engine step (4 slots decoding)")
+    for _ in engine.stream():
+        pass
+    if any(len(engine.result(r)) != 48 for r in long):
+        fail("serve: the profiled requests did not finish")
+
+    # graph replay against the eager step: 4 slots at mixed depths
+    prompts = [np.arange(n) % cfg.vocab_size for n in (5, 23, 40, 64)]
+    for p in prompts:
+        engine.add_request(p, max_new_tokens=64)
+    engine.step()  # seats all four: prefill and one decode step
+    slots = engine.scheduler.slots
+    pending = np.asarray([[s.pending] for s in slots], np.int64)
+    start_lens = np.asarray([s.cache_len for s in slots], np.int64)
+    ones = np.ones(len(slots), np.int64)
+    step_no = [0]
+
+    def engine_step(eager, prev):
+        step_no[0] = 0 if prev is None else step_no[0] + 1
+        tokens = pending if prev is None else prev.argmax(-1)[:, None].cpu().numpy()
+        return engine._decode_logits(tokens, start_lens + step_no[0], ones, eager=eager)
+
+    equal, worst = replay_against_eager(torch, engine_step, [engine.cache.key, engine.cache.value],
+                                        SERVE["graph_steps"])
+    rep.line(f"serve engine: {SERVE['graph_steps']} decode steps of 4 slots at cache lengths "
+             f"{start_lens.tolist()} by graph replay against the eager step: bit for bit {equal} "
+             f"(largest difference {worst}); decode builds {engine.trace_counts()['decode']}")
+    if not equal:
+        fail("serve: the engine's graph replay is not its eager step bit for bit")
+    if engine.trace_counts()["decode"] != 1:
+        fail(f"serve: the engine's decode step was built {engine.trace_counts()} times")
+    rep.line(f"serve engine decode step, replays back to back (4 slots): "
+             f"{replay_ms(torch, engine._decode_program)} ms each on the device")
+    del engine
+
+    # the reference's baseline: run-to-completion fixed batches of max_slots,
+    # each padded to its longest prompt and decoded to its largest budget
+    slots_n = SERVE["max_slots"]
+    chunks = [trace[i:i + slots_n] for i in range(0, len(trace), slots_n)]
+    fns = {}
+
+    def run_baseline():
+        for chunk in chunks:
+            rows = list(chunk) + [chunk[0]] * (slots_n - len(chunk))
+            p_max = max(len(p) for p, _ in rows)
+            n_max = max(n for _, n in rows)
+            fn = fns.setdefault(n_max, make_generate_fn(model, max_new_tokens=n_max))
+            batch = np.zeros((slots_n, p_max), np.int64)
+            for j, (p, _) in enumerate(rows):
+                batch[j, :len(p)] = p
+            fn(torch.from_numpy(batch))[:, -1].cpu()
+
+    run_baseline()
+    t0 = time.perf_counter()
+    run_baseline()
+    baseline_s = time.perf_counter() - t0
+    baseline_tps = useful / baseline_s
+    rep.line(f"serve baseline (fixed batches of {slots_n} through make_generate_fn): {useful} "
+             f"useful new tokens in {baseline_s} s: {baseline_tps} tokens/s; engine against "
+             f"baseline {engine_tps / baseline_tps}")
+    launches = {w.__name__: w.launches for w in wrappers}
+    rep.line(f"serve kernel launches of the port {json.dumps(launches)}")
+    if any(launches.values()):
+        fail(f"serve: kernels of the port launched on the serving path: {launches}")
+    del model, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
@@ -1372,6 +1757,11 @@ def main() -> None:
     rep = Report(card())
     rep.line(f"torch {torch.__version__} cuda {torch.version.cuda} device "
              f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    wrappers = (*fa.KERNEL_WRAPPERS, *fused.KERNEL_WRAPPERS)
+    if "--serve-only" in sys.argv[1:]:
+        serve_phase(torch, port, wrappers, rep)
+        rep.line("serve-only: the serving phase passed")
+        return
 
     t0 = time.perf_counter()
     sources = ["flash_attention", "fused"]
@@ -1391,7 +1781,6 @@ def main() -> None:
         small_models()
         rep.line("small-only: the small models on the card agree with the CPU")
         return
-    wrappers = (*fa.KERNEL_WRAPPERS, *fused.KERNEL_WRAPPERS)
     if "--bert-only" in sys.argv[1:]:
         failed = run_cases(torch, fa, bert_cases(torch), rep)[0]
         if failed:
@@ -1421,6 +1810,7 @@ def main() -> None:
     check_path_losses(losses, fused_losses, rep)
     bert_launches = bert_phase(torch, port, wrappers, rep)
     example_phase(torch, port, wrappers, rep)
+    serve_phase(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

@@ -147,9 +147,63 @@ def test_unported_model_features_raise(field, value):
 
 
 def test_decode_path_raises():
+    """The decode paths are ported: what raises now is a decode call without
+    its cache, a cache without decode, and the int8 paged KV (queue A9)."""
+    from accelerate_tpu_torch.models.generation import init_cache
+
     model = port.CausalLM(port.TransformerConfig.tiny(num_layers=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 4, dtype=torch.long), decode=True)
+    ids = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(ValueError, match="needs a cache"):
+        model(ids, decode=True)
+    with pytest.raises(ValueError, match="decode=True"):
+        model(ids, cache=init_cache(model, 1))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A9"):
+        attention.PagedKVState(torch.zeros(1, 2), torch.zeros(1), torch.ones(1), num_blocks=4,
+                               block_size=2, kv_dtype="int8")
+    assert model(ids, decode=True, cache=init_cache(model, 1)).shape == (1, 4, 1024)
+
+
+def test_serving_modules_import_without_jax():
+    code = textwrap.dedent("""
+        import importlib
+        for name in ("accelerate_tpu_torch.models.generation", "accelerate_tpu_torch.serving",
+                     "accelerate_tpu_torch.serving.engine", "accelerate_tpu_torch.serving.sampling",
+                     "accelerate_tpu_torch.serving.block_pool",
+                     "accelerate_tpu_torch.serving.scheduler", "accelerate_tpu_torch.serving.spans",
+                     "accelerate_tpu_torch.serving.telemetry",
+                     "accelerate_tpu_torch.utils.cuda_graph"):
+            importlib.import_module(name)
+        print("ok")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
+
+
+def test_serving_and_generation_follow_the_model_device():
+    """No serving entry point takes a device of its own or defaults to the
+    CPU: the caches, the decode step's buffers, the sampler and the outputs
+    sit where the model's parameters are (here a model built on the meta
+    device, which no default would give)."""
+    from accelerate_tpu_torch.models import generation
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    cfg = port.TransformerConfig.tiny(num_layers=1, max_seq_len=32)
+    meta = port.CausalLM(cfg, device="meta", generator=torch.Generator())
+    assert generation.init_cache(meta, 2).key.device.type == "meta"
+    assert generation.init_cache(meta, num_blocks=5, block_size=8).value.device.type == "meta"
+    with pytest.raises(RuntimeError, match="META"):  # the engine's generator is the model's
+        ServingEngine(meta)
+    model = port.CausalLM(cfg, device="cpu")
+    engine = ServingEngine(model, max_slots=2, block_size=8)
+    tensors = [engine.cache.key, engine.cache.value, *engine._decode_in.values(),
+               engine.sampling.temperatures()]
+    assert {t.device for t in tensors} == {torch.device("cpu")}
+    assert engine._generator.device == torch.device("cpu")
+    ids = torch.randint(0, cfg.vocab_size, (2, 5), generator=torch.Generator().manual_seed(0))
+    assert engine.generate(ids, max_new_tokens=3).device == torch.device("cpu")
+    assert generation.generate(model, ids, max_new_tokens=3).device == torch.device("cpu")
+    fn = generation.make_generate_fn(model, max_new_tokens=3)
+    assert fn(ids).device == torch.device("cpu")
 
 
 def test_unported_accelerator_and_model_paths_raise():
