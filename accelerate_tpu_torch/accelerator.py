@@ -40,6 +40,7 @@ from .data_loader import (
     skip_first_batches,
 )
 from .logging import get_logger
+from .models.transformer import convert_model
 from .ops.fused import maybe_fused_epilogue
 from .optimizer import (
     AcceleratedOptimizer,
@@ -134,7 +135,8 @@ class Accelerator:
     # ------------------------------------------------------------------ #
     def prepare(self, *args):
         """Place each object by type and return them in input order: a
-        model moves to the device (fp32 masters), an :class:`AdamW` is
+        model moves to the device (fp32 masters; converted to fp8
+        projections under ``mixed_precision="fp8"``), an :class:`AdamW` is
         wrapped and its state made for the prepared model, a loader yields
         device batches, a plain function becomes an LR scheduler."""
         result = []
@@ -162,6 +164,11 @@ class Accelerator:
         return result[0] if len(result) == 1 else tuple(result)
 
     def prepare_model(self, model: nn.Module) -> nn.Module:
+        """The model on the device; under ``mixed_precision="fp8"`` its
+        projections are first converted to fp8 products
+        (``models/transformer.convert_model``, the reference's :325-330)."""
+        if self.state.mixed_precision_policy.fp8:
+            model = convert_model(model)
         return model.to(device=self.device)
 
     def prepare_data_loader(self, dataloader: Any) -> DataLoaderShard:

@@ -2,7 +2,7 @@
 
 Port of ``accelerate_tpu/utils/dataclasses.py:65-225`` and ``:238``: the
 precision and distributed-type enums, the mixed-precision policy with torch
-dtypes, gradient accumulation in its unfused mode, and the project
+dtypes (fp8 included, :163-167), gradient accumulation in its unfused mode, and the project
 configuration that names checkpoints. One process on one device:
 sharding plugins, process groups and the launcher's environment variables
 come with a later slice (ROADMAP.md).
@@ -34,9 +34,12 @@ class PrecisionType(str, enum.Enum):
 @dataclass
 class MixedPrecisionPolicy:
     """What dtype each tensor class uses inside the train step: params and
-    gradients stay fp32, compute runs in ``compute_dtype``."""
+    gradients stay fp32, compute runs in ``compute_dtype``. ``fp8``: the
+    models' projections run as fp8 products (``ops/fp8.py``; ``prepare``
+    converts a model), everything else in bf16."""
 
     compute_dtype: Any = torch.float32
+    fp8: bool = False
     # fp16 only: dynamic loss scaling (GradScaler semantics)
     loss_scale_init: float = 2.0**15
     loss_scale_growth_interval: int = 2000
@@ -51,9 +54,7 @@ class MixedPrecisionPolicy:
             return cls(compute_dtype=torch.bfloat16)
         if precision == PrecisionType.FP16:
             return cls(compute_dtype=torch.float16)
-        raise NotImplementedError(
-            "mixed_precision='fp8' is not ported yet (ROADMAP.md, queue A8)"
-        )
+        return cls(compute_dtype=torch.bfloat16, fp8=True)
 
     @property
     def uses_loss_scaling(self) -> bool:

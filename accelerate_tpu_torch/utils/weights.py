@@ -8,8 +8,11 @@ whose leaves carry a leading ``num_layers`` axis) or unrolled
 ``load_state_dict(strict=True)``; top-level modules (``pooler``,
 ``classifier``) map by the same rule. Leaf names map ``kernel`` ->
 ``weight`` transposed from flax's (in, out) to torch's (out, in),
-``scale`` and ``embedding`` -> ``weight``, ``bias`` -> ``bias``. A gradient
-or moment tree of the same shape maps the same way.
+``scale`` and ``embedding`` -> ``weight``, ``bias`` -> ``bias``. The MoE
+block's expert stacks (``moe/gate_proj``, ``up_proj``, ``down_proj``: raw
+(E, in, out) params with no ``kernel`` leaf) keep their names and layout,
+untransposed; its router is a ``Dense`` like any other. A gradient or
+moment tree of the same shape maps the same way.
 
 ``carry_from_jax(named, model, optimizer)`` builds the port's train-step
 carry from the flat ``name -> array`` dict of a reference checkpoint
@@ -26,17 +29,22 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"layer_(\d+)$")
+_EXPERT_STACKS = ("gate_proj", "up_proj", "down_proj")
 
 
 def _leaf(name: str, value) -> tuple[str, np.ndarray]:
     arr = np.asarray(value, dtype=np.float32)
     if name == "kernel":
+        if arr.ndim != 2:
+            raise ValueError(f"a Dense kernel of shape {arr.shape}: only 2-D kernels transpose")
         return "weight", arr.T
     if name in ("scale", "embedding"):
         return "weight", arr
     if name == "bias":
         return "bias", arr
-    raise ValueError(f"unknown flax parameter leaf {name!r}")
+    if name in _EXPERT_STACKS and arr.ndim == 3:  # (E, in, out), as the port keeps it
+        return name, arr
+    raise ValueError(f"unknown flax parameter leaf {name!r} of shape {arr.shape}")
 
 
 def _flatten(tree: Mapping, prefix: str, out: dict, layer=None) -> None:

@@ -77,6 +77,34 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``benchmarks/measure.py:_run_serve`` against fixed batches of
    ``make_generate_fn``, peak memory, KV bytes per token and the device's
    busy share of one profiled decode step and one engine step.
+9. moe: the reference benchmark's ``moe`` config (registry.py:214-258,
+   656,453,632 params: 1 layer, 8 experts of Mixtral width, top-2, ragged
+   dispatch) at B 16, S 1024: B1-B4 against their plain versions at its
+   attention shape (``check_case``, gated), B1-B3 timed there; a
+   2-layer fp32 tiny MoE model on the card against the CPU (1e-4); one
+   full-width MoE layer's output and grads (x, router, the three stacks)
+   by the grouped GEMM and by capacity at the no-drop factor against the
+   dense oracle, row by row (MOE_ORACLE_TOL); capacity 1.25's drops equal
+   to the plain version's on the CPU, and fully dropped tokens read zeros;
+   5 unified_steps (AdamW, clip 1.0) with exact B1-B3 launches and none of
+   B4-B6; a profiled step whose kernels include the grouped GEMM; a step
+   and its gradients repeated from one copy of the state, bit for bit.
+10. dense and fp8: the ``dense`` config (registry.py:205-213, 3 layers at
+   Llama-8B width, ``remat="dots"``) at B 8, S 1024, 5 steps in bf16, then
+   again under ``mixed_precision="fp8"`` (prepare converts the 21
+   projections): ``fp8_matmul`` by ``torch._scaled_mm`` against its plain
+   version at the config's projection shapes (forward, dx, dw row by row,
+   FP8_PRODUCT_TOL); exact launches (the "dots" recompute replays the
+   flash forward) and exact fp8 products (the wrapper's calls, and the
+   fp8 GEMM kernels of a profiled step: 63); "dots" against no remat bit
+   for bit; then bf16 and fp8 again from each further seed of FP8_SEEDS,
+   and on every seed the fp8 losses within FP8_LOSS_TOL of the bf16 ones
+   (the gap over the bf16 run's first loss).
+11. longseq: the ``longseq`` config (registry.py:259-288, 2 layers, S 8192,
+   B 1, flash): B1-B4 against their plain versions at its attention shape
+   (gated), B1-B3 timed there, then 4 steps each under
+   ``"save_mlp"``, ``"full"`` and no remat, whose gradients must be the same
+   bit for bit, each with exact launches.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -97,7 +125,11 @@ phase 1, the BERT-shape kernel cases and timings, and phases 6 and 7, and
     python3 chip_smoke.py --serve-only
 
 phase 8 alone (the serving path runs no kernel of the port, so nothing is
-built).
+built), and
+
+    python3 chip_smoke.py --variants-only
+
+phases 1 and 9-11.
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -184,6 +216,33 @@ SERVE = dict(max_slots=4, block_size=16, n_requests=8, seed=0, prompt=128, new_t
 SERVE_PREFILL_TOL = 0.02
 SENTINEL = -768.0  # what the pools hold before the trace (exact in bf16)
 CARD = "cuda"  # where the serving phase puts its models
+# the reference benchmark's single-card training variants
+# (accelerate_tpu/benchmarks/registry.py:203-406): full width and depth
+MOE_CFG = dict(vocab_size=32000, hidden_size=4096, intermediate_size=3584, num_layers=1,
+               num_heads=32, num_kv_heads=8, max_seq_len=1024, num_experts=8,
+               num_experts_per_tok=2, moe_dispatch="ragged", moe_capacity_factor=1.25,
+               dtype="bfloat16", remat=None)  # :214-258, 656,453,632 params
+DENSE_CFG = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=3,
+                 num_heads=32, num_kv_heads=8, max_seq_len=1024, dtype="bfloat16",
+                 remat="dots")  # :205-213, 916,484,096 params; fp8 :389-391
+LONGSEQ_CFG = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=2,
+                   num_heads=32, num_kv_heads=8, max_seq_len=8192, dtype="bfloat16",
+                   remat="save_mlp", attention_impl="flash")  # :259-288, 698,372,096 params
+VARIANT_BATCH = {"moe": 16, "dense": 8}  # the variants' B (registry.py:343, :389); longseq B 1
+VARIANT_STEPS = 5
+LONGSEQ_STEPS = 4
+# limits, worst row's max error over its RMS (bf16): about 3x the largest
+# reading on an H100 (PERF.md's parity table)
+MOE_ORACLE_TOL = 0.17  # ragged and capacity against the dense oracle (read 0.057)
+FP8_PRODUCT_TOL = 0.05  # fp8_matmul by torch._scaled_mm against its plain version (read 0.017)
+FP8_SEEDS = (0, 1, 2, 3, 4)  # weights and tokens of the fp8 against bf16 loss comparison
+# |fp8 loss - bf16 loss| / the bf16 run's first loss, by step, on every seed
+# of FP8_SEEDS. Over the first loss, not each step's own: the repeated batch
+# takes the loss from 10.9 to 0.01 in 5 steps, and a gap over a loss that
+# vanishes compares noise. About 3x the largest reading over the seeds on an
+# H100 (2.5e-4, 4.6e-3, 0.0177, 0.0117, 2.0e-4); tools/fp8_mutants.py's
+# planted faults in the fp8 backward read 0.137 or more from step 2 on
+FP8_LOSS_TOL = (7.5e-4, 0.014, 0.055, 0.035, 6e-4)
 LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     "original_max_position_embeddings": 8192,
@@ -705,7 +764,7 @@ def kernel_phase(torch, port, fa, fused, build, rep: Report,
     return rows
 
 
-def time_library_bwd(torch, q, k, v, dout, scale, flush, rep: Report):
+def time_library_bwd(torch, q, k, v, dout, scale, flush, rep: Report, shape="the main shape"):
     """One call of PyTorch's flash-attention backward op at the main shape:
     B4's library time. It is fed the output, logsumexp and philox values of
     its own forward op, with k and v expanded to the query heads (the op
@@ -721,7 +780,7 @@ def time_library_bwd(torch, q, k, v, dout, scale, flush, rep: Report):
         dt, qt, ke, ve, out, lse, cum_q, cum_k, max_q, max_k, 0.0, True, seed, offset,
         scale=scale), 20, flush)
     rep.line(f"library for flash_bwd_fused_kernel: "
-             f"torch.ops.aten._scaled_dot_product_flash_attention_backward at the main shape "
+             f"torch.ops.aten._scaled_dot_product_flash_attention_backward at {shape} "
              f"(k, v expanded to {q.shape[2]} heads) {ms:.4f} ms")
     return ms
 
@@ -1740,6 +1799,569 @@ def serve_phase(torch, port, wrappers, rep: Report) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------- #
+# phases 9-11: the reference benchmark's single-card training variants
+# ---------------------------------------------------------------------- #
+def variant_trainer(torch, port, cfg_kw: dict, batch: int, steps: int, seed: int = 0,
+                    mixed_precision: str = "bf16"):
+    """A CausalLM of the reference's config ``cfg_kw`` built on the card from
+    a seeded generator, ``prepare``d (under ``mixed_precision="fp8"`` that
+    converts its projections) with adamw (lr 3e-4) and clip 1.0, and one
+    batch of seeded tokens that repeats every step (also returned, on the
+    card, as the last item)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    acc = port.Accelerator(mixed_precision=mixed_precision)
+    cfg = port.TransformerConfig(**cfg_kw)
+    model = port.CausalLM(cfg, device=acc.device,
+                          generator=torch.Generator(device=acc.device).manual_seed(seed))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
+                           generator=torch.Generator().manual_seed(seed)).numpy()
+    dataset = [{"input_ids": tokens[i % batch]} for i in range(steps * batch)]
+    model, opt, loader = acc.prepare(model, port.adamw(3e-4),
+                                     port.DataLoader(dataset, batch_size=batch))
+    step = acc.unified_step(port.CausalLM.loss_fn(model), opt, max_grad_norm=1.0)
+    carry = acc.init_carry(model, opt)
+    first = {"input_ids": torch.from_numpy(tokens[:batch]).to(acc.device)}
+    torch.cuda.synchronize()
+    return acc, model, opt, loader, step, carry, first
+
+
+def set_remat(model, remat) -> None:
+    """``model``'s config, and every submodule's that shares it, with
+    ``remat`` in place."""
+    import dataclasses
+
+    old = model.config
+    new = dataclasses.replace(old, remat=remat)
+    for module in model.modules():
+        if getattr(module, "config", None) is old:
+            module.config = new
+
+
+def grads_of(torch, model, batch, dtype) -> dict:
+    """The step's gradients: the loss on the params cast to ``dtype``, its
+    gradients on the fp32 masters (``Accelerator.unified_step``'s own
+    arithmetic), returned as fp32 tensors by name."""
+    params = dict(model.named_parameters())
+    compute = {k: p.to(dtype) for k, p in params.items()}
+    batch = {k: v.to("cuda") for k, v in batch.items()}
+    loss = model.loss_fn(model)(compute, batch)
+    grads = torch.autograd.grad(loss.float(), list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def unequal(a: dict, b: dict) -> list:
+    return [k for k in a if not a[k].equal(b[k])]
+
+
+def run_counted(torch, wrappers, step, carry, loader):
+    """``run_steps`` with every launch counter set to 0 just before and read
+    just after; the peak memory of the steps."""
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    carry, batch, losses, norms, times = run_steps(torch, step, carry, loader)
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
+    return carry, batch, losses, times, launches, by_design, torch.cuda.max_memory_allocated()
+
+
+def check_launches(name, launches, by_design, want) -> None:
+    full = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_fused": 0,
+            "qkv_prologue": 0, "adamw_epilogue": 0, **want}
+    if launches != full:
+        fail(f"{name} kernel launches {launches}, want {full}")
+    want_design = {w: {"wgmma": full[w], "wmma": 0} for w in by_design}
+    if by_design != want_design:
+        fail(f"{name} launches by design {by_design}, want {want_design}")
+
+
+# kernel groups of the variants' profiled steps, first match wins
+VARIANT_GROUPS = (
+    ("grouped GEMMs", lambda k: "GroupProblemShape" in k or "grouped_gemm" in k),
+    ("fp8 GEMMs", lambda k: re.match(r"nvjet_[qr][qr]", k) is not None),
+    ("flash kernels", lambda k: "flash_" in k and "_kernel" in k),
+    ("other matmuls", lambda k: any(t in k.lower() for t in ("gemm", "nvjet", "xmma",
+                                                             "cutlass"))),
+    ("quantisation (amax, scale, clamp, fp8 casts)",
+     lambda k: any(t in k for t in ("Float8", "float8", "AbsMax", "clamp", "NormOps"))),
+    ("dispatch (sort, gathers, bincount, cumsum, combine)",
+     lambda k: any(t in k.lower() for t in ("sort", "index", "gather", "scatter", "bincount",
+                                            "scan", "histogram", "cumsum", "one_hot",
+                                            "embedding"))),
+)
+
+
+def profile_groups(torch, fn, rep: Report, name: str):
+    """``fn()`` once under torch.profiler: wall (host clock ending in a
+    synchronise), device busy (every kernel's self time) and its share, the
+    busy time by VARIANT_GROUPS (the rest: elementwise and the rest), the
+    optimizer's ``unified_step.sync_apply`` range on the device, and the
+    launches of each kernel name. Returns {kernel name: launches}, or None
+    when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, counts, sync_ms = {}, {}, None
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if evt.key == "unified_step.sync_apply":
+            sync_ms = evt.device_time_total / 1e3
+        else:
+            kernels[evt.key] = evt.self_device_time_total / 1e3
+            counts[evt.key] = evt.count
+    busy = sum(kernels.values())
+    if busy == 0:
+        rep.line(f"{name} profiled step: the profiler saw no device time (not measured)")
+        return None
+    groups = dict.fromkeys([g for g, _ in VARIANT_GROUPS] + ["the rest (elementwise, norms, "
+                                                              "loss, optimizer)"], 0.0)
+    for key, ms in kernels.items():
+        group = next((g for g, match in VARIANT_GROUPS if match(key)), None)
+        groups[group or list(groups)[-1]] += ms
+    rep.line(f"{name} profiled step: wall {wall_ms} ms, device busy {busy} ms "
+             f"({100 * busy / wall_ms} %), by group ms {json.dumps(groups)}; optimizer "
+             f"(unified_step.sync_apply) {sync_ms} ms on the device")
+    for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        rep.line(f"{name} profiled step: {ms} ms x{counts[key]} {key[:100]}")
+    return counts
+
+
+def time_flash_shape(torch, fa, rep: Report, label: str, B, S, H, Hkv, D) -> list[dict]:
+    """B1-B3 at a variant's attention shape (bf16, causal): first the gated
+    ``check_case`` at this shape (every flash kernel against its plain
+    version row by row, launches by design, the repeat bits; a failure
+    ends the script), whose max abs errors go into the rows; then the
+    times of kernel, plain version and, for B1, SDPA's forward; B2 + B3
+    beside PyTorch's flash backward op as a yardstick."""
+    import torch.nn.functional as F
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reading, abs_errs = check_case(torch, fa, f"{label}_bf16_causal", B, S, H, Hkv, D,
+                                   torch.bfloat16)
+    rep.line(json.dumps(reading))
+    if reading["bad"]:
+        fail(f"flash kernels at {label}'s shape beyond tolerance or design: {reading['bad']}")
+    torch.cuda.empty_cache()
+    q, k, v, dout = make_inputs(torch, B, S, H, Hkv, D, torch.bfloat16, seed=5)
+    scale = D ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, scale, True)
+    delta = fa.attention_delta(out, dout)
+    torch.cuda.empty_cache()
+    scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    fns = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, True),
+                      lambda: fa.flash_fwd_reference(q, k, v, scale, True)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, True),
+                         lambda: fa.flash_bwd_dq_reference(q, k, v, dout, lse, delta, scale,
+                                                           True)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, True),
+                          lambda: fa.flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale,
+                                                             True)),
+    }
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
+    pairs = visible_pairs(torch, S, S, True) * B * H
+    e = 2
+    qo, kv, stat = B * S * H * D * e, B * S * Hkv * D * e, B * H * S * 4
+    work = {
+        "flash_fwd": (2 * 2 * D * pairs, qo + 2 * kv + qo + stat),
+        "flash_bwd_dq": (3 * 2 * D * pairs, 2 * qo + 2 * kv + 2 * stat + qo),
+        "flash_bwd_dkv": (4 * 2 * D * pairs, 2 * qo + 2 * kv + 2 * stat + 2 * kv),
+    }
+    rows = []
+    for wrapper, (kfn, pfn) in fns.items():
+        ms = time_ms(torch, kfn, 20, flush)
+        plain_ms = time_ms(torch, pfn, 2, flush)
+        torch.cuda.empty_cache()
+        row = kernel_row(wrapper, fa.kernel_design(torch.bfloat16, D), ms, plain_ms,
+                         *work[wrapper], PEAK_BF16_FLOPS, abs_errs[wrapper],
+                         library_fwd if wrapper == "flash_fwd" else None)
+        row["shape"] = f"{label} B{B} S{S} H{H} Hkv{Hkv} D{D} bf16 causal"
+        rows.append(row)
+        rep.line(f"{KERNELS[wrapper][0]} at {label}'s shape: {ms:.4f} ms (plain {plain_ms:.4f} "
+                 f"ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                 f"{work[wrapper][0] / ms / 1e9:.1f} TFLOP/s), max abs err {abs_errs[wrapper]}")
+
+    def two_pass():
+        fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, True)
+        fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, True)
+
+    library_bwd = time_library_bwd(torch, q, k, v, dout, scale, flush, rep, f"{label}'s shape")
+    rep.line(f"at {label}'s shape: SDPA forward {library_fwd:.4f} ms; B2 + B3 "
+             f"{time_ms(torch, two_pass, 10, flush):.4f} ms against PyTorch's flash backward op "
+             f"{library_bwd:.4f} ms (yardstick: all of dq, dk, dv, no GQA sum)")
+    del q, k, v, dout, out, lse, delta, scratch
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_layer_outputs(torch, moe_module, x, g, dispatch, factor=None):
+    """One MoE layer's output and the gradients of <output, g> with respect
+    to x, the router and the three stacks, under ``dispatch``."""
+    import dataclasses
+
+    cfg = moe_module.config
+    moe_module.config = dataclasses.replace(
+        cfg, moe_dispatch=dispatch, moe_capacity_factor=factor or cfg.moe_capacity_factor)
+    try:
+        xg = x.detach().requires_grad_(True)
+        out = moe_module(xg)
+        params = [xg, moe_module.router.weight, moe_module.gate_proj, moe_module.up_proj,
+                  moe_module.down_proj]
+        grads = torch.autograd.grad(out, params, g)
+    finally:
+        moe_module.config = cfg
+    return [out.detach()] + [t.detach() for t in grads]
+
+
+def moe_phase(torch, port, wrappers, rep: Report) -> list[dict]:
+    """Phase 9: see the module docstring. Returns B1-B3's rows at the
+    config's attention shape, with this phase's launches."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import moe as moe_ops
+
+    cfg_kw, B, steps = MOE_CFG, VARIANT_BATCH["moe"], VARIANT_STEPS
+    S, E, K = cfg_kw["max_seq_len"], cfg_kw["num_experts"], cfg_kw["num_experts_per_tok"]
+    rows = time_flash_shape(torch, fa, rep, "moe", B, S, cfg_kw["num_heads"],
+                            cfg_kw["num_kv_heads"], 128)
+    moe_small_check(torch, port, rep)
+    t0 = time.perf_counter()
+    acc, model, opt, loader, step, carry, _ = variant_trainer(torch, port, cfg_kw, B, steps)
+    n_params = sum(p.numel() for p in model.parameters())
+    rep.line(f"moe set-up: {n_params} params (registry.py:214-258), "
+             f"{time.perf_counter() - t0:.2f} s")
+
+    # 1-3: one MoE layer at full width on B*S tokens: ragged and capacity
+    # against the dense oracle, row by row; capacity 1.25's drops
+    layer = model.layers[0].moe
+    T, h = B * S, cfg_kw["hidden_size"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(T, 1, h, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(T, 1, h, generator=gen, device="cuda").to(torch.bfloat16)
+    names = ("out", "dx", "router", "gate_proj", "up_proj", "down_proj")
+    dense = moe_layer_outputs(torch, layer, x, g, "dense")
+    readings = {}
+    for label, dispatch, factor in (
+            ("ragged", "ragged", None),
+            ("capacity_no_drop", "capacity", moe_ops.no_drop_capacity_factor(E, K))):
+        got = moe_layer_outputs(torch, layer, x, g, dispatch, factor)
+        readings[label] = {n: row_err(torch, a, b) for n, a, b in zip(names, got, dense)}
+        del got
+    del dense
+    torch.cuda.empty_cache()
+    rep.line(f"moe layer against the dense oracle (T {T}, bf16), worst row's max error over its "
+             f"RMS: {json.dumps(readings)}; limit {MOE_ORACLE_TOL}")
+    worst = max(v for r in readings.values() for v in r.values())
+    if not worst <= MOE_ORACLE_TOL:
+        fail(f"moe: ragged or capacity against the dense oracle {worst} > {MOE_ORACLE_TOL}")
+    # a shared direction in every token skews the routing, so capacity 1.25
+    # must drop (seeded tokens alone route evenly enough that nothing drops)
+    x = x + torch.randn(h, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        logits = layer.router(x.float())
+        sel = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True,
+                         stable=True).indices[..., :K].reshape(T, K)
+    C = moe_ops.expert_capacity(T, E, K, cfg_kw["moe_capacity_factor"])
+    slot, keep = moe_ops.capacity_slots(sel, E, C)
+    cpu_slot, cpu_keep = moe_ops.capacity_slots(sel.cpu(), E, C)
+    out = moe_layer_outputs(torch, layer, x, g, "capacity")[0].reshape(T, h)
+    both = (~keep).reshape(T, K).all(dim=1)
+    rep.line(f"moe capacity {cfg_kw['moe_capacity_factor']} (C {C}): {int((~keep).sum())} of "
+             f"{T * K} (token, choice) pairs dropped on the card, {int((~cpu_keep).sum())} by "
+             f"the plain version on the CPU; {int(both.sum())} tokens lost both choices")
+    if not (torch.equal(keep.cpu(), cpu_keep) and torch.equal(slot.cpu(), cpu_slot)):
+        fail("moe: the card's capacity slots differ from the plain version's on the CPU")
+    if not torch.equal(out[both], torch.zeros_like(out[both])):
+        fail("moe: a token whose choices were all dropped did not read zeros")
+    if not 0 < int((~cpu_keep).sum()) < T * K:
+        fail("moe: the skewed routing dropped no pair at capacity 1.25: the check saw nothing")
+    del x, g, out, logits, sel, slot, keep
+
+    # 5 steps with exact launch counts, then one profiled step
+    carry, batch, losses, times, launches, by_design, peak = run_counted(
+        torch, wrappers, step, carry, loader)
+    steady = statistics.median(times[1:])
+    rep.line(f"moe losses {losses}")
+    rep.line(f"moe step seconds {times}; median of steps 2-{steps} {steady} s, {B * S / steady} "
+             f"tokens/s; peak memory {peak / 2**30} GiB")
+    rep.line(f"moe kernel launches {json.dumps(launches)}")
+    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        fail(f"moe losses {losses}: not finite or not falling on a repeated batch")
+    L = cfg_kw["num_layers"]
+    check_launches("moe", launches, by_design, {"flash_fwd": L * steps, "flash_bwd_dq": L * steps,
+                                                 "flash_bwd_dkv": L * steps})
+    counts = profile_groups(torch, lambda: step(carry, batch), rep, "moe")
+    if counts is None or not any("GroupProblemShape" in k for k in counts):
+        fail("moe profiled step: no grouped GEMM kernel seen")
+
+    # 4: repeat from one copy of the state, bit for bit
+    loss_a, grads_a = grads_of(torch, model, batch, torch.bfloat16)
+    loss_b, grads_b = grads_of(torch, model, batch, torch.bfloat16)
+    bad = unequal(grads_a, grads_b)
+    del grads_a, grads_b
+    state = opt.opt_state
+    snap = {k: t.detach().clone() for k, t in carry["params"].items()}
+    moments = {k: (state["mu"][k].clone(), state["nu"][k].clone()) for k in snap}
+    count = state["count"]
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for k, t in carry["params"].items():
+                t.copy_(snap[k])
+                state["mu"][k].copy_(moments[k][0])
+                state["nu"][k].copy_(moments[k][1])
+        state["count"] = count
+        _, m = step(carry, batch)
+        runs.append((float(m["loss"]), {k: t.detach().clone() for k, t in carry["params"].items()}))
+    bad += unequal(runs[0][1], runs[1][1])
+    rep.line(f"moe repeat: grads of one state twice {'equal' if loss_a == loss_b else 'differ'} "
+             f"(loss {loss_a} vs {loss_b}); a step from one copy twice: loss {runs[0][0]} vs "
+             f"{runs[1][0]}; tensors that differ {bad[:4]} ({len(bad)})")
+    if loss_a != loss_b or runs[0][0] != runs[1][0] or bad:
+        fail(f"moe: a repeated step is not bit for bit the same: {bad[:4]}")
+    del acc, model, opt, loader, step, carry, snap, moments, runs
+    for row in rows:
+        row["launches"] = launches[WRAPPER_OF[row["name"]]]
+    return rows
+
+
+def moe_small_check(torch, port, rep: Report) -> None:
+    """A 2-layer fp32 tiny-width MoE CausalLM (ragged: the grouped GEMM on
+    the card, the per-expert loop on the CPU) on both devices from one set
+    of weights: loss and grads within 1e-4 relative."""
+    cfg = port.TransformerConfig.tiny(vocab_size=512, hidden_size=128, intermediate_size=256,
+                                      num_heads=4, num_kv_heads=2, num_experts=4,
+                                      moe_dispatch="ragged", attention_impl="flash")
+    cpu_model = port.CausalLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu_model = port.CausalLM(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (2, 96), generator=torch.Generator().manual_seed(1))
+    results = []
+    for model, device in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+        params = dict(model.named_parameters())
+        loss = port.CausalLM.loss_fn(model)(params, {"input_ids": ids.to(device)})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        results.append((float(loss.detach()), [t.cpu() for t in grads]))
+    (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = results
+    grad_err = max(rel_err(torch, a, b) for a, b in zip(gpu_grads, cpu_grads))
+    rep.line(f"small MoE model fp32 (grouped GEMM, flash) vs CPU plain path: loss {gpu_loss} vs "
+             f"{cpu_loss}, max grad rel err {grad_err:.3g}")
+    if not (abs(gpu_loss - cpu_loss) <= 1e-4 * abs(cpu_loss) and grad_err <= 1e-4):
+        fail("small MoE model: the card disagrees with the CPU plain path")
+
+
+def check_fp8_products(torch, rep: Report) -> dict:
+    """``fp8_matmul`` on the card (``torch._scaled_mm``) against its plain
+    version on the card (the codes multiplied in fp32), at the dense
+    config's projection shapes (M = B*S rows): the forward, dx and dw row
+    by row. Both sides quantise the same bf16 inputs to the same codes."""
+    from accelerate_tpu_torch.ops import fp8
+
+    e4m3, e5m2 = torch.float8_e4m3fn, torch.float8_e5m2
+    M, h, f = VARIANT_BATCH["dense"] * DENSE_CFG["max_seq_len"], DENSE_CFG["hidden_size"], \
+        DENSE_CFG["intermediate_size"]
+    kv = DENSE_CFG["num_kv_heads"] * 128
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    readings = {}
+    for label, k, n in (("q/o", h, h), ("k/v", h, kv), ("gate/up", h, f), ("down", f, h)):
+        x = torch.randn(M, k, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+        w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+        w.requires_grad_()
+        g = torch.randn(M, n, generator=gen, device="cuda").to(torch.bfloat16)
+        out = fp8.fp8_matmul(x, w, out_dtype=torch.bfloat16)
+        dx, dw = torch.autograd.grad(out, (x, w), g)
+        xs, ws = fp8._scale_for(x, fp8.E4M3_MAX), fp8._scale_for(w, fp8.E4M3_MAX)
+        gs = fp8._scale_for(g, fp8.E5M2_MAX)
+        xq, wq = fp8.quantize_fp8(x.detach(), e4m3, xs), fp8.quantize_fp8(w.detach(), e4m3, ws)
+        gq = fp8.quantize_fp8(g, e5m2, gs)
+        plain = fp8.scaled_mm_reference(xq, wq, xs, ws, torch.float32)
+        pdx = fp8.scaled_mm_reference(gq, wq.t(), gs, ws, torch.float32)
+        pdw = fp8.scaled_mm_reference(xq.t(), gq, xs, gs, torch.float32)
+        readings[label] = {"out": row_err(torch, out, plain), "dx": row_err(torch, dx, pdx),
+                           "dw": row_err(torch, dw, pdw)}
+        del x, w, g, out, dx, dw, xq, wq, gq, plain, pdx, pdw
+    torch.cuda.empty_cache()
+    rep.line(f"fp8_matmul (torch._scaled_mm, e4m3 / e5m2) against its plain version on the card at "
+             f"M {M}, worst row's max error over its RMS: {json.dumps(readings)}; limit "
+             f"{FP8_PRODUCT_TOL}")
+    worst = max(v for r in readings.values() for v in r.values())
+    if not worst <= FP8_PRODUCT_TOL:
+        fail(f"fp8_matmul on the card against its plain version: {worst} > {FP8_PRODUCT_TOL}")
+    return readings
+
+
+def dense_fp8_phase(torch, port, wrappers, rep: Report) -> None:
+    """Phase 10: see the module docstring."""
+    from accelerate_tpu_torch.models.transformer import Fp8Dense
+    from accelerate_tpu_torch.ops import fp8
+
+    cfg_kw, B, steps = DENSE_CFG, VARIANT_BATCH["dense"], VARIANT_STEPS
+    S, L = cfg_kw["max_seq_len"], cfg_kw["num_layers"]
+    check_fp8_products(torch, rep)
+    results = {}
+    for precision in ("bf16", "fp8"):
+        name = f"dense {precision}"
+        t0 = time.perf_counter()
+        acc, model, opt, loader, step, carry, _ = variant_trainer(
+            torch, port, cfg_kw, B, steps, mixed_precision=precision)
+        n_fp8 = sum(isinstance(m, Fp8Dense) for m in model.modules())
+        rep.line(f"{name} set-up: {sum(p.numel() for p in model.parameters())} params "
+                 f"(registry.py:205-213, remat {model.config.remat!r}), {n_fp8} Fp8Dense "
+                 f"projections, {time.perf_counter() - t0:.2f} s")
+        if n_fp8 != (7 * L if precision == "fp8" else 0):
+            fail(f"{name}: {n_fp8} projections converted to fp8")
+        fp8.scaled_mm.calls = 0
+        carry, batch, losses, times, launches, by_design, peak = run_counted(
+            torch, wrappers, step, carry, loader)
+        calls = fp8.scaled_mm.calls
+        steady = statistics.median(times[1:])
+        rep.line(f"{name} losses {losses}")
+        rep.line(f"{name} step seconds {times}; median of steps 2-{steps} {steady} s, "
+                 f"{B * S / steady} tokens/s; peak memory {peak / 2**30} GiB")
+        rep.line(f"{name} kernel launches {json.dumps(launches)}; fp8 product wrapper "
+                 f"(scaled_mm) called {calls} times")
+        if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0]):
+            fail(f"{name} losses {losses}: not finite or not falling on a repeated batch")
+        # "dots": the recompute replays the flash forward, once more a layer
+        check_launches(name, launches, by_design, {"flash_fwd": 2 * L * steps,
+                                                   "flash_bwd_dq": L * steps,
+                                                   "flash_bwd_dkv": L * steps})
+        # 7 projections x L layers x (forward, dx, dw) fp8 GEMMs a step; the
+        # recompute's forward products come from the "dots" cache, though
+        # the wrapper is called again for them
+        want_calls = (7 * L * 4 * steps) if precision == "fp8" else 0
+        if calls != want_calls:
+            fail(f"{name}: the fp8 product wrapper called {calls} times, want {want_calls}")
+        counts = profile_groups(torch, lambda: step(carry, batch), rep, name)
+        if counts is None:
+            fail(f"{name}: the profiler saw no kernel, so the fp8 GEMMs cannot be counted")
+        fp8_gemms = sum(n for k, n in counts.items() if re.match(r"nvjet_[qr][qr]", k))
+        rep.line(f"{name} profiled step: {fp8_gemms} fp8 GEMM kernels (nvjet_[qr][qr]*)")
+        if fp8_gemms != (7 * L * 3 if precision == "fp8" else 0):
+            fail(f"{name}: {fp8_gemms} fp8 GEMM kernels in one step, want "
+                 f"{7 * L * 3 if precision == 'fp8' else 0}")
+        if precision == "bf16":  # "dots" against no remat, bit for bit
+            _, dots = grads_of(torch, model, batch, torch.bfloat16)
+            set_remat(model, None)
+            _, plain = grads_of(torch, model, batch, torch.bfloat16)
+            set_remat(model, cfg_kw["remat"])
+            bad = unequal(dots, plain)
+            rep.line(f"dense bf16: one step's grads under 'dots' and without remat: "
+                     f"{len(dots) - len(bad)} of {len(dots)} tensors bitwise equal")
+            if bad:
+                fail(f"dense: 'dots' changes the step's gradients: {bad[:4]}")
+            del dots, plain
+        results[precision] = (losses, steady, peak)
+        del acc, model, opt, loader, step, carry
+    (bl, bs, bp), (fl, fs, fp) = results["bf16"], results["fp8"]
+    rep.line(f"dense fp8 against bf16: step time ratio fp8/bf16 {fs / bs}, tokens/s ratio "
+             f"{bs / fs}, peak memory {fp / 2**30} vs {bp / 2**30} GiB")
+    fp8_loss_gaps(torch, port, rep, {"bf16": bl, "fp8": fl})
+
+
+def fp8_loss_gaps(torch, port, rep: Report, curves=None) -> None:
+    """fp8 against bf16 on the dense config from every seed of FP8_SEEDS,
+    5 steps each (``curves``, {precision: losses}, gives the first seed's
+    runs where the caller has made them): |fp8 - bf16| by step over the
+    bf16 run's first loss, each within FP8_LOSS_TOL."""
+    B, steps = VARIANT_BATCH["dense"], VARIANT_STEPS
+    runs = {} if curves is None else {FP8_SEEDS[0]: curves}
+    for seed in FP8_SEEDS:
+        for precision in ("bf16", "fp8"):
+            if precision in runs.setdefault(seed, {}):
+                continue
+            acc, model, opt, loader, step, carry, _ = variant_trainer(
+                torch, port, DENSE_CFG, B, steps, seed=seed, mixed_precision=precision)
+            runs[seed][precision] = run_steps(torch, step, carry, loader)[2]
+            del acc, model, opt, loader, step, carry
+    gaps = {seed: [abs(f - b) / r["bf16"][0] for f, b in zip(r["fp8"], r["bf16"])]
+            for seed, r in runs.items()}
+    worst = [max(g[i] for g in gaps.values()) for i in range(min(map(len, gaps.values())))]
+    rep.line(f"dense fp8 against bf16, losses by seed {json.dumps(runs)}")
+    rep.line(f"dense fp8 against bf16, |fp8 - bf16| over the bf16 run's first loss by seed "
+             f"{json.dumps(gaps)}; largest by step {worst}, limits {list(FP8_LOSS_TOL)}")
+    bad = [(seed, "steps") for seed, g in gaps.items() if len(g) != len(FP8_LOSS_TOL)]
+    bad += [(seed, i + 1) for seed, g in gaps.items()
+            for i, (x, t) in enumerate(zip(g, FP8_LOSS_TOL)) if not x <= t]
+    if bad:
+        fail(f"dense: the fp8 runs' losses left the bf16 runs' at (seed, step) {bad[:6]}: "
+             f"largest by step {worst}, limits {list(FP8_LOSS_TOL)}")
+
+
+def longseq_phase(torch, port, wrappers, rep: Report) -> list[dict]:
+    """Phase 11: see the module docstring. Returns B1-B3's rows at the
+    config's attention shape, with the "save_mlp" run's launches."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    cfg_kw, steps = LONGSEQ_CFG, LONGSEQ_STEPS
+    S, L = cfg_kw["max_seq_len"], cfg_kw["num_layers"]
+    rows = time_flash_shape(torch, fa, rep, "longseq", 1, S, cfg_kw["num_heads"],
+                            cfg_kw["num_kv_heads"], 128)
+    grads, by_policy = {}, {}
+    for remat in ("save_mlp", "full", None):
+        t0 = time.perf_counter()
+        acc, model, opt, loader, step, carry, first = variant_trainer(
+            torch, port, dict(cfg_kw, remat=remat), 1, steps)
+        name = f"longseq remat={remat!r}"
+        rep.line(f"{name} set-up: {sum(p.numel() for p in model.parameters())} params "
+                 f"(registry.py:259-288), {time.perf_counter() - t0:.2f} s")
+        _, grads[remat] = grads_of(torch, model, first, torch.bfloat16)
+        if remat != "save_mlp":  # held against the first policy's, then dropped
+            bad = unequal(grads[remat], grads["save_mlp"])
+            rep.line(f"{name}: one step's grads against 'save_mlp': {len(bad)} tensors differ")
+            if bad:
+                fail(f"longseq: remat={remat!r} changes the step's gradients: {bad[:4]}")
+            del grads[remat]
+        carry, batch, losses, times, launches, by_design, peak = run_counted(
+            torch, wrappers, step, carry, loader)
+        steady = statistics.median(times[1:])
+        rep.line(f"{name} losses {losses}; step seconds {times}; median of steps 2-{steps} "
+                 f"{steady} s, {S / steady} tokens/s; peak memory {peak / 2**30} GiB")
+        rep.line(f"{name} kernel launches {json.dumps(launches)}")
+        if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0]):
+            fail(f"{name} losses {losses}: not finite or not falling on a repeated batch")
+        fwd = (1 if remat is None else 2) * L * steps
+        check_launches(name, launches, by_design, {"flash_fwd": fwd, "flash_bwd_dq": L * steps,
+                                                   "flash_bwd_dkv": L * steps})
+        by_policy[remat] = launches
+        if remat == "save_mlp":
+            profile_groups(torch, lambda: step(carry, batch), rep, name)
+        del acc, model, opt, loader, step, carry
+    del grads
+    for row in rows:
+        row["launches"] = by_policy["save_mlp"][WRAPPER_OF[row["name"]]]
+    return rows
+
+
+def variant_phases(torch, port, wrappers, rep: Report) -> list[dict]:
+    """Phases 9-11; returns the B1-B3 rows at the moe and longseq shapes."""
+    t0 = time.perf_counter()
+    rows = moe_phase(torch, port, wrappers, rep)
+    t1 = time.perf_counter()
+    dense_fp8_phase(torch, port, wrappers, rep)
+    t2 = time.perf_counter()
+    rows += longseq_phase(torch, port, wrappers, rep)
+    rep.line(f"variant phases: moe {t1 - t0:.1f} s, dense/fp8 {t2 - t1:.1f} s, longseq "
+             f"{time.perf_counter() - t2:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -1781,6 +2403,11 @@ def main() -> None:
         small_models()
         rep.line("small-only: the small models on the card agree with the CPU")
         return
+    if "--variants-only" in sys.argv[1:]:
+        rows = variant_phases(torch, port, wrappers, rep)
+        print(json.dumps({"kernels": rows}))
+        rep.line("variants-only: the moe, dense/fp8 and longseq phases passed")
+        return
     if "--bert-only" in sys.argv[1:]:
         failed = run_cases(torch, fa, bert_cases(torch), rep)[0]
         if failed:
@@ -1811,6 +2438,7 @@ def main() -> None:
     bert_launches = bert_phase(torch, port, wrappers, rep)
     example_phase(torch, port, wrappers, rep)
     serve_phase(torch, port, wrappers, rep)
+    variant_rows = variant_phases(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]
@@ -1819,7 +2447,7 @@ def main() -> None:
     for row in bert_rows_:
         row["launches"] = bert_launches[WRAPPER_OF[row["name"]]]
 
-    print(json.dumps({"kernels": rows + bert_rows_}))
+    print(json.dumps({"kernels": rows + bert_rows_ + variant_rows}))
     print(rep.card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -125,10 +125,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fp8", True),
-    ("num_experts", 4),
     ("arch", "gpt2"),
-    ("remat", "dots"),
     ("attention_impl", "ring"),
     # the Gemma / Gemma-2 switches
     ("norm_offset", True),
@@ -142,8 +139,66 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 ])
 def test_unported_model_features_raise(field, value):
     cfg = port.TransformerConfig.tiny(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    queue = "A7" if field == "attention_impl" else "A8"
+    with pytest.raises(NotImplementedError, match=f"queue {queue}.*ROADMAP"):
         port.CausalLM(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("fp8", True),
+    ("num_experts", 4),
+    ("remat", "full"),
+    ("remat", "dots"),
+    ("remat", "dots_ragged"),
+    ("remat", "dots_with_no_batch_dims"),
+    ("remat", "save_attn"),
+    ("remat", "save_mlp"),
+])
+def test_ported_model_features_build_and_train(field, value):
+    """fp8 projections, MoE and every remat policy were refused before the
+    single-card variants slice; they build and give finite gradients."""
+    model = port.CausalLM(port.TransformerConfig.tiny(num_layers=1, **{field: value}),
+                          device="cpu")
+    params = dict(model.named_parameters())
+    ids = torch.randint(0, 1024, (2, 16), generator=torch.Generator().manual_seed(0))
+    loss = port.CausalLM.loss_fn(model)(params, {"input_ids": ids})
+    grads = torch.autograd.grad(loss, list(params.values()))
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_expert_parallel_raises_naming_a7():
+    from accelerate_tpu_torch.ops import moe
+
+    with pytest.raises(NotImplementedError, match="queue A7"):
+        moe.moe_ragged_ep()
+
+
+def test_moe_and_fp8_modules_follow_the_model_device():
+    """The MoE block's router and stacks and every Fp8Dense sit where the
+    model was built (the meta device here, which no default would give), and
+    the new modules take no device of their own."""
+    from accelerate_tpu_torch.models.transformer import Fp8Dense
+
+    cfg = port.TransformerConfig.tiny(num_layers=1, num_experts=4, fp8=True)
+    meta = port.CausalLM(cfg, device="meta", generator=torch.Generator())
+    assert {p.device.type for p in meta.parameters()} == {"meta"}
+    assert type(meta.layers[0].attn.q_proj) is Fp8Dense
+    assert meta.layers[0].moe.gate_proj.shape == (4, cfg.hidden_size, cfg.intermediate_size)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.CausalLM(cfg)
+
+
+def test_moe_fp8_and_remat_modules_import_without_jax():
+    code = textwrap.dedent("""
+        import importlib
+        for name in ("accelerate_tpu_torch.ops.moe", "accelerate_tpu_torch.ops.fp8",
+                     "accelerate_tpu_torch.models.transformer"):
+            importlib.import_module(name)
+        print("ok")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
 
 
 def test_decode_path_raises():
@@ -207,8 +262,7 @@ def test_serving_and_generation_follow_the_model_device():
 
 
 def test_unported_accelerator_and_model_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.Accelerator(mixed_precision="fp8", cpu=True)
+    assert port.Accelerator(mixed_precision="fp8", cpu=True).state.mixed_precision_policy.fp8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.Accelerator(cpu=True, parallelism_plugin=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
