@@ -3,9 +3,12 @@
 Host-only copy of ``accelerate_tpu/serving/spans.py`` (``RequestSpan``
 :36, ``SpanLog`` :119, ``spans_to_chrome_trace`` :239,
 ``write_chrome_trace`` :297) for the edges the ported engine stamps:
-submit -> admit -> prefill -> first token -> finish, or shed. The span
-fields of the paths not ported yet (adapters, prefix caching, speculation,
-preemption, chunked prefill; ROADMAP.md, queue A9) are left out.
+submit -> admit -> prefill -> first token -> finish, or shed, with the
+prompt tokens served from the prefix cache and the request's draft accept
+rate. The span fields of the paths not ported yet (adapters, preemption,
+chunked prefill; ROADMAP.md, queue A9) are left out. ``SpanLog.enabled =
+False`` turns every hook into a no-op (the observability toggle's off
+arm).
 
 Ordering invariant: ``submit_t <= admit_t <= prefill_start_t <=
 first_token_t <= finish_t`` for finished spans; shed spans stop at the edge
@@ -37,6 +40,10 @@ class RequestSpan:
     state: str = "queued"  # queued | running | finished | shed
     shed_reason: Optional[str] = None  # "queue_full" | "queue_deadline"
     new_tokens: int = 0
+    # prompt tokens whose KV came from the prefix cache (0: cold or off)
+    cached_prefix_tokens: int = 0
+    # accepted over proposed draft tokens (None: nothing was proposed)
+    accept_rate: Optional[float] = None
 
     @property
     def terminal(self) -> bool:
@@ -53,7 +60,9 @@ class RequestSpan:
             "state": self.state,
             "shed_reason": self.shed_reason,
             "prompt_tokens": self.prompt_tokens,
+            "cached_prefix_tokens": self.cached_prefix_tokens,
             "new_tokens": self.new_tokens,
+            "accept_rate": self.accept_rate,
             "submit_t": self.submit_t,
             "admit_t": self.admit_t,
             "prefill_start_t": self.prefill_start_t,
@@ -74,9 +83,12 @@ class SpanLog:
             raise ValueError("maxlen must be >= 1")
         self._open: dict[str, RequestSpan] = {}
         self.closed: collections.deque = collections.deque(maxlen=maxlen)
+        self.enabled = True
 
     def on_submit(self, request_id: str, submit_t: float,
-                  prompt_tokens: int = 0) -> RequestSpan:
+                  prompt_tokens: int = 0) -> Optional[RequestSpan]:
+        if not self.enabled:
+            return None
         span = RequestSpan(request_id=request_id, submit_t=submit_t,
                            prompt_tokens=prompt_tokens)
         self._open[request_id] = span
@@ -89,10 +101,12 @@ class SpanLog:
             span.state = "running"
         return span
 
-    def on_prefill(self, request_id: str, t: float) -> Optional[RequestSpan]:
+    def on_prefill(self, request_id: str, t: float,
+                   cached_prefix_tokens: int = 0) -> Optional[RequestSpan]:
         span = self._open.get(request_id)
         if span is not None:
             span.prefill_start_t = t
+            span.cached_prefix_tokens = cached_prefix_tokens
         return span
 
     def on_first_token(self, request_id: str, t: float) -> Optional[RequestSpan]:
@@ -101,7 +115,11 @@ class SpanLog:
             span.first_token_t = t
         return span
 
-    def on_finish(self, request_id: str, t: float, new_tokens: int) -> Optional[RequestSpan]:
+    def on_finish(self, request_id: str, t: float, new_tokens: int,
+                  accept_rate: Optional[float] = None) -> Optional[RequestSpan]:
+        span = self._open.get(request_id)
+        if span is not None:
+            span.accept_rate = accept_rate
         return self._close(request_id, t, "finished", None, new_tokens)
 
     def on_shed(self, request_id: str, t: float, reason: str) -> Optional[RequestSpan]:

@@ -3,7 +3,11 @@
 Host-only copy of ``accelerate_tpu/serving/telemetry.py`` (``percentile``
 :20, ``ServeStats`` :38). The rolling window holds the last ``window``
 records for the p50/p95 keys; request and token totals and shed counts
-accumulate for the engine's whole life.
+accumulate for the engine's whole life. Each record is the engine's
+``kind="serve"`` record, with the request's cached prefix tokens and its
+draft counts (``spec_proposed``, ``spec_accepted``, ``accept_rate``); the
+engine-wide prefix hit and speculation totals are sections of
+``ServingEngine.summary()``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ class ServeStats:
         self.total_prompt_tokens = 0
         self.total_new_tokens = 0
         self.shed_counts: dict[str, int] = {}
+
+    def __len__(self) -> int:
+        return self.total_requests
 
     def add(self, record: dict) -> None:
         self.requests.append(dict(record))

@@ -7,7 +7,10 @@ static buffers captured as one CUDA graph and replayed every step: the
 caller copies each step's inputs into the buffers the function reads, and
 reads the output the capture allocated, which each replay overwrites.
 A capture or a replay that fails raises; nothing goes back to eager on the
-card.
+card. Several programs may read the same buffers and caches (a serving
+engine's decode step, its verify step of each width and a draft model's
+step share the block-table buffer and the KV pools): each keeps its own
+graph and memory pool, and whatever one writes in place the next reads.
 """
 
 from __future__ import annotations

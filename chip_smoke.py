@@ -65,18 +65,34 @@ Phases, each fatal on failure (exit code 1, no result line):
    replayed as a CUDA graph equals the eager step bit for bit (logits and
    pools, 8 steps of a 4-slot batch at mixed depths), and so does
    ``make_generate_fn``'s; a 2-layer fp32 model's greedy tokens are the
-   same through the engine and ``generate`` on the card and on the CPU;
-   paged and dense prefill give the same first-token logits within
-   SERVE_PREFILL_TOL; blocks no table held keep the sentinel the pools were
-   filled with, and the trace's tokens do not change between its warm and
-   timed runs; the decode step is built once and prefill buckets stay
-   within log2(max_seq_len); no kernel of the port launches. Prints
-   s/token of ``make_generate_fn`` (B 1, prompt 128, 64 new tokens) and of
-   the eager ``generate`` beside the weights-read bound, the engine's
-   useful tokens/s on the 8-request long-tailed trace of
-   ``benchmarks/measure.py:_run_serve`` against fixed batches of
-   ``make_generate_fn``, peak memory, KV bytes per token and the device's
-   busy share of one profiled decode step and one engine step.
+   same through the engine and ``generate`` on the card and on the CPU,
+   and through the engine with the prefix cache cold and warm (a
+   full-prompt hit and its copy included); paged and dense prefill give
+   the same first-token logits within SERVE_PREFILL_TOL; blocks no table
+   held keep the sentinel the pools were filled with, and the trace's
+   tokens do not change between its warm and timed runs; the decode step
+   is built once and prefill buckets stay within log2(max_seq_len); no
+   kernel of the port launches. Prints s/token of ``make_generate_fn`` (B
+   1, prompt 128, 64 new tokens) and of the eager ``generate`` beside the
+   weights-read bound, the engine's useful tokens/s on the 8-request
+   long-tailed trace of ``benchmarks/measure.py:_run_serve`` against fixed
+   batches of ``make_generate_fn``, peak memory, KV bytes per token and the
+   device's busy share of one profiled decode step and one engine step.
+   Then the reference's three further parts of its ``serve`` variant
+   (``measure.py:705-952``): the observability A/B on the same warm engine
+   (the trace with telemetry, gauges, SLO and spans off, then on, in
+   OBS_ROUNDS interleaved rounds; tokens unchanged, the decode step built
+   once, ``serve_gauge`` and ``slo`` lines in the scrape text); the prefix
+   A/B on it (a 24-block template, 12 prompts with 8-token suffixes drained
+   one at a time, cold then warm: TTFT, exactly 12 x 384 prefill tokens
+   saved, no new build, first-token logits warm against cold within
+   PREFIX_LOGITS_TOL); and the speculation A/B with the target in fp32 at
+   the decode config (o_proj and down_proj of layers >= 1 at zero) and a
+   1-layer draft holding its layer 0: off, n-gram and draft model at k 4 on
+   8 prompts of 180 new tokens, each a fresh engine, warm then timed
+   (n-gram and draft outputs equal off's token for token, nothing rebuilt
+   after warmup, one verify and one draft-step build, the draft's accept
+   rate at least SPEC_ACCEPT_MIN).
 9. moe: the reference benchmark's ``moe`` config (registry.py:214-258,
    656,453,632 params: 1 layer, 8 experts of Mixtral width, top-2, ragged
    dispatch) at B 16, S 1024: B1-B4 against their plain versions at its
@@ -125,7 +141,7 @@ phase 1, the BERT-shape kernel cases and timings, and phases 6 and 7, and
     python3 chip_smoke.py --serve-only
 
 phase 8 alone (the serving path runs no kernel of the port, so nothing is
-built), and
+built), ending with the card's line and the ``{"ok": true, ...}`` line, and
 
     python3 chip_smoke.py --variants-only
 
@@ -214,6 +230,18 @@ SERVE = dict(max_slots=4, block_size=16, n_requests=8, seed=0, prompt=128, new_t
 # unpadded products picked the same cuBLAS kernels), so the limit is not 3x
 # the reading but a few bf16 spacings (2^-8) of a logit row (PERF.md)
 SERVE_PREFILL_TOL = 0.02
+OBS_ROUNDS = 2  # interleaved off/on rounds of the observability A/B (measure.py:733)
+PREFIX_COHORT, PREFIX_NEW = 12, 8  # the templated cohort: 12 requests of 8 new tokens
+# warm against cold first-token logits in bf16 (an M of 8 against a bucket
+# of 512), worst row's max error over its RMS: about 3x the largest reading
+# on an H100 (0.180 over 12 prompts; PERF.md). The same tail padded to the
+# cold bucket is held within SERVE_PREFILL_TOL
+PREFIX_LOGITS_TOL = 0.55
+SPEC_K, SPEC_PROMPTS = 4, 8  # measure.py:896-897
+# the draft arm's accept rate: an H100 read 1.0 (2,304 of 2,304); the margin
+# is for argmax ties that the draft step (M 8) and the verify step (M 20)
+# round apart in fp32
+SPEC_ACCEPT_MIN = 0.97
 SENTINEL = -768.0  # what the pools hold before the trace (exact in bf16)
 CARD = "cuda"  # where the serving phase puts its models
 # the reference benchmark's single-card training variants
@@ -1576,6 +1604,25 @@ def small_serving_check(torch, port, rep: Report) -> None:
              f"generate {json.dumps(same)}")
     if not all(same.values()):
         fail(f"serve small model: greedy tokens differ from the CPU's generate: {same}")
+    # prefix caching: a 3-block template, its cohort cold and warm (the
+    # last prompt is the template itself: a full-prompt hit and its copy)
+    template = torch.randint(1, cfg.vocab_size, (24,), generator=g).tolist()
+    prompts = [template + [7, 8, 9], template + [5], template]
+    runs = {}
+    for where, model in (("card", card_model), ("cpu", cpu)):
+        for warm in (False, True):
+            engine = ServingEngine(model, max_slots=2, block_size=8, prefix_cache=warm)
+            runs[f"{where} {'warm' if warm else 'cold'}"] = [
+                engine.generate([p], max_new_tokens=10)[0].tolist() for p in prompts]
+            if warm and where == "card":
+                stats = engine.prefix_cache.stats()
+    same = {name: got == runs["cpu cold"] for name, got in runs.items()}
+    rep.line(f"serve small fp32 model, prefix cache: greedy tokens of 3 templated prompts equal "
+             f"to the CPU's cold engine {json.dumps(same)}; card warm hits {stats['hits']}, "
+             f"saved {stats['prefill_tokens_saved_total']} tokens, copies "
+             f"{stats['cow_copies_total']}")
+    if not all(same.values()) or stats["hits"] != 2 or stats["cow_copies_total"] != 1:
+        fail(f"serve small model: prefix caching changed tokens or missed: {same}, {stats}")
 
 
 def paged_against_dense(torch, model, trace, rep: Report) -> None:
@@ -1618,6 +1665,7 @@ def serve_phase(torch, port, wrappers, rep: Report) -> None:
     from accelerate_tpu_torch.models.generation import generate, make_generate_fn
     from accelerate_tpu_torch.serving import ServingEngine
 
+    phase_t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     reset_counts(wrappers)
@@ -1705,6 +1753,7 @@ def serve_phase(torch, port, wrappers, rep: Report) -> None:
     engine_s = time.perf_counter() - t0
     engine_peak = torch.cuda.max_memory_allocated()
     counts = engine.trace_counts()
+    headline = engine.summary()  # the SLO objectives come from its p95s
     engine_tps = useful / engine_s
     rep.line(f"serve engine: {len(trace)} requests (prompts {[len(p) for p, _ in trace]}, new "
              f"tokens {[n for _, n in trace]}), {useful} useful new tokens in {engine_s} s: "
@@ -1763,7 +1812,8 @@ def serve_phase(torch, port, wrappers, rep: Report) -> None:
         fail(f"serve: the engine's decode step was built {engine.trace_counts()} times")
     rep.line(f"serve engine decode step, replays back to back (4 slots): "
              f"{replay_ms(torch, engine._decode_program)} ms each on the device")
-    del engine
+    for _ in engine.stream():  # the four requests of the replay check finish
+        pass
 
     # the reference's baseline: run-to-completion fixed batches of max_slots,
     # each padded to its longest prompt and decoded to its largest budget
@@ -1790,13 +1840,306 @@ def serve_phase(torch, port, wrappers, rep: Report) -> None:
     rep.line(f"serve baseline (fixed batches of {slots_n} through make_generate_fn): {useful} "
              f"useful new tokens in {baseline_s} s: {baseline_tps} tokens/s; engine against "
              f"baseline {engine_tps / baseline_tps}")
+    del fns
+    observability_ab(torch, engine, run_engine, headline, timed, rep)
+    prefix_ab(torch, engine, model, rep)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    speculation_ab(torch, port, rep)
     launches = {w.__name__: w.launches for w in wrappers}
     rep.line(f"serve kernel launches of the port {json.dumps(launches)}")
     if any(launches.values()):
         fail(f"serve: kernels of the port launched on the serving path: {launches}")
-    del model, fns
     gc.collect()
     torch.cuda.empty_cache()
+    rep.line(f"serve phase: {time.perf_counter() - phase_t0} s")
+
+
+def observability_ab(torch, engine, run_engine, headline: dict, want, rep: Report) -> None:
+    """``measure.py:705-756`` on the warm engine: the trace with the
+    observability plane off and on, OBS_ROUNDS interleaved rounds; the SLO
+    objectives are the headline pass's p95s x 1.5."""
+    from accelerate_tpu_torch.serving import SLOConfig, SloTracker
+    from accelerate_tpu_torch.telemetry import PrometheusTextSink, StepTelemetry
+
+    tracker = SloTracker(SLOConfig(
+        ttft_objective_s=(headline.get("ttft_s_p95") or 0.5) * 1.5,
+        e2e_objective_s=(headline.get("e2e_s_p95") or 5.0) * 1.5, target=0.99,
+        interval_steps=16))
+    tele = StepTelemetry(True)
+    prom = tele.add_sink(PrometheusTextSink(path=None))
+    walls = {"off": [], "on": []}
+    for _ in range(OBS_ROUNDS):
+        for arm in ("off", "on"):
+            if arm == "off":
+                engine.set_observability(telemetry=None, gauge_interval=0, slo=None, spans=False)
+            else:
+                engine.set_observability(telemetry=tele, gauge_interval=1, slo=tracker, spans=True)
+            t0 = time.perf_counter()
+            outs = run_engine()
+            walls[arm].append(time.perf_counter() - t0)
+            if outs != want:
+                fail(f"serve observability {arm}: the trace's tokens changed")
+    deltas = [on - off for on, off in zip(walls["on"], walls["off"])]
+    overhead = statistics.median(deltas) / statistics.median(walls["off"]) * 100.0
+    snap = tracker.snapshot()
+    text = prom.render()
+    kinds = sorted({r["kind"] for r in tele.records})
+    tele.close()
+    engine.set_observability(telemetry=None, gauge_interval=0, slo=None, spans=False)
+    rep.line(f"serve observability A/B ({OBS_ROUNDS} interleaved rounds of the trace): walls off "
+             f"{walls['off']} s, on {walls['on']} s; overhead (median on - off over median off) "
+             f"{overhead} %; record kinds {kinds}; scrape text {len(text)} bytes")
+    rep.line(f"serve SLO snapshot: {json.dumps(snap)}")
+    builds = engine.trace_counts()
+    if builds["decode"] != 1:
+        fail(f"serve observability: the decode step was built {builds} times")
+    if "accelerate_tpu_serve_queue_depth" not in text or "accelerate_tpu_slo_" not in text:
+        fail("serve observability: the scrape text lacks the serve_gauge or slo lines")
+
+
+def templated_cohort(vocab: int, block_size: int, max_seq_len: int):
+    """``measure.py:771-793``: a template of whole blocks, capped at 24, and
+    PREFIX_COHORT prompts of the template and an 8-token unique suffix; the
+    seed prompt is the template and its first token again."""
+    import numpy as np
+
+    suffix_len = max(2, block_size // 2)
+    blocks = max(4, min(24, (max_seq_len - suffix_len - PREFIX_NEW - 4) // block_size))
+    rng = np.random.default_rng(SERVE["seed"] + 1)
+    template = rng.integers(0, vocab, blocks * block_size)
+    prompts = [np.concatenate([template, rng.integers(0, vocab, suffix_len)])
+               for _ in range(PREFIX_COHORT)]
+    return template, prompts, np.concatenate([template, template[:1]])
+
+
+def prefix_first_logits(torch, model, template, prompts, seed_prompt, rep: Report):
+    """First-token logits of each cohort prompt in bf16, cold (the whole
+    prompt prefilled at its bucket) against warm (the seed prompt prefilled
+    at its bucket, then the prompt's tail at cache position len(template)
+    over the template's blocks): the worst row's max error over its RMS, a
+    prompt each, for the tail at its own bucket (the engine's call) and for
+    the tail padded to the cold call's bucket (the same GEMM shapes as cold,
+    so any difference would be the path's, not rounding's). The engine's
+    prefills, on pools of their own; one cold and one warm call profiled."""
+    from accelerate_tpu_torch.models.generation import init_cache
+    from accelerate_tpu_torch.ops.attention import PagedKVState
+
+    bs = SERVE["block_size"]
+    width = -(-model.config.max_seq_len // bs)
+    n_tmpl = len(template) // bs
+    need = -(-len(prompts[0]) // bs)
+    pools = init_cache(model, num_blocks=1 + 2 * need + 1, block_size=bs)
+    warm_blocks = list(range(1, need + 1))  # template blocks, then the tail's
+    cold_blocks = list(range(need + 1, 2 * need + 1))
+    spare = 2 * need + 1  # the seed prompt's partial block
+    cold_bucket = 1 << (len(prompts[0]) - 1).bit_length()
+
+    def prefill(tokens, blocks, cache_len, bucket=None):
+        n = len(tokens)
+        bucket = bucket or 1 << (n - 1).bit_length()
+        ids = torch.zeros((1, bucket), dtype=torch.long, device=CARD)
+        ids[0, :n] = torch.as_tensor(tokens)
+        table = torch.zeros((1, width), dtype=torch.long, device=CARD)
+        table[0, :len(blocks)] = torch.as_tensor(blocks)
+        state = PagedKVState(table, torch.full((1,), cache_len, device=CARD),
+                             torch.full((1,), n, device=CARD), num_blocks=pools.key.shape[1],
+                             block_size=bs)
+        return model(ids, decode=True, paged=state, cache=pools)[0, n - 1].float()
+
+    def err(got, want):
+        return float((got - want).abs().max() / want.square().mean().sqrt())
+
+    errs, same_bucket = [], []
+    with torch.no_grad():
+        prefill(seed_prompt, warm_blocks[:n_tmpl] + [spare], 0)
+        for prompt in prompts:
+            cold = prefill(prompt, cold_blocks, 0)
+            tail = prompt[len(template):]
+            same_bucket.append(err(prefill(tail, warm_blocks, len(template), cold_bucket), cold))
+            errs.append(err(prefill(tail, warm_blocks, len(template)), cold))
+        prompt = prompts[0]
+        profile_call(torch, lambda: prefill(prompt, cold_blocks, 0).argmax(), rep,
+                     f"serve prefix cold prefill ({len(prompt)} tokens, bucket {cold_bucket})")
+        tail = prompt[len(template):]
+        profile_call(torch, lambda: prefill(tail, warm_blocks, len(template)).argmax(), rep,
+                     f"serve prefix warm prefill ({len(tail)} tokens at cache position "
+                     f"{len(template)})")
+    return errs, same_bucket
+
+
+def prefix_ab(torch, engine, model, rep: Report) -> None:
+    """``measure.py:758-856`` on the warm engine: the templated cohort, one
+    request at a time, cold (caching off) and warm (the template published
+    by one seed request); both arms' prefill buckets built before the timed
+    passes."""
+    from accelerate_tpu_torch.serving.telemetry import ServeStats
+
+    cfg = model.config
+    template, prompts, seed_prompt = templated_cohort(cfg.vocab_size, engine.block_size,
+                                                      cfg.max_seq_len)
+
+    def run_cohort():
+        outs = []
+        for prompt in prompts:
+            rid = engine.add_request(prompt, max_new_tokens=PREFIX_NEW)
+            for _ in engine.stream():
+                pass
+            outs.append(engine.result(rid))
+        torch.cuda.synchronize()
+        return outs
+
+    def seed_cache():
+        engine.add_request(seed_prompt, max_new_tokens=1)
+        for _ in engine.stream():
+            pass
+
+    engine.set_prefix_cache(False)
+    run_cohort()
+    engine.set_prefix_cache(True)
+    seed_cache()
+    run_cohort()
+    warm_builds = engine.trace_counts()
+    arms = {}
+    for arm in ("cold", "warm"):
+        engine.set_prefix_cache(arm == "warm")
+        if arm == "warm":
+            seed_cache()
+            saved_before = engine.prefix_cache.tokens_saved_total
+        engine.stats = ServeStats()
+        t0 = time.perf_counter()
+        outs = run_cohort()
+        wall = time.perf_counter() - t0
+        arms[arm] = (outs, wall, engine.stats.summary())
+    saved = engine.prefix_cache.tokens_saved_total - saved_before
+    stats = engine.prefix_cache.stats()
+    engine.set_prefix_cache(False)
+    builds = engine.trace_counts()
+    errs, same_bucket = prefix_first_logits(torch, model, template, prompts, seed_prompt, rep)
+    (cold_out, cold_s, cold_sum), (warm_out, warm_s, warm_sum) = arms["cold"], arms["warm"]
+    matched = sum(a == b for a, b in zip(cold_out, warm_out))
+    rep.line(f"serve prefix A/B: template {len(template)} tokens ({len(template) // 16} blocks), "
+             f"{len(prompts)} prompts of {len(prompts[0])} tokens, {PREFIX_NEW} new tokens each, "
+             f"one at a time: cold wall {cold_s} s, TTFT p50 {cold_sum['ttft_s_p50']} s, p95 "
+             f"{cold_sum['ttft_s_p95']} s; warm wall {warm_s} s, TTFT p50 "
+             f"{warm_sum['ttft_s_p50']} s, p95 {warm_sum['ttft_s_p95']} s; cold over warm TTFT "
+             f"p50 {cold_sum['ttft_s_p50'] / warm_sum['ttft_s_p50']}")
+    rep.line(f"serve prefix A/B: tokens saved {saved} (want {len(prompts) * len(template)}), "
+             f"hit rate {stats['hit_rate']}, hits {stats['hits']} of {stats['lookups']} lookups, "
+             f"copies {stats['cow_copies_total']}; builds after the warm-up {warm_builds}, after "
+             f"the arms {builds}; greedy outputs equal warm and cold {matched} of {len(prompts)}")
+    rep.line(f"serve prefix first-token logits, warm against cold (bf16): max error over RMS "
+             f"{errs}, largest {max(errs)}, limit {PREFIX_LOGITS_TOL}; the tail padded to the "
+             f"cold bucket {same_bucket}, largest {max(same_bucket)}, limit {SERVE_PREFILL_TOL}")
+    if saved != len(prompts) * len(template):
+        fail(f"serve prefix: {saved} prefill tokens saved, want {len(prompts) * len(template)}")
+    if builds != warm_builds:
+        fail(f"serve prefix: the timed arms built programs: {warm_builds} -> {builds}")
+    if not max(errs) <= PREFIX_LOGITS_TOL:
+        fail(f"serve prefix: warm logits left cold: {max(errs)} > {PREFIX_LOGITS_TOL}")
+    if not max(same_bucket) <= SERVE_PREFILL_TOL:
+        fail(f"serve prefix: warm logits at the cold bucket left cold: {max(same_bucket)} > "
+             f"{SERVE_PREFILL_TOL}")
+
+
+def spec_models(torch, port):
+    """The reference's self-consistent pair at the ``decode`` config in fp32
+    (``measure.py:867-892``): the target's layers >= 1 have o_proj and
+    down_proj at zero, so they add exact zeros, and the 1-layer draft holds
+    the target's layer 0, embedding, final norm and head (the same
+    tensors)."""
+    cfg = port.TransformerConfig(**{**DECODE_CFG, "dtype": "float32"})
+    target = port.CausalLM(cfg, device="meta", generator=torch.Generator())
+    g = torch.Generator(CARD).manual_seed(SERVE["seed"])
+    weights = {}
+    for name, p in target.named_parameters():
+        w = torch.empty(p.shape, dtype=torch.float32, device=CARD)
+        layer = int(name.split(".")[1]) if name.startswith("layers.") else 0
+        if layer >= 1 and name.endswith(("o_proj.weight", "down_proj.weight")):
+            w.zero_()
+        else:
+            w.normal_(0.0, 0.02 if p.ndim > 1 else 1.0, generator=g)
+        weights[name] = w
+    target.load_state_dict(weights, assign=True)
+    draft = port.CausalLM(port.TransformerConfig(**{**DECODE_CFG, "dtype": "float32",
+                                                    "num_layers": 1}),
+                          device="meta", generator=torch.Generator())
+    draft.load_state_dict({name: weights[name] for name, _ in draft.named_parameters()},
+                          assign=True)
+    return target.requires_grad_(False), draft.requires_grad_(False)
+
+
+def speculation_ab(torch, port, rep: Report) -> None:
+    """``measure.py:858-952`` at the ``decode`` config's widths and depth:
+    off, n-gram and draft model, each a fresh engine with a warm pass and a
+    timed pass over SPEC_PROMPTS decode-heavy requests."""
+    import numpy as np
+
+    from accelerate_tpu_torch.serving import ServingEngine, SpecConfig
+
+    t0 = time.perf_counter()
+    target, draft = spec_models(torch, port)
+    torch.cuda.synchronize()
+    rep.line(f"serve speculation set-up: fp32 target (decode config, o_proj and down_proj of "
+             f"layers >= 1 at zero), {sum(p.nbytes for p in target.parameters())} bytes; "
+             f"1-layer draft sharing its tensors; {time.perf_counter() - t0} s")
+    cfg = target.config
+    rng = np.random.default_rng(SERVE["seed"] + 2)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(4, 12)))
+               for _ in range(SPEC_PROMPTS)]
+    new = min(180, cfg.max_seq_len - 16 - SPEC_K)
+    arms = {}
+    for name, spec in (("off", None), ("ngram", SpecConfig(k=SPEC_K)),
+                       ("draft", SpecConfig(k=SPEC_K, method="draft_model", draft_model=draft))):
+        engine = ServingEngine(target, max_slots=SERVE["max_slots"], block_size=SERVE["block_size"])
+        engine.set_speculation(spec)
+        for p in prompts:
+            engine.add_request(p, max_new_tokens=new)
+        for _ in engine.stream():
+            pass
+        warm = engine.trace_counts()
+        rids = [engine.add_request(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in engine.stream():
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        outs = [engine.result(r) for r in rids]
+        after = engine.trace_counts()
+        spec_sum = engine.summary().get("speculation", {})
+        arms[name] = dict(outs=outs, tps=sum(len(o) for o in outs) / wall, wall=wall,
+                          spec=spec_sum, warm=warm, after=after)
+        rep.line(f"serve speculation {name}: {len(prompts)} prompts of "
+                 f"{[len(p) for p in prompts]} tokens, {new} new each, k {SPEC_K}: "
+                 f"{arms[name]['tps']} tokens/s ({wall} s); rounds {spec_sum.get('rounds')}, "
+                 f"proposed {spec_sum.get('proposed')}, accepted {spec_sum.get('accepted')}, "
+                 f"accept rate {spec_sum.get('accept_rate')}; builds after the warm pass {warm}, "
+                 f"after the timed pass {after}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    off = arms["off"]
+    rep.line(f"serve speculation: n-gram over off {arms['ngram']['tps'] / off['tps']}, draft "
+             f"over off {arms['draft']['tps'] / off['tps']}; accept-rate limit for the draft "
+             f"{SPEC_ACCEPT_MIN}")
+    for name in ("ngram", "draft"):
+        arm = arms[name]
+        if arm["outs"] != off["outs"]:
+            diff = sum(a != b for a, b in zip(arm["outs"], off["outs"]))
+            fail(f"serve speculation {name}: {diff} outputs differ from speculation off")
+        if arm["after"] != arm["warm"]:
+            fail(f"serve speculation {name}: rebuilt after warmup: {arm['warm']} -> {arm['after']}")
+        want_verify = 1 if name == "draft" or arm["spec"]["proposed"] else 0
+        if arm["after"]["verify"] != want_verify or arm["after"]["decode"] > 1:
+            fail(f"serve speculation {name}: builds {arm['after']}")
+    if arms["draft"]["after"].get("draft_step") != 1:
+        fail(f"serve speculation draft: draft step builds {arms['draft']['after']}")
+    if not arms["draft"]["spec"]["accept_rate"] >= SPEC_ACCEPT_MIN:
+        fail(f"serve speculation draft: accept rate {arms['draft']['spec']['accept_rate']} < "
+             f"{SPEC_ACCEPT_MIN}")
+    del target, draft
 
 
 # ---------------------------------------------------------------------- #
@@ -2363,6 +2706,7 @@ def variant_phases(torch, port, wrappers, rep: Report) -> list[dict]:
 
 
 def main() -> None:
+    script_t0 = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2383,6 +2727,11 @@ def main() -> None:
     if "--serve-only" in sys.argv[1:]:
         serve_phase(torch, port, wrappers, rep)
         rep.line("serve-only: the serving phase passed")
+        print(rep.card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
         return
 
     t0 = time.perf_counter()
@@ -2447,6 +2796,7 @@ def main() -> None:
     for row in bert_rows_:
         row["launches"] = bert_launches[WRAPPER_OF[row["name"]]]
 
+    rep.line(f"whole script: {time.perf_counter() - script_t0} s")
     print(json.dumps({"kernels": rows + bert_rows_ + variant_rows}))
     print(rep.card)
     print(json.dumps({"ok": True, "device": {

@@ -226,6 +226,9 @@ def test_serving_modules_import_without_jax():
                      "accelerate_tpu_torch.serving.block_pool",
                      "accelerate_tpu_torch.serving.scheduler", "accelerate_tpu_torch.serving.spans",
                      "accelerate_tpu_torch.serving.telemetry",
+                     "accelerate_tpu_torch.serving.slo", "accelerate_tpu_torch.serving.speculation",
+                     "accelerate_tpu_torch.telemetry", "accelerate_tpu_torch.telemetry.sinks",
+                     "accelerate_tpu_torch.telemetry.collector",
                      "accelerate_tpu_torch.utils.cuda_graph"):
             importlib.import_module(name)
         print("ok")

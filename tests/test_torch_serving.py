@@ -10,8 +10,12 @@
 * The host-side contracts of ``BlockPool``, ``ContinuousScheduler``,
   ``SpanLog`` and ``ServeStats`` (``tests/test_serving.py:44-234``,
   ``tests/test_serving_obs.py``), each a case run on both packages.
-* Per-slot sampling, the zero-rebuild contract on the port's counters, and
-  every option not ported yet raising NotImplementedError naming A9.
+* Per-slot sampling, the zero-rebuild contract on the port's counters,
+  every option not ported yet raising NotImplementedError naming A9, and
+  the four options the prefix, speculation and observability slice ports
+  working (``tests/test_torch_prefix_cache.py``,
+  ``test_torch_speculation.py`` and ``test_torch_serving_obs.py`` hold
+  them against the reference).
 
 The CPU runs the decode step eager; the CUDA graph is held against the
 eager step by ``chip_smoke.py`` on the card.
@@ -188,7 +192,8 @@ def test_engine_matches_reference_on_a_mixed_trace(tiny_pair):
     assert [s.to_record() for s in got.span_log.closed] == [
         {k: v for k, v in s.to_record().items() if k in keys} for s in ref.span_log.closed]
     assert got.pool.stats()["allocated"] == 0 and not got.has_work
-    assert got.trace_counts() == {"prefill": 4, "decode": 1}  # buckets 1, 4, 8, 32
+    # buckets 1, 4, 8, 32; no speculation, so no verify step
+    assert got.trace_counts() == {"prefill": 4, "decode": 1, "verify": 0}
     assert got.trace_counts()["prefill"] == ref.trace_counts()["prefill"]
 
 
@@ -446,6 +451,7 @@ def test_serve_stats_window_and_percentile(pkg):
     stats.add_shed("queue_full")
     s = stats.summary()
     assert len(stats.requests) == 4 and s["requests"] == 10 and s["new_tokens"] == 20
+    assert len(stats) == 10  # the lifetime count, as the reference's __len__
     assert s["ttft_s_p50"] == 7.5 and s["shed_total"] == s["shed_queue_full"] == 1
     assert pkg.percentile([3.0, 1.0, 2.0, 10.0], 95) == pytest.approx(8.95)
     assert pkg.percentile([], 50) is None
@@ -456,14 +462,50 @@ def test_serve_stats_window_and_percentile(pkg):
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("option", [
     dict(prefill_chunk_tokens=16), dict(preemption=True), dict(kv_dtype="int8"),
-    dict(prefix_cache=True), dict(spec_decode=object()), dict(role="prefill"),
-    dict(role="decode"), dict(transfer_plane=object()), dict(adapters=object()),
-    dict(slo=object()), dict(telemetry=object()),
+    dict(role="prefill"), dict(role="decode"), dict(transfer_plane=object()),
+    dict(adapters=object()),
 ])
 def test_options_not_ported_raise_naming_a9(tiny_pair, option):
     _, _, _, port = tiny_pair
     with pytest.raises(NotImplementedError, match="queue A9"):
         serving.ServingEngine(port, **option)
+
+
+@pytest.mark.parametrize("method", ["start_http", "health", "drain", "prefix_digest",
+                                    "capture_programs", "audit_programs"])
+def test_http_plane_and_program_capture_raise_naming_a9(tiny_pair, method):
+    _, _, _, port = tiny_pair
+    engine = serving.ServingEngine(port, max_slots=1, block_size=8)
+    with pytest.raises(NotImplementedError, match="queue A9"):
+        getattr(engine, method)()
+
+
+@pytest.mark.parametrize("option", ["prefix_cache", "spec_decode", "slo", "telemetry"])
+def test_options_ported_in_the_serve_slice_work(tiny_pair, option):
+    """The four options this slice ports, each on alone: the engine serves
+    the plain engine's greedy tokens and the option leaves its trace."""
+    from accelerate_tpu_torch.telemetry import StepTelemetry
+
+    _, _, _, port = tiny_pair
+    tele = StepTelemetry(True)
+    kw = {"prefix_cache": dict(prefix_cache=True), "spec_decode": dict(
+        spec_decode=serving.SpecConfig(k=3)), "slo": dict(slo=serving.SLOConfig(
+            interval_steps=1, min_requests=1)), "telemetry": dict(telemetry=tele)}[option]
+    prompts = [[5, 6, 7] * 3, [5, 6, 7] * 3 + [9]]
+    want = [serving.ServingEngine(port, max_slots=2, block_size=4).generate(
+        np.asarray([p]), max_new_tokens=6)[0].tolist() for p in prompts]
+    engine = serving.ServingEngine(port, max_slots=2, block_size=4, **kw)
+    got = [engine.generate(np.asarray([p]), max_new_tokens=6)[0].tolist() for p in prompts]
+    assert got == want
+    summary = engine.summary()
+    if option == "prefix_cache":
+        assert summary["prefix_cache"]["hits"] == 1
+    elif option == "spec_decode":
+        assert summary["speculation"]["proposed"] > 0 and engine.trace_counts()["verify"] == 1
+    elif option == "slo":
+        assert summary["slo"]["requests_total"] == 2
+    else:
+        assert {r["kind"] for r in tele.records} >= {"serve", "span", "serve_gauge"}
 
 
 def test_request_options_and_int8_kv_not_ported_raise_naming_a9(tiny_pair):
