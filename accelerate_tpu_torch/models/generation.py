@@ -70,15 +70,16 @@ def _device(model: CausalLM) -> torch.device:
 
 
 def init_cache(model: CausalLM, batch_size: int = 1, *, num_blocks: Optional[int] = None,
-               block_size: Optional[int] = None):
+               block_size: Optional[int] = None, kv_dtype: str = "native"):
     """A zeroed cache on the model's device, in its compute dtype: the dense
     decode cache for ``batch_size`` rows of ``max_seq_len``, or, given
-    ``num_blocks`` and ``block_size``, the paged block pools."""
+    ``num_blocks`` and ``block_size``, the paged block pools (int8 codes and
+    their fp32 scale arrays with ``kv_dtype="int8"``)."""
     cfg = model.config
     if num_blocks is None:
         return DecodeCache.zeros(cfg, batch_size, _device(model))
     return PagedKVCache.zeros(cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-                              cfg.head_dim, _dtype(cfg), _device(model))
+                              cfg.head_dim, _dtype(cfg), _device(model), kv_dtype=kv_dtype)
 
 
 def _check_length(model: CausalLM, prompt_len: int, max_new_tokens: int) -> None:

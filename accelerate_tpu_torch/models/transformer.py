@@ -336,13 +336,16 @@ class DecodeCache:
 def _decode_attention(q, k, v, positions, kv, window):
     """The decode branch of ``Attention``: write this call's k/v into the
     layer's cache, then attend over the whole cache with the band anchored
-    at global positions. ``kv`` is (key, value, paged) of one layer: the
-    block pools and the call's ``PagedKVState``, or the dense cache's
-    (B, max_seq_len, Hkv, D) slices and None."""
-    key, value, paged = kv
+    at global positions. ``kv`` is (key, value, paged, key_scale,
+    value_scale) of one layer: the block pools, the call's
+    ``PagedKVState`` and, for int8 pools, their scale arrays (else None;
+    ``accelerate_tpu/models/transformer.py:354-438``), or the dense cache's
+    (B, max_seq_len, Hkv, D) slices and three Nones."""
+    key, value, paged, key_scale, value_scale = kv
     if paged is not None:
-        paged_update(key, value, k, v, paged)
-        return paged_attention(q, key, value, paged, window=window)
+        paged_update(key, value, k, v, paged, key_scale, value_scale)
+        return paged_attention(q, key, value, paged, window=window, key_scale=key_scale,
+                               value_scale=value_scale)
     write = positions[0]  # the dense cache's positions are the same in every row
     key.index_copy_(1, write, k.to(key.dtype))
     value.index_copy_(1, write, v.to(value.dtype))
@@ -606,13 +609,21 @@ class CausalLM(nn.Module):
         if paged is not None:
             if not isinstance(cache, PagedKVCache):
                 raise ValueError("paged decode needs the block pools: cache=PagedKVCache")
+            if cache.kv_dtype != paged.kv_dtype:
+                raise ValueError(f"the pools are {cache.kv_dtype!r} but the paged state says "
+                                 f"{paged.kv_dtype!r}")
             positions = paged.cache_len[:, None].long() + ar[None, :]
         else:
             if not isinstance(cache, DecodeCache):
                 raise ValueError("decode=True needs a cache: models.generation.init_cache")
             positions = (cache.index + ar)[None, :].expand(b, s)
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, kv=(cache.key[i], cache.value[i], paged))
+            if paged is not None:
+                key, value, key_scale, value_scale = cache.layer(i)
+                kv = (key, value, paged, key_scale, value_scale)
+            else:
+                kv = (cache.key[i], cache.value[i], None, None, None)
+            x = layer(x, positions, kv=kv)
         if paged is None:
             cache.index += s
         return x

@@ -6,12 +6,14 @@ the plain (``xla``) attention that works for every mask, and
 reference's own predicate (:208-399); the paged decode path,
 ``PagedKVState`` (:28), ``paged_update`` (:95) and ``paged_attention``
 (:155), with ``PagedKVCache`` holding the pools the reference keeps as
-flax cache variables. Shapes are (batch, seq, heads, head_dim), kv
-(batch, seq_kv, kv_heads, head_dim). The paged path is gathers and
-scatters in the reference (XLA, no Pallas) and plain PyTorch here, with
-static shapes and no host sync so that a decode step can be captured as
-one CUDA graph. Pools stored as int8 (``kv_dtype="int8"``,
-``quantize_kv`` :75) are not ported yet (ROADMAP.md, queue A9).
+flax cache variables, and the int8 paged KV: ``KV_SCALE_EPS`` (:70),
+``quantize_kv`` (:75-92), the int8 branches of ``paged_update``
+(:135-150) and ``paged_attention`` (:189-200), and the fp32 per-token
+scale arrays beside the int8 pools. Shapes are (batch, seq, heads,
+head_dim), kv (batch, seq_kv, kv_heads, head_dim). The paged path is
+gathers and scatters in the reference (XLA, no Pallas) and plain PyTorch
+here, with static shapes and no host sync so that a decode step can be
+captured as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -44,10 +46,7 @@ class PagedKVState:
     kv_dtype: str = "native"
 
     def __post_init__(self):
-        if self.kv_dtype == "int8":
-            raise NotImplementedError(
-                "int8 paged KV (quantize_kv) is not ported yet (ROADMAP.md, queue A9)")
-        if self.kv_dtype != "native":
+        if self.kv_dtype not in ("native", "int8"):
             raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
 
 
@@ -55,21 +54,74 @@ class PagedKVState:
 class PagedKVCache:
     """The block pools of every layer, one stacked tensor each:
     (num_layers, num_blocks, block_size, kv_heads, head_dim), no batch
-    dim, so sequences of any length share them. Written in place."""
+    dim, so sequences of any length share them. Written in place. With
+    ``kv_dtype="int8"`` the pools hold int8 codes and ``key_scale`` /
+    ``value_scale`` (num_layers, num_blocks, block_size) fp32 hold each
+    token row's scale; otherwise the scales are None."""
 
     key: torch.Tensor
     value: torch.Tensor
+    key_scale: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def zeros(cls, num_layers: int, num_blocks: int, block_size: int, kv_heads: int,
-              head_dim: int, dtype: torch.dtype, device) -> "PagedKVCache":
+              head_dim: int, dtype: torch.dtype, device,
+              kv_dtype: str = "native") -> "PagedKVCache":
         shape = (num_layers, num_blocks, block_size, kv_heads, head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+        if kv_dtype == "native":
+            return cls(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+        if kv_dtype != "int8":
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+        return cls(*(torch.zeros(shape, dtype=torch.int8, device=device) for _ in range(2)),
+                   *(torch.zeros(shape[:3], dtype=torch.float32, device=device)
+                     for _ in range(2)))
+
+    @property
+    def kv_dtype(self) -> str:
+        return "int8" if self.key_scale is not None else "native"
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor whose axes 1 and 2 are (num_blocks, block_size): the
+        pools, and the scale arrays when int8. Copy-on-write and the swap
+        address blocks through these."""
+        out = [self.key, self.value]
+        if self.key_scale is not None:
+            out += [self.key_scale, self.value_scale]
+        return out
+
+    def layer(self, i: int) -> tuple:
+        """Layer ``i``'s (key, value, key_scale, value_scale), the scales
+        None when native."""
+        if self.key_scale is None:
+            return self.key[i], self.value[i], None, None
+        return self.key[i], self.value[i], self.key_scale[i], self.value_scale[i]
 
     @property
     def nbytes(self) -> int:
-        return self.key.nbytes + self.value.nbytes
+        return sum(t.nbytes for t in self.tensors())
+
+
+# floor on the per-token amax scale: all-zero rows (the garbage block, slots
+# never written) divide to exact 0 instead of NaN
+KV_SCALE_EPS = 1e-8
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token int8 quantisation of a K or V tensor: ``x`` (B,
+    S, Hkv, D) -> int8 codes of the same shape and (B, S) fp32 scales, one
+    amax scale a token row over all kv heads and head dims. A decode write
+    of token t touches only its own row and scale; a per-block amax would
+    requantise every earlier row whenever it grew. ``torch.round`` is
+    half to even, as ``jnp.round`` is. Both divisions are tensor by tensor:
+    PyTorch's CUDA division by a host scalar multiplies by its reciprocal,
+    which is not the reference's correctly rounded quotient."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(2, 3))
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=KV_SCALE_EPS)
+    q = torch.round(xf / scale[:, :, None, None])
+    return torch.clamp(q, -127.0, 127.0).to(torch.int8), scale
 
 
 def _slot_positions(state: PagedKVState, s: int) -> torch.Tensor:
@@ -78,14 +130,26 @@ def _slot_positions(state: PagedKVState, s: int) -> torch.Tensor:
     return state.cache_len[:, None].long() + ar[None, :]
 
 
+def _need_scales(state: PagedKVState, key_scale, value_scale) -> bool:
+    if state.kv_dtype != "int8":
+        return False
+    if key_scale is None or value_scale is None:
+        raise ValueError("kv_dtype='int8' needs the key_scale/value_scale arrays")
+    return True
+
+
 def paged_update(key_pool: torch.Tensor, value_pool: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor, state: PagedKVState) -> tuple[torch.Tensor, torch.Tensor]:
+                 v: torch.Tensor, state: PagedKVState, key_scale: Optional[torch.Tensor] = None,
+                 value_scale: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, ...]:
     """Scatter one call's K/V (B, S, Hkv, D) into one layer's pools
     (num_blocks, block_size, Hkv, D), in place; returns the pools. Token i
     of slot b goes to table entry (cache_len[b] + i) // block_size at
     offset (cache_len[b] + i) % block_size; tokens at or past lengths[b]
     go to block 0. Padding rows of several slots may write the same place
-    of block 0, which is harmless because nothing reads it unmasked."""
+    of block 0, which is harmless because nothing reads it unmasked. Under
+    ``kv_dtype="int8"`` the rows are quantised on the way in, their scales
+    go to ``key_scale``/``value_scale`` (num_blocks, block_size) at the same
+    places, and the return is the four arrays."""
     b, s = k.shape[:2]
     bs = state.block_size
     pos = _slot_positions(state, s)
@@ -94,26 +158,41 @@ def paged_update(key_pool: torch.Tensor, value_pool: torch.Tensor, k: torch.Tens
     blocks = state.block_table.long().gather(1, entry)
     blocks = torch.where(valid, blocks, torch.zeros_like(blocks))
     index = (blocks.reshape(-1), (pos % bs).reshape(-1))
+    if _need_scales(state, key_scale, value_scale):
+        k, k_s = quantize_kv(k)
+        v, v_s = quantize_kv(v)
+        key_scale.index_put_(index, k_s.reshape(-1))
+        value_scale.index_put_(index, v_s.reshape(-1))
     key_pool.index_put_(index, k.reshape(b * s, *k.shape[2:]).to(key_pool.dtype))
     value_pool.index_put_(index, v.reshape(b * s, *v.shape[2:]).to(value_pool.dtype))
+    if state.kv_dtype == "int8":
+        return key_pool, value_pool, key_scale, value_scale
     return key_pool, value_pool
 
 
 def paged_attention(q: torch.Tensor, key_pool: torch.Tensor, value_pool: torch.Tensor,
                     state: PagedKVState, scale: Optional[float] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None, key_scale: Optional[torch.Tensor] = None,
+                    value_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention read through the block table: each slot's blocks are
     gathered into a (B, max_blocks*block_size, Hkv, D) view, so gathered
     column j is global position j, and the plain path runs over it with the
     band anchored at global positions: the query at position r sees column
     c iff c <= r (and c > r - window under a sliding window). Table entries
     past a slot's blocks point at block 0, whose columns sit past every
-    row and are masked."""
+    row and are masked. Under ``kv_dtype="int8"`` the gathered codes are
+    dequantised (code times its row's scale, in fp32) to the query's dtype
+    before the math; the pools stay int8."""
     b, s = q.shape[:2]
     width = state.block_table.shape[1] * state.block_size
     table = state.block_table.long()
     k = key_pool[table].reshape(b, width, *key_pool.shape[2:])
     v = value_pool[table].reshape(b, width, *value_pool.shape[2:])
+    if _need_scales(state, key_scale, value_scale):
+        k_s = key_scale[table].reshape(b, width)
+        v_s = value_scale[table].reshape(b, width)
+        k = (k.float() * k_s[:, :, None, None]).to(q.dtype)
+        v = (v.float() * v_s[:, :, None, None]).to(q.dtype)
     rows = _slot_positions(state, s)[:, None, :, None]
     cols = torch.arange(width, device=q.device)[None, None, None, :]
     keep = cols <= rows  # (B, 1, S, width)

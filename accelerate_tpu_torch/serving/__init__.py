@@ -2,14 +2,21 @@
 
 Port of ``accelerate_tpu/serving/``: a fixed slot batch refilled at every
 decode step, a block-table paged KV cache with prefix caching and
-copy-on-write, speculative decoding (n-gram and draft model), the SLO
+copy-on-write, speculative decoding (n-gram and draft model), chunked
+prefill, preemption with KV swap and priorities, int8 paged KV, the SLO
 tracker, request spans, and :class:`ServingEngine` (``add_request`` /
 ``step`` / ``stream``), whose decode and verify steps are CUDA graphs on
-the card. The reference's transfer plane, preemption, chunked prefill,
-adapters and HTTP plane are not ported yet (ROADMAP.md, queue A9).
+the card. The reference's adapters (ROADMAP.md, queue A8), transfer plane
+and HTTP plane (queue A9) are not ported yet.
 """
 
-from ..ops.attention import PagedKVCache, PagedKVState, paged_attention, paged_update
+from ..ops.attention import (
+    PagedKVCache,
+    PagedKVState,
+    paged_attention,
+    paged_update,
+    quantize_kv,
+)
 from .block_pool import BlockPool, PrefixCache, prefix_keys
 from .engine import ServingEngine, TokenEvent
 from .sampling import SlotSampling, sample_tokens
@@ -42,6 +49,7 @@ __all__ = [
     "paged_update",
     "percentile",
     "prefix_keys",
+    "quantize_kv",
     "sample_tokens",
     "spans_to_chrome_trace",
     "write_chrome_trace",

@@ -1,10 +1,10 @@
 """Host-side allocator for the device KV block pools, with prefix caching.
 
 Port of ``accelerate_tpu/serving/block_pool.py``: ``BlockPool`` (:43-388)
-without its swap ledger (``swap_out``/``swap_in``/``swap_drop`` :222-279,
-which belongs to preemption, and ``cached_chain_digest``, which belongs
-to the HTTP plane; ROADMAP.md, queue A9), ``prefix_keys`` (:390) and
-``PrefixCache`` (:427-509). Block 0 is the reserved garbage block: the
+with its swap ledger (``swap_out``/``swap_in``/``swap_drop``/
+``num_swapped`` :220-279) and without ``cached_chain_digest``, which
+belongs to the HTTP plane (ROADMAP.md, queue A9), ``prefix_keys`` (:390)
+and ``PrefixCache`` (:427-509). Block 0 is the reserved garbage block: the
 device routes every invalid write (bucket padding, empty decode slots)
 there, so the allocator never hands it out. Ids come out lowest first,
 and a freed block is the next one handed out, as in the reference.
@@ -48,7 +48,15 @@ class BlockPool:
     free (on the free list), allocated (refcount >= 1, perhaps published,
     perhaps shared) or cached (refcount 0 but published: in the LRU,
     reusable through :meth:`lookup`/:meth:`acquire`, evicted under
-    allocation pressure)."""
+    allocation pressure).
+
+    Preemption adds a logical fourth state, swapped: a preempted request's
+    block contents move to host memory (the engine copies them; the pool
+    keeps only the ledger) and the device ids return to circulation, so the
+    device law above still holds while ``num_swapped`` counts the host
+    images awaiting :meth:`swap_in`. Every :meth:`swap_out` grows the ledger
+    by the images it released, every :meth:`swap_in`/:meth:`swap_drop`
+    shrinks it, and it never goes negative."""
 
     def __init__(self, num_blocks: int, block_size: int):
         if num_blocks < 2:
@@ -67,6 +75,11 @@ class BlockPool:
         # refcount-0 published blocks, oldest first (the eviction end)
         self._lru: "OrderedDict[int, None]" = OrderedDict()
         self.evictions_total = 0
+        # host images of preempted requests' blocks whose device ids were
+        # released
+        self._swapped = 0
+        self.swap_outs_total = 0
+        self.swap_ins_total = 0
 
     # ------------------------------------------------------------------ #
     # occupancy
@@ -83,6 +96,11 @@ class BlockPool:
     def num_cached(self) -> int:
         """Refcount-0 published blocks in the LRU (reusable and evictable)."""
         return len(self._lru)
+
+    @property
+    def num_swapped(self) -> int:
+        """Block images parked in host memory by :meth:`swap_out`."""
+        return self._swapped
 
     @property
     def num_shared(self) -> int:
@@ -175,6 +193,53 @@ class BlockPool:
             raise
 
     # ------------------------------------------------------------------ #
+    # preemption swap ledger
+    # ------------------------------------------------------------------ #
+    def swap_out(self, blocks: Iterable[int]) -> None:
+        """Release a preempted request's references after the engine saved
+        the blocks' contents to host memory, and grow the ledger by one
+        image a block. A shared block only drops this holder's reference
+        (the others keep it on the device; the saved image makes the resume
+        independent of it). A private block is unpublished (its content
+        leaves the device, so its index entry would go stale) and freed. A
+        block that is not allocated raises."""
+        n = 0
+        for b in blocks:
+            if b not in self._ref:
+                raise ValueError(f"swapping out block {b} that is not allocated")
+            if self._ref[b] == 1 and b in self._hash_of:
+                key = self._hash_of.pop(b)
+                if self._index.get(key) == b:
+                    del self._index[key]
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                del self._ref[b]
+                self._free.append(b)
+            n += 1
+        self._swapped += n
+        if n:
+            self.swap_outs_total += 1
+
+    def swap_in(self, n: int) -> list[int]:
+        """Fund ``n`` swapped images with fresh blocks (refcount 1, content
+        garbage until the engine restores it) and shrink the ledger. Gate
+        on :meth:`can_allocate` like any allocation."""
+        if n < 0 or n > self._swapped:
+            raise ValueError(f"swap_in({n}) but only {self._swapped} images swapped out")
+        blocks = self.allocate(n)
+        self._swapped -= n
+        if n:
+            self.swap_ins_total += 1
+        return blocks
+
+    def swap_drop(self, n: int) -> None:
+        """Forget ``n`` swapped images without restoring them (the request
+        was cancelled while on the host)."""
+        if n < 0 or n > self._swapped:
+            raise ValueError(f"swap_drop({n}) but only {self._swapped} images swapped out")
+        self._swapped -= n
+
+    # ------------------------------------------------------------------ #
     # content index
     # ------------------------------------------------------------------ #
     def publish(self, block: int, key: bytes) -> int:
@@ -231,6 +296,9 @@ class BlockPool:
             "allocated": len(self._ref),
             "cached": len(self._lru),
             "shared": self.num_shared,
+            "swapped": self._swapped,
+            "swap_outs_total": self.swap_outs_total,
+            "swap_ins_total": self.swap_ins_total,
             "evictions_total": self.evictions_total,
             "utilization": len(self._ref) / usable if usable else 0.0,
         }

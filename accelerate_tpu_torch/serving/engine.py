@@ -9,9 +9,18 @@ the observability plane (``_tele``, ``_gauge_fields`` :1714,
 ``set_observability`` (:2036), ``set_prefix_cache`` (:2064) and
 ``set_speculation`` (:2086), ``stream``, ``generate`` (:700), ``result``,
 ``shed_reason``, ``trace_counts`` (:578), ``summary`` (:2204),
-``kv_bytes_per_token`` and the injectable clock. ``step`` retires finished
-slots, admits and prefills queued requests into the empty seats, then runs
-one decode (or speculative) step over the whole slot batch.
+``kv_bytes_per_token`` (:326-328) and the injectable clock, and the
+capacity levers (:149-330): chunked prefill (``prefill_chunk_tokens``;
+``_begin_chunked``, ``_chunked_prefill_step``, ``_prefill_chunk``
+:882-1013, and the growth path ``_ensure_blocks``/``_grow_active``/
+``_grow_or_preempt`` :1015-1071), preemption with KV swap and priorities
+(``preemption``, ``add_request(priority=)``; the swap programs
+:1075-1137 and ``_preempt``/``_try_resume``/``_resume``/``_maybe_preempt``
+:1139-1290) and int8 paged KV (``kv_dtype="int8"``), with the buffer
+census's owners (:1808-1830). ``step`` sheds expired queue entries,
+retires finished slots, resumes swapped requests, admits (preempting for
+the head where it may), prefills or feeds chunks, then runs one decode (or
+speculative) step over the whole slot batch (:620-692).
 
 Three kinds of program do the device work, as in the reference:
 
@@ -27,21 +36,33 @@ Three kinds of program do the device work, as in the reference:
   built once, over the same table and length buffers (and, for a draft
   model, its own step over the same table buffer);
 * prefill, eager, one call per request at the power-of-two bucket of the
-  part of its prompt not in the prefix cache, written at that offset.
+  part of its prompt not in the prefix cache, written at that offset (with
+  chunked prefill, one call a chunk, at the chunk's offset and bucket).
 
-Every graph reads the KV pools and the table buffer where they are, so a
-copy-on-write copies a block inside every layer's pools in place and a
-table change is copied into the one buffer before the next replay.
+Every graph reads the KV pools (and, for int8, their scale arrays) and the
+table buffer where they are, so these are allocated once before any
+capture: a copy-on-write copies a block inside every layer's pools and
+scale arrays in place, a swap-in ``index_copy_``s the saved images into
+them, and a table change is copied into the one buffer before the next
+replay.
+
+A preempted request's blocks are gathered (every pool and scale array, at
+the power-of-two width of its block count, padded with the garbage block)
+and copied to host memory before its block ids go back to the pool; the
+copy is synchronous, so nothing written to those blocks later can reach
+the saved image. A resume allocates fresh blocks and scatters the images
+into them, so the request continues from its own KV, not from a new
+prefill, and draws nothing from the engine's generator.
 
 ``trace_counts()`` counts builds: ``decode`` is 1 after the first decode
 step and stays there; ``verify`` is one a width used; ``prefill`` is the
-number of distinct buckets; a draft proposer adds ``draft_prefill`` and
-``draft_step``.
+number of distinct buckets; ``swap_out`` and ``swap_in`` one a width used;
+a draft proposer adds ``draft_prefill`` and ``draft_step``.
 
 The reference's options for paths not ported yet raise
-NotImplementedError naming ROADMAP.md's queue A9; none is ignored. The
-model's parameters live in the module, so the reference's ``params``
-argument has no counterpart.
+NotImplementedError naming ROADMAP.md's queue item (A8 for adapters, A9
+for the rest); none is ignored. The model's parameters live in the module,
+so the reference's ``params`` argument has no counterpart.
 """
 
 from __future__ import annotations
@@ -80,9 +101,31 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
 
 
-def _not_ported(option: str) -> NotImplementedError:
+def _not_ported(option: str, queue: str = "A9") -> NotImplementedError:
     return NotImplementedError(
-        f"ServingEngine({option}) is not ported yet (ROADMAP.md, queue A9)")
+        f"ServingEngine({option}) is not ported yet (ROADMAP.md, queue {queue})")
+
+
+@dataclass
+class _SwappedRequest:
+    """A preempted request parked on the host: the slot's scheduler state
+    and its blocks' contents (``data``: one host tensor a cache tensor, in
+    ``PagedKVCache.tensors()`` order, axis 1 the block's table position).
+    Its device block ids went back to the pool at swap-out."""
+
+    request: Request
+    generated: list[int]
+    pending: int
+    cache_len: int
+    n_blocks: int
+    data: list
+    chunks: int
+    preempted_count: int
+    admit_time: float
+    first_token_time: float
+    cached_tokens: int
+    swap_bytes: int
+    preempt_time: float
 
 
 class ServingEngine:
@@ -100,6 +143,14 @@ class ServingEngine:
     ``prefix_cache``: share the KV of cached prompt prefixes between
     requests (``model_fingerprint`` scopes the keys; by default a hash of
     the model's config). ``spec_decode``: a :class:`SpecConfig`.
+    ``prefill_chunk_tokens``: a per-step budget of prompt tokens; prompts
+    are ingested in chunks between decode steps, shortest remaining first.
+    ``preemption``: under pool or seat pressure swap a seated request's KV
+    to host memory instead of shedding the queue (a request of higher
+    ``priority`` may displace a lower one); with chunked prefill it also
+    lets admission reserve one chunk instead of the whole footprint.
+    ``kv_dtype``: ``"bf16"`` keeps the pools in the model's compute dtype,
+    ``"int8"`` stores per-token int8 codes and fp32 scales.
     Observability: ``telemetry`` (a :class:`~..telemetry.StepTelemetry`)
     receives ``serve``, ``span`` and ``shed`` records, a ``serve_gauge``
     record every ``gauge_interval`` steps (0: none) and, with ``slo`` (an
@@ -119,17 +170,16 @@ class ServingEngine:
                  spec_decode: Optional[SpecConfig] = None,
                  prefill_chunk_tokens: Optional[int] = None, preemption: bool = False,
                  kv_dtype: str = "bf16", role: str = "colocated", transfer_plane=None):
-        refused = [
-            ("adapters=...", adapters is not None),
-            ("prefill_chunk_tokens=...", prefill_chunk_tokens is not None),
-            ("preemption=True", preemption), (f"role={role!r}", role != "colocated"),
-            ("transfer_plane=...", transfer_plane is not None),
-            ("kv_dtype='int8'", kv_dtype == "int8"),
-        ]
-        for option, asked in refused:
-            if asked:
-                raise _not_ported(option)
-        if kv_dtype != "bf16":  # the reference's name for the native compute dtype
+        if adapters is not None:
+            raise _not_ported("adapters=...", "A8")
+        if role != "colocated":
+            raise _not_ported(f"role={role!r}")
+        if transfer_plane is not None:
+            raise _not_ported("transfer_plane=...")
+        if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
+            raise ValueError("prefill_chunk_tokens must be >= 1 (or None)")
+        # "bf16" is the reference's name for the model's native compute dtype
+        if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' (native) or 'int8', got {kv_dtype!r}")
         if max_retained_results is not None and max_retained_results < 1:
             raise ValueError("max_retained_results must be >= 1 (or None)")
@@ -140,6 +190,9 @@ class ServingEngine:
         self.max_slots = max_slots
         self.block_size = block_size
         self.top_k, self.top_p = top_k, top_p
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.preemption = preemption
+        self._kv_state_dtype = "int8" if kv_dtype == "int8" else "native"
         cfg = model.config
         self._max_table = -(-cfg.max_seq_len // block_size)
         if num_blocks is None:
@@ -154,6 +207,10 @@ class ServingEngine:
                                              max_queue_delay_s=max_queue_delay_s,
                                              prefix_cache=self.prefix_cache,
                                              max_table_blocks=self._max_table)
+        # chunk-aware admission only with preemption, the escape when growth
+        # cannot allocate; without it admission keeps the full reservation
+        self.scheduler.chunk_tokens = prefill_chunk_tokens
+        self.scheduler.chunked_reserve = prefill_chunk_tokens is not None and preemption
         self.sampling = SlotSampling(max_slots, self.device)
         self.stats = ServeStats()
         self.span_log = SpanLog(maxlen=span_history)
@@ -172,9 +229,23 @@ class ServingEngine:
         self._shed_order: collections.deque = collections.deque()
         self._prefill_buckets: set[int] = set()
         self._decode_builds = 0
-        self.cache = init_cache(model, num_blocks=num_blocks, block_size=block_size)
-        # bytes of KV per cached token across every layer's pools
+        # padded prefill tokens issued so far (the bucket of every prefill and
+        # chunk call): a step's delta is its prefill work, which the soak
+        # harness's work-weighted clock charges
+        self.prefill_bucket_tokens_total = 0
+        self.cache = init_cache(model, num_blocks=num_blocks, block_size=block_size,
+                                kv_dtype=self._kv_state_dtype)
+        # bytes of KV per cached token across every layer's pools (and the
+        # int8 scale arrays)
         self.kv_bytes_per_token = self.cache.nbytes / (num_blocks * block_size)
+        # preemption: the swap programs' widths built so far, the requests
+        # parked on the host, and the counts the gauges export
+        self._swap_widths: dict[str, set[int]] = {"swap_out": set(), "swap_in": set()}
+        self._swapped_reqs: list[_SwappedRequest] = []
+        self._preempt_counts: dict[str, int] = {"priority": 0, "pool": 0, "growth": 0}
+        self._resumes_total = 0
+        self._swap_bytes_held = 0
+        self._prefill_chunks_total = 0
         # the decode and verify steps' static inputs: the graphs read these
         # tensors, so each step copies into them and never rebinds them
         self._decode_in = {
@@ -196,6 +267,7 @@ class ServingEngine:
         self._spec_rounds_total = 0
         if spec_decode is not None:
             self.set_speculation(spec_decode)
+        self._register_census_owners()
 
     # ------------------------------------------------------------------ #
     # request API
@@ -204,15 +276,15 @@ class ServingEngine:
                     eos_token_id: Optional[int] = None, request_id: str = "",
                     adapter: Optional[str] = None, priority: int = 0) -> str:
         """Enqueue one request (a sequence of token ids); returns its id. A
-        later :meth:`step` admits it as soon as a seat and its whole block
-        reservation are free."""
+        later :meth:`step` admits it as soon as a seat and its block
+        reservation are free. ``priority`` orders admission (higher first,
+        FIFO within a priority) and, with ``preemption=True``, lets the head
+        displace a seated request of strictly lower priority."""
         if adapter is not None:
-            raise _not_ported("adapters: add_request(adapter=...)")
-        if priority != 0:
-            raise _not_ported("priorities and preemption: add_request(priority=...)")
+            raise _not_ported("adapters: add_request(adapter=...)", "A8")
         req = Request(prompt=[int(t) for t in np.asarray(prompt).reshape(-1)],
                       max_new_tokens=max_new_tokens, temperature=temperature,
-                      eos_token_id=eos_token_id, request_id=request_id)
+                      eos_token_id=eos_token_id, request_id=request_id, priority=priority)
         rid = self.scheduler.submit(req)
         self.span_log.on_submit(rid, req.submit_time, len(req.prompt))
         if req.shed_reason is not None:  # tail-dropped at the queue bound
@@ -221,16 +293,20 @@ class ServingEngine:
 
     @property
     def has_work(self) -> bool:
-        return self.scheduler.has_work
+        # a swapped-out request holds neither seat nor queue entry, but is
+        # the engine's until it finishes
+        return self.scheduler.has_work or bool(self._swapped_reqs)
 
     def trace_counts(self) -> dict:
         """Builds of the device programs: ``decode`` (a capture on the card,
         the one construction of the eager step on the CPU) stays at 1 after
         warmup, ``verify`` at one a width; ``prefill`` counts distinct
-        buckets, <= log2(max_seq_len) + 1; a draft proposer's
+        buckets, <= log2(max_seq_len) + 1; ``swap_out`` and ``swap_in``
+        count the swap programs' widths; a draft proposer's
         ``draft_prefill`` and ``draft_step`` are merged in."""
         out = {"prefill": len(self._prefill_buckets), "decode": self._decode_builds,
-               "verify": len(self._verify)}
+               "verify": len(self._verify), "swap_out": len(self._swap_widths["swap_out"]),
+               "swap_in": len(self._swap_widths["swap_in"])}
         for proposer in self._proposers.values():
             for name, count in proposer.trace_counts().items():
                 out[name] = out.get(name, 0) + count
@@ -251,11 +327,14 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def step(self) -> list[TokenEvent]:
-        """One iteration: shed queue heads past their deadline, retire
-        finished slots (their blocks free at once), admit and prefill queued
-        requests into the empty seats, then one decode step over the whole
-        slot batch, speculative where a slot was admitted with lookahead and
-        a proposer is set. Returns the tokens made in this iteration."""
+        """One iteration: shed queued requests past their deadline, retire
+        finished slots (their blocks free at once), resume swapped requests
+        onto free capacity, admit queued requests into the empty seats
+        (preempting one seated request for the head where allowed), prefill
+        them or spend the step's chunk budget, then one decode step over
+        the slots past their prefill, speculative where a slot was admitted
+        with lookahead and a proposer is set. Returns the tokens made in
+        this iteration."""
         had_work = self.has_work
         events: list[TokenEvent] = []
         for req in self.scheduler.shed_expired():
@@ -263,10 +342,27 @@ class ServingEngine:
         for slot in self.scheduler.slots:
             if slot.busy and slot.done:
                 self._finish(slot)
-        for slot in self.scheduler.admit():
+        if self.preemption:
+            self._try_resume()
+        blocked_before = dict(self.scheduler.blocked_reasons)
+        admitted = self.scheduler.admit()
+        if self.preemption and self._maybe_preempt(blocked_before,
+                                                   exclude={s.index for s in admitted}):
+            # the freed seat and blocks fund the queue head this step
+            admitted += self.scheduler.admit()
+        for slot in admitted:
             self.span_log.on_admit(slot.request.request_id, slot.admit_time)
-            self._prefill_slot(slot, events)
-        active = [s for s in self.scheduler.slots if s.busy and not s.done]
+            if self.prefill_chunk_tokens is None:
+                self._prefill_slot(slot, events)
+            else:
+                self._begin_chunked(slot)
+        if self.prefill_chunk_tokens is not None:
+            self._chunked_prefill_step(events)
+        # seats still ingesting their prompt are not in the decode batch
+        # (their row has length 0 this step)
+        active = [s for s in self.scheduler.slots if s.busy and not s.done and not s.mid_prefill]
+        if active and self.scheduler.chunked_reserve:
+            active = self._grow_active(active)
         if active:
             if self._proposer is not None and any(s.lookahead > 0 for s in active):
                 self._spec_step(active, events)
@@ -284,9 +380,9 @@ class ServingEngine:
         return events
 
     def stream(self) -> Iterator[TokenEvent]:
-        """Drive :meth:`step` until all submitted work completes, yielding
-        token events as they come."""
-        while self.scheduler.has_work:
+        """Drive :meth:`step` until all submitted work completes, swapped-out
+        requests included, yielding token events as they come."""
+        while self.has_work:
             yield from self.step()
 
     def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 0.0,
@@ -322,22 +418,23 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     def _state(self, table, cache_len, lengths) -> PagedKVState:
         return PagedKVState(block_table=table, cache_len=cache_len, lengths=lengths,
-                            num_blocks=self.num_blocks, block_size=self.block_size)
+                            num_blocks=self.num_blocks, block_size=self.block_size,
+                            kv_dtype=self._kv_state_dtype)
 
     def _cow_block(self, slot: Slot, tindex: int) -> None:
         """Copy-on-write table position ``tindex`` of ``slot``: a private
         block (the spare reserved at admission first), the donor's rows
-        copied into it in every layer's K and V pools in place (and in the
-        draft's pools), the table entry swapped and the shared reference
-        dropped. The donor and every other holder's view of it stay as they
-        were; the copy stays out of the content index (its tail is written
-        again at another width)."""
+        copied into it in every layer's K and V pools and int8 scale arrays
+        in place (and in the draft's pools), the table entry swapped and the
+        shared reference dropped. The donor and every other holder's view of
+        it stay as they were; the copy stays out of the content index (its
+        tail is written again at another width)."""
         donor = slot.blocks[tindex]
         if slot.cow_spare is not None:
             private, slot.cow_spare = slot.cow_spare, None
         else:
             private = self.pool.allocate(1)[0]
-        for pool in (self.cache.key, self.cache.value):
+        for pool in self.cache.tensors():
             pool[:, private].copy_(pool[:, donor])
         if self._proposer is not None:
             self._proposer.cow(donor, private)
@@ -366,22 +463,8 @@ class ServingEngine:
             if t in slot.shared:
                 self._cow_block(slot, t)
         tail_len = prompt_len - cached
-        bucket = _next_pow2(tail_len)
-        self._prefill_buckets.add(bucket)
-        ids = np.zeros((1, bucket), np.int64)
-        ids[0, :tail_len] = req.prompt[cached:]
-        table = np.zeros((1, self._max_table), np.int64)
-        table[0, :len(slot.blocks)] = slot.blocks
-        dev = self.device
-        state = self._state(torch.from_numpy(table).to(dev),
-                            torch.full((1,), cached, dtype=torch.long, device=dev),
-                            torch.full((1,), tail_len, dtype=torch.long, device=dev))
-        logits = self.model(torch.from_numpy(ids).to(dev), decode=True, paged=state,
-                            cache=self.cache)
-        # the last valid row of the padded bucket, not the padded tail
-        last = logits[:, tail_len - 1]
-        temp = torch.full((1,), req.temperature, dtype=torch.float32, device=dev)
-        token = int(sample_tokens(last, self._generator, temp, self.top_k, self.top_p)[0])
+        table, last = self._prefill_call(slot, cached, tail_len)
+        token = self._sample_first(last, req)
         slot.cache_len = prompt_len
         slot.pending = token
         slot.generated = [token]
@@ -399,6 +482,305 @@ class ServingEngine:
             self._proposer.prefill_slot(slot)
         self.sampling.set_slot(slot.index, req.temperature)
         self._note_token(slot, token, events)
+
+    def _prefill_call(self, slot: Slot, start: int, n: int) -> tuple[np.ndarray, torch.Tensor]:
+        """One prefill call of the slot's prompt tokens [start, start + n)
+        at its power-of-two bucket, written at cache position ``start`` and
+        read back with what the table holds before it. Returns the (1,
+        max_table) table it used and the logits of the last valid row."""
+        req = slot.request
+        bucket = _next_pow2(n)
+        self._prefill_buckets.add(bucket)
+        self.prefill_bucket_tokens_total += bucket
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :n] = req.prompt[start:start + n]
+        table = np.zeros((1, self._max_table), np.int64)
+        table[0, :len(slot.blocks)] = slot.blocks
+        dev = self.device
+        state = self._state(torch.from_numpy(table).to(dev),
+                            torch.full((1,), start, dtype=torch.long, device=dev),
+                            torch.full((1,), n, dtype=torch.long, device=dev))
+        logits = self.model(torch.from_numpy(ids).to(dev), decode=True, paged=state,
+                            cache=self.cache)
+        # the last valid row of the padded bucket, not the padded tail
+        return table, logits[:, n - 1]
+
+    def _sample_first(self, last: torch.Tensor, req: Request) -> int:
+        temp = torch.full((1,), req.temperature, dtype=torch.float32, device=self.device)
+        return int(sample_tokens(last, self._generator, temp, self.top_k, self.top_p)[0])
+
+    # ------------------------------------------------------------------ #
+    # chunked prefill
+    # ------------------------------------------------------------------ #
+    def _begin_chunked(self, slot: Slot) -> None:
+        """Seat a request for chunked ingestion: stamp the prefill edge and
+        leave ``cache_len`` at the cached prefix, so the slot is
+        ``mid_prefill`` and :meth:`_chunked_prefill_step` feeds it."""
+        req = slot.request
+        cached = slot.cached_tokens
+        self.span_log.on_prefill(req.request_id, self._now(), cached_prefix_tokens=cached)
+        if cached and self.prefix_cache is not None:
+            self.prefix_cache.tokens_saved_total += cached
+        slot.cache_len = cached
+
+    def _chunked_prefill_step(self, events: list[TokenEvent]) -> None:
+        """Spend this step's prompt-token budget over the seats still in
+        prefill, shortest remaining prompt first (then admission order,
+        then slot index), so a short prompt behind a long one clears in its
+        first step. A chunk whose blocks cannot be funded waits; with
+        preemption, at most one seat a step is swapped out to fund it (the
+        least progressed, often the waiting seat itself)."""
+        budget = self.prefill_chunk_tokens
+        pref = [s for s in self.scheduler.slots if s.busy and s.mid_prefill]
+        if not pref:
+            return
+        pref.sort(key=lambda s: (len(s.request.prompt) - s.cache_len, s.admit_time, s.index))
+        preempted = False
+        for slot in pref:
+            if budget <= 0:
+                break
+            if not slot.busy or not slot.mid_prefill:
+                continue  # swapped out by this step's earlier preemption
+            chunk = min(len(slot.request.prompt) - slot.cache_len, budget)
+            if self._prefill_chunk(slot, chunk, events):
+                budget -= chunk
+                continue
+            # every seat mid-prefill with the pool exhausted would wedge:
+            # park the least progressed seat so the others can finish
+            if self.preemption and not preempted:
+                preempted = True
+                victim = self.scheduler.preempt_candidate()
+                if victim is None and not slot.resumed:
+                    victim = slot
+                if victim is not None:
+                    self._preempt(victim, "growth")
+                    if victim is not slot and self._prefill_chunk(slot, chunk, events):
+                        budget -= chunk
+
+    def _prefill_chunk(self, slot: Slot, chunk_len: int, events: list[TokenEvent]) -> bool:
+        """One prefill call of ``chunk_len`` prompt tokens at the slot's
+        cache offset (the bucketed prefill at an offset). The final chunk
+        also funds the first decode write and any lookahead, and samples the
+        request's first token; earlier chunks draw nothing from the
+        generator. Returns False if the chunk's blocks cannot be funded."""
+        req = slot.request
+        prompt_len = len(req.prompt)
+        start = slot.cache_len
+        final = start + chunk_len == prompt_len
+        if not self._ensure_blocks(slot, start + chunk_len + ((1 + slot.lookahead) if final
+                                                               else 0)):
+            return False
+        for t in range(start // self.block_size, (start + chunk_len - 1) // self.block_size + 1):
+            if t in slot.shared:
+                self._cow_block(slot, t)
+        table, last = self._prefill_call(slot, start, chunk_len)
+        slot.cache_len = start + chunk_len
+        slot.chunks += 1
+        self._prefill_chunks_total += 1
+        self._tables[slot.index] = table[0]
+        self._tables_stale = True
+        if final:
+            token = self._sample_first(last, req)
+            slot.pending = token
+            slot.generated.append(token)
+            if self.prefix_cache is not None and slot.chunks == 1:
+                # one chunk is the unchunked bucket, so its blocks are
+                # canonical; blocks written chunk by chunk stay out
+                self.prefix_cache.publish(req.prompt, None, slot.blocks,
+                                          skip_indices=slot.shared | slot.cow_indices,
+                                          keys=req.prefix_keys)
+            slot.first_token_time = self._now()
+            self.span_log.on_first_token(req.request_id, slot.first_token_time,
+                                         chunks=slot.chunks)
+            if self._proposer is not None and slot.lookahead > 0:
+                self._proposer.prefill_slot(slot)
+            self.sampling.set_slot(slot.index, req.temperature)
+            self._note_token(slot, token, events)
+        return True
+
+    def _ensure_blocks(self, slot: Slot, tokens: int) -> bool:
+        """Grow the slot's table to cover ``tokens`` cache positions; False
+        if the pool cannot fund it now."""
+        need = self.pool.blocks_for_tokens(tokens) - len(slot.blocks)
+        if need <= 0:
+            return True
+        if not self.pool.can_allocate(need):
+            return False
+        slot.blocks.extend(self.pool.allocate(need))
+        self._tables[slot.index, :len(slot.blocks)] = slot.blocks
+        self._tables_stale = True
+        return True
+
+    def _grow_active(self, active: list[Slot]) -> list[Slot]:
+        """Under chunk-aware reservations decode itself can reach the pool's
+        end: fund every active slot's next write (and lookahead) before the
+        batch runs, preempting where needed."""
+        eligible = [slot for slot in active if slot.busy and self._grow_or_preempt(slot)]
+        # a later seat's growth may have swapped out one already vetted
+        return [s for s in eligible if s.busy]
+
+    def _grow_or_preempt(self, slot: Slot) -> bool:
+        tokens = slot.cache_len + 1 + slot.lookahead
+        if self._ensure_blocks(slot, tokens):
+            return True
+        # the victim order prefers seats not resumed (perhaps this one); a
+        # resumed other seat is the last resort, against a wedged pool
+        victim = self.scheduler.preempt_candidate()
+        if victim is None and not slot.resumed:
+            victim = slot
+        if victim is None:
+            others = [s for s in self.scheduler.slots if s.busy and not s.done and s is not slot]
+            victim = min(others, key=lambda s: (s.request.priority, s.cache_len), default=None)
+        if victim is None:
+            return False  # the sole seat cannot grow: it waits this step
+        self._preempt(victim, "growth")
+        if victim is slot:
+            return False
+        return self._ensure_blocks(slot, tokens)
+
+    # ------------------------------------------------------------------ #
+    # preemption with KV swap
+    # ------------------------------------------------------------------ #
+    def _swap_index(self, blocks: list[int], kind: str) -> torch.Tensor:
+        """``blocks`` padded with 0 (the garbage block) to the power-of-two
+        width of their count, on the device; the swap program of that width
+        is counted as built at its first use."""
+        width = _next_pow2(len(blocks))
+        self._swap_widths[kind].add(width)
+        idx = np.zeros(width, np.int64)
+        idx[:len(blocks)] = blocks
+        return torch.from_numpy(idx).to(self.device)
+
+    def _swap_out_blocks(self, blocks: list[int]) -> tuple[list[torch.Tensor], int]:
+        """The contents of ``blocks`` in every pool and scale array, copied
+        to host memory (pinned on a CUDA device) before this returns:
+        returns the host tensors (axis 1 the table position) and their
+        bytes."""
+        n = len(blocks)
+        idx = self._swap_index(blocks, "swap_out")
+        pin = self.device.type == "cuda"
+        data = []
+        for t in self.cache.tensors():
+            gathered = t.index_select(1, idx)[:, :n]
+            host = torch.empty(gathered.shape, dtype=t.dtype, pin_memory=pin)
+            host.copy_(gathered)  # synchronous: the ids are recycled next
+            data.append(host)
+        return data, sum(d.nbytes for d in data)
+
+    def _restore_blocks(self, blocks: list[int], data: list[torch.Tensor]) -> None:
+        """Scatter saved images into ``blocks`` in place (table position i
+        from image i); the padded rows write zeros to the garbage block."""
+        n = len(blocks)
+        idx = self._swap_index(blocks, "swap_in")
+        for t, d in zip(self.cache.tensors(), data):
+            src = torch.zeros((t.shape[0], idx.numel(), *t.shape[2:]), dtype=t.dtype,
+                              device=self.device)
+            src[:, :n].copy_(d)
+            t.index_copy_(1, idx, src)
+
+    def _preempt(self, slot: Slot, reason: str) -> None:
+        """Swap ``slot`` out to host memory: copy its blocks' contents
+        (shared ones too, so the resume does not depend on the cached chain
+        surviving), park the request and the images, release the seat. The
+        span stays open (state "preempted"); the queue and first-token
+        stamps keep their values."""
+        req = slot.request
+        data, nbytes = self._swap_out_blocks(slot.blocks)
+        entry = _SwappedRequest(
+            request=req, generated=list(slot.generated), pending=slot.pending,
+            cache_len=slot.cache_len, n_blocks=len(slot.blocks), data=data, chunks=slot.chunks,
+            preempted_count=slot.preempted_count + 1, admit_time=slot.admit_time,
+            first_token_time=slot.first_token_time, cached_tokens=slot.cached_tokens,
+            swap_bytes=nbytes, preempt_time=self._now())
+        self._swapped_reqs.append(entry)
+        self._swap_bytes_held += nbytes
+        self._preempt_counts[reason] = self._preempt_counts.get(reason, 0) + 1
+        self.pool.swap_out(slot.blocks)
+        slot.blocks = []  # released by swap_out: release() must not free them again
+        self.span_log.on_preempt(req.request_id, entry.preempt_time)
+        self._tele("record_preempt", request_id=req.request_id, reason=reason,
+                   blocks=entry.n_blocks, swap_bytes=nbytes, cache_len=entry.cache_len,
+                   priority=req.priority)
+        self.sampling.clear_slot(slot.index)
+        self._tables[slot.index] = 0
+        self._tables_stale = True
+        if self._proposer is not None:
+            self._proposer.release(slot.index)
+        self.scheduler.release(slot)  # frees the copy spare and clears the seat
+
+    def _try_resume(self) -> None:
+        """Seat swapped requests again, oldest first, while a free slot and
+        their blocks are there. A resume never preempts. Without chunk-aware
+        reservations the request's whole footprint is funded again, so it
+        cannot run out of blocks in flight."""
+        free_slots = [s for s in self.scheduler.slots if not s.busy]
+        while self._swapped_reqs and free_slots:
+            entry = self._swapped_reqs[0]
+            req = entry.request
+            n = entry.n_blocks
+            if self.scheduler.chunked_reserve:
+                total = n
+            else:
+                total = max(n, self.pool.blocks_for_tokens(len(req.prompt) + req.max_new_tokens))
+            if not self.pool.can_allocate(total):
+                break
+            self._swapped_reqs.pop(0)
+            self._resume(free_slots.pop(0), entry, total - n)
+
+    def _resume(self, slot: Slot, entry: _SwappedRequest, extra: int) -> None:
+        req = entry.request
+        blocks = self.pool.swap_in(entry.n_blocks)
+        self._restore_blocks(blocks, entry.data)
+        if extra > 0:
+            blocks = blocks + self.pool.allocate(extra)
+        slot.clear()
+        slot.request = req
+        slot.blocks = blocks
+        slot.cache_len = entry.cache_len
+        slot.generated = list(entry.generated)
+        slot.pending = entry.pending
+        slot.chunks = entry.chunks
+        slot.preempted_count = entry.preempted_count
+        slot.resumed = True
+        slot.cached_tokens = entry.cached_tokens
+        slot.admit_time = entry.admit_time
+        slot.first_token_time = entry.first_token_time
+        # restored images sit in block ids the content index does not know
+        slot.cow_indices = set(range(len(blocks)))
+        slot.lookahead = 0  # the draft's KV was not saved
+        self.sampling.set_slot(slot.index, req.temperature)
+        self._tables[slot.index] = 0
+        self._tables[slot.index, :len(blocks)] = blocks
+        self._tables_stale = True
+        self._swap_bytes_held -= entry.swap_bytes
+        self._resumes_total += 1
+        self.span_log.on_resume(req.request_id, self._now())
+
+    def _maybe_preempt(self, blocked_before: dict, exclude=()) -> bool:
+        """At most one preemption a step to fund the queue head, and only
+        when this step's admission blocked: any seat of strictly lower
+        priority than the head, or, with a queue deadline and the head past
+        half of it, a seat of equal priority when the pool blocked it."""
+        sched = self.scheduler
+        if not sched.queue:
+            return False
+        br = sched.blocked_reasons
+        seat_blocked = br["no_free_slot"] > blocked_before["no_free_slot"]
+        pool_blocked = br["pool_exhausted"] > blocked_before["pool_exhausted"]
+        if not (seat_blocked or pool_blocked):
+            return False
+        head = sched.queue[0]
+        victim = sched.preempt_candidate(max_priority=head.priority - 1, exclude=exclude)
+        if victim is not None:
+            self._preempt(victim, "priority")
+            return True
+        if (pool_blocked and sched.max_queue_delay_s is not None
+                and self._now() - head.submit_time > 0.5 * sched.max_queue_delay_s):
+            victim = sched.preempt_candidate(max_priority=head.priority, exclude=exclude)
+            if victim is not None:
+                self._preempt(victim, "pool")
+                return True
+        return False
 
     def _decode_forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """The model over the static buffers: (max_slots, width, V) logits."""
@@ -584,10 +966,8 @@ class ServingEngine:
             "spec_accepted": slot.spec_accepted,
             "accept_rate": (slot.spec_accepted / slot.spec_proposed
                             if slot.spec_proposed else None),
-            # the reference's preemption and chunked-prefill fields, which
-            # stay 0 while those paths are refused
-            "preempted_count": 0,
-            "prefill_chunks": 0,
+            "preempted_count": slot.preempted_count,
+            "prefill_chunks": slot.chunks,
         }
         self.stats.add(record)
         self._tele("record_serve", **record)
@@ -642,8 +1022,7 @@ class ServingEngine:
     def _gauge_fields(self) -> dict:
         """The live engine sampled into ``serve_gauge`` records: host reads
         only, no device sync. The keys are the reference's for a colocated
-        engine; those of the planes not ported yet (adapters, preemption and
-        swap, chunked prefill) read 0."""
+        engine; the adapter plane's (queue A8) read 0."""
         now = self._now()
         sched = self.scheduler
         # one clock, FIFO queue: ages are sorted, so the p95 reads off the
@@ -687,15 +1066,15 @@ class ServingEngine:
             "spec_tokens_proposed": proposed,
             "spec_tokens_accepted": self._spec_accepted_total,
             "spec_accept_rate": self._spec_accepted_total / proposed if proposed else 0.0,
-            "swapped_blocks": 0,
-            "swapped_requests": 0,
-            "swap_bytes_held": 0,
-            "preempts_total": 0,
-            "preempts_priority_total": 0,
-            "preempts_pool_total": 0,
-            "preempts_growth_total": 0,
-            "resumes_total": 0,
-            "prefill_chunks_total": 0,
+            "swapped_blocks": pool["swapped"],
+            "swapped_requests": len(self._swapped_reqs),
+            "swap_bytes_held": self._swap_bytes_held,
+            "preempts_total": sum(self._preempt_counts.values()),
+            "preempts_priority_total": self._preempt_counts["priority"],
+            "preempts_pool_total": self._preempt_counts["pool"],
+            "preempts_growth_total": self._preempt_counts["growth"],
+            "resumes_total": self._resumes_total,
+            "prefill_chunks_total": self._prefill_chunks_total,
             "kv_bytes_per_token": self.kv_bytes_per_token,
         }
 
@@ -705,6 +1084,20 @@ class ServingEngine:
 
     def _emit_slo(self) -> None:
         self._tele("record_slo", **self.slo_tracker.snapshot(self._now()))
+
+    def _register_census_owners(self) -> None:
+        """Point the telemetry's buffer census (if it has one) at the
+        engine's parameters, its KV cache (pools and int8 scale arrays) and
+        a draft model's pools and parameters. The providers read the live
+        attributes at sample time."""
+        census = getattr(self._telemetry, "census", None)
+        if census is None:
+            return
+        census.set_owner("params", lambda: self.model)
+        census.set_owner("kv_cache", lambda: self.cache)
+        census.set_owner("draft_pool", lambda: (
+            (getattr(self._proposer, "cache", None), getattr(self._proposer, "model", None))
+            if self._proposer is not None else None))
 
     # ------------------------------------------------------------------ #
     # runtime toggles on a warm engine
@@ -725,6 +1118,7 @@ class ServingEngine:
         else:
             self.slo_tracker = SloTracker(slo)
         self.span_log.enabled = spans
+        self._register_census_owners()
 
     def set_prefix_cache(self, enabled: bool, model_fingerprint: Optional[str] = None) -> None:
         """Toggle prefix caching at runtime: host policy only, so cold and

@@ -1,10 +1,12 @@
 """Continuous (iteration-level) batching: admission and eviction on the host.
 
 Port of ``accelerate_tpu/serving/scheduler.py`` (``Request`` :42, ``Slot``
-:79, ``ContinuousScheduler`` :156) with prefix matching at admission and
-speculation's lookahead reservation, without the parts of paths not ported
-yet (priorities and preemption, adapters, chunked prefill, drain;
-ROADMAP.md, queue A9).
+:79, ``ContinuousScheduler`` :156) with prefix matching at admission,
+speculation's lookahead reservation, priorities (``Request.priority``
+:52-56, the ordered ``submit`` and ``shed_expired`` :228-301),
+chunk-aware admission (:386-400) and the preemption victim
+(``preempt_candidate`` :423-457), without the adapter gate (ROADMAP.md,
+queue A8) and drain mode (the HTTP plane, queue A9).
 
 A fixed array of decode slots is the device-side batch (the decode step is
 built once for it); requests flow through it. At every step boundary the
@@ -16,7 +18,11 @@ admitted request never runs out of blocks in flight. With a prefix cache
 attached, the longest cached chain of the head's prompt is acquired
 (refcounted) instead of allocated, and the engine prefills only the tail;
 with speculation on, ``lookahead_tokens`` more tokens' blocks are reserved
-for the verify pass's writes past the cursor. The queue is bounded
+for the verify pass's writes past the cursor. With ``chunked_reserve``
+(chunked prefill with preemption) admission reserves the cached prefix and
+one chunk instead, and the engine grows the table on demand, preempting
+when it cannot. The queue is ordered by priority (higher first, FIFO
+within a priority) and bounded
 when asked: ``max_queue`` tail-drops submissions (``shed_reason=
 "queue_full"``) and ``max_queue_delay_s`` sheds heads that waited too long
 (``"queue_deadline"``); ``blocked_reasons`` says why admission stalled.
@@ -45,6 +51,10 @@ class Request:
     temperature: float = 0.0
     eos_token_id: Optional[int] = None
     request_id: str = ""
+    # higher admits first (FIFO within a priority; 0 is the default tier);
+    # with preemption a seated request of lower priority can be swapped out
+    # to fund it
+    priority: int = 0
     submit_time: float = 0.0
     # set when the scheduler refuses or evicts the request instead of
     # queueing it: "queue_full" | "queue_deadline"
@@ -91,10 +101,22 @@ class Slot:
     lookahead: int = 0
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # chunked prefill: the chunks the prompt took (0: unchunked)
+    chunks: int = 0
+    # preemption: times the request was swapped out, and whether this
+    # seating is a resume (a resumed slot is not preempted again)
+    preempted_count: int = 0
+    resumed: bool = False
 
     @property
     def busy(self) -> bool:
         return self.request is not None
+
+    @property
+    def mid_prefill(self) -> bool:
+        """Chunked prefill still ingesting the prompt: the slot holds a seat
+        but is not in the decode batch yet."""
+        return self.request is not None and self.cache_len < len(self.request.prompt)
 
     def clear(self) -> None:
         self.request = None
@@ -113,6 +135,9 @@ class Slot:
         self.lookahead = 0
         self.spec_proposed = 0
         self.spec_accepted = 0
+        self.chunks = 0
+        self.preempted_count = 0
+        self.resumed = False
 
 
 class ContinuousScheduler:
@@ -143,6 +168,14 @@ class ContinuousScheduler:
         # clamped per request at the table's width and the pool's size
         self.lookahead_tokens = 0
         self.max_table_blocks = max_table_blocks
+        # chunked prefill (set by the engine): with chunked_reserve, which
+        # the engine sets only with preemption on, admission funds one chunk
+        # instead of the whole footprint
+        self.chunk_tokens: Optional[int] = None
+        self.chunked_reserve = False
+        # sticky: once a nonzero priority was submitted the queue is no
+        # longer in submit order and shed_expired scans all of it
+        self._saw_priority = False
         self.shed_counts = {"queue_full": 0, "queue_deadline": 0}
         self.blocked_reasons = {"no_free_slot": 0, "pool_exhausted": 0}
 
@@ -162,17 +195,38 @@ class ContinuousScheduler:
             request.shed_reason = "queue_full"
             self.shed_counts["queue_full"] += 1
             return request.request_id
-        self.queue.append(request)
+        if request.priority != 0:
+            self._saw_priority = True
+            # keep (priority desc, submit order asc): walk in from the tail
+            # past lower priorities; priority 0 appends
+            i = len(self.queue)
+            while i > 0 and self.queue[i - 1].priority < request.priority:
+                i -= 1
+            self.queue.insert(i, request)
+        else:
+            self.queue.append(request)
         return request.request_id
 
     def shed_expired(self) -> list[Request]:
-        """Shed queue heads whose wait exceeds ``max_queue_delay_s``. The
-        queue is FIFO, so the scan stops at the first fresh request. The
-        engine calls this once a step, before admission."""
+        """Shed queued requests whose wait exceeds ``max_queue_delay_s``. A
+        FIFO queue stops at the first fresh head; once priorities have
+        reordered it, the whole queue is scanned. The engine calls this once
+        a step, before admission."""
         if self.max_queue_delay_s is None:
             return []
         now = self._now()
         shed: list[Request] = []
+        if self._saw_priority:
+            keep: deque[Request] = deque()
+            for req in self.queue:
+                if now - req.submit_time > self.max_queue_delay_s:
+                    req.shed_reason = "queue_deadline"
+                    self.shed_counts["queue_deadline"] += 1
+                    shed.append(req)
+                else:
+                    keep.append(req)
+            self.queue = keep
+            return shed
         while self.queue:
             req = self.queue[0]
             if now - req.submit_time <= self.max_queue_delay_s:
@@ -229,7 +283,14 @@ class ContinuousScheduler:
             hit_tokens = len(shared) * self.pool.block_size
             cached_tokens = min(hit_tokens, len(req.prompt) - 1)
             cow_reserve = 1 if hit_tokens > cached_tokens else 0
-            need = self.pool.blocks_for_tokens(base_tokens + lookahead)
+            total_tokens = base_tokens + lookahead
+            if self.chunked_reserve and self.chunk_tokens is not None:
+                # the cached prefix and one chunk; the engine grows the
+                # table a chunk at a time and preempts when it cannot
+                reserve_tokens = min(total_tokens, cached_tokens + self.chunk_tokens)
+            else:
+                reserve_tokens = total_tokens
+            need = self.pool.blocks_for_tokens(reserve_tokens)
             if shared:
                 # pin the chain before any allocation can evict it
                 self.pool.acquire(shared)
@@ -250,6 +311,22 @@ class ContinuousScheduler:
             slot.admit_time = self._now()
             admitted.append(slot)
         return admitted
+
+    def preempt_candidate(self, max_priority: Optional[int] = None,
+                          exclude=()) -> Optional[Slot]:
+        """The slot preemption should swap out, or None: the lowest
+        priority first, then the least progress (fewest KV tokens: the
+        cheapest swap), then the highest index. Resumed slots are exempt, so
+        a request is preempted at most once a seating. ``max_priority``
+        caps the victims' priority; ``exclude`` skips slot indices (seats
+        admitted this step)."""
+        cands = [s for s in self.slots
+                 if s.busy and not s.done and not s.resumed and s.index not in exclude]
+        if max_priority is not None:
+            cands = [s for s in cands if s.request.priority <= max_priority]
+        if not cands:
+            return None
+        return min(cands, key=lambda s: (s.request.priority, s.cache_len, -s.index))
 
     @property
     def has_work(self) -> bool:

@@ -4,11 +4,12 @@ Host-only copy of ``accelerate_tpu/serving/spans.py`` (``RequestSpan``
 :36, ``SpanLog`` :119, ``spans_to_chrome_trace`` :239,
 ``write_chrome_trace`` :297) for the edges the ported engine stamps:
 submit -> admit -> prefill -> first token -> finish, or shed, with the
-prompt tokens served from the prefix cache and the request's draft accept
-rate. The span fields of the paths not ported yet (adapters, preemption,
-chunked prefill; ROADMAP.md, queue A9) are left out. ``SpanLog.enabled =
-False`` turns every hook into a no-op (the observability toggle's off
-arm).
+prompt tokens served from the prefix cache, the request's draft accept
+rate, its preemptions (``on_preempt``/``on_resume`` :175-195; the span
+stays open while the request waits on the host) and the chunks its prompt
+took (``on_first_token(chunks=)`` :166-173). The adapter field is left out
+(ROADMAP.md, queue A8). ``SpanLog.enabled = False`` turns every hook into
+a no-op (the observability toggle's off arm).
 
 Ordering invariant: ``submit_t <= admit_t <= prefill_start_t <=
 first_token_t <= finish_t`` for finished spans; shed spans stop at the edge
@@ -22,7 +23,8 @@ import json
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
-#: terminal span states; everything else ("queued", "running") is live
+#: terminal span states; everything else ("queued", "running",
+#: "preempted") is live
 TERMINAL_STATES = ("finished", "shed")
 
 
@@ -37,13 +39,17 @@ class RequestSpan:
     prefill_start_t: Optional[float] = None
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
-    state: str = "queued"  # queued | running | finished | shed
+    state: str = "queued"  # queued | running | preempted | finished | shed
     shed_reason: Optional[str] = None  # "queue_full" | "queue_deadline"
     new_tokens: int = 0
     # prompt tokens whose KV came from the prefix cache (0: cold or off)
     cached_prefix_tokens: int = 0
     # accepted over proposed draft tokens (None: nothing was proposed)
     accept_rate: Optional[float] = None
+    # times the request was swapped out and resumed (0: it kept its seat)
+    preempted_count: int = 0
+    # chunks the prompt took (0: unchunked)
+    chunked: int = 0
 
     @property
     def terminal(self) -> bool:
@@ -63,6 +69,8 @@ class RequestSpan:
             "cached_prefix_tokens": self.cached_prefix_tokens,
             "new_tokens": self.new_tokens,
             "accept_rate": self.accept_rate,
+            "preempted_count": self.preempted_count,
+            "chunked": self.chunked,
             "submit_t": self.submit_t,
             "admit_t": self.admit_t,
             "prefill_start_t": self.prefill_start_t,
@@ -109,10 +117,27 @@ class SpanLog:
             span.cached_prefix_tokens = cached_prefix_tokens
         return span
 
-    def on_first_token(self, request_id: str, t: float) -> Optional[RequestSpan]:
+    def on_first_token(self, request_id: str, t: float,
+                       chunks: int = 0) -> Optional[RequestSpan]:
         span = self._open.get(request_id)
         if span is not None:
             span.first_token_t = t
+            span.chunked = chunks
+        return span
+
+    def on_preempt(self, request_id: str, t: float) -> Optional[RequestSpan]:
+        """The request was swapped out to host memory: its span stays open
+        (it finishes after the resume) and counts the preemption."""
+        span = self._open.get(request_id)
+        if span is not None:
+            span.preempted_count += 1
+            span.state = "preempted"
+        return span
+
+    def on_resume(self, request_id: str, t: float) -> Optional[RequestSpan]:
+        span = self._open.get(request_id)
+        if span is not None:
+            span.state = "running"
         return span
 
     def on_finish(self, request_id: str, t: float, new_tokens: int,

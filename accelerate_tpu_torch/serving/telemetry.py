@@ -4,8 +4,9 @@ Host-only copy of ``accelerate_tpu/serving/telemetry.py`` (``percentile``
 :20, ``ServeStats`` :38). The rolling window holds the last ``window``
 records for the p50/p95 keys; request and token totals and shed counts
 accumulate for the engine's whole life. Each record is the engine's
-``kind="serve"`` record, with the request's cached prefix tokens and its
-draft counts (``spec_proposed``, ``spec_accepted``, ``accept_rate``); the
+``kind="serve"`` record, with the request's cached prefix tokens, its
+draft counts (``spec_proposed``, ``spec_accepted``, ``accept_rate``), its
+preemptions (``preempted_count``) and its prefill chunks; the
 engine-wide prefix hit and speculation totals are sections of
 ``ServingEngine.summary()``.
 """

@@ -1,9 +1,10 @@
 """Telemetry for the serving path.
 
 Port of the serving half of ``accelerate_tpu/telemetry/``:
-:class:`StepTelemetry` with its serving records, :class:`TelemetryConfig`
-and the sinks (:class:`JSONLSink`, :class:`PrometheusTextSink`). The step
-records, the heartbeat watchdog, retrace detection, the HTTP exporter and
+:class:`StepTelemetry` with its serving and soak records and its buffer
+census (``profiling/census.py``), :class:`TelemetryConfig` and the sinks
+(:class:`JSONLSink`, :class:`PrometheusTextSink`). The step records, the
+heartbeat watchdog, retrace detection, the HTTP exporter and
 ``TrackerBridgeSink`` are not ported yet (ROADMAP.md, queue A10).
 """
 

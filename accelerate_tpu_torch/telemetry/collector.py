@@ -5,14 +5,17 @@ the records the serving engine emits: ``add_sink``, the emit path (the
 in-memory ring, then every sink, with a ``kind="meta"`` record first and
 sink errors caught and rate-limited), ``record_serve`` (:398),
 ``record_span``, ``record_serve_gauge``, ``record_shed``,
-``record_memory``, ``sample_memory`` (:512), ``record_slo``, ``summary``
-and ``close``.
+``record_preempt`` (:515-540), ``record_memory``, ``sample_memory``
+(:542-575), ``record_slo``, ``record_soak`` (:577-), ``summary`` and
+``close``.
 
-``sample_memory`` reads ``torch.cuda.memory_stats`` of the current CUDA
-device where there is one, and the process's resident set size always; on
-a machine without CUDA the device fields are 0, as the reference reports a
-device that gives no numbers. The reference's owner-attributed buffer
-census (``profiling/census.py``) is not ported.
+An enabled collector holds a buffer census (``census``, a
+``profiling.census.BufferCensus``, :85-90) that a serving engine points at
+its parameters and KV cache. ``sample_memory`` takes one census (owner
+bytes, unowned bytes, host RSS and its peak) and adds
+``torch.cuda.memory_stats`` of the current CUDA device where there is one;
+on a machine without CUDA the device fields are 0, as the reference
+reports a device that gives no numbers.
 
 The training-side hooks (``begin_step``, ``end_step``,
 ``record_checkpoint``, ``record_compile``, ``record_dataloader_wait``) and
@@ -32,6 +35,7 @@ from typing import Any, Optional, Union
 import torch
 
 from ..logging import get_logger
+from ..profiling.census import BufferCensus
 from .config import TelemetryConfig
 from .sinks import SCHEMA_VERSION, JSONLSink, TelemetrySink
 
@@ -88,7 +92,8 @@ class StepTelemetry:
         self.records: collections.deque = collections.deque(maxlen=config.history)
         self._meta_written = False
         self._sink_errors = 0
-        self._last_memory_t: Optional[float] = None
+        self.census = (BufferCensus(min_interval_s=config.census_min_interval_s)
+                       if config.enabled else None)
         # records may come from several threads: serialize sink writes
         self._emit_lock = threading.Lock()
         if config.enabled and config.jsonl_path is not None:
@@ -193,29 +198,47 @@ class StepTelemetry:
         serving latency objectives."""
         return self._record_event("slo", label, fields)
 
+    def record_preempt(self, *, request_id: str, reason: str, label: str = "serve",
+                       **fields) -> Optional[dict]:
+        """Emit a ``kind="preempt"`` record: one running request swapped out
+        to host memory (``reason``: ``priority`` | ``pool`` | ``growth``).
+        Unlike a shed the request resumes later with the same tokens."""
+        return self._record_event("preempt", label,
+                                  {"request_id": request_id, "reason": reason, **fields})
+
+    def record_soak(self, *, label: str = "soak", **fields) -> Optional[dict]:
+        """Emit a ``kind="soak"`` record: the loadgen harness's posture at a
+        phase end (offered and achieved rate, goodput under the SLO,
+        arrival lag, sheds, breach) or its ``phase="final"`` summary."""
+        return self._record_event("soak", label, fields)
+
     def record_memory(self, *, label: str = "memory", **fields) -> Optional[dict]:
         """Emit a ``kind="memory"`` record: one device and host memory
         sample."""
         return self._record_event("memory", label, fields)
 
-    def sample_memory(self, *, force: bool = False) -> Optional[dict]:
-        """Take one memory sample and emit it as a ``kind="memory"`` record:
-        ``hbm_bytes_in_use``, ``peak_hbm_bytes`` and ``hbm_bytes_limit`` of
-        the CUDA device, ``host_rss_bytes``. Samples are at least
-        ``config.census_min_interval_s`` apart (``force`` skips the wait);
-        None while disabled or waiting."""
-        if not self.enabled:
+    def sample_memory(self, *, step: Optional[int] = None, force: bool = False,
+                      label: str = "memory") -> Optional[dict]:
+        """Take one census and emit it as a ``kind="memory"`` record: the
+        census fields (``census_owner_bytes``, ``census_unowned_bytes``,
+        ``census_total_bytes``, ``census_arrays``, ``host_rss_bytes``,
+        ``host_rss_peak_bytes``) and ``hbm_bytes_in_use``,
+        ``peak_hbm_bytes`` and ``hbm_bytes_limit`` of the CUDA device.
+        Samples are at least ``config.census_min_interval_s`` apart
+        (``force`` skips the wait); None while disabled or waiting."""
+        if not self.enabled or self.census is None:
             return None
-        now = time.monotonic()
-        if (not force and self._last_memory_t is not None
-                and now - self._last_memory_t < self.config.census_min_interval_s):
+        fields = self.census.maybe_sample(force=force)
+        if fields is None:
             return None
-        self._last_memory_t = now
+        fields = dict(fields)
         stats = device_memory_stats()
-        return self.record_memory(hbm_bytes_in_use=stats["bytes_in_use"],
-                                  peak_hbm_bytes=stats["peak_bytes_in_use"],
-                                  hbm_bytes_limit=stats["bytes_limit"],
-                                  host_rss_bytes=host_memory_rss())
+        fields["hbm_bytes_in_use"] = stats["bytes_in_use"]
+        fields["peak_hbm_bytes"] = stats["peak_bytes_in_use"]
+        fields["hbm_bytes_limit"] = stats["bytes_limit"]
+        if step is not None:
+            fields["step"] = step
+        return self.record_memory(label=label, **fields)
 
     # ------------------------------------------------------------------ #
     # training hooks (queue A10)

@@ -18,16 +18,29 @@ Serving record kinds (the schema is the reference's, :75-140):
   prefix cache, speculation, shed and blocked counters);
 * ``shed``: one refused or expired request and its ``reason``;
 * ``slo``: attainment and burn rates (``serving/slo.py``);
-* ``memory``: device and host memory in use.
+* ``memory``: device and host memory in use, with the buffer census's
+  bytes by owner (``profiling/census.py``);
+* ``preempt``: one running request swapped out to host memory
+  (``request_id``, ``reason``: ``priority`` | ``pool`` | ``growth``,
+  ``blocks``, ``swap_bytes``, ``cache_len``, ``priority``; :198-210);
+* ``soak``: the loadgen harness's posture at each phase end and a
+  ``phase="final"`` summary (:232-).
+
+The serve gauges include the capacity plane's ``swapped_blocks``,
+``swapped_requests``, ``swap_bytes_held``, ``preempts_total``,
+``preempts_{priority,pool,growth}_total``, ``resumes_total`` and
+``prefill_chunks_total`` (:153-159).
 
 The Prometheus sink renders them as the reference does: latency fields
 and ``accept_rate`` of ``serve`` records as summaries (rolling-window
 quantiles with cumulative ``_count``/``_sum``), the draft tallies as
 per-adapter counters, gauges for ``serve_gauge``, ``slo`` and ``memory``
-fields, a counter per shed reason; span records are not gauges. The
-training kinds (``step``, ``goodput``, ``audit``, ``soak``, ``preempt``)
-and ``TrackerBridgeSink`` wait for the step records (ROADMAP.md, queue
-A10); a sink ignores a kind it does not render.
+fields, ``{prefix}_hbm_bytes{owner=...}`` from the census, a counter per
+shed reason and per preempt reason (``{prefix}_serve_preempt_total``,
+:457-), ``{prefix}_loadgen_*`` gauges for ``soak`` records; span records
+are not gauges. The training kinds (``step``, ``goodput``, ``audit``) and
+``TrackerBridgeSink`` wait for the step records (ROADMAP.md, queue A10);
+a sink ignores a kind it does not render.
 """
 
 from __future__ import annotations
@@ -127,6 +140,8 @@ class PrometheusTextSink(TelemetrySink):
             if parent:
                 os.makedirs(parent, exist_ok=True)
         self._gauges: dict[tuple[str, str], float] = {}  # (metric, label) -> value
+        # (metric, label name, label value) -> latest value (hbm_bytes{owner})
+        self._labeled_gauges: dict[tuple[str, str, str], float] = {}
         # (metric, label name, label value) -> monotonic count
         self._counters: dict[tuple[str, str, str], float] = {}
         # (metric, label) -> rolling window for the quantiles; _count and
@@ -143,12 +158,25 @@ class PrometheusTextSink(TelemetrySink):
         elif kind == "serve_gauge":
             self._emit_gauges(record, "serve")
         elif kind == "memory":
+            owners = dict(record.get("census_owner_bytes") or {})
+            if record.get("census_unowned_bytes") is not None:
+                owners["unowned"] = record["census_unowned_bytes"]
+            for owner, value in owners.items():
+                if _numeric(value):
+                    self._labeled_gauges[(f"{self.prefix}_hbm_bytes", "owner",
+                                          str(owner))] = float(value)
             self._emit_gauges(record, "memory")
+        elif kind == "soak":
+            self._emit_gauges(record, "loadgen")
         elif kind == "slo":
             # the breach flag is the one bool worth a gauge (a 0/1 alert line)
             self._emit_gauges({**record, "breach": 1.0 if record.get("breach") else 0.0}, "slo")
         elif kind == "shed":
             self._count("serve_shed_total", "reason", str(record.get("reason", "unknown")), 1.0)
+            self._write()
+        elif kind == "preempt":
+            self._count("serve_preempt_total", "reason", str(record.get("reason", "unknown")),
+                        1.0)
             self._write()
         # span records are per-request traces for JSONL/Perfetto, not gauges
 
@@ -200,6 +228,11 @@ class PrometheusTextSink(TelemetrySink):
             for (m, label), value in sorted(self._gauges.items()):
                 if m == metric:
                     lines.append(f'{metric}{{label="{self._escape_label(label)}"}} {value}')
+        for metric in sorted({m for m, _, _ in self._labeled_gauges}):
+            lines.append(f"# TYPE {metric} gauge")
+            for (m, lname, lvalue), value in sorted(self._labeled_gauges.items()):
+                if m == metric:
+                    lines.append(f'{metric}{{{lname}="{self._escape_label(lvalue)}"}} {value}')
         for metric in sorted({m for m, _, _ in self._counters}):
             lines.append(f"# TYPE {metric} counter")
             for (m, lname, lvalue), value in sorted(self._counters.items()):
@@ -230,5 +263,5 @@ class PrometheusTextSink(TelemetrySink):
         os.replace(tmp, self.path)  # scrapers never see a torn file
 
     def close(self) -> None:
-        if self._gauges or self._counters or self._summaries:
+        if self._gauges or self._labeled_gauges or self._counters or self._summaries:
             self._write()

@@ -1,8 +1,9 @@
-"""Checkpoint file names.
+"""Checkpoint file names and the environment prefix.
 
-Port of ``accelerate_tpu/utils/constants.py:10-20``: the names that
-``checkpointing.py`` gives the files of a saved state, kept so that a
-directory the port writes is laid out as the reference's.
+Port of ``accelerate_tpu/utils/constants.py:10-20`` and ``:48``: the names
+that ``checkpointing.py`` gives the files of a saved state, kept so that a
+directory the port writes is laid out as the reference's, and the prefix
+of the environment variables the port reads.
 """
 
 MODEL_NAME = "model"
@@ -15,3 +16,5 @@ METADATA_NAME = "accelerate_state.json"
 
 SAFE_WEIGHTS_NAME = "model.safetensors"
 SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
+
+ENV_PREFIX = "ACCELERATE_TPU_"

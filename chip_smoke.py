@@ -121,6 +121,34 @@ Phases, each fatal on failure (exit code 1, no result line):
    (gated), B1-B3 timed there, then 4 steps each under
    ``"save_mlp"``, ``"full"`` and no remat, whose gradients must be the same
    bit for bit, each with exact launches.
+12. serve_soak: the reference benchmark's ``serve_soak`` variant
+   (``measure.py:_run_serve_soak`` at ``(decode, 4, 16, 64, 0)``,
+   registry.py:329-330) on phase 8's ``decode`` model (built once for
+   both). First a 2-layer fp32 model on the card against the CPU: an
+   engine with chunked prefill, preemption and int8 KV on the reference's
+   ``test_all_three_features_compose`` prompts gives the CPU's greedy
+   tokens and the int8-only engine's, and a priority preemption resumes bit
+   for bit. Then the main soak on the wall clock through ``SoakHarness``:
+   the closed-loop capacity probe (run twice, the second timed), the TTFT
+   objective (2x its p95) and ``max_queue_delay_s``, and the nine phases
+   (warmup, four ramps to 2x capacity, cooldown, soak, fault with
+   ``stall_decode``, recovery); it prints goodput at the SLO,
+   ``vs_baseline``, capacity at the breach point, sheds, arrival lag and the
+   fault window's damage and recovery. Then the A/B arms on the virtual
+   clock (``soak_ab_arms``): chunked prefill off and on over the
+   long-prompt burst on a constrained pool with the work-weighted step cost
+   (on's soak p95 TTFT strictly below off's, chunks > 0), and shed-only
+   against preemption under ``pool_pressure`` (fewer fault-window sheds,
+   at least one preemption, every preempted request's tokens equal to the
+   shed-only control's bit for bit, the pool drained). Then int8 KV: census
+   ``kv_cache`` bytes of bf16 and int8 engines and the seats they fund at
+   the bf16 pool's bytes (both ratios >= 1.8); ``quantize_kv`` on the card
+   against the CPU on one prefill's K and V (bit for bit); int8
+   ``paged_attention`` in bf16 against its fp32 computation
+   (INT8_ATTN_TOL). Then one chunked step, one swap-out and its swap-in
+   under the profiler. Every engine builds its decode step once and no
+   kernel of the port launches. Readings, not gated: ``slo_ok``, ``recovered``,
+   the goodput, int8 against bf16 greedy agreement and first-token logits.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -141,7 +169,11 @@ phase 1, the BERT-shape kernel cases and timings, and phases 6 and 7, and
     python3 chip_smoke.py --serve-only
 
 phase 8 alone (the serving path runs no kernel of the port, so nothing is
-built), ending with the card's line and the ``{"ok": true, ...}`` line, and
+built), ending with the card's line and the ``{"ok": true, ...}`` line,
+
+    python3 chip_smoke.py --soak-only
+
+phase 12 alone, ending the same way, and
 
     python3 chip_smoke.py --variants-only
 
@@ -163,9 +195,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 MAIN = dict(B=2, S=2048, H=32, Hkv=8, D=128)  # llama3_8b attention at the main path's batch
@@ -244,6 +278,12 @@ SPEC_K, SPEC_PROMPTS = 4, 8  # measure.py:896-897
 SPEC_ACCEPT_MIN = 0.97
 SENTINEL = -768.0  # what the pools hold before the trace (exact in bf16)
 CARD = "cuda"  # where the serving phase puts its models
+# the reference's serve_soak variant: measure.py:_run_serve_soak(decode, 4, 16, 64, 0)
+# (registry.py:329-330)
+SOAK = dict(max_slots=4, block_size=16, target_requests=64, seed=0)
+# int8 paged_attention in bf16 against its fp32 computation from the same
+# codes and scales: worst row's max error over its RMS (PERF.md's parity table)
+INT8_ATTN_TOL = 0.06  # about 3x the reading 0.0203 on an H100
 # the reference benchmark's single-card training variants
 # (accelerate_tpu/benchmarks/registry.py:203-406): full width and depth
 MOE_CFG = dict(vocab_size=32000, hidden_size=4096, intermediate_size=3584, num_layers=1,
@@ -1657,9 +1697,22 @@ def paged_against_dense(torch, model, trace, rep: Report) -> None:
         fail(f"serve: paged prefill left dense prefill: {max(errs)} > {SERVE_PREFILL_TOL}")
 
 
-def serve_phase(torch, port, wrappers, rep: Report) -> None:
-    """The serving path on the ``decode`` config: see phase 8 in the module
-    docstring. Every launch counter is set to 0 before and read after."""
+def build_decode_model(torch, port, rep: Report):
+    """The ``decode`` config's model, built once for phases 8 and 12."""
+    t0 = time.perf_counter()
+    model = decode_model(torch, port)
+    torch.cuda.synchronize()
+    rep.line(f"decode model set-up: decode config (registry.py:289-297), "
+             f"{sum(p.numel() for p in model.parameters())} params, "
+             f"{sum(p.nbytes for p in model.parameters())} bytes of bf16 weights, "
+             f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def serve_phase(torch, port, wrappers, rep: Report, model) -> None:
+    """The serving path on the ``decode`` config (``model``, from
+    ``build_decode_model``): see phase 8 in the module docstring. Every
+    launch counter is set to 0 before and read after."""
     import numpy as np
 
     from accelerate_tpu_torch.models.generation import generate, make_generate_fn
@@ -1670,15 +1723,9 @@ def serve_phase(torch, port, wrappers, rep: Report) -> None:
     torch.cuda.empty_cache()
     reset_counts(wrappers)
     small_serving_check(torch, port, rep)
-    t0 = time.perf_counter()
-    model = decode_model(torch, port)
-    torch.cuda.synchronize()
     cfg = model.config
-    n_params = sum(p.numel() for p in model.parameters())
     weights = sum(p.nbytes for p in model.parameters())
     bound_ms = weights / PEAK_BYTES * 1e3
-    rep.line(f"serve set-up: decode config (registry.py:289-297), {n_params} params, "
-             f"{weights} bytes of bf16 weights, {time.perf_counter() - t0:.2f} s")
     trace = serve_trace(cfg.vocab_size, cfg.max_seq_len)
     paged_against_dense(torch, model, trace, rep)
 
@@ -1843,7 +1890,7 @@ def serve_phase(torch, port, wrappers, rep: Report) -> None:
     del fns
     observability_ab(torch, engine, run_engine, headline, timed, rep)
     prefix_ab(torch, engine, model, rep)
-    del engine, model
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
     speculation_ab(torch, port, rep)
@@ -2140,6 +2187,510 @@ def speculation_ab(torch, port, rep: Report) -> None:
         fail(f"serve speculation draft: accept rate {arms['draft']['spec']['accept_rate']} < "
              f"{SPEC_ACCEPT_MIN}")
     del target, draft
+
+
+# ---------------------------------------------------------------------- #
+# phase 12: the reference benchmark's serve_soak variant
+# ---------------------------------------------------------------------- #
+def soak_plan(loadgen, cfg, max_slots: int, block_size: int, seed: int) -> dict:
+    """``measure.py:_run_serve_soak``'s workload (:1156-1168) and its A/B
+    arms' plans (:1337-1500) for a model config, built with ``loadgen``
+    (either package's): the long-prompt-burst mix on a pool sized to one
+    giant and four median shorts, the chunk budget and the work-weighted
+    step cost for the chunked arms; the pressure pool, phases and fault for
+    the preemption arms. Pure arithmetic on the config."""
+    from dataclasses import replace
+
+    from accelerate_tpu_torch.serving.engine import _next_pow2 as next_pow2
+
+    max_prompt = max(8, min(cfg.max_seq_len // 4, 48))
+    workload = loadgen.WorkloadConfig(
+        vocab_size=cfg.vocab_size, prompt_tokens_min=4,
+        prompt_tokens_median=max(6, max_prompt // 4), prompt_tokens_max=max_prompt,
+        output_tokens_min=2, output_tokens_median=6, output_tokens_max=24,
+        max_total_tokens=cfg.max_seq_len)
+    ab_dt = 0.01  # virtual seconds an engine step
+    vcap = max_slots / ((2 + workload.output_tokens_median) * ab_dt)
+    long_tokens = max(workload.prompt_tokens_max,
+                      workload.max_total_tokens - 2 * workload.output_tokens_max)
+    giant_frac, burst_out_median = 0.03, 16
+    burst_workload = replace(workload, long_prompt_fraction=giant_frac,
+                             long_prompt_tokens=long_tokens,
+                             output_tokens_min=burst_out_median // 2,
+                             output_tokens_median=burst_out_median)
+    giant_fp = -(-(long_tokens + workload.output_tokens_max) // block_size)
+    short_fp = -(-(workload.prompt_tokens_median + burst_out_median) // block_size)
+    chunk_budget = max(4 * block_size, next_pow2(long_tokens // 4))
+    step_base = 0.25
+    avg_prompt = ((1.0 - giant_frac) * workload.prompt_tokens_median
+                  + giant_frac * long_tokens)
+    chunk_quanta = (step_base + avg_prompt / chunk_budget
+                    + step_base * burst_out_median / max_slots)
+    vcap_chunk = 1.0 / (chunk_quanta * ab_dt)
+    median_fp = -(-(workload.prompt_tokens_median + workload.output_tokens_median)
+                  // block_size)
+    max_fp = -(-(workload.prompt_tokens_max + workload.output_tokens_max) // block_size)
+    prime_lens = sorted({4, workload.prompt_tokens_median, workload.prompt_tokens_max,
+                         chunk_budget, long_tokens})
+    pressure_blocks = 1 + max(3 * median_fp, max_fp + 1)
+    return dict(
+        workload=workload, seed=seed, ab_dt=ab_dt, step_base=step_base,
+        burst_workload=burst_workload, chunk_budget=chunk_budget, long_tokens=long_tokens,
+        ab_blocks=1 + giant_fp + 4 * short_fp,
+        burst_phases=(loadgen.Phase("warmup", "warmup", 1.0, 0.3 * vcap_chunk),
+                      loadgen.Phase("soak", "soak", 3.5, 0.8 * vcap_chunk)),
+        prime_lens=prime_lens,
+        # the reference primes the pressure arms with every length but the
+        # giant's (measure.py:1483), which at the decode config includes the
+        # 128-token chunk budget: 130 tokens that its 7-block pool (96
+        # tokens) refuses at submit. Only the lengths the pool can seat are
+        # primed; the arms' traces reach no longer prompt
+        pressure_prime_lens=[n for n in prime_lens[:-1]
+                             if -(-(n + 2) // block_size) <= pressure_blocks - 1],
+        pressure_blocks=pressure_blocks,
+        pressure_phases=(loadgen.Phase("warmup", "warmup", 1.0, 0.35 * vcap),
+                         loadgen.Phase("fault", "fault", 2.0, 1.3 * vcap),
+                         loadgen.Phase("recovery", "recovery", 1.0, 0.35 * vcap)),
+        pressure_fault="pool_pressure@0:secs=1.2", pressure_delay_s=0.3)
+
+
+def soak_ab_arms(loadgen, make_engine, plan: dict, report_dir=None, telemetry=None) -> dict:
+    """The chunked and preemption A/B arms of ``measure.py:1319-1508`` on
+    the virtual clock: ``make_engine(clock, **options)`` builds an engine
+    (either package's) stamping from ``clock``. Each arm's engine is primed
+    over ``plan["prime_lens"]`` (every prefill and chunk bucket the trace
+    can reach, and the decode step) before its run, with its stats reset.
+    ``telemetry(arm)``, if given, returns the collector the harness tees
+    the arm's records into. Returns {arm: (report, engine)} for
+    chunked-off, chunked-on, preempt-off and preempt-on."""
+    import os
+
+    import numpy as np
+
+    def prime(engine, lens):
+        rng = np.random.default_rng(plan["seed"] + 99)
+        for n in lens:
+            engine.add_request(rng.integers(1, plan["workload"].vocab_size, size=n).tolist(),
+                               max_new_tokens=2)
+        while engine.has_work:
+            engine.step()
+        engine.stats = type(engine.stats)()
+
+    def work_cost(engine):
+        """A base quantum and one quantum a chunk budget of padded prefill
+        tokens the step issued (measure.py:1422-1436)."""
+        last = [engine.prefill_bucket_tokens_total]
+
+        def cost(_):
+            cur = engine.prefill_bucket_tokens_total
+            delta, last[0] = cur - last[0], cur
+            return plan["ab_dt"] * (plan["step_base"] + delta / plan["chunk_budget"])
+        return cost
+
+    arms = {}
+    specs = (
+        ("chunked-off", dict(num_blocks=plan["ab_blocks"]), "burst", True),
+        ("chunked-on", dict(num_blocks=plan["ab_blocks"],
+                            prefill_chunk_tokens=plan["chunk_budget"], preemption=True),
+         "burst", True),
+        ("preempt-off", dict(num_blocks=plan["pressure_blocks"],
+                             max_queue_delay_s=plan["pressure_delay_s"]), "pressure", False),
+        ("preempt-on", dict(num_blocks=plan["pressure_blocks"],
+                            max_queue_delay_s=plan["pressure_delay_s"], preemption=True),
+         "pressure", False),
+    )
+    for name, options, kind, burst in specs:
+        clock = loadgen.SoakClock()
+        engine = make_engine(clock, **options)
+        prime(engine, plan["prime_lens"] if burst else plan["pressure_prime_lens"])
+        config = loadgen.SoakConfig(
+            workload=plan["burst_workload"] if burst else plan["workload"],
+            phases=plan["burst_phases"] if burst else plan["pressure_phases"],
+            seed=plan["seed"] + 17, step_dt_s=plan["ab_dt"],
+            step_cost=work_cost(engine) if burst else None,
+            fault_specs="" if burst else plan["pressure_fault"],
+            report_path=(os.path.join(report_dir, f"soak-report-{name}.json")
+                         if report_dir else None),
+            drain_grace_s=60.0, label=f"serve_soak_{name}")
+        harness = loadgen.SoakHarness(engine, config, clock=clock,
+                                      telemetry=telemetry(name) if telemetry else None)
+        arms[name] = (harness.run(), engine)
+    return arms
+
+
+def soak_p95(report) -> float:
+    return next(p["p95_ttft_s"] for p in report["phases"] if p["phase"] == "soak")
+
+
+def soak_small_check(torch, port, rep: Report) -> None:
+    """A 2-layer fp32 model of the tiny widths on the card against the CPU:
+    the engine with chunked prefill, preemption and int8 KV on the
+    reference's ``test_all_three_features_compose`` prompts gives the CPU's
+    greedy tokens and the card's int8-only engine's; a priority-5 arrival
+    swaps a seated request out and it finishes with the uncontended run's
+    tokens."""
+    import numpy as np
+
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    cfg = port.TransformerConfig.tiny(num_layers=2, max_seq_len=64, dtype="float32")
+    cpu = port.CausalLM(cfg, device="cpu", generator=torch.Generator().manual_seed(4))
+    card_model = port.CausalLM(cfg, device=CARD)
+    card_model.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (23, 5, 17, 9)]
+
+    def run_all(engine, ps, **kw):
+        ids = [engine.add_request(p, max_new_tokens=6, **kw) for p in ps]
+        while engine.has_work:
+            engine.step()
+        return [engine.result(r) for r in ids], engine
+
+    composed = dict(max_slots=4, block_size=8, num_blocks=24, prefill_chunk_tokens=8,
+                    preemption=True, kv_dtype="int8")
+    outs = {}
+    for where, model in (("card", card_model), ("cpu", cpu)):
+        outs[f"{where} composed"], engine = run_all(ServingEngine(model, **composed), prompts)
+        if engine.trace_counts()["decode"] != 1:
+            fail(f"soak small model: the composed engine's builds {engine.trace_counts()}")
+    outs["card int8 only"] = run_all(ServingEngine(card_model, max_slots=4, block_size=8,
+                                                   num_blocks=24, kv_dtype="int8"), prompts)[0]
+    same = {name: got == outs["cpu composed"] for name, got in outs.items()}
+    rep.line(f"soak small fp32 model: chunked + preemption + int8 greedy tokens equal to the "
+             f"CPU's {json.dumps(same)}")
+    if not all(same.values()):
+        fail(f"soak small model: the composed engine's tokens differ: {same}")
+    # a priority preemption on the card, resumed from the host images
+    ps = [prompts[0], prompts[2], prompts[1]]
+    want = run_all(ServingEngine(card_model, max_slots=2, block_size=4, num_blocks=33), ps)[0]
+    engine = ServingEngine(card_model, max_slots=2, block_size=4, num_blocks=13, preemption=True)
+    victim = engine.add_request(ps[0], max_new_tokens=6)
+    engine.step()
+    engine.step()
+    urgent = engine.add_request(ps[1], max_new_tokens=6, priority=5)
+    filler = engine.add_request(ps[2], max_new_tokens=6)
+    while engine.has_work:
+        engine.step()
+    got = [engine.result(r) for r in (victim, urgent, filler)]
+    stats = engine.pool.stats()
+    rep.line(f"soak small fp32 model: priority preemption on the card: preempts "
+             f"{engine._preempt_counts}, resumes {engine._resumes_total}, builds "
+             f"{engine.trace_counts()}, tokens equal to the uncontended run {got == want}")
+    if (got != want or engine._preempt_counts["priority"] != 1 or engine._resumes_total != 1
+            or stats["swapped"] or stats["allocated"]):
+        fail(f"soak small model: priority preemption did not resume bit for bit: {got} vs "
+             f"{want}, {engine._preempt_counts}, {stats}")
+
+
+def soak_kv_checks(torch, model, prompt, rep: Report) -> None:
+    """On the decode config, one bucketed prefill of ``prompt`` into fresh
+    bf16 and int8 pools: ``quantize_kv`` on the card against the CPU on the
+    K and V rows the bf16 prefill wrote in every layer (codes and scales
+    bit for bit); the int8 ``paged_attention`` of a 4-slot decode query in
+    bf16 against its fp32 computation from the same codes and scales, row
+    by row (INT8_ATTN_TOL). A reading: the int8 first-token logits against
+    the bf16 ones."""
+    from accelerate_tpu_torch.models.generation import init_cache
+    from accelerate_tpu_torch.ops.attention import PagedKVState, paged_attention, quantize_kv
+    from accelerate_tpu_torch.serving.engine import _next_pow2 as next_pow2
+
+    cfg = model.config
+    bs = SOAK["block_size"]
+    n = len(prompt)
+    bucket = next_pow2(n)
+    blocks = -(-bucket // bs)
+    width = -(-cfg.max_seq_len // bs)
+    table = torch.zeros((1, width), dtype=torch.long, device=CARD)
+    table[0, :blocks] = torch.arange(1, blocks + 1, device=CARD)
+    ids = torch.zeros((1, bucket), dtype=torch.long, device=CARD)
+    ids[0, :n] = torch.tensor(prompt, device=CARD)
+    caches, firsts = {}, {}
+    with torch.no_grad():
+        for kv_dtype in ("native", "int8"):
+            caches[kv_dtype] = cache = init_cache(model, num_blocks=blocks + 1, block_size=bs,
+                                                  kv_dtype=kv_dtype)
+            state = PagedKVState(table, torch.zeros(1, dtype=torch.long, device=CARD),
+                                 torch.tensor([n], device=CARD), num_blocks=blocks + 1,
+                                 block_size=bs, kv_dtype=kv_dtype)
+            firsts[kv_dtype] = model(ids, decode=True, paged=state, cache=cache)[0, n - 1].float()
+    native = caches["native"]
+    same = []
+    for pool in (native.key, native.value):
+        rows = pool[:, 1:blocks + 1].reshape(cfg.num_layers, blocks * bs, *pool.shape[3:])
+        x = rows[:, :n]  # (layers, n, Hkv, D): every layer's rows as a batch
+        q_card, s_card = quantize_kv(x)
+        q_cpu, s_cpu = quantize_kv(x.cpu())
+        same.append(torch.equal(q_card.cpu(), q_cpu) and torch.equal(s_card.cpu(), s_cpu))
+    rep.line(f"soak int8: quantize_kv of the K and V rows one {n}-token prefill wrote "
+             f"({cfg.num_layers} layers x {n} rows of {tuple(native.key.shape[3:])}, bf16) on "
+             f"the card against the CPU: codes and scales bit for bit {same}")
+    if not all(same):
+        fail("soak int8: quantize_kv on the card differs from the CPU")
+    first_err = float((firsts["int8"] - firsts["native"]).abs().max()
+                      / firsts["native"].square().mean().sqrt())
+    rep.line(f"soak int8: first-token logits, int8 against bf16 pools ({n}-token prompt): max "
+             f"error over RMS {first_err}, argmax equal "
+             f"{int(firsts['int8'].argmax()) == int(firsts['native'].argmax())} (a reading)")
+    i8 = caches["int8"]
+    lens = [n - 1, n // 2, 5, 0]
+    state = PagedKVState(table.expand(4, -1).contiguous(), torch.tensor(lens, device=CARD),
+                         torch.ones(4, dtype=torch.long, device=CARD), num_blocks=blocks + 1,
+                         block_size=bs, kv_dtype="int8")
+    g = torch.Generator(CARD).manual_seed(5)
+    q = torch.randn((4, 1, cfg.num_heads, cfg.head_dim), generator=g, device=CARD)
+    errs = []
+    with torch.no_grad():
+        for layer in (0, cfg.num_layers - 1):
+            args = (i8.key[layer], i8.value[layer], state)
+            kw = dict(key_scale=i8.key_scale[layer], value_scale=i8.value_scale[layer])
+            got = paged_attention(q.to(torch.bfloat16), *args, **kw)
+            want = paged_attention(q, *args, **kw)
+            errs.append(row_err(torch, got, want))
+    rep.line(f"soak int8: paged_attention in bf16 against its fp32 computation from the same "
+             f"codes (4 slots at cache lengths {lens}, layers 0 and {cfg.num_layers - 1}): worst "
+             f"row error {errs}, limit {INT8_ATTN_TOL}")
+    if not max(errs) <= INT8_ATTN_TOL:
+        fail(f"soak int8: paged_attention beyond tolerance: {max(errs)} > {INT8_ATTN_TOL}")
+
+
+def soak_profiles(torch, model, rep: Report) -> None:
+    """Where a soak step's time goes on the decode config: one engine step
+    with a 128-token chunk of a 464-token prompt in flight beside three
+    decoding slots, then one swap-out of a 300-token request's 20 blocks and
+    its swap-in, each once under the profiler."""
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    import numpy as np
+
+    rng = np.random.default_rng(SOAK["seed"] + 7)
+    vocab = model.config.vocab_size
+    engine = ServingEngine(model, max_slots=SOAK["max_slots"], block_size=SOAK["block_size"],
+                           prefill_chunk_tokens=128, preemption=True)
+    for _ in range(3):
+        engine.add_request(rng.integers(1, vocab, 12).tolist(), max_new_tokens=64)
+    engine.step()
+    engine.step()
+    engine.add_request(rng.integers(1, vocab, 464).tolist(), max_new_tokens=8)
+    engine.step()  # the giant's first chunk
+    profile_call(torch, engine.step, rep, "soak chunked step (a 128-token chunk at offset 128 "
+                 "and 3 decoding slots)")
+    while engine.has_work:
+        engine.step()
+    engine = ServingEngine(model, max_slots=2, block_size=SOAK["block_size"], preemption=True)
+    engine.add_request(rng.integers(1, vocab, 300).tolist(), max_new_tokens=16)
+    engine.step()
+    engine.step()
+    slot = next(s for s in engine.scheduler.slots if s.busy)
+    n_blocks = len(slot.blocks)
+    nbytes = n_blocks * engine.cache.nbytes // engine.num_blocks
+    torch.cuda.synchronize()
+    profile_call(torch, lambda: engine._preempt(slot, "priority"), rep,
+                 f"soak swap-out ({n_blocks} blocks, {nbytes} bytes to pinned host memory)")
+    profile_call(torch, engine._try_resume, rep, f"soak swap-in ({n_blocks} blocks)")
+    while engine.has_work:
+        engine.step()
+
+
+def soak_phase(torch, port, wrappers, rep: Report, model) -> None:
+    """The reference benchmark's ``serve_soak`` variant on the ``decode``
+    config (see phase 12 in the module docstring). Every launch counter is
+    set to 0 before and read after."""
+    import numpy as np
+
+    from accelerate_tpu_torch import loadgen
+    from accelerate_tpu_torch.serving import ServingEngine, SLOConfig
+    from accelerate_tpu_torch.serving.telemetry import ServeStats
+    from accelerate_tpu_torch.telemetry import StepTelemetry, TelemetryConfig
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts(wrappers)
+    soak_small_check(torch, port, rep)
+    cfg = model.config
+    max_slots, block_size, target, seed = (SOAK[k] for k in ("max_slots", "block_size",
+                                                               "target_requests", "seed"))
+    plan = soak_plan(loadgen, cfg, max_slots, block_size, seed)
+    workload = plan["workload"]
+    out_dir = tempfile.mkdtemp(prefix="serve_soak-")  # the soak reports, read back below
+
+    # the closed-loop capacity probe, twice: the first pays the builds
+    engine = ServingEngine(model, max_slots=max_slots, block_size=block_size)
+    calib = loadgen.build_trace(
+        workload, (loadgen.Phase("calib", "warmup", 1.0, 16.0, process="uniform"),), seed + 1)
+
+    def drain(eng, reqs):
+        ids = [eng.add_request(list(r.prompt), max_new_tokens=r.max_new_tokens) for r in reqs]
+        while eng.has_work:
+            eng.step()
+        torch.cuda.synchronize()
+        return [eng.result(r) for r in ids]
+
+    drain(engine, calib)
+    engine.stats = ServeStats()
+    t0 = time.perf_counter()
+    drain(engine, calib)
+    calib_s = time.perf_counter() - t0
+    capacity = len(calib) / calib_s
+    ttft_obj = max(0.02, (engine.summary().get("ttft_s_p95") or 0.1) * 2.0)
+    engine.stats = ServeStats()
+    engine.scheduler.max_queue_delay_s = 2.5 * ttft_obj
+    u = min(3.0, max(0.6, target / (9.1 * capacity)))
+    c = capacity
+    program = (
+        loadgen.Phase("warmup", "warmup", u, max(1.0, 0.25 * c)),
+        loadgen.Phase("ramp-1", "ramp", u, 0.5 * c),
+        loadgen.Phase("ramp-2", "ramp", u, 1.0 * c),
+        loadgen.Phase("ramp-3", "ramp", u, 1.5 * c),
+        loadgen.Phase("ramp-4", "ramp", u, 2.0 * c),
+        loadgen.Phase("cooldown", "warmup", u, max(1.0, 0.25 * c)),
+        loadgen.Phase("soak", "soak", 2 * u, 0.6 * c),
+        loadgen.Phase("fault", "fault", u, 0.6 * c),
+        loadgen.Phase("recovery", "recovery", 3 * u, 0.6 * c),
+    )
+    stall_secs = round(min(1.0, u / 2), 2)
+    slo = SLOConfig(ttft_objective_s=ttft_obj, e2e_objective_s=ttft_obj * 10, target=0.9,
+                    fast_window_s=max(0.2, u / 2), slow_window_s=max(0.4, u),
+                    burn_threshold=1.0, interval_steps=8, min_requests=3)
+    rep.line(f"soak calibration: {len(calib)} requests drained in {calib_s} s: capacity "
+             f"{capacity} requests/s closed loop; TTFT objective {ttft_obj} s (2x the probe's "
+             f"p95), max_queue_delay_s {engine.scheduler.max_queue_delay_s}; unit {u} s, "
+             f"program {sum(p.duration_s for p in program)} s, stall_decode {stall_secs} s")
+    soak_cfg = loadgen.SoakConfig(
+        workload=workload, phases=program, seed=seed, step_dt_s=None, slo=slo,
+        fault_specs=f"stall_decode@0:secs={stall_secs:g}",
+        report_path=os.path.join(out_dir, "soak-report.json"), drain_grace_s=30.0,
+        label="serve_soak")
+    t0 = time.perf_counter()
+    report = loadgen.SoakHarness(engine, soak_cfg).run()
+    soak_wall = time.perf_counter() - t0
+    head, fault = report["headline"], report["fault"]
+    for p in report["phases"]:
+        rep.line(f"soak phase {p['phase']}: offered {p['offered']} at {p['offered_rps']} rps, "
+                 f"finished {p['finished']}, shed {p['shed']} {json.dumps(p['sheds_by_reason'])},"
+                 f" goodput {p['goodput_tokens_per_s']} tokens/s, p95 TTFT {p['p95_ttft_s']} s, "
+                 f"p95 ITL {p['p95_itl_s']} s, arrival lag p95 {p['arrival_lag_p95_s']} s, "
+                 f"breached {p['breached']}")
+    vs_baseline = ttft_obj / head["soak_p95_ttft_s"] if head["soak_p95_ttft_s"] else None
+    rep.line(f"soak headline: goodput {head['goodput_tokens_per_s_at_slo']} tokens/s at the SLO,"
+             f" vs_baseline {vs_baseline} (objective over soak p95 TTFT "
+             f"{head['soak_p95_ttft_s']} s), slo_ok {head['slo_ok']}; capacity at the breach "
+             f"point {head['capacity_rps_at_breach_point']} rps (saturated "
+             f"{head['capacity_saturated']}); sheds {json.dumps(report['shed_totals'])}; "
+             f"requests planned {report['requests_planned']}, finished "
+             f"{report['requests_finished']}, shed {report['requests_shed']}; arrival lag p95 "
+             f"{report['arrival_lag']['p95_s']} s; {report['engine_steps']} engine steps in "
+             f"{soak_wall} s")
+    rep.line(f"soak fault window ({', '.join(fault['specs'])}): sheds {fault['sheds_in_window']},"
+             f" SLO violations {fault['slo_violations_in_window']}, recovered "
+             f"{fault['recovered']} after {fault['recovery_s']} s; decode retraces after warmup "
+             f"{report['decode_retraces']}, builds {engine.trace_counts()}")
+    names = [p["phase"] for p in report["phases"]]
+    if names != [p.name for p in program]:
+        fail(f"soak: the report's phases are {names}, not the program's")
+    if report["decode_retraces"] != 0 or engine.trace_counts()["decode"] != 1:
+        fail(f"soak: the decode step was rebuilt: {report['decode_retraces']}, "
+             f"{engine.trace_counts()}")
+    if report["interrupted"] or report["requests_submitted"] != report["requests_planned"]:
+        fail(f"soak: the run was cut: {report['stop_reason']}")
+    if loadgen.read_report(soak_cfg.report_path) != json.loads(json.dumps(report)):
+        fail("soak: the written soak-report.json is not the run's report")
+    del engine
+    gc.collect()
+
+    # the A/B arms on the virtual clock
+    t0 = time.perf_counter()
+    tele = {}
+    arms = soak_ab_arms(
+        loadgen, lambda clock, **kw: ServingEngine(model, max_slots=max_slots,
+                                                   block_size=block_size, now=clock, **kw),
+        plan, report_dir=out_dir, telemetry=lambda name: tele.setdefault(name, StepTelemetry(
+            TelemetryConfig(history=1 << 16))))
+    ab_wall = time.perf_counter() - t0
+    for name, (rep_arm, eng) in arms.items():
+        rep.line(f"soak arm {name}: {rep_arm['engine_steps']} engine steps, planned "
+                 f"{rep_arm['requests_planned']}, finished {rep_arm['requests_finished']}, shed "
+                 f"{rep_arm['requests_shed']}; phases "
+                 + "; ".join(f"{p['phase']} p95 TTFT {p['p95_ttft_s']} s shed {p['shed']}"
+                             for p in rep_arm["phases"])
+                 + f"; preempts {eng._preempt_counts}, resumes {eng._resumes_total}, chunks "
+                 f"{eng._prefill_chunks_total}, builds {eng.trace_counts()}, pool "
+                 f"{json.dumps(eng.pool.stats())}")
+        if rep_arm["decode_retraces"] != 0 or eng.trace_counts()["decode"] != 1:
+            fail(f"soak arm {name}: the decode step was rebuilt: {eng.trace_counts()}")
+        if len(rep_arm["phases"]) != len(plan["burst_phases" if "chunked" in name
+                                              else "pressure_phases"]):
+            fail(f"soak arm {name}: phase records missing")
+    off, on = soak_p95(arms["chunked-off"][0]), soak_p95(arms["chunked-on"][0])
+    chunks = arms["chunked-on"][1]._prefill_chunks_total
+    rep.line(f"soak chunked A/B (budget {plan['chunk_budget']} tokens, giants of "
+             f"{plan['long_tokens']}, pool {plan['ab_blocks']} blocks): soak p95 TTFT off {off} "
+             f"s, on {on} s (virtual), improvement {off / on if on else None}; chunks {chunks}")
+    if not (on is not None and off is not None and on < off and chunks > 0):
+        fail(f"soak chunked: p95 TTFT on {on} not below off {off}, or no chunk ({chunks})")
+    rep_shed, eng_shed = arms["preempt-off"]
+    rep_pre, eng_pre = arms["preempt-on"]
+    preempted = [r["request_id"] for r in eng_pre.stats.requests if r.get("preempted_count")]
+    compared = [r for r in preempted if eng_shed.result(r) is not None]
+    match = all(eng_pre.result(r) == eng_shed.result(r) for r in compared)
+    stats = eng_pre.pool.stats()
+    swapped_bytes = sum(r["swap_bytes"] for r in tele["preempt-on"].records
+                        if r["kind"] == "preempt")
+    rep.line(f"soak preempt A/B (pool {plan['pressure_blocks']} blocks, "
+             f"{plan['pressure_fault']}, max_queue_delay_s {plan['pressure_delay_s']}): fault-"
+             f"window sheds off {rep_shed['fault']['sheds_in_window']}, on "
+             f"{rep_pre['fault']['sheds_in_window']}; preempts in the window "
+             f"{rep_pre['fault']['preempts_in_window']}, in all {eng_pre._preempt_counts}; "
+             f"resumes {eng_pre._resumes_total}; bytes swapped out {swapped_bytes}; "
+             f"{len(preempted)} preempted requests finished, {len(compared)} held against the "
+             f"shed-only control: tokens equal {match}; pool at the end {json.dumps(stats)}")
+    if not rep_pre["fault"]["sheds_in_window"] < rep_shed["fault"]["sheds_in_window"]:
+        fail("soak preempt: preemption did not shed fewer in the fault window")
+    if sum(eng_pre._preempt_counts.values()) < 1 or not compared or not match:
+        fail(f"soak preempt: preempts {eng_pre._preempt_counts}, {len(compared)} compared, "
+             f"tokens equal {match}")
+    if stats["swapped"] or stats["allocated"]:
+        fail(f"soak preempt: the pool did not drain: {stats}")
+    del arms, eng_shed, eng_pre
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # int8 KV: census bytes and seats at a fixed budget (measure.py:1509-1548)
+    tel_fp, tel_i8 = StepTelemetry(True), StepTelemetry(True)
+    eng_fp = ServingEngine(model, max_slots=max_slots, block_size=block_size, telemetry=tel_fp)
+    eng_i8 = ServingEngine(model, max_slots=max_slots, block_size=block_size, telemetry=tel_i8,
+                           kv_dtype="int8")
+    kv_fp = tel_fp.sample_memory(force=True)["census_owner_bytes"]["kv_cache"]
+    kv_i8 = tel_i8.sample_memory(force=True)["census_owner_bytes"]["kv_cache"]
+    blocks = eng_fp.pool.num_blocks
+    footprint = eng_fp.pool.blocks_for_tokens(workload.prompt_tokens_median
+                                              + workload.output_tokens_median)
+    seats_fp = (blocks - 1) // footprint
+    seats_i8 = max(0, int(kv_fp // (kv_i8 / blocks)) - 1) // footprint
+    outs = [drain(eng, calib) for eng in (eng_fp, eng_i8)]
+    agree = sum(a == b for a, b in zip(*outs))
+    rep.line(f"soak int8 KV: census kv_cache bytes bf16 {kv_fp}, int8 {kv_i8}, ratio "
+             f"{kv_fp / kv_i8}; kv_bytes_per_token {eng_fp.kv_bytes_per_token} and "
+             f"{eng_i8.kv_bytes_per_token}; seats at the bf16 pool's bytes ({blocks} blocks, "
+             f"{footprint} a median request) {seats_fp} and {seats_i8}, ratio "
+             f"{seats_i8 / seats_fp}; greedy outputs of the {len(calib)} calibration requests "
+             f"equal for {agree} (all equal {agree == len(calib)}; a reading, not gated); "
+             f"builds {eng_i8.trace_counts()}")
+    if not (kv_fp / kv_i8 >= 1.8 and seats_i8 / seats_fp >= 1.8):
+        fail(f"soak int8: byte ratio {kv_fp / kv_i8} or seat ratio {seats_i8 / seats_fp} < 1.8")
+    if eng_i8.trace_counts()["decode"] != 1:
+        fail(f"soak int8: the decode step was rebuilt: {eng_i8.trace_counts()}")
+    soak_kv_checks(torch, model, [t for r in calib for t in r.prompt][:200], rep)
+    del eng_fp, eng_i8
+    gc.collect()
+    torch.cuda.empty_cache()
+    soak_profiles(torch, model, rep)
+    launches = {w.__name__: w.launches for w in wrappers}
+    rep.line(f"soak kernel launches of the port {json.dumps(launches)}")
+    if any(launches.values()):
+        fail(f"soak: kernels of the port launched on the serving path: {launches}")
+    shutil.rmtree(out_dir)
+    rep.line(f"soak phase: {time.perf_counter() - phase_t0} s (A/B arms {ab_wall} s)")
 
 
 # ---------------------------------------------------------------------- #
@@ -2724,15 +3275,16 @@ def main() -> None:
     rep.line(f"torch {torch.__version__} cuda {torch.version.cuda} device "
              f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     wrappers = (*fa.KERNEL_WRAPPERS, *fused.KERNEL_WRAPPERS)
-    if "--serve-only" in sys.argv[1:]:
-        serve_phase(torch, port, wrappers, rep)
-        rep.line("serve-only: the serving phase passed")
-        print(rep.card)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        }}))
-        return
+    for flag, phase in (("--serve-only", serve_phase), ("--soak-only", soak_phase)):
+        if flag in sys.argv[1:]:
+            phase(torch, port, wrappers, rep, build_decode_model(torch, port, rep))
+            rep.line(f"{flag[2:]}: the {phase.__name__.split('_')[0]} phase passed")
+            print(rep.card)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count(),
+            }}))
+            return
 
     t0 = time.perf_counter()
     sources = ["flash_attention", "fused"]
@@ -2786,7 +3338,12 @@ def main() -> None:
     check_path_losses(losses, fused_losses, rep)
     bert_launches = bert_phase(torch, port, wrappers, rep)
     example_phase(torch, port, wrappers, rep)
-    serve_phase(torch, port, wrappers, rep)
+    model = build_decode_model(torch, port, rep)
+    serve_phase(torch, port, wrappers, rep, model)
+    soak_phase(torch, port, wrappers, rep, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     variant_rows = variant_phases(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:

@@ -203,7 +203,8 @@ def test_moe_fp8_and_remat_modules_import_without_jax():
 
 def test_decode_path_raises():
     """The decode paths are ported: what raises now is a decode call without
-    its cache, a cache without decode, and the int8 paged KV (queue A9)."""
+    its cache, a cache without decode, an unknown paged KV dtype and int8
+    pools read through a native state (the int8 paged KV is ported)."""
     from accelerate_tpu_torch.models.generation import init_cache
 
     model = port.CausalLM(port.TransformerConfig.tiny(num_layers=1), device="cpu")
@@ -212,9 +213,14 @@ def test_decode_path_raises():
         model(ids, decode=True)
     with pytest.raises(ValueError, match="decode=True"):
         model(ids, cache=init_cache(model, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A9"):
+    with pytest.raises(ValueError, match="kv_dtype"):
         attention.PagedKVState(torch.zeros(1, 2), torch.zeros(1), torch.ones(1), num_blocks=4,
-                               block_size=2, kv_dtype="int8")
+                               block_size=2, kv_dtype="fp8")
+    pools = init_cache(model, num_blocks=4, block_size=2, kv_dtype="int8")
+    native = attention.PagedKVState(torch.zeros(1, 2, dtype=torch.long), torch.zeros(1),
+                                    torch.ones(1), num_blocks=4, block_size=2)
+    with pytest.raises(ValueError, match="pools are 'int8'"):
+        model(ids[:, :1], decode=True, paged=native, cache=pools)
     assert model(ids, decode=True, cache=init_cache(model, 1)).shape == (1, 4, 1024)
 
 
@@ -229,7 +235,12 @@ def test_serving_modules_import_without_jax():
                      "accelerate_tpu_torch.serving.slo", "accelerate_tpu_torch.serving.speculation",
                      "accelerate_tpu_torch.telemetry", "accelerate_tpu_torch.telemetry.sinks",
                      "accelerate_tpu_torch.telemetry.collector",
-                     "accelerate_tpu_torch.utils.cuda_graph"):
+                     "accelerate_tpu_torch.utils.cuda_graph", "accelerate_tpu_torch.loadgen",
+                     "accelerate_tpu_torch.loadgen.harness", "accelerate_tpu_torch.loadgen.chaos",
+                     "accelerate_tpu_torch.loadgen.workload", "accelerate_tpu_torch.loadgen.report",
+                     "accelerate_tpu_torch.loadgen.phases",
+                     "accelerate_tpu_torch.test_utils.fault_injection",
+                     "accelerate_tpu_torch.profiling.census"):
             importlib.import_module(name)
         print("ok")
     """)
@@ -433,3 +444,57 @@ def test_prologue_wgmma_tile_is_whole_heads_dividing_both_spans(heads, kv_heads,
     assert got == tile
     assert got % head_dim == 0 and got % 64 == 0
     assert (heads * head_dim) % got == 0 and (kv_heads * head_dim) % got == 0
+
+
+def test_serving_refusals_that_remain_name_their_queue_items():
+    """Adapters are queue A8 (the engine's ``adapters``, ``add_request(
+    adapter=)``, the soak harness's tenants and the adapter-churn fault on
+    an engine with a registry); disaggregation, the transfer plane and the
+    HTTP plane are A9."""
+    from accelerate_tpu_torch.loadgen import ChaosAdapter, SoakConfig, SoakHarness, WorkloadConfig
+    from accelerate_tpu_torch.serving import ServingEngine
+    from accelerate_tpu_torch.test_utils.fault_injection import FaultInjector, FaultSpec
+
+    model = port.CausalLM(port.TransformerConfig.tiny(num_layers=1, max_seq_len=32),
+                          device="cpu")
+    for kw, queue in ((dict(adapters=object()), "A8"), (dict(role="decode"), "A9"),
+                      (dict(transfer_plane=object()), "A9")):
+        with pytest.raises(NotImplementedError, match=f"queue {queue}"):
+            ServingEngine(model, **kw)
+    engine = ServingEngine(model, max_slots=1, block_size=8)
+    with pytest.raises(NotImplementedError, match="queue A8"):
+        engine.add_request([1, 2], adapter="tenant")
+    for method in ("start_http", "health", "drain", "prefix_digest", "capture_programs",
+                   "audit_programs"):
+        with pytest.raises(NotImplementedError, match="queue A9"):
+            getattr(engine, method)()
+    engine.adapters = object()  # an engine that carries a registry
+    harness = SoakHarness(engine, SoakConfig(workload=WorkloadConfig(adapters=("t",),
+                                                                     adapter_fraction=0.5)))
+    with pytest.raises(NotImplementedError, match="queue A8"):
+        harness._load_tenants()
+    chaos = ChaosAdapter(engine, FaultInjector([], rank=0, generation=0), lambda: 0.0)
+    with pytest.raises(NotImplementedError, match="queue A8"):
+        chaos._on_adapter_churn(FaultSpec.parse("adapter_churn@0"))
+
+
+def test_capacity_levers_run_on_the_model_device():
+    """The options the soak slice lifted run, with their buffers where the
+    model's parameters are: chunked prefill, preemption with priorities and
+    the int8 pools (codes and scale arrays) on a model built on the CPU."""
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    model = port.CausalLM(port.TransformerConfig.tiny(num_layers=1, max_seq_len=32),
+                          device="cpu")
+    engine = ServingEngine(model, max_slots=2, block_size=4, num_blocks=9,
+                           prefill_chunk_tokens=4, preemption=True, kv_dtype="int8")
+    assert {t.device for t in engine.cache.tensors()} == {torch.device("cpu")}
+    assert [t.dtype for t in engine.cache.tensors()] == [torch.int8] * 2 + [torch.float32] * 2
+    low = engine.add_request(list(range(1, 12)), max_new_tokens=6)
+    engine.step()
+    high = engine.add_request(list(range(3, 14)), max_new_tokens=6, priority=3)
+    while engine.has_work:
+        engine.step()
+    assert len(engine.result(low)) == len(engine.result(high)) == 6
+    assert engine._prefill_chunks_total > 2 and engine.trace_counts()["decode"] == 1
+    assert engine.pool.stats()["allocated"] == 0 and engine.pool.num_swapped == 0

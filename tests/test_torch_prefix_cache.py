@@ -177,11 +177,10 @@ def test_random_op_sequence_leaves_both_pools_identical(seed):
     / clear, chosen by one seeded generator and applied to both pools: the
     free list, refcounts, LRU order, index and stats agree after every op,
     as does every op's result (allocated ids, canonical blocks, lookups).
-    The reference's stats add only its swap ledger, which stays empty."""
+    Both pools' stats carry the swap ledger, which stays empty here."""
     rng = random.Random(seed)
     ref, got = jax_serving.BlockPool(17, 4), serving.BlockPool(17, 4)
-    assert set(ref.stats()) - set(got.stats()) == {"swapped", "swap_outs_total",
-                                                   "swap_ins_total"}
+    assert set(ref.stats()) == set(got.stats())
     held: list[int] = []
     published = 0
     for _ in range(1500):

@@ -11,7 +11,8 @@
   ``SpanLog`` and ``ServeStats`` (``tests/test_serving.py:44-234``,
   ``tests/test_serving_obs.py``), each a case run on both packages.
 * Per-slot sampling, the zero-rebuild contract on the port's counters,
-  every option not ported yet raising NotImplementedError naming A9, and
+  every option not ported yet raising NotImplementedError naming its queue
+  item (A8 for adapters, A9 for the rest), the capacity levers working, and
   the four options the prefix, speculation and observability slice ports
   working (``tests/test_torch_prefix_cache.py``,
   ``test_torch_speculation.py`` and ``test_torch_serving_obs.py`` hold
@@ -193,7 +194,8 @@ def test_engine_matches_reference_on_a_mixed_trace(tiny_pair):
         {k: v for k, v in s.to_record().items() if k in keys} for s in ref.span_log.closed]
     assert got.pool.stats()["allocated"] == 0 and not got.has_work
     # buckets 1, 4, 8, 32; no speculation, so no verify step
-    assert got.trace_counts() == {"prefill": 4, "decode": 1, "verify": 0}
+    assert got.trace_counts() == {"prefill": 4, "decode": 1, "verify": 0, "swap_out": 0,
+                                  "swap_in": 0}
     assert got.trace_counts()["prefill"] == ref.trace_counts()["prefill"]
 
 
@@ -461,14 +463,36 @@ def test_serve_stats_window_and_percentile(pkg):
 # what is not ported yet
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("option", [
-    dict(prefill_chunk_tokens=16), dict(preemption=True), dict(kv_dtype="int8"),
     dict(role="prefill"), dict(role="decode"), dict(transfer_plane=object()),
     dict(adapters=object()),
 ])
 def test_options_not_ported_raise_naming_a9(tiny_pair, option):
+    """Disaggregation and the transfer plane name A9; adapters name their
+    own queue item, A8."""
     _, _, _, port = tiny_pair
-    with pytest.raises(NotImplementedError, match="queue A9"):
+    queue = "A8" if "adapters" in option else "A9"
+    with pytest.raises(NotImplementedError, match=f"queue {queue}"):
         serving.ServingEngine(port, **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(prefill_chunk_tokens=4), dict(preemption=True), dict(kv_dtype="int8"),
+])
+def test_options_ported_in_the_soak_slice_work(tiny_pair, option):
+    """The capacity levers, each on alone, serve the plain engine's greedy
+    tokens on the model's device (``tests/test_torch_capacity.py`` holds
+    them against the reference)."""
+    _, _, _, port = tiny_pair
+    prompts = [[5, 6, 7] * 3, [9, 4, 2, 8, 1]]
+    want = serving.ServingEngine(port, max_slots=2, block_size=4).generate(
+        np.asarray(prompts[:1]), max_new_tokens=5).tolist()
+    engine = serving.ServingEngine(port, max_slots=2, block_size=4, **option)
+    assert engine.generate(np.asarray(prompts[:1]), max_new_tokens=5).tolist() == want
+    rid = engine.add_request(prompts[1], max_new_tokens=3, priority=2)
+    while engine.has_work:
+        engine.step()
+    assert len(engine.result(rid)) == 3 and engine.trace_counts()["decode"] == 1
+    assert engine.cache.key.device == port.embed.weight.device
 
 
 @pytest.mark.parametrize("method", ["start_http", "health", "drain", "prefix_digest",
@@ -509,13 +533,15 @@ def test_options_ported_in_the_serve_slice_work(tiny_pair, option):
 
 
 def test_request_options_and_int8_kv_not_ported_raise_naming_a9(tiny_pair):
+    """What remains refused of the request options is ``adapter=`` (queue
+    A8, adapters); ``priority=`` and the int8 paged state are ported."""
     _, _, _, port = tiny_pair
     engine = serving.ServingEngine(port, max_slots=1, block_size=8)
-    with pytest.raises(NotImplementedError, match="queue A9"):
+    with pytest.raises(NotImplementedError, match="queue A8"):
         engine.add_request([1, 2], adapter="tenant")
-    with pytest.raises(NotImplementedError, match="queue A9"):
-        engine.add_request([1, 2], priority=1)
-    with pytest.raises(NotImplementedError, match="queue A9"):
-        attn.PagedKVState(torch.zeros(1, 2), torch.zeros(1), torch.ones(1), num_blocks=4,
-                          block_size=2, kv_dtype="int8")
     assert not engine.has_work
+    engine.add_request([1, 2], priority=1)
+    assert engine.scheduler.queue[0].priority == 1
+    state = attn.PagedKVState(torch.zeros(1, 2), torch.zeros(1), torch.ones(1), num_blocks=4,
+                              block_size=2, kv_dtype="int8")
+    assert state.kv_dtype == "int8"
