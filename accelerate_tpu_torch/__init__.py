@@ -1,11 +1,14 @@
 """accelerate_tpu_torch: the PyTorch/CUDA port of accelerate_tpu.
 
 The training slice on one NVIDIA H100: ``Accelerator`` (prepare ->
-``unified_step`` -> ``save_state``/``load_state``, ``skip_first_batches``,
-``gather_for_metrics``), the Llama-family ``CausalLM`` (with the fused
+``unified_step``, unfused or fused gradient accumulation, with telemetry
+step records -> ``save_state``/``load_state``, ``skip_first_batches``,
+``gather_for_metrics``; the raw loop's ``accumulate``, ``backward``,
+``clip_grad_norm_``, triggers and ``free_memory``;
+``find_executable_batch_size``), the Llama-family ``CausalLM`` (with the fused
 RMSNorm -> QKV -> rope prologue under ``fused_kernels=True``) and the
 BERT-shaped encoder ``SequenceClassifier``, the optax-faithful ``adamw``,
-its fused-epilogue form ``fused_adamw`` and
+its fused-epilogue form ``fused_adamw``, ``sgd`` and
 ``warmup_cosine_decay_schedule``, and hand-written kernels for Hopper:
 flash attention (``ops/csrc/flash_attention.cu``) and the fused prologue
 and AdamW epilogue (``ops/csrc/fused.cu``). Imports no JAX; runs on CUDA
@@ -17,27 +20,40 @@ from .data_loader import DataLoader
 from .models.config import TransformerConfig
 from .models.transformer import CausalLM, SequenceClassifier
 from .ops.fused import fused_adamw
-from .optimizer import adamw
+from .optimizer import AcceleratedOptimizer, adamw, sgd
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
 from .state import AcceleratorState, GradientState
-from .utils.dataclasses import ProjectConfiguration
+from .telemetry import StepTelemetry, TelemetryConfig
+from .utils.dataclasses import (
+    DataLoaderConfiguration,
+    GradientAccumulationPlugin,
+    ProjectConfiguration,
+)
+from .utils.memory import find_executable_batch_size
 from .utils.random import set_seed
 from .utils.weights import carry_from_jax, params_from_jax
 
 __all__ = [
+    "AcceleratedOptimizer",
     "AcceleratedScheduler",
     "Accelerator",
     "AcceleratorState",
     "CausalLM",
     "DataLoader",
+    "DataLoaderConfiguration",
+    "GradientAccumulationPlugin",
     "GradientState",
     "ProjectConfiguration",
     "SequenceClassifier",
+    "StepTelemetry",
+    "TelemetryConfig",
     "TransformerConfig",
     "adamw",
     "carry_from_jax",
+    "find_executable_batch_size",
     "fused_adamw",
     "params_from_jax",
     "set_seed",
+    "sgd",
     "warmup_cosine_decay_schedule",
 ]

@@ -1,20 +1,24 @@
 """The Accelerator: prepare, one train step, checkpoints and metrics.
 
 Port of ``accelerate_tpu/accelerator.py`` (``__init__`` :88-205,
-``print`` :291, ``prepare`` :297-424, ``unified_step`` :429-748 in its
-unfused mode with ``_sync_apply`` :505-554, ``init_carry`` :1146,
-``sync_from_carry`` :1225, ``gather``/``gather_for_metrics`` :1375-1407,
-``register_for_checkpointing``/``save_state``/``load_state`` :1434-1506,
-``save_model`` :1508, ``get_state_dict`` :1520, ``skip_first_batches``
+``print`` :291, ``prepare`` :297-424, ``unified_step`` :429-748 in both
+accumulation modes with ``_sync_apply`` :505-554 and ``_fused_step``
+:560-627, ``_wrap_step`` :901-1020 without its XLA-only AOT warmup and
+compile monitor, ``init_carry`` :1146, ``sync_from_carry`` :1225, the raw
+loop :1240-1310, ``gather``/``gather_for_metrics`` :1375-1407,
+``set_trigger``/``check_trigger`` :1419, ``register_for_checkpointing``/
+``save_state``/``load_state`` :1434-1506, ``save_model`` :1508,
+``get_state_dict`` :1520, ``free_memory`` :1532, ``skip_first_batches``
 :1558, ``set_seed`` :1561) for one process on one device. The step keeps
 the reference's contract and arithmetic:
-``step_fn(carry, batch) -> (carry, metrics)``; the loss runs on parameters
-cast to the policy's compute dtype while the fp32 masters receive fp32
-gradients (``_cast_floating`` :1667); K-step accumulation sums into an fp32
-buffer; every K-th call takes the mean, unscales and checks it (fp16),
-clips it to ``max_grad_norm`` by the global norm, applies AdamW (one fused
-kernel launch over every leaf for a ``fused_adamw`` optimizer), and on a
-non-finite step holds params and optimizer state.
+``step_fn(carry, batch, **kw) -> (carry, metrics)``; the loss runs on
+parameters cast to the policy's compute dtype while the fp32 masters
+receive fp32 gradients (``_cast_floating`` :1667); K-step accumulation sums
+into an fp32 buffer across calls, or, fused, over a stacked batch in one
+call; every optimizer step takes the mean, unscales and checks it (fp16),
+clips it to ``max_grad_norm`` by the global norm, applies the optimizer
+(AdamW as one fused kernel launch over every leaf for a ``fused_adamw``
+optimizer), and on a non-finite step holds params and optimizer state.
 
 PyTorch runs eagerly, so there is no compiled program: the step is a
 Python function, and params, moments and the accumulation buffer are
@@ -25,26 +29,30 @@ from __future__ import annotations
 
 import functools
 import inspect
-from typing import Any, Callable, Optional
+from contextlib import contextmanager
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from . import checkpointing
 from .data_loader import (
     DataLoaderShard,
+    _stack_group,
+    find_batch_size,
     prepare_data_loader,
     send_to_device,
     skip_first_batches,
 )
 from .logging import get_logger
-from .models.transformer import convert_model
+from .models.transformer import REMAT_POLICIES, convert_model
 from .ops.fused import maybe_fused_epilogue
 from .optimizer import (
     AcceleratedOptimizer,
-    AdamW,
+    Optimizer,
     global_norm,
     init_loss_scale,
     scale_loss,
@@ -52,8 +60,14 @@ from .optimizer import (
 )
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
+from .telemetry import StepTelemetry, TelemetryConfig
 from .utils import operations
-from .utils.dataclasses import GradientAccumulationPlugin, ProjectConfiguration
+from .utils.dataclasses import (
+    DataLoaderConfiguration,
+    GradientAccumulationPlugin,
+    ProjectConfiguration,
+)
+from .utils.memory import release_memory
 from .utils.random import KeyChain, set_seed
 
 logger = get_logger(__name__)
@@ -68,6 +82,44 @@ def _cast_floating(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+def _detach(tree: Any) -> Any:
+    """Every tensor leaf of a dict/list/tuple tree detached."""
+    return operations.recursively_apply(
+        lambda t: t.detach(), tree, test_type=lambda x: isinstance(x, torch.Tensor))
+
+
+def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """min(1, max_norm / (gnorm + 1e-6)), divided as the reference divides
+    (a float over a tensor is a reciprocal times the float in PyTorch)."""
+    return torch.clamp(torch.full_like(gnorm, max_norm) / (gnorm + 1e-6), max=1.0)
+
+
+def _micro_loss_fn(loss_fn: Callable, has_aux: bool, remat_policy: Any) -> Callable:
+    """``(compute_params, batch, loss_scale, kw) -> (scaled fp32 loss, loss,
+    aux)`` for one microbatch, under ``torch.utils.checkpoint`` when
+    ``remat_policy`` is set (True: recompute everything; a name of
+    ``REMAT_POLICIES``: keep what that policy keeps)."""
+
+    def run(params, batch, ls, kw):
+        out = loss_fn(params, batch, **kw)
+        loss, aux = (out[0], out[1]) if has_aux else (out, None)
+        return scale_loss(loss.float(), ls), loss, aux
+
+    if remat_policy is None:
+        return run
+    if remat_policy is not True and remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}: True or one of "
+                         f"{sorted(REMAT_POLICIES)}")
+    policy = None if remat_policy is True else REMAT_POLICIES[remat_policy]
+    ckpt_kw = {} if policy is None else {
+        "context_fn": functools.partial(create_selective_checkpoint_contexts, policy)}
+
+    def remat(params, batch, ls, kw):
+        return checkpoint(run, params, batch, ls, kw, use_reentrant=False, **ckpt_kw)
+
+    return remat
 
 
 def _is_dataloader(obj: Any) -> bool:
@@ -92,26 +144,47 @@ class Accelerator:
         gradient_accumulation_steps: int = 1,
         cpu: bool = False,
         parallelism_plugin: Any = None,
+        dataloader_config: Optional[DataLoaderConfiguration] = None,
         project_config: Optional[ProjectConfiguration] = None,
         project_dir: Optional[str] = None,
+        gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
+        step_scheduler_with_optimizer: bool = True,
+        split_batches: bool = False,
         seed: int = 0,
+        telemetry: Optional[Union[bool, TelemetryConfig]] = None,
+        diagnostics: Any = None,
     ):
         if parallelism_plugin is not None:
             raise NotImplementedError(
                 "sharded and pipelined training is not ported yet: ROADMAP.md, queue A7"
             )
+        if diagnostics is not None and diagnostics is not False:
+            raise NotImplementedError(
+                "diagnostics (goodput, anomalies, the flight recorder) is not ported yet: "
+                "ROADMAP.md, queue A item 2")
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
-        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
-        self.gradient_state = GradientState(
-            GradientAccumulationPlugin(num_steps=gradient_accumulation_steps)
-        )
+        if gradient_accumulation_plugin is None:
+            # the plugin's __post_init__ reads the environment's fallback
+            gradient_accumulation_plugin = GradientAccumulationPlugin(
+                num_steps=gradient_accumulation_steps)
+        if dataloader_config is None:
+            dataloader_config = DataLoaderConfiguration(split_batches=split_batches)
+        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
+                                      dataloader_config=dataloader_config)
+        self.gradient_state = GradientState(gradient_accumulation_plugin)
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.keys = KeyChain(seed)
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
         self._dataloaders: list[DataLoaderShard] = []
         self._custom_objects: list[Any] = []
         self.step = 0  # train-step calls, micro steps included (host mirror)
+        self.flag_tensor: Optional[torch.Tensor] = None
+        # True or a TelemetryConfig turns on the step records; None or False
+        # leaves a disabled collector whose hooks are no-ops (no synchronise)
+        self.telemetry = StepTelemetry(telemetry)
+        self._built_steps = 0  # names each built step's rebuild detector
 
     @property
     def device(self) -> torch.device:
@@ -126,6 +199,14 @@ class Accelerator:
     def sync_gradients(self) -> bool:
         return self.gradient_state.sync_gradients
 
+    @property
+    def gradient_accumulation_steps(self) -> int:
+        return self.gradient_state.num_steps
+
+    @gradient_accumulation_steps.setter
+    def gradient_accumulation_steps(self, value: int) -> None:
+        self.gradient_state.num_steps = value
+
     def print(self, *args, **kwargs) -> None:
         """``print`` on the main process (here, always)."""
         print(*args, **kwargs)
@@ -136,9 +217,10 @@ class Accelerator:
     def prepare(self, *args):
         """Place each object by type and return them in input order: a
         model moves to the device (fp32 masters; converted to fp8
-        projections under ``mixed_precision="fp8"``), an :class:`AdamW` is
+        projections under ``mixed_precision="fp8"``), an optimizer (``adamw``, ``sgd``) is
         wrapped and its state made for the prepared model, a loader yields
-        device batches, a plain function becomes an LR scheduler."""
+        device batches (stacked ``[K, micro, ...]`` under fused
+        accumulation), a plain function becomes an LR scheduler."""
         result = []
         model = None
         for obj in args:
@@ -147,7 +229,7 @@ class Accelerator:
             elif isinstance(obj, AcceleratedOptimizer):
                 prepared = obj
                 self._optimizers.append(prepared)
-            elif isinstance(obj, AdamW):
+            elif isinstance(obj, Optimizer):
                 prepared = AcceleratedOptimizer(obj)
                 self._optimizers.append(prepared)
             elif _is_dataloader(obj):
@@ -159,7 +241,10 @@ class Accelerator:
             if isinstance(obj, AcceleratedOptimizer) and obj.opt_state is None and model is not None:
                 obj.init(dict(model.named_parameters()))
             if _is_schedule(obj):
-                result[i] = AcceleratedScheduler(obj)
+                result[i] = AcceleratedScheduler(
+                    obj, optimizers=self._optimizers,
+                    step_with_optimizer=self.step_scheduler_with_optimizer,
+                    split_batches=self.state.dataloader_config.split_batches)
                 self._schedulers.append(result[i])
         return result[0] if len(result) == 1 else tuple(result)
 
@@ -171,9 +256,17 @@ class Accelerator:
             model = convert_model(model)
         return model.to(device=self.device)
 
-    def prepare_data_loader(self, dataloader: Any) -> DataLoaderShard:
+    def prepare_data_loader(self, dataloader: Any,
+                            superbatch: Optional[int] = None) -> DataLoaderShard:
+        """A loader of device batches that reports its host time to
+        telemetry. Under fused accumulation (K > 1) it stacks K microbatches
+        into each batch unless ``superbatch`` says otherwise."""
         if not isinstance(dataloader, DataLoaderShard):
-            dataloader = prepare_data_loader(dataloader, self.state)
+            if superbatch is None:
+                gs = self.gradient_state
+                superbatch = gs.num_steps if (gs.fused and gs.num_steps > 1) else 1
+            dataloader = prepare_data_loader(dataloader, self.state, superbatch=superbatch)
+        dataloader.telemetry = self.telemetry
         self._dataloaders.append(dataloader)
         return dataloader
 
@@ -185,32 +278,60 @@ class Accelerator:
         loss_fn: Callable[..., Any],
         optimizer: Optional[AcceleratedOptimizer] = None,
         max_grad_norm: Optional[float] = None,
+        has_aux: bool = False,
+        donate: bool = True,
+        fused_accumulation: Optional[bool] = None,
+        remat_policy: Any = None,
     ) -> Callable:
         """Build the train step: forward, backward, accumulation, clipping
-        and update. ``loss_fn(params, batch) -> loss`` takes a name ->
-        tensor dict of params.
+        and update. ``loss_fn(params, batch, **kw) -> loss`` (or ``(loss,
+        aux)`` with ``has_aux``) takes a name -> tensor dict of params cast to
+        the compute dtype; the fp32 masters receive fp32 gradients.
 
-        Returns ``step_fn(carry, batch) -> (carry, metrics)`` with
-        ``carry = accelerator.init_carry(model_or_params, optimizer)``;
-        metrics are ``loss``, ``grad_norm`` (NaN on a step that only
-        accumulates), ``grads_finite`` and ``is_sync_step``."""
+        Two accumulation modes (``GradientState.num_steps = K``):
+
+        * unfused (default): one call per microbatch; gradients add into a
+          carried fp32 buffer and every K-th call is the optimizer step;
+        * fused (``fused_accumulation=True``, or the plugin's ``fused``): one
+          call per optimizer step over a stacked ``[K, micro, ...]`` batch
+          (``prepare`` makes the loader stack them), the params cast to the
+          compute dtype once for the K microbatches, their gradients added
+          into zeros in order, no buffer and no ``micro_step`` carried
+          between calls.
+
+        Both end in the same epilogue (mean, unscale and check under fp16,
+        clip, update, hold on a non-finite step), so the two modes compute
+        the same bits. ``remat_policy`` runs each microbatch's loss under
+        ``torch.utils.checkpoint``: ``True`` recomputes all of it, a name of
+        ``models.transformer.REMAT_POLICIES`` keeps what that policy keeps.
+        ``donate`` is accepted for the reference's signature: the carry is
+        always updated in place here.
+
+        Returns ``step_fn(carry, batch, **kw) -> (carry, metrics)`` with
+        ``carry = accelerator.init_carry(model_or_params, optimizer)``.
+        Metrics: ``loss``, ``grad_norm`` (NaN on a step that only
+        accumulates), ``grads_finite``, ``is_sync_step``, ``aux`` with
+        ``has_aux``; fused adds ``loss_per_microbatch`` (each microbatch's
+        unscaled fp32 loss; ``loss`` is their mean) and stacks ``aux``."""
         optimizer = optimizer or (self._optimizers[0] if self._optimizers else None)
         if optimizer is None:
             raise ValueError("prepare() an optimizer before building the step")
         policy = self.state.mixed_precision_policy
         num_accum = self.gradient_state.num_steps
+        fused = self.gradient_state.fused if fused_accumulation is None else fused_accumulation
+        fused = bool(fused) and num_accum > 1  # K = 1 carries no buffer anyway
+        micro_loss = _micro_loss_fn(loss_fn, has_aux, remat_policy)
 
         def _sync_apply(accum, opt_state, params, ls):
-            """Once per optimizer step: mean, unscale/check (fp16), clip,
-            update, hold on a non-finite step. Works in place on ``accum``."""
+            """Once per optimizer step, shared by both modes: mean,
+            unscale/check (fp16), clip, update, hold on a non-finite step.
+            Works in place on ``accum``."""
             mean_grads = accum
             if num_accum > 1:
                 mean_grads = {k: a.div_(num_accum) for k, a in accum.items()}
             mean_grads, finite, new_ls = unscale_and_check(mean_grads, ls, policy)
             gnorm = global_norm(mean_grads)
-            scale_c = None
-            if max_grad_norm is not None:
-                scale_c = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
+            scale_c = None if max_grad_norm is None else _clip_scale(gnorm, max_grad_norm)
             # fused epilogue (ops/fused.py): for a fused_adamw optimizer the
             # clip multiply -> moment update -> apply -> non-finite hold tail
             # runs as one kernel launch, bitwise the plain chain below in fp32
@@ -224,19 +345,29 @@ class Accelerator:
                 optimizer.apply_gradients(mean_grads, params, opt_state)
             return new_ls, gnorm, finite
 
-        def step_fn(carry: dict, batch: Any):
+        def _compute_leaves(params):
+            """The params cast to the compute dtype as autograd leaves: the
+            gradients taken with respect to them and then cast to fp32 are
+            the cast's backward, so the same bits as through the cast to the
+            masters."""
+            return {k: _cast_floating(p.detach(), policy.compute_dtype).requires_grad_(True)
+                    for k, p in params.items()}
+
+        def _microbatch(compute, batch, ls, kw):
+            """One microbatch's fp32 gradients (by name), unscaled fp32 loss
+            and aux."""
+            scaled, loss, aux = micro_loss(compute, _cast_floating(batch, policy.compute_dtype),
+                                           ls, kw)
+            grads = torch.autograd.grad(scaled, list(compute.values()))
+            del scaled
+            grads = {k: g.float() for k, g in zip(compute, grads)}
+            return grads, loss.detach().float(), _detach(aux)
+
+        def _step(carry: dict, batch: Any, **kw):
             params = carry["params"]
             ls = carry.get("loss_scale")
             batch = send_to_device(batch, self.device)
-            names = list(params)
-            compute_params = _cast_floating(params, policy.compute_dtype)
-            compute_batch = _cast_floating(batch, policy.compute_dtype)
-            loss = loss_fn(compute_params, compute_batch)
-            grads = torch.autograd.grad(
-                scale_loss(loss.float(), ls), [params[k] for k in names]
-            )
-            del compute_params
-            grads = dict(zip(names, grads))  # fp32: the masters' dtype
+            grads, loss, aux = _microbatch(_compute_leaves(params), batch, ls, kw)
             if num_accum > 1:
                 accum = carry["accum_grads"]
                 for k, g in grads.items():
@@ -264,22 +395,95 @@ class Accelerator:
             new_carry["opt_step"] = carry["opt_step"] + int(is_sync)
             if ls is not None:
                 new_carry["loss_scale"] = ls
-            self.step += 1
-            self.gradient_state.sync_gradients = is_sync
-            metrics = {
-                "loss": loss.detach().float(),
-                "grad_norm": gnorm,
-                "grads_finite": finite,
-                "is_sync_step": is_sync,
-            }
+            metrics = {"loss": loss, "grad_norm": gnorm, "grads_finite": finite,
+                       "is_sync_step": is_sync}
+            if has_aux and aux is not None:
+                metrics["aux"] = aux
             return new_carry, metrics
 
+        def _fused_step(carry: dict, batch: Any, **kw):
+            if "accum_grads" in carry or "micro_step" in carry:
+                raise ValueError(
+                    "fused accumulation carries no accum_grads/micro_step — build the carry "
+                    "with init_carry on an accelerator whose GradientAccumulationPlugin has "
+                    "fused=True (or pass fused_accumulation=True to init_carry)")
+            params = carry["params"]
+            ls = carry.get("loss_scale")
+            batch = send_to_device(batch, self.device)
+            compute = _compute_leaves(params)  # cast once for the K microbatches
+            accum = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+            losses, auxes = [], []
+            for i in range(find_batch_size(batch)):  # the stacked K axis, in order
+                micro = operations.recursively_apply(lambda x: x[i], batch)
+                grads, loss, aux = _microbatch(compute, micro, ls, kw)
+                for k, g in grads.items():
+                    accum[k].add_(g)
+                del grads
+                losses.append(loss)
+                auxes.append(aux)
+            del compute
+            with record_function("unified_step.sync_apply"):
+                ls, gnorm, finite = _sync_apply(accum, carry["opt_state"], params, ls)
+            del accum
+            losses = torch.stack(losses)
+            new_carry = {"params": params, "opt_state": carry["opt_state"],
+                         "opt_step": carry["opt_step"] + 1}
+            if ls is not None:
+                new_carry["loss_scale"] = ls
+            metrics = {"loss": losses.mean(), "loss_per_microbatch": losses, "grad_norm": gnorm,
+                       "grads_finite": finite, "is_sync_step": True}
+            if has_aux and auxes[0] is not None:
+                metrics["aux"] = _stack_group(auxes)
+            return new_carry, metrics
+
+        label = f"unified_step#{self._built_steps}"
+        self._built_steps += 1
+        # the step runs the port's fused kernels when the model opted into
+        # the fused prologue (its loss closure says so) or the optimizer
+        # carries the fused epilogue
+        fused_kernels = bool(getattr(loss_fn, "fused_kernels", False)) or bool(
+            getattr(optimizer.optimizer, "fused", False))
+        if fused:  # every call is an optimizer step over K microbatches
+            return self._wrap_step(_fused_step, label, microbatches=num_accum, dispatches=1,
+                                   fused_kernels=fused_kernels)
+        return self._wrap_step(_step, label, microbatches=1, dispatches=num_accum,
+                               fused_kernels=fused_kernels)
+
+    def _wrap_step(self, step_impl: Callable, label: str, *, microbatches: int,
+                   dispatches: int, fused_kernels: bool) -> Callable:
+        """The step function's host bookkeeping (reference ``_wrap_step``
+        :901-1020 without the XLA-only AOT and compile monitor): ``step``
+        and ``sync_gradients``, and with telemetry on the step record, which
+        carries how many microbatches it covers and how many calls an
+        optimizer step takes (fused: K and 1; unfused: 1 and K)."""
+
+        def step_fn(*args, **kw):
+            tel = self.telemetry
+            observing = tel.enabled
+            if observing:
+                tel.begin_step()
+                retraced = tel.detector(label).check(*args, kw)
+            out = step_impl(*args, **kw)
+            self.step += 1
+            self.gradient_state.sync_gradients = bool(out[1]["is_sync_step"])
+            if observing:
+                tel.end_step(out, batch=args[1] if len(args) > 1 else None, step=self.step,
+                             metrics=out[1], retraced=retraced, label=label,
+                             extra={"microbatches": microbatches,
+                                    "dispatches_per_opt_step": dispatches,
+                                    "fused_kernels": fused_kernels})
+            return out
+
+        step_fn.label = label
         return step_fn
 
-    def init_carry(self, params: Any, optimizer: Optional[AcceleratedOptimizer] = None) -> dict:
+    def init_carry(self, params: Any, optimizer: Optional[AcceleratedOptimizer] = None,
+                   fused_accumulation: Optional[bool] = None) -> dict:
         """The train-step carry: params (the model's own parameter tensors,
         updated in place), optimizer state, counters, the fp32
-        accumulation buffer when K > 1, and the loss scale under fp16."""
+        accumulation buffer when K > 1 and unfused, and the loss scale under
+        fp16. ``fused_accumulation`` must match the step's mode (None: the
+        plugin's); the fused carry has no ``micro_step`` and no buffer."""
         optimizer = optimizer or (self._optimizers[0] if self._optimizers else None)
         if optimizer is None:
             raise ValueError("prepare() an optimizer before init_carry")
@@ -291,25 +495,117 @@ class Accelerator:
         if optimizer.opt_state is None:
             optimizer.init(params)
         policy = self.state.mixed_precision_policy
-        carry = {
-            "params": params,
-            "opt_state": optimizer.opt_state,
-            "opt_step": 0,
-            "micro_step": 0,
-        }
-        if self.gradient_state.num_steps > 1:
-            carry["accum_grads"] = {
-                k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()
-            }
+        num_accum = self.gradient_state.num_steps
+        fused = self.gradient_state.fused if fused_accumulation is None else fused_accumulation
+        fused = bool(fused) and num_accum > 1
+        carry = {"params": params, "opt_state": optimizer.opt_state, "opt_step": 0}
+        if not fused:
+            carry["micro_step"] = 0
+            if num_accum > 1:
+                carry["accum_grads"] = {
+                    k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         if policy.uses_loss_scaling:
             carry["loss_scale"] = init_loss_scale(policy, self.device)
         return carry
 
     def sync_from_carry(self, carry: dict) -> None:
-        """Set ``step`` and ``sync_gradients`` from the carry's counters."""
-        micro = int(carry["micro_step"])
-        self.step = int(carry["opt_step"]) * self.gradient_state.num_steps + micro
-        self.gradient_state.sync_gradients = micro == 0
+        """Set ``step`` and ``sync_gradients`` from the carry's counters
+        (a fused carry: every call is an optimizer step)."""
+        opt = int(carry["opt_step"])
+        if "micro_step" in carry:
+            micro = int(carry["micro_step"])
+            self.step = opt * self.gradient_state.num_steps + micro
+            self.gradient_state.sync_gradients = micro == 0
+        else:
+            self.step = opt
+            self.gradient_state.sync_gradients = True
+
+    # ------------------------------------------------------------------ #
+    # the raw loop (reference :1240-1310)
+    # ------------------------------------------------------------------ #
+    @contextmanager
+    def accumulate(self, *models):
+        """Set ``sync_gradients`` for the next microbatch of a raw loop: an
+        optimizer boundary every ``num_steps`` calls, at the end of the
+        loader (``sync_with_dataloader``) or on every batch
+        (``sync_each_batch``); ``step`` counts the calls."""
+        gs = self.gradient_state
+        gs.sync_gradients = ((self.step + 1) % gs.num_steps == 0
+                             or (gs.sync_with_dataloader and gs.end_of_dataloader)
+                             or gs.sync_each_batch)
+        try:
+            yield
+        finally:
+            self.step += 1
+
+    @contextmanager
+    def no_sync(self, model=None):
+        """``sync_gradients`` False inside (one process: there is no
+        gradient all-reduce to hold back)."""
+        old = self.gradient_state.sync_gradients
+        self.gradient_state.sync_gradients = False
+        try:
+            yield
+        finally:
+            self.gradient_state.sync_gradients = old
+
+    def backward(self, loss_or_fn, *args, **kwargs):
+        """The raw loop's backward, with the reference's contract:
+        ``loss, grads = accelerator.backward(loss_fn, params, batch)``. The
+        loss runs on ``params`` (a name -> tensor dict, or a module's)
+        cast to the compute dtype; ``grads`` are fp32, by name, scaled by
+        1 / ``num_steps`` for accumulation."""
+        if not callable(loss_or_fn):
+            raise TypeError(
+                "accelerator.backward needs the loss *function*: backward(loss_fn, params, "
+                "batch). To keep your raw loop, compute grads once per microbatch and feed "
+                "optimizer.step; or use accelerator.unified_step(loss_fn) for the step.")
+        params, rest = args[0], args[1:]
+        if isinstance(params, nn.Module):
+            params = dict(params.named_parameters())
+        dtype = self.state.mixed_precision_policy.compute_dtype
+        compute = {k: _cast_floating(p.detach(), dtype).requires_grad_(True)
+                   for k, p in params.items()}
+        loss = loss_or_fn(compute, *rest, **kwargs)
+        grads = torch.autograd.grad(loss, list(compute.values()))
+        scale = 1.0 / self.gradient_state.num_steps
+        return loss.detach(), {k: g.float() * scale for k, g in zip(params, grads)}
+
+    def clip_grad_norm_(self, grads: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
+        """Global-norm clip: returns (clipped grads, the norm before)."""
+        gnorm = global_norm(grads)
+        scale = _clip_scale(gnorm, max_norm)
+        return {k: g * scale for k, g in grads.items()}, gnorm
+
+    def clip_grad_value_(self, grads: dict, clip_value: float) -> dict:
+        return {k: g.clamp(-clip_value, clip_value) for k, g in grads.items()}
+
+    def set_trigger(self) -> None:
+        """Raise the early-stop flag that ``check_trigger`` reads."""
+        self.flag_tensor = torch.tensor(1, dtype=torch.int32, device=self.device)
+
+    def check_trigger(self) -> bool:
+        """Whether any process set the flag (here, this one); resets it."""
+        if self.flag_tensor is None:
+            self.flag_tensor = torch.tensor(0, dtype=torch.int32, device=self.device)
+        if int(operations.reduce(self.flag_tensor, "sum")) > 0:
+            self.flag_tensor = torch.tensor(0, dtype=torch.int32, device=self.device)
+            return True
+        return False
+
+    def free_memory(self, *objects):
+        """Drop the accelerator's references to what was prepared, reset
+        ``step``, collect garbage and hand the CUDA allocator's cached
+        blocks back. Returns one None for each object given: rebind them
+        (``model, opt = accelerator.free_memory(model, opt)``), since a
+        tensor a caller still holds stays allocated."""
+        self._optimizers = []
+        self._schedulers = []
+        self._dataloaders = []
+        self.step = 0
+        return release_memory(*objects)
+
+    clear = free_memory
 
     # ------------------------------------------------------------------ #
     # metrics

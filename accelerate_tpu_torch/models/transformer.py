@@ -646,6 +646,8 @@ class CausalLM(nn.Module):
                 return (nll * mask).sum() / mask.sum().clamp_min(1.0)
             return nll.mean()
 
+        # read by the step's telemetry: whether the model runs the fused prologue
+        fn.fused_kernels = bool(model.config.fused_kernels)
         return fn
 
 

@@ -1,7 +1,8 @@
 """Optimizer: AdamW as optax spells it, loss scaling, and the wrapper.
 
-Port of ``accelerate_tpu/optimizer.py:29-179`` plus the two optax pieces
-the train step needs, written as plain torch functions:
+Port of ``accelerate_tpu/optimizer.py:29-179`` plus the optax pieces the
+train step and the reference's benchmark need, written as plain torch
+functions:
 
 * :func:`adamw` follows ``optax.adamw`` op for op (the order is spelled
   out in ``accelerate_tpu/ops/fused.py:466-498``): moments, bias
@@ -9,7 +10,12 @@ the train step needs, written as plain torch functions:
   decoupled weight decay added to the update, then the learning-rate
   scale. ``torch.optim.AdamW`` is a different function: it puts eps
   elsewhere and decays the weights before the update.
+* :func:`sgd` is ``optax.sgd`` without momentum: ``p + (-lr) g``.
 * :func:`global_norm` is ``optax.global_norm``.
+
+:class:`AcceleratedOptimizer` also keeps the reference's raw-loop surface
+(:153-171): ``step(params, grads)`` applies only on a sync boundary,
+``zero_grad`` is a no-op (gradients are values), ``step_was_skipped``.
 
 Parameters and moments are updated in place (the reference returns new
 trees): at 8B width a second copy of params and moments would not fit.
@@ -21,6 +27,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
 import torch
+
+from .state import GradientState
 
 Params = dict[str, torch.Tensor]
 
@@ -77,14 +85,34 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in tree.values()))
 
 
-class AdamW:
+class Optimizer:
+    """An optax-shaped transformation as torch functions: ``init(params)``
+    makes the state, ``apply_(grads, state, params)`` updates params and
+    state in place. ``learning_rate`` is a float or a schedule of the
+    state's count."""
+
+    def __init__(self, learning_rate: Union[float, Callable[[int], float]]):
+        self.learning_rate = learning_rate
+
+    def lr_at(self, count: int) -> float:
+        lr = self.learning_rate
+        return float(lr(count)) if callable(lr) else float(lr)
+
+    def init(self, params: Params) -> dict:
+        raise NotImplementedError
+
+    def apply_(self, grads: Params, state: dict, params: Params) -> None:
+        raise NotImplementedError
+
+
+class AdamW(Optimizer):
     """``optax.adamw`` as torch functions. State: ``{"count": int, "mu":
     {name: fp32}, "nu": {name: fp32}}``. :meth:`apply_` updates params and
     state in place."""
 
     def __init__(self, learning_rate: Union[float, Callable[[int], float]],
                  b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4):
-        self.learning_rate = learning_rate
+        super().__init__(learning_rate)
         self.b1, self.b2 = b1, b2
         self.eps, self.eps_root = eps, eps_root
         self.weight_decay = weight_decay
@@ -95,10 +123,6 @@ class AdamW:
             "mu": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
             "nu": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
         }
-
-    def lr_at(self, count: int) -> float:
-        lr = self.learning_rate
-        return float(lr(count)) if callable(lr) else float(lr)
 
     @torch.no_grad()
     def apply_(self, grads: Params, state: dict, params: Params) -> None:
@@ -124,22 +148,44 @@ class AdamW:
         state["count"] = count_inc
 
 
+class SGD(Optimizer):
+    """``optax.sgd`` without momentum. State: ``{"count": int}`` (the
+    schedule's step). :meth:`apply_` does p' = p + (-lr) g in place."""
+
+    def init(self, params: Params) -> dict:
+        return {"count": 0}
+
+    @torch.no_grad()
+    def apply_(self, grads: Params, state: dict, params: Params) -> None:
+        step_size = -self.lr_at(state["count"])
+        for name, p in params.items():
+            p.add_(grads[name] * step_size)
+        state["count"] += 1
+
+
 def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           eps_root: float = 0.0, weight_decay: float = 1e-4) -> AdamW:
     """``optax.adamw`` with its defaults (weight_decay 1e-4)."""
     return AdamW(learning_rate, b1, b2, eps, eps_root, weight_decay)
 
 
-class AcceleratedOptimizer:
-    """Wraps an :class:`AdamW` with its state: ``init`` creates the state
-    for a parameter dict, ``apply_gradients`` is the update the train step
-    runs."""
+def sgd(learning_rate) -> SGD:
+    """``optax.sgd(learning_rate)``: no momentum, no Nesterov."""
+    return SGD(learning_rate)
 
-    def __init__(self, optimizer: AdamW):
-        if not isinstance(optimizer, AdamW):
-            raise TypeError(f"AcceleratedOptimizer expects an AdamW, got {type(optimizer)}")
+
+class AcceleratedOptimizer:
+    """Wraps an :class:`Optimizer` with its state: ``init`` creates the
+    state for a parameter dict, ``apply_gradients`` is the update the train
+    step runs, ``step`` the raw loop's."""
+
+    def __init__(self, optimizer: Optimizer):
+        if not isinstance(optimizer, Optimizer):
+            raise TypeError(f"AcceleratedOptimizer expects an adamw or sgd, got {type(optimizer)}")
         self.optimizer = optimizer
         self.opt_state: Optional[dict] = None
+        self.gradient_state = GradientState()
+        self._step_was_skipped = False
 
     def init(self, params: Params) -> dict:
         self.opt_state = self.optimizer.init(params)
@@ -148,18 +194,40 @@ class AcceleratedOptimizer:
     def apply_gradients(self, grads: Params, params: Params, opt_state: dict) -> None:
         self.optimizer.apply_(grads, opt_state, params)
 
+    @property
+    def step_was_skipped(self) -> bool:
+        """Whether the last ``step`` applied nothing (not a sync step)."""
+        return self._step_was_skipped
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        """No-op: the raw loop's gradients are values, not ``.grad``
+        buffers (the reference's, :163)."""
+
+    def step(self, params: Params, grads: Params) -> Params:
+        """The raw loop's update: applied in place on a sync boundary only
+        (``GradientState.sync_gradients``), and ``params`` returned."""
+        if self.opt_state is None:
+            self.init(params)
+        if not self.gradient_state.sync_gradients:
+            self._step_was_skipped = True
+            return params
+        self._step_was_skipped = False
+        self.apply_gradients(grads, params, self.opt_state)
+        return params
+
     def state_dict(self) -> Optional[dict]:
-        """The optimizer state: ``{"count", "mu", "nu"}``."""
+        """The optimizer state: ``{"count", "mu", "nu"}`` (adamw),
+        ``{"count"}`` (sgd)."""
         return self.opt_state
 
     def load_state_dict(self, state: dict) -> None:
-        """Take ``state``'s count and copy its moments into the current
-        state's tensors (or adopt them when there is none yet)."""
+        """Take ``state``'s count and copy its tensors into the current
+        state's (or adopt them when there is none yet)."""
         if self.opt_state is None:
             self.opt_state = state
             return
         with torch.no_grad():
             for key in ("mu", "nu"):
-                for name, t in self.opt_state[key].items():
+                for name, t in self.opt_state.get(key, {}).items():
                     t.copy_(state[key][name])
         self.opt_state["count"] = int(state["count"])

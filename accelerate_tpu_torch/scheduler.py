@@ -1,10 +1,12 @@
 """LR scheduler wrapper, and the schedule the examples use.
 
-Port of ``accelerate_tpu/scheduler.py:23``: a learning-rate schedule is a
-plain callable ``step -> lr`` (:class:`~.optimizer.AdamW` evaluates it at
-its own step count), so stepping the scheduler is bookkeeping that keeps
-the reference's rule: frozen while gradients accumulate. One process, so
-no scaling by the process count.
+Port of ``accelerate_tpu/scheduler.py:23-71``: a learning-rate schedule is
+a plain callable ``step -> lr`` (the optimizer evaluates it at its own step
+count), so stepping the scheduler is bookkeeping that keeps the
+reference's rules: with ``step_with_optimizer`` it is frozen while
+gradients accumulate and does not advance when an optimizer skipped its
+step; without, every call advances it. One process, so ``split_batches``
+changes nothing: the count is not scaled by the process count.
 
 ``warmup_cosine_decay_schedule`` is optax's (the reference's examples take
 it from optax), written with optax's formula in float32.
@@ -13,7 +15,7 @@ it from optax), written with optax's formula in float32.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 
@@ -46,14 +48,25 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 
 
 class AcceleratedScheduler:
-    def __init__(self, scheduler: Callable[[int], float]):
+    def __init__(self, scheduler: Callable[[int], float], optimizers: Any = None,
+                 step_with_optimizer: bool = True, split_batches: bool = False):
         self.scheduler = scheduler
+        self.optimizers = (list(optimizers) if isinstance(optimizers, (list, tuple))
+                           else [optimizers] if optimizers is not None else [])
+        self.step_with_optimizer = step_with_optimizer
+        self.split_batches = split_batches
         self.gradient_state = GradientState()
         self.step_count = 0
 
-    def step(self) -> None:
-        if self.gradient_state.sync_gradients:  # frozen while accumulating
+    def step(self, *args, **kwargs) -> None:
+        if not self.step_with_optimizer:
             self.step_count += 1
+            return
+        if not self.gradient_state.sync_gradients:
+            return  # frozen while accumulating
+        if any(getattr(opt, "step_was_skipped", False) for opt in self.optimizers):
+            return
+        self.step_count += 1  # one process: no scaling by the process count
 
     def get_last_lr(self) -> list[float]:
         return [float(self.scheduler(max(0, self.step_count - 1)))]

@@ -16,12 +16,15 @@ from typing import Any, Optional
 
 import torch
 
+from .utils.constants import ENV_PREFIX
 from .utils.dataclasses import (
+    DataLoaderConfiguration,
     DistributedType,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
     PrecisionType,
 )
+from .utils.environment import parse_flag_from_env
 
 
 def resolve_device(cpu: bool) -> torch.device:
@@ -68,15 +71,17 @@ class PartialState:
 
 
 class AcceleratorState:
-    """PartialState plus the precision policy."""
+    """PartialState plus the precision policy and the loader configuration."""
 
     _shared_state: dict[str, Any] = {}
 
-    def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False):
+    def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False,
+                 dataloader_config: Optional[DataLoaderConfiguration] = None):
         self.__dict__ = self._shared_state
         if self.initialized:
             return
         self.partial_state = PartialState(cpu)
+        self.dataloader_config = dataloader_config or DataLoaderConfiguration()
         self.mixed_precision = PrecisionType(mixed_precision or "no")
         self.mixed_precision_policy = MixedPrecisionPolicy.from_precision(
             self.mixed_precision
@@ -107,10 +112,12 @@ class AcceleratorState:
 
 class GradientState:
     """Gradient-accumulation bookkeeping shared by the Accelerator, the
-    scheduler and the loaders: the accumulation length, whether the last
-    step was an optimizer boundary, and the loader being iterated, whose
-    ``end_of_dataloader`` and ``remainder`` ``gather_for_metrics`` reads
-    (reference ``state.py:450-475``)."""
+    optimizer, the scheduler and the loaders: the plugin's settings (the
+    accumulation length, ``fused``, ``sync_with_dataloader``,
+    ``sync_each_batch``, ``adjust_scheduler``), whether the last step was an
+    optimizer boundary, and the loader being iterated, whose
+    ``end_of_dataloader`` and ``remainder`` ``accumulate`` and
+    ``gather_for_metrics`` read (reference ``state.py:377-475``)."""
 
     _shared_state: dict[str, Any] = {}
 
@@ -120,15 +127,39 @@ class GradientState:
         self.__dict__ = self._shared_state
         if not self.initialized:
             self.sync_gradients = True
-            self.num_steps = 1
             self.active_dataloader = None
             self.dataloader_references: list[Any] = [None]
+            self.plugin_kwargs: dict[str, Any] = {}
+            self.num_steps = 1
         if gradient_accumulation_plugin is not None:
+            self.plugin_kwargs = gradient_accumulation_plugin.to_kwargs()
             self.num_steps = gradient_accumulation_plugin.num_steps
 
     @property
     def initialized(self) -> bool:
         return "sync_gradients" in self.__dict__
+
+    @property
+    def sync_with_dataloader(self) -> bool:
+        return self.plugin_kwargs.get("sync_with_dataloader", True)
+
+    @property
+    def adjust_scheduler(self) -> bool:
+        return self.plugin_kwargs.get("adjust_scheduler", True)
+
+    @property
+    def sync_each_batch(self) -> bool:
+        return self.plugin_kwargs.get("sync_each_batch", False)
+
+    @property
+    def fused(self) -> bool:
+        """Whether accumulation runs fused: one step call per optimizer step
+        over a stacked ``[num_steps, micro, ...]`` batch. Falls back to the
+        ``ACCELERATE_TPU_FUSED_ACCUM`` flag, since ``plugin_kwargs`` keeps
+        only the fields that differ from the defaults."""
+        if "fused" in self.plugin_kwargs:
+            return self.plugin_kwargs["fused"]
+        return parse_flag_from_env(ENV_PREFIX + "FUSED_ACCUM")
 
     @property
     def end_of_dataloader(self) -> bool:
@@ -140,6 +171,10 @@ class GradientState:
         if self.active_dataloader is None:
             return -1
         return getattr(self.active_dataloader, "remainder", -1)
+
+    @property
+    def in_dataloader(self) -> bool:
+        return self.active_dataloader is not None
 
     def _add_dataloader(self, dataloader) -> None:
         self.dataloader_references.append(dataloader)

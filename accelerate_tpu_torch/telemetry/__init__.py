@@ -1,22 +1,25 @@
-"""Telemetry for the serving path.
+"""Telemetry for the training step and the serving path.
 
-Port of the serving half of ``accelerate_tpu/telemetry/``:
-:class:`StepTelemetry` with its serving and soak records and its buffer
-census (``profiling/census.py``), :class:`TelemetryConfig` and the sinks
-(:class:`JSONLSink`, :class:`PrometheusTextSink`). The step records, the
-heartbeat watchdog, retrace detection, the HTTP exporter and
-``TrackerBridgeSink`` are not ported yet (ROADMAP.md, queue A10).
+Port of ``accelerate_tpu/telemetry/``: :class:`StepTelemetry` with its
+training step records, its serving and soak records and its buffer census
+(``profiling/census.py``), rebuild detection (:class:`RecompileDetector`),
+:class:`TelemetryConfig` and the sinks (:class:`JSONLSink`,
+:class:`PrometheusTextSink`). The heartbeat watchdog, the HTTP exporter
+and ``TrackerBridgeSink`` are not ported yet (ROADMAP.md, queue A item 6).
 """
 
 from .collector import StepTelemetry
 from .config import TelemetryConfig
+from .recompile import RecompileDetector, tree_fingerprint
 from .sinks import SCHEMA_VERSION, JSONLSink, PrometheusTextSink, TelemetrySink
 
 __all__ = [
     "JSONLSink",
     "PrometheusTextSink",
+    "RecompileDetector",
     "SCHEMA_VERSION",
     "StepTelemetry",
     "TelemetryConfig",
     "TelemetrySink",
+    "tree_fingerprint",
 ]

@@ -1,9 +1,11 @@
-"""The telemetry collector, for the serving records.
+"""The telemetry collector: training step records and the serving records.
 
-Port of ``accelerate_tpu/telemetry/collector.py:StepTelemetry`` (:47) for
-the records the serving engine emits: ``add_sink``, the emit path (the
-in-memory ring, then every sink, with a ``kind="meta"`` record first and
-sink errors caught and rate-limited), ``record_serve`` (:398),
+Port of ``accelerate_tpu/telemetry/collector.py:StepTelemetry`` (:47):
+``add_sink``, the emit path (the in-memory ring, then every sink, with a
+``kind="meta"`` record first and sink errors caught and rate-limited), the
+training hooks the Accelerator's step wrapper and the prepared loaders call
+(``detector``, ``record_dataloader_wait``, ``begin_step``, ``end_step``,
+``record_compile``, :193-360), ``record_serve`` (:398),
 ``record_span``, ``record_serve_gauge``, ``record_shed``,
 ``record_preempt`` (:515-540), ``record_memory``, ``sample_memory``
 (:542-575), ``record_slo``, ``record_soak`` (:577-), ``summary`` and
@@ -17,17 +19,23 @@ bytes, unowned bytes, host RSS and its peak) and adds
 on a machine without CUDA the device fields are 0, as the reference
 reports a device that gives no numbers.
 
-The training-side hooks (``begin_step``, ``end_step``,
-``record_checkpoint``, ``record_compile``, ``record_dataloader_wait``) and
-what they feed (retrace detection, the heartbeat watchdog, diagnostics)
-wait for the step records: they raise NotImplementedError naming
-ROADMAP.md's queue A10.
+A step's time is the reference's async-aware bracket: ``begin_step``
+before the call, ``end_step(result)`` after it, which synchronises the
+CUDA device when the result holds a CUDA tensor (the only synchronise
+telemetry adds, and only while enabled): ``step_time_s`` runs to that
+synchronise, ``dispatch_s`` to the call's return.
+
+``record_checkpoint`` and what the step records feed in the reference (the
+heartbeat watchdog, diagnostics) wait for ROADMAP.md's queue A item 2: it
+raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 import resource
+import statistics
 import threading
 import time
 from typing import Any, Optional, Union
@@ -37,15 +45,52 @@ import torch
 from ..logging import get_logger
 from ..profiling.census import BufferCensus
 from .config import TelemetryConfig
+from .recompile import RecompileDetector, _flatten_with_path
 from .sinks import SCHEMA_VERSION, JSONLSink, TelemetrySink
 
 logger = get_logger(__name__)
 
 
-def _training_hook(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"StepTelemetry.{name} records training steps, which are not ported yet "
-        "(ROADMAP.md, queue A10)")
+def _infer_tokens(batch: Any) -> Optional[int]:
+    """Default token counter: the first tensor with a sequence dim gives
+    batch x seq; else the leading dim of the first with one."""
+    leaves: list = []
+    _flatten_with_path(batch, "", leaves)
+    fallback = None
+    for _, leaf in leaves:
+        shape = getattr(leaf, "shape", None)
+        if not shape:
+            continue
+        if len(shape) >= 2:
+            return int(shape[0]) * int(shape[1])
+        if fallback is None:
+            fallback = int(shape[0])
+    return fallback
+
+
+def _scalar_items(metrics: Any):
+    """(key, float) for the 0-d numeric values of a metrics dict. The
+    port's step reports ``is_sync_step`` and ``grads_finite`` as host bools
+    where the reference's reports 0-d arrays, so bools count as 0 or 1."""
+    if not isinstance(metrics, dict):
+        return
+    for key, value in metrics.items():
+        if isinstance(value, str):
+            continue
+        if isinstance(value, (bool, int, float)):
+            yield key, float(value)
+        elif getattr(value, "shape", None) == ():
+            yield key, float(value)
+
+
+def _synchronize(result: Any) -> None:
+    """Wait for the CUDA device if ``result`` holds a CUDA tensor."""
+    leaves: list = []
+    _flatten_with_path(result, "", leaves)
+    devices = {leaf.device for _, leaf in leaves
+               if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
+    for device in devices:
+        torch.cuda.synchronize(device)
 
 
 def _rank_and_world() -> tuple[int, int]:
@@ -94,6 +139,10 @@ class StepTelemetry:
         self._sink_errors = 0
         self.census = (BufferCensus(min_interval_s=config.census_min_interval_s)
                        if config.enabled else None)
+        self._detectors: dict[str, RecompileDetector] = {}
+        self._t0: Optional[float] = None
+        self._dl_wait = 0.0
+        self._emitted = 0
         # records may come from several threads: serialize sink writes
         self._emit_lock = threading.Lock()
         if config.enabled and config.jsonl_path is not None:
@@ -241,36 +290,166 @@ class StepTelemetry:
         return self.record_memory(label=label, **fields)
 
     # ------------------------------------------------------------------ #
-    # training hooks (queue A10)
+    # training hooks (the Accelerator's step wrapper, the prepared loaders)
     # ------------------------------------------------------------------ #
-    def begin_step(self, *args, **kwargs):
-        raise _training_hook("begin_step")
+    def detector(self, name: str) -> RecompileDetector:
+        """Get or create the rebuild detector of one step function."""
+        det = self._detectors.get(name)
+        if det is None:
+            det = self._detectors[name] = RecompileDetector(name)
+        return det
 
-    def end_step(self, *args, **kwargs):
-        raise _training_hook("end_step")
+    @property
+    def recompiles(self) -> int:
+        """Rebuilds seen by every detector (new signatures after the first)."""
+        return sum(d.retraces for d in self._detectors.values())
+
+    def record_dataloader_wait(self, seconds: float, source: str = "dataloader") -> None:
+        """Add host time spent waiting for a batch; the next step record
+        carries the total as ``dataloader_wait_s``."""
+        if self.enabled:
+            self._dl_wait += seconds
+
+    def begin_step(self) -> None:
+        """Mark the host-side start of a step call."""
+        if self.enabled:
+            self._t0 = time.perf_counter()
+
+    def end_step(self, result: Any = None, *, batch: Any = None, step: Optional[int] = None,
+                 metrics: Any = None, retraced: bool = False, label: str = "step",
+                 compile_stats: Optional[dict] = None,
+                 extra: Optional[dict] = None) -> Optional[dict]:
+        """Complete one step: wait for ``result`` on the device, build the
+        ``kind="step"`` record (times, dataloader wait, rebuilds, tokens and
+        throughput, model FLOP/s and MFU, memory every ``memory_interval``
+        records, the step's 0-d metrics, ``extra``), emit it and return it
+        (None while disabled). A ``grad_norm`` that is not finite or comes
+        from a step that only accumulated is left off the record."""
+        if not self.enabled:
+            return None
+        if self._t0 is None:
+            total_s = dispatch_s = 0.0
+        else:
+            dispatch_s = time.perf_counter() - self._t0
+            if result is not None:
+                _synchronize(result)
+            total_s = time.perf_counter() - self._t0
+            self._t0 = None
+        record: dict[str, Any] = {
+            "kind": "step",
+            "label": label,
+            "step": step,
+            "time_unix": time.time(),
+            "step_time_s": total_s,
+            "dispatch_s": dispatch_s,
+            "dataloader_wait_s": self._dl_wait,
+            "retraced": bool(retraced),
+            "recompiles": self.recompiles,
+        }
+        self._dl_wait = 0.0
+        if compile_stats:
+            record["compile_time_s"] = float(compile_stats.get("compile_time_s", 0.0))
+            record["persistent_cache_hits"] = int(compile_stats.get("persistent_cache_hits", 0))
+            record["persistent_cache_misses"] = int(
+                compile_stats.get("persistent_cache_misses", 0))
+        for key, value in (extra or {}).items():
+            record.setdefault(key, value)
+
+        tokens = None
+        if batch is not None:
+            try:
+                tokens = (self.config.tokens_fn or _infer_tokens)(batch)
+            except Exception:  # a user's counter never stops the step
+                tokens = None
+        record["tokens"] = tokens
+        record["tokens_per_s"] = tokens / total_s if tokens and total_s > 0 else None
+        if self.config.flops_per_token is not None:
+            flops_per_s = (self.config.flops_per_token * record["tokens_per_s"]
+                           if record["tokens_per_s"] else None)
+            record["model_flops_per_s"] = flops_per_s
+            if flops_per_s and self.config.device_peak_flops:
+                record["mfu"] = flops_per_s / self.config.device_peak_flops  # one device
+
+        interval = self.config.memory_interval
+        if interval and self._emitted % interval == 0:
+            stats = device_memory_stats()
+            record["peak_hbm_bytes"] = stats["peak_bytes_in_use"]
+            record["hbm_bytes_in_use"] = stats["bytes_in_use"]
+            record["hbm_bytes_limit"] = stats["bytes_limit"]
+            record["host_rss_bytes"] = host_memory_rss()
+
+        if metrics is not None:
+            scalars = dict(_scalar_items(metrics))
+            gnorm = scalars.get("grad_norm")
+            if gnorm is not None and (not math.isfinite(gnorm)
+                                      or not scalars.get("is_sync_step", 1.0)):
+                del scalars["grad_norm"]  # no norm on an accumulating step; NaN is no JSON
+            for key, value in scalars.items():
+                record.setdefault(key, value)
+
+        self._emitted += 1
+        self._emit(record)
+        return record
+
+    def record_compile(self, *, label: str = "step", source: str = "warmup",
+                       compile_time_s: Optional[float] = None, persistent_cache_hits: int = 0,
+                       persistent_cache_misses: int = 0, **extra: Any) -> Optional[dict]:
+        """Emit a ``kind="compile"`` record: one build outside a step worth
+        attributing. None while disabled."""
+        if not self.enabled:
+            return None
+        record: dict[str, Any] = {
+            "kind": "compile",
+            "label": label,
+            "source": source,
+            "time_unix": time.time(),
+            "compile_time_s": compile_time_s,
+            "persistent_cache_hits": int(persistent_cache_hits),
+            "persistent_cache_misses": int(persistent_cache_misses),
+        }
+        for key, value in extra.items():
+            record.setdefault(key, value)
+        self._emit(record)
+        return record
 
     def record_checkpoint(self, *args, **kwargs):
-        raise _training_hook("record_checkpoint")
-
-    def record_compile(self, *args, **kwargs):
-        raise _training_hook("record_compile")
-
-    def record_dataloader_wait(self, *args, **kwargs):
-        raise _training_hook("record_dataloader_wait")
+        raise NotImplementedError(
+            "StepTelemetry.record_checkpoint comes with the async checkpoint writer, "
+            "which is not ported yet (ROADMAP.md, queue A item 2)")
 
     # ------------------------------------------------------------------ #
     # reporting and lifecycle
     # ------------------------------------------------------------------ #
     def summary(self) -> dict[str, Any]:
-        """Counts over the in-memory ring: records by kind, and the sink
-        errors seen. The reference's step-time block waits for the step
-        records (queue A10)."""
+        """Counts over the in-memory ring: records by kind and the sink
+        errors seen; step counts, rebuilds and dataloader wait; and the
+        step-time mean, median and p90 and mean tokens/s over the steps that
+        did not rebuild (the reference's :602-628)."""
         by_kind: dict[str, int] = {}
         for record in self.records:
             kind = str(record.get("kind"))
             by_kind[kind] = by_kind.get(kind, 0) + 1
-        return {"records": len(self.records), "by_kind": by_kind,
-                "sink_errors": self._sink_errors}
+        steps = [r for r in self.records if r.get("kind") == "step"]
+        out: dict[str, Any] = {
+            "records": len(self.records), "by_kind": by_kind, "sink_errors": self._sink_errors,
+            "steps": len(steps), "recompiles": self.recompiles,
+            "dataloader_wait_total_s": float(sum(r.get("dataloader_wait_s") or 0.0
+                                                 for r in steps)),
+        }
+        timed = [r["step_time_s"] for r in steps if not r.get("retraced")]
+        if timed:
+            ordered = sorted(timed)
+            pos = 0.9 * (len(ordered) - 1)  # numpy's linear percentile
+            lo = int(pos)
+            hi = min(lo + 1, len(ordered) - 1)
+            out.update(step_time_mean_s=statistics.fmean(timed),
+                       step_time_median_s=statistics.median(timed),
+                       step_time_p90_s=ordered[lo] + (ordered[hi] - ordered[lo]) * (pos - lo))
+            tps = [r["tokens_per_s"] for r in steps
+                   if not r.get("retraced") and r.get("tokens_per_s")]
+            if tps:
+                out["tokens_per_s_mean"] = statistics.fmean(tps)
+        return out
 
     def close(self) -> None:
         """Close every sink (idempotent)."""

@@ -1,20 +1,38 @@
 """Config dataclasses and enums of the training slice.
 
-Port of ``accelerate_tpu/utils/dataclasses.py:65-225`` and ``:238``: the
-precision and distributed-type enums, the mixed-precision policy with torch
-dtypes (fp8 included, :163-167), gradient accumulation in its unfused mode, and the project
-configuration that names checkpoints. One process on one device:
-sharding plugins, process groups and the launcher's environment variables
-come with a later slice (ROADMAP.md).
+Port of ``accelerate_tpu/utils/dataclasses.py:41-238``: the precision and
+distributed-type enums, the mixed-precision policy with torch dtypes (fp8
+included, :163-167), gradient accumulation in both modes (:189-220, with its
+environment variables), the data-loader configuration's one-process fields
+(:225) and the project configuration that names checkpoints. One process
+on one device: sharding plugins, process groups and the launcher's other
+environment variables come with a later slice (ROADMAP.md, queue A4).
 """
 
 from __future__ import annotations
 
+import copy
 import enum
+import os
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+
+from .constants import ENV_PREFIX
+from .environment import parse_flag_from_env
+
+
+class KwargsHandler:
+    """``to_kwargs``: the fields that differ from the dataclass defaults
+    (reference :41)."""
+
+    def to_dict(self) -> dict[str, Any]:
+        return copy.deepcopy(self.__dict__)
+
+    def to_kwargs(self) -> dict[str, Any]:
+        default = self.__class__()
+        return {k: v for k, v in self.to_dict().items() if getattr(default, k) != v}
 
 
 class DistributedType(str, enum.Enum):
@@ -62,16 +80,46 @@ class MixedPrecisionPolicy:
 
 
 @dataclass
-class GradientAccumulationPlugin:
-    """K-step gradient accumulation in the unfused mode: the step runs once
-    per microbatch and every K-th call applies the optimizer. The fused
-    (scanned) mode is not ported yet (ROADMAP.md, queue A3)."""
+class GradientAccumulationPlugin(KwargsHandler):
+    """K-step gradient accumulation. Unfused (the default), the step runs
+    once per microbatch and every K-th call applies the optimizer; with
+    ``fused=True`` (env ``ACCELERATE_TPU_FUSED_ACCUM``) the step runs once
+    per optimizer step over a stacked ``[K, micro, ...]`` batch.
+    ``ACCELERATE_TPU_GRADIENT_ACCUMULATION_STEPS`` fills ``num_steps`` when
+    it is left at 1. ``adjust_scheduler``, ``sync_with_dataloader`` and
+    ``sync_each_batch`` steer the raw loop's ``accumulate``."""
 
     num_steps: int = 1
+    adjust_scheduler: bool = True
+    sync_with_dataloader: bool = True
+    sync_each_batch: bool = False
+    fused: bool = False
 
     def __post_init__(self):
+        env = os.environ.get(ENV_PREFIX + "GRADIENT_ACCUMULATION_STEPS")
+        if env is not None and self.num_steps == 1:
+            self.num_steps = int(env)
         if self.num_steps < 1:
             raise ValueError("num_steps must be >= 1")
+        if not self.fused:
+            self.fused = parse_flag_from_env(ENV_PREFIX + "FUSED_ACCUM")
+        if self.fused and self.sync_each_batch:
+            raise ValueError(
+                "fused accumulation folds every microbatch into one optimizer "
+                "step; sync_each_batch=True contradicts that — use the "
+                "unfused path for per-microbatch sync"
+            )
+
+
+@dataclass
+class DataLoaderConfiguration(KwargsHandler):
+    """The loader setting of one process (reference :225):
+    ``split_batches``, the incoming batch is already the global one (the
+    schedulers then count one step a step, which is also what one process
+    counts). ``dispatch_batches``, ``even_batches`` and the sampler switches
+    belong to several processes (ROADMAP.md, queue A4)."""
+
+    split_batches: bool = False
 
 
 @dataclass

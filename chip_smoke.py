@@ -149,6 +149,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    under the profiler. Every engine builds its decode step once and no
    kernel of the port launches. Readings, not gated: ``slo_ok``, ``recovered``,
    the goodput, int8 against bf16 greedy agreement and first-token logits.
+13. accum and the long-sequence pair: the reference benchmark's ``accum``
+   variant (``measure.py:_run_accum`` at ``(small, 4, 512, 8, 2)``, K 8,
+   bf16, adamw, clip 1.0, telemetry on): B1-B4 against their plain versions
+   at its attention shape (B 4, S 512, 16/8 heads of 64; gated) and B1-B3
+   timed there; the unfused and the fused step from one seeded init and
+   batch, run unfused, fused, fused, unfused, each for 2 + 8 optimizer
+   steps: the step records must read 1 microbatch and 8 calls an optimizer
+   step (unfused) and 8 and 1 (fused), B1-B3 launch exactly 2 x 8 x 10
+   times, every loss is finite, and the fused params and losses equal the
+   unfused ones bit for bit; prints each mode's optimizer-step seconds and
+   ``vs_baseline`` (unfused / fused), a profiled optimizer step of each and
+   the kernels whose launch counts differ. Then ``longseq4k`` and
+   ``longseq_xla4k`` (``longseq`` at S 4096, ``"full"``, sgd, B 1): B1-B4
+   against their plain versions at S 4096 (gated) and B1-B3 timed there,
+   one step's grads of the flash and the plain path from one init held
+   row by row (LONGSEQ_GRAD_TOL), then LONGSEQ4K_STEPS steps of each with
+   exact launches (none on the plain path), peak memory, a profiled step
+   and ``flash_speedup_vs_xla`` (plain / flash step seconds). Then
+   ``longseq_xla`` (S 8192, ``"save_mlp"``, adamw) on the plain path,
+   against phase 11's flash step. Last, a real CUDA out-of-memory error:
+   ``find_executable_batch_size`` around two ``longseq_xla`` steps from
+   B 4 must catch one, halve the batch, settle on a batch with finite
+   losses, and leave the allocated bytes where they were before the first
+   attempt once ``free_memory`` has run.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -177,7 +201,12 @@ phase 12 alone, ending the same way, and
 
     python3 chip_smoke.py --variants-only
 
-phases 1 and 9-11.
+phases 1 and 9-11, and
+
+    python3 chip_smoke.py --accum-only
+
+phases 1 and 13 (phase 13 then runs the flash side of its S 8192 ratio
+itself).
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -311,6 +340,18 @@ FP8_SEEDS = (0, 1, 2, 3, 4)  # weights and tokens of the fp8 against bf16 loss c
 # H100 (2.5e-4, 4.6e-3, 0.0177, 0.0117, 2.0e-4); tools/fp8_mutants.py's
 # planted faults in the fp8 backward read 0.137 or more from step 2 on
 FP8_LOSS_TOL = (7.5e-4, 0.014, 0.055, 0.035, 6e-4)
+# phase 13: the reference benchmark's accum variant (registry.py:316, measure.py:_run_accum
+# :304 at (small, 4, 512, 8, 2), K 8) on its small config (registry.py:298-304, 89 M params)
+ACCUM_CFG = dict(vocab_size=32000, hidden_size=1024, intermediate_size=2816, num_layers=2,
+                 num_heads=16, num_kv_heads=8, max_seq_len=512, dtype="bfloat16")
+ACCUM = dict(B=4, K=8, warmup=2, iters=8)
+# longseq4k and longseq_xla4k (registry.py:357-379): longseq at S 4096 under "full", sgd
+LONGSEQ4K_CFG = dict(LONGSEQ_CFG, max_seq_len=4096, remat="full")
+LONGSEQ4K_STEPS = 6
+# flash against plain first-step grads at S 4096 (bf16), worst row's max error
+# over its RMS: about 3x the reading 0.348 on an H100 (PERF.md's parity table)
+LONGSEQ_GRAD_TOL = 1.0
+OOM_START_BATCH = 4  # longseq_xla at S 8192: 4 x 32 heads x 8192^2 fp32 scores = 32 GiB a layer
 LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     "original_max_position_embeddings": 8192,
@@ -1277,6 +1318,20 @@ def time_bert_kernels(torch, fa, rep: Report) -> list[dict]:
     rep.line(f"fwd+bwd at the BERT shape: port kernels {time_ms(torch, port_fwd_bwd, 10, flush):.4f} "
              f"ms, F.scaled_dot_product_attention with the key mask "
              f"{time_ms(torch, sdpa_fwd_bwd, 10, flush):.4f} ms (yardstick only)")
+    # B2 + B3's yardstick: the backward alone of SDPA with the same key mask
+    # (the memory-efficient backward), on the output of one forward
+    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(o, (qg, kg, vg), dout_t,
+                                                          retain_graph=True), 20, flush)
+
+    def two_pass():
+        fa.flash_bwd_dq(q, k, v, dout, lse, delta, *args)
+        fa.flash_bwd_dkv(q, k, v, dout, lse, delta, *args)
+
+    rep.line(f"at the BERT shape: B2 + B3 {time_ms(torch, two_pass, 20, flush):.4f} ms against "
+             f"the library's backward of F.scaled_dot_product_attention with the key mask "
+             f"{sdpa_bwd:.4f} ms (all of dq, dk, dv)")
+    del o
     return rows
 
 
@@ -2697,12 +2752,12 @@ def soak_phase(torch, port, wrappers, rep: Report, model) -> None:
 # phases 9-11: the reference benchmark's single-card training variants
 # ---------------------------------------------------------------------- #
 def variant_trainer(torch, port, cfg_kw: dict, batch: int, steps: int, seed: int = 0,
-                    mixed_precision: str = "bf16"):
+                    mixed_precision: str = "bf16", optimizer: str = "adamw"):
     """A CausalLM of the reference's config ``cfg_kw`` built on the card from
     a seeded generator, ``prepare``d (under ``mixed_precision="fp8"`` that
-    converts its projections) with adamw (lr 3e-4) and clip 1.0, and one
-    batch of seeded tokens that repeats every step (also returned, on the
-    card, as the last item)."""
+    converts its projections) with ``optimizer`` (adamw or sgd, lr 3e-4) and
+    clip 1.0, and one batch of seeded tokens that repeats every step (also
+    returned, on the card, as the last item)."""
     gc.collect()
     torch.cuda.empty_cache()
     port.AcceleratorState._reset_state(reset_partial_state=True)
@@ -2714,7 +2769,7 @@ def variant_trainer(torch, port, cfg_kw: dict, batch: int, steps: int, seed: int
     tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len),
                            generator=torch.Generator().manual_seed(seed)).numpy()
     dataset = [{"input_ids": tokens[i % batch]} for i in range(steps * batch)]
-    model, opt, loader = acc.prepare(model, port.adamw(3e-4),
+    model, opt, loader = acc.prepare(model, getattr(port, optimizer)(3e-4),
                                      port.DataLoader(dataset, batch_size=batch))
     step = acc.unified_step(port.CausalLM.loss_fn(model), opt, max_grad_norm=1.0)
     carry = acc.init_carry(model, opt)
@@ -3195,9 +3250,10 @@ def fp8_loss_gaps(torch, port, rep: Report, curves=None) -> None:
              f"largest by step {worst}, limits {list(FP8_LOSS_TOL)}")
 
 
-def longseq_phase(torch, port, wrappers, rep: Report) -> list[dict]:
+def longseq_phase(torch, port, wrappers, rep: Report) -> tuple[list[dict], float]:
     """Phase 11: see the module docstring. Returns B1-B3's rows at the
-    config's attention shape, with the "save_mlp" run's launches."""
+    config's attention shape, with the "save_mlp" run's launches, and the
+    "save_mlp" run's median step seconds (phase 13's flash side at S 8192)."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     cfg_kw, steps = LONGSEQ_CFG, LONGSEQ_STEPS
@@ -3233,27 +3289,316 @@ def longseq_phase(torch, port, wrappers, rep: Report) -> list[dict]:
                                                    "flash_bwd_dkv": L * steps})
         by_policy[remat] = launches
         if remat == "save_mlp":
+            save_mlp_s = steady
             profile_groups(torch, lambda: step(carry, batch), rep, name)
         del acc, model, opt, loader, step, carry
     del grads
     for row in rows:
         row["launches"] = by_policy["save_mlp"][WRAPPER_OF[row["name"]]]
-    return rows
+    return rows, save_mlp_s
 
 
-def variant_phases(torch, port, wrappers, rep: Report) -> list[dict]:
-    """Phases 9-11; returns the B1-B3 rows at the moe and longseq shapes."""
+def variant_phases(torch, port, wrappers, rep: Report) -> tuple[list[dict], float]:
+    """Phases 9-11; returns the B1-B3 rows at the moe and longseq shapes and
+    longseq's "save_mlp" step seconds."""
     t0 = time.perf_counter()
     rows = moe_phase(torch, port, wrappers, rep)
     t1 = time.perf_counter()
     dense_fp8_phase(torch, port, wrappers, rep)
     t2 = time.perf_counter()
-    rows += longseq_phase(torch, port, wrappers, rep)
+    longseq_rows, save_mlp_s = longseq_phase(torch, port, wrappers, rep)
     rep.line(f"variant phases: moe {t1 - t0:.1f} s, dense/fp8 {t2 - t1:.1f} s, longseq "
              f"{time.perf_counter() - t2:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    return rows + longseq_rows, save_mlp_s
+
+
+# ---------------------------------------------------------------------- #
+# phase 13: the reference benchmark's accum variant and the long-sequence
+# flash-against-plain pair
+# ---------------------------------------------------------------------- #
+def accum_trainer(torch, port, fused: bool):
+    """``measure.py:_run_accum``'s set-up in one mode on the ``small``
+    config: the model and one batch of tokens from seed 0, adamw (lr 3e-4),
+    clip 1.0, telemetry on, K microbatches an optimizer step (fused: the
+    batch stacked K times, one call; unfused: K calls). Returns the accelerator, the step,
+    its carry, the batch, the calls an optimizer step takes and the
+    parameter count."""
+    B, K = ACCUM["B"], ACCUM["K"]
+    S, vocab = ACCUM_CFG["max_seq_len"], ACCUM_CFG["vocab_size"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    acc = port.Accelerator(mixed_precision="bf16", telemetry=True,
+                           gradient_accumulation_plugin=port.GradientAccumulationPlugin(
+                               num_steps=K, fused=fused))
+    model = port.CausalLM(port.TransformerConfig(**ACCUM_CFG), device=acc.device,
+                          generator=torch.Generator(device=acc.device).manual_seed(0))
+    model, opt = acc.prepare(model, port.adamw(3e-4))
+    step = acc.unified_step(port.CausalLM.loss_fn(model), opt, max_grad_norm=1.0)
+    carry = acc.init_carry(model, opt)
+    ids = torch.randint(0, vocab, (B, S), generator=torch.Generator().manual_seed(0)).to("cuda")
+    batch = {"input_ids": ids.expand(K, B, S).contiguous() if fused else ids}
+    torch.cuda.synchronize()
+    return acc, step, carry, batch, 1 if fused else K, sum(p.numel() for p in model.parameters())
+
+
+def accum_steps(torch, step, carry, batch, calls: int, n: int):
+    """``n`` optimizer steps of ``calls`` calls each. Returns the carry, the
+    losses (each microbatch's) and each optimizer step's seconds (host clock
+    ending in a synchronise)."""
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            carry, metrics = step(carry, batch)
+            losses += (metrics["loss_per_microbatch"].tolist() if calls == 1
+                       else [float(metrics["loss"])])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return carry, losses, times
+
+
+def accum_mode(torch, port, wrappers, fused: bool, rep: Report) -> dict:
+    """One mode of ``_run_accum`` with telemetry on: ``ACCUM["warmup"]`` and
+    then ``ACCUM["iters"]`` optimizer steps, every launch counter set to 0
+    just before and read just after. Returns the readings and, for the
+    profile, the step, its carry and its batch."""
+    K, L = ACCUM["K"], ACCUM_CFG["num_layers"]
+    acc, step, carry, batch, calls, n_params = accum_trainer(torch, port, fused)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    steps = ACCUM["warmup"] + ACCUM["iters"]
+    carry, losses, times = accum_steps(torch, step, carry, batch, calls, steps)
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
+    records = [r for r in acc.telemetry.records if r.get("kind") == "step"]
+    name = "accum fused" if fused else "accum unfused"
+    timed = times[ACCUM["warmup"]:]
+    out = {
+        "name": name, "timed": timed, "losses": losses, "records": len(records),
+        "microbatches": records[-1]["microbatches"],
+        "dispatches_per_opt_step": records[-1]["dispatches_per_opt_step"],
+        "launches": launches, "peak": torch.cuda.max_memory_allocated(),
+        "opt_step": carry["opt_step"], "n_params": n_params,
+        "params": {k: p.detach().clone() for k, p in carry["params"].items()},
+        "profile": (step, carry, batch, calls),
+    }
+    rep.line(f"{name}: optimizer-step seconds {times} (median of the {ACCUM['iters']} timed "
+             f"{statistics.median(timed)} s); records {len(records)}, last record microbatches "
+             f"{out['microbatches']} dispatches_per_opt_step {out['dispatches_per_opt_step']}; "
+             f"peak memory {out['peak'] / 2**30} GiB; kernel launches {json.dumps(launches)}")
+    check_launches(name, launches, by_design, {"flash_fwd": L * K * steps,
+                                               "flash_bwd_dq": L * K * steps,
+                                               "flash_bwd_dkv": L * K * steps})
+    return out
+
+
+def accum_phase(torch, port, wrappers, rep: Report) -> list[dict]:
+    """The ``accum`` variant: fused and unfused from one init and batch, in
+    the order unfused, fused, fused, unfused; their records, launches and
+    times, the params bit for bit, a profiled optimizer step of each and the
+    kernels whose launch counts differ between the two. Returns B1-B3's
+    rows at its attention shape."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    K = ACCUM["K"]
+    H, Hkv = ACCUM_CFG["num_heads"], ACCUM_CFG["num_kv_heads"]
+    rows = time_flash_shape(torch, fa, rep, "accum", ACCUM["B"], ACCUM_CFG["max_seq_len"], H,
+                            Hkv, ACCUM_CFG["hidden_size"] // H)
+    timed, params, losses, counts = {False: [], True: []}, {}, {}, {}
+    for fused in (False, True, True, False):
+        run = accum_mode(torch, port, wrappers, fused, rep)
+        want = (K, 1) if fused else (1, K)
+        got = (run["microbatches"], run["dispatches_per_opt_step"])
+        calls = (1 if fused else K) * (ACCUM["warmup"] + ACCUM["iters"])
+        if got != want or run["records"] != calls:
+            fail(f"{run['name']}: {run['records']} step records reading (microbatches, "
+                 f"dispatches_per_opt_step) {got}, want {calls} reading {want}")
+        if run["opt_step"] != ACCUM["warmup"] + ACCUM["iters"]:
+            fail(f"{run['name']} took {run['opt_step']} optimizer steps")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            fail(f"{run['name']}: a loss is not finite: {run['losses']}")
+        timed[fused] += run["timed"]
+        if fused not in params:  # the first run of each mode: params, profile
+            params[fused], losses[fused] = run["params"], run["losses"]
+            step, carry, batch, calls = run["profile"]
+
+            def one_opt_step(step=step, carry=carry, batch=batch, calls=calls):
+                for _ in range(calls):
+                    carry = step(carry, batch)[0]
+
+            counts[fused] = profile_groups(torch, one_opt_step, rep,
+                                           f"{run['name']} optimizer step") or {}
+            del step, carry, batch, one_opt_step
+            if fused:
+                for row in rows:
+                    row["launches"] = run["launches"][WRAPPER_OF[row["name"]]]
+        del run
+    differ = sorted(((k, counts[False].get(k, 0), counts[True].get(k, 0))
+                     for k in set(counts[False]) | set(counts[True])
+                     if counts[False].get(k, 0) != counts[True].get(k, 0)),
+                    key=lambda t: -abs(t[2] - t[1]))
+    rep.line(f"accum: kernels launched a different number of times in one optimizer step, "
+             f"(name, unfused, fused): {[(k[:70], u, f) for k, u, f in differ[:8]]}")
+    bad = unequal(params[True], params[False])
+    worst = max((rel_err(torch, params[True][k], params[False][k]) for k in bad), default=0.0)
+    rep.line(f"accum: {ACCUM_CFG} ({sum(p.numel() for p in params[True].values())} params, "
+             f"registry.py:298-304 small); fused against unfused after "
+             f"{ACCUM['warmup'] + ACCUM['iters']} optimizer steps: "
+             f"{len(params[True]) - len(bad)} of {len(params[True])} tensors bitwise equal, "
+             f"worst differing tensor max|diff| / max|unfused| {worst}; losses equal: "
+             f"{losses[True] == losses[False]}")
+    u, f = statistics.median(timed[False]), statistics.median(timed[True])
+    rep.line(f"accum: median optimizer-step seconds over both runs of each mode: unfused {u} "
+             f"(runs {timed[False]}), fused {f} (runs {timed[True]}); vs_baseline "
+             f"(unfused / fused) {u / f}")
+    if bad or losses[True] != losses[False]:
+        fail(f"accum: fused and unfused differ: {bad[:4]} ({len(bad)} tensors)")
     return rows
+
+
+def longseq_pair(torch, port, wrappers, rep: Report) -> tuple[list[dict], float]:
+    """``longseq4k`` and ``longseq_xla4k``: the flash and the plain path at
+    S 4096 under ``"full"`` remat with sgd, one step's gradients of each
+    from one init held against each other row by row, then
+    LONGSEQ4K_STEPS steps of each with exact launches. Returns B1-B3's rows
+    at the shape and the flash side's median step seconds."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    S, L = LONGSEQ4K_CFG["max_seq_len"], LONGSEQ4K_CFG["num_layers"]
+    rows = time_flash_shape(torch, fa, rep, "longseq4k", 1, S, LONGSEQ4K_CFG["num_heads"],
+                            LONGSEQ4K_CFG["num_kv_heads"], 128)
+    steps, steady, flash_grads = LONGSEQ4K_STEPS, {}, None
+    for impl in ("flash", "xla"):
+        name = "longseq4k" if impl == "flash" else "longseq_xla4k"
+        acc, model, opt, loader, step, carry, first = variant_trainer(
+            torch, port, dict(LONGSEQ4K_CFG, attention_impl=impl), 1, steps, optimizer="sgd")
+        _, grads = grads_of(torch, model, first, torch.bfloat16)
+        if flash_grads is None:  # held on the host while the plain side runs
+            flash_grads = {k: g.cpu() for k, g in grads.items()}
+        else:
+            errs = {k: row_err(torch, flash_grads[k].to("cuda"), g) for k, g in grads.items()}
+            worst = max(errs, key=errs.get)
+            rep.line(f"longseq4k: first-step grads, flash against plain, worst row's max error "
+                     f"over its RMS {errs[worst]} ({worst}); median over tensors "
+                     f"{statistics.median(errs.values())}; limit {LONGSEQ_GRAD_TOL}")
+            if not errs[worst] <= LONGSEQ_GRAD_TOL:
+                fail(f"longseq4k: flash and plain grads differ: {errs[worst]} > "
+                     f"{LONGSEQ_GRAD_TOL} at {worst}")
+            del flash_grads
+        del grads
+        carry, batch, losses, times, launches, by_design, peak = run_counted(
+            torch, wrappers, step, carry, loader)
+        steady[impl] = statistics.median(times[1:])
+        rep.line(f"{name} losses {losses}; step seconds {times}; median of steps 2-{steps} "
+                 f"{steady[impl]} s, {S / steady[impl]} tokens/s; peak memory {peak / 2**30} GiB")
+        rep.line(f"{name} kernel launches {json.dumps(launches)}")
+        if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0]):
+            fail(f"{name} losses {losses}: not finite or not falling on a repeated batch")
+        want = ({"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                 "flash_bwd_dkv": L * steps} if impl == "flash" else {})
+        check_launches(name, launches, by_design, want)
+        profile_groups(torch, lambda: step(carry, batch), rep, name)
+        if impl == "flash":
+            for row in rows:
+                row["launches"] = launches[WRAPPER_OF[row["name"]]]
+        del acc, model, opt, loader, step, carry, first, batch
+    rep.line(f"longseq4k pair: flash_speedup_vs_xla {steady['xla'] / steady['flash']} at S {S} "
+             f"(sgd, remat 'full'; runner.py:526-534's ratio)")
+    return rows, steady["flash"]
+
+
+def longseq_xla_phase(torch, port, wrappers, rep: Report, flash_s) -> None:
+    """``longseq_xla``: the ``longseq`` config on the plain path at S 8192
+    (``"save_mlp"``, adamw), its steps, peak memory and launches (none),
+    and ``flash_speedup_vs_xla`` against the flash side's median step
+    (phase 11's, or its own run of the flash side when phase 11 did not
+    run)."""
+    steps, S = LONGSEQ_STEPS, LONGSEQ_CFG["max_seq_len"]
+    if flash_s is None:
+        acc, model, opt, loader, step, carry, _ = variant_trainer(torch, port, LONGSEQ_CFG, 1,
+                                                                  steps)
+        times = run_counted(torch, wrappers, step, carry, loader)[3]
+        flash_s = statistics.median(times[1:])
+        rep.line(f"longseq flash 'save_mlp' (for the ratio): step seconds {times}")
+        del acc, model, opt, loader, step, carry
+    acc, model, opt, loader, step, carry, _ = variant_trainer(
+        torch, port, dict(LONGSEQ_CFG, attention_impl="xla"), 1, steps)
+    carry, batch, losses, times, launches, by_design, peak = run_counted(
+        torch, wrappers, step, carry, loader)
+    xla_s = statistics.median(times[1:])
+    rep.line(f"longseq_xla losses {losses}; step seconds {times}; median of steps 2-{steps} "
+             f"{xla_s} s; peak memory {peak / 2**30} GiB; kernel launches {json.dumps(launches)}")
+    rep.line(f"longseq_xla: flash_speedup_vs_xla {xla_s / flash_s} at S {S} (adamw, remat "
+             f"'save_mlp'; flash {flash_s} s)")
+    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        fail(f"longseq_xla losses {losses}: not finite or not falling on a repeated batch")
+    check_launches("longseq_xla", launches, by_design, {})
+    profile_groups(torch, lambda: step(carry, batch), rep, "longseq_xla")
+
+
+def oom_phase(torch, port, rep: Report) -> None:
+    """A real CUDA out-of-memory error through ``find_executable_batch_size``:
+    two steps of ``longseq_xla`` at S 8192 from B ``OOM_START_BATCH``, whose
+    fp32 scores alone take 32 GiB a layer. At least one OOM must be caught
+    and the batch halved, the batch it settles on must train with finite
+    losses, and after ``free_memory`` the allocated bytes must be back to
+    what they were before the first attempt (within 1 %, and 1 MiB)."""
+    from accelerate_tpu_torch.utils.memory import release_memory
+
+    release_memory()
+    before = torch.cuda.memory_allocated()
+    tried, caught = [], []
+
+    @port.find_executable_batch_size(starting_batch_size=OOM_START_BATCH)
+    def train(batch_size):
+        tried.append(batch_size)
+        acc, model, opt, loader, step, carry, _ = variant_trainer(
+            torch, port, dict(LONGSEQ_CFG, attention_impl="xla"), batch_size, 2)
+        try:
+            losses = run_steps(torch, step, carry, loader)[2]
+        except torch.OutOfMemoryError as e:
+            caught.append(str(e).splitlines()[0][:160])
+            raise
+        return losses, acc
+
+    t0 = time.perf_counter()
+    losses, acc = train()
+    acc.free_memory()
+    del acc
+    after = torch.cuda.memory_allocated()
+    rep.line(f"oom: batch sizes tried {tried}, CUDA OOMs caught {len(caught)} ({caught[:1]}); "
+             f"settled at B {tried[-1]} with losses {losses}; allocated before the first "
+             f"attempt {before} B, after free_memory {after} B; {time.perf_counter() - t0:.1f} s")
+    if not caught or len(tried) < 2 or tried[1] != tried[0] // 2:
+        fail(f"oom: no CUDA OOM caught and halved: tried {tried}, caught {caught}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"oom: the settled batch's losses are not finite: {losses}")
+    if abs(after - before) > 0.01 * before + 2**20:
+        fail(f"oom: {after} B allocated after free_memory against {before} B before")
+
+
+def phase13(torch, port, wrappers, rep: Report, flash_8k_s=None) -> list[dict]:
+    """Phase 13: see the module docstring. Returns B1-B3's rows at the
+    ``accum`` and ``longseq4k`` shapes."""
+    t0 = time.perf_counter()
+    rows = accum_phase(torch, port, wrappers, rep)
+    t1 = time.perf_counter()
+    pair_rows, _ = longseq_pair(torch, port, wrappers, rep)
+    t2 = time.perf_counter()
+    longseq_xla_phase(torch, port, wrappers, rep, flash_8k_s)
+    t3 = time.perf_counter()
+    oom_phase(torch, port, rep)
+    rep.line(f"phase 13: accum {t1 - t0:.1f} s, longseq4k pair {t2 - t1:.1f} s, longseq_xla "
+             f"{t3 - t2:.1f} s, oom {time.perf_counter() - t3:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows + pair_rows
 
 
 def main() -> None:
@@ -3305,9 +3650,14 @@ def main() -> None:
         rep.line("small-only: the small models on the card agree with the CPU")
         return
     if "--variants-only" in sys.argv[1:]:
-        rows = variant_phases(torch, port, wrappers, rep)
+        rows = variant_phases(torch, port, wrappers, rep)[0]
         print(json.dumps({"kernels": rows}))
         rep.line("variants-only: the moe, dense/fp8 and longseq phases passed")
+        return
+    if "--accum-only" in sys.argv[1:]:
+        rows = phase13(torch, port, wrappers, rep)
+        print(json.dumps({"kernels": rows}))
+        rep.line("accum-only: the accum, longseq pair, longseq_xla and oom phases passed")
         return
     if "--bert-only" in sys.argv[1:]:
         failed = run_cases(torch, fa, bert_cases(torch), rep)[0]
@@ -3344,7 +3694,8 @@ def main() -> None:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    variant_rows = variant_phases(torch, port, wrappers, rep)
+    variant_rows, flash_8k_s = variant_phases(torch, port, wrappers, rep)
+    variant_rows += phase13(torch, port, wrappers, rep, flash_8k_s)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

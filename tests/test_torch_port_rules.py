@@ -75,7 +75,7 @@ def test_every_module_and_chip_smoke_import_without_jax():
     """)
     result = _run_blocked(code)
     assert result.returncode == 0, result.stderr
-    assert int(result.stdout.split()[0]) >= 25  # checkpointing and the examples among them
+    assert int(result.stdout.split()[0]) >= 33  # checkpointing and the examples among them
 
 
 FORBIDDEN_IMPORTS = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu", "safetensors")
@@ -224,6 +224,27 @@ def test_decode_path_raises():
     assert model(ids, decode=True, cache=init_cache(model, 1)).shape == (1, 4, 1024)
 
 
+def test_accumulation_raw_loop_and_telemetry_modules_import_without_jax():
+    """The gradient-accumulation and raw-loop slice's modules and its five
+    examples, each imported on its own with jax blocked."""
+    code = textwrap.dedent("""
+        import importlib
+        for name in ("accelerate_tpu_torch.utils.memory", "accelerate_tpu_torch.utils.environment",
+                     "accelerate_tpu_torch.telemetry.recompile",
+                     "accelerate_tpu_torch.telemetry.config",
+                     "accelerate_tpu_torch.telemetry.collector",
+                     "accelerate_tpu_torch.examples.gradient_accumulation",
+                     "accelerate_tpu_torch.examples.automatic_gradient_accumulation",
+                     "accelerate_tpu_torch.examples.memory",
+                     "accelerate_tpu_torch.examples.early_stopping",
+                     "accelerate_tpu_torch.examples.cross_validation"):
+            importlib.import_module(name)
+        print("ok")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
+
+
 def test_serving_modules_import_without_jax():
     code = textwrap.dedent("""
         import importlib
@@ -279,6 +300,10 @@ def test_unported_accelerator_and_model_paths_raise():
     assert port.Accelerator(mixed_precision="fp8", cpu=True).state.mixed_precision_policy.fp8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.Accelerator(cpu=True, parallelism_plugin=object())
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        port.Accelerator(cpu=True, diagnostics=True)
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        port.StepTelemetry(True).record_checkpoint(step=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.SequenceClassifier(port.TransformerConfig.tiny(causal=False, fused_kernels=True),
                                 device="cpu")
