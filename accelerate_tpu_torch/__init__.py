@@ -2,7 +2,8 @@
 
 The training slice on one NVIDIA H100: ``Accelerator`` (prepare ->
 ``unified_step``, unfused or fused gradient accumulation, with telemetry
-step records -> ``save_state``/``load_state``, ``skip_first_batches``,
+step records -> ``save_state``/``load_state``, sync or in the background,
+``CheckpointManager``'s cadence, preemption and resume, ``skip_first_batches``,
 ``gather_for_metrics``; the raw loop's ``accumulate``, ``backward``,
 ``clip_grad_norm_``, triggers and ``free_memory``;
 ``find_executable_batch_size``), the Llama-family ``CausalLM`` (with the fused
@@ -17,6 +18,7 @@ unless the caller asks for the CPU (``Accelerator(cpu=True)``).
 
 from .accelerator import Accelerator
 from .data_loader import DataLoader
+from .fault_tolerance import CheckpointManager
 from .models.config import TransformerConfig
 from .models.transformer import CausalLM, SequenceClassifier
 from .ops.fused import fused_adamw
@@ -31,7 +33,7 @@ from .utils.dataclasses import (
 )
 from .utils.memory import find_executable_batch_size
 from .utils.random import set_seed
-from .utils.weights import carry_from_jax, params_from_jax
+from .utils.weights import carry_from_jax, carry_to_jax, params_from_jax
 
 __all__ = [
     "AcceleratedOptimizer",
@@ -39,6 +41,7 @@ __all__ = [
     "Accelerator",
     "AcceleratorState",
     "CausalLM",
+    "CheckpointManager",
     "DataLoader",
     "DataLoaderConfiguration",
     "GradientAccumulationPlugin",
@@ -50,6 +53,7 @@ __all__ = [
     "TransformerConfig",
     "adamw",
     "carry_from_jax",
+    "carry_to_jax",
     "find_executable_batch_size",
     "fused_adamw",
     "params_from_jax",

@@ -7,7 +7,7 @@ accumulation modes with ``_sync_apply`` :505-554 and ``_fused_step``
 compile monitor, ``init_carry`` :1146, ``sync_from_carry`` :1225, the raw
 loop :1240-1310, ``gather``/``gather_for_metrics`` :1375-1407,
 ``set_trigger``/``check_trigger`` :1419, ``register_for_checkpointing``/
-``save_state``/``load_state`` :1434-1506, ``save_model`` :1508,
+``save_state``/``wait_for_checkpoint``/``load_state`` :1434-1506, ``save_model`` :1508,
 ``get_state_dict`` :1520, ``free_memory`` :1532, ``skip_first_batches``
 :1558, ``set_seed`` :1561) for one process on one device. The step keeps
 the reference's contract and arithmetic:
@@ -39,6 +39,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from . import checkpointing
+from .checkpoint_async import AsyncCheckpointer, save_accelerator_state_async
 from .data_loader import (
     DataLoaderShard,
     _stack_group,
@@ -161,7 +162,7 @@ class Accelerator:
         if diagnostics is not None and diagnostics is not False:
             raise NotImplementedError(
                 "diagnostics (goodput, anomalies, the flight recorder) is not ported yet: "
-                "ROADMAP.md, queue A item 2")
+                "ROADMAP.md, queue A item 2b")
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if gradient_accumulation_plugin is None:
@@ -185,6 +186,7 @@ class Accelerator:
         # leaves a disabled collector whose hooks are no-ops (no synchronise)
         self.telemetry = StepTelemetry(telemetry)
         self._built_steps = 0  # names each built step's rebuild detector
+        self._async_ckpt: Optional[AsyncCheckpointer] = None  # save_state(block=False)'s writer
 
     @property
     def device(self) -> torch.device:
@@ -657,16 +659,37 @@ class Accelerator:
     def save_state(self, output_dir: Optional[str] = None, carry: Any = None,
                    block: bool = True, **kwargs) -> str:
         """Checkpoint the training state (``checkpointing.save_accelerator_state``);
-        returns the committed directory."""
+        returns the committed directory. ``block=False`` returns once the
+        snapshot is taken (``checkpoint_async``): the background writer
+        serialises, writes and commits while training goes on, and the
+        directory returned is the name it will commit to
+        (``wait_for_checkpoint`` blocks until it has). A sync save first
+        drains the async ones, so checkpoints commit in save order."""
         if not block:
-            raise NotImplementedError(
-                "save_state(block=False), the background writer, is not ported yet: "
-                "ROADMAP.md, queue A6")
+            return save_accelerator_state_async(self, self._async_checkpointer, output_dir,
+                                                carry=carry, **kwargs)
+        self.wait_for_checkpoint()
         return checkpointing.save_accelerator_state(self, output_dir, carry=carry, **kwargs)
+
+    @property
+    def _async_checkpointer(self) -> AsyncCheckpointer:
+        """This accelerator's background writer, made at its first use."""
+        if self._async_ckpt is None:
+            self._async_ckpt = AsyncCheckpointer(telemetry=self.telemetry)
+        return self._async_ckpt
+
+    def wait_for_checkpoint(self) -> None:
+        """Drain the ``save_state(block=False)`` saves in flight (none: a
+        no-op); a background write's failure re-raises here."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
 
     def load_state(self, input_dir: Optional[str] = None, carry: Any = None, **kwargs) -> Any:
         """Restore a checkpoint into ``carry`` (its tensors in place) and
-        return the restored carry."""
+        return the restored carry, once the saves in flight have committed.
+        ``allow_reshape`` takes None or False (one process: the topology
+        cannot change)."""
+        self.wait_for_checkpoint()  # never restore past a save in flight
         return checkpointing.load_accelerator_state(self, input_dir, carry=carry, **kwargs)
 
     def save_model(self, params: Any, save_directory: str, max_shard_size: str = "10GB",

@@ -13,7 +13,15 @@ file-per-object names (``utils/constants.py``). Every file is written into
 
 A restore writes the checkpoint's values into the template's tensors in
 place (the carry's params are the model's parameters), and returns the
-template's structure with its Python counters replaced.
+template's structure with its Python counters replaced. It reads and checks
+every file before it writes into anything, so a load that fails leaves the
+carry, the optimizers and the accelerator as they were.
+
+Host state is captured as ``(filename, kind, payload)`` triples when the
+save is made (``_capture_host_state``) and written from them
+(``_write_host_state``), so the background writer
+(``checkpoint_async/writer.py``) records the RNG, step and loader cursor of
+the step it was given, not of a later one.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import pickle
 import random as _py_random
 import re
 import shutil
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -93,9 +102,9 @@ def flatten_tree(tree: Any) -> dict[str, Any]:
     return named
 
 
-def _restore_leaf(key: str, tleaf: Any, value: Any) -> Any:
-    """``value`` in the form of the template leaf ``tleaf``: a tensor is
-    written into ``tleaf`` in place; a Python number is returned as one."""
+def _checked_value(key: str, tleaf: Any, value: Any) -> Any:
+    """``value`` in the form of the template leaf ``tleaf``, checked but not
+    written: a tensor of the template's shape, or a Python number."""
     value = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
     if isinstance(tleaf, torch.Tensor):
         if tuple(value.shape) != tuple(tleaf.shape):
@@ -105,9 +114,7 @@ def _restore_leaf(key: str, tleaf: Any, value: Any) -> Any:
             else:
                 raise ValueError(f"checkpoint tensor {key!r} has shape {tuple(value.shape)}, "
                                  f"template expects {tuple(tleaf.shape)}")
-        with torch.no_grad():
-            tleaf.copy_(value)
-        return tleaf
+        return value
     if isinstance(tleaf, (bool, int, float, np.generic)):
         return type(tleaf)(value.item())
     if isinstance(tleaf, np.ndarray):
@@ -115,19 +122,45 @@ def _restore_leaf(key: str, tleaf: Any, value: Any) -> Any:
     return tleaf
 
 
-def unflatten_into(template: Any, named: dict[str, Any], strict: bool = True) -> Any:
-    """Fill ``template``'s structure from ``named``. Tensor leaves receive
-    their values in place; ``strict=False`` keeps the template's value for
-    a leaf ``named`` lacks (a carry that grew a leaf since the save)."""
+def restore_plan(template: Any, named: dict[str, Any], strict: bool = True) -> dict[str, Any]:
+    """Every value ``unflatten_into`` would put into ``template``, checked
+    (names, shapes) before anything is written; raises on the first leaf
+    that does not fit. ``strict=False`` lets ``named`` lack a leaf."""
+    plan: dict[str, Any] = {}
+
+    def check(key, tleaf):
+        if key in named:
+            plan[key] = _checked_value(key, tleaf, named[key])
+        elif strict and isinstance(tleaf, _STORABLE):
+            raise KeyError(f"checkpoint missing tensor {key!r}")
+        return tleaf
+
+    _rebuild(template, check)
+    return plan
+
+
+def apply_plan(template: Any, plan: dict[str, Any]) -> Any:
+    """``template`` filled from ``restore_plan``'s values: tensor leaves
+    receive theirs in place, other leaves are replaced."""
 
     def fill(key, tleaf):
-        if key not in named:
-            if strict and isinstance(tleaf, _STORABLE):
-                raise KeyError(f"checkpoint missing tensor {key!r}")
+        if key not in plan:
             return tleaf
-        return _restore_leaf(key, tleaf, named[key])
+        if isinstance(tleaf, torch.Tensor):
+            with torch.no_grad():
+                tleaf.copy_(plan[key])
+            return tleaf
+        return plan[key]
 
     return _rebuild(template, fill)
+
+
+def unflatten_into(template: Any, named: dict[str, Any], strict: bool = True) -> Any:
+    """Fill ``template``'s structure from ``named``. Tensor leaves receive
+    their values in place, once every leaf has been checked; ``strict=False``
+    keeps the template's value for a leaf ``named`` lacks (a carry that grew
+    a leaf since the save)."""
+    return apply_plan(template, restore_plan(template, named, strict))
 
 
 def _tree_of(obj: Any) -> Any:
@@ -345,20 +378,22 @@ def _set_rng_state(accelerator, state: dict) -> None:
     accelerator.keys.load_state_dict(state["keychain"])
 
 
-def _write_host_state(accelerator, carry: Any, output_dir: str) -> None:
-    """Schedulers, loader positions, registered objects, metadata and RNG,
-    one file each, every file atomic."""
+def _capture_host_state(accelerator, carry: Any = None) -> list[tuple[str, str, Any]]:
+    """Schedulers, loader positions, registered objects, metadata and RNG as
+    ``(filename, kind, payload)`` triples (``kind`` "json" or "pickle"),
+    taken now: a background writer then writes the state at save time, not
+    what the objects have moved on to. The carry's counters set the
+    accelerator's ``step`` first (they are the source of truth)."""
+    files: list[tuple[str, str, Any]] = []
     for i, sched in enumerate(accelerator._schedulers):
-        _atomic_json_dump(_jsonable(sched.state_dict()),
-                          os.path.join(output_dir, f"{SCHEDULER_NAME}_{i}.json"))
+        files.append((f"{SCHEDULER_NAME}_{i}.json", "json", _jsonable(sched.state_dict())))
     for i, dl in enumerate(accelerator._dataloaders):
-        _atomic_json_dump(_jsonable(dl.state_dict()),
-                          os.path.join(output_dir, f"{SAMPLER_NAME}_{i}.json"))
+        files.append((f"{SAMPLER_NAME}_{i}.json", "json", _jsonable(dl.state_dict())))
     for i, obj in enumerate(accelerator._custom_objects):
-        _atomic_pickle_dump(obj.state_dict(),
-                            os.path.join(output_dir, f"{CUSTOM_STATE_NAME}_{i}.pkl"))
+        # pickled now: a later in-place change must not reach the file
+        files.append((f"{CUSTOM_STATE_NAME}_{i}.pkl", "pickle", pickle.dumps(obj.state_dict())))
     if carry is not None and "opt_step" in carry:
-        accelerator.sync_from_carry(carry)  # the carry's counters are the source of truth
+        accelerator.sync_from_carry(carry)
     meta = {
         "step": accelerator.step, "iteration": accelerator.project_configuration.iteration,
         "version": 1, "has_carry": carry is not None,
@@ -367,9 +402,20 @@ def _write_host_state(accelerator, carry: Any, output_dir: str) -> None:
         "num_dataloaders": len(accelerator._dataloaders),
         "num_custom": len(accelerator._custom_objects),
     }
-    _atomic_json_dump(meta, os.path.join(output_dir, METADATA_NAME), indent=2)
-    _atomic_pickle_dump(_rng_state(accelerator),
-                        os.path.join(output_dir, f"{RNG_STATE_NAME}_0.pkl"))
+    files.append((METADATA_NAME, "json", meta))
+    files.append((f"{RNG_STATE_NAME}_0.pkl", "pickle", pickle.dumps(_rng_state(accelerator))))
+    return files
+
+
+def _write_host_state(files: list[tuple[str, str, Any]], output_dir: str) -> None:
+    """Write captured host state, every file atomic (a pickle payload is
+    already its bytes)."""
+    for name, kind, payload in files:
+        path = os.path.join(output_dir, name)
+        if kind == "json":
+            _atomic_json_dump(payload, path, indent=2 if name == METADATA_NAME else None)
+        else:
+            _atomic_write(path, lambda f, b=payload: f.write(b), mode="wb")
 
 
 def save_accelerator_state(accelerator, output_dir: Optional[str] = None, carry: Any = None,
@@ -381,37 +427,71 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, carry:
     pass bare ``params`` (a module or a tree). ``sharded=True`` (the
     default) writes ``dist_checkpoint.py``'s format; ``sharded=False`` one
     ``model.safetensors``. Without a carry, each prepared optimizer's state
-    goes to ``optimizer_<i>.safetensors``."""
+    goes to ``optimizer_<i>.safetensors``. Emits a ``kind="checkpoint"``
+    record (``mode="sync"``: the whole save is blocked time)."""
+    t0 = time.perf_counter()
     final_dir = _checkpoint_dir(accelerator, output_dir)
     work_dir = commit.work_dir_for(final_dir)
     commit.discard_work_dir(work_dir)  # a stale one from a crashed save
     os.makedirs(work_dir)
     logger.info(f"Saving current state to {final_dir}")
+    nbytes = 0
     tree = carry if carry is not None else _tree_of(params)
     if tree is not None:
         if sharded:
-            dist_checkpoint.save_sharded_tree(tree, work_dir)
+            nbytes += dist_checkpoint.save_sharded_tree(tree, work_dir)
         else:
-            _save_named(_to_named_tensors(tree),
-                        os.path.join(work_dir, SAFE_WEIGHTS_NAME if safe_serialization
-                                     else MODEL_NAME + ".bin"), safe_serialization)
+            named = _to_named_tensors(tree)
+            _save_named(named, os.path.join(work_dir, SAFE_WEIGHTS_NAME if safe_serialization
+                                            else MODEL_NAME + ".bin"), safe_serialization)
+            nbytes += _nbytes(named)
     if carry is None:
         for i, opt in enumerate(accelerator._optimizers):
             if opt.opt_state is not None:
-                _save_named(_to_named_tensors(opt.opt_state),
-                            os.path.join(work_dir, f"{OPTIMIZER_NAME}_{i}.safetensors"))
-    _write_host_state(accelerator, carry, work_dir)
+                named = _to_named_tensors(opt.opt_state)
+                _save_named(named, os.path.join(work_dir, f"{OPTIMIZER_NAME}_{i}.safetensors"))
+                nbytes += _nbytes(named)
+    _write_host_state(_capture_host_state(accelerator, carry), work_dir)
     accelerator.project_configuration.iteration += 1
-    return commit.commit(work_dir, final_dir, topology=topology_metadata(accelerator))
+    commit.commit(work_dir, final_dir, topology=topology_metadata(accelerator))
+    accelerator.telemetry.record_checkpoint(
+        step=accelerator.step, directory=final_dir, mode="sync",
+        blocked_s=time.perf_counter() - t0, background_s=0.0, bytes_written=nbytes)
+    return final_dir
+
+
+def _nbytes(named: dict[str, torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in named.values())
+
+
+def _read_json(path: str) -> Optional[Any]:
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _read_pickle(path: str) -> Optional[Any]:
+    if not os.path.isfile(path):
+        return None
+    with open(path, "rb") as f:
+        return pickle.load(f)  # a file this module wrote
 
 
 def load_accelerator_state(accelerator, input_dir: Optional[str] = None, carry: Any = None,
-                           params: Any = None) -> Any:
+                           params: Any = None, allow_reshape: Optional[bool] = None) -> Any:
     """Restore what ``save_accelerator_state`` saved. ``carry`` (or
     ``params``) is the template; its tensors receive the saved values in
     place and the filled structure is returned. Only a committed directory
     loads (the latest under the project's ``checkpoints`` when
-    ``input_dir`` is None); one saved by several processes is refused."""
+    ``input_dir`` is None); one saved by several processes is refused.
+    Every file is read and checked before anything is written, so a load
+    that raises changes nothing. ``allow_reshape`` takes the reference's
+    None and False; True (restore onto another topology) is refused."""
+    if allow_reshape:
+        raise NotImplementedError(
+            "load_state(allow_reshape=True), restoring onto another topology, is not ported "
+            "yet: ROADMAP.md, queue A4")
     if input_dir is None:
         base = os.path.join(accelerator.project_configuration.project_dir or ".", "checkpoints")
         found = _list_checkpoints(base) if os.path.isdir(base) else []
@@ -427,45 +507,45 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None, carry: 
             f"{input_dir} was saved by {topology['world_size']} processes; restoring onto "
             "another topology is not ported yet (ROADMAP.md, queue A4)")
     logger.info(f"Loading states from {input_dir}")
-    meta = {}
-    meta_path = os.path.join(input_dir, METADATA_NAME)
-    if os.path.isfile(meta_path):
-        with open(meta_path) as f:
-            meta = json.load(f)
 
+    # read and check everything first
+    meta = _read_json(os.path.join(input_dir, METADATA_NAME)) or {}
     template = carry if carry is not None else _tree_of(params)
-    result = None
+    plan = None
     if template is not None:
         if dist_checkpoint.is_sharded_checkpoint(input_dir):
-            result = dist_checkpoint.load_sharded_tree(template, input_dir, strict=False)
+            named = dist_checkpoint.read_sharded_named(template, input_dir)
         else:
-            result = unflatten_into(template, load_model_weights(input_dir), strict=False)
+            named = load_model_weights(input_dir)
+        plan = restore_plan(template, named, strict=False)
+    opt_plans = {}
+    if carry is None:
+        for i, opt in enumerate(accelerator._optimizers):
+            path = os.path.join(input_dir, f"{OPTIMIZER_NAME}_{i}.safetensors")
+            if opt.opt_state is not None and os.path.isfile(path):
+                opt_plans[i] = restore_plan(opt.opt_state, _load_named(path))
+    scheds = [_read_json(os.path.join(input_dir, f"{SCHEDULER_NAME}_{i}.json"))
+              for i in range(len(accelerator._schedulers))]
+    loaders = [_read_json(os.path.join(input_dir, f"{SAMPLER_NAME}_{i}.json"))
+               for i in range(len(accelerator._dataloaders))]
+    customs = [_read_pickle(os.path.join(input_dir, f"{CUSTOM_STATE_NAME}_{i}.pkl"))
+               for i in range(len(accelerator._custom_objects))]
+    rng = _read_pickle(os.path.join(input_dir, f"{RNG_STATE_NAME}_0.pkl"))
 
+    # then write
+    result = None if plan is None else apply_plan(template, plan)
     for i, opt in enumerate(accelerator._optimizers):
         if carry is not None and opt.opt_state is carry.get("opt_state"):
             opt.opt_state = result["opt_state"]  # the restored counter with the moments
-        path = os.path.join(input_dir, f"{OPTIMIZER_NAME}_{i}.safetensors")
-        if carry is None and opt.opt_state is not None and os.path.isfile(path):
-            opt.opt_state = unflatten_into(opt.opt_state, _load_named(path))
-    for i, sched in enumerate(accelerator._schedulers):
-        path = os.path.join(input_dir, f"{SCHEDULER_NAME}_{i}.json")
-        if os.path.isfile(path):
-            with open(path) as f:
-                sched.load_state_dict(json.load(f))
-    for i, dl in enumerate(accelerator._dataloaders):
-        path = os.path.join(input_dir, f"{SAMPLER_NAME}_{i}.json")
-        if os.path.isfile(path):
-            with open(path) as f:
-                dl.load_state_dict(json.load(f))
-    for i, obj in enumerate(accelerator._custom_objects):
-        path = os.path.join(input_dir, f"{CUSTOM_STATE_NAME}_{i}.pkl")
-        if os.path.isfile(path):
-            with open(path, "rb") as f:
-                obj.load_state_dict(pickle.load(f))  # a file this module wrote
-    rng_path = os.path.join(input_dir, f"{RNG_STATE_NAME}_0.pkl")
-    if os.path.isfile(rng_path):
-        with open(rng_path, "rb") as f:
-            _set_rng_state(accelerator, pickle.load(f))
+        if i in opt_plans:
+            opt.opt_state = apply_plan(opt.opt_state, opt_plans[i])
+    for objs, states in ((accelerator._schedulers, scheds), (accelerator._dataloaders, loaders),
+                         (accelerator._custom_objects, customs)):
+        for obj, state in zip(objs, states):
+            if state is not None:
+                obj.load_state_dict(state)
+    if rng is not None:
+        _set_rng_state(accelerator, rng)
 
     if "step" in meta:
         accelerator.step = int(meta["step"])

@@ -15,6 +15,16 @@ With one process every leaf is one chunk at offset 0 and every file is
 process 0's; the reader still assembles any tiling of chunks, so it reads
 the reference's checkpoints, which may hold several chunks a leaf. The
 files go through the port's own codec (``utils/safetensors_io.py``).
+
+A snapshot owns its memory: the train step updates params and moments in
+place, so a snapshot that shared storage with them would be written with
+a later step's values. A CPU leaf is cloned. A CUDA leaf is copied either
+synchronously into fresh host memory (``buffers=None``: the sync save) or
+into one of the background writer's sets of page-locked buffers
+(:class:`HostBuffers`) with ``non_blocking`` copies on the current stream,
+which stream order puts after the step that produced the values and before
+the next step's in-place updates; one event after the last copy tells the
+writer when the bytes have landed.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import glob
 import itertools
 import json
 import os
+import queue
 from typing import Any, Optional
 
 import numpy as np
@@ -59,29 +70,154 @@ class ShardSnapshot:
 def as_tensor_leaf(leaf: Any) -> Optional[torch.Tensor]:
     """A leaf as a host tensor the format can store, or None for a leaf it
     skips (strings, objects, and dtypes the codec does not write, such as a
-    Python float's or bool's)."""
+    Python float's or bool's). A CPU tensor comes back as itself."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu")
     elif isinstance(leaf, (np.ndarray, np.generic, int, float, bool)):
         arr = np.asarray(leaf)
         if arr.dtype.kind in "USO":
             return None
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.asarray(arr, order="C"))  # a scalar stays 0-d
     else:
         return None
     return t if t.dtype in _DTYPE_NAMES else None
 
 
-def snapshot_tree(tree: Any) -> ShardSnapshot:
-    """Every storable leaf of ``tree`` as one chunk on the host."""
+def _owned_host_copy(leaf: Any) -> Optional[torch.Tensor]:
+    """``as_tensor_leaf`` in memory of its own: a CUDA tensor's copy is
+    fresh, a CPU tensor or numpy array is copied."""
+    t = as_tensor_leaf(leaf)
+    on_host = isinstance(leaf, np.ndarray) or (
+        isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu")
+    return t.clone() if t is not None and on_host else t
+
+
+_ALIGN = 64  # bytes: every view of a buffer set starts on a 64-byte boundary
+
+
+def device_layout(named: dict[str, Any], prefix: str = "") -> list[tuple[str, tuple, torch.dtype]]:
+    """``(prefix + key, shape, dtype)`` of every storable leaf of ``named``
+    that lives on an accelerator: what a set of host buffers must hold."""
+    return [(prefix + key, tuple(leaf.shape), leaf.dtype) for key, leaf in named.items()
+            if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu"
+            and leaf.dtype in _DTYPE_NAMES]
+
+
+def _pinned_empty(nbytes: int) -> torch.Tensor:
+    """Page-locked host bytes; raises when the allocation fails (a pageable
+    buffer would make the non_blocking copies synchronous)."""
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+class HostBuffers:
+    """One set of page-locked host buffers for one snapshot in flight: one
+    allocation, cut into a 64-byte-aligned view a leaf. It is allocated on
+    first use and kept while the layout stays the same."""
+
+    def __init__(self):
+        self.layout: Optional[list] = None
+        self.views: dict[str, torch.Tensor] = {}
+        self.nbytes = 0
+        self.event = None  # recorded after the last copy into the set
+        self._from_cuda = False
+
+    def bind(self, layout: list) -> None:
+        """Hold ``layout``'s leaves, allocating only when it changed."""
+        if layout == self.layout:
+            return
+        offsets, total = [], 0
+        for _, shape, dtype in layout:
+            total += -total % _ALIGN
+            offsets.append(total)
+            total += int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        self.views, self.layout, self.nbytes = {}, None, 0
+        flat = _pinned_empty(total) if total else None
+        for (key, shape, dtype), off in zip(layout, offsets):
+            size = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            self.views[key] = flat[off:off + size].view(dtype).view(shape)
+        self.layout, self.nbytes = layout, total
+
+    def copy_in(self, key: str, leaf: torch.Tensor) -> torch.Tensor:
+        """Queue the copy of ``leaf`` into its view on the current stream;
+        the view's bytes are valid once :meth:`wait` returns."""
+        view = self.views[key]
+        view.copy_(leaf.detach(), non_blocking=True)
+        self._from_cuda = self._from_cuda or leaf.is_cuda
+        return view
+
+    def seal(self) -> None:
+        """Record the event after the last copy (none without a CUDA copy)."""
+        self.event = None
+        if self._from_cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+        self._from_cuda = False
+
+    def wait(self) -> None:
+        """Block until every copy into the set has landed: the writer
+        thread's only CUDA call."""
+        if self.event is not None:
+            self.event.synchronize()
+
+
+class HostBufferPool:
+    """``n_sets`` :class:`HostBuffers`, one a snapshot in flight, all
+    allocated at the first save (none is in flight yet) and reused after.
+    A set goes back to the pool only once its job has finished writing, and
+    :meth:`acquire` waits while every set is out."""
+
+    def __init__(self, n_sets: int):
+        self.sets = [HostBuffers() for _ in range(n_sets)]
+        self._free: queue.Queue = queue.Queue()
+        for buffers in self.sets:
+            self._free.put(buffers)
+
+    def acquire(self, layout: list) -> HostBuffers:
+        buffers = self._free.get()
+        try:
+            for other in self.sets:  # a set never bound is in the pool, not in flight
+                if other is buffers or other.layout is None:
+                    other.bind(layout)
+        except BaseException:
+            self._free.put(buffers)
+            raise
+        return buffers
+
+    def release(self, buffers: HostBuffers) -> None:
+        self._free.put(buffers)
+
+    @property
+    def pinned_bytes(self) -> int:
+        return sum(b.nbytes for b in self.sets)
+
+
+def host_copies(named: dict[str, Any], buffers: Optional[HostBuffers] = None,
+                prefix: str = "") -> dict[str, torch.Tensor]:
+    """Every storable leaf of ``named`` on the host, in memory of its own.
+    A leaf that ``buffers`` holds a view for (under ``prefix + key``) is
+    copied into it without waiting: call ``buffers.seal()`` after the last
+    copy and ``buffers.wait()`` before reading. Without ``buffers`` a CUDA
+    leaf is copied synchronously into fresh memory."""
+    out = {}
+    for key, leaf in named.items():
+        if buffers is not None and prefix + key in buffers.views:
+            t = buffers.copy_in(prefix + key, leaf)
+        else:
+            t = _owned_host_copy(leaf)
+        if t is not None:  # a non-tensor leaf: restore keeps the template's value
+            out[key] = t
+    return out
+
+
+def snapshot_tree(tree: Any, buffers: Optional[HostBuffers] = None) -> ShardSnapshot:
+    """Every storable leaf of ``tree`` as one chunk on the host, in memory
+    the snapshot owns (``host_copies``; with ``buffers`` bound to
+    ``device_layout`` of the tree's leaves)."""
     from .checkpointing import flatten_tree
 
     fname = SHARD_FILE_PATTERN.format(0)
     tensors, manifest = {}, {}
-    for key, leaf in flatten_tree(tree).items():
-        t = as_tensor_leaf(leaf)
-        if t is None:
-            continue  # a non-tensor leaf: restore keeps the template's value
+    for key, t in host_copies(flatten_tree(tree), buffers).items():
         stored = f"{key}@0"
         tensors[stored] = t
         manifest[key] = {
@@ -92,24 +228,27 @@ def snapshot_tree(tree: Any) -> ShardSnapshot:
     return ShardSnapshot(tensors=tensors, manifest=manifest)
 
 
-def write_snapshot(snap: ShardSnapshot, output_dir: str) -> int:
+def write_snapshot(snap: ShardSnapshot, output_dir: str, fsync: bool = False) -> int:
     """The ``state_shard``/``state_index`` pair of a snapshot; the index is
-    written through a temporary file and ``os.replace``. Returns bytes."""
+    written through a temporary file and ``os.replace``. The codec fsyncs
+    the shard; with ``fsync`` the index reaches the disk too before this
+    returns. Returns bytes."""
     os.makedirs(output_dir, exist_ok=True)
-    safetensors_io.save_file(snap.tensors,
-                             os.path.join(output_dir, SHARD_FILE_PATTERN.format(0)))
+    safetensors_io.save_file(snap.tensors, os.path.join(output_dir, SHARD_FILE_PATTERN.format(0)))
     index_path = os.path.join(output_dir, INDEX_FILE_PATTERN.format(0))
     tmp = f"{index_path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(snap.manifest, f)
-        f.flush()
-        os.fsync(f.fileno())
+        if fsync:
+            f.flush()
+            os.fsync(f.fileno())
     os.replace(tmp, index_path)
     return snap.nbytes
 
 
 def save_sharded_tree(tree: Any, output_dir: str) -> int:
-    return write_snapshot(snapshot_tree(tree), output_dir)
+    """A tree's snapshot written, both files on the disk; returns bytes."""
+    return write_snapshot(snapshot_tree(tree), output_dir, fsync=True)
 
 
 def is_sharded_checkpoint(input_dir: str) -> bool:
@@ -229,15 +368,21 @@ def load_full_named(input_dir: str) -> dict[str, torch.Tensor]:
         return {key: _read_leaf(reader, entry) for key, entry in manifest.items()}
 
 
-def load_sharded_tree(template: Any, input_dir: str, strict: bool = True) -> Any:
-    """``template`` filled from a checkpoint in this format (tensor leaves
-    are written in place, see ``checkpointing.unflatten_into``).
-    ``strict=False`` keeps the template's value for a leaf the checkpoint
-    does not hold."""
-    from .checkpointing import flatten_tree, unflatten_into
+def read_sharded_named(template: Any, input_dir: str) -> dict[str, torch.Tensor]:
+    """The checkpoint's leaves that ``template`` names, each read whole."""
+    from .checkpointing import flatten_tree
 
     manifest = _merged_manifest(input_dir)
     with _FileCache(input_dir) as reader:
-        named = {key: _read_leaf(reader, manifest[key])
-                 for key in flatten_tree(template) if key in manifest}
-    return unflatten_into(template, named, strict=strict)
+        return {key: _read_leaf(reader, manifest[key])
+                for key in flatten_tree(template) if key in manifest}
+
+
+def load_sharded_tree(template: Any, input_dir: str, strict: bool = True) -> Any:
+    """``template`` filled from a checkpoint in this format (tensor leaves
+    are written in place once every leaf has been read and checked, see
+    ``checkpointing.unflatten_into``). ``strict=False`` keeps the template's
+    value for a leaf the checkpoint does not hold."""
+    from .checkpointing import unflatten_into
+
+    return unflatten_into(template, read_sharded_named(template, input_dir), strict=strict)

@@ -25,9 +25,11 @@ CUDA device when the result holds a CUDA tensor (the only synchronise
 telemetry adds, and only while enabled): ``step_time_s`` runs to that
 synchronise, ``dispatch_s`` to the call's return.
 
-``record_checkpoint`` and what the step records feed in the reference (the
-heartbeat watchdog, diagnostics) wait for ROADMAP.md's queue A item 2: it
-raises NotImplementedError naming it.
+``record_checkpoint`` emits one record for each committed save, from the
+train loop (sync) or from the checkpoint writer's thread (async); records
+are serialised by one lock. What the step records feed in the reference
+(the heartbeat watchdog, diagnostics) waits for ROADMAP.md's queue A items
+2b and 6.
 """
 
 from __future__ import annotations
@@ -145,6 +147,10 @@ class StepTelemetry:
         self._emitted = 0
         # records may come from several threads: serialize sink writes
         self._emit_lock = threading.Lock()
+        # asked here, not in the meta record: that may be built on the
+        # checkpoint writer's thread, which makes no CUDA call but its wait
+        cuda = torch.cuda.is_available()
+        self._backend = ("cuda" if cuda else "cpu", torch.cuda.device_count() if cuda else 0)
         if config.enabled and config.jsonl_path is not None:
             self.add_sink(JSONLSink(config.jsonl_path))
 
@@ -156,9 +162,9 @@ class StepTelemetry:
         return sink
 
     def _emit(self, record: dict) -> None:
-        self.records.append(record)
-        if self.sinks and _rank_and_world()[0] == 0:
-            with self._emit_lock:
+        with self._emit_lock:  # the checkpoint writer's thread emits too
+            self.records.append(record)
+            if self.sinks and _rank_and_world()[0] == 0:
                 if not self._meta_written:
                     self._meta_written = True
                     self._emit_raw(self._meta_record())
@@ -179,10 +185,10 @@ class StepTelemetry:
             "kind": "meta",
             "schema": SCHEMA_VERSION,
             "time_unix": time.time(),
-            "backend": "cuda" if torch.cuda.is_available() else "cpu",
+            "backend": self._backend[0],
             "process_index": rank,
             "process_count": world,
-            "local_device_count": torch.cuda.device_count() if torch.cuda.is_available() else 0,
+            "local_device_count": self._backend[1],
         }
 
     # ------------------------------------------------------------------ #
@@ -412,10 +418,36 @@ class StepTelemetry:
         self._emit(record)
         return record
 
-    def record_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "StepTelemetry.record_checkpoint comes with the async checkpoint writer, "
-            "which is not ported yet (ROADMAP.md, queue A item 2)")
+    def record_checkpoint(self, *, step: Optional[int] = None, directory: Optional[str] = None,
+                          mode: str = "sync", blocked_s: Optional[float] = None,
+                          background_s: Optional[float] = None,
+                          bytes_written: Optional[int] = None, **extra: Any) -> Optional[dict]:
+        """Emit a ``kind="checkpoint"`` record: one committed save.
+        ``blocked_s`` is what the train loop waited (sync: the whole save;
+        async: the snapshot, the host-state capture and any backpressure),
+        ``background_s`` the writer thread's serialisation, IO and commit
+        (0 for sync). Thread-safe: async saves report from the writer
+        thread. None while disabled."""
+        if not self.enabled:
+            return None
+        record: dict[str, Any] = {
+            "kind": "checkpoint",
+            "label": "checkpoint",
+            "step": step,
+            "time_unix": time.time(),
+            "dir": directory,
+            "mode": mode,
+            "blocked_s": blocked_s,
+            "background_s": background_s,
+            "bytes_written": bytes_written,
+        }
+        io_s = background_s if mode == "async" else blocked_s
+        record["write_bandwidth_bytes_per_s"] = (
+            bytes_written / io_s if bytes_written and io_s else None)
+        for key, value in extra.items():
+            record.setdefault(key, value)
+        self._emit(record)
+        return record
 
     # ------------------------------------------------------------------ #
     # reporting and lifecycle

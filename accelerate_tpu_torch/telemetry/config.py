@@ -5,7 +5,7 @@ the fields of the serving records, the sinks and the training step
 records (:82-87). The step records always carry the step's 0-d metrics
 (the reference's default), and the census rides the serving engine's
 gauge samples only. The heartbeat and diagnostics switches wait for
-``diagnostics/`` (ROADMAP.md, queue A item 2); ``all_ranks`` belongs to
+``diagnostics/`` (ROADMAP.md, queue A item 2b); ``all_ranks`` belongs to
 multi-process runs, which the port does not have yet (records go to the
 sinks on rank 0 only, the reference's default).
 """

@@ -17,7 +17,11 @@ moment tree of the same shape maps the same way.
 ``carry_from_jax(named, model, optimizer)`` builds the port's train-step
 carry from the flat ``name -> array`` dict of a reference checkpoint
 (``accelerate_tpu/checkpointing.py:70``, names joined by ``//``): the
-params, optax ``adamw``'s ``count``/``mu``/``nu`` and the step counters.
+params, optax ``adamw``'s ``count``/``mu``/``nu``, the step counters, the
+fp16 loss scale and the unfused accumulation buffer. ``carry_to_jax(named,
+like)`` goes the other way: the port's flat carry (``dist_checkpoint.
+load_full_named`` of a directory the port saved) under the reference's
+names, so that ``accelerate_tpu``'s ``load_state`` reads it.
 """
 
 from __future__ import annotations
@@ -107,11 +111,11 @@ def carry_from_jax(named: Mapping[str, Any], model: torch.nn.Module, optimizer) 
     reference's ``save_state`` wrote): the model's parameters and the
     prepared ``optimizer``'s moments receive the saved values in place;
     optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) is found in
-    its chain by its ``mu``. Loss-scale and accumulation state are not
-    carried over."""
-    if any(k.startswith(("loss_scale", "accum_grads")) for k in named):
-        raise NotImplementedError("carrying fp16 loss-scale or accumulation state over from "
-                                  "the reference is not ported yet (ROADMAP.md, queue A6)")
+    its chain by its ``mu``. An fp16 run's ``loss_scale`` and an unfused
+    accumulation's ``accum_grads`` and ``micro_step`` come along; a fused
+    carry has neither counter nor buffer."""
+    from ..optimizer import LossScaleState
+
     cfg = model.config
     params = dict(model.named_parameters())
     _copy_from_jax(named, "params", cfg, params)
@@ -126,6 +130,84 @@ def carry_from_jax(named: Mapping[str, Any], model: torch.nn.Module, optimizer) 
     _copy_from_jax(named, f"{prefix}{_SEP}mu", cfg, state["mu"])
     _copy_from_jax(named, f"{prefix}{_SEP}nu", cfg, state["nu"])
     state["count"] = int(np.asarray(named[f"{prefix}{_SEP}count"]))
-    return {"params": params, "opt_state": state,
-            "opt_step": int(np.asarray(named["opt_step"])),
-            "micro_step": int(np.asarray(named["micro_step"]))}
+    carry = {"params": params, "opt_state": state, "opt_step": int(np.asarray(named["opt_step"]))}
+    if "micro_step" in named:
+        carry["micro_step"] = int(np.asarray(named["micro_step"]))
+    if any(k.startswith(f"accum_grads{_SEP}") for k in named):
+        accum = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+        _copy_from_jax(named, "accum_grads", cfg, accum)
+        carry["accum_grads"] = accum
+    if f"loss_scale{_SEP}scale" in named:
+        device = next(iter(params.values())).device
+        carry["loss_scale"] = LossScaleState(
+            scale=torch.tensor(np.asarray(named[f"loss_scale{_SEP}scale"]), dtype=torch.float32,
+                               device=device),
+            growth_count=int(np.asarray(named[f"loss_scale{_SEP}growth_count"])),
+            fin_steps=int(np.asarray(named[f"loss_scale{_SEP}fin_steps"])))
+    return carry
+
+
+def _port_name(parts: list[str]) -> tuple[str, bool, bool]:
+    """A reference parameter path (below ``params``) as the port's name
+    (``{i}`` in place of a scanned layer's index), whether the leaf
+    transposes, and whether the layers are scanned (stacked on axis 0)."""
+    *mods, leaf = parts
+    if leaf == "kernel":
+        new, transpose = "weight", True
+    elif leaf in ("scale", "embedding"):
+        new, transpose = "weight", False
+    elif leaf == "bias" or leaf in _EXPERT_STACKS:
+        new, transpose = leaf, False
+    else:
+        raise ValueError(f"unknown flax parameter leaf {leaf!r}")
+    scanned = bool(mods) and mods[0] == "layers"
+    if scanned:
+        mods = ["layers", "{i}", *mods[1:]]
+    elif mods and _LAYER.match(mods[0]):
+        mods = ["layers", _LAYER.match(mods[0]).group(1), *mods[1:]]
+    return ".".join([*mods, new]), transpose, scanned
+
+
+def _numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def carry_to_jax(named: Mapping[str, Any], like: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """The port's flat carry ``named`` (its ``//`` names: ``params//layers.0.
+    attn.q_proj.weight``, ``opt_state//mu//...``, ``opt_state//count``, the
+    counters, ``accum_grads//...``, ``loss_scale//...``) under the reference's
+    names, one array for each name of ``like`` (the reference carry's
+    ``flatten_tree``, or anything with its names, shapes and dtypes):
+    weights transposed back to flax's (in, out), scanned layers stacked,
+    every optax ``count`` from the port's one count, each array in ``like``'s
+    dtype and checked against its shape."""
+    out = {}
+    for key, ref in like.items():
+        parts = key.split(_SEP)
+        src = None
+        if parts[0] in ("params", "accum_grads"):
+            src, below = parts[0], parts[1:]
+        elif parts[0] == "opt_state" and len(parts) > 3 and parts[2] in ("mu", "nu"):
+            src, below = f"opt_state{_SEP}{parts[2]}", parts[3:]
+        if src is not None:
+            name, transpose, scanned = _port_name(below)
+
+            def leaf(i=None):
+                arr = _numpy(named[f"{src}{_SEP}{name.format(i=i)}"]).astype(np.float32)
+                return arr.T if transpose else arr
+
+            value = np.stack([leaf(i) for i in range(ref.shape[0])]) if scanned else leaf()
+        elif parts[0] == "opt_state" and parts[-1] == "count":
+            value = _numpy(named[f"opt_state{_SEP}count"])
+        elif key in named:  # opt_step, micro_step, loss_scale//<field>
+            value = _numpy(named[key])
+        else:
+            raise KeyError(f"the port's carry has nothing for the reference's {key!r}")
+        value = np.array(value, dtype=np.dtype(ref.dtype), order="C")
+        if value.shape != tuple(ref.shape):
+            raise ValueError(f"{key}: the port gives shape {value.shape}, the reference expects "
+                             f"{tuple(ref.shape)}")
+        out[key] = value
+    return out

@@ -173,6 +173,29 @@ Phases, each fatal on failure (exit code 1, no result line):
    B 4 must catch one, halve the batch, settle on a batch with finite
    losses, and leave the allocated bytes where they were before the first
    attempt once ``free_memory`` has run.
+14. ckpt: the reference benchmark's ``ckpt`` variant (``measure.py:_run_ckpt``
+   at ``(small, 8, 512, 16, 3)``, registry.py:400, nothing cut): B1-B3 against
+   their plain versions at its attention shape (B 8, S 512, 16/8 heads of
+   64; gated, check (f)) and timed there; then the sync and the async arm,
+   each from one seeded init: 3 warmup steps, 16 steps with a
+   ``CheckpointManager`` saving every 4 (bf16, adamw, telemetry on,
+   ``total_limit`` 2), B1-B3 launching exactly 2 x 16 times; it prints each
+   arm's saves, mean ``blocked_s`` and ``background_s``, ``bytes_written``,
+   write GiB/s, save, quiet and after-save step seconds, the pinned bytes
+   and host RSS, and ``vs_baseline`` (sync blocked_s / async blocked_s).
+   Hard checks: (a) the async save at step 12 against a host clone taken
+   right after its submit, while steps 13-16 update the same tensors in
+   place, bit for bit, and its recorded step, iteration and loader cursor;
+   (a2) the same for a ``save_state(block=False)`` made with no synchronise
+   after its step; (b) every directory left is committed, none is a
+   ``.tmp``, the newest is step 16's; (c) each arm's newest checkpoint
+   equals its live carry bit for bit, and the two arms' shards have one
+   sha256; (d) ``restore_or_init`` on a fresh accelerator resumes at step
+   16 and its step 17 equals the live one bit for bit; (e) SIGTERM with an
+   async save in flight: the next ``step`` drains it, writes the final
+   checkpoint synchronously and sets ``should_stop``, and a restore resumes
+   from it bit for bit. Last, a pinned buffer set's allocation and the copy
+   into it timed apart.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -206,7 +229,11 @@ phases 1 and 9-11, and
     python3 chip_smoke.py --accum-only
 
 phases 1 and 13 (phase 13 then runs the flash side of its S 8192 ratio
-itself).
+itself), and
+
+    python3 chip_smoke.py --ckpt-only
+
+phases 1 and 14.
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -352,6 +379,11 @@ LONGSEQ4K_STEPS = 6
 # over its RMS: about 3x the reading 0.348 on an H100 (PERF.md's parity table)
 LONGSEQ_GRAD_TOL = 1.0
 OOM_START_BATCH = 4  # longseq_xla at S 8192: 4 x 32 heads x 8192^2 fp32 scores = 32 GiB a layer
+# phase 14: the reference benchmark's ckpt variant (registry.py:400, measure.py:_run_ckpt
+# :175-294 at (small, 8, 512, 16, 3)) on the small config, nothing cut; a loader of 32
+# batches repeats the variant's one batch (26 are drawn)
+CKPT = dict(B=8, iters=16, warmup=3, total_limit=2, race_step=12, batches=32)
+CKPT_EVERY = max(2, CKPT["iters"] // 4)  # measure.py:196
 LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     "original_max_position_embeddings": 8192,
@@ -3601,6 +3633,344 @@ def phase13(torch, port, wrappers, rep: Report, flash_8k_s=None) -> list[dict]:
     return rows + pair_rows
 
 
+# ---------------------------------------------------------------------- #
+# phase 14: the ckpt variant
+# ---------------------------------------------------------------------- #
+def ckpt_trainer(torch, port, project_dir: str, model_seed: int = 0, reset: bool = True):
+    """``measure.py:_run_ckpt``'s set-up (:195-230) on the ``small`` config:
+    the model built on the card from a seeded generator, bf16, adamw (lr
+    3e-4, no clip), telemetry on, automatic checkpoint naming under
+    ``project_dir`` with ``total_limit`` 2. The reference's one batch of
+    seeded tokens comes from a prepared loader that repeats it, so each
+    checkpoint also carries a loader cursor. ``reset=False`` builds a second
+    accelerator beside a live one (the shared states stay as they are)."""
+    B, S, vocab = CKPT["B"], ACCUM_CFG["max_seq_len"], ACCUM_CFG["vocab_size"]
+    if reset:
+        gc.collect()
+        torch.cuda.empty_cache()
+        port.AcceleratorState._reset_state(reset_partial_state=True)
+        port.GradientState._reset_state()
+    acc = port.Accelerator(mixed_precision="bf16", telemetry=True,
+                           project_config=port.ProjectConfiguration(
+                               project_dir=project_dir, automatic_checkpoint_naming=True,
+                               total_limit=CKPT["total_limit"]))
+    model = port.CausalLM(port.TransformerConfig(**ACCUM_CFG), device=acc.device,
+                          generator=torch.Generator(device=acc.device).manual_seed(model_seed))
+    tokens = torch.randint(0, vocab, (B, S), generator=torch.Generator().manual_seed(0)).numpy()
+    dataset = [{"input_ids": tokens[i % B]} for i in range(CKPT["batches"] * B)]
+    model, opt, loader = acc.prepare(model, port.adamw(3e-4), port.DataLoader(dataset,
+                                                                            batch_size=B))
+    step = acc.unified_step(port.CausalLM.loss_fn(model), opt)
+    return acc, step, acc.init_carry(model, opt), loader
+
+
+def host_flat(torch, port, carry) -> dict:
+    """Every leaf of the carry, tensors copied to the host (synchronously:
+    stream order puts the copies after every kernel queued so far)."""
+    return {k: v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor) else v
+            for k, v in port.checkpointing.flatten_tree(carry).items()}
+
+
+def flat_diff(torch, got: dict, want: dict) -> list:
+    """The names whose values differ, bit for bit (and any name only one has)."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        a, b = got[k], want[k]
+        same = (torch.equal(a.cpu(), b.cpu()) if isinstance(a, torch.Tensor)
+                else (not isinstance(b, torch.Tensor) and a == b))
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def host_state_at(acc, loader) -> dict:
+    """What a save made now must record: the step, the iteration it took
+    (the counter is already one past it), the loader's cursor."""
+    return {"step": acc.step, "iteration": acc.project_configuration.iteration - 1,
+            "sampler": json.loads(json.dumps(loader.state_dict()))}
+
+
+def host_state_in(path: str) -> dict:
+    """The same, as the checkpoint at ``path`` recorded it."""
+    with open(os.path.join(path, "accelerate_state.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(path, "sampler_0.json")) as f:
+        sampler = json.load(f)
+    return {"step": meta["step"], "iteration": meta["iteration"], "sampler": sampler}
+
+
+def saved_equals(torch, port, fresh, path: str, want: dict, host: dict):
+    """Load ``path`` into the fresh trainer's carry and hold it against
+    ``want`` (a ``host_flat``) bit for bit, and its recorded host state
+    against ``host``. Returns (the names that differ, the host fields that
+    differ)."""
+    facc, _, fcarry, _ = fresh
+    loaded = facc.load_state(path, carry=fcarry)
+    bad = flat_diff(torch, host_flat(torch, port, loaded), want)
+    got = host_state_in(path)
+    return bad, [k for k in host if got[k] != host[k]]
+
+
+def shard_digest(path: str) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    with open(os.path.join(path, "state_shard_00000.safetensors"), "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            digest.update(block)
+    return digest.hexdigest()
+
+
+def host_alloc_stats(torch) -> dict:
+    """The caching host allocator's count of page-locked allocations and
+    their total time (us), where this PyTorch reports them."""
+    stats = torch.cuda.memory.host_memory_stats()
+    return {k: v for k, v in stats.items()
+            if k in ("num_host_alloc", "host_alloc_time.total", "allocated_bytes.current")}
+
+
+def ckpt_arm(torch, port, wrappers, mode: str, base: str, rep: Report, checks: dict) -> dict:
+    """One arm of ``_run_ckpt`` (:206-262): ``CKPT["warmup"]`` steps, then
+    ``CKPT["iters"]`` steps with a CheckpointManager saving every
+    CKPT_EVERY synchronously or in the background, each step timed on the
+    host clock after its loss is read (the step done on the card before
+    the save, as :240 does). Every launch counter is set to 0 just before
+    the timed steps and read just after. Then the hard checks of this arm
+    (``checks`` gets one entry each, True when it held): (b) the committed
+    set; (c) the newest checkpoint against the live carry; (d)
+    restore_or_init on a fresh accelerator, then step 17 of both; in the
+    async arm also (a) the step-12 save against a host clone taken right
+    after it was submitted, while steps 13-16 update the same tensors in
+    place; (a2) the same for a ``save_state(block=False)`` made while its
+    step may still be running on the card; (e) SIGTERM with a save in
+    flight. Returns the arm's readings."""
+    import signal
+
+    project_dir = os.path.join(base, mode)
+    acc, step, carry, loader = ckpt_trainer(torch, port, project_dir)
+    n_params = sum(p.numel() for p in carry["params"].values())
+    batches = iter(loader)
+    for _ in range(CKPT["warmup"]):
+        carry, metrics = step(carry, next(batches))
+    float(metrics["loss"])
+    mgr = port.CheckpointManager(acc, every_n_steps=CKPT_EVERY, handle_signals=False,
+                                 async_saves=mode == "async")
+    reset_counts(wrappers)
+    host_before = host_alloc_stats(torch)
+    times, saved_at, race = [], [], None
+    for i in range(1, CKPT["iters"] + 1):
+        t0 = time.perf_counter()
+        carry, metrics = step(carry, next(batches))
+        float(metrics["loss"])
+        saved = mgr.step(carry)
+        times.append(time.perf_counter() - t0)
+        if saved:
+            saved_at.append(i)
+        if mode == "async" and i == CKPT["race_step"]:
+            race = (saved, host_state_at(acc, loader), host_flat(torch, port, carry))
+    pinned = mgr._checkpointer.buffers.pinned_bytes if mode == "async" else 0
+    mgr.wait()
+    host_after = host_alloc_stats(torch)
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
+    mgr.close()
+    L = ACCUM_CFG["num_layers"]
+    check_launches(f"ckpt {mode}", launches, by_design,
+                   {w: L * CKPT["iters"] for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    recs = [r for r in acc.telemetry.records if r.get("kind") == "checkpoint"]
+    save_steps = [t for i, t in enumerate(times, 1) if i in saved_at]
+    quiet = [t for i, t in enumerate(times, 1) if i not in saved_at]
+    after = [t for i, t in enumerate(times, 1) if i - 1 in saved_at and i - 1 != CKPT["race_step"]]
+    out = {
+        "saves": len(recs), "blocked_s": statistics.fmean(r["blocked_s"] for r in recs),
+        "background_s": statistics.fmean(r["background_s"] for r in recs),
+        "bytes_written": recs[-1]["bytes_written"],
+        "write_gib_s": statistics.fmean(r["write_bandwidth_bytes_per_s"] or 0.0
+                                        for r in recs) / 2**30,
+        "save_step_s": statistics.fmean(save_steps), "quiet_step_s": statistics.fmean(quiet),
+        "save_step_overhead_s": statistics.fmean(save_steps) - statistics.fmean(quiet),
+        "after_save_step_s": statistics.fmean(after) if after else None,
+        "pinned_bytes": pinned, "host_rss_bytes": port.telemetry.collector.host_memory_rss(),
+        # the caching host allocator's page-locked allocations during the timed steps
+        "pinned_allocs": {k: host_after[k] - host_before.get(k, 0) for k in host_after},
+        "n_params": n_params, "launches": launches,
+    }
+    rep.line(f"ckpt {mode}: saves at steps {saved_at} of {CKPT['iters']} (every {CKPT_EVERY}); "
+             f"records {[(r['mode'], r['step'], os.path.basename(r['dir'])) for r in recs]}; "
+             f"blocked_s {[r['blocked_s'] for r in recs]}, background_s "
+             f"{[r['background_s'] for r in recs]}; step seconds {times}")
+    rep.line(f"ckpt {mode}: {json.dumps({k: v for k, v in out.items() if k != 'launches'})}; "
+             f"kernel launches {json.dumps(launches)}")
+
+    # (b) the committed set
+    ckpt_base = os.path.join(project_dir, "checkpoints")
+    names = sorted(os.listdir(ckpt_base))
+    committed = port.checkpointing._list_checkpoints(ckpt_base)
+    newest = committed[-1] if committed else None
+    newest_step = host_state_in(newest)["step"] if newest else None
+    checks[f"b_{mode}"] = (len(committed) == len(names) and not any(".tmp" in n for n in names)
+                           and newest_step == acc.step)
+    rep.line(f"ckpt {mode} (b): left {names}, committed {[os.path.basename(c) for c in committed]}"
+             f", the newest at step {newest_step} (the live step {acc.step})")
+
+    # (c) the newest checkpoint against the live carry, through restore_or_init (d)
+    fresh = ckpt_trainer(torch, port, project_dir, model_seed=1, reset=False)
+    facc, fstep, fcarry, floader = fresh
+    with port.CheckpointManager(facc, handle_signals=False) as fmgr:
+        fcarry, resumed = fmgr.restore_or_init(fcarry)
+    fresh = (facc, fstep, fcarry, floader)
+    live = host_flat(torch, port, carry)
+    bad = flat_diff(torch, host_flat(torch, port, fcarry), live)
+    out["digest"] = shard_digest(newest)
+    checks[f"c_{mode}"] = resumed and not bad
+    rep.line(f"ckpt {mode} (c): the newest checkpoint against the live carry at step "
+             f"{acc.step}: {len(live) - len(bad)} of {len(live)} leaves equal bit for bit "
+             f"(differ: {bad[:4]}); shard sha256 {out['digest'][:16]}")
+    carry, metrics = step(carry, next(batches))
+    fcarry, fmetrics = fstep(fcarry, next(iter(floader)))
+    bad = flat_diff(torch, host_flat(torch, port, fcarry), host_flat(torch, port, carry))
+    same_loss = float(metrics["loss"]) == float(fmetrics["loss"])
+    checks[f"d_{mode}"] = resumed and facc.step == acc.step and not bad and same_loss
+    rep.line(f"ckpt {mode} (d): restore_or_init resumed {resumed} at step {facc.step - 1}; step "
+             f"{CKPT['iters'] + 1} (optimizer step {acc.step}) of the resumed run against the "
+             f"live one: losses equal {same_loss}, leaves differing {bad[:4]}")
+    fresh = (facc, fstep, fcarry, floader)
+    if mode == "sync":
+        return out
+
+    # (a) the step-12 save against the clone taken right after its submit
+    path, host, want = race
+    bad, host_bad = saved_equals(torch, port, fresh, path, want, host)
+    checks["a"] = not bad and not host_bad
+    rep.line(f"ckpt (a): the async save at step {CKPT['race_step']} ({os.path.basename(path)}), "
+             f"written while steps {CKPT['race_step'] + 1}-{CKPT['iters']} updated the same "
+             f"tensors in place, against the clone taken right after its submit: "
+             f"{len(want) - len(bad)} of {len(want)} leaves equal bit for bit (differ: "
+             f"{bad[:4]}); host state {host} (differ: {host_bad})")
+    # (a2) a save made while its step may still be running on the card
+    carry, metrics = step(carry, next(batches))
+    path = acc.save_state(carry=carry, block=False)
+    host, want = host_state_at(acc, loader), host_flat(torch, port, carry)
+    for _ in range(3):
+        carry, metrics = step(carry, next(batches))
+    float(metrics["loss"])
+    acc.wait_for_checkpoint()
+    bad, host_bad = saved_equals(torch, port, fresh, path, want, host)
+    checks["a2"] = not bad and not host_bad
+    rep.line(f"ckpt (a2): save_state(block=False) with no synchronise after its step, then 3 "
+             f"steps: {len(want) - len(bad)} of {len(want)} leaves equal bit for bit (differ: "
+             f"{bad[:4]}); host fields differing {host_bad}")
+    # (e) SIGTERM with an async save in flight
+    with port.CheckpointManager(acc, every_n_steps=1, async_saves=True) as emgr:
+        carry, metrics = step(carry, next(batches))
+        float(metrics["loss"])
+        drained = emgr.step(carry)
+        os.kill(os.getpid(), signal.SIGTERM)
+        in_flight = emgr.in_flight
+        carry, metrics = step(carry, next(batches))
+        float(metrics["loss"])
+        final = emgr.step(carry)
+        stopped, left = emgr.should_stop, emgr.in_flight
+    committed = port.checkpointing._list_checkpoints(ckpt_base)
+    want = host_flat(torch, port, carry)
+    with port.CheckpointManager(facc, handle_signals=False) as fmgr:
+        fcarry, resumed = fmgr.restore_or_init(fcarry)
+    bad = flat_diff(torch, host_flat(torch, port, fcarry), want)
+    checks["e"] = (in_flight and stopped and not left
+                   and port.checkpoint_async.is_committed(drained) and committed[-1] == final
+                   and resumed and facc.step == acc.step and not bad)
+    rep.line(f"ckpt (e): SIGTERM with the async save {os.path.basename(drained)} in flight "
+             f"({in_flight}); the next step drained it and wrote {os.path.basename(final)} "
+             f"synchronously: should_stop {stopped}, in flight after {left}, committed "
+             f"{[os.path.basename(c) for c in committed]}; resumed at step {facc.step} (live "
+             f"{acc.step}), leaves differing {bad[:4]}")
+    return out
+
+
+def snapshot_copy_timing(torch, port, rep: Report) -> None:
+    """The parts of an async save's snapshot on the card, apart: binding one
+    pinned buffer set for the small config's carry (with the host
+    allocator's count of fresh page-locked allocations), and the copy of its
+    CUDA leaves into it (CUDA events), against a synchronous ``.to("cpu")``
+    of the same leaves into fresh pageable memory."""
+    dc = port.dist_checkpoint
+    acc, _, carry, _ = ckpt_trainer(torch, port, tempfile.gettempdir())  # saves nothing
+    named = port.checkpointing.flatten_tree(carry)
+    layout = dc.device_layout(named)
+    before = host_alloc_stats(torch)
+    t0 = time.perf_counter()
+    buffers = dc.HostBufferPool(1).acquire(layout)
+    alloc_s = time.perf_counter() - t0
+    allocs = {k: v - before.get(k, 0) for k, v in host_alloc_stats(torch).items()}
+    nbytes = sum(int(math.prod(shape)) * dtype.itemsize for _, shape, dtype in layout)
+    copy_ms, pageable_s = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dc.host_copies(named, buffers)
+        end.record()
+        end.synchronize()
+        copy_ms.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        dc.host_copies(named)
+        pageable_s.append(time.perf_counter() - t0)
+    rep.line(f"ckpt snapshot parts: one pinned buffer set of {buffers.nbytes} B bound in "
+             f"{alloc_s} s (the caching host allocator's page-locked allocations meanwhile: "
+             f"{allocs}; none when it served freed blocks); the {len(layout)} CUDA leaves "
+             f"({nbytes} B) copied into it in "
+             f"{copy_ms} ms ({[nbytes / m / 1e6 for m in copy_ms]} GB/s); synchronous "
+             f".to('cpu') into pageable memory {pageable_s} s")
+    del acc, carry, named, buffers
+
+
+def phase14(torch, port, wrappers, rep: Report) -> list[dict]:
+    """Phase 14: see the module docstring. Returns B1-B3's rows at the
+    ``ckpt`` shape."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    H, Hkv = ACCUM_CFG["num_heads"], ACCUM_CFG["num_kv_heads"]
+    rows = time_flash_shape(torch, fa, rep, "ckpt", CKPT["B"], ACCUM_CFG["max_seq_len"], H,
+                            Hkv, ACCUM_CFG["hidden_size"] // H)  # check (f)
+    t1 = time.perf_counter()
+    arm = ckpt_checks(torch, port, wrappers, rep)
+    for row in rows:
+        row["launches"] = arm["launches"][WRAPPER_OF[row["name"]]]
+    t2 = time.perf_counter()
+    snapshot_copy_timing(torch, port, rep)
+    rep.line(f"phase 14: B1-B3 at the ckpt shape {t1 - t0:.1f} s, the arms and their checks "
+             f"{t2 - t1:.1f} s, the snapshot's parts {time.perf_counter() - t2:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ckpt_checks(torch, port, wrappers, rep: Report) -> dict:
+    """The sync and the async arm, then the hard checks; fails naming every
+    check that did not hold. Returns the async arm's readings."""
+    base = tempfile.mkdtemp(prefix="ckpt_smoke_")
+    checks: dict = {}
+    try:
+        arms = {mode: ckpt_arm(torch, port, wrappers, mode, base, rep, checks)
+                for mode in ("sync", "async")}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks["c_across"] = arms["sync"]["digest"] == arms["async"]["digest"]
+    sync_b, async_b = arms["sync"]["blocked_s"], arms["async"]["blocked_s"]
+    rep.line(f"ckpt: {arms['async']['n_params']} params (registry.py:298-304 small), B "
+             f"{CKPT['B']}, S {ACCUM_CFG['max_seq_len']}, bytes_written a save "
+             f"{arms['async']['bytes_written']}; vs_baseline (sync blocked_s / async blocked_s) "
+             f"{sync_b / async_b}; the two arms' step-{CKPT['iters']} shards equal "
+             f"{checks['c_across']}")
+    rep.line(f"ckpt checks {json.dumps(checks)}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"ckpt: hard checks failed: {failed}")
+    return arms["async"]
+
+
 def main() -> None:
     script_t0 = time.perf_counter()
     import torch
@@ -3659,6 +4029,11 @@ def main() -> None:
         print(json.dumps({"kernels": rows}))
         rep.line("accum-only: the accum, longseq pair, longseq_xla and oom phases passed")
         return
+    if "--ckpt-only" in sys.argv[1:]:
+        rows = phase14(torch, port, wrappers, rep)
+        print(json.dumps({"kernels": rows}))
+        rep.line("ckpt-only: the ckpt phase passed")
+        return
     if "--bert-only" in sys.argv[1:]:
         failed = run_cases(torch, fa, bert_cases(torch), rep)[0]
         if failed:
@@ -3696,6 +4071,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     variant_rows, flash_8k_s = variant_phases(torch, port, wrappers, rep)
     variant_rows += phase13(torch, port, wrappers, rep, flash_8k_s)
+    variant_rows += phase14(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

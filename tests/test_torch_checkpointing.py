@@ -384,9 +384,22 @@ def test_only_a_committed_dir_loads(tmp_path):
     assert ckpt._list_checkpoints(str(base)) == []
 
 
-def test_save_state_block_false_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A6"):
-        port.Accelerator(cpu=True).save_state("x", params=_toy_params(), block=False)
+def test_save_state_block_false_is_not_ported(tmp_path):
+    """It is ported now (the name is the refusal's it replaced):
+    ``save_state(block=False)`` returns the directory the background writer
+    will commit to, and after ``wait_for_checkpoint`` it loads back the
+    params as they were at the call."""
+    acc = port.Accelerator(cpu=True)
+    params = _toy_params()
+    out = acc.save_state(str(tmp_path / "x"), params=params, block=False)
+    want = {k: v.clone() for k, v in ckpt.flatten_tree(params).items()}
+    for t in ckpt.flatten_tree(params).values():
+        t.add_(1.0)  # in place, before the writer has necessarily run
+    acc.wait_for_checkpoint()
+    assert commit.is_committed(out)
+    got = acc.load_state(out, params=_toy_params(seed=1))
+    for k, v in ckpt.flatten_tree(got).items():
+        assert torch.equal(v, want[k]), k
 
 
 # ---------------------------------------------------------------------- #

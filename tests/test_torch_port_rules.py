@@ -1,8 +1,9 @@
 """Rules the PyTorch port keeps, checked without JAX.
 
-* Every module of ``accelerate_tpu_torch`` (its examples included),
-  ``chip_smoke.py`` and the tools (``tools/port_copies.py``,
-  ``flash_mutants.py``, ``flash_variants.py``, ``path_bisect.py``) import
+* Every module of ``accelerate_tpu_torch`` (its examples, ``fault_tolerance``
+  and ``checkpoint_async.writer`` included), ``chip_smoke.py`` and the tools
+  (``tools/port_copies.py``, ``flash_mutants.py``, ``flash_variants.py``,
+  ``path_bisect.py``, ``fp8_mutants.py``, ``ckpt_mutants.py``) import
   in a process where ``jax``, ``accelerate_tpu`` and ``safetensors``
   cannot be imported, and no import statement in them names one (the
   card's machine has neither JAX nor ``safetensors``).
@@ -62,9 +63,14 @@ def test_every_module_and_chip_smoke_import_without_jax():
             accelerate_tpu_torch.__path__, "accelerate_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        # the async checkpoint slice's modules are among them
+        for name in ("accelerate_tpu_torch.fault_tolerance",
+                     "accelerate_tpu_torch.checkpoint_async.writer"):
+            assert name in names, name
         sys.path.insert(0, "tools")  # where the tools import their shared helper from
         for script in ("chip_smoke.py", "tools/port_copies.py", "tools/flash_mutants.py",
-                       "tools/flash_variants.py", "tools/path_bisect.py"):
+                       "tools/flash_variants.py", "tools/path_bisect.py",
+                       "tools/fp8_mutants.py", "tools/ckpt_mutants.py"):
             spec = importlib.util.spec_from_file_location("script", script)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         leaked = [m for m in sys.modules
@@ -75,7 +81,7 @@ def test_every_module_and_chip_smoke_import_without_jax():
     """)
     result = _run_blocked(code)
     assert result.returncode == 0, result.stderr
-    assert int(result.stdout.split()[0]) >= 33  # checkpointing and the examples among them
+    assert int(result.stdout.split()[0]) >= 35  # checkpointing and the examples among them
 
 
 FORBIDDEN_IMPORTS = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu", "safetensors")
@@ -300,10 +306,10 @@ def test_unported_accelerator_and_model_paths_raise():
     assert port.Accelerator(mixed_precision="fp8", cpu=True).state.mixed_precision_policy.fp8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.Accelerator(cpu=True, parallelism_plugin=object())
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
+    with pytest.raises(NotImplementedError, match="queue A item 2b"):
         port.Accelerator(cpu=True, diagnostics=True)
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        port.StepTelemetry(True).record_checkpoint(step=1)
+    with pytest.raises(NotImplementedError, match="queue A4"):  # another topology
+        port.Accelerator(cpu=True).load_state("x", params={}, allow_reshape=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.SequenceClassifier(port.TransformerConfig.tiny(causal=False, fused_kernels=True),
                                 device="cpu")

@@ -259,13 +259,16 @@ def test_sample_memory_on_the_cpu_and_its_throttle():
                                   "record_compile", "record_dataloader_wait"])
 def test_training_hooks_raise_naming_a10(hook):
     """The training hooks the serving slice refused (queue A10) are ported
-    since the accumulation slice and run (``tests/test_torch_telemetry_train.py``
-    holds their records against the reference's); ``record_checkpoint``
-    still raises, naming the queue item of the async checkpoint writer."""
+    and run: the step hooks since the accumulation slice
+    (``tests/test_torch_telemetry_train.py`` holds their records against the
+    reference's), ``record_checkpoint`` since the async checkpoint slice
+    (``tests/test_torch_checkpoint_async.py``)."""
     tele = telemetry.StepTelemetry(True)
     if hook == "record_checkpoint":
-        with pytest.raises(NotImplementedError, match="queue A item 2"):
-            tele.record_checkpoint(step=1)
+        record = tele.record_checkpoint(step=1, mode="async", background_s=0.5,
+                                        bytes_written=100)
+        assert record["kind"] == "checkpoint" and record["write_bandwidth_bytes_per_s"] == 200
+        assert telemetry.StepTelemetry(False).record_checkpoint(step=1) is None
         return
     args = {"record_dataloader_wait": (0.5,)}.get(hook, ())
     getattr(tele, hook)(*args)
