@@ -6,7 +6,10 @@ step records -> ``save_state``/``load_state``, sync or in the background,
 ``CheckpointManager``'s cadence, preemption and resume, ``skip_first_batches``,
 ``gather_for_metrics``; the raw loop's ``accumulate``, ``backward``,
 ``clip_grad_norm_``, triggers and ``free_memory``;
-``find_executable_batch_size``), the Llama-family ``CausalLM`` (with the fused
+``find_executable_batch_size``; diagnostics: goodput, anomalies, triggered
+``torch.profiler`` captures, the flight recorder, the heartbeat watchdog and
+``Accelerator.profile``, read back by
+``python -m accelerate_tpu_torch.commands.accelerate_cli diagnose <dir>``), the Llama-family ``CausalLM`` (with the fused
 RMSNorm -> QKV -> rope prologue under ``fused_kernels=True``) and the
 BERT-shaped encoder ``SequenceClassifier``, the optax-faithful ``adamw``,
 its fused-epilogue form ``fused_adamw``, ``sgd`` and
@@ -18,6 +21,7 @@ unless the caller asks for the CPU (``Accelerator(cpu=True)``).
 
 from .accelerator import Accelerator
 from .data_loader import DataLoader
+from .diagnostics import DiagnosticsConfig, DiagnosticsManager
 from .fault_tolerance import CheckpointManager
 from .models.config import TransformerConfig
 from .models.transformer import CausalLM, SequenceClassifier
@@ -25,13 +29,14 @@ from .ops.fused import fused_adamw
 from .optimizer import AcceleratedOptimizer, adamw, sgd
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
 from .state import AcceleratorState, GradientState
-from .telemetry import StepTelemetry, TelemetryConfig
+from .telemetry import HeartbeatMonitor, StepTelemetry, TelemetryConfig, scan_heartbeats
 from .utils.dataclasses import (
     DataLoaderConfiguration,
     GradientAccumulationPlugin,
     ProjectConfiguration,
 )
 from .utils.memory import find_executable_batch_size
+from .utils.profiling import ProfileKwargs
 from .utils.random import set_seed
 from .utils.weights import carry_from_jax, carry_to_jax, params_from_jax
 
@@ -44,8 +49,12 @@ __all__ = [
     "CheckpointManager",
     "DataLoader",
     "DataLoaderConfiguration",
+    "DiagnosticsConfig",
+    "DiagnosticsManager",
     "GradientAccumulationPlugin",
     "GradientState",
+    "HeartbeatMonitor",
+    "ProfileKwargs",
     "ProjectConfiguration",
     "SequenceClassifier",
     "StepTelemetry",
@@ -57,6 +66,7 @@ __all__ = [
     "find_executable_batch_size",
     "fused_adamw",
     "params_from_jax",
+    "scan_heartbeats",
     "set_seed",
     "sgd",
     "warmup_cosine_decay_schedule",

@@ -9,7 +9,8 @@ loop :1240-1310, ``gather``/``gather_for_metrics`` :1375-1407,
 ``set_trigger``/``check_trigger`` :1419, ``register_for_checkpointing``/
 ``save_state``/``wait_for_checkpoint``/``load_state`` :1434-1506, ``save_model`` :1508,
 ``get_state_dict`` :1520, ``free_memory`` :1532, ``skip_first_batches``
-:1558, ``set_seed`` :1561) for one process on one device. The step keeps
+:1558, ``set_seed`` :1561, ``profile`` :1349, ``end_training`` :1584, and
+``diagnostics=``/``profile_kwargs=`` :183-200) for one process on one device. The step keeps
 the reference's contract and arithmetic:
 ``step_fn(carry, batch, **kw) -> (carry, metrics)``; the loss runs on
 parameters cast to the policy's compute dtype while the fp32 masters
@@ -27,6 +28,7 @@ updated in place (the carry returned holds the same tensors).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import inspect
 from contextlib import contextmanager
@@ -69,6 +71,7 @@ from .utils.dataclasses import (
     ProjectConfiguration,
 )
 from .utils.memory import release_memory
+from .utils.profiling import ProfileKwargs
 from .utils.random import KeyChain, set_seed
 
 logger = get_logger(__name__)
@@ -137,7 +140,14 @@ def _is_schedule(obj: Any) -> bool:
 class Accelerator:
     """One instance per training script, on one device: CUDA unless
     ``cpu=True``. ``seed`` seeds the accelerator's own generator
-    (``keys``), which checkpoints carry."""
+    (``keys``), which checkpoints carry.
+
+    ``telemetry``: True or a :class:`TelemetryConfig` turns on the step
+    records. ``diagnostics`` (True, a dump-dir path or a
+    ``DiagnosticsConfig``) adds goodput accounting, anomaly detection,
+    triggered ``torch.profiler`` captures and the flight recorder on top,
+    and turns telemetry on. ``profile_kwargs``: a ``ProfileKwargs`` for
+    :meth:`profile`, whose tracer options the triggered captures take too."""
 
     def __init__(
         self,
@@ -154,15 +164,12 @@ class Accelerator:
         seed: int = 0,
         telemetry: Optional[Union[bool, TelemetryConfig]] = None,
         diagnostics: Any = None,
+        profile_kwargs: Optional[ProfileKwargs] = None,
     ):
         if parallelism_plugin is not None:
             raise NotImplementedError(
                 "sharded and pipelined training is not ported yet: ROADMAP.md, queue A7"
             )
-        if diagnostics is not None and diagnostics is not False:
-            raise NotImplementedError(
-                "diagnostics (goodput, anomalies, the flight recorder) is not ported yet: "
-                "ROADMAP.md, queue A item 2b")
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if gradient_accumulation_plugin is None:
@@ -182,9 +189,19 @@ class Accelerator:
         self._custom_objects: list[Any] = []
         self.step = 0  # train-step calls, micro steps included (host mirror)
         self.flag_tensor: Optional[torch.Tensor] = None
+        self.profile_handler = profile_kwargs
         # True or a TelemetryConfig turns on the step records; None or False
-        # leaves a disabled collector whose hooks are no-ops (no synchronise)
+        # leaves a disabled collector whose hooks are no-ops (no synchronise).
+        # diagnostics implies telemetry on.
+        if diagnostics is not None and diagnostics is not False:
+            if telemetry is None or telemetry is False or telemetry is True:
+                telemetry = TelemetryConfig(diagnostics=diagnostics)
+            elif telemetry.diagnostics is None:
+                telemetry = dataclasses.replace(telemetry, diagnostics=diagnostics)
         self.telemetry = StepTelemetry(telemetry)
+        if self.telemetry.diagnostics is not None:
+            # triggered captures take the same tracer options as profile()
+            self.telemetry.diagnostics.set_profile_kwargs(self.profile_handler)
         self._built_steps = 0  # names each built step's rebuild detector
         self._async_ckpt: Optional[AsyncCheckpointer] = None  # save_state(block=False)'s writer
 
@@ -711,6 +728,41 @@ class Accelerator:
     def set_seed(self, seed: int) -> torch.Generator:
         self.keys = KeyChain(seed)
         return set_seed(seed)
+
+    # ------------------------------------------------------------------ #
+    # profiling and the end of training
+    # ------------------------------------------------------------------ #
+    @contextmanager
+    def profile(self, profile_dir: Optional[str] = None,
+                profile_kwargs: Optional[ProfileKwargs] = None):
+        """Trace the enclosed steps with ``torch.profiler`` (CPU and CUDA
+        activities) into ``profile_dir`` or the handler's
+        ``output_trace_dir``; yields a ``ProfileHandle`` (call its ``step()``
+        once a step when ``skip_first`` is set). The trace is Chrome JSON,
+        written at the block's end. A no-op yielding None when no directory
+        is configured, so it can wrap the loop unconditionally. One profiler
+        session records at a time: a triggered capture asked for meanwhile
+        is refused and logged."""
+        from .utils.profiling import profile as _profile
+
+        if profile_kwargs is None and self.profile_handler is not None:
+            # the handler's tracer options apply to an explicit dir too (the
+            # dir wins over its output_trace_dir); an explicit-dir call is a
+            # region trace with no step() calls, so skip_first would mean
+            # "never start"
+            profile_kwargs = self.profile_handler
+            if profile_dir is not None and profile_kwargs.skip_first:
+                profile_kwargs = dataclasses.replace(profile_kwargs, skip_first=0)
+        with _profile(profile_dir, profile_kwargs) as handle:
+            yield handle
+
+    def end_training(self) -> None:
+        """Drain the background saves in flight and close the telemetry (the
+        heartbeat stops; diagnostics writes its final ``"shutdown"`` dump).
+        The port has no trackers yet (ROADMAP.md, queue A item 6), so there
+        are none to end."""
+        self.wait_for_checkpoint()  # a dropped in-flight save loses work
+        self.telemetry.close()
 
 
 def _all_tensor_leaves(tree: Any) -> bool:

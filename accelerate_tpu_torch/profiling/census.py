@@ -91,7 +91,7 @@ class BufferCensus:
         machine, else the owners' sum), ``census_arrays`` (distinct
         storages the owners hold), ``host_rss_bytes`` and
         ``host_rss_peak_bytes`` (the largest RSS over the samples)."""
-        from ..telemetry.collector import host_memory_rss
+        from ..utils.profiling import host_memory_rss
 
         with self._lock:
             owners = dict(self._owners)

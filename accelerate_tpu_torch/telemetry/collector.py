@@ -27,16 +27,24 @@ synchronise, ``dispatch_s`` to the call's return.
 
 ``record_checkpoint`` emits one record for each committed save, from the
 train loop (sync) or from the checkpoint writer's thread (async); records
-are serialised by one lock. What the step records feed in the reference
-(the heartbeat watchdog, diagnostics) waits for ROADMAP.md's queue A items
-2b and 6.
+are serialised by one lock.
+
+With ``TelemetryConfig(heartbeat=...)`` the collector starts a
+:class:`~.heartbeat.HeartbeatMonitor` and beats it at every step record;
+with ``diagnostics=...`` it owns a
+``diagnostics.manager.DiagnosticsManager`` (the reference's :104-118):
+every emitted record goes through its ``observe``, and the ``goodput`` and
+``anomaly`` records it derives re-enter the emit path, so they reach the
+ring and every sink; dataloader waits go to its ``record_wait``, fields of
+a finished capture land on the next step record, a heartbeat stall goes to
+its ``on_stall``, and ``close`` writes its final ``"shutdown"`` dump. With
+``census_interval`` a buffer census rides every N-th step record.
 """
 
 from __future__ import annotations
 
 import collections
 import math
-import resource
 import statistics
 import threading
 import time
@@ -46,7 +54,9 @@ import torch
 
 from ..logging import get_logger
 from ..profiling.census import BufferCensus
+from ..utils.profiling import device_memory_stats, host_memory_rss
 from .config import TelemetryConfig
+from .heartbeat import HeartbeatMonitor
 from .recompile import RecompileDetector, _flatten_with_path
 from .sinks import SCHEMA_VERSION, JSONLSink, TelemetrySink
 
@@ -102,26 +112,6 @@ def _rank_and_world() -> tuple[int, int]:
     return 0, 1
 
 
-def host_memory_rss() -> int:
-    """The process's resident set size in bytes (Linux)."""
-    with open("/proc/self/statm") as f:
-        return int(f.read().split()[1]) * resource.getpagesize()
-
-
-def device_memory_stats() -> dict:
-    """Bytes in use, peak bytes in use and the capacity of the current CUDA
-    device; zeros where there is no CUDA device."""
-    if not torch.cuda.is_available():
-        return {"bytes_in_use": 0, "peak_bytes_in_use": 0, "bytes_limit": 0}
-    stats = torch.cuda.memory_stats()
-    return {
-        "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
-        "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
-        "bytes_limit": int(torch.cuda.get_device_properties(
-            torch.cuda.current_device()).total_memory),
-    }
-
-
 class StepTelemetry:
     """Serving telemetry: records go to the in-memory ring (``records``)
     and to every attached sink; a sink that raises is logged (three times
@@ -153,6 +143,19 @@ class StepTelemetry:
         self._backend = ("cuda" if cuda else "cpu", torch.cuda.device_count() if cuda else 0)
         if config.enabled and config.jsonl_path is not None:
             self.add_sink(JSONLSink(config.jsonl_path))
+        self.heartbeat: Optional[HeartbeatMonitor] = None
+        self.diagnostics = None
+        if config.enabled and config.diagnostics is not None:
+            from ..diagnostics.manager import DiagnosticsManager
+
+            self.diagnostics = DiagnosticsManager(config.diagnostics)
+        if config.enabled and config.heartbeat:
+            self.heartbeat = HeartbeatMonitor(
+                dir=config.heartbeat_dir,
+                interval_s=config.heartbeat_interval_s,
+                stall_timeout_s=config.heartbeat_stall_timeout_s,
+                on_stall=self.diagnostics.on_stall if self.diagnostics is not None else None,
+            ).start()
 
     # ------------------------------------------------------------------ #
     # sinks
@@ -161,7 +164,12 @@ class StepTelemetry:
         self.sinks.append(sink)
         return sink
 
-    def _emit(self, record: dict) -> None:
+    def _emit(self, record: dict, scalars: Optional[dict] = None) -> None:
+        """Emit one record: ring, sinks, then diagnostics. ``scalars`` is a
+        step's 0-d metrics before the non-finite ``grad_norm`` is taken off
+        the record: the NaN rule needs the values the record cannot carry.
+        The records diagnostics derives (``anomaly``, ``goodput``) re-enter
+        here once; the manager files them without deriving more."""
         with self._emit_lock:  # the checkpoint writer's thread emits too
             self.records.append(record)
             if self.sinks and _rank_and_world()[0] == 0:
@@ -169,6 +177,16 @@ class StepTelemetry:
                     self._meta_written = True
                     self._emit_raw(self._meta_record())
                 self._emit_raw(record)
+        if self.diagnostics is not None:
+            try:
+                derived = self.diagnostics.observe(record, scalars)
+            except Exception as exc:  # diagnostics never take the loop down
+                self._sink_errors += 1
+                if self._sink_errors <= 3:
+                    logger.warning(f"telemetry diagnostics failed: {exc}")
+                derived = []
+            for extra_record in derived:
+                self._emit(extra_record)
 
     def _emit_raw(self, record: dict) -> None:
         for sink in self.sinks:
@@ -312,9 +330,15 @@ class StepTelemetry:
 
     def record_dataloader_wait(self, seconds: float, source: str = "dataloader") -> None:
         """Add host time spent waiting for a batch; the next step record
-        carries the total as ``dataloader_wait_s``."""
-        if self.enabled:
-            self._dl_wait += seconds
+        carries the total as ``dataloader_wait_s``. With diagnostics the
+        wait also goes to its goodput at once (a starved loop with no step
+        after it still counts), and a long one (``source`` names the
+        loader) becomes a flight-recorder event."""
+        if not self.enabled:
+            return
+        self._dl_wait += seconds
+        if self.diagnostics is not None:
+            self.diagnostics.record_wait(seconds, source=source)
 
     def begin_step(self) -> None:
         """Mark the host-side start of a step call."""
@@ -360,6 +384,11 @@ class StepTelemetry:
                 compile_stats.get("persistent_cache_misses", 0))
         for key, value in (extra or {}).items():
             record.setdefault(key, value)
+        if self.diagnostics is not None:
+            # a finished capture's fields (top_ops, overlap_pct) land on the
+            # first step record after its trace is on disk
+            for key, value in self.diagnostics.pop_step_fields().items():
+                record.setdefault(key, value)
 
         tokens = None
         if batch is not None:
@@ -384,8 +413,10 @@ class StepTelemetry:
             record["hbm_bytes_limit"] = stats["bytes_limit"]
             record["host_rss_bytes"] = host_memory_rss()
 
+        raw_scalars = None
         if metrics is not None:
-            scalars = dict(_scalar_items(metrics))
+            raw_scalars = dict(_scalar_items(metrics))
+            scalars = dict(raw_scalars)
             gnorm = scalars.get("grad_norm")
             if gnorm is not None and (not math.isfinite(gnorm)
                                       or not scalars.get("is_sync_step", 1.0)):
@@ -394,7 +425,13 @@ class StepTelemetry:
                 record.setdefault(key, value)
 
         self._emitted += 1
-        self._emit(record)
+        self._emit(record, raw_scalars)
+        cadence = self.config.census_interval
+        if cadence and self._emitted % cadence == 0:
+            # its own record kind, at most one a census_min_interval_s
+            self.sample_memory(step=step)
+        if self.heartbeat is not None:
+            self.heartbeat.beat(step)
         return record
 
     def record_compile(self, *, label: str = "step", source: str = "warmup",
@@ -454,9 +491,12 @@ class StepTelemetry:
     # ------------------------------------------------------------------ #
     def summary(self) -> dict[str, Any]:
         """Counts over the in-memory ring: records by kind and the sink
-        errors seen; step counts, rebuilds and dataloader wait; and the
+        errors seen; step counts, rebuilds and dataloader wait; the
         step-time mean, median and p90 and mean tokens/s over the steps that
-        did not rebuild (the reference's :602-628)."""
+        did not rebuild; the checkpoints and their blocked and background
+        seconds; the heartbeat's stalls; and diagnostics' summary with
+        ``goodput_pct`` and ``rolling_goodput_pct`` lifted to the top (the
+        reference's :602-648)."""
         by_kind: dict[str, int] = {}
         for record in self.records:
             kind = str(record.get("kind"))
@@ -481,10 +521,34 @@ class StepTelemetry:
                    if not r.get("retraced") and r.get("tokens_per_s")]
             if tps:
                 out["tokens_per_s_mean"] = statistics.fmean(tps)
+        ckpts = [r for r in self.records if r.get("kind") == "checkpoint"]
+        if ckpts:
+            out["checkpoints"] = len(ckpts)
+            out["checkpoint_blocked_total_s"] = float(
+                sum(r.get("blocked_s") or 0.0 for r in ckpts))
+            out["checkpoint_background_total_s"] = float(
+                sum(r.get("background_s") or 0.0 for r in ckpts))
+        if self.heartbeat is not None:
+            out["stalls"] = self.heartbeat.stalls
+        if self.diagnostics is not None:
+            diag = self.diagnostics.summary()
+            goodput = diag.get("goodput")
+            if goodput is not None:
+                out["goodput_pct"] = goodput["goodput_pct"]
+                out["rolling_goodput_pct"] = goodput["rolling_goodput_pct"]
+            out.update(diag)
         return out
 
     def close(self) -> None:
-        """Close every sink (idempotent)."""
+        """Stop the watchdog, write diagnostics' final dump and close every
+        sink (idempotent)."""
+        if self.heartbeat is not None:
+            self.heartbeat.stop()
+        if self.diagnostics is not None:
+            try:
+                self.diagnostics.close()
+            except Exception as exc:  # closing must reach the sinks
+                logger.warning(f"telemetry diagnostics close failed: {exc}")
         for sink in self.sinks:
             try:
                 sink.close()

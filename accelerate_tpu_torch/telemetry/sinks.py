@@ -38,9 +38,25 @@ per-adapter counters, gauges for ``serve_gauge``, ``slo`` and ``memory``
 fields, ``{prefix}_hbm_bytes{owner=...}`` from the census, a counter per
 shed reason and per preempt reason (``{prefix}_serve_preempt_total``,
 :457-), ``{prefix}_loadgen_*`` gauges for ``soak`` records; span records
-are not gauges. The training kinds (``step``, ``goodput``, ``audit``) and
-``TrackerBridgeSink`` wait for the step records (ROADMAP.md, queue A10);
-a sink ignores a kind it does not render.
+are not gauges. The training kinds render as the reference's (:468-478):
+every number of a ``step`` or ``goodput`` record (and of a record with no
+kind) becomes a ``{prefix}_{field}`` gauge under its ``label``, with
+``step_time_s``, ``dispatch_s``, ``dataloader_wait_s`` and ``tokens_per_s``
+renamed to ``step_time_seconds``, ``dispatch_seconds``,
+``dataloader_wait_seconds`` and ``tokens_per_second`` (so a goodput record
+gives ``accelerate_tpu_goodput_pct`` and ``accelerate_tpu_badput_*_s``);
+``anomaly`` records, like every other kind the reference does not render,
+are ignored (they travel through JSONL and the flight recorder). ``audit``
+records and ``TrackerBridgeSink`` wait for ROADMAP.md, queue A item 6.
+
+Training record kinds (the reference's schema, :254-283): ``step``,
+``compile``, ``checkpoint``; and with diagnostics ``goodput`` (``step``,
+``wall_s``, ``goodput_pct``, ``rolling_goodput_pct``, ``productive_s``,
+``badput_{compile,dataloader,checkpoint,idle}_s``, every
+``goodput_interval`` steps) and ``anomaly`` (``anomaly_type``: ``slow_step``
+| ``loss_spike`` | ``nan_grad`` | ``memory_leak`` | ``slo_breach`` |
+``soak_breach``; ``step``, ``value``, ``suppressed_since_last``,
+``total_of_type`` and the offending ``record``).
 """
 
 from __future__ import annotations
@@ -90,6 +106,15 @@ class JSONLSink(TelemetrySink):
 
 # fields that are not metrics: redundant with the scrape timestamp
 _PROM_SKIP = ("time_unix", "schema")
+
+# training-record fields renamed to Prometheus's unit suffixes (the
+# reference's _PROM_RENAMES, :345)
+_PROM_RENAMES = {
+    "step_time_s": "step_time_seconds",
+    "dispatch_s": "dispatch_seconds",
+    "dataloader_wait_s": "dataloader_wait_seconds",
+    "tokens_per_s": "tokens_per_second",
+}
 
 # serve-record fields exported as summaries rather than last-value gauges:
 # a per-request latency gauge means nothing once the next request lands
@@ -178,7 +203,15 @@ class PrometheusTextSink(TelemetrySink):
             self._count("serve_preempt_total", "reason", str(record.get("reason", "unknown")),
                         1.0)
             self._write()
-        # span records are per-request traces for JSONL/Perfetto, not gauges
+        elif kind in (None, "step", "goodput"):
+            label = str(record.get("label", "step"))
+            for key, value in record.items():
+                if _numeric(value) and key not in _PROM_SKIP:
+                    name = _PROM_RENAMES.get(key, key)
+                    self._gauges[(f"{self.prefix}_{name}", label)] = float(value)
+            self._write()
+        # span and anomaly records are traces for JSONL and the flight
+        # recorder, not gauges
 
     def _count(self, name: str, lname: str, lvalue: str, n: float) -> None:
         key = (f"{self.prefix}_{name}", lname, lvalue)

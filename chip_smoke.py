@@ -196,6 +196,32 @@ Phases, each fatal on failure (exit code 1, no result line):
    checkpoint synchronously and sets ``should_stop``, and a restore resumes
    from it bit for bit. Last, a pinned buffer set's allocation and the copy
    into it timed apart.
+15. diag: the reference benchmark's ``overhead`` variant
+   (``measure.py:_run_overhead`` at ``(TransformerConfig.tiny(), 8, 256, 30,
+   3)``, registry.py:366-368, nothing cut) as arm A, and the same A/B at
+   llama3_8b widths cut to 2 layers (B 2, S 2048, 3 + 12 steps) as arm B:
+   two Accelerators in bf16 from one seed (adamw 3e-4, clip 1.0), the "on"
+   one with telemetry and ``DiagnosticsConfig(anomaly_sample_every=8)``,
+   timed in interleaved rounds of ``max(1, min(3, iters // 6))`` steps with
+   the same synchronise in both; prints ``harness_overhead_pct`` (the
+   median of the rounds' deltas over the median "off" step; not gated),
+   ``vs_baseline`` = 2 / pct, the medians, the records, peak memory, and
+   each "on" step's host time by telemetry hook. Hard checks: (a) losses,
+   params and moments on = off bit for bit in both arms; (b) the step
+   records, a goodput record every ``goodput_interval`` whose buckets sum
+   to its ``wall_s`` (GOODPUT_SUM_TOL), ``summary()``'s ``goodput_pct``;
+   (e) a ``CheckpointManager`` commits one save, then (c) a NaN in one
+   weight of arm A's "on" arm fires exactly one ``nan_grad`` and a
+   ``torch.profiler`` capture of ``capture_steps`` steps whose trace holds
+   B1-B3 by kernel name as often as the counters say, and the next record's
+   ``top_ops`` name its device kernels; then ``end_training`` and ``python
+   -m accelerate_tpu_torch.commands.accelerate_cli diagnose`` (text and
+   ``--json``), which must name the shutdown dump at the last step,
+   ``nan_grad=1``, the goodput and the committed checkpoint; (d) a touched
+   ``trigger_file`` on arm B's "on" arm starts one capture at full width,
+   held the same way; (f) B1-B3 at the variant's attention shape in bf16 and
+   in the path's dtype (``tiny``'s activations are fp32), whose rows go
+   into the kernels line.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -233,7 +259,11 @@ itself), and
 
     python3 chip_smoke.py --ckpt-only
 
-phases 1 and 14.
+phases 1 and 14, and
+
+    python3 chip_smoke.py --diag-only
+
+phases 1 and 15.
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -384,6 +414,16 @@ OOM_START_BATCH = 4  # longseq_xla at S 8192: 4 x 32 heads x 8192^2 fp32 scores 
 # batches repeats the variant's one batch (26 are drawn)
 CKPT = dict(B=8, iters=16, warmup=3, total_limit=2, race_step=12, batches=32)
 CKPT_EVERY = max(2, CKPT["iters"] // 4)  # measure.py:196
+# phase 15: the reference benchmark's ``overhead`` variant at its own arguments,
+# (TransformerConfig.tiny(), 8, 256, 30, 3) (registry.py:366-368), diagnostics on
+# with anomaly_sample_every 8 (measure.py:2291-2424); arm B is the same A/B at the
+# main path's widths, llama3_8b cut to 2 layers
+OVERHEAD = dict(B=8, S=256, iters=30, warmup=3, sample_every=8)
+OVERHEAD_B = dict(B=2, S=2048, iters=12, warmup=3, num_layers=2)
+# the goodput buckets against the wall clock they cover: the tolerance of
+# tests/test_diagnostics.py::test_goodput_buckets_sum_to_wall_clock (abs)
+GOODPUT_SUM_TOL = 1e-9
+HOOK_STEPS = 10  # "on" steps whose telemetry hooks are timed apart
 LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     "original_max_position_embeddings": 8192,
@@ -923,6 +963,26 @@ def time_library_bwd(torch, q, k, v, dout, scale, flush, rep: Report, shape="the
     rep.line(f"library for flash_bwd_fused_kernel: "
              f"torch.ops.aten._scaled_dot_product_flash_attention_backward at {shape} "
              f"(k, v expanded to {q.shape[2]} heads) {ms:.4f} ms")
+    return ms
+
+
+def time_sdpa_bwd(torch, q, k, v, dout, scale, flush, rep: Report, shape: str) -> float:
+    """One call of SDPA's backward through autograd (``torch.autograd.grad``
+    on a kept graph) at ``shape``: the library yardstick where the flash
+    backward op does not take the dtype (fp32). k and v are expanded to
+    the query heads first, so the GQA sum is not in it."""
+    import torch.nn.functional as F
+
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    ke, ve = (x.repeat_interleave(G, dim=2).transpose(1, 2).detach().requires_grad_(True)
+              for x in (k, v))
+    out = F.scaled_dot_product_attention(qt, ke, ve, is_causal=True, scale=scale)
+    dt = dout.transpose(1, 2)
+    ms = time_ms(torch, lambda: torch.autograd.grad(out, (qt, ke, ve), dt, retain_graph=True),
+                 20, flush)
+    rep.line(f"library for B2 + B3: SDPA's backward through autograd at {shape} "
+             f"({q.dtype}, k, v expanded to {q.shape[2]} heads) {ms:.4f} ms")
     return ms
 
 
@@ -2849,12 +2909,15 @@ def run_counted(torch, wrappers, step, carry, loader):
     return carry, batch, losses, times, launches, by_design, torch.cuda.max_memory_allocated()
 
 
-def check_launches(name, launches, by_design, want) -> None:
+def check_launches(name, launches, by_design, want, design: str = "wgmma") -> None:
+    """Exact launches of every wrapper (those not in ``want``: 0), each flash
+    wrapper's counted under ``design`` alone."""
     full = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_fused": 0,
             "qkv_prologue": 0, "adamw_epilogue": 0, **want}
     if launches != full:
         fail(f"{name} kernel launches {launches}, want {full}")
-    want_design = {w: {"wgmma": full[w], "wmma": 0} for w in by_design}
+    other = "wmma" if design == "wgmma" else "wgmma"
+    want_design = {w: {design: full[w], other: 0} for w in by_design}
     if by_design != want_design:
         fail(f"{name} launches by design {by_design}, want {want_design}")
 
@@ -2915,24 +2978,30 @@ def profile_groups(torch, fn, rep: Report, name: str):
     return counts
 
 
-def time_flash_shape(torch, fa, rep: Report, label: str, B, S, H, Hkv, D) -> list[dict]:
-    """B1-B3 at a variant's attention shape (bf16, causal): first the gated
-    ``check_case`` at this shape (every flash kernel against its plain
-    version row by row, launches by design, the repeat bits; a failure
-    ends the script), whose max abs errors go into the rows; then the
-    times of kernel, plain version and, for B1, SDPA's forward; B2 + B3
-    beside PyTorch's flash backward op as a yardstick."""
+def time_flash_shape(torch, fa, rep: Report, label: str, B, S, H, Hkv, D,
+                     bwd_library_on_dq: bool = False, dtype=None) -> list[dict]:
+    """B1-B3 at a variant's attention shape (bf16 unless ``dtype`` says
+    otherwise, causal): first the gated ``check_case`` at this shape (every
+    flash kernel against its plain version row by row, launches by design,
+    the repeat bits; a failure ends the script), whose max abs errors go
+    into the rows; then the times of kernel, plain version and, for B1,
+    SDPA's forward; B2 + B3 beside PyTorch's backward of the same attention
+    as a yardstick (the flash backward op; in fp32, which it does not
+    take, SDPA's backward through autograd), which ``bwd_library_on_dq``
+    also puts in B2's row as its library column (it computes dq, dk and
+    dv: B2 and B3 together)."""
     import torch.nn.functional as F
 
+    dtype = dtype or torch.bfloat16
+    tag = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}[dtype]
     gc.collect()
     torch.cuda.empty_cache()
-    reading, abs_errs = check_case(torch, fa, f"{label}_bf16_causal", B, S, H, Hkv, D,
-                                   torch.bfloat16)
+    reading, abs_errs = check_case(torch, fa, f"{label}_{tag}_causal", B, S, H, Hkv, D, dtype)
     rep.line(json.dumps(reading))
     if reading["bad"]:
         fail(f"flash kernels at {label}'s shape beyond tolerance or design: {reading['bad']}")
     torch.cuda.empty_cache()
-    q, k, v, dout = make_inputs(torch, B, S, H, Hkv, D, torch.bfloat16, seed=5)
+    q, k, v, dout = make_inputs(torch, B, S, H, Hkv, D, dtype, seed=5)
     scale = D ** -0.5
     out, lse = fa.flash_fwd(q, k, v, scale, True)
     delta = fa.attention_delta(out, dout)
@@ -2953,22 +3022,23 @@ def time_flash_shape(torch, fa, rep: Report, label: str, B, S, H, Hkv, D) -> lis
     library_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
     pairs = visible_pairs(torch, S, S, True) * B * H
-    e = 2
+    e = q.element_size()
     qo, kv, stat = B * S * H * D * e, B * S * Hkv * D * e, B * H * S * 4
     work = {
         "flash_fwd": (2 * 2 * D * pairs, qo + 2 * kv + qo + stat),
         "flash_bwd_dq": (3 * 2 * D * pairs, 2 * qo + 2 * kv + 2 * stat + qo),
         "flash_bwd_dkv": (4 * 2 * D * pairs, 2 * qo + 2 * kv + 2 * stat + 2 * kv),
     }
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     rows = []
     for wrapper, (kfn, pfn) in fns.items():
         ms = time_ms(torch, kfn, 20, flush)
         plain_ms = time_ms(torch, pfn, 2, flush)
         torch.cuda.empty_cache()
-        row = kernel_row(wrapper, fa.kernel_design(torch.bfloat16, D), ms, plain_ms,
-                         *work[wrapper], PEAK_BF16_FLOPS, abs_errs[wrapper],
+        row = kernel_row(wrapper, fa.kernel_design(dtype, D), ms, plain_ms,
+                         *work[wrapper], peak, abs_errs[wrapper],
                          library_fwd if wrapper == "flash_fwd" else None)
-        row["shape"] = f"{label} B{B} S{S} H{H} Hkv{Hkv} D{D} bf16 causal"
+        row["shape"] = f"{label} B{B} S{S} H{H} Hkv{Hkv} D{D} {tag} causal"
         rows.append(row)
         rep.line(f"{KERNELS[wrapper][0]} at {label}'s shape: {ms:.4f} ms (plain {plain_ms:.4f} "
                  f"ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
@@ -2978,10 +3048,16 @@ def time_flash_shape(torch, fa, rep: Report, label: str, B, S, H, Hkv, D) -> lis
         fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, True)
         fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, True)
 
-    library_bwd = time_library_bwd(torch, q, k, v, dout, scale, flush, rep, f"{label}'s shape")
-    rep.line(f"at {label}'s shape: SDPA forward {library_fwd:.4f} ms; B2 + B3 "
-             f"{time_ms(torch, two_pass, 10, flush):.4f} ms against PyTorch's flash backward op "
+    if dtype == torch.float32:
+        library_bwd = time_sdpa_bwd(torch, q, k, v, dout, scale, flush, rep, f"{label}'s shape")
+    else:
+        library_bwd = time_library_bwd(torch, q, k, v, dout, scale, flush, rep,
+                                       f"{label}'s shape")
+    rep.line(f"at {label}'s shape ({tag}): SDPA forward {library_fwd:.4f} ms; B2 + B3 "
+             f"{time_ms(torch, two_pass, 10, flush):.4f} ms against PyTorch's backward "
              f"{library_bwd:.4f} ms (yardstick: all of dq, dk, dv, no GQA sum)")
+    if bwd_library_on_dq:
+        rows[1]["library_ms"] = library_bwd
     del q, k, v, dout, out, lse, delta, scratch
     torch.cuda.empty_cache()
     return rows
@@ -3672,12 +3748,15 @@ def host_flat(torch, port, carry) -> dict:
 
 
 def flat_diff(torch, got: dict, want: dict) -> list:
-    """The names whose values differ, bit for bit (and any name only one has)."""
+    """The names whose values differ, bit for bit (and any name only one has),
+    compared where both live (on the host when their devices differ)."""
     bad = sorted(set(got) ^ set(want))
     for k in set(got) & set(want):
         a, b = got[k], want[k]
-        same = (torch.equal(a.cpu(), b.cpu()) if isinstance(a, torch.Tensor)
-                else (not isinstance(b, torch.Tensor) and a == b))
+        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+            same = torch.equal(a, b) if a.device == b.device else torch.equal(a.cpu(), b.cpu())
+        else:
+            same = not isinstance(b, torch.Tensor) and not isinstance(a, torch.Tensor) and a == b
         if not same:
             bad.append(k)
     return bad
@@ -3971,6 +4050,410 @@ def ckpt_checks(torch, port, wrappers, rep: Report) -> dict:
     return arms["async"]
 
 
+# ---------------------------------------------------------------------- #
+# phase 15: the diagnostics plane and the overhead variant
+# ---------------------------------------------------------------------- #
+def overhead_setup(torch, port, cfg, B: int, S: int, mode: str, project_dir: str) -> dict:
+    """One arm of ``_run_overhead``'s set-up (:2326-2360): an Accelerator in
+    bf16, telemetry and diagnostics on (``anomaly_sample_every`` 8) or both
+    off, the model from seed 0 on the card, adamw (lr 3e-4), clip 1.0, and
+    the reference's batch (numpy's ``default_rng(0)`` tokens). Each arm also
+    gets a project directory, which nothing reads while it is timed (the
+    checkpoint check (e) saves into it afterwards)."""
+    import numpy as np
+
+    diagnostics = (port.DiagnosticsConfig(anomaly_sample_every=OVERHEAD["sample_every"])
+                   if mode == "on" else None)
+    acc = port.Accelerator(mixed_precision="bf16", telemetry=mode == "on",
+                           diagnostics=diagnostics,
+                           project_config=port.ProjectConfiguration(
+                               project_dir=os.path.join(project_dir, mode),
+                               automatic_checkpoint_naming=True))
+    model = port.CausalLM(cfg, device=acc.device,
+                          generator=torch.Generator(device=acc.device).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    model, opt = acc.prepare(model, port.adamw(3e-4))
+    step = acc.unified_step(port.CausalLM.loss_fn(model), opt, max_grad_norm=1.0)
+    carry = acc.init_carry(model, opt)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    return {"acc": acc, "step": step, "carry": carry, "n_params": n_params, "cfg": cfg,
+            "batch": {"input_ids": torch.from_numpy(ids).to(acc.device)},
+            "times": [], "losses": []}
+
+
+def path_design(torch, fa, cfg) -> str:
+    """The flash design a model's attention takes: its activations run in
+    ``cfg.dtype`` (the reference's "activation dtype at apply time"; under
+    bf16 mixed precision only the parameters are cast)."""
+    return fa.kernel_design(getattr(torch, cfg.dtype), cfg.hidden_size // cfg.num_heads)
+
+
+def flash_kernel_names(fa, design: str) -> dict:
+    """wrapper -> the kernel name B1-B3 launch as on ``design``."""
+    return {w: KERNELS[w][0] if design == "wgmma" else KERNELS[w][0].replace("_kernel",
+                                                                              "_wmma_kernel")
+            for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def run_arm(s: dict, n: int) -> list:
+    """``n`` steps of one arm, each timed on the host clock around the step
+    and the read of its loss (the same synchronise in both arms); returns
+    the seconds and appends the losses."""
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        s["carry"], metrics = s["step"](s["carry"], s["batch"])
+        loss = float(metrics["loss"])
+        ts.append(time.perf_counter() - t0)
+        s["losses"].append(loss)
+    return ts
+
+
+def overhead_ab(torch, port, wrappers, rep: Report, label: str, cfg, B: int, S: int,
+                iters: int, warmup: int, base: str, checks: dict) -> tuple[dict, dict, dict]:
+    """The A/B of ``_run_overhead`` (:2363-2424): both arms built from one
+    seed and resident together, ``warmup`` steps each, then ``iters`` steps
+    each in interleaved chunks of ``max(1, min(3, iters // 6))``, off before
+    on in every round; ``harness_overhead_pct`` is the median of the
+    rounds' (on median - off median) over the median "off" step. Every
+    launch counter is set to 0 just before the rounds and read just after.
+    Then checks (a) (losses at every step, params and moments after the
+    last, on against off, bit for bit) and (b) (the "on" arm's step and
+    goodput records, the buckets against their wall clock, ``summary()``'s
+    ``goodput_pct``). Returns the arms, the readings and the launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    arms = {}
+    for mode in ("off", "on"):
+        arms[mode] = overhead_setup(torch, port, cfg, B, S, mode, os.path.join(base, label))
+        run_arm(arms[mode], warmup)
+    setup_s = time.perf_counter() - t0
+    chunk = max(1, min(3, iters // 6))
+    reset_counts(wrappers)
+    measured, deltas = 0, []
+    while measured < iters:
+        n = min(chunk, iters - measured)
+        med = {}
+        for mode in ("off", "on"):
+            ts = run_arm(arms[mode], n)
+            arms[mode]["times"] += ts
+            med[mode] = statistics.median(ts)
+        deltas.append(med["on"] - med["off"])
+        measured += n
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
+    peak = torch.cuda.max_memory_allocated()
+    medians = {m: statistics.median(a["times"]) for m, a in arms.items()}
+    pct = statistics.median(deltas) / medians["off"] * 100.0
+    tel = arms["on"]["acc"].telemetry
+    records = list(tel.records)
+    steps = [r for r in records if r.get("kind") == "step"]
+    out = {
+        "harness_overhead_pct": pct, "vs_baseline": 2.0 / pct if pct > 0 else None,
+        "median_step_on_s": medians["on"], "median_step_off_s": medians["off"],
+        "iters": iters, "step_records_emitted_on": len(steps),
+        "anomaly_sample_every": tel.diagnostics.config.anomaly_sample_every,
+        "params": arms["on"]["n_params"], "batch": B, "seq": S,
+        "peak_memory_allocated_bytes": peak, "setup_s": setup_s,
+    }
+    rep.line(f"overhead {label}: {json.dumps(out)}")
+    rep.line(f"overhead {label}: rounds of {chunk}, (on - off) median a round {deltas} s; step "
+             f"seconds off {arms['off']['times']}, on {arms['on']['times']}; kernel launches "
+             f"{json.dumps(launches)}, by design {json.dumps(by_design)}")
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    want = cfg.num_layers * iters * 2
+    check_launches(f"overhead {label}", launches, by_design,
+                   {w: want for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+                   design=path_design(torch, fa, cfg))
+
+    # (a) diagnostics changes no arithmetic
+    flatten = port.checkpointing.flatten_tree
+    bad = flat_diff(torch, flatten(arms["on"]["carry"]), flatten(arms["off"]["carry"]))
+    same_losses = arms["on"]["losses"] == arms["off"]["losses"]
+    checks[f"a_{label}"] = not bad and same_losses and len(arms["on"]["losses"]) == warmup + iters
+    n_leaves = len(port.checkpointing.flatten_tree(arms["on"]["carry"]))
+    rep.line(f"overhead {label} (a): losses of all {warmup + iters} steps equal on and off "
+             f"{same_losses} ({arms['on']['losses'][-1]} last); params, moments and counters "
+             f"after the last step: {n_leaves - len(bad)} of {n_leaves} leaves equal bit for "
+             f"bit (differ: {bad[:4]})")
+
+    # (b) the "on" arm's records
+    interval = tel.diagnostics.config.goodput_interval
+    goodput = [r for r in records if r.get("kind") == "goodput"]
+    at = [r["step"] for r in goodput]
+    want_at = [steps[interval * (i + 1) - 1]["step"] for i in range(len(steps) // interval)]
+    gaps = [abs(r["productive_s"] + sum(r[f"badput_{b}_s"] for b in
+                                        ("compile", "dataloader", "checkpoint", "idle"))
+                - r["wall_s"]) for r in goodput]
+    summary = tel.summary()
+    checks[f"b_{label}"] = (len(steps) == warmup + iters and at == want_at
+                            and all(g <= GOODPUT_SUM_TOL for g in gaps)
+                            and summary.get("goodput_pct") is not None)
+    rep.line(f"overhead {label} (b): {len(steps)} step records (want {warmup + iters}); goodput "
+             f"records at steps {at} (want {want_at}, every {interval}); |buckets - wall_s| "
+             f"{gaps} (limit {GOODPUT_SUM_TOL}); summary goodput_pct "
+             f"{summary.get('goodput_pct')}, buckets {json.dumps(summary.get('goodput'))}, "
+             f"anomalies {summary.get('anomalies')}")
+    return arms, out, launches
+
+
+def hook_breakdown(torch, port, arm: dict, rep: Report, label: str) -> None:
+    """HOOK_STEPS more steps of the "on" arm with its telemetry hooks timed
+    apart on the host clock (each wrapped for these steps only): where an
+    "on" step's extra host time goes. The synchronise is the wait for the
+    card inside ``end_step``; the "off" arm makes the same wait when it
+    reads its loss."""
+    from accelerate_tpu_torch.telemetry import collector
+
+    tel = arm["acc"].telemetry
+    spent: dict = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    label_ = arm["step"].label
+    det = tel.detector(label_)
+    patched = {"_synchronize": collector._synchronize,
+               "device_memory_stats": collector.device_memory_stats,
+               "host_memory_rss": collector.host_memory_rss,
+               "_scalar_items": collector._scalar_items}
+    try:
+        for name, fn in patched.items():
+            setattr(collector, name, timed(name, fn))
+        det.check = timed("detector.check", det.check)
+        tel.end_step = timed("end_step", tel.end_step)
+        tel.diagnostics.observe = timed("diagnostics.observe", tel.diagnostics.observe)
+        ts = run_arm(arm, HOOK_STEPS)
+    finally:
+        for name, fn in patched.items():
+            setattr(collector, name, fn)
+        for obj, name in ((det, "check"), (tel, "end_step"), (tel.diagnostics, "observe")):
+            del obj.__dict__[name]
+    per_step_us = {k: v / HOOK_STEPS * 1e6 for k, v in spent.items()}
+    rep.line(f"overhead {label} hooks: {HOOK_STEPS} 'on' steps, median {statistics.median(ts)} s; "
+             f"host microseconds a step by hook (end_step holds the synchronise, the memory "
+             f"reads, the scalars and diagnostics.observe) {json.dumps(per_step_us)}")
+
+
+def trace_kernel_counts(overlap, trace_dir: str) -> tuple[dict, set]:
+    """Launches by port kernel name in every trace under ``trace_dir``, and
+    the names of all its device events."""
+    counts, device = {}, set()
+    for path in overlap.trace_paths(trace_dir):
+        for e in overlap.trace_events(path):
+            if not overlap.is_device_event(e):
+                continue
+            device.add(e.get("name"))
+            m = re.search(r"\b((?:flash|qkv|adamw)\w*_kernel)\b", str(e.get("name", "")))
+            if m and e.get("cat") == "kernel":
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts, device
+
+
+def captured_steps(torch, wrappers, arm: dict, diag) -> tuple[dict, dict]:
+    """The capture started at the last step's boundary: ``capture_steps``
+    steps under it, counted by the wrappers (the launches inside the
+    trace), then one more step, whose record carries ``top_ops``. Returns
+    the launches inside the capture and that record."""
+    before = {w.__name__: w.launches for w in wrappers}
+    run_arm(arm, diag.config.capture_steps)
+    inside = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+    run_arm(arm, 1)
+    last = [r for r in arm["acc"].telemetry.records if r.get("kind") == "step"][-1]
+    return inside, last
+
+
+def hold_capture(fa, overlap, design, entry, inside: dict, record: dict, want_reason: str,
+                 want_launches: int, rep: Report, label: str) -> bool:
+    """The capture's trace against the wrappers' counts: B1-B3 by kernel
+    name as many times as they launched inside it, and ``top_ops`` on the
+    next record naming device kernels of that trace."""
+    counts, device = trace_kernel_counts(overlap, entry["dir"])
+    names = flash_kernel_names(fa, design)
+    in_trace = {w: counts.get(k, 0) for w, k in names.items()}
+    counted = {w: inside[w] for w in names}
+    top = record.get("top_ops") or []
+    ok = (entry["reason"] == want_reason and in_trace == counted
+          and all(n == want_launches for n in counted.values())
+          and bool(top) and all(o["op"] in device for o in top))
+    rep.line(f"{label}: capture {entry['reason']} at step {entry['start_step']} -> "
+             f"{len(overlap.trace_paths(entry['dir']))} trace(s); B1-B3 in the trace by name "
+             f"{json.dumps({names[w]: n for w, n in in_trace.items()})}, counted by the wrappers "
+             f"{json.dumps(counted)} (want {want_launches} each); top_ops on step "
+             f"{record.get('step')}: {json.dumps(top)}; overlap_pct {record.get('overlap_pct')}")
+    return ok
+
+
+def nan_capture_and_diagnose(torch, port, wrappers, arm: dict, rep: Report, base: str,
+                             design: str, checks: dict) -> None:
+    """Checks (e) then (c) on arm A's "on" arm, after its measurement: the
+    variant's config has no dump dir and no trace dir, so both are set on
+    it now (the measured arm stays the reference's). A ``CheckpointManager``
+    commits one save; then one NaN is written into one weight and real
+    steps run: exactly one ``nan_grad`` anomaly, a ``torch.profiler``
+    capture of ``capture_steps`` steps on disk whose B1-B3 launches equal
+    the counters, ``top_ops`` naming CUDA kernels. Then ``end_training``
+    (the final ``"shutdown"`` dump), and ``diagnose`` through
+    ``python -m``, as text and as JSON."""
+    from accelerate_tpu_torch.compilation import overlap
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    acc = arm["acc"]
+    diag = acc.telemetry.diagnostics
+    diag_dir, trace_dir = os.path.join(base, "diag"), os.path.join(base, "traces")
+    os.makedirs(diag_dir)
+    diag.config.dir, diag.config.trace_dir = diag_dir, trace_dir
+    with port.CheckpointManager(acc, every_n_steps=1, handle_signals=False) as mgr:
+        run_arm(arm, 1)
+        saved = mgr.step(arm["carry"])
+    saved_step = acc.step
+    name, weight = next((k, p) for k, p in arm["carry"]["params"].items()
+                        if ".1." in k and p.dim() == 2)
+    with torch.no_grad():
+        weight.view(-1)[0] = float("nan")
+    run_arm(arm, 1)  # its gradients are not finite: nan_grad fires, the capture starts
+    nan_step = acc.step
+    started = diag.capture.active
+    inside, record = captured_steps(torch, wrappers, arm, diag)
+    records = list(acc.telemetry.records)
+    nan_records = [r for r in records if r.get("anomaly_type") == "nan_grad"]
+    entries = diag.capture.captures
+    summary = acc.telemetry.summary()
+    ok_c = (started and len(nan_records) == 1 and len(entries) == 1
+            and nan_records[0]["step"] == nan_step)
+    if entries:
+        ok_c = hold_capture(fa, overlap, design, entries[0], inside, record, "anomaly_nan_grad",
+                            arm["cfg"].num_layers * diag.config.capture_steps, rep,
+                            "overhead tiny (c)") and ok_c
+    rep.line(f"overhead tiny (c): NaN written into {name}[0] before step {nan_step}; losses "
+             f"since {arm['losses'][-5:]}; nan_grad records {len(nan_records)} at steps "
+             f"{[(r['step'], r.get('fields')) for r in nan_records]} (the non-finite steps "
+             f"counted {summary.get('anomalies')}); captures {[e['dir'] for e in entries]}")
+    checks["c"] = ok_c
+    last_step = acc.step
+    acc.end_training()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.accelerate_cli", "diagnose",
+           diag_dir]
+    text = subprocess.run(cmd, cwd=here, env=env, capture_output=True, text=True, timeout=300)
+    js = subprocess.run(cmd + ["--json"], cwd=here, env=env, capture_output=True, text=True,
+                        timeout=300)
+    for line in text.stdout.splitlines():
+        rep.line(f"diagnose: {line}")
+    report = json.loads(js.stdout) if js.returncode == 0 else {}
+    rank = (report.get("ranks") or {}).get("0") or {}
+    ck = report.get("last_checkpoint") or {}
+    gp = report.get("goodput_pct")
+    out = text.stdout
+    checks["e"] = (
+        text.returncode == 0 and js.returncode == 0
+        and re.search(rf"^\s+0\s+{last_step}\s+shutdown\b", out, re.M) is not None
+        and "Anomalies: nan_grad=1" in out and report.get("anomalies") == {"nan_grad": 1}
+        and gp is not None and f"Goodput: {gp:.1f}% productive" in out
+        and f"Last checkpoint: step {saved_step} at {saved} [committed]" in out
+        and ck.get("dir") == saved and ck.get("committed") is True
+        and rank.get("dump_reason") == "shutdown" and rank.get("last_step") == last_step)
+    rep.line(f"overhead tiny (e): diagnose exit {text.returncode} (--json {js.returncode}); "
+             f"the JSON reads rank 0 {rank.get('dump_reason')} at step {rank.get('last_step')} "
+             f"(the run's last {last_step}), anomalies {report.get('anomalies')}, goodput_pct "
+             f"{gp}, last checkpoint {ck} (saved {saved} at step {saved_step})"
+             + (f"; stderr {text.stderr[-400:]}" if text.returncode else ""))
+
+
+
+def trigger_capture(torch, port, wrappers, arm: dict, rep: Report, base: str,
+                    checks: dict) -> None:
+    """Check (d) on arm B's "on" arm after its measurement: a trace dir and
+    a trigger file are set on its config, the file is touched, and exactly
+    one capture runs at full width, whose B1-B3 launches in the trace equal
+    the counters, with ``top_ops`` on the next record."""
+    from accelerate_tpu_torch.compilation import overlap
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    diag = arm["acc"].telemetry.diagnostics
+    trigger = os.path.join(base, "trace-now")
+    diag.config.trace_dir, diag.config.trigger_file = os.path.join(base, "traces_b"), trigger
+    with open(trigger, "w") as f:
+        f.write("go")
+    run_arm(arm, 1)  # its boundary finds the trigger: the capture starts
+    started = diag.capture.active
+    inside, record = captured_steps(torch, wrappers, arm, diag)
+    run_arm(arm, 1)  # the trigger's mtime is consumed: no second capture
+    entries = diag.capture.captures
+    checks["d"] = bool(entries) and hold_capture(
+        fa, overlap, path_design(torch, fa, arm["cfg"]),
+        entries[0], inside, record, "trigger_file",
+        arm["cfg"].num_layers * diag.config.capture_steps, rep,
+        "overhead llama3_8b_2l (d)") and started and len(entries) == 1
+
+
+def phase15(torch, port, wrappers, rep: Report) -> list[dict]:
+    """Phase 15: see the module docstring. Returns B1-B3's rows at the
+    ``overhead`` variant's shape."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    tiny = port.TransformerConfig.tiny()
+    H, D = tiny.num_heads, tiny.hidden_size // tiny.num_heads
+    shape = (OVERHEAD["B"], OVERHEAD["S"], H, tiny.num_kv_heads, D)
+    # check (f): B1-B3 at this shape in bf16, then in the path's dtype (the
+    # tiny config's activations are fp32), whose rows go into the table
+    bf16_rows = time_flash_shape(torch, fa, rep, "overhead", *shape, bwd_library_on_dq=True)
+    rep.line(f"overhead's shape in bf16 (not the path's dtype; no launch of the path): "
+             f"{json.dumps(bf16_rows)}")
+    rows = time_flash_shape(torch, fa, rep, "overhead", *shape, bwd_library_on_dq=True,
+                            dtype=getattr(torch, tiny.dtype))
+    checks = {"f": True}  # time_flash_shape ends the script on a miss
+    t1 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="diag_smoke_")
+    try:
+        arms, _, launches = overhead_ab(torch, port, wrappers, rep, "tiny", tiny, OVERHEAD["B"],
+                                        OVERHEAD["S"], OVERHEAD["iters"], OVERHEAD["warmup"],
+                                        base, checks)
+        for row in rows:
+            row["launches"] = launches[WRAPPER_OF[row["name"]]]
+        hook_breakdown(torch, port, arms["on"], rep, "tiny")
+        nan_capture_and_diagnose(torch, port, wrappers, arms["on"], rep, base,
+                                 path_design(torch, fa, tiny), checks)
+        arms["off"]["acc"].end_training()
+        del arms
+        t2 = time.perf_counter()
+        big = port.TransformerConfig.llama3_8b(num_layers=OVERHEAD_B["num_layers"],
+                                               dtype="bfloat16", max_seq_len=OVERHEAD_B["S"])
+        arms, out_b, _ = overhead_ab(torch, port, wrappers, rep, "llama3_8b_2l", big,
+                                     OVERHEAD_B["B"], OVERHEAD_B["S"], OVERHEAD_B["iters"],
+                                     OVERHEAD_B["warmup"], base, checks)
+        hook_breakdown(torch, port, arms["on"], rep, "llama3_8b_2l")
+        trigger_capture(torch, port, wrappers, arms["on"], rep, base, checks)
+        for arm in arms.values():
+            arm["acc"].end_training()
+        del arms
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep.line(f"diag checks {json.dumps(checks)}")
+    rep.line(f"phase 15: B1-B3 at the overhead shape {t1 - t0:.1f} s, arm A and checks (c), (e) "
+             f"{t2 - t1:.1f} s, arm B and check (d) {time.perf_counter() - t2:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"diag: hard checks failed: {failed}")
+    return rows
+
+
 def main() -> None:
     script_t0 = time.perf_counter()
     import torch
@@ -4034,6 +4517,11 @@ def main() -> None:
         print(json.dumps({"kernels": rows}))
         rep.line("ckpt-only: the ckpt phase passed")
         return
+    if "--diag-only" in sys.argv[1:]:
+        rows = phase15(torch, port, wrappers, rep)
+        print(json.dumps({"kernels": rows}))
+        rep.line("diag-only: the diagnostics phase passed")
+        return
     if "--bert-only" in sys.argv[1:]:
         failed = run_cases(torch, fa, bert_cases(torch), rep)[0]
         if failed:
@@ -4072,6 +4560,7 @@ def main() -> None:
     variant_rows, flash_8k_s = variant_phases(torch, port, wrappers, rep)
     variant_rows += phase13(torch, port, wrappers, rep, flash_8k_s)
     variant_rows += phase14(torch, port, wrappers, rep)
+    variant_rows += phase15(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

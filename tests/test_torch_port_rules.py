@@ -251,6 +251,44 @@ def test_accumulation_raw_loop_and_telemetry_modules_import_without_jax():
     assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
 
 
+def test_diagnostics_modules_import_without_jax():
+    """The diagnostics slice's modules, each imported on its own with jax
+    blocked, and the diagnose command run through ``python -m``."""
+    code = textwrap.dedent("""
+        import importlib, subprocess, sys, tempfile
+        for name in ("accelerate_tpu_torch.diagnostics",
+                     "accelerate_tpu_torch.diagnostics.config",
+                     "accelerate_tpu_torch.diagnostics.goodput",
+                     "accelerate_tpu_torch.diagnostics.anomaly",
+                     "accelerate_tpu_torch.diagnostics.flight_recorder",
+                     "accelerate_tpu_torch.diagnostics.capture",
+                     "accelerate_tpu_torch.diagnostics.manager",
+                     "accelerate_tpu_torch.diagnostics.diagnose",
+                     "accelerate_tpu_torch.telemetry.heartbeat",
+                     "accelerate_tpu_torch.utils.profiling",
+                     "accelerate_tpu_torch.compilation.overlap",
+                     "accelerate_tpu_torch.commands.accelerate_cli",
+                     "accelerate_tpu_torch.commands.diagnose"):
+            importlib.import_module(name)
+        print("ok")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
+
+
+def test_no_refusal_names_queue_item_2b():
+    """Diagnostics, the heartbeat and ``Accelerator.profile`` are ported:
+    no message in the port names queue A item 2b any more, and the
+    Accelerator takes ``diagnostics=`` and ``profile_kwargs=``."""
+    texts = [p.read_text() for p in (REPO / "accelerate_tpu_torch").rglob("*.py")]
+    assert not [t for t in texts if "item 2b" in t]
+    acc = port.Accelerator(cpu=True, diagnostics=True, profile_kwargs=port.ProfileKwargs())
+    assert acc.telemetry.enabled and acc.profile_handler is not None
+    with acc.profile() as handle:
+        assert handle is None  # no directory configured: a no-op
+    acc.end_training()
+
+
 def test_serving_modules_import_without_jax():
     code = textwrap.dedent("""
         import importlib
@@ -306,8 +344,8 @@ def test_unported_accelerator_and_model_paths_raise():
     assert port.Accelerator(mixed_precision="fp8", cpu=True).state.mixed_precision_policy.fp8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.Accelerator(cpu=True, parallelism_plugin=object())
-    with pytest.raises(NotImplementedError, match="queue A item 2b"):
-        port.Accelerator(cpu=True, diagnostics=True)
+    # diagnostics is ported: the item 2b refusal is gone
+    assert port.Accelerator(cpu=True, diagnostics=True).telemetry.diagnostics is not None
     with pytest.raises(NotImplementedError, match="queue A4"):  # another topology
         port.Accelerator(cpu=True).load_state("x", params={}, allow_reshape=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -38,7 +38,8 @@ from accelerate_tpu_torch.telemetry import (  # noqa: E402
 TIMES = {"time_unix", "step_time_s", "dispatch_s", "dataloader_wait_s", "tokens_per_s"}
 MEMORY = {"peak_hbm_bytes", "hbm_bytes_in_use", "hbm_bytes_limit", "host_rss_bytes"}
 # the reference attributes XLA compile cost to the step that traced
-XLA_ONLY = {"compile_time_s", "persistent_cache_hits", "persistent_cache_misses"}
+XLA_ONLY = {"compile_time_s", "persistent_cache_hits", "persistent_cache_misses",
+            "compile_time_saved_s"}
 
 
 def _reset():
