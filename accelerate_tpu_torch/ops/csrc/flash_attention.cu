@@ -129,8 +129,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
 
+// The softmax chain's max propagates NaN, as jnp.maximum and jnp.max do
+// (fmaxf drops it): a row whose every score is NaN must come out NaN, not
+// read as fully masked. One instruction, as fmaxf is, and the same result on
+// two numbers; compares and selects in its place made B1 two thirds slower on
+// an H100 (tools/flash_variants.py's select_nan_max).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 __device__ __forceinline__ float warp_sum(float v) {
@@ -356,11 +366,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_wmma_kernel(Params p) {
         float s = sm.s[r * LS + c] * p.scale;
         if (masked && !keep(p, row, k0 + c, kv_valid, offset)) s = NEG_INF;
         vals[j] = s;
-        mx = fmaxf(mx, s);
+        mx = max_nan(mx, s);
       }
       mx = warp_max(mx);
       const float m_prev = sm.m[r];
-      const float m_new = fmaxf(m_prev, mx);
+      const float m_new = max_nan(m_prev, mx);  // a NaN once in m stays
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < BK / 32; ++j) {
@@ -705,8 +715,8 @@ __device__ __forceinline__ int frag_col(int i, int lane) {
   return 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
 }
 __device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return max_nan(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -802,12 +812,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                           offset))
         x = NEG_INF;
       s.d[i] = x;
-      mx[frag_half(i)] = fmaxf(mx[frag_half(i)], x);
+      mx[frag_half(i)] = max_nan(mx[frag_half(i)], x);
     }
     float ml[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const float m_new = fmaxf(m[hh], quad_max(mx[hh]));
+      const float m_new = max_nan(m[hh], quad_max(mx[hh]));  // a NaN once in m stays
       corr[hh] = exp2f((m[hh] - m_new) * LOG2E);
       // a row with no visible column yet keeps p = 0, never exp(0) = 1
       ml[hh] = m_new <= NEG_INF * 0.5f ? 0.f : m_new * LOG2E;

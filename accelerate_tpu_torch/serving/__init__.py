@@ -6,8 +6,9 @@ copy-on-write, speculative decoding (n-gram and draft model), chunked
 prefill, preemption with KV swap and priorities, int8 paged KV, the SLO
 tracker, request spans, and :class:`ServingEngine` (``add_request`` /
 ``step`` / ``stream``), whose decode and verify steps are CUDA graphs on
-the card. The reference's adapters (ROADMAP.md, queue A8), transfer plane
-and HTTP plane (queue A9) are not ported yet.
+the card, and the prefill/decode hand-off (``role``, :class:`TransferPlane`,
+:class:`TransferManifest`). The reference's adapters (ROADMAP.md, queue A8)
+and HTTP plane (queue A10) are not ported yet.
 """
 
 from ..ops.attention import (
@@ -25,6 +26,7 @@ from .slo import SLOConfig, SloTracker
 from .spans import RequestSpan, SpanLog, spans_to_chrome_trace, write_chrome_trace
 from .speculation import DraftModelProposer, NGramProposer, SpecConfig
 from .telemetry import ServeStats, percentile
+from .transfer import TransferManifest, TransferPlane
 
 __all__ = [
     "BlockPool",
@@ -45,6 +47,8 @@ __all__ = [
     "SpanLog",
     "SpecConfig",
     "TokenEvent",
+    "TransferManifest",
+    "TransferPlane",
     "paged_attention",
     "paged_update",
     "percentile",

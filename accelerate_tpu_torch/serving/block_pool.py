@@ -2,9 +2,9 @@
 
 Port of ``accelerate_tpu/serving/block_pool.py``: ``BlockPool`` (:43-388)
 with its swap ledger (``swap_out``/``swap_in``/``swap_drop``/
-``num_swapped`` :220-279) and without ``cached_chain_digest``, which
-belongs to the HTTP plane (ROADMAP.md, queue A9), ``prefix_keys`` (:390)
-and ``PrefixCache`` (:427-509). Block 0 is the reserved garbage block: the
+``num_swapped`` :220-279) and the router's bounded digest of the content
+index (``cached_chain_digest`` :329-362), ``prefix_keys`` (:390) and
+``PrefixCache`` (:427-509). Block 0 is the reserved garbage block: the
 device routes every invalid write (bucket padding, empty decode slots)
 there, so the allocator never hands it out. Ids come out lowest first,
 and a freed block is the next one handed out, as in the reference.
@@ -285,6 +285,36 @@ class BlockPool:
         their holders (the prefix toggle's off edge)."""
         for block in list(self._hash_of):
             self.unpublish(block)
+
+    def cached_chain_digest(self, max_entries: int = 512) -> dict:
+        """A bounded digest of the content index for the router's prefix
+        affinity: the chain keys as hex (scoped to the model fingerprint,
+        the adapter and the whole token prefix, so no raw token shows and a
+        key matches only the same tenant's same prefix). Keys of live
+        blocks (held, published) come first, then the cached LRU from most
+        to least recently used, cut at ``max_entries``."""
+        if max_entries < 0:
+            raise ValueError("max_entries must be >= 0")
+        entries: list[str] = []
+        seen: set[int] = set()
+        for block, key in self._hash_of.items():
+            if len(entries) >= max_entries:
+                break
+            if block in self._ref:
+                entries.append(key.hex())
+                seen.add(block)
+        # the MRU end first: under the cut the digest keeps the prefixes
+        # likeliest to survive eviction until the next scrape
+        for block in reversed(self._lru):
+            if len(entries) >= max_entries:
+                break
+            if block in seen:
+                continue
+            key = self._hash_of.get(block)
+            if key is not None:
+                entries.append(key.hex())
+        return {"block_size": self.block_size, "entries": entries, "total": len(self._index),
+                "truncated": len(self._index) > len(entries)}
 
     def stats(self) -> dict:
         """Occupancy; ``utilization`` counts only allocatable blocks."""

@@ -17,10 +17,17 @@ capacity levers (:149-330): chunked prefill (``prefill_chunk_tokens``;
 (``preemption``, ``add_request(priority=)``; the swap programs
 :1075-1137 and ``_preempt``/``_try_resume``/``_resume``/``_maybe_preempt``
 :1139-1290) and int8 paged KV (``kv_dtype="int8"``), with the buffer
-census's owners (:1808-1830). ``step`` sheds expired queue entries,
-retires finished slots, resumes swapped requests, admits (preempting for
-the head where it may), prefills or feeds chunks, then runs one decode (or
-speculative) step over the whole slot batch (:620-692).
+census's owners (:1808-1830), and prefill/decode disaggregation
+(``role``, ``transfer_plane``, ``set_role`` :563-576; the hand-off
+``_handoff_slot``, ``pop_manifests``, ``acquire``, ``_seat_manifests``,
+``_try_seat_manifest`` and ``transfer_gauges`` :1291-1491) with the
+router's hooks (``drain``, ``undrain``, ``draining``, ``health`` and
+``prefix_digest`` :2127-2162). ``step`` sheds expired queue entries,
+retires finished slots, resumes swapped requests, seats acquired
+manifests, admits (preempting for the head where it may), prefills or
+feeds chunks (a prefill-role engine then hands each finished prefill
+off), then runs one decode (or speculative) step over the whole slot batch
+(:620-692).
 
 Three kinds of program do the device work, as in the reference:
 
@@ -52,7 +59,11 @@ and copied to host memory before its block ids go back to the pool; the
 copy is synchronous, so nothing written to those blocks later can reach
 the saved image. A resume allocates fresh blocks and scatters the images
 into them, so the request continues from its own KV, not from a new
-prefill, and draws nothing from the engine's generator.
+prefill, and draws nothing from the engine's generator. A hand-off leaves
+through the same gather (only the blocks the prompt wrote) and arrives
+through the same scatter (only the blocks the decode side's content index
+lacks), so it adds no program of its own: its widths count under
+``swap_out`` and ``swap_in``.
 
 ``trace_counts()`` counts builds: ``decode`` is 1 after the first decode
 step and stays there; ``verify`` is one a width used; ``prefill`` is the
@@ -60,8 +71,8 @@ number of distinct buckets; ``swap_out`` and ``swap_in`` one a width used;
 a draft proposer adds ``draft_prefill`` and ``draft_step``.
 
 The reference's options for paths not ported yet raise
-NotImplementedError naming ROADMAP.md's queue item (A8 for adapters, A9
-for the rest); none is ignored. The model's parameters live in the module,
+NotImplementedError naming ROADMAP.md's queue item (A8 for adapters, A10
+for the HTTP plane and program capture); none is ignored. The model's parameters live in the module,
 so the reference's ``params`` argument has no counterpart.
 """
 
@@ -79,13 +90,14 @@ import torch
 from ..models.generation import init_cache
 from ..ops.attention import PagedKVState
 from ..utils.cuda_graph import StepProgram
-from .block_pool import BlockPool, PrefixCache
+from .block_pool import BlockPool, PrefixCache, prefix_keys
 from .sampling import SlotSampling, sample_tokens
 from .scheduler import ContinuousScheduler, Request, Slot
 from .slo import SLOConfig, SloTracker
 from .spans import SpanLog, write_chrome_trace
 from .speculation import DraftModelProposer, NGramProposer, SpecConfig
 from .telemetry import ServeStats
+from .transfer import TransferManifest
 
 
 @dataclass(frozen=True)
@@ -101,7 +113,10 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
 
 
-def _not_ported(option: str, queue: str = "A9") -> NotImplementedError:
+_ROLES = ("colocated", "prefill", "decode")
+
+
+def _not_ported(option: str, queue: str) -> NotImplementedError:
     return NotImplementedError(
         f"ServingEngine({option}) is not ported yet (ROADMAP.md, queue {queue})")
 
@@ -151,6 +166,11 @@ class ServingEngine:
     lets admission reserve one chunk instead of the whole footprint.
     ``kv_dtype``: ``"bf16"`` keeps the pools in the model's compute dtype,
     ``"int8"`` stores per-token int8 codes and fp32 scales.
+    ``role``: ``"prefill"`` ingests prompts only and hands each finished
+    chain off as a :class:`~.transfer.TransferManifest` (through
+    ``transfer_plane``'s ``stage``, if given); ``"decode"`` takes work only
+    through :meth:`acquire`; ``"colocated"`` (the default) runs none of the
+    hand-off code.
     Observability: ``telemetry`` (a :class:`~..telemetry.StepTelemetry`)
     receives ``serve``, ``span`` and ``shed`` records, a ``serve_gauge``
     record every ``gauge_interval`` steps (0: none) and, with ``slo`` (an
@@ -172,10 +192,8 @@ class ServingEngine:
                  kv_dtype: str = "bf16", role: str = "colocated", transfer_plane=None):
         if adapters is not None:
             raise _not_ported("adapters=...", "A8")
-        if role != "colocated":
-            raise _not_ported(f"role={role!r}")
-        if transfer_plane is not None:
-            raise _not_ported("transfer_plane=...")
+        if role not in _ROLES:
+            raise ValueError(f"role must be 'colocated', 'prefill' or 'decode', got {role!r}")
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError("prefill_chunk_tokens must be >= 1 (or None)")
         # "bf16" is the reference's name for the model's native compute dtype
@@ -187,6 +205,12 @@ class ServingEngine:
             raise ValueError("gauge_interval must be >= 0 (0 disables)")
         self.model = model
         self.device = model.embed.weight.device
+        self._role = role
+        self._plane = transfer_plane
+        self._outbox: list[TransferManifest] = []
+        self._inbox: list[TransferManifest] = []
+        self._transfer_stats = {"manifests_out": 0, "manifests_in": 0, "blocks_moved": 0,
+                                "blocks_deduped": 0, "bytes_moved": 0, "seat_deferred": 0}
         self.max_slots = max_slots
         self.block_size = block_size
         self.top_k, self.top_p = top_k, top_p
@@ -294,8 +318,21 @@ class ServingEngine:
     @property
     def has_work(self) -> bool:
         # a swapped-out request holds neither seat nor queue entry, but is
-        # the engine's until it finishes
-        return self.scheduler.has_work or bool(self._swapped_reqs)
+        # the engine's until it finishes, as is an acquired manifest not
+        # seated yet
+        return self.scheduler.has_work or bool(self._swapped_reqs) or bool(self._inbox)
+
+    @property
+    def role(self) -> str:
+        return self._role
+
+    def set_role(self, role: str) -> None:
+        """Switch the disaggregation role of a warm engine. A role is host
+        policy over the same programs, so an engine can be primed colocated
+        (every prefill bucket and the decode step) and then join a pool."""
+        if role not in _ROLES:
+            raise ValueError(f"role must be 'colocated', 'prefill' or 'decode', got {role!r}")
+        self._role = role
 
     def trace_counts(self) -> dict:
         """Builds of the device programs: ``decode`` (a capture on the card,
@@ -344,6 +381,8 @@ class ServingEngine:
                 self._finish(slot)
         if self.preemption:
             self._try_resume()
+        if self._inbox:
+            self._seat_manifests()
         blocked_before = dict(self.scheduler.blocked_reasons)
         admitted = self.scheduler.admit()
         if self.preemption and self._maybe_preempt(blocked_before,
@@ -358,6 +397,13 @@ class ServingEngine:
                 self._begin_chunked(slot)
         if self.prefill_chunk_tokens is not None:
             self._chunked_prefill_step(events)
+        if self._role == "prefill":
+            # prompt ingestion only: a seat whose prefill completed hands its
+            # chain off instead of decoding (one done at its first token
+            # finishes here)
+            for slot in self.scheduler.slots:
+                if slot.busy and not slot.done and not slot.mid_prefill:
+                    self._handoff_slot(slot)
         # seats still ingesting their prompt are not in the decode batch
         # (their row has length 0 this step)
         active = [s for s in self.scheduler.slots if s.busy and not s.done and not s.mid_prefill]
@@ -782,6 +828,155 @@ class ServingEngine:
                 return True
         return False
 
+    # ------------------------------------------------------------------ #
+    # prefill/decode disaggregation
+    # ------------------------------------------------------------------ #
+    def _handoff_slot(self, slot: Slot) -> None:
+        """Package a just-prefilled seat as a :class:`TransferManifest` and
+        release it. The blocks the prompt wrote leave through the swap
+        path's gather (int8 scale arrays with them), so the payload holds
+        the bits a colocated engine would decode from; the chain keys make
+        it content-addressed for the decode side's dedup. The seat and its
+        blocks free at once: a prefill replica's pool funds ingestion only."""
+        req = slot.request
+        used = -(-slot.cache_len // self.block_size)
+        data, nbytes = self._swap_out_blocks(slot.blocks[:used])
+        keys = req.prefix_keys
+        if keys is None:
+            # admission computes keys only with the prefix cache on; the
+            # manifest needs them as its address regardless
+            keys = prefix_keys(self._model_fingerprint, None, req.prompt, self.block_size)
+        manifest = TransferManifest(
+            request_id=req.request_id, prompt=tuple(req.prompt),
+            max_new_tokens=req.max_new_tokens, temperature=req.temperature,
+            eos_token_id=req.eos_token_id, adapter=None, priority=req.priority,
+            keys=tuple(keys), fingerprint=self._model_fingerprint, block_size=self.block_size,
+            n_blocks=used, cache_len=slot.cache_len, data=data, nbytes=nbytes,
+            first_token=slot.pending, submit_time=req.submit_time, admit_time=slot.admit_time,
+            first_token_time=slot.first_token_time, cached_tokens=slot.cached_tokens,
+            prefill_chunks=slot.chunks)
+        if self._plane is not None:
+            manifest = self._plane.stage(manifest)
+        self._outbox.append(manifest)
+        self._transfer_stats["manifests_out"] += 1
+        # this replica's part of the request ends at the hand-off (the
+        # decode replica opens its own span)
+        self.span_log.on_finish(req.request_id, self._now(), len(slot.generated),
+                                accept_rate=None)
+        self.sampling.clear_slot(slot.index)
+        self._tables[slot.index] = 0
+        self._tables_stale = True
+        if self._proposer is not None:
+            self._proposer.release(slot.index)
+        self.scheduler.release(slot)
+
+    def pop_manifests(self) -> list[TransferManifest]:
+        """Take the prefill outbox (the router's transfer pump)."""
+        out, self._outbox = self._outbox, []
+        return out
+
+    def acquire(self, manifest: TransferManifest) -> dict:
+        """Accept a hand-off: seat the request now if a free slot and its
+        blocks are there, else park it in the inbox (seated at a later
+        :meth:`step`, before admission). Returns ``{"seated": bool}`` and,
+        when seated, the dedup split: ``reused_blocks`` found in the local
+        content index, ``moved_blocks`` restored from the manifest and their
+        ``moved_bytes``."""
+        res = self._try_seat_manifest(manifest)
+        if res is None:
+            self._inbox.append(manifest)
+            self._transfer_stats["seat_deferred"] += 1
+            return {"seated": False}
+        return res
+
+    def _seat_manifests(self) -> None:
+        while self._inbox:
+            if self._try_seat_manifest(self._inbox[0]) is None:
+                break  # FIFO: nothing overtakes a large chain
+            self._inbox.pop(0)
+
+    def _try_seat_manifest(self, m: TransferManifest) -> Optional[dict]:
+        free = [s for s in self.scheduler.slots if not s.busy]
+        if not free:
+            return None
+        used = m.n_blocks
+        full = m.cache_len // self.block_size  # the blocks with chain keys
+        total = min(max(used, self.pool.blocks_for_tokens(len(m.prompt) + m.max_new_tokens)),
+                    self._max_table)
+        # warm-prefix dedup: chain blocks already in the content index are
+        # acquired (refcounted) instead of moved; the keys address the
+        # contents, so only the tail is scattered in
+        hits = self.pool.lookup(list(m.keys)[:full])
+        reused = len(hits)
+        if hits:
+            self.pool.acquire(hits)
+        if not self.pool.can_allocate(total - reused):
+            if hits:
+                self.pool.free(hits)
+            return None
+        new = self.pool.allocate(total - reused)
+        tail = used - reused
+        moved_bytes = m.bytes_per_block() * tail
+        if tail:
+            self._restore_blocks(new[:tail], [d[:, reused:used] for d in m.data])
+        # index the restored full prompt blocks: the next manifest of this
+        # chain dedups against them (a decode pool never prefills, so this
+        # is its whole warm set)
+        published: set = set()
+        if self.prefix_cache is not None:
+            for i in range(reused, full):
+                self.pool.publish(new[i - reused], m.keys[i])
+                published.add(i)
+        req = Request(prompt=list(m.prompt), max_new_tokens=m.max_new_tokens,
+                      temperature=m.temperature, eos_token_id=m.eos_token_id,
+                      request_id=m.request_id, priority=m.priority)
+        req.submit_time = m.submit_time
+        req.prefix_keys = list(m.keys)
+        slot = free[0]
+        slot.clear()
+        slot.request = req
+        slot.blocks = list(hits) + new
+        slot.cache_len = m.cache_len
+        slot.generated = [m.first_token]
+        slot.pending = m.first_token
+        slot.chunks = m.prefill_chunks
+        slot.cached_tokens = m.cached_tokens
+        slot.admit_time = m.admit_time
+        slot.first_token_time = m.first_token_time
+        # every position decode must copy before writing: the acquired hits
+        # and the blocks just published (the first write, at cache_len, lies
+        # past all of them)
+        slot.shared = set(range(reused)) | published
+        self.sampling.set_slot(slot.index, req.temperature)
+        self._tables[slot.index] = 0
+        self._tables[slot.index, :len(slot.blocks)] = slot.blocks
+        self._tables_stale = True
+        # replay the request's life on this replica's span log with the
+        # manifest's stamps, so queue and TTFT accounting stay whole
+        self.span_log.on_submit(req.request_id, m.submit_time, len(m.prompt))
+        self.span_log.on_admit(req.request_id, m.admit_time)
+        self.span_log.on_prefill(req.request_id, m.first_token_time,
+                                 cached_prefix_tokens=m.cached_tokens)
+        self.span_log.on_first_token(req.request_id, m.first_token_time)
+        if m.eos_token_id is not None and m.first_token == m.eos_token_id:
+            slot.done = True  # the prefill side keeps these; defensive
+            slot.finish_time = self._now()
+        if m.max_new_tokens <= 1:
+            slot.done = True
+            slot.finish_time = self._now()
+        stats = self._transfer_stats
+        stats["manifests_in"] += 1
+        stats["blocks_deduped"] += reused
+        stats["blocks_moved"] += tail
+        stats["bytes_moved"] += moved_bytes
+        return {"seated": True, "reused_blocks": reused, "moved_blocks": tail,
+                "moved_bytes": moved_bytes}
+
+    def transfer_gauges(self) -> dict:
+        """Cumulative hand-off accounting, both directions."""
+        return dict(self._transfer_stats, transfer_inbox_depth=len(self._inbox),
+                    transfer_outbox_depth=len(self._outbox))
+
     def _decode_forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """The model over the static buffers: (max_slots, width, V) logits."""
         buf = self._decode_in
@@ -1021,8 +1216,10 @@ class ServingEngine:
 
     def _gauge_fields(self) -> dict:
         """The live engine sampled into ``serve_gauge`` records: host reads
-        only, no device sync. The keys are the reference's for a colocated
-        engine; the adapter plane's (queue A8) read 0."""
+        only, no device sync. The keys are the reference's; the adapter
+        plane's (queue A8) read 0. A prefill or decode engine adds its role
+        and :meth:`transfer_gauges`; a colocated one's keys stay as they
+        were."""
         now = self._now()
         sched = self.scheduler
         # one clock, FIFO queue: ages are sorted, so the p95 reads off the
@@ -1041,7 +1238,7 @@ class ServingEngine:
         active = [s for s in sched.slots if s.busy]
         prefix = self.prefix_cache
         proposed = self._spec_proposed_total
-        return {
+        fields = {
             "engine_steps": self._steps,
             "queue_depth": n_queued,
             "queue_age_p95_s": queue_age_p95,
@@ -1077,6 +1274,10 @@ class ServingEngine:
             "prefill_chunks_total": self._prefill_chunks_total,
             "kv_bytes_per_token": self.kv_bytes_per_token,
         }
+        if self._role != "colocated":
+            fields["role"] = self._role
+            fields.update(self.transfer_gauges())
+        return fields
 
     def _sample_gauges(self) -> None:
         self._tele("record_serve_gauge", **self._gauge_fields())
@@ -1162,25 +1363,51 @@ class ServingEngine:
         self.scheduler.lookahead_tokens = spec.k
 
     # ------------------------------------------------------------------ #
+    # the router's hooks
+    # ------------------------------------------------------------------ #
+    def drain(self) -> list:
+        """Enter drain mode: admission stops (:meth:`health` reads
+        ``draining``, new submits shed with reason ``"draining"``), seated
+        requests decode to the end, and the unadmitted queue is harvested
+        and returned for the caller (a router) to place elsewhere."""
+        self.scheduler.draining = True
+        return self.scheduler.harvest_queue()
+
+    def undrain(self) -> None:
+        """Leave drain mode: admission resumes."""
+        self.scheduler.draining = False
+
+    @property
+    def draining(self) -> bool:
+        return self.scheduler.draining
+
+    def health(self) -> dict:
+        """The ``/healthz`` body: ``ok`` stays true while draining (the
+        process is healthy, it takes no traffic); routers key rotation and
+        ejection off ``state``."""
+        return {"ok": True, "state": "draining" if self.scheduler.draining else "serving"}
+
+    def prefix_digest(self, max_entries: int = 512) -> dict:
+        """The ``/debug/prefix`` body: a bounded digest of the cached chain
+        keys for the router's overlap scoring. The keys are fingerprint-
+        and adapter-scoped rolling hashes, so no raw token shows and none
+        matches across tenants."""
+        digest = self.pool.cached_chain_digest(max_entries)
+        digest["fingerprint"] = self._model_fingerprint
+        digest["enabled"] = self.prefix_cache is not None
+        return digest
+
+    # ------------------------------------------------------------------ #
     # planes not ported yet
     # ------------------------------------------------------------------ #
     def start_http(self, *args, **kwargs):
-        raise _not_ported("the HTTP plane: start_http")
-
-    def health(self):
-        raise _not_ported("the HTTP plane: health")
-
-    def drain(self):
-        raise _not_ported("the HTTP plane: drain")
-
-    def prefix_digest(self, *args, **kwargs):
-        raise _not_ported("the HTTP plane: prefix_digest")
+        raise _not_ported("the HTTP plane: start_http", "A10")
 
     def capture_programs(self, *args, **kwargs):
-        raise _not_ported("capture_programs")
+        raise _not_ported("capture_programs", "A10")
 
     def audit_programs(self, *args, **kwargs):
-        raise _not_ported("audit_programs")
+        raise _not_ported("audit_programs", "A10")
 
     # ------------------------------------------------------------------ #
     # reports

@@ -5,8 +5,9 @@ Port of ``accelerate_tpu/serving/scheduler.py`` (``Request`` :42, ``Slot``
 speculation's lookahead reservation, priorities (``Request.priority``
 :52-56, the ordered ``submit`` and ``shed_expired`` :228-301),
 chunk-aware admission (:386-400) and the preemption victim
-(``preempt_candidate`` :423-457), without the adapter gate (ROADMAP.md,
-queue A8) and drain mode (the HTTP plane, queue A9).
+(``preempt_candidate`` :423-457) and drain mode (``draining``, the
+``"draining"`` shed and ``harvest_queue`` :216-246, :303, :338), without
+the adapter gate (ROADMAP.md, queue A8).
 
 A fixed array of decode slots is the device-side batch (the decode step is
 built once for it); requests flow through it. At every step boundary the
@@ -57,7 +58,7 @@ class Request:
     priority: int = 0
     submit_time: float = 0.0
     # set when the scheduler refuses or evicts the request instead of
-    # queueing it: "queue_full" | "queue_deadline"
+    # queueing it: "queue_full" | "queue_deadline" | "draining"
     shed_reason: Optional[str] = None
     # prefix caching: the prompt's rolling content keys, computed once at
     # the first admission attempt and reused at publish
@@ -176,6 +177,9 @@ class ContinuousScheduler:
         # sticky: once a nonzero priority was submitted the queue is no
         # longer in submit order and shed_expired scans all of it
         self._saw_priority = False
+        # drain mode (ServingEngine.drain): admission stops, new submits are
+        # shed with reason "draining", seated work finishes
+        self.draining = False
         self.shed_counts = {"queue_full": 0, "queue_deadline": 0}
         self.blocked_reasons = {"no_free_slot": 0, "pool_exhausted": 0}
 
@@ -189,6 +193,12 @@ class ContinuousScheduler:
                 f"{self.pool.num_blocks - 1} allocatable blocks total"
             )
         request.submit_time = self._now()
+        if self.draining:
+            # a refusal is a shed, so a caller without a router still sees
+            # a definite outcome
+            request.shed_reason = "draining"
+            self.shed_counts["draining"] = self.shed_counts.get("draining", 0) + 1
+            return request.request_id
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             # tail-drop: the newest request is refused, those waiting keep
             # their place
@@ -237,6 +247,14 @@ class ContinuousScheduler:
             shed.append(req)
         return shed
 
+    def harvest_queue(self) -> list[Request]:
+        """Pop and return every queued (unadmitted) request, for a drain or
+        a kill whose caller routes them elsewhere: no shed is counted, since
+        none is lost."""
+        out = list(self.queue)
+        self.queue.clear()
+        return out
+
     def release(self, slot: Slot) -> None:
         """Return a finished slot's references and empty the seat: the next
         :meth:`admit` can refill it. A shared block only drops a reference,
@@ -258,6 +276,8 @@ class ContinuousScheduler:
         sample needs that position's logits), so one more private block is
         reserved for the engine's copy of the last shared block. If the
         pool cannot fund the rest, the acquired chain is released."""
+        if self.draining:
+            return []  # seated work decodes on; the queue waits for a harvest
         admitted = []
         free_slots = (s for s in self.slots if not s.busy)
         while self.queue:

@@ -193,6 +193,7 @@ def spans_to_chrome_trace(spans: Iterable[RequestSpan], process_index: int = 0,
         events.append({"ph": "M", "name": "thread_name", "pid": process_index, "tid": tid,
                        "args": {"name": span.request_id}})
         args = {"request_id": span.request_id, "prompt_tokens": span.prompt_tokens,
+                "cached_prefix_tokens": span.cached_prefix_tokens,
                 "new_tokens": span.new_tokens, "state": span.state}
         if span.state == "shed":
             end = span.finish_t if span.finish_t is not None else span.submit_t

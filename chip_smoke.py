@@ -15,8 +15,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    128-row tile and across dq's 64-row kv tiles, kv lengths with an empty
    row, one and four query heads a kv head, kv longer or shorter than q,
    non-causal, head_dim 96 on the wmma design, fp32 at a tight tolerance,
-   and bert_base's shape: B 4, S 512, 12 heads of 64, non-causal, lengths
-   512/300/129/0, bf16 and fp16), each case's launches of all four counted
+   bert_base's shape: B 4, S 512, 12 heads of 64, non-causal, lengths
+   512/300/129/0, bf16 and fp16, and NaN rows on both designs, causal and
+   not: an all-NaN query row and rows with one NaN score must give NaN,
+   a fully masked row zeros, with every output's NaN mask equal to the plain
+   version's exactly), each case's launches of all four counted
    by design (``kernel_design``'s
    answer at the launch, first held against the C launcher's own rule);
    where dk/dv and the single pass both take the wgmma design, dk/dv's dk
@@ -222,6 +225,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    held the same way; (f) B1-B3 at the variant's attention shape in bf16 and
    in the path's dtype (``tiny``'s activations are fp32), whose rows go
    into the kernels line.
+16. fleet: the reference benchmark's ``fleet_soak`` and ``disagg_soak``
+   variants (``measure.py:_run_fleet_soak`` at ``(decode, 2, 16, 48, 0)``
+   and ``_run_disagg_soak`` at ``(decode, 2, 16, 32, 0)``, registry.py:335-342,
+   nothing cut) on phase 8's ``decode`` model, every arm on the virtual clock
+   (``step_dt_s`` 0.01) through ``SoakHarness`` and a ``FleetRouter`` over
+   fresh replicas, each primed colocated (every prefill bucket and the
+   decode step) and then given its role: round robin, least loaded and
+   prefix affinity on one templated-cohort trace and prefix affinity under
+   ``replica_kill@0:replica=1`` (four replicas); four colocated replicas,
+   two prefill and two decode (``placement="disagg"``, a ``host_buffer``
+   ``TransferPlane``) and the latter under ``transfer_stall@0:secs=1``; and
+   the closed-loop probe. Prints each arm's goodput, p95 ITL, warm hit rate,
+   counts, dedup ratio, bytes moved, transfer p95 and the hand-offs' wall
+   time, ``vs_baseline`` for both (readings), the phase's wall and peak
+   memory. Hard checks: (a) the probe's greedy tokens across the hand-off
+   equal the colocated engine's; (b) no decode rebuild on any replica and no
+   prefill build on a decode replica after priming; (c) affinity's warm hits
+   above round robin's; (d) the kill's ``requests_lost`` equals the seats
+   replica 1 held, every request it had queued re-queued and ended; (e) the
+   stall loses nothing and every hand-off seen stalled is delivered and
+   finishes; (f) the counts (finished, shed, routed by replica, warm
+   lookups and hits, requeued, lost, transfers, blocks moved and deduped)
+   equal a run of the same plans on a 1-layer fp32 model on the CPU with the
+   decode config's vocab and ``max_seq_len`` (the arms read no token
+   value); no kernel of the port launches.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -247,6 +275,10 @@ built), ending with the card's line and the ``{"ok": true, ...}`` line,
     python3 chip_smoke.py --soak-only
 
 phase 12 alone, ending the same way, and
+
+    python3 chip_smoke.py --fleet-only
+
+phase 16 alone, ending the same way, and
 
     python3 chip_smoke.py --variants-only
 
@@ -367,6 +399,10 @@ CARD = "cuda"  # where the serving phase puts its models
 # the reference's serve_soak variant: measure.py:_run_serve_soak(decode, 4, 16, 64, 0)
 # (registry.py:329-330)
 SOAK = dict(max_slots=4, block_size=16, target_requests=64, seed=0)
+# the reference's fleet variants (registry.py:335-342): (decode, 2, 16, 48, 0)
+# and (decode, 2, 16, 32, 0)
+FLEET = dict(max_slots=2, block_size=16, target_requests=48, seed=0)
+DISAGG = dict(max_slots=2, block_size=16, target_requests=32, seed=0)
 # int8 paged_attention in bf16 against its fp32 computation from the same
 # codes and scales: worst row's max error over its RMS (PERF.md's parity table)
 INT8_ATTN_TOL = 0.06  # about 3x the reading 0.0203 on an H100
@@ -478,8 +514,12 @@ def rel_err(torch, got, want) -> float:
 
 def row_err(torch, got, want) -> float:
     """Worst row of ``got`` against ``want``: max |err| over the row's RMS
-    plus 1e-2 of the tensor's RMS."""
-    g, w = got.float(), want.float()
+    plus 1e-2 of the tensor's RMS, over the elements that are not NaN in
+    ``want``. Infinite when the NaN masks differ: a NaN where the plain
+    version has none, or a number where it has NaN, never passes."""
+    if not torch.equal(got.isnan(), want.isnan()):
+        return math.inf
+    g, w = got.float().nan_to_num(nan=0.0), want.float().nan_to_num(nan=0.0)
     rms_row = w.square().mean(dim=-1, keepdim=True).sqrt()
     floor = 1e-2 * float(w.square().mean().sqrt()) + 1e-30
     return float(((g - w).abs() / (rms_row + floor)).max())
@@ -496,8 +536,32 @@ def make_inputs(torch, B, S, H, Hkv, D, dtype, Skv=None, seed=0):
     return q, k, v, dout
 
 
+def same_bits(torch, a, b) -> bool:
+    """``torch.equal``, or else the same bits (NaN is not equal to itself)."""
+    if torch.equal(a, b):
+        return True
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def plant_nans(torch, q, k, S):
+    """The NaN cases' inputs (``_nan_inputs`` in tests/test_torch_flash_attention.py):
+    batch entry 0's last query row of head 0, which sees every key, all NaN;
+    one element of batch entry 1's key 0 in kv head 0 NaN, so every row of
+    that kv head's query heads has one NaN score beside finite ones; entry 2
+    sees no key (``kv_lengths`` 0). Each NaN reaches the same elements of
+    every output however a design tiles the keys. Returns the expected NaN
+    rows of O, (B, S, H)."""
+    q[0, S - 1, 0] = float("nan")
+    k[1, 0, 0, 3] = float("nan")
+    rows = torch.zeros(q.shape[:3], dtype=torch.bool, device=q.device)
+    rows[0, S - 1, 0] = True
+    rows[1, :, :q.shape[2] // k.shape[2]] = True
+    return rows
+
+
 def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
-               window=None, lens=None):
+               window=None, lens=None, nan=False):
     """All four flash kernels against their plain versions on one case, and
     the single-pass backward against dq + dk/dv. Each kernel must count its
     launches under ``fa.kernel_design``'s design alone (the rule's answer at
@@ -508,6 +572,7 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
     launched again on the same inputs. Returns the case's readings (printed
     as one JSON line) and the max abs error of each kernel's outputs."""
     q, k, v, dout = make_inputs(torch, B, S, H, Hkv, D, dtype, Skv)
+    nan_rows = plant_nans(torch, q, k, S) if nan else None
     before = [dict(w.by_design) for w in fa.KERNEL_WRAPPERS]
     kv_lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
     scale = D ** -0.5
@@ -542,19 +607,23 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
     two_pass = {"fused_dq": (fdq, dq), "fused_dk": (fdk, dk), "fused_dv": (fdv, dv)}
     errs = {k: row_err(torch, *gw) for k, gw in pairs.items()}
     vs_two_pass = {k: row_err(torch, *gw) for k, gw in two_pass.items()}
-    lse_err = float((lse - ref_lse).abs().max())
+    # lse's NaN mask exactly, then its finite entries
+    lse_err = (float((lse - ref_lse).nan_to_num(nan=0.0).abs().max())
+               if torch.equal(lse.isnan(), ref_lse.isnan()) else math.inf)
     bad = [k for k, e in errs.items() if not e <= TOL[tag]]
     bad += [f"{k}_vs_two_pass" for k, e in vs_two_pass.items() if not e <= TOL[tag]]
     if not lse_err <= LSE_TOL[tag]:
         bad.append("lse")
+    if nan_rows is not None and not torch.equal(ref_out.isnan().all(dim=-1), nan_rows):
+        bad.append("plain_nan_rows")  # the case itself: its NaNs are not where planted
     bad += [f"{w}_design" for w, got in ran.items() if got != [design]]
     # bit for bit: dk/dv against the single pass on the wgmma design (None
     # on the wmma design, whose two kernels differ), dq and dk/dv against
     # their second launch
-    bitwise = {"dk_equals_fused": torch.equal(dk, fdk) if design == "wgmma" else None,
-               "dv_equals_fused": torch.equal(dv, fdv) if design == "wgmma" else None,
-               "dq_repeats": torch.equal(dq, dq2),
-               "dk_repeats": torch.equal(dk, dk2), "dv_repeats": torch.equal(dv, dv2)}
+    eq = lambda a, b: same_bits(torch, a, b)  # noqa: E731
+    bitwise = {"dk_equals_fused": eq(dk, fdk) if design == "wgmma" else None,
+               "dv_equals_fused": eq(dv, fdv) if design == "wgmma" else None,
+               "dq_repeats": eq(dq, dq2), "dk_repeats": eq(dk, dk2), "dv_repeats": eq(dv, dv2)}
     bad += [k for k, same in bitwise.items() if same is False]
     reading = {
         "case": name, "dtype": tag, "design": design, "launched": ran, "row_err": errs,
@@ -563,7 +632,10 @@ def check_case(torch, fa, name, B, S, H, Hkv, D, dtype, Skv=None, causal=True,
         # the global max|err| / max|plain|, for comparison only
         "global_rel_err": {k: rel_err(torch, *gw) for k, gw in pairs.items()},
     }
-    absmax = lambda a, b: float((a.float() - b.float()).abs().max())  # noqa: E731
+    if nan_rows is not None:
+        reading["nan_rows_o"] = int(nan_rows.sum())
+        reading["nan_elements"] = {k: int(gw[1].isnan().sum()) for k, gw in pairs.items()}
+    absmax = lambda a, b: float((a.float() - b.float()).nan_to_num(nan=0.0).abs().max())  # noqa
     return reading, {
         "flash_fwd": absmax(out, ref_out),
         "flash_bwd_dq": absmax(dq, ref_dq),
@@ -762,6 +834,14 @@ def kernel_phase(torch, port, fa, fused, build, rep: Report,
         ("fp32_window_lengths", dict(B=2, S=100, H=4, Hkv=2, D=128, dtype=torch.float32,
                                      window=30, lens=[100, 7])),
     ]
+    # NaN rows (plant_nans): an all-NaN row and rows with one NaN score must
+    # come out NaN as in the plain version, a fully masked row as zeros; the
+    # wgmma design (bf16, head_dim 128) and the wmma design (fp32)
+    for dt, d in ((bf16, 128), (torch.float32, 64)):
+        for causal in (True, False):
+            cases.append((f"nan_rows_{str(dt)[6:]}_d{d}_{'causal' if causal else 'noncausal'}",
+                          dict(B=3, S=200, H=4, Hkv=2, D=d, dtype=dt, causal=causal,
+                               lens=[200, 200, 0], nan=True)))
     cases += bert_cases(torch)
     cases.append(("main_bf16_causal", dict(**MAIN, dtype=bf16)))
     failed, reading, abs_errs = run_cases(torch, fa, cases, rep)
@@ -2841,6 +2921,423 @@ def soak_phase(torch, port, wrappers, rep: Report, model) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# phase 16: the reference benchmark's fleet_soak and disagg_soak variants
+# ---------------------------------------------------------------------- #
+def fleet_plan(loadgen, cfg, max_slots: int, block_size: int, target_requests: int,
+               seed: int) -> dict:
+    """``measure.py:_run_fleet_soak``'s workload, phases and priming
+    (:1715-1755) for a model config, built with ``loadgen`` (either
+    package's): four replicas, templated cohorts (90 % of requests open
+    with one of four 3-block prefixes), the policy arms' warmup + soak and
+    the kill arm's warmup, soak, fault and recovery, sized so one policy arm
+    offers about ``target_requests``. Pure arithmetic on the config."""
+    n_replicas = 4
+    prefix_tokens = 3 * block_size
+    workload = loadgen.WorkloadConfig(
+        vocab_size=cfg.vocab_size, num_cohorts=4, prefix_tokens=prefix_tokens,
+        cohort_fraction=0.9, prompt_tokens_min=2, prompt_tokens_median=4,
+        prompt_tokens_max=2 * block_size, output_tokens_min=2, output_tokens_median=6,
+        output_tokens_max=16, max_total_tokens=cfg.max_seq_len)
+    ab_dt = 0.01  # virtual seconds a fleet step (one step a replica)
+    vcap = n_replicas * max_slots / ((2 + workload.output_tokens_median) * ab_dt)
+    u = max(0.2, target_requests / (1.35 * vcap))
+    max_prompt = prefix_tokens + workload.prompt_tokens_max
+    return dict(
+        workload=workload, seed=seed, ab_dt=ab_dt, vcap=vcap, u=u, n_replicas=n_replicas,
+        fingerprint="fleet-bench", prime_lens=_prime_lens(max_prompt, cfg.max_seq_len),
+        policy_phases=(loadgen.Phase("warmup", "warmup", u, 0.25 * vcap),
+                       loadgen.Phase("soak", "soak", 2 * u, 0.55 * vcap)),
+        kill_phases=(loadgen.Phase("warmup", "warmup", u, 0.25 * vcap),
+                     loadgen.Phase("soak", "soak", u, 0.55 * vcap),
+                     loadgen.Phase("fault", "fault", u, 0.55 * vcap),
+                     loadgen.Phase("recovery", "recovery", 2 * u, 0.55 * vcap)),
+        kill_fault="replica_kill@0:replica=1")
+
+
+def disagg_plan(loadgen, cfg, max_slots: int, block_size: int, target_requests: int,
+                seed: int) -> dict:
+    """``measure.py:_run_disagg_soak``'s workload, phases, priming and step
+    cost (:1997-2041, :2090): two prefill and two decode replicas against
+    four colocated ones, cohorts (80 %) with a quarter of the requests
+    carrying an 8-block prompt body, the offered load sized to the decode
+    pool, and the stall arm's phases."""
+    n_prefill = n_decode = 2
+    prefix_tokens = 3 * block_size
+    long_tokens = 8 * block_size
+    workload = loadgen.WorkloadConfig(
+        vocab_size=cfg.vocab_size, num_cohorts=4, prefix_tokens=prefix_tokens,
+        cohort_fraction=0.8, prompt_tokens_min=2, prompt_tokens_median=4,
+        prompt_tokens_max=2 * block_size, long_prompt_fraction=0.25,
+        long_prompt_tokens=long_tokens, output_tokens_min=2, output_tokens_median=6,
+        output_tokens_max=16, max_total_tokens=cfg.max_seq_len)
+    ab_dt = 0.01
+    vcap = n_decode * max_slots / ((2 + workload.output_tokens_median) * ab_dt)
+    u = max(0.2, target_requests / (1.35 * vcap))
+    return dict(
+        workload=workload, seed=seed, ab_dt=ab_dt, vcap=vcap, u=u, n_prefill=n_prefill,
+        n_decode=n_decode, fingerprint="disagg-bench", block_size=block_size,
+        # a full giant bucket bills 8 decode quanta (measure.py:2087-2090)
+        prefill_cost=ab_dt / (2 * block_size),
+        prime_lens=_prime_lens(prefix_tokens + long_tokens, cfg.max_seq_len),
+        ab_phases=(loadgen.Phase("warmup", "warmup", u, 0.25 * vcap),
+                   loadgen.Phase("burst", "soak", 2 * u, 0.55 * vcap)),
+        stall_phases=(loadgen.Phase("warmup", "warmup", u, 0.25 * vcap),
+                      loadgen.Phase("soak", "soak", u, 0.55 * vcap),
+                      loadgen.Phase("fault", "fault", u, 0.55 * vcap),
+                      loadgen.Phase("recovery", "recovery", 2 * u, 0.55 * vcap)),
+        stall_fault="transfer_stall@0:secs=1")
+
+
+def _prime_lens(max_prompt: int, max_seq_len: int) -> list:
+    """Every prefill bucket a trace can reach (measure.py:1750-1755)."""
+    lens, m = [], 2
+    while m < 2 * max_prompt and m + 2 <= max_seq_len:
+        lens.append(min(m, max_prompt))
+        m *= 2
+    return lens
+
+
+def _prime_fleet_engine(engine, plan: dict) -> None:
+    """Build every prefill bucket and the decode step before an arm, then
+    reset the stats and the prefix index (measure.py:1757-1772): arms
+    measure placement on cold caches, and the zero-retrace deltas count
+    from here."""
+    import numpy as np
+
+    rng = np.random.default_rng(plan["seed"] + 99)
+    for n in plan["prime_lens"]:
+        engine.add_request(rng.integers(1, plan["workload"].vocab_size, size=n).tolist(),
+                           max_new_tokens=2)
+    while engine.has_work:
+        engine.step()
+    engine.set_prefix_cache(False)
+    engine.set_prefix_cache(True, plan["fingerprint"])
+    engine.stats = type(engine.stats)()
+
+
+def _arm_out(report, fleet, engines, primed, roles) -> dict:
+    """An arm's report and the readings phase 16 checks, taken before its
+    engines are let go: build deltas since priming a replica, the router's
+    and the plane's ledgers, the cache's hits."""
+    cache = [e.prefix_cache.stats() for e in engines]
+    plane = fleet.transfer_plane
+    counts = {
+        "requests_finished": report["requests_finished"],
+        "requests_shed": report["requests_shed"],
+        "routed_by_replica": dict(fleet.routed_by_replica),
+        "warm_lookups": sum(c["lookups"] for c in cache),
+        "warm_hits": sum(c["hits"] for c in cache),
+        "requests_requeued": fleet.requests_requeued,
+        "requests_lost": fleet.requests_lost,
+        "transfers_delivered": fleet.transfers_delivered_total,
+        "blocks_moved": plane.blocks_moved_total if plane is not None else 0,
+        "blocks_deduped": plane.blocks_deduped_total if plane is not None else 0,
+    }
+    return {
+        "report": report, "counts": counts, "roles": roles,
+        "decode_retraces": [e.trace_counts()["decode"] - p["decode"]
+                            for e, p in zip(engines, primed)],
+        "prefill_retraces": [e.trace_counts()["prefill"] - p["prefill"]
+                             for e, p in zip(engines, primed)],
+        "transfer": report.get("transfer") or {},
+        "router": report.get("router") or {},
+    }
+
+
+def fleet_arms(loadgen, router_pkg, make_engine, plan: dict, report_dir=None) -> dict:
+    """``fleet_soak``'s four arms (measure.py:1774-1839) on the virtual
+    clock: round robin, least loaded and prefix affinity on one trace, then
+    prefix affinity under ``replica_kill@0:replica=1``, each on four fresh
+    replicas ``make_engine(clock)`` (either package's, prefix cache on)
+    behind ``router_pkg.FleetRouter``. The kill arm also records the seats
+    and the unadmitted requests replica 1 held when the kill landed."""
+    import os
+
+    arms = {}
+    specs = [(p, p, plan["policy_phases"], "") for p in
+             ("round_robin", "least_loaded", "prefix_affinity")]
+    specs.append(("replica_kill", "prefix_affinity", plan["kill_phases"], plan["kill_fault"]))
+    for name, policy, phases, fault in specs:
+        clock = loadgen.SoakClock()
+        engines = [make_engine(clock) for _ in range(plan["n_replicas"])]
+        for engine in engines:
+            _prime_fleet_engine(engine, plan)
+        primed = [dict(e.trace_counts()) for e in engines]
+        fleet = router_pkg.FleetRouter(
+            [router_pkg.InProcessReplica(f"r{i}", e) for i, e in enumerate(engines)],
+            policy=policy, now=clock)
+        at_kill = {}
+        kill = fleet.kill
+
+        def kill_and_record(rep_name, kill=kill, at_kill=at_kill, fleet=fleet):
+            rep = fleet.replica(rep_name)
+            sched = rep.engine.scheduler
+            at_kill.update(replica=rep_name, seats=rep.seated_count(),
+                           queued=[r.request_id for r in sched.queue])
+            return kill(rep_name)
+
+        fleet.kill = kill_and_record  # the chaos adapter calls engine.kill
+        config = loadgen.SoakConfig(
+            workload=plan["workload"], phases=phases, seed=plan["seed"] + 17,
+            step_dt_s=plan["ab_dt"], fault_specs=fault,
+            report_path=(os.path.join(report_dir, f"soak-report-fleet-{name}.json")
+                         if report_dir else None),
+            drain_grace_s=60.0, label=f"fleet_soak_{name}")
+        report = loadgen.SoakHarness(fleet, config, clock=clock).run()
+        out = _arm_out(report, fleet, engines, primed, ["colocated"] * len(engines))
+        if at_kill:
+            queued = at_kill["queued"]
+            out["kill"] = dict(at_kill, requeued_finished_or_shed=all(
+                fleet.result(r) is not None or fleet.shed_reason(r) is not None
+                for r in queued))
+        arms[name] = out
+    return arms
+
+
+def disagg_arms(loadgen, router_pkg, plane_cls, make_engine, plan: dict,
+                report_dir=None) -> dict:
+    """``disagg_soak``'s three arms (measure.py:2060-2202) on the virtual
+    clock: four colocated replicas, then two prefill and two decode
+    replicas with ``placement="disagg"`` over ``plane_cls("host_buffer")``,
+    then the latter under ``transfer_stall@0:secs=1``; every replica primed
+    colocated, then given its role; the harness's step cost charges a
+    replica's prefill work while it hosts decodes (measure.py:2081-2105).
+    ``make_engine(clock, plane)`` builds either package's engine. Each
+    arm also returns its hand-offs' wall seconds, and the stall arm the
+    requests whose hand-off was seen stalled and how each ended."""
+    import os
+
+    n_p, n_d = plan["n_prefill"], plan["n_decode"]
+    arms = {}
+    for name, phases, disagg, fault in (
+            ("colocated", plan["ab_phases"], False, ""),
+            ("disagg", plan["ab_phases"], True, ""),
+            ("transfer_stall", plan["stall_phases"], True, plan["stall_fault"])):
+        clock = loadgen.SoakClock()
+        plane = plane_cls("host_buffer", now=clock) if disagg else None
+        roles = ["prefill"] * n_p + ["decode"] * n_d if disagg else ["colocated"] * (n_p + n_d)
+        engines, walls = [], []
+        for role in roles:
+            engine = make_engine(clock, plane)
+            _prime_fleet_engine(engine, plan)
+            if role != "colocated":
+                engine.set_role(role)
+            handoff = engine._handoff_slot
+
+            def timed(slot, handoff=handoff):
+                t0 = time.perf_counter()
+                handoff(slot)
+                walls.append(time.perf_counter() - t0)
+
+            engine._handoff_slot = timed
+            engines.append(engine)
+        primed = [dict(e.trace_counts()) for e in engines]
+        issued = {id(e): e.prefill_bucket_tokens_total for e in engines}
+        hosted = {id(e): 0 for e in engines}
+
+        def step_cost(_fleet, engines=engines, issued=issued, hosted=hosted):
+            surcharge = 0.0
+            for e in engines:
+                delta = e.prefill_bucket_tokens_total - issued[id(e)]
+                issued[id(e)] = e.prefill_bucket_tokens_total
+                if delta and hosted[id(e)]:
+                    surcharge = max(surcharge, delta * plan["prefill_cost"])
+                hosted[id(e)] = sum(1 for s in e.scheduler.slots
+                                    if s.busy and not s.done and not s.mid_prefill)
+            return plan["ab_dt"] + surcharge
+
+        fleet = router_pkg.FleetRouter(
+            [router_pkg.InProcessReplica(f"{role[0]}{i}", e)
+             for i, (role, e) in enumerate(zip(roles, engines))],
+            policy="prefix_affinity", now=clock, placement="disagg" if disagg else "colocated",
+            transfer_plane=plane)
+        stalled = set()
+        pump = fleet._pump_transfers
+
+        def pump_and_record(pump=pump, fleet=fleet, stalled=stalled):
+            pump()
+            stalled.update(r.manifest.request_id for r in fleet._transfers
+                           if r.state == "stalled")
+
+        fleet._pump_transfers = pump_and_record
+        config = loadgen.SoakConfig(
+            workload=plan["workload"], phases=phases, seed=plan["seed"] + 17,
+            step_dt_s=plan["ab_dt"], step_cost=step_cost, fault_specs=fault,
+            report_path=(os.path.join(report_dir, f"soak-report-disagg-{name}.json")
+                         if report_dir else None),
+            drain_grace_s=60.0, label=f"disagg_soak_{name}")
+        report = loadgen.SoakHarness(fleet, config, clock=clock).run()
+        out = _arm_out(report, fleet, engines, primed, roles)
+        out["handoff_wall_s"] = walls
+        out["stalled"] = {r: (fleet.transfer_record(r) is not None, fleet.result(r) is not None)
+                          for r in sorted(stalled)}
+        arms[name] = out
+    return arms
+
+
+def disagg_probe(plane_cls, make_engine, vocab: int, plan: dict) -> tuple:
+    """The closed-loop greedy probe (measure.py:2155-2194): four prompts
+    through a colocated engine, and through a prefill engine and a decode
+    engine pumped by hand over a ``host_buffer`` plane. Returns both
+    results by request id; they must be equal token for token."""
+    import numpy as np
+
+    bs = plan["block_size"]
+    rng = np.random.default_rng(plan["seed"] + 7)
+    prompts = [rng.integers(1, vocab, size=n).tolist() for n in (bs + 4, 2 * bs, 3 * bs + 1, 5)]
+    base = make_engine("colocated", None)
+    rids = [base.add_request(p, max_new_tokens=8, request_id=f"bw{i}")
+            for i, p in enumerate(prompts)]
+    while base.has_work:
+        base.step()
+    plane = plane_cls("host_buffer")
+    pre, dec = make_engine("prefill", plane), make_engine("decode", plane)
+    for i, p in enumerate(prompts):
+        pre.add_request(p, max_new_tokens=8, request_id=f"bw{i}")
+    for _ in range(500):
+        if not (pre.has_work or dec.has_work):
+            break
+        pre.step()
+        for manifest in pre.pop_manifests():
+            dec.acquire(manifest)
+        dec.step()
+    return {r: base.result(r) for r in rids}, {r: dec.result(r) for r in rids}
+
+
+def fleet_counts(fleet: dict, disagg: dict) -> dict:
+    """The virtual-clock counts check (f) compares between runs."""
+    return {f"{kind}:{name}": arm["counts"]
+            for kind, arms in (("fleet", fleet), ("disagg", disagg)) for name, arm in arms.items()}
+
+
+def fleet_cpu_model(torch, port, cfg, seed: int = 0):
+    """A 1-layer fp32 model on the CPU with ``cfg``'s vocab and
+    ``max_seq_len``: check (f)'s witness (the arms read no token value)."""
+    small = port.TransformerConfig.tiny(num_layers=1, vocab_size=cfg.vocab_size,
+                                        max_seq_len=cfg.max_seq_len, dtype="float32")
+    return port.CausalLM(small, device="cpu", generator=torch.Generator().manual_seed(seed))
+
+
+def run_fleet_variants(torch, port, model, report_dir=None) -> tuple:
+    """Both variants' arms at the reference's arguments (FLEET, DISAGG) on
+    ``model``: returns the fleet arms, the disagg arms and the plans."""
+    from accelerate_tpu_torch import loadgen, router
+    from accelerate_tpu_torch.serving import ServingEngine, TransferPlane
+
+    cfg = model.config
+    f_plan = fleet_plan(loadgen, cfg, FLEET["max_slots"], FLEET["block_size"],
+                        FLEET["target_requests"], FLEET["seed"])
+    d_plan = disagg_plan(loadgen, cfg, DISAGG["max_slots"], DISAGG["block_size"],
+                         DISAGG["target_requests"], DISAGG["seed"])
+    f_arms = fleet_arms(loadgen, router, lambda clock: ServingEngine(
+        model, max_slots=FLEET["max_slots"], block_size=FLEET["block_size"], now=clock,
+        prefix_cache=True, model_fingerprint=f_plan["fingerprint"]), f_plan, report_dir)
+    gc.collect()
+    d_arms = disagg_arms(loadgen, router, TransferPlane, lambda clock, plane: ServingEngine(
+        model, max_slots=DISAGG["max_slots"], block_size=DISAGG["block_size"], now=clock,
+        prefix_cache=True, model_fingerprint=d_plan["fingerprint"], transfer_plane=plane),
+        d_plan, report_dir)
+    gc.collect()
+    return f_arms, d_arms, f_plan, d_plan
+
+
+def fleet_phase(torch, port, wrappers, rep: Report, model) -> None:
+    """The reference benchmark's ``fleet_soak`` and ``disagg_soak`` variants
+    on the ``decode`` config (see phase 16 in the module docstring). Every
+    launch counter is set to 0 before and read after."""
+    from accelerate_tpu_torch.serving import ServingEngine, TransferPlane
+
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    checks = {}
+    out_dir = tempfile.mkdtemp(prefix="fleet_soak-")
+    f_arms, d_arms, f_plan, d_plan = run_fleet_variants(torch, port, model, out_dir)
+    arms_s = time.perf_counter() - phase_t0
+
+    def itl(report):
+        return report["headline"].get("soak_p95_itl_s")
+
+    for name, arm in {**f_arms, **d_arms}.items():
+        report, counts = arm["report"], arm["counts"]
+        plane = arm["transfer"].get("plane") or {}
+        walls = arm.get("handoff_wall_s") or []
+        rep.line(f"fleet arm {name}: goodput {report['headline']['goodput_tokens_per_s_at_slo']} "
+                 f"tokens/s at the SLO, soak p95 ITL {itl(report)} s, warm hit rate "
+                 f"{counts['warm_hits'] / counts['warm_lookups'] if counts['warm_lookups'] else 0.0}"
+                 f"; {report['engine_steps']} fleet steps; counts {json.dumps(counts)}; decode "
+                 f"retraces {arm['decode_retraces']}, prefill retraces {arm['prefill_retraces']} "
+                 f"({arm['roles']}); dedup_ratio {plane.get('dedup_ratio')}, bytes_moved_total "
+                 f"{plane.get('bytes_moved_total')}, transfer_ms_p95 {plane.get('transfer_ms_p95')}"
+                 f" (virtual); hand-offs {len(walls)}, wall s median "
+                 f"{statistics.median(walls) if walls else None} max {max(walls, default=None)}")
+    rr, af, kill = f_arms["round_robin"], f_arms["prefix_affinity"], f_arms["replica_kill"]
+    good = {k: a["report"]["headline"]["goodput_tokens_per_s_at_slo"] for k, a in f_arms.items()}
+    rep.line(f"fleet_soak: vs_baseline {good['prefix_affinity'] / good['round_robin'] if good['prefix_affinity'] and good['round_robin'] else None} "
+             f"(affinity / round-robin goodput; a reading), warm hits affinity "
+             f"{af['counts']['warm_hits']} vs round robin {rr['counts']['warm_hits']}; kill: "
+             f"{json.dumps(kill['kill'])}, router {json.dumps(kill['router'])}, recovered "
+             f"{kill['report']['fault']['recovered']} after {kill['report']['fault']['recovery_s']}"
+             f" s")
+    # (a) the probe: greedy tokens across the hand-off equal the colocated run's
+    want, got = disagg_probe(TransferPlane, lambda role, plane: ServingEngine(
+        model, max_slots=DISAGG["max_slots"], block_size=DISAGG["block_size"], prefix_cache=True,
+        model_fingerprint=d_plan["fingerprint"], role=role, transfer_plane=plane),
+        model.config.vocab_size, d_plan)
+    checks["a"] = got == want and all(v is not None for v in want.values())
+    rep.line(f"disagg probe: {len(want)} prompts, tokens across the hand-off equal the colocated "
+             f"engine's {checks['a']} ({json.dumps(got)})")
+    # (b) zero retraces after priming: decode on every replica, prefill on
+    # every decode-role replica
+    checks["b"] = all(not any(a["decode_retraces"]) for a in {**f_arms, **d_arms}.values()) and all(
+        n == 0 for a in d_arms.values() for n, role in zip(a["prefill_retraces"], a["roles"])
+        if role == "decode")
+    # (c) affinity's warm hits strictly above round robin's
+    checks["c"] = af["counts"]["warm_hits"] > rr["counts"]["warm_hits"]
+    # (d) the kill's ledger adds up, every re-queued request ended
+    checks["d"] = (kill["counts"]["requests_lost"] == kill["kill"]["seats"]
+                   and kill["counts"]["requests_requeued"] == len(kill["kill"]["queued"])
+                   and kill["kill"]["requeued_finished_or_shed"])
+    # (e) the stall: nothing lost, every stalled hand-off delivered later
+    stall = d_arms["transfer_stall"]
+    checks["e"] = (stall["counts"]["requests_lost"] == 0 and bool(stall["stalled"])
+                   and all(delivered and done for delivered, done in stall["stalled"].values())
+                   and stall["transfer"].get("in_flight") == 0)
+    colo_itl, dis_itl = itl(d_arms["colocated"]["report"]), itl(d_arms["disagg"]["report"])
+    rep.line(f"disagg_soak: p95 ITL colocated {colo_itl} s, disagg {dis_itl} s, vs_baseline "
+             f"{colo_itl / dis_itl if colo_itl and dis_itl else None} (a reading); stall arm: "
+             f"{len(stall['stalled'])} hand-offs seen stalled, all delivered and finished "
+             f"{checks['e']}, recovery {stall['transfer'].get('stall_recovery_s')} s, recovered "
+             f"{stall['report']['fault']['recovered']}")
+    peak = torch.cuda.max_memory_allocated()
+    # (f) the counts equal a CPU run of the same plans on a 1-layer model
+    t0 = time.perf_counter()
+    card_counts = fleet_counts(f_arms, d_arms)
+    del f_arms, d_arms
+    gc.collect()
+    cpu_f, cpu_d, _, _ = run_fleet_variants(torch, port, fleet_cpu_model(torch, port,
+                                                                         model.config))
+    cpu_counts = fleet_counts(cpu_f, cpu_d)
+    checks["f"] = cpu_counts == card_counts
+    rep.line(f"fleet counts on the card equal the CPU run's (1-layer fp32 model, "
+             f"{time.perf_counter() - t0:.1f} s) {checks['f']}"
+             + ("" if checks["f"] else f": card {json.dumps(card_counts)} cpu "
+                f"{json.dumps(cpu_counts)}"))
+    launches = {w.__name__: w.launches for w in wrappers}
+    rep.line(f"fleet kernel launches of the port {json.dumps(launches)}")
+    checks["no_kernel"] = not any(launches.values())
+    shutil.rmtree(out_dir)
+    rep.line(f"fleet checks {json.dumps(checks)}")
+    rep.line(f"fleet phase: {time.perf_counter() - phase_t0:.1f} s (arms {arms_s:.1f} s), "
+             f"max_memory_allocated {peak} B")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"fleet: hard checks failed: {failed}")
+
+
+# ---------------------------------------------------------------------- #
 # phases 9-11: the reference benchmark's single-card training variants
 # ---------------------------------------------------------------------- #
 def variant_trainer(torch, port, cfg_kw: dict, batch: int, steps: int, seed: int = 0,
@@ -4473,7 +4970,8 @@ def main() -> None:
     rep.line(f"torch {torch.__version__} cuda {torch.version.cuda} device "
              f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     wrappers = (*fa.KERNEL_WRAPPERS, *fused.KERNEL_WRAPPERS)
-    for flag, phase in (("--serve-only", serve_phase), ("--soak-only", soak_phase)):
+    for flag, phase in (("--serve-only", serve_phase), ("--soak-only", soak_phase),
+                        ("--fleet-only", fleet_phase)):
         if flag in sys.argv[1:]:
             phase(torch, port, wrappers, rep, build_decode_model(torch, port, rep))
             rep.line(f"{flag[2:]}: the {phase.__name__.split('_')[0]} phase passed")
@@ -4554,6 +5052,7 @@ def main() -> None:
     model = build_decode_model(torch, port, rep)
     serve_phase(torch, port, wrappers, rep, model)
     soak_phase(torch, port, wrappers, rep, model)
+    fleet_phase(torch, port, wrappers, rep, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -203,3 +203,46 @@ def test_rejects_bad_arguments():
         tfa.flash_attention(q, q, q, window=0)
     with pytest.raises(ValueError, match="kv_lengths"):
         tfa.flash_attention(q, q, q, kv_lengths=torch.tensor([1, 2]))
+
+
+def _nan_inputs(causal):
+    """Three batch entries: in the first, one query row (the last, which
+    sees every key) is all NaN; in the second, one element of key 0 is NaN,
+    so every row of its kv head's query heads has one NaN score beside
+    finite ones; the third sees no key (``kv_lengths`` 0). Each NaN reaches
+    the same elements of every output however the keys are tiled."""
+    q, k, v, dout = _inputs(B=3, S=48, H=4, Hkv=2)
+    q[0, -1, 0] = np.nan
+    k[1, 0, 0, 3] = np.nan
+    return (q, k, v, dout), causal, [48, 48, 0], None
+
+
+@pytest.mark.parametrize("fused_bwd", [False, True], ids=["two_pass", "single_pass"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+def test_nan_rows_match_pallas_interpret(causal, fused_bwd):
+    """A row whose every score is NaN gives NaN, as the reference's
+    ``jnp.maximum`` row max does (not the zeros of a fully masked row); a
+    row with some NaN scores gives NaN; a fully masked row gives O = 0, lse
+    = NEG_INF and zero gradients. The NaN masks of O, lse, dq, dk and dv
+    equal the reference's exactly, and the finite elements agree within
+    TOL."""
+    inputs, causal, lens, window = _nan_inputs(causal)
+    old = jfa.FUSED_BWD, tfa.FUSED_BWD
+    jfa.FUSED_BWD = tfa.FUSED_BWD = fused_bwd
+    try:
+        want_o, want_lse, want_grads = _jax_reference(*inputs, causal, lens, window)
+        got_o, got_lse, got_grads = _port(*inputs, causal, lens, window)
+    finally:
+        jfa.FUSED_BWD, tfa.FUSED_BWD = old
+    assert np.isnan(want_o[0, -1, 0]).all() and np.isfinite(want_o[0, :-1]).all()
+    assert np.isnan(want_o[1, :, :2]).all() and np.isfinite(want_o[1, :, 2:]).all()
+    assert (want_o[2] == 0).all() and (want_lse[2] == np.float32(NEG_INF)).all()
+    pairs = [("o", got_o, want_o), ("lse", got_lse, want_lse)]
+    pairs += [(f"d{n}", g, w) for n, g, w in zip("qkv", got_grads, want_grads)]
+    for name, got, want in pairs:
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=name)
+        finite = ~np.isnan(want)
+        scale = np.abs(want[finite]).max() + 1e-12 if name.startswith("d") else 1.0
+        np.testing.assert_allclose(got[finite] / scale, want[finite] / scale, atol=TOL,
+                                   rtol=TOL, err_msg=name)
+    assert (got_grads[0][2] == 0).all() and (got_grads[1][2] == 0).all()

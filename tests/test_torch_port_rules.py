@@ -313,6 +313,35 @@ def test_serving_modules_import_without_jax():
     assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
 
 
+def test_fleet_modules_import_and_run_without_jax():
+    """The router package and the transfer plane, each imported on its own
+    with jax blocked; then a disaggregated fleet (one prefill and one decode
+    replica of a CPU model, ``host_buffer`` plane) drains a request there."""
+    code = textwrap.dedent("""
+        import importlib
+        for name in ("accelerate_tpu_torch.router", "accelerate_tpu_torch.router.policies",
+                     "accelerate_tpu_torch.router.replica", "accelerate_tpu_torch.router.router",
+                     "accelerate_tpu_torch.serving.transfer"):
+            importlib.import_module(name)
+        import accelerate_tpu_torch as port
+        from accelerate_tpu_torch.router import FleetRouter, InProcessReplica
+        from accelerate_tpu_torch.serving import ServingEngine, TransferPlane
+        model = port.CausalLM(port.TransformerConfig.tiny(num_layers=1, max_seq_len=32),
+                              device="cpu")
+        plane = TransferPlane("host_buffer")
+        fleet = FleetRouter([InProcessReplica(role[0], ServingEngine(
+            model, max_slots=1, block_size=8, role=role, transfer_plane=plane))
+            for role in ("prefill", "decode")], placement="disagg", transfer_plane=plane)
+        rid = fleet.add_request(list(range(1, 12)), max_new_tokens=3)
+        while fleet.has_work:
+            fleet.step()
+        assert len(fleet.result(rid)) == 3 and plane.transfers_total == 1
+        print("ok")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
+
+
 def test_serving_and_generation_follow_the_model_device():
     """No serving entry point takes a device of its own or defaults to the
     CPU: the caches, the decode step's buffers, the sampler and the outputs
@@ -518,25 +547,30 @@ def test_prologue_wgmma_tile_is_whole_heads_dividing_both_spans(heads, kv_heads,
 def test_serving_refusals_that_remain_name_their_queue_items():
     """Adapters are queue A8 (the engine's ``adapters``, ``add_request(
     adapter=)``, the soak harness's tenants and the adapter-churn fault on
-    an engine with a registry); disaggregation, the transfer plane and the
-    HTTP plane are A9."""
+    an engine with a registry); the HTTP plane and program capture are A10.
+    Disaggregation, the transfer plane and the router's hooks are ported:
+    a role is validated, the hooks answer."""
     from accelerate_tpu_torch.loadgen import ChaosAdapter, SoakConfig, SoakHarness, WorkloadConfig
     from accelerate_tpu_torch.serving import ServingEngine
     from accelerate_tpu_torch.test_utils.fault_injection import FaultInjector, FaultSpec
 
     model = port.CausalLM(port.TransformerConfig.tiny(num_layers=1, max_seq_len=32),
                           device="cpu")
-    for kw, queue in ((dict(adapters=object()), "A8"), (dict(role="decode"), "A9"),
-                      (dict(transfer_plane=object()), "A9")):
-        with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-            ServingEngine(model, **kw)
+    with pytest.raises(NotImplementedError, match="queue A8"):
+        ServingEngine(model, adapters=object())
+    with pytest.raises(ValueError, match="role"):
+        ServingEngine(model, role="verifier")
+    assert ServingEngine(model, role="decode", transfer_plane=object()).role == "decode"
     engine = ServingEngine(model, max_slots=1, block_size=8)
     with pytest.raises(NotImplementedError, match="queue A8"):
         engine.add_request([1, 2], adapter="tenant")
-    for method in ("start_http", "health", "drain", "prefix_digest", "capture_programs",
-                   "audit_programs"):
-        with pytest.raises(NotImplementedError, match="queue A9"):
+    for method in ("start_http", "capture_programs", "audit_programs"):
+        with pytest.raises(NotImplementedError, match="queue A10"):
             getattr(engine, method)()
+    assert engine.health() == {"ok": True, "state": "serving"}
+    assert engine.prefix_digest()["entries"] == [] and engine.drain() == []
+    assert engine.health()["state"] == "draining"
+    engine.undrain()
     engine.adapters = object()  # an engine that carries a registry
     harness = SoakHarness(engine, SoakConfig(workload=WorkloadConfig(adapters=("t",),
                                                                      adapter_fraction=0.5)))

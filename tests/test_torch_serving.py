@@ -12,11 +12,13 @@
   ``tests/test_serving_obs.py``), each a case run on both packages.
 * Per-slot sampling, the zero-rebuild contract on the port's counters,
   every option not ported yet raising NotImplementedError naming its queue
-  item (A8 for adapters, A9 for the rest), the capacity levers working, and
-  the four options the prefix, speculation and observability slice ports
-  working (``tests/test_torch_prefix_cache.py``,
+  item (A8 for adapters, A10 for the HTTP plane and program capture), the
+  capacity levers working, the four options the prefix, speculation and
+  observability slice ports working (``tests/test_torch_prefix_cache.py``,
   ``test_torch_speculation.py`` and ``test_torch_serving_obs.py`` hold
-  them against the reference).
+  them against the reference), and the fleet slice's roles, transfer
+  plane and router hooks (``tests/test_torch_disagg.py`` and
+  ``test_torch_router.py`` hold them against the reference).
 
 The CPU runs the decode step eager; the CUDA graph is held against the
 eager step by ``chip_smoke.py`` on the card.
@@ -462,17 +464,43 @@ def test_serve_stats_window_and_percentile(pkg):
 # ---------------------------------------------------------------------- #
 # what is not ported yet
 # ---------------------------------------------------------------------- #
-@pytest.mark.parametrize("option", [
-    dict(role="prefill"), dict(role="decode"), dict(transfer_plane=object()),
-    dict(adapters=object()),
-])
-def test_options_not_ported_raise_naming_a9(tiny_pair, option):
-    """Disaggregation and the transfer plane name A9; adapters name their
-    own queue item, A8."""
+def test_options_not_ported_raise_naming_their_queue(tiny_pair):
+    """Adapters are the one engine option left unported; they name their
+    queue item, A8."""
     _, _, _, port = tiny_pair
-    queue = "A8" if "adapters" in option else "A9"
-    with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-        serving.ServingEngine(port, **option)
+    with pytest.raises(NotImplementedError, match="queue A8"):
+        serving.ServingEngine(port, adapters=object())
+
+
+@pytest.mark.parametrize("option", [
+    dict(role="prefill"), dict(role="decode"), dict(transfer_plane="host_buffer"),
+])
+def test_options_ported_in_the_fleet_slice_work(tiny_pair, option):
+    """The fleet slice's engine options: a prefill engine and a decode
+    engine pumped by hand (the option on one side, its counterpart on the
+    other; the transfer plane on both) serve the plain engine's greedy
+    tokens, and the decode side builds no prefill (``tests/
+    test_torch_disagg.py`` holds the hand-off against the reference)."""
+    _, _, _, port = tiny_pair
+    prompts = [[5, 6, 7] * 3, [9, 4, 2, 8, 1], list(range(3, 15))]
+    want = [serving.ServingEngine(port, max_slots=2, block_size=4).generate(
+        np.asarray([p]), max_new_tokens=5)[0, len(p):].tolist() for p in prompts]
+    plane = serving.TransferPlane(option.get("transfer_plane", "inprocess"))
+    kw = dict(max_slots=2, block_size=4, transfer_plane=plane)
+    pre = serving.ServingEngine(port, role=option.get("role", "prefill"), **kw)
+    if pre.role == "decode":
+        pre.set_role("prefill")  # the option was taken; it can change on a warm engine
+    dec = serving.ServingEngine(port, role="decode", **kw)
+    rids = [pre.add_request(p, max_new_tokens=5) for p in prompts]
+    while pre.has_work or dec.has_work:
+        pre.step()
+        for m in pre.pop_manifests():
+            dec.acquire(m)
+        dec.step()
+    assert [dec.result(r) for r in rids] == want
+    assert all(pre.result(r) is None for r in rids)
+    assert dec.trace_counts()["prefill"] == 0 and dec.trace_counts()["decode"] == 1
+    assert pre._gauge_fields()["manifests_out"] == dec.transfer_gauges()["manifests_in"] == 3
 
 
 @pytest.mark.parametrize("option", [
@@ -495,13 +523,43 @@ def test_options_ported_in_the_soak_slice_work(tiny_pair, option):
     assert engine.cache.key.device == port.embed.weight.device
 
 
-@pytest.mark.parametrize("method", ["start_http", "health", "drain", "prefix_digest",
-                                    "capture_programs", "audit_programs"])
-def test_http_plane_and_program_capture_raise_naming_a9(tiny_pair, method):
+@pytest.mark.parametrize("method", ["start_http", "capture_programs", "audit_programs"])
+def test_http_plane_and_program_capture_raise_naming_a10(tiny_pair, method):
     _, _, _, port = tiny_pair
     engine = serving.ServingEngine(port, max_slots=1, block_size=8)
-    with pytest.raises(NotImplementedError, match="queue A9"):
+    with pytest.raises(NotImplementedError, match="queue A10"):
         getattr(engine, method)()
+
+
+@pytest.mark.parametrize("method", ["health", "drain", "prefix_digest"])
+def test_router_hooks_ported_in_the_fleet_slice_work(tiny_pair, method):
+    """The hooks the router reads return the reference engine's bodies
+    after the same requests: ``health`` serving and draining, ``drain``'s
+    harvest, ``prefix_digest``'s keys."""
+    _, model, params, port = tiny_pair
+    bodies = {}
+    for name, engine in (
+            ("reference", jax_serving.ServingEngine(model, params, max_slots=1, block_size=4,
+                                                    prefix_cache=True, model_fingerprint="fp")),
+            ("port", serving.ServingEngine(port, max_slots=1, block_size=4, prefix_cache=True,
+                                           model_fingerprint="fp"))):
+        for i in range(3):
+            engine.add_request(list(range(1, 10)), max_new_tokens=2, request_id=f"h{i}")
+        engine.step()
+        if method == "health":
+            body = [engine.health()]
+            engine.drain()
+            body.append(engine.health())
+        elif method == "drain":
+            body = [r.request_id for r in engine.drain()], engine.draining
+        else:
+            while engine.has_work:
+                engine.step()
+            body = engine.prefix_digest()
+        bodies[name] = body
+    assert bodies["port"] == bodies["reference"]
+    if method == "prefix_digest":
+        assert bodies["port"]["entries"] and bodies["port"]["fingerprint"] == "fp"
 
 
 @pytest.mark.parametrize("option", ["prefix_cache", "spec_decode", "slo", "telemetry"])

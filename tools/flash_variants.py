@@ -58,6 +58,7 @@ DESIGN = "bool wgmma_design(int dtype, int D) {\n  return "
 DQ_STAGES = "  static constexpr int STAGES = 2;"
 DQ_END = "    hk::wgmma_commit();\n  }\n  hk::wgmma_wait<0>();\n  dq.fence();\n"
 PRO_DESIGN = "bool pro_wgmma_design(int dtype, int H, int Hkv, int D, int E) {\n  return "
+NAN_MAX = '  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));'
 PRO_STAGES = "constexpr int PRO_STAGES = 4;"
 PRO_WAIT = "hk::wgmma_wait<1>();  // k-step i - 1 retired"
 PRO_WN = "return N == 192 ? 64 : N;"
@@ -69,6 +70,11 @@ PRO_NORM = ("a[kk][q] = hk::pack2<T>((v.x * rs[q % 2]) * mq[q / 2].x, "
 # name -> (what it changes, [(source, old, new)] edits)
 VARIANTS = {
     "base": ("the committed source", []),
+    "fmaxf_row_max": ("the softmax's row max by fmaxf, which drops NaN (the forward before "
+                      "its NaN rows were repaired)", [(FLASH, NAN_MAX, "  r = fmaxf(a, b);")]),
+    "select_nan_max": ("the softmax's row max keeping NaN by compares and selects around "
+                       "fmaxf instead of one max.NaN",
+                       [(FLASH, NAN_MAX, "  r = a != a ? a : (b != b ? b : fmaxf(a, b));")]),
     "wmma_design": ("every launch takes the wmma design (flash_fwd_wmma_kernel, "
                     "flash_bwd_dq_wmma_kernel, flash_bwd_dkv_wmma_kernel, "
                     "flash_bwd_fused_wmma_kernel), the kernels before the wgmma ones",
