@@ -11,7 +11,9 @@ step records -> ``save_state``/``load_state``, sync or in the background,
 ``Accelerator.profile``, read back by
 ``python -m accelerate_tpu_torch.commands.accelerate_cli diagnose <dir>``), the Llama-family ``CausalLM`` (with the fused
 RMSNorm -> QKV -> rope prologue under ``fused_kernels=True``) and the
-BERT-shaped encoder ``SequenceClassifier``, the optax-faithful ``adamw``,
+BERT-shaped encoder ``SequenceClassifier``, LoRA/QLoRA adapters over an
+int8 base (``adapters``, ``utils.quantization``) with multi-tenant serving,
+experiment trackers (``tracking``), the optax-faithful ``adamw``,
 its fused-epilogue form ``fused_adamw``, ``sgd`` and
 ``warmup_cosine_decay_schedule``, and hand-written kernels for Hopper:
 flash attention (``ops/csrc/flash_attention.cu``) and the fused prologue

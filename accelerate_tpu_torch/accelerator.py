@@ -1,7 +1,9 @@
 """The Accelerator: prepare, one train step, checkpoints and metrics.
 
-Port of ``accelerate_tpu/accelerator.py`` (``__init__`` :88-205,
-``print`` :291, ``prepare`` :297-424, ``unified_step`` :429-748 in both
+Port of ``accelerate_tpu/accelerator.py`` (``__init__`` :88-205, the
+topology properties and process helpers :207-290 at world size 1,
+``print`` :291, ``prepare`` :297-424 with ``prepare_optimizer`` :408 and
+``prepare_scheduler`` :416, ``unified_step`` :429-748 in both
 accumulation modes with ``_sync_apply`` :505-554 and ``_fused_step``
 :560-627, ``_wrap_step`` :901-1020 without its XLA-only AOT warmup and
 compile monitor, ``init_carry`` :1146, ``sync_from_carry`` :1225, the raw
@@ -9,8 +11,12 @@ loop :1240-1310, ``gather``/``gather_for_metrics`` :1375-1407,
 ``set_trigger``/``check_trigger`` :1419, ``register_for_checkpointing``/
 ``save_state``/``wait_for_checkpoint``/``load_state`` :1434-1506, ``save_model`` :1508,
 ``get_state_dict`` :1520, ``free_memory`` :1532, ``skip_first_batches``
-:1558, ``set_seed`` :1561, ``profile`` :1349, ``end_training`` :1584, and
-``diagnostics=``/``profile_kwargs=`` :183-200) for one process on one device. The step keeps
+:1558, ``set_seed`` :1561, ``autocast`` :1343, ``profile`` :1349, the
+trackers ``log``/``init_trackers``/``get_tracker`` :1565-1581,
+``end_training`` :1584, ``__repr__`` :1591, and
+``diagnostics=``/``profile_kwargs=`` :183-200) for one process on one
+device. A branch that needs a second process raises NotImplementedError
+naming ROADMAP.md's queue A4. The step keeps
 the reference's contract and arithmetic:
 ``step_fn(carry, batch, **kw) -> (carry, metrics)``; the loss runs on
 parameters cast to the policy's compute dtype while the fp32 masters
@@ -23,7 +29,11 @@ optimizer), and on a non-finite step holds params and optimizer state.
 
 PyTorch runs eagerly, so there is no compiled program: the step is a
 Python function, and params, moments and the accumulation buffer are
-updated in place (the carry returned holds the same tensors).
+updated in place (the carry returned holds the same tensors). The params
+may be a name -> tensor dict (a module's parameters) or a nested dict of
+tensors (a LoRA adapter tree, ``adapters/lora.py``): the loss function
+receives the tree as given, and the optimizer state and the accumulation
+buffer are keyed by the leaves' dotted paths.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from .telemetry import StepTelemetry, TelemetryConfig
 from .utils import operations
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    DistributedType,
     GradientAccumulationPlugin,
     ProjectConfiguration,
 )
@@ -86,6 +97,34 @@ def _cast_floating(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+def _flat_params(tree: dict) -> dict:
+    """The tensors of a params tree by dotted path: a name -> tensor dict as
+    it is, a nested dict (an adapter tree) flattened; the same tensor
+    objects either way."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{name}": t for name, t in _flat_params(v).items()})
+        else:
+            out[k] = v
+    return out
+
+
+def _like_tree(tree: dict, flat: dict, prefix: str = "") -> dict:
+    """``tree``'s nesting over the tensors of ``flat`` (``_flat_params``'
+    paths)."""
+    return {k: _like_tree(v, flat, f"{prefix}{k}.") if isinstance(v, dict) else flat[prefix + k]
+            for k, v in tree.items()}
+
+
+def _is_param_tree(obj: Any) -> bool:
+    """A (nested) dict whose leaves are all tensors."""
+    if not isinstance(obj, dict) or not obj:
+        return False
+    return all(_is_param_tree(v) if isinstance(v, dict) else isinstance(v, torch.Tensor)
+               for v in obj.values())
 
 
 def _detach(tree: Any) -> Any:
@@ -165,6 +204,7 @@ class Accelerator:
         telemetry: Optional[Union[bool, TelemetryConfig]] = None,
         diagnostics: Any = None,
         profile_kwargs: Optional[ProfileKwargs] = None,
+        log_with: Optional[Union[str, list]] = None,
     ):
         if parallelism_plugin is not None:
             raise NotImplementedError(
@@ -204,15 +244,80 @@ class Accelerator:
             self.telemetry.diagnostics.set_profile_kwargs(self.profile_handler)
         self._built_steps = 0  # names each built step's rebuild detector
         self._async_ckpt: Optional[AsyncCheckpointer] = None  # save_state(block=False)'s writer
+        self.trackers: list[Any] = []
+        self.log_with = [log_with] if isinstance(log_with, str) else list(log_with or [])
 
+    # ------------------------------------------------------------------ #
+    # topology (one process on one device) and the process helpers
+    # ------------------------------------------------------------------ #
     @property
     def device(self) -> torch.device:
         return self.state.device
 
-    # one process on one device
-    is_main_process = True
-    process_index = 0
-    num_processes = 1
+    @property
+    def distributed_type(self) -> DistributedType:
+        return self.state.distributed_type
+
+    @property
+    def num_processes(self) -> int:
+        return self.state.num_processes
+
+    @property
+    def process_index(self) -> int:
+        return self.state.process_index
+
+    @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    @property
+    def mixed_precision(self) -> str:
+        return self.state.mixed_precision.value
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.state.use_distributed
+
+    @property
+    def project_dir(self) -> Optional[str]:
+        return self.project_configuration.project_dir
+
+    def on_main_process(self, func):
+        return self.state.partial_state.on_main_process(func)
+
+    def on_local_main_process(self, func):
+        return self.state.partial_state.on_local_main_process(func)
+
+    def on_process(self, func, process_index: int = 0):
+        return self.state.partial_state.on_process(func, process_index)
+
+    @contextmanager
+    def main_process_first(self):
+        with self.state.partial_state.main_process_first():
+            yield
+
+    @contextmanager
+    def local_main_process_first(self):
+        with self.state.partial_state.local_main_process_first():
+            yield
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state.partial_state.split_between_processes(inputs, apply_padding)
+
+    def wait_for_everyone(self) -> None:
+        self.state.partial_state.wait_for_everyone()
 
     @property
     def sync_gradients(self) -> bool:
@@ -227,8 +332,8 @@ class Accelerator:
         self.gradient_state.num_steps = value
 
     def print(self, *args, **kwargs) -> None:
-        """``print`` on the main process (here, always)."""
-        print(*args, **kwargs)
+        """``print`` on the main process."""
+        self.state.partial_state.print(*args, **kwargs)
 
     # ------------------------------------------------------------------ #
     # prepare
@@ -236,36 +341,63 @@ class Accelerator:
     def prepare(self, *args):
         """Place each object by type and return them in input order: a
         model moves to the device (fp32 masters; converted to fp8
-        projections under ``mixed_precision="fp8"``), an optimizer (``adamw``, ``sgd``) is
-        wrapped and its state made for the prepared model, a loader yields
-        device batches (stacked ``[K, micro, ...]`` under fused
-        accumulation), a plain function becomes an LR scheduler."""
+        projections under ``mixed_precision="fp8"``), a params tree (a
+        nested dict of tensors, an adapter tree for one) moves to the device
+        leaf by leaf, an optimizer (``adamw``, ``sgd``) is wrapped and its
+        state made for the prepared model or params, a loader yields device
+        batches (stacked ``[K, micro, ...]`` under fused accumulation), a
+        plain function becomes an LR scheduler."""
         result = []
-        model = None
+        params = None
         for obj in args:
             if isinstance(obj, nn.Module):
-                prepared = model = self.prepare_model(obj)
-            elif isinstance(obj, AcceleratedOptimizer):
-                prepared = obj
-                self._optimizers.append(prepared)
-            elif isinstance(obj, Optimizer):
-                prepared = AcceleratedOptimizer(obj)
-                self._optimizers.append(prepared)
+                model = self.prepare_model(obj)
+                prepared, params = model, dict(model.named_parameters())
+            elif _is_param_tree(obj):
+                prepared = self.prepare_params(obj)
+                params = _flat_params(prepared)
+            elif isinstance(obj, (AcceleratedOptimizer, Optimizer)):
+                prepared = self.prepare_optimizer(obj)
             elif _is_dataloader(obj):
                 prepared = self.prepare_data_loader(obj)
             else:
                 prepared = obj
             result.append(prepared)
         for i, obj in enumerate(result):
-            if isinstance(obj, AcceleratedOptimizer) and obj.opt_state is None and model is not None:
-                obj.init(dict(model.named_parameters()))
+            if isinstance(obj, AcceleratedOptimizer) and obj.opt_state is None and params is not None:
+                obj.init(params)
             if _is_schedule(obj):
-                result[i] = AcceleratedScheduler(
-                    obj, optimizers=self._optimizers,
-                    step_with_optimizer=self.step_scheduler_with_optimizer,
-                    split_batches=self.state.dataloader_config.split_batches)
-                self._schedulers.append(result[i])
+                result[i] = self.prepare_scheduler(obj)
         return result[0] if len(result) == 1 else tuple(result)
+
+    def prepare_params(self, params: dict) -> dict:
+        """A params tree on the device, leaf by leaf (a leaf already there is
+        returned as it is)."""
+        return {k: self.prepare_params(v) if isinstance(v, dict) else v.to(self.device)
+                for k, v in params.items()}
+
+    def prepare_optimizer(self, optimizer, params: Any = None) -> AcceleratedOptimizer:
+        """Wrap ``optimizer`` (unless it is wrapped already), make its state
+        for ``params`` when given (a module, a name -> tensor dict or a
+        nested one) and register it."""
+        if not isinstance(optimizer, AcceleratedOptimizer):
+            optimizer = AcceleratedOptimizer(optimizer)
+        if params is not None:
+            if isinstance(params, nn.Module):
+                params = dict(params.named_parameters())
+            optimizer.init(_flat_params(params))
+        self._optimizers.append(optimizer)
+        return optimizer
+
+    def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
+        """An LR schedule (a function of the step count) as a scheduler that
+        steps with the registered optimizers."""
+        sched = AcceleratedScheduler(
+            scheduler, optimizers=self._optimizers,
+            step_with_optimizer=self.step_scheduler_with_optimizer,
+            split_batches=self.state.dataloader_config.split_batches)
+        self._schedulers.append(sched)
+        return sched
 
     def prepare_model(self, model: nn.Module) -> nn.Module:
         """The model on the device; under ``mixed_precision="fp8"`` its
@@ -372,21 +504,22 @@ class Accelerator:
             return {k: _cast_floating(p.detach(), policy.compute_dtype).requires_grad_(True)
                     for k, p in params.items()}
 
-        def _microbatch(compute, batch, ls, kw):
+        def _microbatch(compute, batch, ls, kw, tree):
             """One microbatch's fp32 gradients (by name), unscaled fp32 loss
-            and aux."""
-            scaled, loss, aux = micro_loss(compute, _cast_floating(batch, policy.compute_dtype),
-                                           ls, kw)
+            and aux; the loss sees ``compute`` in ``tree``'s nesting."""
+            scaled, loss, aux = micro_loss(_like_tree(tree, compute),
+                                           _cast_floating(batch, policy.compute_dtype), ls, kw)
             grads = torch.autograd.grad(scaled, list(compute.values()))
             del scaled
             grads = {k: g.float() for k, g in zip(compute, grads)}
             return grads, loss.detach().float(), _detach(aux)
 
         def _step(carry: dict, batch: Any, **kw):
-            params = carry["params"]
+            tree = carry["params"]
+            params = _flat_params(tree)
             ls = carry.get("loss_scale")
             batch = send_to_device(batch, self.device)
-            grads, loss, aux = _microbatch(_compute_leaves(params), batch, ls, kw)
+            grads, loss, aux = _microbatch(_compute_leaves(params), batch, ls, kw, tree)
             if num_accum > 1:
                 accum = carry["accum_grads"]
                 for k, g in grads.items():
@@ -426,7 +559,8 @@ class Accelerator:
                     "fused accumulation carries no accum_grads/micro_step — build the carry "
                     "with init_carry on an accelerator whose GradientAccumulationPlugin has "
                     "fused=True (or pass fused_accumulation=True to init_carry)")
-            params = carry["params"]
+            tree = carry["params"]
+            params = _flat_params(tree)
             ls = carry.get("loss_scale")
             batch = send_to_device(batch, self.device)
             compute = _compute_leaves(params)  # cast once for the K microbatches
@@ -434,7 +568,7 @@ class Accelerator:
             losses, auxes = [], []
             for i in range(find_batch_size(batch)):  # the stacked K axis, in order
                 micro = operations.recursively_apply(lambda x: x[i], batch)
-                grads, loss, aux = _microbatch(compute, micro, ls, kw)
+                grads, loss, aux = _microbatch(compute, micro, ls, kw, tree)
                 for k, g in grads.items():
                     accum[k].add_(g)
                 del grads
@@ -445,7 +579,7 @@ class Accelerator:
                 ls, gnorm, finite = _sync_apply(accum, carry["opt_state"], params, ls)
             del accum
             losses = torch.stack(losses)
-            new_carry = {"params": params, "opt_state": carry["opt_state"],
+            new_carry = {"params": tree, "opt_state": carry["opt_state"],
                          "opt_step": carry["opt_step"] + 1}
             if ls is not None:
                 new_carry["loss_scale"] = ls
@@ -508,11 +642,12 @@ class Accelerator:
             raise ValueError("prepare() an optimizer before init_carry")
         if isinstance(params, nn.Module):
             params = dict(params.named_parameters())
-        for p in params.values():
+        flat = _flat_params(params)
+        for p in flat.values():
             if not p.requires_grad:
                 p.requires_grad_(True)
         if optimizer.opt_state is None:
-            optimizer.init(params)
+            optimizer.init(flat)
         policy = self.state.mixed_precision_policy
         num_accum = self.gradient_state.num_steps
         fused = self.gradient_state.fused if fused_accumulation is None else fused_accumulation
@@ -522,7 +657,7 @@ class Accelerator:
             carry["micro_step"] = 0
             if num_accum > 1:
                 carry["accum_grads"] = {
-                    k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+                    k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()}
         if policy.uses_loss_scaling:
             carry["loss_scale"] = init_loss_scale(policy, self.device)
         return carry
@@ -730,8 +865,14 @@ class Accelerator:
         return set_seed(seed)
 
     # ------------------------------------------------------------------ #
-    # profiling and the end of training
+    # profiling, trackers and the end of training
     # ------------------------------------------------------------------ #
+    @contextmanager
+    def autocast(self):
+        """A no-op context, as in the reference: the step casts to the
+        compute dtype itself."""
+        yield
+
     @contextmanager
     def profile(self, profile_dir: Optional[str] = None,
                 profile_kwargs: Optional[ProfileKwargs] = None):
@@ -756,13 +897,38 @@ class Accelerator:
         with _profile(profile_dir, profile_kwargs) as handle:
             yield handle
 
+    def log(self, values: dict, step: Optional[int] = None, **kwargs) -> None:
+        """Log ``values`` to every tracker."""
+        for tracker in self.trackers:
+            tracker.log(values, step=step, **kwargs)
+
+    def init_trackers(self, project_name: str, config: Optional[dict] = None,
+                      init_kwargs: Optional[dict] = None) -> None:
+        """Make the trackers ``log_with`` names (those whose package is
+        installed), under the project configuration's ``logging_dir``."""
+        from .tracking import filter_trackers
+
+        self.trackers = filter_trackers(self.log_with, self.project_configuration.logging_dir,
+                                        project_name, config or {}, init_kwargs or {})
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        for tracker in self.trackers:
+            if getattr(tracker, "name", None) == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(f"tracker {name} not initialized")
+
     def end_training(self) -> None:
-        """Drain the background saves in flight and close the telemetry (the
-        heartbeat stops; diagnostics writes its final ``"shutdown"`` dump).
-        The port has no trackers yet (ROADMAP.md, queue A item 6), so there
-        are none to end."""
+        """Drain the background saves in flight, finish every tracker and
+        close the telemetry (the heartbeat stops; diagnostics writes its
+        final ``"shutdown"`` dump)."""
         self.wait_for_checkpoint()  # a dropped in-flight save loses work
+        for tracker in self.trackers:
+            tracker.finish()
         self.telemetry.close()
+        self.wait_for_everyone()
+
+    def __repr__(self) -> str:
+        return f"Accelerator(\n{self.state!r})"
 
 
 def _all_tensor_leaves(tree: Any) -> bool:

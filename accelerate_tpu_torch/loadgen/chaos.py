@@ -9,10 +9,12 @@ are ones the engine is meant to absorb, with the damage measured:
 * ``pool_pressure@step[:secs=N]``: pins half the free KV blocks through
   ``engine.pool`` so admission sees a nearly full pool; released after
   ``secs`` (or at :meth:`ChaosAdapter.release`).
-* ``adapter_churn@step``: thrashes the adapter registry's residency. The
-  port's engine has no registry (ROADMAP.md, queue A8), so on it the fault
-  is recorded as skipped (``no_adapter_registry``), as the reference
-  records it on an engine without one.
+* ``adapter_churn@step``: loads a capacity-full wave of throwaway
+  adapters, evicting every resident tenant with no request in flight
+  (tenants in flight are pinned by their refcounts and survive);
+  :meth:`ChaosAdapter.release` calls the ``restore`` callback so the
+  harness reloads its tenants. On an engine without an adapter registry the
+  fault is recorded as skipped (``no_adapter_registry``).
 * ``replica_kill``/``replica_slow`` and ``transfer_stall``/
   ``transfer_drop``: fleet and disaggregation faults. They act on an
   engine that has a router's ``replicas``/``kill``/``slow`` or the
@@ -134,14 +136,37 @@ class ChaosAdapter:
         self._pin_release_at = None
 
     def _on_adapter_churn(self, spec: FaultSpec) -> None:
+        """Load a capacity-full wave of zero-weight adapters, evicting every
+        resident tenant with no request in flight, then evict the wave
+        again; the harness's ``restore`` reloads the tenants."""
         registry = getattr(self.engine, "adapters", None)
         if registry is None:
             self._event("adapter_churn", step=spec.step, loads=0,
                         skipped="no_adapter_registry")
             return
-        raise NotImplementedError(
-            "adapter churn against an adapter registry is not ported yet "
-            "(ROADMAP.md, queue A8)")
+        params, cfg = zero_adapter(registry)
+        evict_before = registry.evict_total
+        loads = 0
+        chaff = []
+        for i in range(registry.capacity + 1):
+            name = f"chaos-churn-{spec.step}-{i}"
+            try:
+                registry.load(name, params, cfg)
+            except RuntimeError:
+                break  # every row pinned by requests in flight: bounded
+            chaff.append(name)
+            loads += 1
+        # the wave's own rows are freed again; real tenants stay evicted
+        # until the harness's restore callback reloads them
+        for name in chaff:
+            if registry.resident(name):
+                try:
+                    registry.evict(name)
+                except RuntimeError:
+                    pass
+        self._churned = bool(loads)
+        self._event("adapter_churn", step=spec.step, loads=loads,
+                    evictions=registry.evict_total - evict_before)
 
     # -- fleet faults (engine is a FleetRouter) ------------------------- #
     def _fleet_replica(self, action: str, spec: FaultSpec):
@@ -215,3 +240,19 @@ class ChaosAdapter:
             "transfer_drop", step=spec.step, replica=name,
             dropped=outcome["dropped"],
         )
+
+
+def zero_adapter(registry) -> tuple:
+    """A rank-1 adapter with every weight 0 over the registry's targets,
+    and its config: the soak's tenants and the churn's chaff, as in the
+    reference (a valid resident whose delta is exactly 0)."""
+    import numpy as np
+
+    from ..adapters.lora import LoraConfig, target_shapes
+
+    shapes = target_shapes(registry.model_config)
+    layers = registry.model_config.num_layers
+    params = {t: {"lora_a": np.zeros((layers, shapes[t][0], 1), np.float32),
+                  "lora_b": np.zeros((layers, 1, shapes[t][1]), np.float32)}
+              for t in registry.target_modules}
+    return params, LoraConfig(rank=1, alpha=1.0, target_modules=registry.target_modules)

@@ -24,9 +24,10 @@ the clock enters the ``fault`` phase, their steps counted from the
 window's first engine step (``stall_decode@0:secs=1`` stalls for 1 s at
 the window's start). What is observed lands in an atomically written
 ``soak-report.json`` (:mod:`.report`), through the ``finally`` path also
-for a run that died. Tenant adapters (``WorkloadConfig.adapters``) need an
-adapter registry, which the port's engine does not have (ROADMAP.md, queue
-A8): without one, loading them is a no-op, as in the reference.
+for a run that died. Tenant adapters (``WorkloadConfig.adapters``) are
+loaded into the engine's adapter registry at the start and again after a
+fault (zero-weight adapters, as in the reference); without a registry,
+loading them is a no-op.
 """
 
 
@@ -39,7 +40,7 @@ from typing import Callable, Optional
 
 from ..test_utils.fault_injection import FAULT_ENV, FaultInjector, FaultSpec
 from ..utils.constants import ENV_PREFIX
-from .chaos import ChaosAdapter
+from .chaos import ChaosAdapter, zero_adapter
 from .phases import Phase, phase_bounds, standard_program, total_duration_s
 from .report import REPORT_VERSION, lag_histogram, write_report
 from .workload import WorkloadConfig, build_trace, trace_fingerprint
@@ -461,16 +462,21 @@ class SoakHarness:
     # tenants
     # ------------------------------------------------------------------ #
     def _load_tenants(self) -> None:
-        """Load the workload's tenant adapters into the engine's registry; a
-        no-op without one. Adapter registries are not ported yet (ROADMAP.md,
-        queue A8), so a registry raises."""
+        """Load the workload's tenant adapters into the engine's registry (a
+        no-op without one): zero-weight rank-1 adapters, valid residents
+        whose delta is exactly 0. A registry pinned full stops the loading;
+        the requests of a tenant left out wait or shed."""
         names = self.config.workload.adapters
         registry = getattr(self.engine, "adapters", None)
         if not names or registry is None:
             return
-        raise NotImplementedError(
-            "loading soak tenants into an adapter registry is not ported yet "
-            "(ROADMAP.md, queue A8)")
+        params, cfg = zero_adapter(registry)
+        for name in names:
+            if not registry.resident(name):
+                try:
+                    registry.load(name, params, cfg)
+                except RuntimeError:
+                    break  # every row pinned by requests in flight
 
     # ------------------------------------------------------------------ #
     # report
@@ -698,3 +704,4 @@ class _TelemetryTee:
         if inner is None:
             raise AttributeError(name)
         return getattr(inner, name)
+

@@ -39,9 +39,20 @@ before ``attn_res``), and the flash forward (a kernel launch the
 dispatcher does not see; its lse is needed) runs again under every
 policy, as the reference's Pallas forward does.
 
+``CausalLM.forward(..., lora=LoraState)`` adds the adapters' low-rank
+deltas (``adapters/runtime.py``) to the targeted projections' outputs, as
+the reference's ``_lora_delta_fn`` (:219-241) does in ``Attention``
+(:253-256, :330-341, :476-478), ``MLP`` (:497-524) and ``Block``
+(:677-729): dropout falls on the delta's input, an adapter on q/k/v takes
+the unfused chain under ``fused_kernels`` (the fused prologue never
+materialises the projections; :283-289), an o_proj-only adapter keeps it,
+and MoE blocks take attention adapters only. Under remat each layer's
+adapter tensors go into the checkpointed call as inputs, beside its
+parameters.
+
 Not ported yet, and rejected when asked for (ROADMAP.md): the GPT-2
 architecture, the Gemma/Gemma-2 switches, ring attention, experts over an
-``ep`` mesh, the LoRA path, and ``fused_kernels=True`` on the classifier.
+``ep`` mesh, and ``fused_kernels=True`` on the classifier.
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ..adapters.runtime import LayerLora, LoraState
 from ..logging import get_logger
 from ..ops import fused as fused_ops
 from ..ops import moe as moe_ops
@@ -192,23 +204,41 @@ REMAT_POLICIES = {
 }
 
 
-def _remat(layer, remat: str, *args):
-    """``layer(*args)`` under torch.utils.checkpoint with the policy. The
-    layer's parameters as they are now (inside ``unified_step``'s
-    ``functional_call``, the compute-dtype copies) go in as inputs, so the
-    recompute in the backward, which runs after that call has put the fp32
-    masters back, replays the same ops on the same tensors."""
+def _remat(layer, remat: str, *args, lora: Optional[LayerLora] = None):
+    """``layer(*args, lora=lora)`` under torch.utils.checkpoint with the
+    policy. The layer's parameters as they are now (inside
+    ``unified_step``'s ``functional_call``, the compute-dtype copies) and
+    its adapter tensors go in as inputs, so the recompute in the backward,
+    which runs after that call has put the fp32 masters back, replays the
+    same ops on the same tensors, and the adapters' gradients flow."""
     policy = REMAT_POLICIES[remat]
     kw = {} if policy is None else {
         "context_fn": functools.partial(create_selective_checkpoint_contexts, policy)}
     params = dict(layer.named_parameters())
     names = list(params)
+    lora_tensors = [] if lora is None else lora.tensors()
+    n_lora = len(lora_tensors)
 
     def run(*tensors):
         weights = dict(zip(names, tensors[:len(names)]))
-        return torch.func.functional_call(layer, weights, tensors[len(names):])
+        rest = tensors[len(names):]
+        layer_lora = None if lora is None else lora.with_tensors(rest[:n_lora])
+        return torch.func.functional_call(layer, weights, rest[n_lora:], {"lora": layer_lora})
 
-    return checkpoint(run, *params.values(), *args, use_reentrant=False, **kw)
+    return checkpoint(run, *params.values(), *lora_tensors, *args, use_reentrant=False, **kw)
+
+
+_QKV = ("q_proj", "k_proj", "v_proj")
+_ATTN_TARGETS = _QKV + ("o_proj",)
+_MLP_TARGETS = ("gate_proj", "up_proj", "down_proj")
+
+
+def _add_delta(y: torch.Tensor, lora: Optional[LayerLora], x: torch.Tensor,
+               target: str) -> torch.Tensor:
+    """``y`` (projection ``target``'s output on ``x``) plus its adapter
+    delta, if the layer's adapters target it."""
+    delta = None if lora is None else lora.delta(x, target)
+    return y if delta is None else y + delta
 
 
 class Dense(nn.Linear):
@@ -370,7 +400,8 @@ class Attention(nn.Module):
         self.v_proj = _proj(cfg, e, kv_dim, cfg.qkv_bias, **kw)
         self.o_proj = _proj(cfg, q_dim, e, False, **kw)
 
-    def forward(self, x, positions, mask=None, kv_lengths=None, pre_norm_scale=None, kv=None):
+    def forward(self, x, positions, mask=None, kv_lengths=None, pre_norm_scale=None, kv=None,
+                lora: Optional[LayerLora] = None):
         """``mask``: a (B, 1, 1, S) bool key mask (True = attend);
         ``kv_lengths``: (B,) int32 right-padding lengths; both go to
         ``dot_product_attention``, which routes a mask to the plain path and
@@ -380,11 +411,13 @@ class Attention(nn.Module):
         the reference (not under fp8, whose projections the kernel does not
         compute); otherwise the norm is applied here and the unfused chain
         follows. ``kv``: this layer's decode cache (see
-        ``_decode_attention``)."""
+        ``_decode_attention``). ``lora``: this layer's attention adapters;
+        one on q, k or v takes the unfused chain."""
         cfg = self.config
         b, s = x.shape[:2]
         dt = _dtype(cfg)
-        fused = (pre_norm_scale is not None and kv is None and not cfg.fp8
+        lora_on_qkv = lora is not None and any(t in lora.pairs for t in _QKV)
+        fused = (pre_norm_scale is not None and kv is None and not cfg.fp8 and not lora_on_qkv
                  and fused_ops.prologue_supported(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                                                   b, s, x.shape[-1], device=x.device, dtype=dt))
         if fused:
@@ -399,20 +432,24 @@ class Attention(nn.Module):
             if pre_norm_scale is not None:
                 x = fused_ops.rms_norm_reference(x, pre_norm_scale, eps=cfg.rms_norm_eps,
                                                  norm_offset=cfg.norm_offset)
-            q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
-            k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-            v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+            q = _add_delta(self.q_proj(x), lora, x, "q_proj")
+            k = _add_delta(self.k_proj(x), lora, x, "k_proj")
+            v = _add_delta(self.v_proj(x), lora, x, "v_proj")
+            q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+            k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+            v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
             q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
             k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         if kv is not None:
             out = _decode_attention(q, k, v, positions, kv, cfg.sliding_window)
-            return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
-        out = dot_product_attention(
-            q, k, v, mask=mask, causal=cfg.causal, kv_lengths=kv_lengths,
-            implementation=cfg.attention_impl, window=cfg.sliding_window,
-        )
-        out = checkpoint_name(out, "attn_out", cfg)
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        else:
+            out = dot_product_attention(
+                q, k, v, mask=mask, causal=cfg.causal, kv_lengths=kv_lengths,
+                implementation=cfg.attention_impl, window=cfg.sliding_window,
+            )
+            out = checkpoint_name(out, "attn_out", cfg)
+        out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
+        return _add_delta(self.o_proj(out), lora, out, "o_proj")
 
 
 class MLP(nn.Module):
@@ -427,12 +464,15 @@ class MLP(nn.Module):
         self.up_proj = _proj(config, e, f, False, **kw)
         self.down_proj = _proj(config, f, e, False, **kw)
 
-    def forward(self, x):
+    def forward(self, x, lora: Optional[LayerLora] = None):
         with named_products("mlp_gate_out"):
             gate = self.gate_proj(x)
+        gate = _add_delta(gate, lora, x, "gate_proj")
         with named_products("mlp_up_out"):
             up = self.up_proj(x)
-        return self.down_proj(F.silu(gate) * up)
+        up = _add_delta(up, lora, x, "up_proj")
+        mid = F.silu(gate) * up
+        return _add_delta(self.down_proj(mid), lora, mid, "down_proj")
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -518,29 +558,38 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(config, device, generator)
 
-    def forward(self, x, positions, mask=None, kv_lengths=None, kv=None):
+    def forward(self, x, positions, mask=None, kv_lengths=None, kv=None,
+                lora: Optional[LayerLora] = None):
+        attn_lora = None if lora is None else lora.only(_ATTN_TARGETS)
         if self.fused_kernels:
             # the fused prologue normalises inside its kernel: hand Attention
             # the raw residual stream and the norm's scale
             attn_out = self.attn(x, positions, mask, kv_lengths,
-                                 pre_norm_scale=self.attn_norm.weight, kv=kv)
+                                 pre_norm_scale=self.attn_norm.weight, kv=kv, lora=attn_lora)
         else:
-            attn_out = self.attn(self.attn_norm(x), positions, mask, kv_lengths, kv=kv)
+            attn_out = self.attn(self.attn_norm(x), positions, mask, kv_lengths, kv=kv,
+                                 lora=attn_lora)
         h = checkpoint_name(x + attn_out, "attn_res", self.config)
-        ff = self.moe if self.config.num_experts > 0 else self.mlp
-        return h + ff(self.mlp_norm(h))
+        if self.config.num_experts > 0:
+            # MoE blocks take attention adapters only: the experts are the
+            # specialisation there
+            return h + self.moe(self.mlp_norm(h))
+        mlp_lora = None if lora is None else lora.only(_MLP_TARGETS)
+        return h + self.mlp(self.mlp_norm(h), lora=mlp_lora)
 
 
-def _layer_stack(model: nn.Module, x, positions, mask=None, kv_lengths=None):
+def _layer_stack(model: nn.Module, x, positions, mask=None, kv_lengths=None,
+                 lora: Optional[LoraState] = None):
     """x through ``model.layers`` (the reference's ``_apply_layer_stack``),
     each layer under ``torch.utils.checkpoint`` with ``config.remat``'s
-    policy while autograd records."""
+    policy while autograd records, with layer i's slice of ``lora``."""
     remat = model.config.remat
-    for layer in model.layers:
+    for i, layer in enumerate(model.layers):
+        layer_lora = None if lora is None else lora.layer(i)
         if remat is not None and torch.is_grad_enabled():
-            x = _remat(layer, remat, x, positions, mask, kv_lengths)
+            x = _remat(layer, remat, x, positions, mask, kv_lengths, lora=layer_lora)
         else:
-            x = layer(x, positions, mask, kv_lengths)
+            x = layer(x, positions, mask, kv_lengths, lora=layer_lora)
     return x
 
 
@@ -566,8 +615,10 @@ class CausalLM(nn.Module):
     ``forward(ids, decode=True, paged=PagedKVState, cache=PagedKVCache)``
     writes through the block tables. Under decode ``positions`` is
     ignored: token i sits at the cache's index + i, or cache_len + i of its
-    slot, as in the reference. Parameters are made on ``device`` (CUDA
-    unless the caller passes ``device="cpu"``; raises without a CUDA
+    slot, as in the reference. ``lora``: a :class:`~..adapters.LoraState`
+    whose stacks, per batch row slot ids and scales add the adapters'
+    deltas (training and serving alike). Parameters are made on ``device``
+    (CUDA unless the caller passes ``device="cpu"``; raises without a CUDA
     device) from ``generator`` (a fresh one seeded 0 when none is given).
     """
 
@@ -585,25 +636,26 @@ class CausalLM(nn.Module):
                                  device, generator)
 
     def forward(self, input_ids, positions=None, decode=False,
-                paged: Optional[PagedKVState] = None, cache=None):
+                paged: Optional[PagedKVState] = None, cache=None,
+                lora: Optional[LoraState] = None):
         cfg = self.config
         dt = _dtype(cfg)
         x = F.embedding(input_ids, self.embed.weight.to(dt))
         if decode:
-            x = self._decode_layers(x, paged, cache)
+            x = self._decode_layers(x, paged, cache, lora)
         elif paged is not None or cache is not None:
             raise ValueError("a paged state or a cache is read only with decode=True")
         else:
             if positions is None:
                 positions = torch.arange(input_ids.shape[1], device=input_ids.device)
                 positions = positions[None, :].expand(input_ids.shape)
-            x = _layer_stack(self, x, positions)
+            x = _layer_stack(self, x, positions, lora=lora)
         x = self.final_norm(x)
         if cfg.tie_embeddings:
             return x.to(dt) @ self.embed.weight.to(dt).t()
         return self.lm_head(x)
 
-    def _decode_layers(self, x, paged, cache):
+    def _decode_layers(self, x, paged, cache, lora=None):
         b, s = x.shape[:2]
         ar = torch.arange(s, device=x.device)
         if paged is not None:
@@ -623,7 +675,7 @@ class CausalLM(nn.Module):
                 kv = (key, value, paged, key_scale, value_scale)
             else:
                 kv = (cache.key[i], cache.value[i], None, None, None)
-            x = layer(x, positions, kv=kv)
+            x = layer(x, positions, kv=kv, lora=None if lora is None else lora.layer(i))
         if paged is None:
             cache.index += s
         return x

@@ -232,7 +232,7 @@ class FleetRouter:
                     temperature=req.temperature,
                     eos_token_id=req.eos_token_id,
                     request_id=req.request_id,
-                    adapter=getattr(req, "adapter", None),  # the port's Request has none
+                    adapter=req.adapter,
                     priority=req.priority,
                     _exclude=exclude,
                 )

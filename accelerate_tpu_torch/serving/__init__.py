@@ -6,9 +6,10 @@ copy-on-write, speculative decoding (n-gram and draft model), chunked
 prefill, preemption with KV swap and priorities, int8 paged KV, the SLO
 tracker, request spans, and :class:`ServingEngine` (``add_request`` /
 ``step`` / ``stream``), whose decode and verify steps are CUDA graphs on
-the card, and the prefill/decode hand-off (``role``, :class:`TransferPlane`,
-:class:`TransferManifest`). The reference's adapters (ROADMAP.md, queue A8)
-and HTTP plane (queue A10) are not ported yet.
+the card, the prefill/decode hand-off (``role``, :class:`TransferPlane`,
+:class:`TransferManifest`) and multi-tenant adapters (``adapters=`` an
+:class:`~..adapters.AdapterRegistry`, ``add_request(adapter=)``). The
+reference's HTTP plane (ROADMAP.md, queue A10) is not ported yet.
 """
 
 from ..ops.attention import (

@@ -22,7 +22,11 @@ census's owners (:1808-1830), and prefill/decode disaggregation
 ``_handoff_slot``, ``pop_manifests``, ``acquire``, ``_seat_manifests``,
 ``_try_seat_manifest`` and ``transfer_gauges`` :1291-1491) with the
 router's hooks (``drain``, ``undrain``, ``draining``, ``health`` and
-``prefix_digest`` :2127-2162). ``step`` sheds expired queue entries,
+``prefix_digest`` :2127-2162), and multi-tenant adapters (``adapters=``,
+``add_request(adapter=)``, the per-slot rows ``_slot_adapter`` :269-271,
+pinned from seating to finish, preemption or hand-off, :640-643,
+:846-853, :893-894, :1181-1185, :1241-1243, :1345-1349, :1383, :1426).
+``step`` sheds expired queue entries,
 retires finished slots, resumes swapped requests, seats acquired
 manifests, admits (preempting for the head where it may), prefills or
 feeds chunks (a prefill-role engine then hands each finished prefill
@@ -45,6 +49,14 @@ Three kinds of program do the device work, as in the reference:
 * prefill, eager, one call per request at the power-of-two bucket of the
   part of its prompt not in the prefix cache, written at that offset (with
   chunked prefill, one call a chunk, at the chunk's offset and bucket).
+
+With an :class:`~..adapters.AdapterRegistry` attached, every program
+adds each row's adapter delta: prefill reads the request's stack row, and
+the decode and verify steps read a static slot-id buffer (one stack row a
+slot, 0 the identity) that each step fills from the host mirror, over the
+registry's resident stacks and scales. A load or an eviction writes rows of
+those tensors in place, never rebinding them, so the captured graph reads
+the new tenant: adapter churn builds nothing.
 
 Every graph reads the KV pools (and, for int8, their scale arrays) and the
 table buffer where they are, so these are allocated once before any
@@ -70,9 +82,9 @@ step and stays there; ``verify`` is one a width used; ``prefill`` is the
 number of distinct buckets; ``swap_out`` and ``swap_in`` one a width used;
 a draft proposer adds ``draft_prefill`` and ``draft_step``.
 
-The reference's options for paths not ported yet raise
-NotImplementedError naming ROADMAP.md's queue item (A8 for adapters, A10
-for the HTTP plane and program capture); none is ignored. The model's parameters live in the module,
+The reference's options for paths not ported yet (the HTTP plane and
+program capture) raise NotImplementedError naming ROADMAP.md's queue item,
+A10; none is ignored. The model's parameters live in the module,
 so the reference's ``params`` argument has no counterpart.
 """
 
@@ -87,6 +99,7 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..adapters.runtime import LoraState
 from ..models.generation import init_cache
 from ..ops.attention import PagedKVState
 from ..utils.cuda_graph import StepProgram
@@ -166,6 +179,10 @@ class ServingEngine:
     lets admission reserve one chunk instead of the whole footprint.
     ``kv_dtype``: ``"bf16"`` keeps the pools in the model's compute dtype,
     ``"int8"`` stores per-token int8 codes and fp32 scales.
+    ``adapters``: an :class:`~..adapters.AdapterRegistry` on the model's
+    device; a request naming an adapter (``add_request(adapter=)``) is
+    seated once the adapter is resident and pins it until it finishes, is
+    preempted or is handed off.
     ``role``: ``"prefill"`` ingests prompts only and hands each finished
     chain off as a :class:`~.transfer.TransferManifest` (through
     ``transfer_plane``'s ``stage``, if given); ``"decode"`` takes work only
@@ -190,8 +207,6 @@ class ServingEngine:
                  spec_decode: Optional[SpecConfig] = None,
                  prefill_chunk_tokens: Optional[int] = None, preemption: bool = False,
                  kv_dtype: str = "bf16", role: str = "colocated", transfer_plane=None):
-        if adapters is not None:
-            raise _not_ported("adapters=...", "A8")
         if role not in _ROLES:
             raise ValueError(f"role must be 'colocated', 'prefill' or 'decode', got {role!r}")
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
@@ -205,6 +220,10 @@ class ServingEngine:
             raise ValueError("gauge_interval must be >= 0 (0 disables)")
         self.model = model
         self.device = model.embed.weight.device
+        if adapters is not None and adapters.device != self.device:
+            raise ValueError(f"the adapter registry is on {adapters.device} but the model is on "
+                             f"{self.device}")
+        self.adapters = adapters
         self._role = role
         self._plane = transfer_plane
         self._outbox: list[TransferManifest] = []
@@ -229,6 +248,8 @@ class ServingEngine:
             PrefixCache(self.pool, fingerprint=self._model_fingerprint) if prefix_cache else None)
         self.scheduler = ContinuousScheduler(max_slots, self.pool, now=now, max_queue=max_queue,
                                              max_queue_delay_s=max_queue_delay_s,
+                                             adapter_ready=(adapters.resident if adapters is not None
+                                                            else None),
                                              prefix_cache=self.prefix_cache,
                                              max_table_blocks=self._max_table)
         # chunk-aware admission only with preemption, the escape when growth
@@ -247,6 +268,9 @@ class ServingEngine:
         self._generator = torch.Generator(self.device).manual_seed(seed)
         self._tables = np.zeros((max_slots, self._max_table), np.int64)
         self._tables_stale = True  # the device copy lags the host tables
+        # each slot's adapter stack row (0: the base model), copied into the
+        # decode step's slot-id buffer before each replay
+        self._slot_adapter = np.zeros(max_slots, np.int64)
         self._results: dict[str, list[int]] = {}
         self._result_order: collections.deque = collections.deque()
         self._shed_reasons: dict[str, str] = {}
@@ -278,6 +302,7 @@ class ServingEngine:
                                   device=self.device),
             "cache_lens": torch.zeros(max_slots, dtype=torch.long, device=self.device),
             "lengths": torch.zeros(max_slots, dtype=torch.long, device=self.device),
+            "slot_ids": torch.zeros(max_slots, dtype=torch.long, device=self.device),
         }
         self._decode_program: Optional[StepProgram] = None
         # speculation: verify programs and their token buffers by width,
@@ -303,14 +328,18 @@ class ServingEngine:
         later :meth:`step` admits it as soon as a seat and its block
         reservation are free. ``priority`` orders admission (higher first,
         FIFO within a priority) and, with ``preemption=True``, lets the head
-        displace a seated request of strictly lower priority."""
-        if adapter is not None:
-            raise _not_ported("adapters: add_request(adapter=...)", "A8")
+        displace a seated request of strictly lower priority. ``adapter``
+        names a tenant of the engine's registry: the request is seated once
+        that adapter is resident."""
+        if adapter is not None and self.adapters is None:
+            raise ValueError(f"request names adapter {adapter!r} but the engine was built "
+                             "without an AdapterRegistry (pass adapters=...)")
         req = Request(prompt=[int(t) for t in np.asarray(prompt).reshape(-1)],
                       max_new_tokens=max_new_tokens, temperature=temperature,
-                      eos_token_id=eos_token_id, request_id=request_id, priority=priority)
+                      eos_token_id=eos_token_id, request_id=request_id, adapter=adapter,
+                      priority=priority)
         rid = self.scheduler.submit(req)
-        self.span_log.on_submit(rid, req.submit_time, len(req.prompt))
+        self.span_log.on_submit(rid, req.submit_time, len(req.prompt), adapter_id=adapter)
         if req.shed_reason is not None:  # tail-dropped at the queue bound
             self._shed(req)
         return rid
@@ -390,6 +419,7 @@ class ServingEngine:
             # the freed seat and blocks fund the queue head this step
             admitted += self.scheduler.admit()
         for slot in admitted:
+            self._pin_adapter(slot)
             self.span_log.on_admit(slot.request.request_id, slot.admit_time)
             if self.prefill_chunk_tokens is None:
                 self._prefill_slot(slot, events)
@@ -517,7 +547,7 @@ class ServingEngine:
         # index every full prompt block written now; shared positions are
         # canonical already, copies stay out
         if self.prefix_cache is not None:
-            self.prefix_cache.publish(req.prompt, None, slot.blocks,
+            self.prefix_cache.publish(req.prompt, req.adapter, slot.blocks,
                                       skip_indices=slot.shared | slot.cow_indices,
                                       keys=req.prefix_keys)
         slot.first_token_time = self._now()
@@ -546,10 +576,33 @@ class ServingEngine:
         state = self._state(torch.from_numpy(table).to(dev),
                             torch.full((1,), start, dtype=torch.long, device=dev),
                             torch.full((1,), n, dtype=torch.long, device=dev))
+        row = torch.full((1,), int(self._slot_adapter[slot.index]), dtype=torch.long, device=dev)
         logits = self.model(torch.from_numpy(ids).to(dev), decode=True, paged=state,
-                            cache=self.cache)
+                            cache=self.cache, lora=self._lora(row))
         # the last valid row of the padded bucket, not the padded tail
         return table, logits[:, n - 1]
+
+    def _lora(self, slot_ids: torch.Tensor) -> Optional[LoraState]:
+        """The registry's resident stacks and scales read through
+        ``slot_ids`` (None without a registry)."""
+        if self.adapters is None:
+            return None
+        return LoraState(self.adapters.stacks(), slot_ids, self.adapters.scales())
+
+    def _pin_adapter(self, slot: Slot) -> None:
+        """Pin the seated request's adapter (an eviction is refused while a
+        request decodes under it) and point the slot's row of the host
+        mirror at its stack row (admission, resume, an acquired hand-off)."""
+        if self.adapters is not None:
+            self.adapters.acquire(slot.request.adapter)
+            self._slot_adapter[slot.index] = self.adapters.slot_of(slot.request.adapter)
+
+    def _drop_adapter(self, slot: Slot) -> None:
+        """The slot's row back to the identity and the request's pin
+        released (finish, preemption, hand-off)."""
+        self._slot_adapter[slot.index] = 0
+        if self.adapters is not None:
+            self.adapters.release(slot.request.adapter)
 
     def _sample_first(self, last: torch.Tensor, req: Request) -> int:
         temp = torch.full((1,), req.temperature, dtype=torch.float32, device=self.device)
@@ -632,7 +685,7 @@ class ServingEngine:
             if self.prefix_cache is not None and slot.chunks == 1:
                 # one chunk is the unchunked bucket, so its blocks are
                 # canonical; blocks written chunk by chunk stay out
-                self.prefix_cache.publish(req.prompt, None, slot.blocks,
+                self.prefix_cache.publish(req.prompt, req.adapter, slot.blocks,
                                           skip_indices=slot.shared | slot.cow_indices,
                                           keys=req.prefix_keys)
             slot.first_token_time = self._now()
@@ -750,6 +803,7 @@ class ServingEngine:
         self.sampling.clear_slot(slot.index)
         self._tables[slot.index] = 0
         self._tables_stale = True
+        self._drop_adapter(slot)
         if self._proposer is not None:
             self._proposer.release(slot.index)
         self.scheduler.release(slot)  # frees the copy spare and clears the seat
@@ -763,6 +817,8 @@ class ServingEngine:
         while self._swapped_reqs and free_slots:
             entry = self._swapped_reqs[0]
             req = entry.request
+            if self.adapters is not None and not self.adapters.resident(req.adapter):
+                break  # oldest first: no resume overtakes a tenant not loaded
             n = entry.n_blocks
             if self.scheduler.chunked_reserve:
                 total = n
@@ -794,6 +850,7 @@ class ServingEngine:
         # restored images sit in block ids the content index does not know
         slot.cow_indices = set(range(len(blocks)))
         slot.lookahead = 0  # the draft's KV was not saved
+        self._pin_adapter(slot)
         self.sampling.set_slot(slot.index, req.temperature)
         self._tables[slot.index] = 0
         self._tables[slot.index, :len(blocks)] = blocks
@@ -845,11 +902,11 @@ class ServingEngine:
         if keys is None:
             # admission computes keys only with the prefix cache on; the
             # manifest needs them as its address regardless
-            keys = prefix_keys(self._model_fingerprint, None, req.prompt, self.block_size)
+            keys = prefix_keys(self._model_fingerprint, req.adapter, req.prompt, self.block_size)
         manifest = TransferManifest(
             request_id=req.request_id, prompt=tuple(req.prompt),
             max_new_tokens=req.max_new_tokens, temperature=req.temperature,
-            eos_token_id=req.eos_token_id, adapter=None, priority=req.priority,
+            eos_token_id=req.eos_token_id, adapter=req.adapter, priority=req.priority,
             keys=tuple(keys), fingerprint=self._model_fingerprint, block_size=self.block_size,
             n_blocks=used, cache_len=slot.cache_len, data=data, nbytes=nbytes,
             first_token=slot.pending, submit_time=req.submit_time, admit_time=slot.admit_time,
@@ -866,6 +923,7 @@ class ServingEngine:
         self.sampling.clear_slot(slot.index)
         self._tables[slot.index] = 0
         self._tables_stale = True
+        self._drop_adapter(slot)
         if self._proposer is not None:
             self._proposer.release(slot.index)
         self.scheduler.release(slot)
@@ -899,6 +957,8 @@ class ServingEngine:
         free = [s for s in self.scheduler.slots if not s.busy]
         if not free:
             return None
+        if self.adapters is not None and not self.adapters.resident(m.adapter):
+            return None
         used = m.n_blocks
         full = m.cache_len // self.block_size  # the blocks with chain keys
         total = min(max(used, self.pool.blocks_for_tokens(len(m.prompt) + m.max_new_tokens)),
@@ -929,7 +989,7 @@ class ServingEngine:
                 published.add(i)
         req = Request(prompt=list(m.prompt), max_new_tokens=m.max_new_tokens,
                       temperature=m.temperature, eos_token_id=m.eos_token_id,
-                      request_id=m.request_id, priority=m.priority)
+                      request_id=m.request_id, adapter=m.adapter, priority=m.priority)
         req.submit_time = m.submit_time
         req.prefix_keys = list(m.keys)
         slot = free[0]
@@ -947,13 +1007,14 @@ class ServingEngine:
         # and the blocks just published (the first write, at cache_len, lies
         # past all of them)
         slot.shared = set(range(reused)) | published
+        self._pin_adapter(slot)
         self.sampling.set_slot(slot.index, req.temperature)
         self._tables[slot.index] = 0
         self._tables[slot.index, :len(slot.blocks)] = slot.blocks
         self._tables_stale = True
         # replay the request's life on this replica's span log with the
         # manifest's stamps, so queue and TTFT accounting stay whole
-        self.span_log.on_submit(req.request_id, m.submit_time, len(m.prompt))
+        self.span_log.on_submit(req.request_id, m.submit_time, len(m.prompt), adapter_id=m.adapter)
         self.span_log.on_admit(req.request_id, m.admit_time)
         self.span_log.on_prefill(req.request_id, m.first_token_time,
                                  cached_prefix_tokens=m.cached_tokens)
@@ -981,7 +1042,8 @@ class ServingEngine:
         """The model over the static buffers: (max_slots, width, V) logits."""
         buf = self._decode_in
         return self.model(tokens, decode=True, cache=self.cache,
-                          paged=self._state(buf["tables"], buf["cache_lens"], buf["lengths"]))
+                          paged=self._state(buf["tables"], buf["cache_lens"], buf["lengths"]),
+                          lora=self._lora(buf["slot_ids"]))
 
     def _build(self, fn: Callable[[], torch.Tensor]) -> StepProgram:
         """Build a step over the static buffers with every row's length at
@@ -994,6 +1056,8 @@ class ServingEngine:
         buf = self._decode_in
         buf["cache_lens"].copy_(torch.from_numpy(cache_lens))
         buf["lengths"].copy_(torch.from_numpy(lengths))
+        if self.adapters is not None:
+            buf["slot_ids"].copy_(torch.from_numpy(self._slot_adapter))
         self._sync_tables()
 
     def _sync_tables(self) -> None:
@@ -1148,7 +1212,7 @@ class ServingEngine:
         decode_s = slot.finish_time - slot.first_token_time
         record = {
             "request_id": req.request_id,
-            "adapter_id": None,
+            "adapter_id": req.adapter,
             "prompt_tokens": len(req.prompt),
             "cached_prefix_tokens": slot.cached_tokens,
             "new_tokens": n_new,
@@ -1180,6 +1244,7 @@ class ServingEngine:
         self.sampling.clear_slot(slot.index)
         self._tables[slot.index] = 0
         self._tables_stale = True
+        self._drop_adapter(slot)
         if self._proposer is not None:
             self._proposer.release(slot.index)
         self.scheduler.release(slot)
@@ -1197,7 +1262,7 @@ class ServingEngine:
         while len(self._shed_order) > bound:
             self._shed_reasons.pop(self._shed_order.popleft(), None)
         span = self.span_log.on_shed(req.request_id, now, reason)
-        self._tele("record_shed", request_id=req.request_id, adapter_id=None, reason=reason,
+        self._tele("record_shed", request_id=req.request_id, adapter_id=req.adapter, reason=reason,
                    queue_s=now - req.submit_time, prompt_tokens=len(req.prompt),
                    max_new_tokens=req.max_new_tokens)
         if span is not None:
@@ -1216,8 +1281,8 @@ class ServingEngine:
 
     def _gauge_fields(self) -> dict:
         """The live engine sampled into ``serve_gauge`` records: host reads
-        only, no device sync. The keys are the reference's; the adapter
-        plane's (queue A8) read 0. A prefill or decode engine adds its role
+        only, no device sync. The keys are the reference's. A prefill or
+        decode engine adds its role
         and :meth:`transfer_gauges`; a colocated one's keys stay as they
         were."""
         now = self._now()
@@ -1255,8 +1320,10 @@ class ServingEngine:
             "tokens_in_flight": sum(s.cache_len for s in active),
             "admission_blocked_no_free_slot_total": sched.blocked_reasons["no_free_slot"],
             "admission_blocked_pool_exhausted_total": sched.blocked_reasons["pool_exhausted"],
-            "admission_blocked_adapter_not_resident_total": 0,
-            "adapters_resident": 0,
+            "admission_blocked_adapter_not_resident_total":
+                sched.blocked_reasons["adapter_not_resident"],
+            "adapters_resident": (len(self.adapters.resident_names())
+                                  if self.adapters is not None else 0),
             "shed_queue_full_total": sched.shed_counts["queue_full"],
             "shed_queue_deadline_total": sched.shed_counts["queue_deadline"],
             "spec_rounds": self._spec_rounds_total,
@@ -1296,6 +1363,9 @@ class ServingEngine:
             return
         census.set_owner("params", lambda: self.model)
         census.set_owner("kv_cache", lambda: self.cache)
+        census.set_owner("adapter_stack", lambda: (
+            (self.adapters.stacks(), self.adapters.scales())
+            if self.adapters is not None else None))
         census.set_owner("draft_pool", lambda: (
             (getattr(self._proposer, "cache", None), getattr(self._proposer, "model", None))
             if self._proposer is not None else None))

@@ -6,8 +6,10 @@ speculation's lookahead reservation, priorities (``Request.priority``
 :52-56, the ordered ``submit`` and ``shed_expired`` :228-301),
 chunk-aware admission (:386-400) and the preemption victim
 (``preempt_candidate`` :423-457) and drain mode (``draining``, the
-``"draining"`` shed and ``harvest_queue`` :216-246, :303, :338), without
-the adapter gate (ROADMAP.md, queue A8).
+``"draining"`` shed and ``harvest_queue`` :216-246, :303, :338) and the
+adapter gate (``Request.adapter`` :57-60, ``adapter_ready`` :167-186,
+:350-358): a request that names an adapter is seated only once the
+adapter is resident, and a head that waits blocks the queue (strict FIFO).
 
 A fixed array of decode slots is the device-side batch (the decode step is
 built once for it); requests flow through it. At every step boundary the
@@ -56,6 +58,9 @@ class Request:
     # with preemption a seated request of lower priority can be swapped out
     # to fund it
     priority: int = 0
+    # the adapter the request decodes under (None: the base model); the
+    # request is seated only once it is resident in the engine's registry
+    adapter: Optional[str] = None
     submit_time: float = 0.0
     # set when the scheduler refuses or evicts the request instead of
     # queueing it: "queue_full" | "queue_deadline" | "draining"
@@ -148,8 +153,9 @@ class ContinuousScheduler:
     def __init__(self, max_slots: int, pool: BlockPool,
                  now: Callable[[], float] = time.monotonic,
                  max_queue: Optional[int] = None,
-                 max_queue_delay_s: Optional[float] = None, prefix_cache=None,
-                 max_table_blocks: Optional[int] = None):
+                 max_queue_delay_s: Optional[float] = None,
+                 adapter_ready: Optional[Callable[[Optional[str]], bool]] = None,
+                 prefix_cache=None, max_table_blocks: Optional[int] = None):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if max_queue is not None and max_queue < 1:
@@ -162,6 +168,10 @@ class ContinuousScheduler:
         self._now = now
         self.max_queue = max_queue
         self.max_queue_delay_s = max_queue_delay_s
+        # the adapter gate: whether a request's adapter is resident (None:
+        # no gate); a request seated before its adapter loads would decode
+        # under the identity row
+        self.adapter_ready = adapter_ready
         # an optional block_pool.PrefixCache: admission points new tables at
         # cached chains instead of allocating them
         self.prefix_cache = prefix_cache
@@ -181,7 +191,8 @@ class ContinuousScheduler:
         # shed with reason "draining", seated work finishes
         self.draining = False
         self.shed_counts = {"queue_full": 0, "queue_deadline": 0}
-        self.blocked_reasons = {"no_free_slot": 0, "pool_exhausted": 0}
+        self.blocked_reasons = {"no_free_slot": 0, "pool_exhausted": 0,
+                                "adapter_not_resident": 0}
 
     def submit(self, request: Request) -> str:
         need = self.pool.blocks_for_tokens(len(request.prompt) + request.max_new_tokens)
@@ -286,6 +297,11 @@ class ContinuousScheduler:
                 self.blocked_reasons["no_free_slot"] += 1
                 break
             req = self.queue[0]
+            if self.adapter_ready is not None and not self.adapter_ready(req.adapter):
+                # strict FIFO: the requests behind it wait too (loading the
+                # adapter unblocks them)
+                self.blocked_reasons["adapter_not_resident"] += 1
+                break
             base_tokens = len(req.prompt) + req.max_new_tokens
             lookahead = 0
             if self.lookahead_tokens:
@@ -298,8 +314,8 @@ class ContinuousScheduler:
             shared: list[int] = []
             if self.prefix_cache is not None:
                 if req.prefix_keys is None:
-                    req.prefix_keys = self.prefix_cache.keys_for(req.prompt, None)
-                shared = self.prefix_cache.match(req.prompt, keys=req.prefix_keys)
+                    req.prefix_keys = self.prefix_cache.keys_for(req.prompt, req.adapter)
+                shared = self.prefix_cache.match(req.prompt, req.adapter, keys=req.prefix_keys)
             hit_tokens = len(shared) * self.pool.block_size
             cached_tokens = min(hit_tokens, len(req.prompt) - 1)
             cow_reserve = 1 if hit_tokens > cached_tokens else 0

@@ -7,8 +7,8 @@ submit -> admit -> prefill -> first token -> finish, or shed, with the
 prompt tokens served from the prefix cache, the request's draft accept
 rate, its preemptions (``on_preempt``/``on_resume`` :175-195; the span
 stays open while the request waits on the host) and the chunks its prompt
-took (``on_first_token(chunks=)`` :166-173). The adapter field is left out
-(ROADMAP.md, queue A8). ``SpanLog.enabled = False`` turns every hook into
+took (``on_first_token(chunks=)`` :166-173), and the adapter the request
+decodes under (``adapter_id`` :41-43). ``SpanLog.enabled = False`` turns every hook into
 a no-op (the observability toggle's off arm).
 
 Ordering invariant: ``submit_t <= admit_t <= prefill_start_t <=
@@ -35,6 +35,8 @@ class RequestSpan:
     request_id: str
     submit_t: float
     prompt_tokens: int = 0
+    # the adapter the request decodes under (None: the base model)
+    adapter_id: Optional[str] = None
     admit_t: Optional[float] = None
     prefill_start_t: Optional[float] = None
     first_token_t: Optional[float] = None
@@ -65,6 +67,7 @@ class RequestSpan:
             "request_id": self.request_id,
             "state": self.state,
             "shed_reason": self.shed_reason,
+            "adapter_id": self.adapter_id,
             "prompt_tokens": self.prompt_tokens,
             "cached_prefix_tokens": self.cached_prefix_tokens,
             "new_tokens": self.new_tokens,
@@ -93,12 +96,12 @@ class SpanLog:
         self.closed: collections.deque = collections.deque(maxlen=maxlen)
         self.enabled = True
 
-    def on_submit(self, request_id: str, submit_t: float,
-                  prompt_tokens: int = 0) -> Optional[RequestSpan]:
+    def on_submit(self, request_id: str, submit_t: float, prompt_tokens: int = 0,
+                  adapter_id: Optional[str] = None) -> Optional[RequestSpan]:
         if not self.enabled:
             return None
         span = RequestSpan(request_id=request_id, submit_t=submit_t,
-                           prompt_tokens=prompt_tokens)
+                           prompt_tokens=prompt_tokens, adapter_id=adapter_id)
         self._open[request_id] = span
         return span
 

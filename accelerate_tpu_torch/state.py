@@ -1,10 +1,14 @@
 """Process, accelerator and gradient state of one training process.
 
-Port of ``accelerate_tpu/state.py`` (``PartialState`` :94,
-``AcceleratorState`` :282, ``GradientState`` :377) for one process on one
-device. The three are shared-state singletons, as in the reference: every
-instance reads and writes one dict, reset with ``_reset_state``.
-``torch.distributed`` process groups come with a later slice (ROADMAP.md).
+Port of ``accelerate_tpu/state.py`` (``PartialState`` :94 with its
+process predicates and helpers :172-265, ``AcceleratorState`` :282,
+``GradientState`` :377) for one process on one device. The three are
+shared-state singletons, as in the reference: every instance reads and
+writes one dict, reset with ``_reset_state``. The helpers keep the
+reference's single-process behaviour (``wait_for_everyone`` is a no-op,
+``split_between_processes`` yields its input whole); their multi-process
+forms come with ``torch.distributed`` process groups (ROADMAP.md, queue
+A4) and raise NotImplementedError naming it until then.
 
 The device is CUDA unless the caller asks for the CPU (``cpu=True``); with
 no CUDA device the default raises instead of falling back to the CPU.
@@ -12,7 +16,9 @@ no CUDA device the default raises instead of falling back to the CPU.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from contextlib import contextmanager
+from functools import wraps
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -52,6 +58,8 @@ class PartialState:
         self.device = resolve_device(cpu)
         self.num_processes = 1
         self.process_index = 0
+        self.local_process_index = 0
+        self.num_devices = 1
         self.distributed_type = DistributedType.NO
 
     @property
@@ -68,6 +76,91 @@ class PartialState:
             f"Num processes: {self.num_processes}\n"
             f"Device: {self.device}\n"
         )
+
+    # ------------------------------------------------------------------ #
+    # process predicates
+    # ------------------------------------------------------------------ #
+    @property
+    def use_distributed(self) -> bool:
+        return self.num_processes > 1 or self.num_devices > 1
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.local_process_index == 0
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.process_index == self.num_processes - 1
+
+    # ------------------------------------------------------------------ #
+    # process control, at world size 1
+    # ------------------------------------------------------------------ #
+    def _one_process(self, what: str) -> None:
+        if self.num_processes > 1:
+            raise NotImplementedError(f"{what} across several processes is not ported yet "
+                                      "(ROADMAP.md, queue A4)")
+
+    def wait_for_everyone(self) -> None:
+        """The cross-process barrier; one process has no one to wait for."""
+        self._one_process("wait_for_everyone")
+
+    @contextmanager
+    def main_process_first(self):
+        """The main process runs the body before the others (reference
+        :190); with one process, the body runs."""
+        if not self.is_main_process:
+            self.wait_for_everyone()
+        yield
+        if self.is_main_process:
+            self.wait_for_everyone()
+
+    @contextmanager
+    def local_main_process_first(self):
+        if not self.is_local_main_process:
+            self.wait_for_everyone()
+        yield
+        if self.is_local_main_process:
+            self.wait_for_everyone()
+
+    def on_main_process(self, function: Callable) -> Callable:
+        @wraps(function)
+        def wrapper(*args, **kwargs):
+            if self.is_main_process:
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    def on_local_main_process(self, function: Callable) -> Callable:
+        @wraps(function)
+        def wrapper(*args, **kwargs):
+            if self.is_local_main_process:
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    def on_process(self, function: Callable, process_index: int = 0) -> Callable:
+        @wraps(function)
+        def wrapper(*args, **kwargs):
+            if self.process_index == process_index:
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    @contextmanager
+    def split_between_processes(self, inputs: Any, apply_padding: bool = False):
+        """This process's share of a list, tuple or dict (reference :235);
+        with one process, all of it."""
+        self._one_process("split_between_processes")
+        yield inputs
+
+    def print(self, *args, **kwargs) -> None:
+        """Print on the main process only."""
+        if self.is_main_process:
+            print(*args, **kwargs)
 
 
 class AcceleratorState:

@@ -1,7 +1,7 @@
 """Config dataclasses and enums of the training slice.
 
-Port of ``accelerate_tpu/utils/dataclasses.py:41-238``: the precision and
-distributed-type enums, the mixed-precision policy with torch dtypes (fp8
+Port of ``accelerate_tpu/utils/dataclasses.py:41-238``: the precision,
+distributed-type and tracker enums, the mixed-precision policy with torch dtypes (fp8
 included, :163-167), gradient accumulation in both modes (:189-220, with its
 environment variables), the data-loader configuration's one-process fields
 (:225) and the project configuration that names checkpoints. One process
@@ -40,6 +40,23 @@ class DistributedType(str, enum.Enum):
     the multi-process types arrive with ``torch.distributed``."""
 
     NO = "NO"  # single device, single process
+
+
+class LoggerType(str, enum.Enum):
+    """The experiment trackers (reference :116); ``str()`` is the value."""
+
+    ALL = "all"
+    TENSORBOARD = "tensorboard"
+    WANDB = "wandb"
+    MLFLOW = "mlflow"
+    COMETML = "comet_ml"
+    AIM = "aim"
+    CLEARML = "clearml"
+    DVCLIVE = "dvclive"
+    JSONL = "jsonl"  # the zero-dependency tracker
+
+    def __str__(self) -> str:
+        return self.value
 
 
 class PrecisionType(str, enum.Enum):

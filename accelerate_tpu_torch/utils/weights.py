@@ -12,7 +12,8 @@ whose leaves carry a leading ``num_layers`` axis) or unrolled
 block's expert stacks (``moe/gate_proj``, ``up_proj``, ``down_proj``: raw
 (E, in, out) params with no ``kernel`` leaf) keep their names and layout,
 untransposed; its router is a ``Dense`` like any other. A gradient or
-moment tree of the same shape maps the same way.
+moment tree of the same shape maps the same way. A LoRA adapter tree maps
+to the same nested tree of tensors, untransposed.
 
 ``carry_from_jax(named, model, optimizer)`` builds the port's train-step
 carry from the flat ``name -> array`` dict of a reference checkpoint
@@ -62,8 +63,26 @@ def _flatten(tree: Mapping, prefix: str, out: dict, layer=None) -> None:
             out[prefix + key] = arr
 
 
-def params_from_jax(tree: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
-    """flax ``CausalLM`` params (numpy or jax arrays) -> the port's state dict."""
+_ADAPTER_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+_ADAPTER_LEAVES = {"lora_a", "lora_b"}
+
+
+def _is_adapter_tree(tree: Mapping[str, Any]) -> bool:
+    return bool(tree) and all(
+        name in _ADAPTER_TARGETS and isinstance(pair, Mapping) and set(pair) == _ADAPTER_LEAVES
+        for name, pair in tree.items())
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg) -> dict[str, Any]:
+    """flax ``CausalLM`` params (numpy or jax arrays) -> the port's state dict.
+    An adapter tree (``{target: {"lora_a": (L, in, r), "lora_b": (L, r,
+    out)}}``, ``accelerate_tpu/adapters/lora.py``), or its gradient, keeps
+    its nesting and its layout, untransposed: the port's adapters multiply
+    from the right as the reference's do."""
+    if _is_adapter_tree(tree):
+        return {name: {leaf: torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+                       for leaf, value in pair.items()}
+                for name, pair in tree.items()}
     flat: dict[str, np.ndarray] = {}
     for name, sub in tree.items():
         match = _LAYER.match(name)

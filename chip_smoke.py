@@ -250,6 +250,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    equal a run of the same plans on a 1-layer fp32 model on the CPU with the
    decode config's vocab and ``max_seq_len`` (the arms read no token
    value); no kernel of the port launches.
+17. lora: first an ``Accelerator()`` on the card prints its repr,
+   ``mixed_precision``, ``distributed_type`` and a ``JSONLTracker`` round
+   trip of a value on the card. Then the reference benchmark's ``lora``
+   variant (``measure.py:_run_lora`` at ``(small, 4, 512, 8, 2)``,
+   registry.py:406, nothing cut): B1-B3 against their plain versions at its
+   attention shape (gated) and timed there; phase 1, the full fine-tune
+   (bf16, adamw 3e-4, clip 1.0, 2 + 8 steps) and phase 2, a rank-8, alpha-16
+   adapter on q_proj/v_proj over the int8 base through ``lora_loss_fn``,
+   each with B1-B3 launching exactly 2 x 10 times and one profiled step;
+   phase 3, the reference's mixed-tenant trace on a 4-slot engine over the
+   bf16 base. Prints ``full_step_s``, ``lora_step_s``, ``step_speedup``,
+   both param byte counts, peak memory, busy shares and
+   ``lora_param_bytes_ratio``. Hard checks: the carry adapter-only, no base
+   parameter with a gradient (nor the int8 base's scales), the QLoRA loss
+   finite and falling and its first step within QLORA_LOSS_TOL of the bf16
+   base's loss; (a) no decode rebuild over the trace; (b) three tenants
+   (nonzero B) and the base in one batch give each one's tokens of a
+   single-tenant engine of the same width; (c) a tenant loaded after the
+   decode graph's capture decodes as in an engine where it was loaded
+   before, and not as the base, and the stacks keep their addresses; (d) a
+   tiny fp32 engine with three tenants gives the CPU's tokens; the serving
+   part launches no kernel of the port.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -295,7 +317,12 @@ phases 1 and 14, and
 
     python3 chip_smoke.py --diag-only
 
-phases 1 and 15.
+phases 1 and 15, and
+
+    python3 chip_smoke.py --lora-only
+
+phases 1 and 17, ending with the card's line and the ``{"ok": true, ...}``
+line.
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -460,6 +487,15 @@ OVERHEAD_B = dict(B=2, S=2048, iters=12, warmup=3, num_layers=2)
 # tests/test_diagnostics.py::test_goodput_buckets_sum_to_wall_clock (abs)
 GOODPUT_SUM_TOL = 1e-9
 HOOK_STEPS = 10  # "on" steps whose telemetry hooks are timed apart
+# phase 17: the reference benchmark's lora variant (registry.py:406, measure.py:_run_lora
+# :2427 at (small, 4, 512, 8, 2)) on the small config, nothing cut: rank 8, alpha 16 on
+# q_proj/v_proj, an int8 base, then the mixed-tenant trace on a 4-slot engine
+LORA = dict(B=4, iters=8, warmup=2, rank=8, alpha=16.0, targets=("q_proj", "v_proj"),
+            capacity=4, max_slots=4, block_size=16, new_tokens=4, check_tokens=8)
+# |QLoRA first-step loss - bf16 base loss| / bf16 base loss, a fresh adapter
+# on both (the int8 base's own error): about 3x the reading (PERF.md)
+QLORA_LOSS_TOL = 7.5e-5
+LORA_B_STD = 0.5  # B of the adapters that must change tokens (checks b-d)
 LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     "original_max_position_embeddings": 8192,
@@ -4951,6 +4987,356 @@ def phase15(torch, port, wrappers, rep: Report) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------- #
+# phase 17: the lora variant and the Accelerator's one-process surface
+# ---------------------------------------------------------------------- #
+def accelerator_smoke(torch, port, rep: Report) -> None:
+    """An ``Accelerator()`` on the card: its repr, ``mixed_precision``,
+    ``distributed_type`` and a ``JSONLTracker`` round trip of a value that
+    lives on the card."""
+    from accelerate_tpu_torch.tracking import JSONLTracker
+
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    acc = port.Accelerator()
+    base = tempfile.mkdtemp(prefix="tracker_smoke_")
+    try:
+        tracker = JSONLTracker("run", logging_dir=base)
+        tracker.log({"loss": torch.tensor(0.25, device=acc.device)}, step=1)
+        tracker.finish()
+        with open(os.path.join(base, "run", "metrics.jsonl")) as f:
+            line = json.loads(f.read())
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    rep.line(f"accelerator: {json.dumps(repr(acc))}, mixed_precision {acc.mixed_precision!r}, "
+             f"distributed_type {acc.distributed_type.value!r}, JSONLTracker round trip "
+             f"{json.dumps(line)}")
+    if acc.device.type != "cuda" or line.get("loss") != 0.25 or line.get("_step") != 1:
+        fail(f"accelerator smoke: device {acc.device}, tracker line {line}")
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+
+
+def lora_setup(torch, port, seed: int = 0):
+    """A fresh bf16 Accelerator and the small config's model on the card from
+    a seeded generator, with the variant's one batch of seeded tokens."""
+    import numpy as np
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    acc = port.Accelerator(mixed_precision="bf16")
+    cfg = port.TransformerConfig(**ACCUM_CFG)
+    model = port.CausalLM(cfg, device=acc.device,
+                          generator=torch.Generator(device=acc.device).manual_seed(seed))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (LORA["B"], cfg.max_seq_len))
+    batch = {"input_ids": torch.from_numpy(ids).to(acc.device)}
+    return acc, cfg, model, batch
+
+
+def lora_timed(torch, wrappers, step, carry, batch):
+    """``measure.py:_run_lora``'s ``timed_loop``: warmup steps, then the
+    timed ones, the loss read once at the end of each; every launch counter
+    set to 0 just before and read just after. Returns the carry, the losses,
+    the seconds a timed step, the launches, by design, and the peak bytes."""
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(LORA["warmup"]):
+        carry, metrics = step(carry, batch)
+        losses.append(metrics["loss"])
+    float(metrics["loss"])
+    t0 = time.perf_counter()
+    for _ in range(LORA["iters"]):
+        carry, metrics = step(carry, batch)
+        losses.append(metrics["loss"])
+    float(metrics["loss"])
+    seconds = (time.perf_counter() - t0) / LORA["iters"]
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
+    return (carry, [float(x) for x in losses], seconds, launches, by_design,
+            torch.cuda.max_memory_allocated())
+
+
+def lora_flash_launches(cfg) -> dict:
+    """What the code predicts for ``lora_timed``: one forward (B1) and one
+    two-pass backward (B2, B3) a layer a step, no remat, nothing fused."""
+    n = cfg.num_layers * (LORA["warmup"] + LORA["iters"])
+    return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def lora_training(torch, port, wrappers, rep: Report, checks: dict) -> dict:
+    """Phases 1 and 2 of ``_run_lora``: the full fine-tune, then the rank-8
+    adapter over the int8 base (QLoRA), each 2 + 8 ``unified_step``s with
+    exact launches, peak memory and one profiled step."""
+    from accelerate_tpu_torch import adapters
+    from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize_params
+
+    out = {}
+    # phase 1: every base parameter in the optimizer
+    acc, cfg, model, batch = lora_setup(torch, port)
+    n_params = sum(p.numel() for p in model.parameters())
+    full_bytes = adapters.adapter_num_bytes(dict(model.named_parameters()))
+    model, opt = acc.prepare(model, port.adamw(3e-4))
+    step = acc.unified_step(port.CausalLM.loss_fn(model), max_grad_norm=1.0)
+    carry, losses, full_s, launches, by_design, peak = lora_timed(
+        torch, wrappers, step, acc.init_carry(model, opt), batch)
+    check_launches("lora full", launches, by_design, lora_flash_launches(cfg))
+    rep.line(f"lora phase 1 (full fine-tune, {n_params} params, B {LORA['B']}, S "
+             f"{cfg.max_seq_len}, bf16, adamw 3e-4, clip 1.0): full_step_s {full_s}, "
+             f"full_param_bytes {full_bytes}, peak {peak / 2**30} GiB, losses {losses}, "
+             f"launches {json.dumps(launches)}")
+    profile_groups(torch, lambda: step(carry, batch), rep, "lora full")
+    out.update(n_params=n_params, full_bytes=full_bytes, full_s=full_s, full_peak=peak,
+               launches=launches)
+    del acc, model, opt, step, carry
+
+    # phase 2: the adapter over the int8 base; the model's own parameters
+    # never enter autograd
+    acc, cfg, model, batch = lora_setup(torch, port)
+    model.requires_grad_(False)
+    lcfg = adapters.LoraConfig(rank=LORA["rank"], alpha=LORA["alpha"],
+                               target_modules=LORA["targets"])
+    qbase = quantize_params(model, QuantizationConfig(load_in_8bit=True))
+    adapter = acc.prepare(adapters.init_adapter(
+        torch.Generator(device=acc.device).manual_seed(1), cfg, lcfg))
+    adapter_bytes = adapters.adapter_num_bytes(adapter)
+    opt = acc.prepare(port.adamw(3e-4))
+    carry = acc.init_carry(adapter, opt)
+    with torch.no_grad():  # the bf16 base with the fresh adapter (B = 0: the base's own loss)
+        base_loss = float(adapters.lora_loss_fn(model, model, lcfg, torch.bfloat16)(
+            {t: {k: v.to(torch.bfloat16) for k, v in pair.items()} for t, pair in adapter.items()},
+            batch))
+    step = acc.unified_step(adapters.lora_loss_fn(model, qbase, lcfg,
+                                                  compute_dtype=torch.bfloat16),
+                            max_grad_norm=1.0)
+    carry, qlosses, lora_s, qlaunches, qby_design, qpeak = lora_timed(torch, wrappers, step,
+                                                                      carry, batch)
+    check_launches("lora qlora", qlaunches, qby_design, lora_flash_launches(cfg))
+    try:
+        adapters.assert_adapter_only(carry["params"], lcfg)
+        checks["adapter_only"] = True
+    except AssertionError as e:
+        rep.line(f"lora: the carry is not adapter-only: {e}")
+        checks["adapter_only"] = False
+    checks["no_base_grad"] = (all(p.grad is None and not p.requires_grad
+                                  for p in model.parameters())
+                              and all(q.scales.grad is None and not q.scales.requires_grad
+                                      for q in qbase.values() if hasattr(q, "scales")))
+    checks["loss_finite_falling"] = (all(math.isfinite(x) for x in qlosses)
+                                     and qlosses[-1] < qlosses[0])
+    gap = abs(qlosses[0] - base_loss) / base_loss
+    checks["qlora_first_loss"] = gap <= QLORA_LOSS_TOL
+    rep.line(f"lora phase 2 (QLoRA: rank {lcfg.rank}, alpha {lcfg.alpha}, {lcfg.target_modules}, "
+             f"int8 base): lora_step_s {lora_s}, adapter_param_bytes {adapter_bytes}, peak "
+             f"{qpeak / 2**30} GiB, losses {qlosses}, first loss {qlosses[0]} against the bf16 "
+             f"base's {base_loss}: gap {gap} (QLORA_LOSS_TOL {QLORA_LOSS_TOL}), launches "
+             f"{json.dumps(qlaunches)}")
+    profile_groups(torch, lambda: step(carry, batch), rep, "lora qlora")
+    out.update(adapter_bytes=adapter_bytes, lora_s=lora_s, lora_peak=qpeak, qlaunches=qlaunches,
+               lcfg=lcfg)
+    del acc, opt, step, carry, qbase, adapter
+    out["model"], out["cfg"] = model, cfg
+    return out
+
+
+def nonzero_adapter(torch, adapters, cfg, lcfg, seed: int, device):
+    """An adapter whose B is not zero (a fresh one decodes as the base):
+    A from ``init_adapter``, B ~ N(0, LORA_B_STD), both from one seed."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ad = adapters.init_adapter(g, cfg, lcfg)
+    for pair in ad.values():
+        pair["lora_b"].normal_(0.0, LORA_B_STD, generator=g)
+    return ad
+
+
+def lora_serve(engine, rng, names, vocab: int, new_tokens: int) -> list:
+    """``_run_lora``'s ``serve``: one request a name (prompt 4 + i seeded
+    tokens), then drain; returns each request's tokens."""
+    rids = [engine.add_request(rng.integers(0, vocab, 4 + i).tolist(), max_new_tokens=new_tokens,
+                               adapter=name) for i, name in enumerate(names)]
+    for _ in engine.stream():
+        pass
+    return [engine.result(rid) for rid in rids]
+
+
+def lora_serving(torch, port, rep: Report, model, cfg, lcfg, checks: dict) -> dict:
+    """Phase 3 of ``_run_lora`` on the bf16 base, then checks (b)-(d)."""
+    import numpy as np
+
+    from accelerate_tpu_torch import adapters
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    def engine_with(registry):
+        return ServingEngine(model, max_slots=LORA["max_slots"], block_size=LORA["block_size"],
+                             adapters=registry)
+
+    def registry_on(device):
+        return adapters.AdapterRegistry(cfg, capacity=LORA["capacity"], max_rank=lcfg.rank,
+                                        target_modules=lcfg.target_modules, device=device)
+
+    dev = model.embed.weight.device
+    registry = registry_on(dev)
+    engine = engine_with(registry)
+    rng = np.random.default_rng(0)
+    ptrs = [t.data_ptr() for pair in registry.stacks().values() for t in pair.values()]
+    registry.load("t0", adapters.init_adapter(torch.Generator(device=dev).manual_seed(2), cfg,
+                                              lcfg), lcfg)
+    lora_serve(engine, rng, ["t0", "t0"], cfg.vocab_size, LORA["new_tokens"])  # warmup
+    warm = engine.trace_counts()["decode"]
+    lora_serve(engine, rng, ["t0", "t0", None], cfg.vocab_size, LORA["new_tokens"])
+    single = engine.trace_counts()["decode"] - warm
+    for i in (1, 2):
+        registry.load(f"t{i}", adapters.init_adapter(
+            torch.Generator(device=dev).manual_seed(2 + i), cfg, lcfg), lcfg)
+    lora_serve(engine, rng, ["t0", "t1", "t2", None], cfg.vocab_size, LORA["new_tokens"])
+    multi = engine.trace_counts()["decode"] - warm - single
+    checks["a_retraces"] = single == 0 and multi == 0 and warm == 1
+    rep.line(f"lora phase 3: single_adapter_decode_retraces {single}, "
+             f"multi_adapter_decode_retraces {multi} (decode built {warm} time at warmup), "
+             f"registry loads {registry.load_total}, evictions {registry.evict_total}")
+
+    # (b) tenants with a nonzero B in one batch, each against a single-
+    # tenant engine of the same width
+    names = ["t0", "t1", "t2", None]
+    tenants = {n: nonzero_adapter(torch, adapters, cfg, lcfg, 10 + i, dev)
+               for i, n in enumerate(names[:3])}
+    for name, ad in tenants.items():
+        registry.load(name, ad, lcfg)  # rows written in place: no new build
+    mixed = lora_serve(engine, np.random.default_rng(5), names, cfg.vocab_size,
+                       LORA["check_tokens"])
+    rng = np.random.default_rng(5)  # the mixed batch's prompts, drawn as lora_serve draws them
+    prompts = [rng.integers(0, cfg.vocab_size, 4 + i).tolist() for i in range(4)]
+    alone = []
+    for i, name in enumerate(names):
+        reg = registry_on(dev)
+        if name is not None:
+            reg.load(name, tenants[name], lcfg)
+        solo = engine_with(reg)
+        rid = solo.add_request(prompts[i], max_new_tokens=LORA["check_tokens"], adapter=name)
+        for _ in solo.stream():
+            pass
+        alone.append(solo.result(rid))
+    checks["b_mixed_equals_single"] = mixed == alone and len({tuple(t) for t in mixed}) > 1
+    # (c) a tenant loaded after the capture decodes as one loaded before it
+    late = nonzero_adapter(torch, adapters, cfg, lcfg, 77, dev)
+    registry.load("late", late, lcfg)
+    prompt = prompts[1]
+    got_late = lora_serve_one(engine, prompt, "late")
+    got_base = lora_serve_one(engine, prompt, None)
+    reg = registry_on(dev)
+    reg.load("late", late, lcfg)
+    fresh = engine_with(reg)
+    want_late = lora_serve_one(fresh, prompt, "late")
+    checks["c_late_load"] = got_late == want_late and got_late != got_base
+    checks["a_retraces"] = checks["a_retraces"] and engine.trace_counts()["decode"] == 1
+    checks["stacks_in_place"] = ptrs == [t.data_ptr() for pair in registry.stacks().values()
+                                         for t in pair.values()]
+    rep.line(f"lora checks (b), (c): mixed {mixed}, alone {alone}; late tenant {got_late}, "
+             f"base {got_base}, loaded before the capture {want_late}; engine decode builds "
+             f"{engine.trace_counts()['decode']}, stacks at their addresses "
+             f"{checks['stacks_in_place']}")
+    out = {"single": single, "multi": multi}
+    del engine, fresh, registry, reg
+    checks["d_tiny_card_cpu"] = lora_tiny_card_cpu(torch, port, rep)
+    return out
+
+
+def lora_serve_one(engine, prompt, adapter) -> list:
+    rid = engine.add_request(prompt, max_new_tokens=LORA["check_tokens"], adapter=adapter)
+    for _ in engine.stream():
+        pass
+    return engine.result(rid)
+
+
+def lora_tiny_card_cpu(torch, port, rep: Report) -> bool:
+    """(d): a 2-layer fp32 tiny model with three tenants and the base in one
+    batch: the card's greedy tokens equal the CPU's."""
+    import numpy as np
+
+    from accelerate_tpu_torch import adapters
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    cfg = port.TransformerConfig.tiny(num_layers=2, max_seq_len=64, dtype="float32")
+    lcfg = adapters.LoraConfig(rank=4, alpha=8.0, target_modules=("q_proj", "v_proj", "o_proj"))
+    cpu = port.CausalLM(cfg, device="cpu")
+    tenants = {f"t{i}": nonzero_adapter(torch, adapters, cfg, lcfg, 20 + i, "cpu")
+               for i in range(3)}
+    names = ["t0", "t1", "t2", None]
+    outs = {}
+    for where in ("card", "cpu"):
+        model = cpu
+        if where == "card":
+            model = port.CausalLM(cfg, device=CARD)
+            model.load_state_dict(cpu.state_dict())
+        reg = adapters.AdapterRegistry(cfg, capacity=3, max_rank=4,
+                                       target_modules=lcfg.target_modules,
+                                       device=model.embed.weight.device)
+        for name, ad in tenants.items():
+            reg.load(name, ad, lcfg)
+        engine = ServingEngine(model, max_slots=4, block_size=8, adapters=reg)
+        outs[where] = lora_serve(engine, np.random.default_rng(6), names, cfg.vocab_size, 12)
+    rep.line(f"lora check (d), tiny fp32 model with three tenants and the base: card "
+             f"{outs['card']}, CPU {outs['cpu']}")
+    return outs["card"] == outs["cpu"] and len({tuple(t) for t in outs["cpu"]}) > 1
+
+
+def phase17(torch, port, wrappers, rep: Report) -> list[dict]:
+    """Phase 17: see the module docstring. Returns B1-B3's rows at the
+    ``lora`` shape, their launches those of phases 1 and 2 together."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    accelerator_smoke(torch, port, rep)
+    H, Hkv = ACCUM_CFG["num_heads"], ACCUM_CFG["num_kv_heads"]
+    rows = time_flash_shape(torch, fa, rep, "lora", LORA["B"], ACCUM_CFG["max_seq_len"], H, Hkv,
+                            ACCUM_CFG["hidden_size"] // H, bwd_library_on_dq=True)
+    t1 = time.perf_counter()
+    checks: dict = {}
+    train = lora_training(torch, port, wrappers, rep, checks)
+    for row in rows:
+        wrapper = WRAPPER_OF[row["name"]]
+        row["launches"] = train["launches"][wrapper] + train["qlaunches"][wrapper]
+    t2 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    served = lora_serving(torch, port, rep, train["model"], train["cfg"], train["lcfg"], checks)
+    serve_launches = {w.__name__: w.launches for w in wrappers}
+    checks["serving_no_kernel"] = not any(serve_launches.values())
+    serve_peak = torch.cuda.max_memory_allocated()
+    ratio = train["full_bytes"] / max(train["adapter_bytes"], 1)
+    result = {
+        "metric": "lora_param_bytes_ratio", "value": ratio, "unit": "x", "vs_baseline": ratio,
+        "extra": {
+            "full_step_s": train["full_s"], "lora_step_s": train["lora_s"],
+            "step_speedup": train["full_s"] / max(train["lora_s"], 1e-9),
+            "full_param_bytes": train["full_bytes"],
+            "adapter_param_bytes": train["adapter_bytes"], "adapter_rank": LORA["rank"],
+            "single_adapter_decode_retraces": served["single"],
+            "multi_adapter_decode_retraces": served["multi"], "params": train["n_params"],
+            "device": torch.cuda.get_device_name(0), "batch": LORA["B"],
+            "seq": ACCUM_CFG["max_seq_len"], "iters": LORA["iters"],
+        },
+    }
+    rep.line(f"lora: step_speedup {result['extra']['step_speedup']} (full_step_s / lora_step_s), "
+             f"peak GiB full {train['full_peak'] / 2**30}, qlora {train['lora_peak'] / 2**30}, "
+             f"serving {serve_peak / 2**30}")
+    rep.line(f"lora result {json.dumps(result)}")
+    rep.line(f"lora_param_bytes_ratio {ratio} (the reference rounds it to {round(ratio, 1)})")
+    rep.line(f"lora checks {json.dumps(checks)}")
+    rep.line(f"phase 17: the accelerator line and B1-B3 at the lora shape {t1 - t0:.1f} s, "
+             f"phases 1-2 {t2 - t1:.1f} s, phase 3 and checks (a)-(d) "
+             f"{time.perf_counter() - t2:.1f} s")
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"lora: hard checks failed: {failed}")
+    return rows
+
+
 def main() -> None:
     script_t0 = time.perf_counter()
     import torch
@@ -5020,6 +5406,16 @@ def main() -> None:
         print(json.dumps({"kernels": rows}))
         rep.line("diag-only: the diagnostics phase passed")
         return
+    if "--lora-only" in sys.argv[1:]:
+        rows = phase17(torch, port, wrappers, rep)
+        print(json.dumps({"kernels": rows}))
+        rep.line("lora-only: the lora phase passed")
+        print(rep.card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return
     if "--bert-only" in sys.argv[1:]:
         failed = run_cases(torch, fa, bert_cases(torch), rep)[0]
         if failed:
@@ -5060,6 +5456,7 @@ def main() -> None:
     variant_rows += phase13(torch, port, wrappers, rep, flash_8k_s)
     variant_rows += phase14(torch, port, wrappers, rep)
     variant_rows += phase15(torch, port, wrappers, rep)
+    variant_rows += phase17(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

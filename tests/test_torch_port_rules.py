@@ -342,6 +342,85 @@ def test_fleet_modules_import_and_run_without_jax():
     assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
 
 
+def test_lora_modules_import_and_run_without_jax():
+    """``adapters``, ``utils.quantization``, ``tracking`` and
+    ``memory_utils``, each imported on its own with jax blocked; then a
+    QLoRA step over an int8 base, an engine serving a tenant from the
+    registry, a committed adapter dir read back, and a JSONL tracker, all
+    there."""
+    code = textwrap.dedent("""
+        import importlib, json, os, tempfile, warnings
+        for name in ("accelerate_tpu_torch.adapters", "accelerate_tpu_torch.adapters.lora",
+                     "accelerate_tpu_torch.adapters.registry",
+                     "accelerate_tpu_torch.adapters.runtime",
+                     "accelerate_tpu_torch.adapters.checkpoint",
+                     "accelerate_tpu_torch.utils.quantization", "accelerate_tpu_torch.tracking"):
+            importlib.import_module(name)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            importlib.import_module("accelerate_tpu_torch.memory_utils")
+        import torch
+        import accelerate_tpu_torch as port
+        from accelerate_tpu_torch import adapters
+        from accelerate_tpu_torch.serving import ServingEngine
+        from accelerate_tpu_torch.tracking import JSONLTracker
+        from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize_params
+        cfg = port.TransformerConfig.tiny(num_layers=1, max_seq_len=32)
+        model = port.CausalLM(cfg, device="cpu").requires_grad_(False)
+        lcfg = adapters.LoraConfig(rank=2)
+        acc = port.Accelerator(cpu=True)
+        qbase = quantize_params(model, QuantizationConfig(load_in_8bit=True, min_weight_size=256))
+        adapter = acc.prepare(adapters.init_adapter(torch.Generator().manual_seed(0), cfg, lcfg))
+        opt = acc.prepare(port.adamw(1e-2))
+        step = acc.unified_step(adapters.lora_loss_fn(model, qbase, lcfg), opt)
+        carry, metrics = step(acc.init_carry(adapter, opt),
+                              {"input_ids": torch.randint(0, cfg.vocab_size, (2, 8))})
+        adapters.assert_adapter_only(carry["params"], lcfg)
+        registry = adapters.AdapterRegistry(cfg, capacity=1, max_rank=2, device="cpu")
+        registry.load("t", carry["params"], lcfg)
+        engine = ServingEngine(model, max_slots=1, block_size=8, adapters=registry)
+        rid = engine.add_request([1, 2, 3], max_new_tokens=2, adapter="t")
+        while engine.has_work:
+            engine.step()
+        base = tempfile.mkdtemp()
+        loaded, _ = adapters.load_adapter(adapters.save_adapter(base, "t", carry["params"], lcfg))
+        tracker = JSONLTracker("run", logging_dir=base)
+        tracker.log({"loss": metrics["loss"]}, step=1)
+        tracker.finish()
+        line = json.loads(open(os.path.join(base, "run", "metrics.jsonl")).read())
+        assert len(engine.result(rid)) == 2 and set(loaded) == {"q_proj", "v_proj"}
+        assert line["loss"] == float(metrics["loss"])
+        print("ok")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
+
+
+def test_lora_slice_refusals_name_their_queue_items():
+    """What the slice leaves: ``load_and_quantize_model`` (A8: big_modeling
+    and hf_interop), the tracker bridge (A10) and the helpers' forms across
+    several processes (A4), each matched by name."""
+    from accelerate_tpu_torch import adapters, tracking
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.utils import quantization
+
+    with pytest.raises(NotImplementedError, match="queue A8"):
+        quantization.load_and_quantize_model({}, "dir", quantization.QuantizationConfig(
+            load_in_8bit=True))
+    with pytest.raises(NotImplementedError, match="queue A10"):
+        tracking.telemetry_bridge([])
+    with pytest.raises(NotImplementedError, match="queue A4"):
+        adapters.save_adapter(".", "t", {}, adapters.LoraConfig(), world=2)
+    state = PartialState(cpu=True)
+    state.num_processes = 2
+    try:
+        with pytest.raises(NotImplementedError, match="queue A4"):
+            state.wait_for_everyone()
+    finally:
+        PartialState._reset_state()
+    assert not hasattr(adapters, "adapter_to_peft")  # with hf_interop, queue A8
+
+
 def test_serving_and_generation_follow_the_model_device():
     """No serving entry point takes a device of its own or defaults to the
     CPU: the caches, the decode step's buffers, the sampler and the outputs
@@ -545,24 +624,25 @@ def test_prologue_wgmma_tile_is_whole_heads_dividing_both_spans(heads, kv_heads,
 
 
 def test_serving_refusals_that_remain_name_their_queue_items():
-    """Adapters are queue A8 (the engine's ``adapters``, ``add_request(
-    adapter=)``, the soak harness's tenants and the adapter-churn fault on
-    an engine with a registry); the HTTP plane and program capture are A10.
-    Disaggregation, the transfer plane and the router's hooks are ported:
-    a role is validated, the hooks answer."""
+    """The HTTP plane and program capture are A10. Adapters are ported: the
+    engine takes a registry and ``add_request(adapter=)``, the soak harness
+    loads its tenants into the registry and the adapter-churn fault evicts
+    them; disaggregation, the transfer plane and the router's hooks are
+    ported too: a role is validated, the hooks answer."""
+    from accelerate_tpu_torch.adapters import AdapterRegistry
     from accelerate_tpu_torch.loadgen import ChaosAdapter, SoakConfig, SoakHarness, WorkloadConfig
     from accelerate_tpu_torch.serving import ServingEngine
     from accelerate_tpu_torch.test_utils.fault_injection import FaultInjector, FaultSpec
 
     model = port.CausalLM(port.TransformerConfig.tiny(num_layers=1, max_seq_len=32),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        ServingEngine(model, adapters=object())
+    registry = AdapterRegistry(model.config, capacity=2, max_rank=4, device="cpu")
+    assert ServingEngine(model, adapters=registry).adapters is registry
     with pytest.raises(ValueError, match="role"):
         ServingEngine(model, role="verifier")
     assert ServingEngine(model, role="decode", transfer_plane=object()).role == "decode"
     engine = ServingEngine(model, max_slots=1, block_size=8)
-    with pytest.raises(NotImplementedError, match="queue A8"):
+    with pytest.raises(ValueError, match="AdapterRegistry"):
         engine.add_request([1, 2], adapter="tenant")
     for method in ("start_http", "capture_programs", "audit_programs"):
         with pytest.raises(NotImplementedError, match="queue A10"):
@@ -571,14 +651,16 @@ def test_serving_refusals_that_remain_name_their_queue_items():
     assert engine.prefix_digest()["entries"] == [] and engine.drain() == []
     assert engine.health()["state"] == "draining"
     engine.undrain()
-    engine.adapters = object()  # an engine that carries a registry
+    engine = ServingEngine(model, max_slots=1, block_size=8, adapters=registry)
     harness = SoakHarness(engine, SoakConfig(workload=WorkloadConfig(adapters=("t",),
                                                                      adapter_fraction=0.5)))
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        harness._load_tenants()
+    harness._load_tenants()
+    assert registry.resident_names() == ["t"] and registry.load_total == 1
     chaos = ChaosAdapter(engine, FaultInjector([], rank=0, generation=0), lambda: 0.0)
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        chaos._on_adapter_churn(FaultSpec.parse("adapter_churn@0"))
+    chaos._on_adapter_churn(FaultSpec.parse("adapter_churn@0"))
+    # the wave of three evicts the tenant and its own first member, then
+    # its last two: four evictions, nothing resident
+    assert registry.resident_names() == [] and registry.evict_total == 4
 
 
 def test_capacity_levers_run_on_the_model_device():

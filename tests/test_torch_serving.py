@@ -465,11 +465,23 @@ def test_serve_stats_window_and_percentile(pkg):
 # what is not ported yet
 # ---------------------------------------------------------------------- #
 def test_options_not_ported_raise_naming_their_queue(tiny_pair):
-    """Adapters are the one engine option left unported; they name their
-    queue item, A8."""
+    """No constructor option is left unported: ``adapters=`` takes a
+    registry on the model's device (one elsewhere is a ValueError); what is
+    left, the HTTP plane and program capture, names its queue item, A10
+    (``tests/test_torch_adapters.py`` holds adapter serving against the
+    reference)."""
+    from accelerate_tpu_torch.adapters import AdapterRegistry
+
     _, _, _, port = tiny_pair
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        serving.ServingEngine(port, adapters=object())
+    registry = AdapterRegistry(port.config, capacity=2, max_rank=4, device="cpu")
+    assert serving.ServingEngine(port, adapters=registry).adapters is registry
+    registry.device = torch.device("meta")  # as if made for another device
+    with pytest.raises(ValueError, match="adapter registry"):
+        serving.ServingEngine(port, adapters=registry)
+    engine = serving.ServingEngine(port, max_slots=1, block_size=8)
+    for method in ("start_http", "capture_programs", "audit_programs"):
+        with pytest.raises(NotImplementedError, match="queue A10"):
+            getattr(engine, method)()
 
 
 @pytest.mark.parametrize("option", [
@@ -591,13 +603,22 @@ def test_options_ported_in_the_serve_slice_work(tiny_pair, option):
 
 
 def test_request_options_and_int8_kv_not_ported_raise_naming_a9(tiny_pair):
-    """What remains refused of the request options is ``adapter=`` (queue
-    A8, adapters); ``priority=`` and the int8 paged state are ported."""
+    """Every request option is ported: ``adapter=`` without a registry is
+    the reference's ValueError, and with one the request waits in the queue
+    until its adapter is resident; ``priority=`` and the int8 paged state
+    work."""
+    from accelerate_tpu_torch.adapters import AdapterRegistry
+
     _, _, _, port = tiny_pair
     engine = serving.ServingEngine(port, max_slots=1, block_size=8)
-    with pytest.raises(NotImplementedError, match="queue A8"):
+    with pytest.raises(ValueError, match="AdapterRegistry"):
         engine.add_request([1, 2], adapter="tenant")
     assert not engine.has_work
+    gated = serving.ServingEngine(port, max_slots=1, block_size=8,
+                                  adapters=AdapterRegistry(port.config, device="cpu"))
+    gated.add_request([1, 2], adapter="tenant", max_new_tokens=2)
+    gated.step()
+    assert gated.scheduler.blocked_reasons["adapter_not_resident"] == 1 and gated.has_work
     engine.add_request([1, 2], priority=1)
     assert engine.scheduler.queue[0].priority == 1
     state = attn.PagedKVState(torch.zeros(1, 2), torch.zeros(1), torch.ones(1), num_blocks=4,

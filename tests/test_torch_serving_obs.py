@@ -294,8 +294,12 @@ def _both(tiny_pair, **kw):
     return out
 
 
-def _run(engine, clock, trace):
-    rids = [engine.add_request(p, max_new_tokens=n) for p, n in trace]
+def _run(engine, clock, trace, tag=None):
+    # with a tag, request ids are f"{tag}{i}" on every engine; without, the
+    # engine numbers them from its module's process-wide counter
+    rids = [engine.add_request(p, max_new_tokens=n,
+                               request_id="" if tag is None else f"{tag}{i}")
+            for i, (p, n) in enumerate(trace)]
     while engine.has_work:
         engine.step()
         clock.tick(0.25)
@@ -317,7 +321,7 @@ def test_records_equal_the_reference_under_a_fake_clock(tiny_pair):
     rng = np.random.default_rng(2)
     trace = [(rng.integers(1, 50, int(rng.integers(3, 12))).tolist(), int(rng.integers(2, 7)))
              for _ in range(6)]
-    outs = {name: _run(engine, clock, trace) for name, (engine, clock, _) in runs.items()}
+    outs = {name: _run(engine, clock, trace, tag="r") for name, (engine, clock, _) in runs.items()}
     assert outs["port"][0] == outs["reference"][0]
     (ref, _, ref_tel), (got, _, tel) = runs["reference"], runs["port"]
     for kind in ("serve", "span", "shed", "slo"):
