@@ -13,6 +13,9 @@ step records -> ``save_state``/``load_state``, sync or in the background,
 RMSNorm -> QKV -> rope prologue under ``fused_kernels=True``) and the
 BERT-shaped encoder ``SequenceClassifier``, LoRA/QLoRA adapters over an
 int8 base (``adapters``, ``utils.quantization``) with multi-tenant serving,
+big-model loading (``big_modeling``: empty init, device maps over the card,
+pinned host memory and disk, streamed native and HF checkpoints through
+``utils.hf_interop``, ``load_and_quantize_model``),
 experiment trackers (``tracking``), the optax-faithful ``adamw``,
 its fused-epilogue form ``fused_adamw``, ``sgd`` and
 ``warmup_cosine_decay_schedule``, and hand-written kernels for Hopper:
@@ -22,6 +25,18 @@ unless the caller asks for the CPU (``Accelerator(cpu=True)``).
 """
 
 from .accelerator import Accelerator
+from .big_modeling import (
+    OffloadedLeaf,
+    cpu_offload,
+    disk_offload,
+    dispatch_params,
+    infer_auto_device_map,
+    init_empty_weights,
+    init_on_device,
+    load_checkpoint_and_dispatch,
+    materialize_offloaded,
+    streamed_apply,
+)
 from .data_loader import DataLoader
 from .diagnostics import DiagnosticsConfig, DiagnosticsManager
 from .fault_tolerance import CheckpointManager
@@ -56,6 +71,7 @@ __all__ = [
     "GradientAccumulationPlugin",
     "GradientState",
     "HeartbeatMonitor",
+    "OffloadedLeaf",
     "ProfileKwargs",
     "ProjectConfiguration",
     "SequenceClassifier",
@@ -65,11 +81,20 @@ __all__ = [
     "adamw",
     "carry_from_jax",
     "carry_to_jax",
+    "cpu_offload",
+    "disk_offload",
+    "dispatch_params",
     "find_executable_batch_size",
     "fused_adamw",
+    "infer_auto_device_map",
+    "init_empty_weights",
+    "init_on_device",
+    "load_checkpoint_and_dispatch",
+    "materialize_offloaded",
     "params_from_jax",
     "scan_heartbeats",
     "set_seed",
     "sgd",
+    "streamed_apply",
     "warmup_cosine_decay_schedule",
 ]

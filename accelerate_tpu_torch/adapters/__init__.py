@@ -1,9 +1,8 @@
 """Multi-tenant adapters: LoRA/QLoRA training and batched multi-adapter
 serving over one base model.
 
-Port of ``accelerate_tpu/adapters/`` without ``adapter_to_peft`` and
-``peft_to_adapter``, which live in ``utils/hf_interop`` (ROADMAP.md,
-queue A8). Training: :func:`lora_loss_fn` differentiates only the adapter
+Port of ``accelerate_tpu/adapters/``; ``adapter_to_peft`` and
+``peft_to_adapter`` (``utils/hf_interop``) are exported here too. Training: :func:`lora_loss_fn` differentiates only the adapter
 tree against a frozen (optionally quantized) base, and the adapter tree is
 the carry that threads through ``Accelerator.unified_step``. Serving:
 :class:`AdapterRegistry` keeps tenants resident in fixed-shape stacks
@@ -24,6 +23,7 @@ from .lora import (
     lora_loss_fn,
     target_shapes,
 )
+from ..utils.hf_interop import adapter_to_peft, peft_to_adapter
 from .registry import AdapterRegistry
 from .runtime import LoraState, lora_delta
 
@@ -35,6 +35,7 @@ __all__ = [
     "adapter_dir",
     "adapter_num_bytes",
     "adapter_num_params",
+    "adapter_to_peft",
     "assert_adapter_only",
     "build_lora_state",
     "init_adapter",
@@ -42,6 +43,7 @@ __all__ = [
     "load_adapter",
     "lora_delta",
     "lora_loss_fn",
+    "peft_to_adapter",
     "save_adapter",
     "target_shapes",
 ]

@@ -249,6 +249,8 @@ class Dense(nn.Linear):
     def __init__(self, in_features, out_features, bias, compute_dtype, device, generator):
         super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = compute_dtype
+        if self.weight.is_meta:  # shapes only: no draw
+            return
         std = in_features ** -0.5 / _TRUNC_STD
         with torch.no_grad():
             nn.init.trunc_normal_(
@@ -503,7 +505,8 @@ class MoE(nn.Module):
             # flax's lecun_normal on (E, in, out): fan_in = E * in
             std = (shape[0] * shape[1]) ** -0.5 / _TRUNC_STD
             w = torch.empty(shape, device=device)
-            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+            if not w.is_meta:
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
             return nn.Parameter(w)
 
         self.gate_proj = stack(E, h, f)
@@ -593,13 +596,33 @@ def _layer_stack(model: nn.Module, x, positions, mask=None, kv_lengths=None,
     return x
 
 
+def _model_device(device) -> torch.device:
+    """``device``; else the device of an enclosing ``torch.device`` context
+    other than the CPU (``big_modeling.init_empty_weights``' meta device,
+    ``init_on_device``); else CUDA, raising without it."""
+    if device is not None:
+        return torch.device(device)
+    default = torch.get_default_device()
+    return default if default.type != "cpu" else resolve_device(cpu=False)
+
+
+def _model_generator(device: torch.device, generator: Optional[torch.Generator]):
+    """``generator``, else a fresh one on ``device`` seeded 0; none on the
+    meta device, where nothing is drawn."""
+    if generator is None and device.type != "meta":
+        generator = torch.Generator(device).manual_seed(0)
+    return generator
+
+
 def _embed_and_layers(model: nn.Module, config: TransformerConfig, device, generator):
     """The embedding, the Block stack and the final norm that the causal LM
-    and the classifier share, made on ``device`` from ``generator``."""
+    and the classifier share, made on ``device`` from ``generator``. On the
+    meta device nothing is allocated and nothing drawn."""
     e = config.hidden_size
     model.embed = nn.Embedding(config.vocab_size, e, device=device)
-    with torch.no_grad():
-        model.embed.weight.normal_(0.0, 0.02, generator=generator)
+    if not model.embed.weight.is_meta:
+        with torch.no_grad():
+            model.embed.weight.normal_(0.0, 0.02, generator=generator)
     model.layers = nn.ModuleList(
         Block(config, device, generator) for _ in range(config.num_layers)
     )
@@ -618,8 +641,11 @@ class CausalLM(nn.Module):
     slot, as in the reference. ``lora``: a :class:`~..adapters.LoraState`
     whose stacks, per batch row slot ids and scales add the adapters'
     deltas (training and serving alike). Parameters are made on ``device``
-    (CUDA unless the caller passes ``device="cpu"``; raises without a CUDA
+    (CUDA unless the caller passes ``device="cpu"``, or builds inside a
+    ``torch.device`` context other than the CPU; raises without a CUDA
     device) from ``generator`` (a fresh one seeded 0 when none is given).
+    On ``device="meta"`` (``big_modeling.init_empty_weights``) the model is
+    shapes only: no generator, no draw, no byte allocated.
     """
 
     def __init__(self, config: TransformerConfig, device=None,
@@ -627,9 +653,8 @@ class CausalLM(nn.Module):
         super().__init__()
         _check_config(config)
         self.config = config
-        device = resolve_device(cpu=False) if device is None else torch.device(device)
-        if generator is None:
-            generator = torch.Generator(device).manual_seed(0)
+        device = _model_device(device)
+        generator = _model_generator(device, generator)
         _embed_and_layers(self, config, device, generator)
         if not config.tie_embeddings:
             self.lm_head = Dense(config.hidden_size, config.vocab_size, False, _dtype(config),
@@ -733,9 +758,8 @@ class SequenceClassifier(nn.Module):
                                       "(the fused BERT path, queue A5); see ROADMAP.md")
         self.config = config
         self.num_labels = num_labels
-        device = resolve_device(cpu=False) if device is None else torch.device(device)
-        if generator is None:
-            generator = torch.Generator(device).manual_seed(0)
+        device = _model_device(device)
+        generator = _model_generator(device, generator)
         _embed_and_layers(self, config, device, generator)
         e = config.hidden_size
         self.pooler = Dense(e, e, True, _dtype(config), device, generator)

@@ -22,9 +22,9 @@ in)``. Every quotient divides tensor by tensor: PyTorch's CUDA division by
 a host scalar multiplies by its reciprocal, which is not the reference's
 correctly rounded quotient.
 
-``load_and_quantize_model`` streams a checkpoint through ``big_modeling``
-and ``hf_interop``, which are not ported yet: it raises naming its queue
-item (ROADMAP.md, A8).
+``load_and_quantize_model`` (:273) streams a native or HF checkpoint
+through ``big_modeling``'s and ``hf_interop``'s readers and quantizes it
+tensor by tensor on the device.
 """
 
 from __future__ import annotations
@@ -231,9 +231,59 @@ def quantized_apply(module: torch.nn.Module, qparams: Any, *args, dtype=None, **
     return torch.func.functional_call(module, dequantize_tree(qparams, dtype), args, kwargs)
 
 
-def load_and_quantize_model(*args, **kwargs):
-    """Streams a checkpoint and quantizes it tensor by tensor in the
-    reference; that needs ``big_modeling`` and ``hf_interop``."""
-    raise NotImplementedError(
-        "load_and_quantize_model is not ported yet: it needs big_modeling and hf_interop "
-        "(ROADMAP.md, queue A8)")
+def load_and_quantize_model(model: Any, checkpoint: str, config: QuantizationConfig,
+                            device=None, model_config: Any = None,
+                            hf_format: Optional[bool] = None) -> Any:
+    """Stream a checkpoint and quantize it tensor by tensor on ``device``
+    (CUDA unless asked): the host holds one tensor, the device one at full
+    precision beside the codes made so far (reference :273).
+
+    ``model``: a module (its parameters name the checkpoint's tensors; one
+    built by ``big_modeling.init_empty_weights`` allocates nothing) or a
+    nested dict of tensors. Reads the port's native checkpoints and HF
+    transformers ones (detected, or ``hf_format=True``; ``model_config``, a
+    TransformerConfig, else the sibling ``config.json``). The eligibility
+    rule is :func:`quantize_params`'s; an ``nn.Linear`` weight is quantized
+    through its transpose. A leaf left dense takes the template's dtype.
+    Returns the tree of :func:`quantize_params` (a module's: its flat
+    state dict), for :func:`quantized_apply`. Raises, as the dense load
+    does, when an HF checkpoint holds tensors the mapping never read."""
+    from ..big_modeling import _lazy_checkpoint_reader, _tree
+    from ..checkpointing import _rebuild, flatten_tree
+    from ..state import resolve_device
+    from .hf_interop import hf_native_reader, infer_config_from_hf, is_hf_checkpoint
+
+    device = resolve_device(cpu=False) if device is None else torch.device(device)
+    if hf_format is None:
+        hf_format = is_hf_checkpoint(checkpoint)
+    if hf_format:
+        read = hf_native_reader(checkpoint, model_config or infer_config_from_hf(checkpoint))
+    else:
+        read = _lazy_checkpoint_reader(checkpoint)
+    tree = _tree(model)
+    out = {}
+    quantized, leaves = 0, flatten_tree(tree)
+    with read:
+        for name, template in leaves.items():
+            t = read(name).to(device)
+            eligible = (t.dim() >= 2 and t.is_floating_point()
+                        and t.numel() >= config.min_weight_size
+                        and not any(s in name for s in config.skip_modules))
+            if not eligible:
+                out[name] = t.to(getattr(template, "dtype", t.dtype))
+                continue
+            quantized += 1
+            if _is_linear_weight(name, t):
+                out[name] = quantize_tensor(t.t(), config.bits, config.int4_block_size)
+                out[name].transposed = True
+            else:
+                out[name] = quantize_tensor(t, config.bits, config.int4_block_size)
+            del t
+        leftover = getattr(read, "unconsumed", lambda: [])()
+    if leftover:
+        # quantized garbage is still garbage: the checkpoint holds parameters
+        # this architecture cannot represent
+        raise ValueError(f"HF checkpoint tensors not consumed by the parameter mapping "
+                         f"(first 8): {leftover[:8]}")
+    logger.info(f"quantized {quantized}/{len(leaves)} leaves to int{config.bits}")
+    return _rebuild(dict(tree), lambda path, leaf: out[path])

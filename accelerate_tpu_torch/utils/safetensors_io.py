@@ -22,8 +22,9 @@ from typing import Optional
 import torch
 
 DTYPES = {
-    "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
-    "I32": torch.int32, "I64": torch.int64, "U8": torch.uint8,
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
 }
 CODES = {dtype: code for code, dtype in DTYPES.items()}
 
@@ -121,3 +122,66 @@ def load_file(path: str) -> dict[str, torch.Tensor]:
     """Every tensor of ``path`` as a CPU tensor."""
     with SafeFile(path) as f:
         return {name: f.get(name) for name in f.keys()}
+
+
+def checkpoint_files(checkpoint: str, index_name: str, weights_name: str) -> dict[str, str]:
+    """name -> file of a checkpoint: a safetensors file, or a directory
+    holding ``index_name`` (the shards' ``weight_map``) or ``weights_name``.
+    Only the index or the headers are read."""
+    if os.path.isdir(checkpoint):
+        index_path = os.path.join(checkpoint, index_name)
+        if os.path.isfile(index_path):
+            with open(index_path) as f:
+                weight_map = json.load(f)["weight_map"]
+            return {k: os.path.join(checkpoint, v) for k, v in weight_map.items()}
+        path = os.path.join(checkpoint, weights_name)
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"no safetensors files under {checkpoint}")
+    else:
+        path = checkpoint
+    with SafeFile(path) as f:
+        return dict.fromkeys(f.keys(), path)
+
+
+class ShardedReader:
+    """Tensors of a checkpoint read one at a time by name (``reader(name)``),
+    from a name -> file map (``checkpoint_files``): each file is opened once,
+    on its first read, and closed by ``close`` (or the ``with`` statement's
+    end)."""
+
+    def __init__(self, files: dict[str, str]):
+        self.files = files
+        self._open: dict[str, SafeFile] = {}
+
+    def _safe(self, name: str) -> SafeFile:
+        if name not in self.files:
+            raise KeyError(f"the checkpoint has no tensor {name!r} (it has e.g. "
+                           f"{sorted(self.files)[:4]})")
+        path = self.files[name]
+        if path not in self._open:
+            self._open[path] = SafeFile(path)
+        return self._open[path]
+
+    def get(self, name: str) -> torch.Tensor:
+        """The tensor ``name`` as a CPU tensor."""
+        return self._safe(name).get(name)
+
+    __call__ = get
+
+    def dtype(self, name: str) -> torch.dtype:
+        """The stored dtype of ``name``, from its file's header."""
+        code = self._safe(name).header[name]["dtype"]
+        if code not in DTYPES:
+            raise TypeError(f"{name} has dtype {code}, not one of {list(DTYPES)}")
+        return DTYPES[code]
+
+    def close(self) -> None:
+        for f in self._open.values():
+            f.close()
+        self._open.clear()
+
+    def __enter__(self) -> "ShardedReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -272,6 +272,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    before, and not as the base, and the stacks keep their addresses; (d) a
    tiny fp32 engine with three tenants gives the CPU's tokens; the serving
    part launches no kernel of the port.
+18. decode_load: the reference benchmark's ``decode_load`` variant
+   (``measure.py:_run_decode_load`` at ``(decode, 1, 0, 0, 0)``,
+   registry.py:396-397, nothing cut) on phase 8's ``decode`` model. First B1-B4
+   against their plain versions at the decode forward's attention shape (B 1,
+   S 512, 32/8 heads of 128; gated) and B1 timed there. The disk: the larger
+   of the temp dir and the repository's gitignored ``dev/`` must hold 1.2 x
+   the checkpoint, else the phase fails. (a) ``save_model_weights`` in 2 GB
+   shards (files, bytes, seconds); ``POSIX_FADV_DONTNEED`` on those files;
+   the reference's attribution leg, every tensor read to the host
+   (``disk_to_host_s``), then again with the pages kept (its warm time
+   says whether the advice took effect); the files' pages dropped again; then
+   ``init_empty_weights`` to a model on the card through
+   ``load_checkpoint_and_dispatch(device_map={"": 0})``, ending in a
+   synchronise (``checkpoint_load_seconds``, ``host_to_device_s`` = load -
+   disk_to_host, GiB/s, ``vs_baseline`` = 8.7 / load, the host's VmRSS rise
+   sampled over the load beside its peak RSS's rise (VmHWM, or getrusage's
+   ru_maxrss where /proc has no VmHWM), the device peak). Hard: every
+   tensor equal to the live one, ``make_generate_fn``'s greedy tokens on the
+   serve trace's first prompt the live model's, and one forward at B 1, S 512
+   bitwise the live model's with exactly 24 B1 launches (one a layer) and
+   none of B2-B6. (b) With (a)'s directory deleted, ``save_hf_checkpoint``
+   of the live model through the port's own writer, ``infer_config_from_hf``
+   equal to ``decode`` in every field that shapes a weight, and the detected
+   HF load equal tensor for tensor (its seconds). (d) ``load_and_quantize_model``
+   (int8) of (b)'s checkpoint: codes and scales bitwise those of
+   ``quantize_params`` of the live weights (its seconds, the int8 bytes).
+   (c), after (d) with (b)'s directory deleted, so that the disk holds one
+   checkpoint at a time: ``infer_auto_device_map`` with ``{0: 5GB, "cpu":
+   3GB}`` over all three tiers (the bytes of each), ``dispatch_params`` then
+   ``materialize_offloaded`` equal to the live tensors, and layers 0-3 stacked
+   on the disk tier through ``streamed_apply`` two at a time, their hidden
+   states those of the four Blocks applied densely (STREAM_TOL).
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -321,8 +353,12 @@ phases 1 and 15, and
 
     python3 chip_smoke.py --lora-only
 
-phases 1 and 17, ending with the card's line and the ``{"ok": true, ...}``
-line.
+phases 1 and 17, and
+
+    python3 chip_smoke.py --load-only
+
+phases 1 and 18 on a ``decode`` model it builds itself, each of the last two
+ending with the card's line and the ``{"ok": true, ...}`` line.
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -344,6 +380,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import tempfile
 import time
 
@@ -496,6 +533,16 @@ LORA = dict(B=4, iters=8, warmup=2, rank=8, alpha=16.0, targets=("q_proj", "v_pr
 # on both (the int8 base's own error): about 3x the reading (PERF.md)
 QLORA_LOSS_TOL = 7.5e-5
 LORA_B_STD = 0.5  # B of the adapters that must change tokens (checks b-d)
+# phase 18: the reference benchmark's decode_load variant (registry.py:396-397,
+# measure.py:_run_decode_load :467 at (decode, 1, 0, 0, 0)) on the decode model,
+# nothing cut: 2 GB shards, the reference's 8.7 s GPT-J load as the baseline
+# (measure.py:548-550), the forward at B 1, S 512, the tiers of (c), and
+# layers 0-3 streamed two at a time from the disk tier
+LOAD = dict(shard="2GB", baseline_s=8.7, B=1, S=512, margin=1.2, stream_layers=4, group=2,
+            tiers={0: "5GB", "cpu": "3GB"})
+# streamed against dense hidden states of layers 0-3 (bf16), worst row's max
+# error over its RMS: bitwise expected (the same kernels on the same bytes)
+STREAM_TOL = 0.0
 LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     "original_max_position_embeddings": 8192,
@@ -5337,6 +5384,286 @@ def phase17(torch, port, wrappers, rep: Report) -> list[dict]:
     return rows
 
 
+def vm_rss() -> int:
+    """This process's resident set, bytes (VmRSS of /proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise KeyError("VmRSS")
+
+
+def peak_rss() -> int:
+    """This process's peak resident set since it started, bytes: VmHWM of
+    /proc/self/status where the kernel gives it, else getrusage's
+    ru_maxrss (the same high-water mark; a sandboxed kernel may give no VmHWM)."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) * 1024
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+class RssPeak:
+    """VmRSS sampled every 5 ms on a thread over a window, with the peak
+    resident set at its ends: that peak is the process's since it started,
+    so a window after a larger peak reads no rise there; the samples read
+    the window's own."""
+
+    def __enter__(self) -> "RssPeak":
+        self.before, self.hwm_before = vm_rss(), peak_rss()
+        self.peak = self.before
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, vm_rss())
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, vm_rss())
+        self.hwm_after = peak_rss()
+
+
+def drop_file_pages(paths) -> None:
+    """``POSIX_FADV_DONTNEED`` on the phase's own files, so that the next
+    read goes to the disk if the kernel honours it. Nothing else of the
+    machine is touched."""
+    for path in paths:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def files_in(path: str) -> list[str]:
+    return sorted(os.path.join(path, f) for f in os.listdir(path))
+
+
+def load_scratch(need: int, rep: Report) -> str:
+    """A fresh directory on the larger of the temp dir and the repository's
+    gitignored ``dev/``; fails when neither has ``need`` bytes free."""
+    repo_dev = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dev")
+    os.makedirs(repo_dev, exist_ok=True)
+    free = {d: shutil.disk_usage(d).free for d in (tempfile.gettempdir(), repo_dev)}
+    best = max(free, key=free.get)
+    rep.line(f"decode_load: free bytes {json.dumps(free)}; need {need} "
+             f"({LOAD['margin']} x the checkpoint); writing under {best}")
+    if free[best] < need:
+        fail(f"decode_load: no directory has {need} bytes free ({free}): the phase needs one "
+             "checkpoint of the decode model on disk at a time")
+    return tempfile.mkdtemp(prefix="decode_load-", dir=best)
+
+
+def phase18(torch, port, wrappers, rep: Report, model) -> list[dict]:
+    """Phase 18: see the module docstring. Returns B1's row at the decode
+    forward's shape, its launches those of the counted forward."""
+    import numpy as np
+
+    from accelerate_tpu_torch import big_modeling as bm
+    from accelerate_tpu_torch.checkpointing import save_model_weights
+    from accelerate_tpu_torch.models.generation import make_generate_fn
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.utils import hf_interop, quantization
+
+    t0 = time.perf_counter()
+    cfg = model.config
+    live = model.state_dict()
+    nbytes = sum(t.nbytes for t in live.values())
+    n_params = sum(t.numel() for t in live.values())
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rows = time_flash_shape(torch, fa, rep, "decode_load", LOAD["B"], LOAD["S"], H, Hkv, D)[:1]
+    base = load_scratch(int(LOAD["margin"] * nbytes), rep)
+    checks: dict = {}
+    out: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.no_grad():
+            # (a) the native checkpoint: write, the disk-to-host leg, the load
+            native = os.path.join(base, "native")
+            t = time.perf_counter()
+            save_model_weights(model, native, max_shard_size=LOAD["shard"])
+            out["write_s"] = time.perf_counter() - t
+            files = files_in(native)
+            out["files"] = len(files)  # the shards and the index
+            out["shards"] = sum(f.endswith(".safetensors") for f in files)
+            out["file_bytes"] = sum(os.path.getsize(f) for f in files)
+            drop_file_pages(files)
+            meta = bm.init_empty_weights(port.CausalLM, cfg)
+            names = list(meta.state_dict())
+
+            def read_all() -> int:
+                with bm._lazy_checkpoint_reader(native) as read:
+                    return sum(read(name).nbytes for name in names)
+
+            t = time.perf_counter()
+            checks["disk_to_host_bytes"] = read_all() == nbytes
+            out["disk_to_host_s"] = time.perf_counter() - t
+            # the same pass with the pages kept: says whether the advice took
+            t = time.perf_counter()
+            read_all()
+            out["disk_to_host_warm_s"] = time.perf_counter() - t
+            drop_file_pages(files)
+            with RssPeak() as rss:
+                t = time.perf_counter()
+                loaded = bm.load_checkpoint_and_dispatch(
+                    bm.init_empty_weights(port.CausalLM, cfg), native, device_map={"": 0})
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t
+            loaded.requires_grad_(False)
+            out.update(load_s=load_s, host_to_device_s=load_s - out["disk_to_host_s"],
+                       gib=nbytes / 2**30, gib_per_s=nbytes / 2**30 / load_s,
+                       vs_baseline=LOAD["baseline_s"] / load_s,
+                       host_rss_rise_bytes=rss.peak - rss.before,
+                       peak_rss_rise_bytes=rss.hwm_after - rss.hwm_before,
+                       peak_rss_before_bytes=rss.hwm_before)
+            checks["returned_the_model"] = isinstance(loaded, port.CausalLM)
+            checks["native_bitwise"] = not flat_diff(torch, loaded.state_dict(), live)
+            trace = serve_trace(cfg.vocab_size, cfg.max_seq_len)
+            prompt, new = torch.from_numpy(trace[0][0][None]).to(CARD), trace[0][1]
+            checks["greedy_tokens"] = torch.equal(
+                make_generate_fn(loaded, max_new_tokens=new)(prompt),
+                make_generate_fn(model, max_new_tokens=new)(prompt))
+            ids = torch.from_numpy(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (LOAD["B"], LOAD["S"]))).to(CARD)
+            reset_counts(wrappers)
+            logits = loaded(ids)
+            torch.cuda.synchronize()
+            launches = {w.__name__: w.launches for w in wrappers}
+            by_design = {w.__name__: dict(w.by_design) for w in wrappers
+                         if hasattr(w, "by_design")}
+            check_launches("decode_load forward", launches, by_design,
+                           {"flash_fwd": cfg.num_layers}, fa.kernel_design(torch.bfloat16, D))
+            checks["forward_bitwise"] = same_bits(torch, logits, model(ids))
+            out["device_peak_a_bytes"] = torch.cuda.max_memory_allocated()
+            del loaded, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(native)
+
+            # (b) the HF round trip, through the port's own writer
+            hf = os.path.join(base, "hf")
+            t = time.perf_counter()
+            hf_interop.save_hf_checkpoint(model, cfg, hf, max_shard_size=LOAD["shard"])
+            out["hf_write_s"] = time.perf_counter() - t
+            inferred = hf_interop.infer_config_from_hf(hf)
+            shaping = ("vocab_size", "hidden_size", "intermediate_size", "num_layers",
+                       "num_heads", "num_kv_heads", "head_dim", "qkv_bias", "tie_embeddings",
+                       "num_experts")
+            checks["hf_config"] = all(getattr(inferred, f) == getattr(cfg, f) for f in shaping)
+            checks["hf_detected"] = hf_interop.is_hf_checkpoint(hf)
+            drop_file_pages(files_in(hf))
+            t = time.perf_counter()
+            loaded = bm.load_checkpoint_and_dispatch(bm.init_empty_weights(port.CausalLM, cfg),
+                                                     hf, device_map={"": 0})
+            torch.cuda.synchronize()
+            out["hf_load_s"] = time.perf_counter() - t
+            checks["hf_bitwise"] = not flat_diff(torch, loaded.state_dict(), live)
+            del loaded
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (d) quantize on load, from (b)'s checkpoint, against the live weights
+            qcfg = quantization.QuantizationConfig(load_in_8bit=True)
+            t = time.perf_counter()
+            qload = quantization.load_and_quantize_model(
+                bm.init_empty_weights(port.CausalLM, cfg), hf, qcfg, device=CARD)
+            torch.cuda.synchronize()
+            out["quantize_load_s"] = time.perf_counter() - t
+            want = quantization.quantize_params(model, qcfg)
+            bad = []
+            for name, w in want.items():
+                g = qload[name]
+                if quantization.is_quantized(w):
+                    same = (quantization.is_quantized(g) and torch.equal(g.codes, w.codes)
+                            and torch.equal(g.scales, w.scales))
+                else:
+                    same = not quantization.is_quantized(g) and torch.equal(g, w.float())
+                if not same:
+                    bad.append(name)
+            n_q = sum(quantization.is_quantized(w) for w in want.values())
+            out["quantized_leaves"] = n_q
+            out["int8_bytes"] = sum(w.nbytes for w in qload.values()
+                                    if quantization.is_quantized(w))
+            checks["quantize_bitwise"] = not bad and n_q == 7 * cfg.num_layers
+            del qload, want
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(hf)
+
+            # (c) the three tiers, and layers streamed from the disk tier
+            # (after (d), with (b)'s checkpoint gone: one copy on disk at a time)
+            dm = bm.infer_auto_device_map(meta, LOAD["tiers"], dtype_bytes=2)
+            sizes = bm.compute_module_sizes(meta, dtype_bytes=2)
+            tier_bytes: dict = {}
+            for group, target in dm.items():
+                tier_bytes[str(target)] = tier_bytes.get(str(target), 0) + sizes[group]
+            out["tier_bytes"] = tier_bytes
+            checks["three_tiers"] = set(tier_bytes) == {"0", "cpu", "disk"}
+            tree = bm.dispatch_params(model, dm, offload_dir=os.path.join(base, "offload"))
+            kinds = {type(v).__name__ + ("/" + v.device.type if hasattr(v, "device") else "")
+                     for v in tree.values()}
+            checks["tier_kinds"] = kinds == {"Tensor/cuda", "Tensor/cpu", "OffloadedLeaf"}
+            checks["tiers_bitwise"] = not flat_diff(
+                torch, bm.materialize_offloaded(tree, CARD), live)
+            del tree
+            gc.collect()
+            torch.cuda.empty_cache()
+            layers = model.layers[:LOAD["stream_layers"]]
+            block_names = [n for n, _ in layers[0].named_parameters()]
+            stacked = {n: torch.stack([dict(layer.named_parameters())[n] for layer in layers])
+                       for n in block_names}
+            disk = bm.disk_offload(stacked, os.path.join(base, "stack"))
+            del stacked
+            positions = torch.arange(LOAD["S"], device=CARD)[None]
+            x = model.embed(ids).to(torch.bfloat16)
+
+            def block_fn(group, h):
+                for i in range(next(iter(group.values())).shape[0]):
+                    h = torch.func.functional_call(layers[0], {n: g[i] for n, g in group.items()},
+                                                   (h, positions))
+                return h
+
+            dense = x
+            for layer in layers:
+                dense = layer(dense, positions)
+            streamed = bm.streamed_apply(block_fn, disk, x, group_size=LOAD["group"])
+            out["stream_row_err"] = row_err(torch, streamed, dense)
+            checks["streamed_equal"] = out["stream_row_err"] <= STREAM_TOL
+            out["device_peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    rows[0]["launches"] = launches["flash_fwd"]
+    rows[0]["shape"] = f"decode_load forward B{LOAD['B']} S{LOAD['S']} H{H} Hkv{Hkv} D{D} bf16"
+    result = {"metric": "checkpoint_load_seconds", "value": out["load_s"], "unit": "s",
+              "vs_baseline": out["vs_baseline"],
+              "extra": {**out, "params": n_params, "bytes": nbytes,
+                        "device": torch.cuda.get_device_name(0)}}
+    rep.line(f"decode_load result {json.dumps(result)}")
+    rep.line(f"decode_load: checkpoint_load_seconds {out['load_s']} (disk_to_host_s "
+             f"{out['disk_to_host_s']}, warm {out['disk_to_host_warm_s']}, host_to_device_s "
+             f"{out['host_to_device_s']}), "
+             f"{out['gib']} GiB at {out['gib_per_s']} GiB/s, vs_baseline {out['vs_baseline']}; "
+             f"write {out['write_s']} s ({out['shards']} shards, {out['file_bytes']} B); host RSS "
+             f"rise {out['host_rss_rise_bytes']} B (peak RSS rise {out['peak_rss_rise_bytes']} B); "
+             f"device peak (a) {out['device_peak_a_bytes']} B, phase {out['device_peak_bytes']} B")
+    rep.line(f"decode_load checks {json.dumps(checks)}")
+    rep.line(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"decode_load: hard checks failed: {failed}")
+    return rows
+
+
 def main() -> None:
     script_t0 = time.perf_counter()
     import torch
@@ -5406,6 +5733,16 @@ def main() -> None:
         print(json.dumps({"kernels": rows}))
         rep.line("diag-only: the diagnostics phase passed")
         return
+    if "--load-only" in sys.argv[1:]:
+        rows = phase18(torch, port, wrappers, rep, build_decode_model(torch, port, rep))
+        print(json.dumps({"kernels": rows}))
+        rep.line("load-only: the decode_load phase passed")
+        print(rep.card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return
     if "--lora-only" in sys.argv[1:]:
         rows = phase17(torch, port, wrappers, rep)
         print(json.dumps({"kernels": rows}))
@@ -5449,6 +5786,7 @@ def main() -> None:
     serve_phase(torch, port, wrappers, rep, model)
     soak_phase(torch, port, wrappers, rep, model)
     fleet_phase(torch, port, wrappers, rep, model)
+    load_rows = phase18(torch, port, wrappers, rep, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5457,6 +5795,7 @@ def main() -> None:
     variant_rows += phase14(torch, port, wrappers, rep)
     variant_rows += phase15(torch, port, wrappers, rep)
     variant_rows += phase17(torch, port, wrappers, rep)
+    variant_rows += load_rows
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

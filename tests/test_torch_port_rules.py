@@ -4,9 +4,9 @@
   and ``checkpoint_async.writer`` included), ``chip_smoke.py`` and the tools
   (``tools/port_copies.py``, ``flash_mutants.py``, ``flash_variants.py``,
   ``path_bisect.py``, ``fp8_mutants.py``, ``ckpt_mutants.py``) import
-  in a process where ``jax``, ``accelerate_tpu`` and ``safetensors``
-  cannot be imported, and no import statement in them names one (the
-  card's machine has neither JAX nor ``safetensors``).
+  in a process where ``jax``, ``accelerate_tpu``, ``safetensors`` and
+  ``transformers`` cannot be imported, and no import statement in them
+  names one (the card's machine has none of them).
 * Entry points default to CUDA and raise without it; they never fall
   back to the CPU unless asked (``cpu=True``).
 * What is not ported yet raises NotImplementedError instead of taking
@@ -43,11 +43,11 @@ def reset_port_singletons():
 
 def _run_blocked(code: str) -> subprocess.CompletedProcess:
     """Run ``code`` in a fresh interpreter where importing jax, flax, optax,
-    accelerate_tpu, safetensors or ml_dtypes fails."""
+    accelerate_tpu, safetensors, ml_dtypes or transformers fails."""
     prelude = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "flax", "optax", "accelerate_tpu", "safetensors",
-                     "ml_dtypes"):
+                     "ml_dtypes", "transformers"):
             sys.modules[name] = None
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -84,7 +84,8 @@ def test_every_module_and_chip_smoke_import_without_jax():
     assert int(result.stdout.split()[0]) >= 35  # checkpointing and the examples among them
 
 
-FORBIDDEN_IMPORTS = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu", "safetensors")
+FORBIDDEN_IMPORTS = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu", "safetensors",
+                     "transformers")
 
 
 def test_no_import_statement_names_jax_the_reference_or_safetensors():
@@ -396,17 +397,29 @@ def test_lora_modules_import_and_run_without_jax():
     assert result.returncode == 0 and result.stdout.strip() == "ok", result.stderr
 
 
-def test_lora_slice_refusals_name_their_queue_items():
-    """What the slice leaves: ``load_and_quantize_model`` (A8: big_modeling
-    and hf_interop), the tracker bridge (A10) and the helpers' forms across
-    several processes (A4), each matched by name."""
-    from accelerate_tpu_torch import adapters, tracking
+def test_lora_slice_refusals_name_their_queue_items(tmp_path):
+    """What the lora slice left: ``load_and_quantize_model`` and the PEFT
+    helpers are ported since the big-model slice and work (a native
+    checkpoint quantized on load, an adapter through PEFT's names and back);
+    the tracker bridge (A10), the helpers' forms across several processes
+    (A4) and a load onto a mesh (A7) still raise, each matched by name."""
+    from accelerate_tpu_torch import adapters, big_modeling, tracking
+    from accelerate_tpu_torch.checkpointing import save_model_weights
     from accelerate_tpu_torch.state import PartialState
     from accelerate_tpu_torch.utils import quantization
 
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        quantization.load_and_quantize_model({}, "dir", quantization.QuantizationConfig(
-            load_in_8bit=True))
+    cfg = port.TransformerConfig.tiny(num_layers=1)
+    save_model_weights(port.CausalLM(cfg, device="cpu"), str(tmp_path))
+    qparams = quantization.load_and_quantize_model(
+        big_modeling.init_empty_weights(port.CausalLM, cfg), str(tmp_path),
+        quantization.QuantizationConfig(load_in_8bit=True, min_weight_size=256), device="cpu")
+    assert quantization.is_quantized(qparams["layers.0.attn.q_proj.weight"])
+    lcfg = adapters.LoraConfig(rank=2, target_modules=("q_proj",))
+    adapter = adapters.init_adapter(torch.Generator().manual_seed(0), cfg, lcfg)
+    back = adapters.peft_to_adapter(adapters.adapter_to_peft(adapter, lcfg, cfg), lcfg, cfg)
+    assert torch.equal(back["q_proj"]["lora_a"], adapter["q_proj"]["lora_a"])
+    with pytest.raises(NotImplementedError, match="queue A7"):
+        big_modeling.load_checkpoint_and_dispatch({}, str(tmp_path), mesh=object())
     with pytest.raises(NotImplementedError, match="queue A10"):
         tracking.telemetry_bridge([])
     with pytest.raises(NotImplementedError, match="queue A4"):
@@ -418,7 +431,53 @@ def test_lora_slice_refusals_name_their_queue_items():
             state.wait_for_everyone()
     finally:
         PartialState._reset_state()
-    assert not hasattr(adapters, "adapter_to_peft")  # with hf_interop, queue A8
+
+
+def test_big_model_modules_import_and_run_without_jax():
+    """``big_modeling``, ``utils.offload``, ``utils.hf_interop`` and the
+    example, each imported on its own with jax, safetensors and transformers
+    blocked; then a model written natively and in HF's layout by the port's
+    own codec, loaded from its meta model over the host and disk tiers, its
+    logits the written model's bit for bit, quantized on load, and the
+    example run on the CPU, all there."""
+    code = textwrap.dedent("""
+        import importlib, tempfile, os
+        for name in ("accelerate_tpu_torch.big_modeling", "accelerate_tpu_torch.utils.offload",
+                     "accelerate_tpu_torch.utils.hf_interop",
+                     "accelerate_tpu_torch.examples.big_model_inference"):
+            importlib.import_module(name)
+        import torch
+        import accelerate_tpu_torch as port
+        from accelerate_tpu_torch.checkpointing import save_model_weights
+        from accelerate_tpu_torch.examples import big_model_inference
+        from accelerate_tpu_torch.utils import hf_interop, quantization
+        cfg = port.TransformerConfig.tiny(num_layers=2, max_seq_len=32)
+        model = port.CausalLM(cfg, device="cpu")
+        base = tempfile.mkdtemp()
+        save_model_weights(model, os.path.join(base, "native"), max_shard_size="500KB")
+        hf_interop.save_hf_checkpoint(model, cfg, os.path.join(base, "hf"), max_shard_size="500KB")
+        ids = torch.randint(0, cfg.vocab_size, (1, 8))
+        for fmt in ("native", "hf"):
+            meta = port.init_empty_weights(port.CausalLM, cfg)
+            tree = port.load_checkpoint_and_dispatch(meta, os.path.join(base, fmt),
+                                                     max_memory={"cpu": 1 << 20},
+                                                     offload_dir=os.path.join(base, fmt + "_off"))
+            assert {type(v).__name__ for v in tree.values()} == {"Tensor", "OffloadedLeaf"}
+            live = port.materialize_offloaded(tree, "cpu")
+            with torch.no_grad():
+                assert torch.equal(torch.func.functional_call(meta, live, (ids,)), model(ids))
+        qparams = quantization.load_and_quantize_model(
+            port.init_empty_weights(port.CausalLM, cfg), os.path.join(base, "hf"),
+            quantization.QuantizationConfig(load_in_4bit=True, min_weight_size=256), device="cpu")
+        assert quantization.is_quantized(qparams["layers.1.mlp.down_proj.weight"])
+        out = big_model_inference.main(["--cpu", "--max_memory_mb", "1", "--workdir",
+                                        os.path.join(base, "example")])
+        assert out["resident"] == out["tiered"] and out["tiers"] == ["cpu", "disk"]
+        print("ok")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0 and result.stdout.strip().splitlines()[-1] == "ok", \
+        result.stderr
 
 
 def test_serving_and_generation_follow_the_model_device():

@@ -1,9 +1,9 @@
 """The port's int8/int4 weight-only quantization against the JAX reference,
 on the CPU.
 
-Mirrors the tests of ``tests/test_quantization.py`` that need no
-``load_and_quantize_model`` (which waits for ``big_modeling`` and
-``hf_interop``, queue A8): codes and scales bit for bit against the
+Mirrors the tests of ``tests/test_quantization.py`` (its loads of HF
+checkpoints are in ``tests/test_torch_hf_interop.py``): codes and scales
+bit for bit against the
 reference's on the same seeded weights, the dequantized weights too, the
 model's state dict quantized to the reference's codes (each layer of a
 ``(out, in)`` ``nn.Linear`` weight is the reference's ``(in, out)`` kernel
@@ -212,6 +212,40 @@ def test_gradients_identically_zero_through_frozen_quantized_base(tiny):
     assert abs(float(loss.detach()) - float(want)) / float(want) <= 1e-5
 
 
-def test_load_and_quantize_model_raises_naming_a8():
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        q.load_and_quantize_model({}, "checkpoint", q.QuantizationConfig(load_in_8bit=True))
+def test_load_and_quantize_model_raises_naming_a8(tiny, tmp_path):
+    """Ported since the big-model slice (the name is kept; the A8 refusal is
+    gone): the reference's ``test_load_and_quantize_model``. The tiny
+    model's weights saved natively by each package, and each package's
+    ``load_and_quantize_model`` of its own checkpoint from a template that
+    allocates nothing: the same leaves quantized, codes and scales bit for
+    bit (layer i of the port's ``(out, in)`` weight is slice i of the
+    reference's stacked kernel), the dense leaves equal, and the dequantized
+    weights within the reference's 2 % of the originals."""
+    from accelerate_tpu.checkpointing import save_model_weights as ref_save
+
+    from accelerate_tpu_torch import big_modeling
+    from accelerate_tpu_torch.checkpointing import save_model_weights
+
+    _, params, pmodel, _ = tiny
+    save_model_weights(pmodel, str(tmp_path / "port"))
+    ref_save(params, str(tmp_path / "ref"))
+    cfg = q.QuantizationConfig(load_in_8bit=True, min_weight_size=256)
+    meta = big_modeling.init_empty_weights(port.CausalLM, port.TransformerConfig.tiny())
+    loaded = q.load_and_quantize_model(meta, str(tmp_path / "port"), cfg, device="cpu")
+    abstract = jax.tree.map(lambda leaf: jax.ShapeDtypeStruct(leaf.shape, leaf.dtype), params)
+    want = ref.load_and_quantize_model(abstract, str(tmp_path / "ref"), ref.QuantizationConfig(
+        load_in_8bit=True, min_weight_size=256))
+    assert list(loaded) == [name for name, _ in pmodel.named_parameters()]
+    assert sum(q.is_quantized(v) for v in loaded.values()) == 7 * 2
+    stacked = port.params_from_jax(ref.dequantize_tree(want), pmodel.config)
+    for name, leaf in loaded.items():
+        if not q.is_quantized(leaf):
+            assert torch.equal(leaf, dict(pmodel.named_parameters())[name]), name
+            continue
+        _, i, module, proj, _ = name.split(".")
+        rq = want["layers"][module][proj]["kernel"]
+        np.testing.assert_array_equal(leaf.codes.numpy(), np.asarray(rq.codes)[int(i)])
+        np.testing.assert_array_equal(leaf.scales.numpy(), np.asarray(rq.scales)[int(i)])
+        deq, orig = leaf.dequantize(), dict(pmodel.named_parameters())[name].detach()
+        assert torch.equal(deq, stacked[name])
+        assert float((deq - orig).norm() / (orig.norm() + 1e-9)) < 0.02, name
