@@ -15,7 +15,12 @@ BERT-shaped encoder ``SequenceClassifier``, LoRA/QLoRA adapters over an
 int8 base (``adapters``, ``utils.quantization``) with multi-tenant serving,
 big-model loading (``big_modeling``: empty init, device maps over the card,
 pinned host memory and disk, streamed native and HF checkpoints through
-``utils.hf_interop``, ``load_and_quantize_model``),
+``utils.hf_interop``, ``load_and_quantize_model``), several processes
+(a ``torch.distributed`` group brought up from the launcher's environment:
+NCCL on the card, gloo on the CPU; the collectives, each process's rows of
+every global batch, the cross-process gradient mean, checkpoints saved by
+every process and restored onto another world size, ``LocalSGD``, and
+``debug_launcher``/``notebook_launcher``),
 experiment trackers (``tracking``), the optax-faithful ``adamw``,
 its fused-epilogue form ``fused_adamw``, ``sgd`` and
 ``warmup_cosine_decay_schedule``, and hand-written kernels for Hopper:
@@ -40,15 +45,19 @@ from .big_modeling import (
 from .data_loader import DataLoader
 from .diagnostics import DiagnosticsConfig, DiagnosticsManager
 from .fault_tolerance import CheckpointManager
+from .launchers import debug_launcher, notebook_launcher
+from .local_sgd import LocalSGD
 from .models.config import TransformerConfig
 from .models.transformer import CausalLM, SequenceClassifier
 from .ops.fused import fused_adamw
 from .optimizer import AcceleratedOptimizer, adamw, sgd
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
-from .state import AcceleratorState, GradientState
+from .state import AcceleratorState, GradientState, PartialState
 from .telemetry import HeartbeatMonitor, StepTelemetry, TelemetryConfig, scan_heartbeats
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    DistributedInitKwargs,
+    DistributedType,
     GradientAccumulationPlugin,
     ProjectConfiguration,
 )
@@ -67,11 +76,15 @@ __all__ = [
     "DataLoader",
     "DataLoaderConfiguration",
     "DiagnosticsConfig",
+    "DistributedInitKwargs",
+    "DistributedType",
     "DiagnosticsManager",
     "GradientAccumulationPlugin",
     "GradientState",
     "HeartbeatMonitor",
+    "LocalSGD",
     "OffloadedLeaf",
+    "PartialState",
     "ProfileKwargs",
     "ProjectConfiguration",
     "SequenceClassifier",
@@ -82,6 +95,7 @@ __all__ = [
     "carry_from_jax",
     "carry_to_jax",
     "cpu_offload",
+    "debug_launcher",
     "disk_offload",
     "dispatch_params",
     "find_executable_batch_size",
@@ -91,6 +105,7 @@ __all__ = [
     "init_on_device",
     "load_checkpoint_and_dispatch",
     "materialize_offloaded",
+    "notebook_launcher",
     "params_from_jax",
     "scan_heartbeats",
     "set_seed",

@@ -1,7 +1,7 @@
 """The Accelerator: prepare, one train step, checkpoints and metrics.
 
 Port of ``accelerate_tpu/accelerator.py`` (``__init__`` :88-205, the
-topology properties and process helpers :207-290 at world size 1,
+topology properties and process helpers :207-290,
 ``print`` :291, ``prepare`` :297-424 with ``prepare_optimizer`` :408 and
 ``prepare_scheduler`` :416, ``unified_step`` :429-748 in both
 accumulation modes with ``_sync_apply`` :505-554 and ``_fused_step``
@@ -13,11 +13,9 @@ loop :1240-1310, ``gather``/``gather_for_metrics`` :1375-1407,
 ``get_state_dict`` :1520, ``free_memory`` :1532, ``skip_first_batches``
 :1558, ``set_seed`` :1561, ``autocast`` :1343, ``profile`` :1349, the
 trackers ``log``/``init_trackers``/``get_tracker`` :1565-1581,
-``end_training`` :1584, ``__repr__`` :1591, and
-``diagnostics=``/``profile_kwargs=`` :183-200) for one process on one
-device. A branch that needs a second process raises NotImplementedError
-naming ROADMAP.md's queue A4. The step keeps
-the reference's contract and arithmetic:
+``end_training`` :1584, ``__repr__`` :1591, ``join_uneven_inputs`` :1309,
+and ``diagnostics=``/``profile_kwargs=`` :183-200), one device a process.
+The step keeps the reference's contract and arithmetic:
 ``step_fn(carry, batch, **kw) -> (carry, metrics)``; the loss runs on
 parameters cast to the policy's compute dtype while the fp32 masters
 receive fp32 gradients (``_cast_floating`` :1667); K-step accumulation sums
@@ -34,6 +32,31 @@ may be a name -> tensor dict (a module's parameters) or a nested dict of
 tensors (a LoRA adapter tree, ``adapters/lora.py``): the loss function
 receives the tree as given, and the optimizer state and the accumulation
 buffer are keyed by the leaves' dotted paths.
+
+Across processes (a ``torch.distributed`` group, ``state.py``) each process
+holds its own rows of every global batch, where the reference's step sees
+the global batch as one array. Two things keep the reference's numbers:
+
+* the gradients are averaged across processes once per optimizer step,
+  before the unscale, the clip and the update (``_sync_apply``; the
+  accumulated sum, so one all-reduce a leaf an optimizer step), and on every
+  call of the raw loop's ``backward``, whose gradients are the global
+  batch's as the reference's are. Whenever a group is up the mean goes
+  through it, at any world size.
+* the loss is the global batch's. A loss function may say how many terms
+  its mean runs over in a batch (``loss_fn.loss_weight(batch)``;
+  ``CausalLM.loss_fn`` and ``adapters.lora_loss_fn`` count the target tokens
+  under ``loss_mask``, ``models.transformer.next_token_count``). Each
+  process's loss then enters the backward times ``world * c / max(W, 1)``,
+  ``c`` its own count and ``W`` the all-reduced sum of the counts (taken
+  before the forward), and the reported loss is the all-reduced sum of
+  those terms over ``world``: for a masked mean that is
+  ``sum(nll * mask) / max(sum(mask), 1)`` over every process's rows, the
+  reference's number, where a mean of per-process means would differ
+  whenever the processes hold different mask counts. A loss without
+  ``loss_weight`` weighs every process alike (a mean over equal row counts).
+  At world size 1 the factor is exactly 1.0 and the group's sum and mean
+  change no bit.
 """
 
 from __future__ import annotations
@@ -165,6 +188,43 @@ def _micro_loss_fn(loss_fn: Callable, has_aux: bool, remat_policy: Any) -> Calla
     return remat
 
 
+def _loss_factor(loss_fn: Callable, batch: Any, world: int, device) -> torch.Tensor:
+    """``world * c / max(W, 1)``: the weight of this process's loss in the
+    global batch's (the module docstring), ``c`` its ``loss_weight`` count
+    (1 without one) and ``W`` their sum over the group."""
+    import torch.distributed as dist
+
+    weigh = getattr(loss_fn, "loss_weight", None)
+    c = torch.as_tensor(weigh(batch) if weigh is not None else 1.0,
+                        dtype=torch.float32).to(device).reshape(())
+    total = c.clone()
+    dist.all_reduce(total)
+    return world * c / total.clamp_min(1.0)
+
+
+def _global_loss(loss: torch.Tensor, factor: torch.Tensor, world: int) -> torch.Tensor:
+    """The global batch's loss from each process's weighted term."""
+    import torch.distributed as dist
+
+    term = (loss.float() * factor).reshape(())
+    dist.all_reduce(term)
+    return term / world
+
+
+def _mean_across_processes_(grads: dict, world: int) -> None:
+    """Every gradient replaced in place by its mean over the group: the
+    sum goes through the group at any world size; the divide is skipped at
+    world size 1, where it changes no bit and would read and write every
+    gradient once more (15.4 GB a step on the main path's 1.92e9 fp32
+    gradients)."""
+    import torch.distributed as dist
+
+    for g in grads.values():
+        dist.all_reduce(g)
+        if world > 1:
+            g.div_(world)
+
+
 def _is_dataloader(obj: Any) -> bool:
     return isinstance(obj, DataLoaderShard) or (
         hasattr(obj, "dataset") and hasattr(obj, "batch_size")
@@ -177,8 +237,8 @@ def _is_schedule(obj: Any) -> bool:
 
 
 class Accelerator:
-    """One instance per training script, on one device: CUDA unless
-    ``cpu=True``. ``seed`` seeds the accelerator's own generator
+    """One instance per training script and process, on one device: CUDA
+    unless ``cpu=True``. ``seed`` seeds the accelerator's own generator
     (``keys``), which checkpoints carry.
 
     ``telemetry``: True or a :class:`TelemetryConfig` turns on the step
@@ -244,6 +304,7 @@ class Accelerator:
             self.telemetry.diagnostics.set_profile_kwargs(self.profile_handler)
         self._built_steps = 0  # names each built step's rebuild detector
         self._async_ckpt: Optional[AsyncCheckpointer] = None  # save_state(block=False)'s writer
+        self._local_sgd = False  # inside a LocalSGD block: each process steps alone
         self.trackers: list[Any] = []
         self.log_with = [log_with] if isinstance(log_with, str) else list(log_with or [])
 
@@ -318,6 +379,12 @@ class Accelerator:
 
     def wait_for_everyone(self) -> None:
         self.state.partial_state.wait_for_everyone()
+
+    @property
+    def _reduces_across_processes(self) -> bool:
+        """Whether the step averages gradients (and weighs the loss) across
+        processes: with a process group up, outside a ``LocalSGD`` block."""
+        return self.state.partial_state.group_up and not self._local_sgd
 
     @property
     def sync_gradients(self) -> bool:
@@ -407,16 +474,22 @@ class Accelerator:
             model = convert_model(model)
         return model.to(device=self.device)
 
-    def prepare_data_loader(self, dataloader: Any,
+    def prepare_data_loader(self, dataloader: Any, dispatch_batches: Optional[bool] = None,
                             superbatch: Optional[int] = None) -> DataLoaderShard:
-        """A loader of device batches that reports its host time to
-        telemetry. Under fused accumulation (K > 1) it stacks K microbatches
-        into each batch unless ``superbatch`` says otherwise."""
+        """A loader of this process's rows of each batch on the device, which
+        reports its host time to telemetry, under the accelerator's
+        ``dataloader_config`` (``dispatch_batches`` overrides its field).
+        Under fused accumulation (K > 1) it stacks K microbatches into each
+        batch unless ``superbatch`` says otherwise."""
         if not isinstance(dataloader, DataLoaderShard):
+            config = self.state.dataloader_config
+            if dispatch_batches is not None:
+                config = dataclasses.replace(config, dispatch_batches=dispatch_batches)
             if superbatch is None:
                 gs = self.gradient_state
                 superbatch = gs.num_steps if (gs.fused and gs.num_steps > 1) else 1
-            dataloader = prepare_data_loader(dataloader, self.state, superbatch=superbatch)
+            dataloader = prepare_data_loader(dataloader, self.state, config,
+                                             superbatch=superbatch)
         dataloader.telemetry = self.telemetry
         self._dataloaders.append(dataloader)
         return dataloader
@@ -472,11 +545,15 @@ class Accelerator:
         fused = self.gradient_state.fused if fused_accumulation is None else fused_accumulation
         fused = bool(fused) and num_accum > 1  # K = 1 carries no buffer anyway
         micro_loss = _micro_loss_fn(loss_fn, has_aux, remat_policy)
+        world = self.num_processes
 
         def _sync_apply(accum, opt_state, params, ls):
-            """Once per optimizer step, shared by both modes: mean,
-            unscale/check (fp16), clip, update, hold on a non-finite step.
-            Works in place on ``accum``."""
+            """Once per optimizer step, shared by both modes: the mean
+            across processes, the mean over the microbatches, unscale/check
+            (fp16), clip, update, hold on a non-finite step. Works in place
+            on ``accum``."""
+            if self._reduces_across_processes:
+                _mean_across_processes_(accum, world)
             mean_grads = accum
             if num_accum > 1:
                 mean_grads = {k: a.div_(num_accum) for k, a in accum.items()}
@@ -506,13 +583,22 @@ class Accelerator:
 
         def _microbatch(compute, batch, ls, kw, tree):
             """One microbatch's fp32 gradients (by name), unscaled fp32 loss
-            and aux; the loss sees ``compute`` in ``tree``'s nesting."""
+            and aux; the loss sees ``compute`` in ``tree``'s nesting. With a
+            group, the loss is weighted into the global batch's (the module
+            docstring) and the one reported is the global batch's."""
+            factor = (_loss_factor(loss_fn, batch, world, self.device)
+                      if self._reduces_across_processes else None)
             scaled, loss, aux = micro_loss(_like_tree(tree, compute),
                                            _cast_floating(batch, policy.compute_dtype), ls, kw)
+            if factor is not None:
+                scaled = scaled * factor
             grads = torch.autograd.grad(scaled, list(compute.values()))
             del scaled
             grads = {k: g.float() for k, g in zip(compute, grads)}
-            return grads, loss.detach().float(), _detach(aux)
+            loss = loss.detach().float()
+            if factor is not None:
+                loss = _global_loss(loss, factor, world)
+            return grads, loss, _detach(aux)
 
         def _step(carry: dict, batch: Any, **kw):
             tree = carry["params"]
@@ -694,8 +780,10 @@ class Accelerator:
 
     @contextmanager
     def no_sync(self, model=None):
-        """``sync_gradients`` False inside (one process: there is no
-        gradient all-reduce to hold back)."""
+        """``sync_gradients`` False inside. It holds no communication back:
+        ``unified_step`` averages across processes once per optimizer step
+        anyway, and ``backward``'s gradients are the global batch's on every
+        call (the reference's no_sync keeps the flag only, too)."""
         old = self.gradient_state.sync_gradients
         self.gradient_state.sync_gradients = False
         try:
@@ -708,7 +796,10 @@ class Accelerator:
         ``loss, grads = accelerator.backward(loss_fn, params, batch)``. The
         loss runs on ``params`` (a name -> tensor dict, or a module's)
         cast to the compute dtype; ``grads`` are fp32, by name, scaled by
-        1 / ``num_steps`` for accumulation."""
+        1 / ``num_steps`` for accumulation. With a process group the loss
+        and the gradients are the global batch's (the module docstring): the
+        gradients are averaged across processes on every call, inside
+        ``no_sync`` too, since the caller adds them up before the update."""
         if not callable(loss_or_fn):
             raise TypeError(
                 "accelerator.backward needs the loss *function*: backward(loss_fn, params, "
@@ -720,10 +811,47 @@ class Accelerator:
         dtype = self.state.mixed_precision_policy.compute_dtype
         compute = {k: _cast_floating(p.detach(), dtype).requires_grad_(True)
                    for k, p in params.items()}
+        group, world = self._reduces_across_processes, self.num_processes
+        factor = (_loss_factor(loss_or_fn, rest[0] if rest else None, world, self.device)
+                  if group else None)
         loss = loss_or_fn(compute, *rest, **kwargs)
-        grads = torch.autograd.grad(loss, list(compute.values()))
+        grads = torch.autograd.grad(loss if factor is None else loss * factor,
+                                    list(compute.values()))
         scale = 1.0 / self.gradient_state.num_steps
-        return loss.detach(), {k: g.float() * scale for k, g in zip(params, grads)}
+        grads = {k: g.float() * scale for k, g in zip(params, grads)}
+        loss = loss.detach()
+        if group:
+            _mean_across_processes_(grads, world)
+            loss = _global_loss(loss, factor, world)
+        return loss, grads
+
+    @contextmanager
+    def join_uneven_inputs(self, joinables=None, even_batches: Optional[bool] = None):
+        """Train or evaluate on a dataset whose length does not divide the
+        global batch (reference :1309). Every process yields the same number
+        of batches (the samplers wrap around, or pad a short tail and record
+        ``remainder``), so no process runs out of collectives to join, and
+        ``joinables`` is accepted and ignored, as in the reference.
+        ``even_batches`` overrides the prepared map-style loaders' setting
+        inside the block (from their next epoch on)."""
+        restore: list[tuple[Any, bool]] = []
+        if even_batches is not None:
+            iterable_seen = False
+            for dl in self._dataloaders:
+                shard = getattr(dl, "batch_sampler", None)
+                if shard is None or not hasattr(shard, "even_batches"):
+                    iterable_seen = True
+                    continue
+                restore.append((shard, shard.even_batches))
+                shard.even_batches = even_batches
+            if iterable_seen:
+                logger.warning("Overriding even_batches is only supported for map-style "
+                               "datasets; some dataloaders were iterable")
+        try:
+            yield
+        finally:
+            for shard, prev in restore:
+                shard.even_batches = prev
 
     def clip_grad_norm_(self, grads: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
         """Global-norm clip: returns (clipped grads, the norm before)."""
@@ -768,9 +896,10 @@ class Accelerator:
         return operations.gather(tensor)
 
     def gather_for_metrics(self, input_data: Any, use_gather_object: bool = False) -> Any:
-        """Gather eval outputs; on the last batch of a loader whose tail
-        wrapped around, only the first ``remainder`` rows are real, and
-        the rest are dropped."""
+        """Every process's eval outputs, concatenated in rank order: the
+        global batch's rows in the reference's order. On the last batch of
+        a loader whose global tail was wrapped or padded, only the first
+        ``remainder`` (global) rows are real, and the rest are dropped."""
         if use_gather_object or not _all_tensor_leaves(input_data):
             data = operations.gather_object(input_data)
             return [x for sub in data for x in (sub if isinstance(sub, list) else [sub])]
@@ -839,8 +968,8 @@ class Accelerator:
     def load_state(self, input_dir: Optional[str] = None, carry: Any = None, **kwargs) -> Any:
         """Restore a checkpoint into ``carry`` (its tensors in place) and
         return the restored carry, once the saves in flight have committed.
-        ``allow_reshape`` takes None or False (one process: the topology
-        cannot change)."""
+        ``allow_reshape=True`` takes a checkpoint saved at another world
+        size (``checkpointing.load_accelerator_state``)."""
         self.wait_for_checkpoint()  # never restore past a save in flight
         return checkpointing.load_accelerator_state(self, input_dir, carry=carry, **kwargs)
 

@@ -6,7 +6,9 @@ adapter artifact is a directory ``adapter_<name>/`` holding
 ``adapter_model.safetensors`` (the flattened A/B tree, through the port's
 own safetensors codec) and ``adapter_config.json`` (the LoraConfig),
 written into a ``.tmp`` work dir and renamed into place by
-:mod:`..checkpoint_async.commit`. Readers see committed directories only;
+:mod:`..checkpoint_async.commit`. Saved by several processes, process 0
+writes the files, every process marks its share done, and process 0 commits
+once every marker is there. Readers see committed directories only;
 a crash in the middle of a save leaves a ``.tmp`` dir that is never listed.
 Base weights are never written: the adapter dir is the whole artifact.
 """
@@ -35,21 +37,20 @@ def adapter_dir(base_dir: str, name: str) -> str:
 def save_adapter(base_dir: str, name: str, adapter_params: Any, lora_config: LoraConfig,
                  process_index: int = 0, world: int = 1) -> str:
     """Commit ``adapter_<name>/`` under ``base_dir``; returns the final path.
-    The final dir either does not exist or is complete and committed. One
-    process writes it (a save by several processes is queue A4)."""
-    if world != 1 or process_index != 0:
-        raise NotImplementedError("an adapter save by several processes is not ported yet "
-                                  "(ROADMAP.md, queue A4)")
+    The final dir either does not exist or is complete and committed. With
+    ``world`` processes each calls it with its ``process_index``; the
+    adapter is the same on every process, so process 0 alone writes it."""
     if not name or "/" in name:
         raise ValueError(f"invalid adapter name {name!r}")
     final = adapter_dir(base_dir, name)
     work = work_dir_for(final)
     os.makedirs(work, exist_ok=True)
-    named = {k: torch.as_tensor(v).detach().cpu().contiguous()
-             for k, v in flatten_tree(adapter_params).items()}
-    _save_named(named, os.path.join(work, WEIGHTS_FILE))
-    _atomic_json_dump(lora_config.to_dict(), os.path.join(work, CONFIG_FILE), indent=2)
-    commit(work, final)
+    if process_index == 0:
+        named = {k: torch.as_tensor(v).detach().cpu().contiguous()
+                 for k, v in flatten_tree(adapter_params).items()}
+        _save_named(named, os.path.join(work, WEIGHTS_FILE))
+        _atomic_json_dump(lora_config.to_dict(), os.path.join(work, CONFIG_FILE), indent=2)
+    commit(work, final, process_index=process_index, world=world)
     return final
 
 

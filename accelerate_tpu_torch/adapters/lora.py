@@ -166,6 +166,7 @@ def lora_loss_fn(model, base_params: Any, lora_config: LoraConfig,
     ``compute_dtype`` at each call, and every base tensor is detached. LoRA
     dropout runs only when the config asks for it and the batch carries a
     ``dropout_seed``."""
+    from ..models.transformer import next_token_count
     from ..utils.quantization import dequantize_tree
 
     if isinstance(base_params, torch.nn.Module):
@@ -189,6 +190,8 @@ def lora_loss_fn(model, base_params: Any, lora_config: LoraConfig,
         return nll.mean()
 
     fn.fused_kernels = bool(getattr(model.config, "fused_kernels", False))
+    # read by the step across processes: the loss is the global batch's
+    fn.loss_weight = next_token_count
     return fn
 
 

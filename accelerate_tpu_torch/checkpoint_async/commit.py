@@ -1,18 +1,21 @@
-"""Atomic commit protocol for checkpoint directories, one process.
+"""Atomic commit protocol for checkpoint directories.
 
-Port of ``accelerate_tpu/checkpoint_async/commit.py:40-208`` for one
-process. A checkpoint is either committed or invisible:
+Port of ``accelerate_tpu/checkpoint_async/commit.py:40-208``. A checkpoint
+is either committed or invisible:
 
-1. the save writes its files into ``<final>.tmp/``, the work dir;
-2. it drops its ``done_00000`` marker and the ``topology.json`` record;
-3. it writes the ``COMMITTED`` marker and makes ONE
-   ``os.rename(work, final)``.
+1. every process writes its files into ``<final>.tmp/``, the work dir;
+2. each drops its ``done_{p:05d}`` marker once its files are on the disk
+   (``mark_done``), and waits until every process's marker is there
+   (``wait_for_done_markers``, a barrier through the filesystem that times
+   out naming the processes whose markers are missing);
+3. process 0 writes the ``topology.json`` record and the ``COMMITTED``
+   marker and makes ONE ``os.rename(work, final)``; the others return once
+   ``final`` exists.
 
 Readers only take ``checkpoint_<n>`` names and directories that carry
 ``COMMITTED``, so a ``.tmp`` work dir, the only state a crash before the
 rename can leave, is never restored from, counted or rotated; the next save
-to the same name discards it. With one process the reference's barrier on
-the done markers has nothing to wait for.
+to the same name discards it.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import time
 from typing import Any, Optional
 
 from ..logging import get_logger
@@ -95,11 +99,51 @@ def read_topology(checkpoint_dir: str) -> Optional[dict[str, Any]]:
         return None
 
 
-def commit(work_dir: str, final_dir: str, topology: Optional[dict[str, Any]] = None) -> str:
-    """Steps 2-3 of the protocol; returns ``final_dir``. An existing
-    ``final_dir`` (an explicit output dir saved to again) is swapped aside
-    first so the rename still lands atomically."""
-    write_marker(work_dir, DONE_MARKER_PATTERN.format(0))
+def mark_done(work_dir: str, process_index: int) -> str:
+    """Publish that this process's files in ``work_dir`` are on the disk."""
+    return write_marker(work_dir, DONE_MARKER_PATTERN.format(process_index))
+
+
+def wait_for_done_markers(work_dir: str, world: int, timeout_s: float = 600.0,
+                          poll_s: float = 0.05) -> None:
+    """Block until every process's done marker is in ``work_dir`` (at once
+    for ``world`` 1). The work dir vanishing counts as passing: process 0
+    renames it the moment it sees the last marker, so a process whose scan
+    loses that race must not poll a missing directory until the timeout.
+    Raises TimeoutError naming the processes whose markers are missing."""
+    deadline = time.monotonic() + timeout_s
+    missing = list(range(world))
+    while missing:
+        if not os.path.isdir(work_dir):
+            return  # renamed away by process 0: every marker existed
+        missing = [p for p in missing
+                   if not os.path.isfile(os.path.join(work_dir, DONE_MARKER_PATTERN.format(p)))]
+        if not missing:
+            return
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"checkpoint commit barrier timed out after {timeout_s}s: "
+                               f"missing done markers from processes {missing} in {work_dir}")
+        time.sleep(poll_s)
+
+
+def commit(work_dir: str, final_dir: str, process_index: int = 0, world: int = 1,
+           timeout_s: float = 600.0, topology: Optional[dict[str, Any]] = None) -> str:
+    """Steps 2-3 of the protocol for this process; returns ``final_dir``.
+    Process 0 renames (an existing ``final_dir``, an explicit output dir
+    saved to again, is swapped aside first so the rename still lands
+    atomically) and stamps ``topology`` after the barrier, so it records a
+    save every process finished; the others return once ``final_dir`` is
+    visible, so they may read it back at once."""
+    mark_done(work_dir, process_index)
+    wait_for_done_markers(work_dir, world, timeout_s=timeout_s)
+    if process_index != 0:
+        deadline = time.monotonic() + timeout_s
+        while not os.path.isdir(final_dir):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"process {process_index}: {final_dir} did not appear "
+                                   f"within {timeout_s}s of the commit barrier")
+            time.sleep(0.05)
+        return final_dir
     if topology is not None:
         write_topology(work_dir, topology)
     write_marker(work_dir, COMMITTED_MARKER)

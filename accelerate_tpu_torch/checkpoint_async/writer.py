@@ -1,7 +1,9 @@
 """The bounded background checkpoint writer.
 
-Port of ``accelerate_tpu/checkpoint_async/writer.py`` for one process.
-The train loop's share of an async save is the snapshot: every CUDA leaf
+Port of ``accelerate_tpu/checkpoint_async/writer.py``. Across processes
+every process submits its own job (process 0's holds the state, the others'
+only their RNG file) and its writer thread ends in the done-marker barrier
+of ``commit.py``. The train loop's share of an async save is the snapshot: every CUDA leaf
 of the state copied into a set of page-locked host buffers with
 ``non_blocking`` copies on the current stream, one event recorded after
 the last copy, every CPU leaf cloned, and the host state (RNG, counters,
@@ -61,6 +63,8 @@ class CheckpointJob:
     buffers: Optional[dist_checkpoint.HostBuffers] = None  # the pinned set the job holds
     # the save-time topology record (checkpointing.topology_metadata)
     topology: Optional[dict] = None
+    process_index: int = 0  # this process's done marker; process 0 commits
+    world: int = 1
 
 
 class AsyncCheckpointer:
@@ -175,7 +179,8 @@ class AsyncCheckpointer:
             _save_named(named, os.path.join(job.work_dir, fname), safe)
             nbytes += _nbytes(named)
         _write_host_state(job.host_files, job.work_dir)
-        commit_mod.commit(job.work_dir, job.final_dir, topology=job.topology)
+        commit_mod.commit(job.work_dir, job.final_dir, job.process_index, job.world,
+                          topology=job.topology)
         background_s = time.perf_counter() - t0
         self.saves_completed += 1
         if self.telemetry is not None:
@@ -207,20 +212,26 @@ def save_accelerator_state_async(accelerator, checkpointer: AsyncCheckpointer,
     checkpointer._raise_pending_error()
     final_dir = _checkpoint_dir(accelerator, output_dir)
     work_dir = commit_mod.work_dir_for(final_dir)
-    commit_mod.discard_work_dir(work_dir)  # a stale one from a crashed run
+    is_main = accelerator.is_main_process
+    if is_main:
+        commit_mod.discard_work_dir(work_dir)  # a stale one from a crashed run
+    accelerator.wait_for_everyone()
     logger.info(f"Async-saving current state to {final_dir}")
 
     tree = carry if carry is not None else _tree_of(params)
-    # the raw loop's optimizer states (no carry) go to files of their own
-    opt_states = [] if carry is not None else [
+    # the raw loop's optimizer states (no carry) go to files of their own;
+    # the tree and those files are the main process's to write
+    opt_states = [] if carry is not None or not is_main else [
         (f"{OPTIMIZER_NAME}_{i}", flatten_tree(opt.opt_state))
         for i, opt in enumerate(accelerator._optimizers) if opt.opt_state is not None]
-    layout = [] if tree is None else dist_checkpoint.device_layout(flatten_tree(tree))
+    layout = ([] if tree is None or not is_main
+              else dist_checkpoint.device_layout(flatten_tree(tree)))
     for name, named in opt_states:
         layout += dist_checkpoint.device_layout(named, prefix=f"{name}/")
     buffers = checkpointer.buffers.acquire(layout)  # waits while every set is in flight
     try:
-        snapshot = None if tree is None else dist_checkpoint.snapshot_tree(tree, buffers)
+        snapshot = None if tree is None else dist_checkpoint.snapshot_tree(
+            tree, buffers, process_index=accelerator.process_index)
         named_files = [(f"{name}.safetensors",
                         dist_checkpoint.host_copies(named, buffers, prefix=f"{name}/"), True)
                        for name, named in opt_states]
@@ -233,7 +244,8 @@ def save_accelerator_state_async(accelerator, checkpointer: AsyncCheckpointer,
     job = CheckpointJob(
         final_dir=final_dir, work_dir=work_dir, shard_snapshot=snapshot, host_files=host_files,
         named_files=named_files, step=accelerator.step, blocked_s=0.0, buffers=buffers,
-        topology=topology_metadata(accelerator))
+        topology=topology_metadata(accelerator), process_index=accelerator.process_index,
+        world=accelerator.num_processes)
     job.blocked_s = time.perf_counter() - t0
     queue_wait = checkpointer.submit(job)
     if queue_wait > 0.01:

@@ -1,7 +1,7 @@
-"""Whole-training-state checkpointing, one process.
+"""Whole-training-state checkpointing, by one process or several.
 
-Port of ``accelerate_tpu/checkpointing.py:57-743`` for one process. The
-training state is one tree, the step carry (params, optimizer state,
+Port of ``accelerate_tpu/checkpointing.py:57-743``. The training state is
+one tree, the step carry (params, optimizer state,
 counters, the loss scale under fp16), so a checkpoint is "flatten the tree
 -> named tensors -> safetensors" (``flatten_tree`` :70; the default format
 is ``dist_checkpoint.py``'s), and a restore fills a template of the same
@@ -22,6 +22,20 @@ save is made (``_capture_host_state``) and written from them
 (``_write_host_state``), so the background writer
 (``checkpoint_async/writer.py``) records the RNG, step and loader cursor of
 the step it was given, not of a later one.
+
+Across processes (a data-parallel run, every process holding the same
+state): every process calls the save; process 0 writes the tree (the other
+processes write empty shard files, ``dist_checkpoint.snapshot_tree``), the
+raw loop's optimizer states and the shared host state, every process writes
+its own ``random_states_<rank>.pkl``, and the save ends in the done-marker
+barrier and process 0's commit (``checkpoint_async/commit.py``). A load at
+the saved world size restores each process's own RNG file. A checkpoint
+saved at another world size loads only with ``allow_reshape=True`` (the
+reference's error otherwise), under the reference's rules: every chunk's
+coverage is checked first, every process restores process 0's RNG and folds
+its own index into the accelerator's ``KeyChain``, a carry saved in the
+middle of an accumulation resumes at its last optimizer step, and the
+loaders' cursors are re-derived by samples seen.
 """
 
 from __future__ import annotations
@@ -44,7 +58,9 @@ from . import dist_checkpoint
 from .checkpoint_async import commit
 from .logging import get_logger
 from .utils import safetensors_io
+from .utils.environment import parse_flag_from_env
 from .utils.constants import (
+    ENV_PREFIX,
     CUSTOM_STATE_NAME,
     METADATA_NAME,
     MODEL_NAME,
@@ -315,7 +331,10 @@ def _list_checkpoints(base: str) -> list[str]:
 def _checkpoint_dir(accelerator, output_dir: Optional[str]) -> str:
     """The directory a save goes to: ``<project_dir>/checkpoints/
     checkpoint_<iteration>`` with automatic naming (the oldest beyond
-    ``total_limit`` removed first), else ``output_dir``."""
+    ``total_limit`` removed first, by the main process), else
+    ``output_dir``. The already-exists check runs on every process between
+    two barriers, so a refusal fails everywhere instead of leaving the
+    other processes at the next collective."""
     pc = accelerator.project_configuration
     if not pc.automatic_checkpoint_naming:
         if output_dir is None:
@@ -323,28 +342,46 @@ def _checkpoint_dir(accelerator, output_dir: Optional[str]) -> str:
         return output_dir
     base = os.path.join(pc.project_dir or output_dir or ".", "checkpoints")
     out = os.path.join(base, f"checkpoint_{pc.iteration}")
-    os.makedirs(base, exist_ok=True)
-    existing = _list_checkpoints(base)
-    if pc.total_limit is not None and len(existing) + 1 > pc.total_limit:
-        for stale in existing[: len(existing) + 1 - pc.total_limit]:
-            logger.info(f"Deleting {stale} to respect total_limit={pc.total_limit}")
-            shutil.rmtree(stale, ignore_errors=True)
-    if os.path.exists(out):
+    if accelerator.is_main_process:
+        os.makedirs(base, exist_ok=True)
+        existing = _list_checkpoints(base)
+        if pc.total_limit is not None and len(existing) + 1 > pc.total_limit:
+            for stale in existing[: len(existing) + 1 - pc.total_limit]:
+                logger.info(f"Deleting {stale} to respect total_limit={pc.total_limit}")
+                shutil.rmtree(stale, ignore_errors=True)
+    accelerator.wait_for_everyone()
+    exists = os.path.exists(out)
+    accelerator.wait_for_everyone()
+    if exists:
         raise ValueError(f"Checkpoint directory {out} already exists: either load it first "
                          "or set a fresh ProjectConfiguration.iteration.")
     return out
 
 
 def topology_metadata(accelerator) -> dict[str, Any]:
-    """The save-time topology record: one process on one device."""
+    """The save-time topology record: the world size (one device a
+    process) and each process's pair of shard files."""
+    world = accelerator.num_processes
     return {
-        "format_version": 2, "world_size": 1, "num_devices": 1, "devices_per_process": 1,
-        "num_slices": 1, "mesh_shape": {},
-        "process_shard_files": {"0": {
-            "shard": dist_checkpoint.SHARD_FILE_PATTERN.format(0),
-            "index": dist_checkpoint.INDEX_FILE_PATTERN.format(0), "fault_domain": 0}},
+        "format_version": 2, "world_size": world, "num_devices": world,
+        "devices_per_process": 1, "num_slices": 1, "mesh_shape": {},
+        "process_shard_files": {str(p): {
+            "shard": dist_checkpoint.SHARD_FILE_PATTERN.format(p),
+            "index": dist_checkpoint.INDEX_FILE_PATTERN.format(p), "fault_domain": 0}
+            for p in range(world)},
         "step": accelerator.step,
     }
+
+
+def _topology_mismatch(saved: dict, accelerator) -> Optional[str]:
+    """How the live world differs from the save-time topology, or None."""
+    world = accelerator.num_processes
+    diffs = []
+    if int(saved.get("world_size", world)) != world:
+        diffs.append(f"world size {saved['world_size']} -> {world}")
+    if int(saved.get("num_devices", world)) != world:
+        diffs.append(f"device count {saved['num_devices']} -> {world}")
+    return ", ".join(diffs) if diffs else None
 
 
 def _jsonable(obj: Any) -> Any:
@@ -383,27 +420,31 @@ def _capture_host_state(accelerator, carry: Any = None) -> list[tuple[str, str, 
     ``(filename, kind, payload)`` triples (``kind`` "json" or "pickle"),
     taken now: a background writer then writes the state at save time, not
     what the objects have moved on to. The carry's counters set the
-    accelerator's ``step`` first (they are the source of truth)."""
+    accelerator's ``step`` first (they are the source of truth). The shared
+    files are the main process's; every process captures its own RNG."""
     files: list[tuple[str, str, Any]] = []
-    for i, sched in enumerate(accelerator._schedulers):
-        files.append((f"{SCHEDULER_NAME}_{i}.json", "json", _jsonable(sched.state_dict())))
-    for i, dl in enumerate(accelerator._dataloaders):
-        files.append((f"{SAMPLER_NAME}_{i}.json", "json", _jsonable(dl.state_dict())))
-    for i, obj in enumerate(accelerator._custom_objects):
-        # pickled now: a later in-place change must not reach the file
-        files.append((f"{CUSTOM_STATE_NAME}_{i}.pkl", "pickle", pickle.dumps(obj.state_dict())))
     if carry is not None and "opt_step" in carry:
         accelerator.sync_from_carry(carry)
-    meta = {
-        "step": accelerator.step, "iteration": accelerator.project_configuration.iteration,
-        "version": 1, "has_carry": carry is not None,
-        "num_optimizers": len(accelerator._optimizers),
-        "num_schedulers": len(accelerator._schedulers),
-        "num_dataloaders": len(accelerator._dataloaders),
-        "num_custom": len(accelerator._custom_objects),
-    }
-    files.append((METADATA_NAME, "json", meta))
-    files.append((f"{RNG_STATE_NAME}_0.pkl", "pickle", pickle.dumps(_rng_state(accelerator))))
+    if accelerator.is_main_process:
+        for i, sched in enumerate(accelerator._schedulers):
+            files.append((f"{SCHEDULER_NAME}_{i}.json", "json", _jsonable(sched.state_dict())))
+        for i, dl in enumerate(accelerator._dataloaders):
+            files.append((f"{SAMPLER_NAME}_{i}.json", "json", _jsonable(dl.state_dict())))
+        for i, obj in enumerate(accelerator._custom_objects):
+            # pickled now: a later in-place change must not reach the file
+            files.append((f"{CUSTOM_STATE_NAME}_{i}.pkl", "pickle",
+                          pickle.dumps(obj.state_dict())))
+        meta = {
+            "step": accelerator.step, "iteration": accelerator.project_configuration.iteration,
+            "version": 1, "has_carry": carry is not None,
+            "num_optimizers": len(accelerator._optimizers),
+            "num_schedulers": len(accelerator._schedulers),
+            "num_dataloaders": len(accelerator._dataloaders),
+            "num_custom": len(accelerator._custom_objects),
+        }
+        files.append((METADATA_NAME, "json", meta))
+    files.append((f"{RNG_STATE_NAME}_{accelerator.process_index}.pkl", "pickle",
+                  pickle.dumps(_rng_state(accelerator))))
     return files
 
 
@@ -432,20 +473,24 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, carry:
     t0 = time.perf_counter()
     final_dir = _checkpoint_dir(accelerator, output_dir)
     work_dir = commit.work_dir_for(final_dir)
-    commit.discard_work_dir(work_dir)  # a stale one from a crashed save
-    os.makedirs(work_dir)
+    is_main = accelerator.is_main_process
+    if is_main:
+        commit.discard_work_dir(work_dir)  # a stale one from a crashed save
+    accelerator.wait_for_everyone()
+    os.makedirs(work_dir, exist_ok=True)
     logger.info(f"Saving current state to {final_dir}")
     nbytes = 0
     tree = carry if carry is not None else _tree_of(params)
     if tree is not None:
         if sharded:
-            nbytes += dist_checkpoint.save_sharded_tree(tree, work_dir)
-        else:
+            nbytes += dist_checkpoint.save_sharded_tree(tree, work_dir,
+                                                        accelerator.process_index)
+        elif is_main:
             named = _to_named_tensors(tree)
             _save_named(named, os.path.join(work_dir, SAFE_WEIGHTS_NAME if safe_serialization
                                             else MODEL_NAME + ".bin"), safe_serialization)
             nbytes += _nbytes(named)
-    if carry is None:
+    if carry is None and is_main:
         for i, opt in enumerate(accelerator._optimizers):
             if opt.opt_state is not None:
                 named = _to_named_tensors(opt.opt_state)
@@ -453,7 +498,9 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, carry:
                 nbytes += _nbytes(named)
     _write_host_state(_capture_host_state(accelerator, carry), work_dir)
     accelerator.project_configuration.iteration += 1
-    commit.commit(work_dir, final_dir, topology=topology_metadata(accelerator))
+    commit.commit(work_dir, final_dir, accelerator.process_index, accelerator.num_processes,
+                  topology=topology_metadata(accelerator))
+    accelerator.wait_for_everyone()
     accelerator.telemetry.record_checkpoint(
         step=accelerator.step, directory=final_dir, mode="sync",
         blocked_s=time.perf_counter() - t0, background_s=0.0, bytes_written=nbytes)
@@ -484,14 +531,15 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None, carry: 
     ``params``) is the template; its tensors receive the saved values in
     place and the filled structure is returned. Only a committed directory
     loads (the latest under the project's ``checkpoints`` when
-    ``input_dir`` is None); one saved by several processes is refused.
-    Every file is read and checked before anything is written, so a load
-    that raises changes nothing. ``allow_reshape`` takes the reference's
-    None and False; True (restore onto another topology) is refused."""
-    if allow_reshape:
-        raise NotImplementedError(
-            "load_state(allow_reshape=True), restoring onto another topology, is not ported "
-            "yet: ROADMAP.md, queue A4")
+    ``input_dir`` is None). Every file is read and checked before anything
+    is written, so a load that raises changes nothing.
+
+    A checkpoint saved at another world size (its ``topology.json``)
+    refuses to load unless ``allow_reshape`` is True (None: the
+    ``ACCELERATE_TPU_ELASTIC`` flag); then the chunks' coverage is checked,
+    every process restores process 0's RNG with its own index folded into
+    the ``KeyChain``, and a carry saved in the middle of an accumulation
+    resumes at its last optimizer step (the module docstring)."""
     if input_dir is None:
         base = os.path.join(accelerator.project_configuration.project_dir or ".", "checkpoints")
         found = _list_checkpoints(base) if os.path.isdir(base) else []
@@ -501,11 +549,27 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None, carry: 
     if not commit.is_committed(input_dir):
         raise FileNotFoundError(f"{input_dir} is not a committed checkpoint (no "
                                 f"{commit.COMMITTED_MARKER} marker)")
-    topology = commit.read_topology(input_dir)
-    if topology is not None and int(topology.get("world_size", 1)) != 1:
-        raise NotImplementedError(
-            f"{input_dir} was saved by {topology['world_size']} processes; restoring onto "
-            "another topology is not ported yet (ROADMAP.md, queue A4)")
+    if allow_reshape is None:
+        allow_reshape = parse_flag_from_env(ENV_PREFIX + "ELASTIC")
+    saved_topology = commit.read_topology(input_dir)
+    mismatch = None if saved_topology is None else _topology_mismatch(saved_topology,
+                                                                        accelerator)
+    reshaped = mismatch is not None
+    if reshaped and not allow_reshape:
+        cur = topology_metadata(accelerator)
+        raise ValueError(
+            f"checkpoint {input_dir} was saved on a different topology ({mismatch}): saved "
+            f"world_size={saved_topology['world_size']} "
+            f"num_devices={saved_topology.get('num_devices')} "
+            f"mesh={saved_topology.get('mesh_shape')}, live world_size={cur['world_size']} "
+            f"num_devices={cur['num_devices']} mesh={cur['mesh_shape']}. Pass "
+            "allow_reshape=True to load_state (or launch under --elastic) to re-slice the "
+            "shards onto the live topology.")
+    if reshaped and dist_checkpoint.is_sharded_checkpoint(input_dir):
+        stats = dist_checkpoint.validate_coverage(input_dir)
+        logger.warning(f"reshaping checkpoint {input_dir} ({mismatch}): {stats['chunks']} "
+                       f"chunks across {stats['files']} per-process files fully cover all "
+                       f"{stats['leaves']} leaves")
     logger.info(f"Loading states from {input_dir}")
 
     # read and check everything first
@@ -530,7 +594,13 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None, carry: 
                for i in range(len(accelerator._dataloaders))]
     customs = [_read_pickle(os.path.join(input_dir, f"{CUSTOM_STATE_NAME}_{i}.pkl"))
                for i in range(len(accelerator._custom_objects))]
-    rng = _read_pickle(os.path.join(input_dir, f"{RNG_STATE_NAME}_0.pkl"))
+    rng_path = os.path.join(input_dir, f"{RNG_STATE_NAME}_{accelerator.process_index}.pkl")
+    if reshaped or not os.path.isfile(rng_path):
+        # a rank's own file may not exist (more processes than saved it) or
+        # belong to a rank that read other data: every process takes
+        # process 0's streams, then folds its own index into the KeyChain
+        rng_path = os.path.join(input_dir, f"{RNG_STATE_NAME}_0.pkl")
+    rng = _read_pickle(rng_path)
 
     # then write
     result = None if plan is None else apply_plan(template, plan)
@@ -546,6 +616,16 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None, carry: 
                 obj.load_state_dict(state)
     if rng is not None:
         _set_rng_state(accelerator, rng)
+        if reshaped:
+            accelerator.keys = accelerator.keys.fold_in(accelerator.process_index)
+    if reshaped and isinstance(result, dict) and int(result.get("micro_step", 0)) != 0:
+        logger.warning(f"checkpoint was saved mid-accumulation (micro_step="
+                       f"{int(result['micro_step'])}); microbatch boundaries do not map "
+                       "across world sizes, so the partial gradient sum is dropped and the "
+                       "run resumes at the last optimizer-step boundary")
+        result = dict(result, micro_step=0)
+        for a in result.get("accum_grads", {}).values():
+            a.zero_()
 
     if "step" in meta:
         accelerator.step = int(meta["step"])

@@ -1,48 +1,60 @@
-"""Data loading for one process: host batches moved to the device.
+"""Data loading: each process's share of every batch, moved to its device.
 
 Port of ``accelerate_tpu/data_loader.py`` (``SeedableRandomSampler`` :62,
-``BatchSamplerShard`` :100, ``_stack_superbatches`` :258,
+``RandomSampler`` :83, ``SequentialSampler`` :101, ``BatchSamplerShard``
+:115, ``IterableDatasetShard`` :200, ``_stack_superbatches`` :258,
 ``_default_collate`` :291, ``DataLoaderStateMixin`` :303,
-``DataLoaderShard`` :315, ``prepare_data_loader`` :707,
-``_loader_shuffles`` :839, ``DataLoader`` :849, ``skip_first_batches``
-:891) for one process on one device. The batch indices, the shuffle (a
+``DataLoaderShard`` :315, ``DataLoaderDispatcher`` :618,
+``prepare_data_loader`` :707, ``_loader_shuffles`` :839, ``DataLoader``
+:849, ``skip_first_batches`` :891). The batch indices, the shuffles (a
 permutation drawn from ``seed + epoch``, the reference's default seedable
-sampler), the tail rule (a short last batch wraps around the epoch to full
-size and records its true size as ``remainder``), the superbatch mode of
-fused accumulation (K consecutive microbatches stacked as ``[K, micro,
-...]``, a short last stack padded with its last microbatch), the loader's
-position in its epoch and the resume by skipped batches are the
-reference's; each batch is collated on the host and copied to the
-accelerator's device. The host work runs in the loop (the reference
-prefetches on a thread), so all of it is reported to telemetry as
-dataloader wait. Sharding across processes comes with a later slice
-(ROADMAP.md, queue A4).
+sampler, or from numpy's global generator), the tail rules (``even_batches``:
+a short last batch wraps around the epoch to full size; otherwise it is
+padded with its last sample; either way its true size is ``remainder``),
+``split_batches``, ``drop_last``, the superbatch mode of fused accumulation
+(K consecutive microbatches stacked as ``[K, micro, ...]``, a short last
+stack padded with its last microbatch), the loader's position in its epoch
+and the resume by skipped batches are the reference's; each batch is
+collated on the host and copied to the accelerator's device. The host work
+runs in the loop (the reference prefetches on a thread), so all of it is
+reported to telemetry as dataloader wait.
+
+Across processes the reference's prepared loader yields the *global* batch
+as one sharded array; here each process holds its own rows of it (process
+``p`` the ``p``-th slice of every global batch, ``BatchSamplerShard``), and
+``DataLoaderDispatcher`` reads every batch on process 0 and sends each
+process its rows. So a yielded batch has ``batch_size`` rows, while the
+counts the reference keeps in global samples stay global here:
+``global_batch_size``, ``remainder`` (the real samples of a short last
+global batch), the cursor of ``state_dict`` and ``skip_first_batches`` (a
+global batch is one batch on every process).
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from .logging import get_logger
 from .state import AcceleratorState, GradientState
-from .utils.operations import recursively_apply, send_to_device
+from .utils.dataclasses import DataLoaderConfiguration
+from .utils.operations import (
+    broadcast_object_list,
+    find_batch_size,
+    recursively_apply,
+    send_to_device,
+)
 
-__all__ = ["DataLoader", "DataLoaderShard", "find_batch_size", "prepare_data_loader",
-           "send_to_device", "skip_first_batches"]
+__all__ = ["BatchSamplerShard", "DataLoader", "DataLoaderDispatcher", "DataLoaderShard",
+           "IterableDatasetShard", "RandomSampler", "SeedableRandomSampler",
+           "SequentialSampler", "find_batch_size", "prepare_data_loader", "send_to_device",
+           "skip_first_batches"]
 
 logger = get_logger(__name__)
-
-
-def find_batch_size(data: Any) -> Optional[int]:
-    """Leading dimension of the first array leaf with one."""
-    sizes = []
-    recursively_apply(lambda x: sizes.append(x.shape[0]) if x.ndim > 0 else None, data)
-    return int(sizes[0]) if sizes else None
 
 
 def _stack_group(group: list[Any]) -> Any:
@@ -89,7 +101,8 @@ def _default_collate(items: list[Any]) -> Any:
 
 
 class SeedableRandomSampler:
-    """Epoch-seeded permutation: the same (seed, epoch) gives the same order."""
+    """Epoch-seeded permutation: the same (seed, epoch) gives the same order
+    on every process."""
 
     def __init__(self, data_source_len: int, seed: int = 0, epoch: int = 0):
         self.length = data_source_len
@@ -106,19 +119,139 @@ class SeedableRandomSampler:
         yield from np.random.default_rng(self.seed + self.epoch).permutation(self.length).tolist()
 
 
-def _batches(order: list[int], batch_size: int,
-             drop_last: bool) -> Iterator[tuple[list[int], int]]:
-    """(indices, valid) per batch: a short tail is dropped, or wrapped
-    around the epoch to a full batch with ``valid`` its true size."""
-    for start in range(0, len(order), batch_size):
-        batch = order[start:start + batch_size]
-        valid = len(batch)
-        if valid < batch_size:
-            if drop_last:
-                return
-            while len(batch) < batch_size:
-                batch += order[: batch_size - len(batch)]
-        yield batch, valid
+class RandomSampler:
+    """A shuffle drawn from numpy's global generator (``use_seedable_sampler
+    =False``): the processes agree only after ``synchronize_rng_states``."""
+
+    def __init__(self, data_source_len: int):
+        self.length = data_source_len
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __iter__(self) -> Iterator[int]:
+        yield from np.random.permutation(self.length).tolist()
+
+
+class SequentialSampler:
+    def __init__(self, data_source_len: int):
+        self.length = data_source_len
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __iter__(self) -> Iterator[int]:
+        yield from range(self.length)
+
+
+class BatchSamplerShard:
+    """This process's slice of each global batch of indices, with the global
+    batch's real sample count: ``(local_indices, valid)`` pairs. The global
+    batch is ``batch_size`` x ``num_processes`` (``split_batches``: the
+    incoming ``batch_size`` is already global and is split). A short last
+    batch is dropped (``drop_last``), wrapped around the dataset
+    (``even_batches``) or padded with its last index."""
+
+    def __init__(self, sampler, batch_size: int, drop_last: bool = False,
+                 num_processes: int = 1, process_index: int = 0, split_batches: bool = False,
+                 even_batches: bool = True):
+        if split_batches and batch_size % num_processes != 0:
+            raise ValueError(f"batch_size {batch_size} must be divisible by num_processes "
+                             f"{num_processes} when split_batches=True")
+        self.sampler = sampler
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.num_processes = num_processes
+        self.process_index = process_index
+        self.split_batches = split_batches
+        self.even_batches = even_batches
+
+    @property
+    def global_batch_size(self) -> int:
+        return self.batch_size if self.split_batches else self.batch_size * self.num_processes
+
+    @property
+    def local_batch_size(self) -> int:
+        return self.global_batch_size // self.num_processes
+
+    def __len__(self) -> int:
+        n = len(self.sampler)
+        if self.drop_last:
+            return n // self.global_batch_size
+        return math.ceil(n / self.global_batch_size)
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.sampler, "set_epoch"):
+            self.sampler.set_epoch(epoch)
+
+    def _local(self, batch: list[int]) -> list[int]:
+        lo = self.process_index * self.local_batch_size
+        return batch[lo:lo + self.local_batch_size]
+
+    def __iter__(self) -> Iterator[tuple[list[int], int]]:
+        indices = list(self.sampler)
+        gbs = self.global_batch_size
+        for start in range(0, len(indices), gbs):
+            batch = indices[start:start + gbs]
+            if len(batch) < gbs:
+                if self.drop_last:
+                    return
+                valid = len(batch)
+                if self.even_batches:
+                    while len(batch) < gbs:
+                        batch += indices[: gbs - len(batch)]
+                else:
+                    batch = batch + [batch[-1]] * (gbs - len(batch))
+                yield self._local(batch), valid
+            else:
+                yield self._local(batch), gbs
+
+
+class IterableDatasetShard:
+    """This process's slice of each global batch of a stream (no length, no
+    random access): global batches of ``batch_size`` x ``num_processes``
+    items are collected in order and each process keeps its slice, with the
+    batch's real item count. A short last batch is dropped (``drop_last``)
+    or filled: from the first batch onwards (``even_batches``) or with its
+    last item."""
+
+    def __init__(self, iterable: Iterable, batch_size: int, num_processes: int = 1,
+                 process_index: int = 0, drop_last: bool = False, even_batches: bool = True):
+        self.iterable = iterable
+        self.batch_size = batch_size
+        self.num_processes = num_processes
+        self.process_index = process_index
+        self.drop_last = drop_last
+        self.even_batches = even_batches
+
+    def _local(self, buffer: list[Any]) -> list[Any]:
+        lo = self.process_index * self.batch_size
+        return buffer[lo:lo + self.batch_size]
+
+    def __iter__(self) -> Iterator[tuple[list[Any], int]]:
+        gbs = self.batch_size * self.num_processes
+        buffer: list[Any] = []
+        first_batch: Optional[list[Any]] = None
+        for item in self.iterable:
+            buffer.append(item)
+            if len(buffer) == gbs:
+                if first_batch is None:
+                    first_batch = list(buffer)
+                yield self._local(buffer), gbs
+                buffer = []
+        if buffer and not self.drop_last:
+            valid = len(buffer)
+            pad_src = buffer if not self.even_batches else buffer + (first_batch or buffer)
+            while len(buffer) < gbs:
+                buffer.append(pad_src[len(buffer) % len(pad_src)] if self.even_batches
+                              else buffer[-1])
+            yield self._local(buffer), valid
 
 
 class DataLoaderStateMixin:
@@ -134,31 +267,43 @@ class DataLoaderStateMixin:
 
 
 class DataLoaderShard(DataLoaderStateMixin):
-    """The prepared loader: yields each host batch on the device. The last
-    batch of an epoch is known before it is yielded, so while the loop body
-    runs on it ``end_of_dataloader`` is True and ``remainder`` is the true
-    size of a wrapped tail (0 for a full one). With ``superbatch=K`` each
-    yielded batch stacks K microbatches as ``[K, micro, ...]``;
-    ``batch_size`` stays the microbatch's. ``telemetry`` (set by
+    """The prepared loader: yields this process's rows of each batch on the
+    device. The last batch of an epoch is known before it is yielded, so
+    while the loop body runs on it ``end_of_dataloader`` is True and
+    ``remainder`` is the real sample count of a short global tail (0 for a
+    full one). ``batch_size`` is the rows a yielded batch holds on this
+    process, ``global_batch_size`` those of all processes together. With
+    ``superbatch=K`` each yielded batch stacks K microbatches as ``[K, micro,
+    ...]``; the batch sizes stay the microbatch's. ``telemetry`` (set by
     ``Accelerator.prepare_data_loader``) is told the host time spent making
     each batch."""
 
     def __init__(self, batch_factory: Callable[[], Iterator[tuple[Any, int]]],
-                 num_batches: Optional[int], device, batch_size: int,
-                 sampler: Optional[SeedableRandomSampler] = None, superbatch: int = 1,
-                 _skip_batches: int = 0):
+                 num_batches: Optional[int], device, batch_size: int, sampler=None,
+                 superbatch: int = 1, _skip_batches: int = 0, num_processes: int = 1,
+                 process_index: int = 0):
         self._factory = batch_factory
         self._num_batches = num_batches
         self.device = device
         self.batch_size = batch_size
         self.sampler = sampler
         self.superbatch = max(1, int(superbatch))
+        self.num_processes = num_processes
+        self.process_index = process_index
         self.epoch = 0
         self._skip_batches = _skip_batches
         self._batches_yielded = 0  # position within the current epoch
         self.end_of_dataloader = False
         self.remainder = -1
         self.telemetry = None
+
+    @property
+    def global_batch_size(self) -> int:
+        return self.batch_size * self.num_processes
+
+    @property
+    def total_batch_size(self) -> int:
+        return self.global_batch_size
 
     def __len__(self) -> int:
         if self._num_batches is None:
@@ -171,18 +316,20 @@ class DataLoaderShard(DataLoaderStateMixin):
             self.sampler.set_epoch(epoch)
 
     def state_dict(self) -> dict:
-        """The epoch and the batches already yielded in it."""
+        """The epoch, the batches already yielded in it, and the global
+        batch size they were counted under."""
         return {"epoch": self.epoch, "batches_yielded": self._batches_yielded,
-                "global_batch_size": self.batch_size * self.superbatch}
+                "global_batch_size": self.global_batch_size * self.superbatch}
 
     def load_state_dict(self, state: dict) -> None:
         """Resume at the saved position: the next iteration skips the
-        batches already yielded. Saved under another batch size, the
-        position is re-derived from the samples seen, rounded down."""
+        batches already yielded. Saved under another global batch size (a
+        restore onto another world size), the position is re-derived from
+        the samples seen, rounded down to a whole batch."""
         self.set_epoch(int(state.get("epoch", 0)))
         seen = int(state.get("batches_yielded", 0))
         saved = int(state.get("global_batch_size", 0) or 0)
-        live = self.batch_size * self.superbatch
+        live = self.global_batch_size * self.superbatch
         if saved and live and saved != live:
             samples = seen * saved
             seen = samples // live
@@ -191,39 +338,48 @@ class DataLoaderShard(DataLoaderStateMixin):
         self._skip_batches = seen
         self._batches_yielded = seen
 
-    def _next_timed(self, source: Iterator) -> Any:
-        """The next host batch, its making reported as dataloader wait."""
+    def _timed(self, fetch: Callable[[], Any]) -> Any:
+        """``fetch()``, its host time reported as dataloader wait."""
         tel = self.telemetry
         if tel is None or not tel.enabled:
-            return next(source, None)
+            return fetch()
         t0 = time.perf_counter()
-        item = next(source, None)
+        item = fetch()
         tel.record_dataloader_wait(time.perf_counter() - t0, source="shard")
         return item
+
+    def _source(self) -> Iterator[tuple[Any, int]]:
+        """``(host batch of this process's rows, global valid count)``
+        pairs, stacked under ``superbatch``."""
+        source = iter(self._factory())
+        if self.superbatch > 1:
+            source = _stack_superbatches(source, self.superbatch)
+        return source
+
+    def _mark(self, valid: int, last: bool) -> None:
+        if self.batch_size == 0:
+            # iterable of batches: the first batch gives the size, so a
+            # short tail's remainder is seen
+            self.batch_size = valid // self.superbatch // self.num_processes
+        if last:
+            self.end_of_dataloader = True
+            full = self.global_batch_size * self.superbatch
+            self.remainder = valid if valid != full else 0
 
     def __iter__(self) -> Iterator[Any]:
         self.begin()
         try:
-            source = iter(self._factory())
-            if self.superbatch > 1:
-                source = _stack_superbatches(source, self.superbatch)
+            source = self._source()
             for _ in range(self._skip_batches):
                 if next(source, None) is None:
                     break
             # skipped batches count as consumed positions
             self._batches_yielded = self._skip_batches
-            current = self._next_timed(source)
+            current = self._timed(lambda: next(source, None))
             while current is not None:
-                nxt = self._next_timed(source)  # one ahead: mark the last before yielding it
+                nxt = self._timed(lambda: next(source, None))  # one ahead: mark the last
                 host_batch, valid = current
-                if self.batch_size == 0:
-                    # iterable of batches: the first batch gives the size, so
-                    # a short tail's remainder is seen
-                    self.batch_size = valid // self.superbatch
-                if nxt is None:
-                    self.end_of_dataloader = True
-                    full = self.batch_size * self.superbatch
-                    self.remainder = valid if valid != full else 0
+                self._mark(valid, nxt is None)
                 yield send_to_device(host_batch, self.device)
                 self._batches_yielded += 1
                 current = nxt
@@ -232,6 +388,60 @@ class DataLoaderShard(DataLoaderStateMixin):
             self._skip_batches = 0
             if self.end_of_dataloader:
                 self._batches_yielded = 0  # full epoch consumed
+
+
+class DataLoaderDispatcher(DataLoaderShard):
+    """Process 0 reads every global batch and broadcasts it; each process
+    keeps its rows (reference :618), for data only process 0 can read. The
+    factory runs on process 0 alone and yields global batches; the
+    broadcast is one object collective a batch."""
+
+    def _slice(self, host_batch: Any) -> Any:
+        def one(x):
+            axis = 1 if self.superbatch > 1 and x.ndim > 1 else 0
+            lo = self.process_index * self.batch_size
+            return x[:, lo:lo + self.batch_size] if axis == 1 else x[lo:lo + self.batch_size]
+
+        return recursively_apply(one, host_batch,
+                                 test_type=lambda x: isinstance(x, (np.ndarray, torch.Tensor)))
+
+    def __iter__(self) -> Iterator[Any]:
+        if self.num_processes == 1:
+            yield from super().__iter__()
+            return
+        self.begin()
+        try:
+            source = self._source() if self.process_index == 0 else None
+            skipped = 0
+
+            def payload():
+                msg = [None, 0, True]
+                nonlocal skipped
+                while source is not None:
+                    item = next(source, None)
+                    if item is None:
+                        break
+                    if skipped < self._skip_batches:
+                        skipped += 1
+                        continue
+                    msg = [item[0], item[1], False]
+                    break
+                return broadcast_object_list(msg, from_process=0)
+
+            self._batches_yielded = self._skip_batches
+            current = self._timed(payload)
+            while not current[2]:
+                nxt = self._timed(payload)
+                host_batch, valid, _ = current
+                self._mark(valid, nxt[2])
+                yield send_to_device(self._slice(host_batch), self.device)
+                self._batches_yielded += 1
+                current = nxt
+        finally:
+            self.end()
+            self._skip_batches = 0
+            if self.end_of_dataloader:
+                self._batches_yielded = 0
 
 
 def _loader_shuffles(dataloader: Any) -> bool:
@@ -247,58 +457,71 @@ def _loader_shuffles(dataloader: Any) -> bool:
 
 
 def prepare_data_loader(dataloader: Any, state: Optional[AcceleratorState] = None,
-                        seed: int = 0, skip_batches: int = 0,
-                        superbatch: int = 1) -> DataLoaderShard:
+                        config: Optional[DataLoaderConfiguration] = None, seed: int = 0,
+                        skip_batches: int = 0, superbatch: int = 1) -> DataLoaderShard:
     """Turn a host loader into a :class:`DataLoaderShard` on the
-    accelerator's device. Takes a loader with a map-style ``dataset`` and a
-    ``batch_size`` (this module's :class:`DataLoader`, or
-    ``torch.utils.data.DataLoader``; a shuffling one draws the seedable
-    permutation of ``seed``), or any iterable of batches, each a tree of
-    arrays or tensors taken as it is. ``superbatch=K`` (K > 1) stacks K
+    accelerator's device (reference :707). Takes a loader with a map-style
+    ``dataset`` and a ``batch_size`` (this module's :class:`DataLoader`, or
+    ``torch.utils.data.DataLoader``), whose ``batch_size`` is each
+    process's (``split_batches``: the global batch, split), sharded by
+    :class:`BatchSamplerShard` and shuffled by the seedable permutation of
+    ``seed`` (or numpy's global generator, ``use_seedable_sampler=False``);
+    or any iterable of batches, each a tree of arrays or tensors taken as it
+    is on every process. ``config`` defaults to the state's.
+    ``dispatch_batches`` with several processes reads on process 0 only
+    (:class:`DataLoaderDispatcher`). ``superbatch=K`` (K > 1) stacks K
     consecutive microbatches into each yielded ``[K, micro, ...]`` batch for
     fused accumulation; a short last stack is padded with its last
     microbatch and its true sample count is the loader's ``remainder``."""
     state = state or AcceleratorState()
+    config = config or getattr(state, "dataloader_config", None) or DataLoaderConfiguration()
+    num_processes, process_index = state.num_processes, state.process_index
     dataset = getattr(dataloader, "dataset", None)
     batch_size = getattr(dataloader, "batch_size", None)
     if dataset is not None and batch_size is not None and hasattr(dataset, "__len__"):
         collate = getattr(dataloader, "collate_fn", None) or _default_collate
         n = len(dataset)
-        sampler = SeedableRandomSampler(n, seed) if _loader_shuffles(dataloader) else None
-        drop_last = bool(getattr(dataloader, "drop_last", False))
+        if not _loader_shuffles(dataloader):
+            sampler = SequentialSampler(n)
+        elif config.use_seedable_sampler:
+            sampler = SeedableRandomSampler(n, seed=seed)
+        else:
+            sampler = RandomSampler(n)
+        drop_last = bool(getattr(dataloader, "drop_last", False) or config.drop_last)
+        shard = BatchSamplerShard(sampler, batch_size, drop_last=drop_last,
+                                  num_processes=num_processes, process_index=process_index,
+                                  split_batches=config.split_batches,
+                                  even_batches=config.even_batches)
+        dispatching = bool(config.dispatch_batches) and num_processes > 1
+        # dispatching: process 0 alone reads, and reads whole global batches
+        factory_shard = BatchSamplerShard(
+            sampler, shard.global_batch_size, drop_last=drop_last,
+            even_batches=config.even_batches) if dispatching else shard
 
         def factory():
-            order = list(sampler) if sampler is not None else list(range(n))
-            for indices, valid in _batches(order, batch_size, drop_last):
+            for indices, valid in iter(factory_shard):
                 yield collate([dataset[i] for i in indices]), valid
 
-        num_batches = n // batch_size if drop_last else math.ceil(n / batch_size)
-        return DataLoaderShard(factory, num_batches, state.device, batch_size, sampler,
-                               superbatch=superbatch, _skip_batches=skip_batches)
+        cls = DataLoaderDispatcher if dispatching else DataLoaderShard
+        out = cls(factory, len(factory_shard), state.device, shard.local_batch_size, sampler,
+                  superbatch=superbatch, _skip_batches=skip_batches,
+                  num_processes=num_processes, process_index=process_index)
+        # join_uneven_inputs flips .even_batches here; the next epoch reads it
+        out.batch_sampler = factory_shard
+        return out
 
     def batches():
         for batch in dataloader:
-            yield batch, find_batch_size(batch) or 0
+            yield batch, (find_batch_size(batch) or 0) * num_processes
 
     try:
         num_batches = len(dataloader)
     except TypeError:
         num_batches = None
     return DataLoaderShard(batches, num_batches, state.device,
-                           getattr(dataloader, "global_batch_size", 0) or 0,
-                           superbatch=superbatch, _skip_batches=skip_batches)
-
-
-def _loader_shuffles(dataloader: Any) -> bool:
-    """Whether the incoming loader shuffles: its ``shuffle`` flag (this
-    module's :class:`DataLoader`), else its sampler's type
-    (``torch.utils.data.DataLoader(shuffle=True)`` holds a RandomSampler)."""
-    if getattr(dataloader, "shuffle", None) is not None:
-        return bool(dataloader.shuffle)
-    sampler = getattr(dataloader, "sampler", None)
-    if sampler is not None:
-        return type(sampler).__name__ in ("RandomSampler", "SeedableRandomSampler")
-    return False
+                           getattr(dataloader, "global_batch_size", 0) // num_processes or 0,
+                           superbatch=superbatch, _skip_batches=skip_batches,
+                           num_processes=num_processes, process_index=process_index)
 
 
 class DataLoader:

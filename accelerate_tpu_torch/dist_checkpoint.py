@@ -1,7 +1,7 @@
-"""The per-process checkpoint format, one process.
+"""The per-process checkpoint format.
 
 Port of ``accelerate_tpu/dist_checkpoint.py`` (the format :1-30,
-``snapshot_tree`` :80, ``write_snapshot`` :181, ``_merged_manifest``
+``snapshot_tree`` :78-95, ``write_snapshot`` :181, ``_merged_manifest``
 :224, ``validate_coverage`` :239, ``load_full_named`` :407,
 ``load_sharded_tree`` :421), the default format of ``save_state``. A
 process ``p`` writes
@@ -11,10 +11,15 @@ process ``p`` writes
 * ``state_index_{p:05d}.json``: its manifest, ``key -> {shape, dtype,
   chunks: [{file, stored, offset, shape}]}``.
 
-With one process every leaf is one chunk at offset 0 and every file is
-process 0's; the reader still assembles any tiling of chunks, so it reads
-the reference's checkpoints, which may hold several chunks a leaf. The
-files go through the port's own codec (``utils/safetensors_io.py``).
+The port's state is data-parallel: every process holds every leaf whole,
+the same on each after the step's gradient mean. As in the reference for
+leaves that are not globally sharded, process 0 owns them all (each leaf
+one chunk at offset 0) and every other process writes an empty pair of
+files, so the chunks never overlap. Re-slicing chunks of a sharded state
+onto another mesh comes with sharding (ROADMAP.md, queue A7). The reader
+assembles any tiling of chunks, so it reads the reference's checkpoints,
+which may hold several chunks a leaf. The files go through the port's own
+codec (``utils/safetensors_io.py``).
 
 A snapshot owns its memory: the train step updates params and moments in
 place, so a snapshot that shared storage with them would be written with
@@ -61,6 +66,7 @@ class ShardSnapshot:
 
     tensors: dict[str, torch.Tensor]
     manifest: dict[str, dict]
+    process_index: int = 0
 
     @property
     def nbytes(self) -> int:
@@ -209,14 +215,22 @@ def host_copies(named: dict[str, Any], buffers: Optional[HostBuffers] = None,
     return out
 
 
-def snapshot_tree(tree: Any, buffers: Optional[HostBuffers] = None) -> ShardSnapshot:
-    """Every storable leaf of ``tree`` as one chunk on the host, in memory
-    the snapshot owns (``host_copies``; with ``buffers`` bound to
-    ``device_layout`` of the tree's leaves)."""
+def snapshot_tree(tree: Any, buffers: Optional[HostBuffers] = None,
+                  process_index: Optional[int] = None) -> ShardSnapshot:
+    """This process's chunks of ``tree`` on the host, in memory the
+    snapshot owns (``host_copies``; with ``buffers`` bound to
+    ``device_layout`` of the tree's leaves). Process 0 (``process_index``,
+    by default the group's rank) owns every storable leaf as one chunk; any
+    other process owns none and copies nothing."""
     from .checkpointing import flatten_tree
 
-    fname = SHARD_FILE_PATTERN.format(0)
+    from .state import current_process_index
+
+    proc = current_process_index() if process_index is None else process_index
+    fname = SHARD_FILE_PATTERN.format(proc)
     tensors, manifest = {}, {}
+    if proc != 0:
+        return ShardSnapshot(tensors=tensors, manifest=manifest, process_index=proc)
     for key, t in host_copies(flatten_tree(tree), buffers).items():
         stored = f"{key}@0"
         tensors[stored] = t
@@ -225,17 +239,19 @@ def snapshot_tree(tree: Any, buffers: Optional[HostBuffers] = None) -> ShardSnap
             "chunks": [{"file": fname, "stored": stored, "offset": [0] * t.dim(),
                         "shape": list(t.shape)}],
         }
-    return ShardSnapshot(tensors=tensors, manifest=manifest)
+    return ShardSnapshot(tensors=tensors, manifest=manifest, process_index=proc)
 
 
 def write_snapshot(snap: ShardSnapshot, output_dir: str, fsync: bool = False) -> int:
-    """The ``state_shard``/``state_index`` pair of a snapshot; the index is
-    written through a temporary file and ``os.replace``. The codec fsyncs
-    the shard; with ``fsync`` the index reaches the disk too before this
-    returns. Returns bytes."""
+    """The ``state_shard``/``state_index`` pair of a snapshot, named for its
+    process; the index is written through a temporary file and
+    ``os.replace``. The codec fsyncs the shard; with ``fsync`` the index
+    reaches the disk too before this returns. Returns bytes."""
     os.makedirs(output_dir, exist_ok=True)
-    safetensors_io.save_file(snap.tensors, os.path.join(output_dir, SHARD_FILE_PATTERN.format(0)))
-    index_path = os.path.join(output_dir, INDEX_FILE_PATTERN.format(0))
+    proc = snap.process_index
+    safetensors_io.save_file(snap.tensors,
+                             os.path.join(output_dir, SHARD_FILE_PATTERN.format(proc)))
+    index_path = os.path.join(output_dir, INDEX_FILE_PATTERN.format(proc))
     tmp = f"{index_path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(snap.manifest, f)
@@ -246,9 +262,11 @@ def write_snapshot(snap: ShardSnapshot, output_dir: str, fsync: bool = False) ->
     return snap.nbytes
 
 
-def save_sharded_tree(tree: Any, output_dir: str) -> int:
-    """A tree's snapshot written, both files on the disk; returns bytes."""
-    return write_snapshot(snapshot_tree(tree), output_dir, fsync=True)
+def save_sharded_tree(tree: Any, output_dir: str, process_index: Optional[int] = None) -> int:
+    """This process's snapshot of a tree written, both files on the disk;
+    returns bytes. Every process calls it, each writing its own pair."""
+    return write_snapshot(snapshot_tree(tree, process_index=process_index), output_dir,
+                          fsync=True)
 
 
 def is_sharded_checkpoint(input_dir: str) -> bool:

@@ -1,5 +1,4 @@
-"""Periodic checkpoints, preemption handling and automatic resume, one
-process.
+"""Periodic checkpoints, preemption handling and automatic resume.
 
 Port of ``accelerate_tpu/fault_tolerance.py:42-280``:
 
@@ -22,8 +21,10 @@ Usage::
         if manager.should_stop:
             break
 
-The multi-process half (the elastic supervisor, restore onto another
-topology) is not ported yet (ROADMAP.md, queue A4).
+Saves and restores run across processes through ``checkpointing.py``
+(restore onto another world size with ``allow_reshape``); the elastic
+supervisor that relaunches a run on a changed fleet is not ported yet
+(ROADMAP.md, queue A4).
 """
 
 from __future__ import annotations

@@ -629,6 +629,19 @@ def _embed_and_layers(model: nn.Module, config: TransformerConfig, device, gener
     model.final_norm = RMSNorm(config, e, device)
 
 
+def next_token_count(batch) -> torch.Tensor | float:
+    """The terms a next-token loss averages over in ``batch``: the target
+    tokens under ``loss_mask``, or every target token without one. The
+    ``loss_weight`` of ``CausalLM.loss_fn`` and ``adapters.lora_loss_fn``,
+    read by ``Accelerator`` to give the global batch's loss across
+    processes."""
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        return mask[:, 1:].float().sum()
+    ids = batch["input_ids"]
+    return float(ids.shape[0] * (ids.shape[1] - 1))
+
+
 class CausalLM(nn.Module):
     """The language model: embed -> L x Block -> norm -> lm_head.
 
@@ -725,6 +738,8 @@ class CausalLM(nn.Module):
 
         # read by the step's telemetry: whether the model runs the fused prologue
         fn.fused_kernels = bool(model.config.fused_kernels)
+        # read by the step across processes: the loss is the global batch's
+        fn.loss_weight = next_token_count
         return fn
 
 
@@ -806,4 +821,6 @@ class SequenceClassifier(nn.Module):
                 model, params, (batch["input_ids"], batch.get("attention_mask")))
             return F.cross_entropy(logits.float(), batch["labels"].long())
 
+        # the terms the mean runs over, for the global batch across processes
+        fn.loss_weight = lambda batch: float(len(batch["labels"]))
         return fn

@@ -1,21 +1,29 @@
 """Process, accelerator and gradient state of one training process.
 
-Port of ``accelerate_tpu/state.py`` (``PartialState`` :94 with its
-process predicates and helpers :172-265, ``AcceleratorState`` :282,
-``GradientState`` :377) for one process on one device. The three are
+Port of ``accelerate_tpu/state.py`` (``_maybe_init_distributed`` :38-91,
+``PartialState`` :94 with its process predicates and helpers :172-276,
+``AcceleratorState`` :282, ``GradientState`` :377). The three are
 shared-state singletons, as in the reference: every instance reads and
-writes one dict, reset with ``_reset_state``. The helpers keep the
-reference's single-process behaviour (``wait_for_everyone`` is a no-op,
-``split_between_processes`` yields its input whole); their multi-process
-forms come with ``torch.distributed`` process groups (ROADMAP.md, queue
-A4) and raise NotImplementedError naming it until then.
+writes one dict, reset with ``_reset_state``.
 
-The device is CUDA unless the caller asks for the CPU (``cpu=True``); with
-no CUDA device the default raises instead of falling back to the CPU.
+A process drives one device: CUDA device ``cuda:<local_process_index>``
+unless the caller asks for the CPU (``cpu=True``); with no CUDA device the
+default raises instead of falling back to the CPU. Where the reference
+brings up ``jax.distributed``, the port brings up a ``torch.distributed``
+process group, when the launcher's environment (``ACCELERATE_TPU_NUM_PROCESSES``,
+``_PROCESS_ID``, ``_COORDINATOR_ADDRESS``, ``_LOCAL_PROCESS_INDEX``) or a
+``DistributedInitKwargs`` names a coordinator or more than one process: the
+coordinator's ``host:port`` is the TCP rendezvous, the backend NCCL on the
+card and gloo under ``cpu=True`` (picked once, from the device), and
+``num_processes``, ``process_index`` and ``distributed_type`` come from the
+group. A group that fails to come up raises: unlike the reference's
+single-process fallback (:87-91), a run asked for N processes never trains
+as one. A group of one is still a group, so its collectives run.
 """
 
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 from functools import wraps
 from typing import Any, Callable, Optional
@@ -25,6 +33,7 @@ import torch
 from .utils.constants import ENV_PREFIX
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    DistributedInitKwargs,
     DistributedType,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
@@ -33,9 +42,14 @@ from .utils.dataclasses import (
 from .utils.environment import parse_flag_from_env
 
 
-def resolve_device(cpu: bool) -> torch.device:
-    """``cuda`` (the current CUDA device) unless ``cpu``; raises when CUDA is
-    asked for and absent."""
+def _env_int(name: str) -> Optional[int]:
+    value = os.environ.get(ENV_PREFIX + name, "").strip()
+    return int(value) if value else None
+
+
+def resolve_device(cpu: bool, local_index: Optional[int] = None) -> torch.device:
+    """``cuda:<local_index>`` (the current CUDA device when no index is
+    given) unless ``cpu``; raises when CUDA is asked for and absent."""
     if cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -43,24 +57,96 @@ def resolve_device(cpu: bool) -> torch.device:
             "no CUDA device: accelerate_tpu_torch runs on the GPU unless asked "
             "for the CPU (Accelerator(cpu=True))"
         )
-    return torch.device("cuda", torch.cuda.current_device())
+    index = torch.cuda.current_device() if local_index is None else local_index
+    return torch.device("cuda", index)
+
+
+def group_is_up() -> bool:
+    """Whether a ``torch.distributed`` process group is initialized."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def current_process_index() -> int:
+    """This process's rank in the process group (0 without one), read
+    without making a ``PartialState``."""
+    if group_is_up():
+        import torch.distributed as dist
+
+        return dist.get_rank()
+    return 0
+
+
+def maybe_init_process_group(kwargs: Optional[DistributedInitKwargs],
+                             device: torch.device) -> bool:
+    """Bring up the process group the launcher asked for; returns whether
+    one is up. Nothing is asked for when no coordinator is named and at
+    most one process: then nothing is started. A group someone else
+    started is taken as it is. The rendezvous is ``tcp://<coordinator>``;
+    a failure raises (no single-process fallback)."""
+    import torch.distributed as dist
+
+    if group_is_up():
+        return True
+    num = kwargs.num_processes if kwargs is not None and kwargs.num_processes else None
+    if num is None:
+        num = _env_int("NUM_PROCESSES")
+    coord = (kwargs.coordinator_address if kwargs is not None else None) or os.environ.get(
+        ENV_PREFIX + "COORDINATOR_ADDRESS", "").strip()
+    if not coord and (num is None or num <= 1):
+        return False
+    if not coord:
+        raise ValueError(f"{num} processes asked for without a coordinator address "
+                         f"({ENV_PREFIX}COORDINATOR_ADDRESS or DistributedInitKwargs)")
+    num = num or 1
+    pid = kwargs.process_id if kwargs is not None and kwargs.process_id is not None else None
+    if pid is None:
+        pid = _env_int("PROCESS_ID")
+    if pid is None:
+        if num != 1:
+            raise ValueError(f"{num} processes asked for without this process's index "
+                             f"({ENV_PREFIX}PROCESS_ID or DistributedInitKwargs.process_id)")
+        pid = 0
+    timeout = (kwargs or DistributedInitKwargs()).initialization_timeout
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://{coord}", world_size=num, rank=pid,
+                            timeout=timeout)
+    return True
 
 
 class PartialState:
-    """Process topology: one process, one device."""
+    """Process topology: this process's device and, when a process group is
+    up, its rank and the world's size. ``PartialState(cpu, init_kwargs=)``
+    takes a ``DistributedInitKwargs``."""
 
     _shared_state: dict[str, Any] = {}
 
-    def __init__(self, cpu: bool = False):
+    def __init__(self, cpu: bool = False, **kwargs):
         self.__dict__ = self._shared_state
         if self.initialized:
             return
-        self.device = resolve_device(cpu)
-        self.num_processes = 1
-        self.process_index = 0
-        self.local_process_index = 0
-        self.num_devices = 1
-        self.distributed_type = DistributedType.NO
+        init_kwargs = kwargs.get("init_kwargs")
+        local = _env_int("LOCAL_PROCESS_INDEX")  # this process's device on its host
+        device = resolve_device(cpu, local)
+        # the group first: a bring-up that raises leaves no state behind
+        if maybe_init_process_group(init_kwargs, device):
+            import torch.distributed as dist
+
+            backend, world, rank = dist.get_backend(), dist.get_world_size(), dist.get_rank()
+            kind = DistributedType.MULTI_GPU if backend == "nccl" else DistributedType.MULTI_CPU
+        else:
+            backend, world, rank, kind = None, 1, 0, DistributedType.NO
+        self.debug = parse_flag_from_env(ENV_PREFIX + "DEBUG_MODE")
+        self.local_process_index = local or 0
+        self.device = device
+        self.backend = backend
+        self.num_processes = world
+        self.process_index = rank
+        self.num_devices = world
+        self.distributed_type = kind
 
     @property
     def initialized(self) -> bool:
@@ -68,12 +154,15 @@ class PartialState:
 
     @staticmethod
     def _reset_state():
+        """Forget the topology; a process group stays up (the next state
+        reads it back), ``destroy_process_group`` ends it."""
         PartialState._shared_state.clear()
 
     def __repr__(self) -> str:
         return (
             f"Distributed environment: {self.distributed_type.value}\n"
             f"Num processes: {self.num_processes}\n"
+            f"Process index: {self.process_index}\n"
             f"Device: {self.device}\n"
         )
 
@@ -83,6 +172,11 @@ class PartialState:
     @property
     def use_distributed(self) -> bool:
         return self.num_processes > 1 or self.num_devices > 1
+
+    @property
+    def group_up(self) -> bool:
+        """Whether this state runs over a process group (any world size)."""
+        return self.distributed_type != DistributedType.NO
 
     @property
     def is_main_process(self) -> bool:
@@ -97,21 +191,23 @@ class PartialState:
         return self.process_index == self.num_processes - 1
 
     # ------------------------------------------------------------------ #
-    # process control, at world size 1
+    # process control
     # ------------------------------------------------------------------ #
-    def _one_process(self, what: str) -> None:
-        if self.num_processes > 1:
-            raise NotImplementedError(f"{what} across several processes is not ported yet "
-                                      "(ROADMAP.md, queue A4)")
-
     def wait_for_everyone(self) -> None:
-        """The cross-process barrier; one process has no one to wait for."""
-        self._one_process("wait_for_everyone")
+        """The cross-process barrier (reference :182); without a group, a
+        no-op."""
+        if self.group_up:
+            import torch.distributed as dist
+
+            if self.device.type == "cuda":
+                dist.barrier(device_ids=[self.device.index])
+            else:
+                dist.barrier()
 
     @contextmanager
     def main_process_first(self):
         """The main process runs the body before the others (reference
-        :190); with one process, the body runs."""
+        :190)."""
         if not self.is_main_process:
             self.wait_for_everyone()
         yield
@@ -152,15 +248,43 @@ class PartialState:
 
     @contextmanager
     def split_between_processes(self, inputs: Any, apply_padding: bool = False):
-        """This process's share of a list, tuple or dict (reference :235);
-        with one process, all of it."""
-        self._one_process("split_between_processes")
-        yield inputs
+        """This process's share of a list, tuple or dict (reference :235):
+        the first ``len % num_processes`` processes take one item more. With
+        ``apply_padding`` the short shares repeat the last item, so every
+        process holds the same count."""
+        if self.num_processes == 1:
+            yield inputs
+            return
+        if isinstance(inputs, dict):
+            split = {}
+            with self.split_between_processes(list(zip(*inputs.values())),
+                                              apply_padding) as rows:
+                for i, key in enumerate(inputs.keys()):
+                    split[key] = [row[i] for row in rows]
+            yield split
+            return
+        length = len(inputs)
+        base, extra = divmod(length, self.num_processes)
+        start = self.process_index * base + min(self.process_index, extra)
+        end = start + base + (1 if self.process_index < extra else 0)
+        chunk = inputs[start:end]
+        if apply_padding and extra != 0:
+            target = base + 1
+            if len(chunk) < target and length:
+                chunk = list(chunk) + inputs[-1:] * (target - len(chunk))
+        yield chunk
 
     def print(self, *args, **kwargs) -> None:
         """Print on the main process only."""
         if self.is_main_process:
             print(*args, **kwargs)
+
+    def destroy_process_group(self) -> None:
+        """End the process group, if one is up (reference :271)."""
+        if group_is_up():
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 class AcceleratorState:
@@ -169,13 +293,15 @@ class AcceleratorState:
     _shared_state: dict[str, Any] = {}
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False,
-                 dataloader_config: Optional[DataLoaderConfiguration] = None):
+                 dataloader_config: Optional[DataLoaderConfiguration] = None, **kwargs):
         self.__dict__ = self._shared_state
         if self.initialized:
             return
-        self.partial_state = PartialState(cpu)
+        self.partial_state = PartialState(cpu, **kwargs)
         self.dataloader_config = dataloader_config or DataLoaderConfiguration()
-        self.mixed_precision = PrecisionType(mixed_precision or "no")
+        if mixed_precision is None:  # the launcher's setting, as the reference reads it
+            mixed_precision = os.environ.get(ENV_PREFIX + "MIXED_PRECISION", "no")
+        self.mixed_precision = PrecisionType(mixed_precision)
         self.mixed_precision_policy = MixedPrecisionPolicy.from_precision(
             self.mixed_precision
         )

@@ -4,9 +4,9 @@ Port of ``accelerate_tpu/telemetry/config.py:TelemetryConfig`` (:18) with
 the fields of the serving records, the sinks, the training step records
 (:82-87), the training census, the heartbeat watchdog and diagnostics, and
 the reference's ``__post_init__`` (:97-131). The step records always carry
-the step's 0-d metrics (the reference's default). ``all_ranks`` belongs to
-multi-process runs, which the port does not have yet (records go to the
-sinks on rank 0 only, the reference's default; ROADMAP.md, queue A item 4).
+the step's 0-d metrics (the reference's default). Across processes the
+records go to the sinks on process 0 only, the reference's default; its
+``all_ranks`` switch (every process's sinks) is not ported.
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
 """Config dataclasses and enums of the training slice.
 
-Port of ``accelerate_tpu/utils/dataclasses.py:41-238``: the precision,
-distributed-type and tracker enums, the mixed-precision policy with torch dtypes (fp8
-included, :163-167), gradient accumulation in both modes (:189-220, with its
-environment variables), the data-loader configuration's one-process fields
-(:225) and the project configuration that names checkpoints. One process
-on one device: sharding plugins, process groups and the launcher's other
-environment variables come with a later slice (ROADMAP.md, queue A4).
+Port of ``accelerate_tpu/utils/dataclasses.py:41-238`` and :396: the
+precision, distributed-type, tracker and RNG enums, the mixed-precision
+policy with torch dtypes (fp8 included, :163-167), gradient accumulation in
+both modes (:189-220, with its environment variables), the process-group
+bring-up knobs (``DistributedInitKwargs`` :176), the data-loader
+configuration (:225), the project configuration that names checkpoints,
+and ``TensorInformation``. Sharding plugins come with a later slice
+(ROADMAP.md, queue A7).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import copy
 import enum
 import os
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import Any, Optional
 
 import torch
@@ -36,10 +38,24 @@ class KwargsHandler:
 
 
 class DistributedType(str, enum.Enum):
-    """Process/topology type. This slice runs one process on one device;
-    the multi-process types arrive with ``torch.distributed``."""
+    """Process/topology type (reference :74). A process drives one device;
+    with a ``torch.distributed`` group up, the type is the group's, at any
+    world size (a group of one still runs its collectives)."""
 
-    NO = "NO"  # single device, single process
+    NO = "NO"  # one process, no process group
+    MULTI_GPU = "MULTI_GPU"  # a process group over NCCL, one CUDA device a process
+    MULTI_CPU = "MULTI_CPU"  # a process group over gloo on the CPU (tests, debug launcher)
+
+
+class RNGType(str, enum.Enum):
+    """The generators ``synchronize_rng_states`` can align (reference :106;
+    the port's explicit generator stands where the reference's JAX key
+    does)."""
+
+    TORCH = "torch"
+    NUMPY = "numpy"
+    PYTHON = "python"
+    GENERATOR = "generator"
 
 
 class LoggerType(str, enum.Enum):
@@ -129,14 +145,34 @@ class GradientAccumulationPlugin(KwargsHandler):
 
 
 @dataclass
+class DistributedInitKwargs(KwargsHandler):
+    """Process-group bring-up knobs (reference :176). Unset fields fall back
+    to the launcher's ``ACCELERATE_TPU_NUM_PROCESSES``, ``_PROCESS_ID`` and
+    ``_COORDINATOR_ADDRESS``. ``initialization_timeout`` bounds the
+    rendezvous and every collective of the group."""
+
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    initialization_timeout: timedelta = timedelta(minutes=5)
+
+
+@dataclass
 class DataLoaderConfiguration(KwargsHandler):
-    """The loader setting of one process (reference :225):
-    ``split_batches``, the incoming batch is already the global one (the
-    schedulers then count one step a step, which is also what one process
-    counts). ``dispatch_batches``, ``even_batches`` and the sampler switches
-    belong to several processes (ROADMAP.md, queue A4)."""
+    """The loaders' settings (reference :225). ``split_batches``: the
+    incoming batch is already the global one and is split across the
+    processes; ``dispatch_batches``: process 0 reads every batch and sends
+    each process its rows; ``even_batches``: a short last batch wraps around
+    the dataset (else it is padded with its last sample, the padding
+    recorded in ``remainder``); ``use_seedable_sampler``: a shuffle drawn
+    from ``seed + epoch`` (else from numpy's global generator);
+    ``drop_last``: drop a short last batch."""
 
     split_batches: bool = False
+    dispatch_batches: Optional[bool] = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = True
+    drop_last: bool = False
 
 
 @dataclass
@@ -159,3 +195,12 @@ class ProjectConfiguration:
 
     def __post_init__(self):
         self.set_directories(self.project_dir)
+
+
+@dataclass
+class TensorInformation:
+    """A tensor's shape and dtype (reference :396), for
+    ``operations.get_data_structure`` and ``initialize_tensors``."""
+
+    shape: tuple[int, ...]
+    dtype: Any

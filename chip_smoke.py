@@ -304,6 +304,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``materialize_offloaded`` equal to the live tensors, and layers 0-3 stacked
    on the disk tier through ``streamed_apply`` two at a time, their hidden
    states those of the four Blocks applied densely (STREAM_TOL).
+19. processes and data: (a) phase 4's main path twice, first without a
+   process group, then with ``ACCELERATE_TPU_NUM_PROCESSES=1``,
+   ``_PROCESS_ID=0`` and ``_COORDINATOR_ADDRESS=127.0.0.1:<free port>``, so
+   that the Accelerator brings up a real NCCL group (of one: the machine has
+   one card) and every optimizer step's gradient mean and every loss go
+   through it, the loader prepared through ``BatchSamplerShard``. Hard: the
+   losses, the grad norms and every final param bitwise the run without a
+   group, B1-B3 exactly 20 launches each and B4-B6 none in both runs, and
+   one profiled step of the grouped run making one host all-reduce a
+   gradient leaf and two more (the mask counts, the loss). It prints the
+   median step of steps 2-5 of each run and that step's NCCL kernels'
+   device ms (or a note that none launched), then ends the group and
+   resets the singletons; B1-B3 are
+   checked and timed at the main shape for their rows. (b) LAUNCH_WORLD CPU
+   processes over gloo on the host through the port's ``debug_launcher``:
+   the collectives, training and local-SGD workers and the whole assertion
+   script (``test_utils/scripts``); any failure fails the run. (c) Those
+   processes train the 2-layer fp32 tiny CausalLM 3 steps on global batches
+   whose processes hold different mask counts and ``save_state`` through the
+   done-marker commit; at world 1 on the CPU and then on the card,
+   ``load_state`` without ``allow_reshape`` raises the reference's error
+   and writes nothing, with it every param is bitwise process 0's, and two
+   more steps on the card agree with two on the CPU (losses and grad norms
+   RESTORE_TOL relative, params SMALL_UPDATE_TOL of the update).
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -357,8 +381,12 @@ phases 1 and 17, and
 
     python3 chip_smoke.py --load-only
 
-phases 1 and 18 on a ``decode`` model it builds itself, each of the last two
-ending with the card's line and the ``{"ok": true, ...}`` line.
+phases 1 and 18 on a ``decode`` model it builds itself, and
+
+    python3 chip_smoke.py --launch-only
+
+phases 1 and 19, each of the last three ending with the card's line and the
+``{"ok": true, ...}`` line.
 
 Each kernel output is compared row by row: for every row of head_dim
 values, max |kernel - plain| over that row's RMS plus 1e-2 of the whole
@@ -5664,6 +5692,258 @@ def phase18(torch, port, wrappers, rep: Report, model) -> list[dict]:
     return rows
 
 
+# phase 19: processes and data. (a) the main path through a real NCCL group
+# of one (the card's only world size), against the same 5 steps without a
+# group; (b) LAUNCH_WORLD CPU processes over gloo on the host; (c) a world-2
+# CPU checkpoint of the tiny CausalLM restored onto the card at world 1
+LAUNCH_WORLD = 2
+RESTORE = dict(steps=3, rows=4, more=2, lr=0.5, clip=1.0, seed=0, fresh_seed=5)
+# card against CPU after the restore: losses and grad norms (relative), the
+# params by ||card - CPU|| / ||update|| over the tree (SMALL_UPDATE_TOL)
+RESTORE_TOL = 1e-4
+
+
+def nccl_profile(torch, step, carry, batch, rep: Report) -> int:
+    """One step of the grouped path under torch.profiler: the device ms and
+    launches of every kernel whose name names NCCL, and the host-side
+    all-reduce calls, or a note that no NCCL kernel launched. Returns the
+    count of ``c10d::allreduce_`` calls on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(carry, batch)
+        torch.cuda.synchronize()
+    device, host = {}, {}
+    for evt in prof.key_averages():
+        key = evt.key
+        if evt.device_type == torch.autograd.DeviceType.CUDA and "nccl" in key.lower():
+            device[key[:100]] = (evt.self_device_time_total / 1e3, evt.count)
+        elif evt.device_type != torch.autograd.DeviceType.CUDA and (
+                "allreduce" in key.lower().replace("_", "") or "nccl" in key.lower()):
+            host[key[:60]] = evt.count
+    if device:
+        rep.line(f"launch (a) profiled step: NCCL kernels (device ms, launches) "
+                 f"{json.dumps(device)}, all-reduce device ms in all "
+                 f"{sum(ms for ms, _ in device.values())}; host calls {json.dumps(host)}")
+    else:
+        rep.line(f"launch (a) profiled step: no NCCL kernel launched (a group of one); "
+                 f"host calls {json.dumps(host)}")
+    return host.get("c10d::allreduce_", 0)
+
+
+def launch_main_path(torch, port, wrappers, rep: Report, checks: dict) -> dict:
+    """Phase 19 (a): the main path twice, first without a group, then with
+    ``ACCELERATE_TPU_NUM_PROCESSES=1``, ``_PROCESS_ID=0`` and
+    ``_COORDINATOR_ADDRESS`` set (the Accelerator brings up NCCL and every
+    optimizer step's gradient mean and every loss go through it). Returns
+    each run's readings, keyed by whether it ran grouped."""
+    from accelerate_tpu_torch.data_loader import BatchSamplerShard
+    from accelerate_tpu_torch.launchers import _free_port
+    from accelerate_tpu_torch.state import group_is_up
+
+    runs = {}
+    for grouped in (False, True):
+        if grouped:
+            os.environ.update({"ACCELERATE_TPU_NUM_PROCESSES": "1",
+                               "ACCELERATE_TPU_PROCESS_ID": "0",
+                               "ACCELERATE_TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"})
+        try:
+            step, carry, loader, _ = build_path(torch, port, False, False)
+            state = port.AcceleratorState()
+            if grouped != group_is_up() or (grouped and (
+                    state.distributed_type.value != "MULTI_GPU" or state.backend != "nccl")):
+                fail(f"launch (a): a group up {group_is_up()}, {state.distributed_type}, "
+                     f"backend {state.backend}: want grouped={grouped}")
+            if not isinstance(loader.batch_sampler, BatchSamplerShard):
+                fail("launch (a): the loader is not prepared through BatchSamplerShard")
+            reset_counts(wrappers)
+            torch.cuda.reset_peak_memory_stats()
+            carry, batch, losses, norms, times = run_steps(torch, step, carry, loader)
+            launches = {w.__name__: w.launches for w in wrappers}
+            by_design = {w.__name__: dict(w.by_design) for w in wrappers
+                         if hasattr(w, "by_design")}
+            peak = torch.cuda.max_memory_allocated()
+            name = "with the group" if grouped else "without a group"
+            runs[grouped] = {"losses": losses, "norms": norms, "times": times,
+                             "launches": launches, "peak": peak}
+            rep.line(f"launch (a) {name}: losses {losses}, grad norms {norms}; step seconds "
+                     f"{times}; median of steps 2-{STEPS} {statistics.median(times[1:])} s; "
+                     f"launches {json.dumps(launches)}; peak {peak / 2**30} GiB")
+            check_launches(f"launch (a) {name}", launches, by_design,
+                           {"flash_fwd": NUM_LAYERS * STEPS, "flash_bwd_dq": NUM_LAYERS * STEPS,
+                            "flash_bwd_dkv": NUM_LAYERS * STEPS})
+            if not grouped:
+                runs["params"] = {k: v.detach().clone() for k, v in carry["params"].items()}
+            else:
+                checks["launch_params_bitwise"] = all(
+                    torch.equal(carry["params"][k], v) for k, v in runs["params"].items())
+                # the step went through the group: one all-reduce a gradient
+                # leaf, one for the mask counts and one for the loss
+                calls, want = nccl_profile(torch, step, carry, batch, rep), len(carry["params"]) + 2
+                rep.line(f"launch (a) profiled step: {calls} all-reduce calls, want {want}")
+                checks["launch_allreduce_calls"] = calls == want
+            del step, carry, loader, batch
+        finally:
+            if grouped:
+                port.AcceleratorState().partial_state.destroy_process_group()
+                port.AcceleratorState._reset_state(reset_partial_state=True)
+                port.GradientState._reset_state()
+                for key in ("NUM_PROCESSES", "PROCESS_ID", "COORDINATOR_ADDRESS"):
+                    os.environ.pop("ACCELERATE_TPU_" + key, None)
+    del runs["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks["launch_group_down"] = not group_is_up()
+    checks["launch_losses_bitwise"] = runs[True]["losses"] == runs[False]["losses"]
+    checks["launch_norms_bitwise"] = runs[True]["norms"] == runs[False]["norms"]
+    return runs
+
+
+def launch_gloo(rep: Report, base: str) -> dict:
+    """Phase 19 (b): the reference's workers and the whole assertion script,
+    each in LAUNCH_WORLD CPU processes over gloo (a failure in any process
+    raises); then (c)'s source: the tiny CausalLM trained RESTORE["steps"]
+    steps by LAUNCH_WORLD processes on global batches whose processes hold
+    different mask counts, and saved through the done-marker commit.
+    Returns the seconds of each launch."""
+    import torch
+
+    from accelerate_tpu_torch import CausalLM, TransformerConfig
+    from accelerate_tpu_torch.launchers import debug_launcher
+    from accelerate_tpu_torch.test_utils.scripts import multiprocess_worker as workers
+    from accelerate_tpu_torch.test_utils.scripts.test_script import run_all_checks
+    from accelerate_tpu_torch.test_utils.training import TINY_LM
+
+    seconds = {}
+    for fn in (workers.collective_worker, workers.training_worker, workers.local_sgd_worker,
+               run_all_checks):
+        t0 = time.perf_counter()
+        debug_launcher(fn, num_processes=LAUNCH_WORLD)
+        seconds[fn.__name__] = time.perf_counter() - t0
+    init = CausalLM(TransformerConfig(**TINY_LM), device="cpu",
+                    generator=torch.Generator().manual_seed(RESTORE["seed"])).state_dict()
+    torch.save(init, os.path.join(base, "init.pt"))
+    t0 = time.perf_counter()
+    debug_launcher(workers.tiny_lm_worker, (base, RESTORE["steps"], RESTORE["rows"],
+                                            RESTORE["seed"]), num_processes=LAUNCH_WORLD)
+    seconds["tiny_lm_worker"] = time.perf_counter() - t0
+    rep.line(f"launch (b): {LAUNCH_WORLD} processes over gloo, seconds a launch "
+             f"{json.dumps(seconds)}")
+    return seconds
+
+
+def restore_run(torch, port, path: str, device: str, rank0: dict, checks: dict) -> dict:
+    """A fresh tiny CausalLM (other weights) at world 1 on ``device``: the
+    world-2 checkpoint refused without ``allow_reshape`` (nothing written),
+    then loaded with it, every param bitwise rank 0's; then RESTORE["more"]
+    steps on the global batches that follow. Returns the losses, grad norms
+    and params (on the host) before and after."""
+    import numpy as np
+
+    from accelerate_tpu_torch.test_utils.training import TINY_LM, MaskedTokens
+
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    acc = port.Accelerator(cpu=device == "cpu")
+    model = port.CausalLM(port.TransformerConfig(**TINY_LM), device=acc.device,
+                          generator=torch.Generator(acc.device).manual_seed(RESTORE["fresh_seed"]))
+    model, opt = acc.prepare(model, port.sgd(RESTORE["lr"]))
+    step = acc.unified_step(port.CausalLM.loss_fn(model), max_grad_norm=RESTORE["clip"])
+    carry = acc.init_carry(model, opt)
+    before = {k: v.detach().clone() for k, v in carry["params"].items()}
+    try:
+        acc.load_state(path, carry=carry)
+        checks[f"restore_{device}_refused"] = False
+    except ValueError as e:
+        checks[f"restore_{device}_refused"] = "different topology" in str(e)
+    checks[f"restore_{device}_refusal_wrote_nothing"] = all(
+        torch.equal(carry["params"][k], v) for k, v in before.items())
+    carry = acc.load_state(path, carry=carry, allow_reshape=True)
+    checks[f"restore_{device}_bitwise"] = all(
+        torch.equal(carry["params"][k].cpu(), v) for k, v in rank0["params"].items()) and (
+        carry["opt_step"] == RESTORE["steps"])
+    start = {k: v.detach().cpu().clone() for k, v in carry["params"].items()}
+    gbs = RESTORE["rows"] * LAUNCH_WORLD
+    data = MaskedTokens((RESTORE["steps"] + RESTORE["more"]) * gbs, RESTORE["rows"],
+                        seed=RESTORE["seed"])
+    losses, norms = [], []
+    for i in range(RESTORE["steps"], RESTORE["steps"] + RESTORE["more"]):
+        rows = range(i * gbs, (i + 1) * gbs)
+        batch = {k: torch.from_numpy(np.stack([data[r][k] for r in rows])).to(acc.device)
+                 for k in ("input_ids", "loss_mask")}
+        carry, metrics = step(carry, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    end = {k: v.detach().cpu().clone() for k, v in carry["params"].items()}
+    return {"losses": losses, "norms": norms, "start": start, "end": end}
+
+
+def launch_restore(torch, port, rep: Report, base: str, checks: dict) -> None:
+    """Phase 19 (c): (b)'s world-2 checkpoint (its RNG files, done markers
+    and topology), restored at world 1 on the CPU and on the card; two more
+    steps on the card against two more on the CPU."""
+    path = os.path.join(base, "ckpt")
+    names = set(os.listdir(path))
+    checks["restore_files"] = {"random_states_0.pkl", "random_states_1.pkl", "done_00000",
+                               "done_00001", "COMMITTED"} <= names
+    with open(os.path.join(path, "topology.json")) as f:
+        checks["restore_topology"] = json.load(f)["world_size"] == LAUNCH_WORLD
+    ranks = [torch.load(os.path.join(base, f"rank{r}.pt")) for r in range(LAUNCH_WORLD)]
+    checks["restore_mask_counts_differ"] = all(
+        len(set(c)) == LAUNCH_WORLD for c in zip(*(r["mask_counts"] for r in ranks)))
+    cpu = restore_run(torch, port, path, "cpu", ranks[0], checks)
+    gpu = restore_run(torch, port, path, "cuda", ranks[0], checks)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    loss_rel = [rel(a, b) for a, b in zip(gpu["losses"], cpu["losses"])]
+    norm_rel = [rel(a, b) for a, b in zip(gpu["norms"], cpu["norms"])]
+    num = sum(float((gpu["end"][k] - cpu["end"][k]).float().norm() ** 2) for k in cpu["end"])
+    den = sum(float((cpu["end"][k] - cpu["start"][k]).float().norm() ** 2) for k in cpu["end"])
+    update_rel = math.sqrt(num / den)
+    checks["restore_card_vs_cpu"] = (max(loss_rel + norm_rel) <= RESTORE_TOL
+                                     and update_rel <= SMALL_UPDATE_TOL)
+    rep.line(f"launch (c): losses card {gpu['losses']} CPU {cpu['losses']} (rel {loss_rel}), "
+             f"grad norms card {gpu['norms']} CPU {cpu['norms']} (rel {norm_rel}), params "
+             f"||card - CPU|| / ||update|| {update_rel}; limits {RESTORE_TOL} and "
+             f"{SMALL_UPDATE_TOL}")
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+
+
+def phase19(torch, port, wrappers, rep: Report) -> list[dict]:
+    """Phase 19 (``--launch-only``): see LAUNCH_WORLD and the functions
+    above. Returns B1-B3's rows at the main shape, their launches those of
+    (a)'s grouped run."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    checks: dict = {}
+    runs = launch_main_path(torch, port, wrappers, rep, checks)
+    rep.line(f"launch (a): median of steps 2-{STEPS} without a group "
+             f"{statistics.median(runs[False]['times'][1:])} s, with the group "
+             f"{statistics.median(runs[True]['times'][1:])} s")
+    t1 = time.perf_counter()
+    rows = time_flash_shape(torch, fa, rep, "launch", MAIN["B"], MAIN["S"], MAIN["H"],
+                            MAIN["Hkv"], MAIN["D"], bwd_library_on_dq=True)
+    for row in rows:
+        row["launches"] = runs[True]["launches"][WRAPPER_OF[row["name"]]]
+    t2 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="launch_")
+    try:
+        launch_gloo(rep, base)
+        t3 = time.perf_counter()
+        launch_restore(torch, port, rep, base, checks)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    rep.line(f"launch checks {json.dumps(checks)}")
+    rep.line(f"phase 19: (a) {t1 - t0:.1f} s, B1-B3 at the main shape {t2 - t1:.1f} s, "
+             f"(b) {t3 - t2:.1f} s, (c) {time.perf_counter() - t3:.1f} s, in all "
+             f"{time.perf_counter() - t0:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"launch: hard checks failed: {failed}")
+    return rows
+
+
 def main() -> None:
     script_t0 = time.perf_counter()
     import torch
@@ -5743,6 +6023,16 @@ def main() -> None:
             "count": torch.cuda.device_count(),
         }}))
         return
+    if "--launch-only" in sys.argv[1:]:
+        rows = phase19(torch, port, wrappers, rep)
+        print(json.dumps({"kernels": rows}))
+        rep.line("launch-only: the processes-and-data phase passed")
+        print(rep.card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return
     if "--lora-only" in sys.argv[1:]:
         rows = phase17(torch, port, wrappers, rep)
         print(json.dumps({"kernels": rows}))
@@ -5796,6 +6086,7 @@ def main() -> None:
     variant_rows += phase15(torch, port, wrappers, rep)
     variant_rows += phase17(torch, port, wrappers, rep)
     variant_rows += load_rows
+    variant_rows += phase19(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

@@ -5,9 +5,9 @@ nothing, the two repairs (``load_state(allow_reshape=False)`` and the sync
 save's ``kind="checkpoint"`` record), and the reference's checkpoints
 carried over in both directions.
 
-Mirrors all of the reference file but
-``test_done_marker_barrier_times_out_listing_missing_procs``, whose
-``wait_for_done_markers`` is multi-process (ROADMAP.md, queue A4). The
+Mirrors all of the reference file, the done-marker barrier included (both
+packages' ``wait_for_done_markers`` time out naming the missing process, and
+two processes' commits, here two threads, rename once). The
 reference's ``test_to_host_batches_device_transfers_into_one_call`` becomes
 the pinned buffer set's: one allocation a set, reused, every copy into it
 queued before one wait. Its ``test_snapshot_tree_holds_no_device_arrays``
@@ -112,6 +112,31 @@ def test_commit_replaces_existing_final_dir(tmp_path):
         assert f.read() == b"new"
     assert commit_mod.is_committed(final)
     assert [n for n in os.listdir(tmp_path) if ".old." in n] == []
+
+
+def test_done_marker_barrier_times_out_listing_missing_procs(tmp_path):
+    from accelerate_tpu.checkpoint_async import commit as jax_commit
+
+    for mod in (jax_commit, commit_mod):
+        work = str(tmp_path / f"{mod.__name__}" / "checkpoint_0.tmp")
+        os.makedirs(work)
+        mod.mark_done(work, 0)
+        with pytest.raises(TimeoutError, match=r"\[1\]"):
+            mod.wait_for_done_markers(work, world=2, timeout_s=0.2)
+    # two processes' commits: process 1 waits for the rename, process 0
+    # renames once both markers are there, and stamps the topology
+    final = str(tmp_path / "two" / "checkpoint_0")
+    work = commit_mod.work_dir_for(final)
+    os.makedirs(work)
+    got = []
+    other = threading.Thread(target=lambda: got.append(commit_mod.commit(work, final, 1, 2)))
+    other.start()
+    assert commit_mod.commit(work, final, 0, 2, topology={"world_size": 2}) == final
+    other.join()
+    assert got == [final] and commit_mod.is_committed(final) and not os.path.exists(work)
+    assert commit_mod.read_topology(final) == {"world_size": 2}
+    assert sorted(n for n in os.listdir(final) if n.startswith("done_")) == [
+        "done_00000", "done_00001"]
 
 
 # ---------------------------------------------------------------------- #
@@ -422,17 +447,15 @@ def test_failed_load_leaves_the_carry_as_it_was(tmp_path, fault):
 def test_load_state_takes_allow_reshape_false(tmp_path):
     """The reference's load_state takes allow_reshape, and its
     CheckpointManager.restore_or_init always passes it; the port's took no
-    such argument (TypeError). None and False load; True, a restore onto
-    another topology, is refused naming queue A4."""
+    such argument (TypeError). None, False and True load a checkpoint of
+    the live topology alike (True only matters for another world size)."""
     acc, carry, step, batch = _setup(tmp_path)
     carry, _ = step(carry, batch)
     out = acc.save_state(carry=carry)
-    for flag in (None, False):
-        _, fresh, _, _ = _setup(tmp_path / "f")
+    for flag in (None, False, True):
+        _, fresh, _, _ = _setup(tmp_path / f"f{flag}")
         got = acc.load_state(out, carry=fresh, allow_reshape=flag)
         assert torch.equal(got["params"]["w"], carry["params"]["w"])
-    with pytest.raises(NotImplementedError, match="queue A4"):
-        acc.load_state(out, carry=fresh, allow_reshape=True)
 
 
 def test_sync_save_emits_a_checkpoint_record(tmp_path):

@@ -401,8 +401,9 @@ def test_lora_slice_refusals_name_their_queue_items(tmp_path):
     """What the lora slice left: ``load_and_quantize_model`` and the PEFT
     helpers are ported since the big-model slice and work (a native
     checkpoint quantized on load, an adapter through PEFT's names and back);
-    the tracker bridge (A10), the helpers' forms across several processes
-    (A4) and a load onto a mesh (A7) still raise, each matched by name."""
+    the tracker bridge (A10) and a load onto a mesh (A7) still raise, each
+    matched by name; the helpers' forms across several processes (A4) work
+    since the processes-and-data slice."""
     from accelerate_tpu_torch import adapters, big_modeling, tracking
     from accelerate_tpu_torch.checkpointing import save_model_weights
     from accelerate_tpu_torch.state import PartialState
@@ -422,15 +423,77 @@ def test_lora_slice_refusals_name_their_queue_items(tmp_path):
         big_modeling.load_checkpoint_and_dispatch({}, str(tmp_path), mesh=object())
     with pytest.raises(NotImplementedError, match="queue A10"):
         tracking.telemetry_bridge([])
-    with pytest.raises(NotImplementedError, match="queue A4"):
-        adapters.save_adapter(".", "t", {}, adapters.LoraConfig(), world=2)
-    state = PartialState(cpu=True)
-    state.num_processes = 2
-    try:
-        with pytest.raises(NotImplementedError, match="queue A4"):
-            state.wait_for_everyone()
-    finally:
-        PartialState._reset_state()
+    # the A4 forms are ported: an adapter saved by two processes (here two
+    # threads, process 1 waiting for process 0's commit) and the barrier at
+    # world 2 (two processes over gloo)
+    import threading
+
+    from accelerate_tpu_torch.launchers import debug_launcher
+    from accelerate_tpu_torch.test_utils.scripts.multiprocess_worker import barrier_worker
+
+    base = str(tmp_path / "adapters")
+    other = threading.Thread(target=adapters.save_adapter,
+                             args=(base, "t", adapter, lcfg), kwargs=dict(process_index=1,
+                                                                          world=2))
+    other.start()
+    path = adapters.save_adapter(base, "t", adapter, lcfg, process_index=0, world=2)
+    other.join()
+    loaded, _ = adapters.load_adapter(path)
+    assert torch.equal(loaded["q_proj"]["lora_a"], adapter["q_proj"]["lora_a"])
+    debug_launcher(barrier_worker, num_processes=2)
+    assert not PartialState._shared_state  # the launch made no state in this process
+
+
+def test_launch_modules_import_and_run_without_jax():
+    """``launchers``, ``local_sgd`` and ``test_utils.scripts.*`` imported on
+    their own with jax blocked; then two processes over gloo run the
+    collectives worker and the whole assertion script, and LocalSGD's
+    one-process forms run, all in that process."""
+    code = textwrap.dedent("""
+        import importlib
+        for name in ("accelerate_tpu_torch.launchers", "accelerate_tpu_torch.local_sgd",
+                     "accelerate_tpu_torch.test_utils.training",
+                     "accelerate_tpu_torch.test_utils.scripts.multiprocess_worker",
+                     "accelerate_tpu_torch.test_utils.scripts.test_script",
+                     "accelerate_tpu_torch.utils.tqdm", "accelerate_tpu_torch.utils.versions"):
+            importlib.import_module(name)
+        import torch
+        from accelerate_tpu_torch.launchers import debug_launcher
+        from accelerate_tpu_torch.local_sgd import average_replicas, replicate_params
+        from accelerate_tpu_torch.test_utils.scripts import multiprocess_worker, test_script
+        if __name__ == "__main__":
+            debug_launcher(multiprocess_worker.collective_worker, num_processes=2)
+            debug_launcher(test_script.run_all_checks, num_processes=2)
+            reps = replicate_params({"w": torch.arange(3.0)}, 4)
+            assert reps["w"].shape == (4, 3)
+            assert torch.equal(average_replicas(reps)["w"], torch.arange(3.0))
+            leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")
+                      and sys.modules[m] is not None]
+            assert not leaked, leaked
+            print("ok")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0 and result.stdout.strip().endswith("ok"), result.stderr[-3000:]
+
+
+def test_refusals_left_by_the_launch_slice_name_their_queue_items():
+    """What part 1 of queue A4 left: a sharded state's per-process shards
+    and pipelines across processes wait for A7, the elastic supervisor for
+    A4's last part; each refusal names its queue item."""
+    from accelerate_tpu_torch.test_utils.scripts.multiprocess_worker import (
+        sharded_checkpoint_worker,
+    )
+    from accelerate_tpu_torch.test_utils.scripts.test_script import pipeline_check
+
+    with pytest.raises(NotImplementedError, match="queue A7"):
+        sharded_checkpoint_worker(".")
+    with pytest.raises(NotImplementedError, match="queue A7"):
+        pipeline_check(port.Accelerator(cpu=True))
+    with pytest.raises(NotImplementedError, match="queue A7"):
+        port.Accelerator(cpu=True, parallelism_plugin=object())
+    import accelerate_tpu_torch.fault_tolerance as ft
+
+    assert "queue A4" in ft.__doc__ and "elastic" in ft.__doc__
 
 
 def test_big_model_modules_import_and_run_without_jax():
@@ -507,14 +570,29 @@ def test_serving_and_generation_follow_the_model_device():
     assert fn(ids).device == torch.device("cpu")
 
 
-def test_unported_accelerator_and_model_paths_raise():
+def test_unported_accelerator_and_model_paths_raise(tmp_path):
+    from accelerate_tpu_torch import dist_checkpoint
+    from accelerate_tpu_torch.checkpoint_async import commit as commit_mod
+
     assert port.Accelerator(mixed_precision="fp8", cpu=True).state.mixed_precision_policy.fp8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.Accelerator(cpu=True, parallelism_plugin=object())
     # diagnostics is ported: the item 2b refusal is gone
     assert port.Accelerator(cpu=True, diagnostics=True).telemetry.diagnostics is not None
-    with pytest.raises(NotImplementedError, match="queue A4"):  # another topology
-        port.Accelerator(cpu=True).load_state("x", params={}, allow_reshape=True)
+    # a load onto another topology is ported (queue A4, part 1): a world-2
+    # checkpoint refuses without allow_reshape, with the reference's error
+    acc = port.Accelerator(cpu=True)
+    params = {"w": torch.arange(4.0)}
+    work = commit_mod.work_dir_for(str(tmp_path / "w2"))
+    dist_checkpoint.save_sharded_tree(params, work, process_index=0)
+    dist_checkpoint.save_sharded_tree(params, work, process_index=1)
+    commit_mod.mark_done(work, 1)
+    out = commit_mod.commit(work, str(tmp_path / "w2"), 0, 2, topology={"world_size": 2,
+                                                                         "num_devices": 2})
+    with pytest.raises(ValueError, match="allow_reshape=True"):
+        acc.load_state(out, params={"w": torch.zeros(4)})
+    got = acc.load_state(out, params={"w": torch.zeros(4)}, allow_reshape=True)
+    assert torch.equal(got["w"], params["w"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.SequenceClassifier(port.TransformerConfig.tiny(causal=False, fused_kernels=True),
                                 device="cpu")

@@ -10,7 +10,7 @@ Mirrors ``tests/test_accelerator.py``'s ``test_prepare_dispatch_and_scheduler``
 every attribute the reference's ``Accelerator`` has at world size 1
 (``accelerator.py:207-290``, :408, :416, :1343, :1565-1591) on the port's
 ``Accelerator(cpu=True)``, with the reference's answers, and the
-multi-process branches refused naming queue A4.
+multi-process forms of the helpers against the reference's.
 """
 
 import numpy as np
@@ -176,14 +176,24 @@ def test_prepare_optimizer_and_scheduler_are_prepare_s_own(tmp_path):
 
 
 def test_multi_process_branches_raise_naming_a4():
+    """The multi-process forms are ported: seen from process 1 of 2 (the
+    state's topology set as a second process would see it, no group), the
+    barrier has no group to wait on, and ``split_between_processes`` gives
+    the reference's share of a list, a padded list and a dict."""
     state = PartialState(cpu=True)
-    state.num_processes = 2  # as a second process would make it
+    state.num_processes, state.process_index = 2, 1
+    ref = jax_pkg.state.PartialState()
+    ref.num_processes, ref.process_index = 2, 1
     try:
-        with pytest.raises(NotImplementedError, match="queue A4"):
-            state.wait_for_everyone()
-        with pytest.raises(NotImplementedError, match="queue A4"):
-            with state.split_between_processes([1, 2]):
-                pass
-        assert not state.is_last_process and state.use_distributed
+        state.wait_for_everyone()
+        for inputs, pad in ((list(range(5)), False), (list(range(5)), True),
+                            ({"a": [1, 2, 3], "b": [4, 5, 6]}, True)):
+            with state.split_between_processes(inputs, apply_padding=pad) as mine, \
+                    ref.split_between_processes(inputs, apply_padding=pad) as theirs:
+                assert mine == theirs
+        with state.split_between_processes(list(range(5)), apply_padding=True) as mine:
+            assert mine == [3, 4, 4]
+        assert state.is_last_process and state.use_distributed
     finally:
         PartialState._reset_state()
+        jax_pkg.state.PartialState._reset_state()
