@@ -20,7 +20,11 @@ pinned host memory and disk, streamed native and HF checkpoints through
 NCCL on the card, gloo on the CPU; the collectives, each process's rows of
 every global batch, the cross-process gradient mean, checkpoints saved by
 every process and restored onto another world size, ``LocalSGD``, and
-``debug_launcher``/``notebook_launcher``),
+``debug_launcher``/``notebook_launcher``), sharded training on a device mesh
+(``ParallelismPlugin``: dp, fsdp and tp; ZeRO-1/2/3 and tensor parallelism
+with parameters as DTensors placed by ``parallel.sharding``'s rules, the
+compat plugins in ``utils.compat``, sharded checkpoints and loads onto a
+mesh),
 experiment trackers (``tracking``), the optax-faithful ``adamw``,
 its fused-epilogue form ``fused_adamw``, ``sgd`` and
 ``warmup_cosine_decay_schedule``, and hand-written kernels for Hopper:
@@ -59,7 +63,9 @@ from .utils.dataclasses import (
     DistributedInitKwargs,
     DistributedType,
     GradientAccumulationPlugin,
+    ParallelismPlugin,
     ProjectConfiguration,
+    ShardingStrategy,
 )
 from .utils.memory import find_executable_batch_size
 from .utils.profiling import ProfileKwargs
@@ -84,10 +90,12 @@ __all__ = [
     "HeartbeatMonitor",
     "LocalSGD",
     "OffloadedLeaf",
+    "ParallelismPlugin",
     "PartialState",
     "ProfileKwargs",
     "ProjectConfiguration",
     "SequenceClassifier",
+    "ShardingStrategy",
     "StepTelemetry",
     "TelemetryConfig",
     "TransformerConfig",

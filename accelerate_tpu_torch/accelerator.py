@@ -57,10 +57,25 @@ the global batch as one array. Two things keep the reference's numbers:
   ``loss_weight`` weighs every process alike (a mean over equal row counts).
   At world size 1 the factor is exactly 1.0 and the group's sum and mean
   change no bit.
+
+Under a ``ParallelismPlugin`` (reference :227, :297-351, :484-660,
+:1150-1225, :1520) the state holds a mesh over dp, fsdp and tp, and
+``prepare`` places the params (a model's parameters become DTensors) by
+``parallel.sharding``'s rules, the moments by ``moment_shardings`` and the
+unfused accumulation buffer by ZeRO-2's specs. The step then runs on each
+rank's local tensors through ``parallel/runtime.py``'s ``ShardedLayout``:
+leaves split over fsdp are gathered as they are used (a port model's layers
+one at a time), products split over tp, and the loss weight, the gradient
+mean and the reported loss run over the data-parallel ranks (dp x fsdp) only,
+so a tp group's rows count once. The epilogue's norm, non-finite check and
+update are the mesh's (ZeRO-1/2 update each rank's fsdp slice and gather
+it). A kernel never sees a DTensor. At world size 1 every degree is 1 and
+the step is the unsharded one bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import inspect
@@ -84,7 +99,7 @@ from .data_loader import (
     skip_first_batches,
 )
 from .logging import get_logger
-from .models.transformer import REMAT_POLICIES, convert_model
+from .models.transformer import REMAT_POLICIES, convert_model, tp_partial_leaves
 from .ops.fused import maybe_fused_epilogue
 from .optimizer import (
     AcceleratedOptimizer,
@@ -94,6 +109,8 @@ from .optimizer import (
     scale_loss,
     unscale_and_check,
 )
+from .parallel.runtime import build_layout, gather_full
+from .parallel.sharding import get_logical_specs, is_dtensor
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .telemetry import StepTelemetry, TelemetryConfig
@@ -188,26 +205,29 @@ def _micro_loss_fn(loss_fn: Callable, has_aux: bool, remat_policy: Any) -> Calla
     return remat
 
 
-def _loss_factor(loss_fn: Callable, batch: Any, world: int, device) -> torch.Tensor:
+def _loss_factor(loss_fn: Callable, batch: Any, world: int, device,
+                 group: Any = None) -> torch.Tensor:
     """``world * c / max(W, 1)``: the weight of this process's loss in the
     global batch's (the module docstring), ``c`` its ``loss_weight`` count
-    (1 without one) and ``W`` their sum over the group."""
+    (1 without one) and ``W`` their sum over ``group`` (the whole group by
+    default; under a mesh the data-parallel ranks, ``world`` of them)."""
     import torch.distributed as dist
 
     weigh = getattr(loss_fn, "loss_weight", None)
     c = torch.as_tensor(weigh(batch) if weigh is not None else 1.0,
                         dtype=torch.float32).to(device).reshape(())
     total = c.clone()
-    dist.all_reduce(total)
+    dist.all_reduce(total, group=group)
     return world * c / total.clamp_min(1.0)
 
 
-def _global_loss(loss: torch.Tensor, factor: torch.Tensor, world: int) -> torch.Tensor:
+def _global_loss(loss: torch.Tensor, factor: torch.Tensor, world: int,
+                 group: Any = None) -> torch.Tensor:
     """The global batch's loss from each process's weighted term."""
     import torch.distributed as dist
 
     term = (loss.float() * factor).reshape(())
-    dist.all_reduce(term)
+    dist.all_reduce(term, group=group)
     return term / world
 
 
@@ -266,10 +286,6 @@ class Accelerator:
         profile_kwargs: Optional[ProfileKwargs] = None,
         log_with: Optional[Union[str, list]] = None,
     ):
-        if parallelism_plugin is not None:
-            raise NotImplementedError(
-                "sharded and pipelined training is not ported yet: ROADMAP.md, queue A7"
-            )
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if gradient_accumulation_plugin is None:
@@ -279,7 +295,9 @@ class Accelerator:
         if dataloader_config is None:
             dataloader_config = DataLoaderConfiguration(split_batches=split_batches)
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
-                                      dataloader_config=dataloader_config)
+                                      dataloader_config=dataloader_config,
+                                      parallelism_plugin=parallelism_plugin)
+        self._layout = None  # the prepared params' ShardedLayout under a plugin
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.keys = KeyChain(seed)
@@ -344,6 +362,11 @@ class Accelerator:
         return self.state.is_last_process
 
     @property
+    def mesh(self):
+        """The ``DeviceMesh`` under a ``ParallelismPlugin``, else None."""
+        return self.state.mesh
+
+    @property
     def mixed_precision(self) -> str:
         return self.state.mixed_precision.value
 
@@ -405,7 +428,7 @@ class Accelerator:
     # ------------------------------------------------------------------ #
     # prepare
     # ------------------------------------------------------------------ #
-    def prepare(self, *args):
+    def prepare(self, *args, logical_specs: Any = None):
         """Place each object by type and return them in input order: a
         model moves to the device (fp32 masters; converted to fp8
         projections under ``mixed_precision="fp8"``), a params tree (a
@@ -413,7 +436,12 @@ class Accelerator:
         leaf by leaf, an optimizer (``adamw``, ``sgd``) is wrapped and its
         state made for the prepared model or params, a loader yields device
         batches (stacked ``[K, micro, ...]`` under fused accumulation), a
-        plain function becomes an LR scheduler."""
+        plain function becomes an LR scheduler. Under a
+        ``ParallelismPlugin`` the model's parameters (or the tree's leaves)
+        become DTensors on the mesh, placed by ``parallel.sharding``'s
+        rules (``logical_specs``: a tree's logical axes, or the port model
+        whose parameters it holds), and the moments follow
+        ``moment_shardings``."""
         result = []
         params = None
         for obj in args:
@@ -421,7 +449,7 @@ class Accelerator:
                 model = self.prepare_model(obj)
                 prepared, params = model, dict(model.named_parameters())
             elif _is_param_tree(obj):
-                prepared = self.prepare_params(obj)
+                prepared = self.prepare_params(obj, logical_specs=logical_specs)
                 params = _flat_params(prepared)
             elif isinstance(obj, (AcceleratedOptimizer, Optimizer)):
                 prepared = self.prepare_optimizer(obj)
@@ -432,16 +460,66 @@ class Accelerator:
             result.append(prepared)
         for i, obj in enumerate(result):
             if isinstance(obj, AcceleratedOptimizer) and obj.opt_state is None and params is not None:
-                obj.init(params)
+                self._init_optimizer(obj, params)
             if _is_schedule(obj):
                 result[i] = self.prepare_scheduler(obj)
         return result[0] if len(result) == 1 else tuple(result)
 
-    def prepare_params(self, params: dict) -> dict:
+    def prepare_params(self, params: dict, logical_specs: Any = None) -> dict:
         """A params tree on the device, leaf by leaf (a leaf already there is
-        returned as it is)."""
-        return {k: self.prepare_params(v) if isinstance(v, dict) else v.to(self.device)
+        returned as it is); under a plugin each leaf a DTensor on the mesh
+        (``prepare``)."""
+        tree = self._to_device(params)
+        if self.state.parallelism_plugin is None:
+            return tree
+        if isinstance(logical_specs, nn.Module):
+            logical_specs = get_logical_specs(logical_specs)
+        flat = _flat_params(tree)
+        layout = self._build_layout(flat, logical_specs)
+        return _like_tree(tree, layout.place(flat, layout.param_specs))
+
+    def _to_device(self, params: dict) -> dict:
+        return {k: self._to_device(v) if isinstance(v, dict) else v.to(self.device)
                 for k, v in params.items()}
+
+    def _build_layout(self, flat: dict, logical_specs=None, lazy_prefix=None,
+                      tp_partial=frozenset()):
+        """The ShardedLayout of a prepared parameter set; the step and the
+        carry read the last one made."""
+        self._layout = build_layout(self.mesh, self.state.parallelism_plugin,
+                                    {k: v.detach() for k, v in flat.items()}, logical_specs,
+                                    lazy_prefix=lazy_prefix, tp_partial=tp_partial)
+        return self._layout
+
+    def _shard_module(self, model: nn.Module) -> nn.Module:
+        """The module's parameters replaced, in place, by DTensors on the
+        mesh under the rules; a port transformer declares its logical axes
+        and gathers each layer's weights as the layer runs."""
+        full = dict(model.named_parameters())
+        logical = get_logical_specs(model)
+        transformer = logical is not None and isinstance(getattr(model, "layers", None),
+                                                         nn.ModuleList)
+        tp_partial = frozenset()
+        if transformer:
+            suffixes = tp_partial_leaves(model.config)
+            tp_partial = frozenset(n for n in full if n.startswith("layers.")
+                                   and n.split(".", 2)[2] in suffixes)
+        layout = self._build_layout(full, logical, "layers." if transformer else None,
+                                    tp_partial)
+        placed = layout.place(full, layout.param_specs)
+        for name, dt in placed.items():
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner) if owner else model
+            module.register_parameter(
+                leaf, nn.Parameter(dt, requires_grad=full[name].requires_grad))
+        return model
+
+    def _init_optimizer(self, optimizer: AcceleratedOptimizer, params: dict) -> None:
+        """The optimizer's state for ``params``; under a plugin its moments
+        placed by ``moment_shardings`` (ZeRO-1/2 split them over fsdp)."""
+        optimizer.init(params)
+        if self._layout is not None:
+            optimizer.opt_state = self._layout.place_opt_state(optimizer.opt_state)
 
     def prepare_optimizer(self, optimizer, params: Any = None) -> AcceleratedOptimizer:
         """Wrap ``optimizer`` (unless it is wrapped already), make its state
@@ -452,7 +530,7 @@ class Accelerator:
         if params is not None:
             if isinstance(params, nn.Module):
                 params = dict(params.named_parameters())
-            optimizer.init(_flat_params(params))
+            self._init_optimizer(optimizer, _flat_params(params))
         self._optimizers.append(optimizer)
         return optimizer
 
@@ -469,10 +547,14 @@ class Accelerator:
     def prepare_model(self, model: nn.Module) -> nn.Module:
         """The model on the device; under ``mixed_precision="fp8"`` its
         projections are first converted to fp8 products
-        (``models/transformer.convert_model``, the reference's :325-330)."""
+        (``models/transformer.convert_model``, the reference's :325-330);
+        under a plugin its parameters are DTensors on the mesh."""
         if self.state.mixed_precision_policy.fp8:
             model = convert_model(model)
-        return model.to(device=self.device)
+        model = model.to(device=self.device)
+        if self.state.parallelism_plugin is not None:
+            model = self._shard_module(model)
+        return model
 
     def prepare_data_loader(self, dataloader: Any, dispatch_batches: Optional[bool] = None,
                             superbatch: Optional[int] = None) -> DataLoaderShard:
@@ -546,31 +628,49 @@ class Accelerator:
         fused = bool(fused) and num_accum > 1  # K = 1 carries no buffer anyway
         micro_loss = _micro_loss_fn(loss_fn, has_aux, remat_policy)
         world = self.num_processes
+        # under a plugin: the prepared params' layout, whose collectives run
+        # on the mesh's sub-groups over plain local tensors
+        lay = self._layout if self.state.parallelism_plugin is not None else None
+        if lay is not None:
+            world = lay.data_size  # the loss and gradient means run over dp x fsdp
+        data_group = None if lay is None else lay.data_group
 
-        def _sync_apply(accum, opt_state, params, ls):
+        def _sync_apply(accum, opt_state, params, ls, scattered=False):
             """Once per optimizer step, shared by both modes: the mean
             across processes, the mean over the microbatches, unscale/check
             (fp16), clip, update, hold on a non-finite step. Works in place
-            on ``accum``."""
-            if self._reduces_across_processes:
+            on ``accum``. Under a plugin the mean runs over the data-parallel
+            ranks, the check and the norm over the mesh, and the update on
+            each rank's shards (``parallel/runtime.py``)."""
+            if lay is not None:
+                accum = lay.reduce_grads_(accum, scattered=scattered)
+            elif self._reduces_across_processes:
                 _mean_across_processes_(accum, world)
             mean_grads = accum
             if num_accum > 1:
                 mean_grads = {k: a.div_(num_accum) for k, a in accum.items()}
-            mean_grads, finite, new_ls = unscale_and_check(mean_grads, ls, policy)
-            gnorm = global_norm(mean_grads)
+            reduce_finite = None if lay is None else (
+                lambda f: lay.all_finite(f, self.device))
+            mean_grads, finite, new_ls = unscale_and_check(mean_grads, ls, policy,
+                                                           reduce_finite=reduce_finite)
+            gnorm = global_norm(mean_grads) if lay is None else lay.global_norm(mean_grads)
             scale_c = None if max_grad_norm is None else _clip_scale(gnorm, max_grad_norm)
+            finish = None
+            if lay is not None:
+                mean_grads, params, opt_state, finish = lay.work_set(mean_grads, params,
+                                                                     opt_state)
             # fused epilogue (ops/fused.py): for a fused_adamw optimizer the
             # clip multiply -> moment update -> apply -> non-finite hold tail
             # runs as one kernel launch, bitwise the plain chain below in fp32
             if maybe_fused_epilogue(optimizer.optimizer, mean_grads, opt_state, params,
-                                    clip_scale=scale_c, finite=finite) is not None:
-                return new_ls, gnorm, finite
-            if scale_c is not None:
-                for g in mean_grads.values():
-                    g.mul_(scale_c)
-            if finite:  # fp16 overflow: keep params and optimizer state
-                optimizer.apply_gradients(mean_grads, params, opt_state)
+                                    clip_scale=scale_c, finite=finite) is None:
+                if scale_c is not None:
+                    for g in mean_grads.values():
+                        g.mul_(scale_c)
+                if finite:  # fp16 overflow: keep params and optimizer state
+                    optimizer.apply_gradients(mean_grads, params, opt_state)
+            if finish is not None:
+                finish()
             return new_ls, gnorm, finite
 
         def _compute_leaves(params):
@@ -586,18 +686,23 @@ class Accelerator:
             and aux; the loss sees ``compute`` in ``tree``'s nesting. With a
             group, the loss is weighted into the global batch's (the module
             docstring) and the one reported is the global batch's."""
-            factor = (_loss_factor(loss_fn, batch, world, self.device)
+            factor = (_loss_factor(loss_fn, batch, world, self.device, data_group)
                       if self._reduces_across_processes else None)
-            scaled, loss, aux = micro_loss(_like_tree(tree, compute),
-                                           _cast_floating(batch, policy.compute_dtype), ls, kw)
-            if factor is not None:
-                scaled = scaled * factor
-            grads = torch.autograd.grad(scaled, list(compute.values()))
+            context = contextlib.nullcontext() if lay is None else lay.forward_context()
+            with context:  # the backward (and a remat recompute) gathers inside it too
+                seen = compute if lay is None else lay.loss_params(compute)
+                scaled, loss, aux = micro_loss(_like_tree(tree, seen),
+                                               _cast_floating(batch, policy.compute_dtype), ls,
+                                               kw)
+                del seen
+                if factor is not None:
+                    scaled = scaled * factor
+                grads = torch.autograd.grad(scaled, list(compute.values()))
             del scaled
             grads = {k: g.float() for k, g in zip(compute, grads)}
             loss = loss.detach().float()
             if factor is not None:
-                loss = _global_loss(loss, factor, world)
+                loss = _global_loss(loss, factor, world, data_group)
             return grads, loss, _detach(aux)
 
         def _step(carry: dict, batch: Any, **kw):
@@ -605,10 +710,13 @@ class Accelerator:
             params = _flat_params(tree)
             ls = carry.get("loss_scale")
             batch = send_to_device(batch, self.device)
-            grads, loss, aux = _microbatch(_compute_leaves(params), batch, ls, kw, tree)
+            local = params if lay is None else lay.local(params)
+            grads, loss, aux = _microbatch(_compute_leaves(local), batch, ls, kw, tree)
             if num_accum > 1:
-                accum = carry["accum_grads"]
+                accum = carry["accum_grads"] if lay is None else lay.local(carry["accum_grads"])
                 for k, g in grads.items():
+                    if lay is not None and lay.zero2:  # ZeRO-2: into the sharded buffer
+                        g = lay.zero2_scatter(k, g)
                     accum[k].add_(g)
                 del grads
             else:
@@ -621,7 +729,8 @@ class Accelerator:
                 # wrapped: autograd launches the backward from its own thread,
                 # outside any range opened here
                 with record_function("unified_step.sync_apply"):
-                    ls, gnorm, finite = _sync_apply(accum, carry["opt_state"], params, ls)
+                    ls, gnorm, finite = _sync_apply(accum, carry["opt_state"], params, ls,
+                                                    scattered=num_accum > 1)
                 if num_accum > 1:
                     for a in accum.values():
                         a.zero_()
@@ -649,8 +758,9 @@ class Accelerator:
             params = _flat_params(tree)
             ls = carry.get("loss_scale")
             batch = send_to_device(batch, self.device)
-            compute = _compute_leaves(params)  # cast once for the K microbatches
-            accum = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+            local = params if lay is None else lay.local(params)
+            compute = _compute_leaves(local)  # cast once for the K microbatches
+            accum = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in local.items()}
             losses, auxes = [], []
             for i in range(find_batch_size(batch)):  # the stacked K axis, in order
                 micro = operations.recursively_apply(lambda x: x[i], batch)
@@ -719,9 +829,10 @@ class Accelerator:
     def init_carry(self, params: Any, optimizer: Optional[AcceleratedOptimizer] = None,
                    fused_accumulation: Optional[bool] = None) -> dict:
         """The train-step carry: params (the model's own parameter tensors,
-        updated in place), optimizer state, counters, the fp32
-        accumulation buffer when K > 1 and unfused, and the loss scale under
-        fp16. ``fused_accumulation`` must match the step's mode (None: the
+        updated in place; DTensors under a plugin), optimizer state,
+        counters, the fp32 accumulation buffer when K > 1 and unfused (under
+        ZeRO-2 split over fsdp), and the loss scale under fp16.
+        ``fused_accumulation`` must match the step's mode (None: the
         plugin's); the fused carry has no ``micro_step`` and no buffer."""
         optimizer = optimizer or (self._optimizers[0] if self._optimizers else None)
         if optimizer is None:
@@ -733,7 +844,7 @@ class Accelerator:
             if not p.requires_grad:
                 p.requires_grad_(True)
         if optimizer.opt_state is None:
-            optimizer.init(flat)
+            self._init_optimizer(optimizer, flat)
         policy = self.state.mixed_precision_policy
         num_accum = self.gradient_state.num_steps
         fused = self.gradient_state.fused if fused_accumulation is None else fused_accumulation
@@ -742,8 +853,11 @@ class Accelerator:
         if not fused:
             carry["micro_step"] = 0
             if num_accum > 1:
-                carry["accum_grads"] = {
-                    k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()}
+                if self._layout is not None:  # the params' specs, or ZeRO-2's fsdp chunks
+                    carry["accum_grads"] = self._layout.zeros_buffer(flat)
+                else:
+                    carry["accum_grads"] = {
+                        k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()}
         if policy.uses_loss_scaling:
             carry["loss_scale"] = init_loss_scale(policy, self.device)
         return carry
@@ -808,6 +922,10 @@ class Accelerator:
         params, rest = args[0], args[1:]
         if isinstance(params, nn.Module):
             params = dict(params.named_parameters())
+        if any(is_dtensor(p) for p in params.values()):
+            raise NotImplementedError(
+                "the raw loop's backward on sharded (DTensor) params is not ported: under a "
+                "ParallelismPlugin train with unified_step (ROADMAP.md, queue A7)")
         dtype = self.state.mixed_precision_policy.compute_dtype
         compute = {k: _cast_floating(p.detach(), dtype).requires_grad_(True)
                    for k, p in params.items()}
@@ -897,13 +1015,15 @@ class Accelerator:
 
     def gather_for_metrics(self, input_data: Any, use_gather_object: bool = False) -> Any:
         """Every process's eval outputs, concatenated in rank order: the
-        global batch's rows in the reference's order. On the last batch of
+        global batch's rows in the reference's order (under a mesh, the
+        data-parallel ranks', so a tp group's rows come once). On the last batch of
         a loader whose global tail was wrapped or padded, only the first
         ``remainder`` (global) rows are real, and the rest are dropped."""
+        group = None if self._layout is None else self._layout.data_group
         if use_gather_object or not _all_tensor_leaves(input_data):
-            data = operations.gather_object(input_data)
+            data = operations.gather_object(input_data, group=group)
             return [x for sub in data for x in (sub if isinstance(sub, list) else [sub])]
-        data = operations.gather(input_data)
+        data = operations.gather(input_data, group=group)
         remainder = self.gradient_state.remainder
         if self.gradient_state.end_of_dataloader and remainder > 0:
 
@@ -975,11 +1095,22 @@ class Accelerator:
 
     def save_model(self, params: Any, save_directory: str, max_shard_size: str = "10GB",
                    safe_serialization: bool = True) -> None:
+        if self._layout is not None:  # gathered whole; the main process writes
+            params = self.get_state_dict(params)
+            if not self.is_main_process:
+                return
         checkpointing.save_model_weights(params, save_directory, max_shard_size=max_shard_size,
                                          safe_serialization=safe_serialization)
 
     def get_state_dict(self, params: Any, unwrap: bool = True) -> dict[str, torch.Tensor]:
-        """Every tensor of a module or parameter tree, by name, on the host."""
+        """Every tensor of a module or parameter tree, by name, on the host;
+        a sharded (DTensor) leaf gathered whole first (reference :1520),
+        which every process must call."""
+        tree = checkpointing._tree_of(params)
+        named = checkpointing.flatten_tree(tree)
+        if any(is_dtensor(v) for v in named.values()):
+            named = {k: gather_full(v) if is_dtensor(v) else v for k, v in named.items()}
+            return checkpointing._to_named_tensors(named)
         return checkpointing._to_named_tensors(params)
 
     def unwrap_model(self, model: Any, keep_fp32_wrapper: bool = True) -> Any:

@@ -37,8 +37,11 @@ Port of ``accelerate_tpu/big_modeling.py`` (``init_empty_weights`` :48,
 Entry points run on the card unless the caller asks for the CPU: a device
 index needs CUDA, and ``get_max_memory`` without CUDA raises unless given
 ``cpu=True`` (the reference's 4 GiB stand-in for a backend that reports no
-memory). The GSPMD path (``mesh=``, ``plugin=``, ``logical_specs=``)
-raises naming ROADMAP.md's queue A7.
+memory). The mesh path (``mesh=`` a ``DeviceMesh``, ``plugin=``,
+``logical_specs=``; the reference's GSPMD mode) reads each tensor and
+keeps this rank's chunk under ``parallel.sharding``'s rules as a DTensor:
+a port model's own logical axes apply when none are given. A module so
+loaded runs through ``parallel.runtime.apply_sharded``.
 """
 
 from __future__ import annotations
@@ -412,12 +415,22 @@ def load_checkpoint_and_dispatch(model: Any, checkpoint: str, mesh=None, plugin=
 
     Returns the module with its parameters assigned when ``model`` is a
     module and every tensor went to a card; else the named tree (a module's
-    state dict, or ``model``'s structure), as the reference does."""
-    if mesh is not None or plugin is not None or logical_specs is not None:
-        raise NotImplementedError(
-            "load_checkpoint_and_dispatch onto a mesh (mesh=, plugin=, logical_specs=) is not "
-            "ported yet: ROADMAP.md, queue A7")
+    state dict, or ``model``'s structure), as the reference does.
+
+    ``mesh`` (a ``DeviceMesh``, e.g. ``Accelerator.mesh``): each tensor is
+    read and cut to this rank's chunk of its spec (``infer_param_shardings``
+    with ``plugin`` and ``logical_specs``, by default the module's own
+    logical axes), a DTensor on the mesh; ``device_map`` is not read. A
+    module gets the DTensors as its parameters and is returned; a tree comes
+    back with DTensor leaves. ``plugin``/``logical_specs`` without a mesh
+    raise."""
     from .utils.hf_interop import hf_native_reader, infer_config_from_hf, is_hf_checkpoint
+
+    if mesh is None and (plugin is not None or logical_specs is not None):
+        raise ValueError("plugin= and logical_specs= place tensors on a mesh: pass mesh= too")
+    if mesh is not None and not hasattr(mesh, "get_group"):
+        raise TypeError(f"mesh must be a torch DeviceMesh (Accelerator.mesh), got "
+                        f"{type(mesh).__name__}")
 
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
@@ -433,6 +446,9 @@ def load_checkpoint_and_dispatch(model: Any, checkpoint: str, mesh=None, plugin=
     def load_dtype(stored: torch.dtype) -> torch.dtype:
         return dtype if dtype is not None and stored.is_floating_point else stored
 
+    if mesh is not None:
+        return _load_onto_mesh(model, tree, leaves, reader, mesh, plugin, logical_specs,
+                               load_dtype)
     placed, index = {}, {}
     with reader:
         if device_map == "auto" or device_map is None:
@@ -462,6 +478,42 @@ def load_checkpoint_and_dispatch(model: Any, checkpoint: str, mesh=None, plugin=
         model.load_state_dict(placed, assign=True)
         return model
     return _with_offloaded(tree, placed, index, offload_dir)
+
+
+def _load_onto_mesh(model, tree, leaves, reader, mesh, plugin, logical_specs, load_dtype):
+    """The mesh branch of :func:`load_checkpoint_and_dispatch`: one tensor
+    read at a time, this rank's chunk kept (reference :539-549)."""
+    from .parallel.sharding import get_logical_specs, infer_param_shardings, shard_params
+
+    if logical_specs is None and isinstance(model, nn.Module):
+        logical_specs = get_logical_specs(model)
+    specs = infer_param_shardings({k: tuple(v.shape) for k, v in leaves.items()}, mesh, plugin,
+                                  logical_specs)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device("cpu"))
+    placed = {}
+    with reader:
+        for path, leaf in leaves.items():
+            t = reader(path)
+            t = t.to(load_dtype(t.dtype))
+            if tuple(t.shape) != tuple(leaf.shape):
+                raise ValueError(f"checkpoint tensor {path!r} has shape {tuple(t.shape)}, the "
+                                 f"model {tuple(leaf.shape)}")
+            placed[path] = shard_params({path: t}, specs, mesh, device=device)[path]
+            del t
+        leftover = getattr(reader, "unconsumed", lambda: [])()
+    if leftover:
+        raise ValueError(
+            f"HF checkpoint tensors not consumed by the parameter mapping (first 8): "
+            f"{leftover[:8]}: the checkpoint's architecture does not match any supported "
+            "mapping (Llama/Mixtral)")
+    if isinstance(model, nn.Module):
+        for name, dt in placed.items():
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner) if owner else model
+            module.register_parameter(leaf, nn.Parameter(dt, requires_grad=False))
+        return model
+    return _rebuild(tree, lambda path, leaf: placed[path])
 
 
 def _lazy_checkpoint_reader(checkpoint: str) -> safetensors_io.ShardedReader:

@@ -23,11 +23,14 @@ save is made (``_capture_host_state``) and written from them
 (``checkpoint_async/writer.py``) records the RNG, step and loader cursor of
 the step it was given, not of a later one.
 
-Across processes (a data-parallel run, every process holding the same
-state): every process calls the save; process 0 writes the tree (the other
-processes write empty shard files, ``dist_checkpoint.snapshot_tree``), the
-raw loop's optimizer states and the shared host state, every process writes
-its own ``random_states_<rank>.pkl``, and the save ends in the done-marker
+Across processes every process calls the save. In a data-parallel run
+(every process holding the same state) process 0 writes the tree and the
+other processes write empty shard files; under a mesh each process writes
+its own chunks of the sharded leaves (``dist_checkpoint.snapshot_tree``),
+and a restore into a sharded carry reads each rank's region. Process 0
+writes the raw loop's optimizer states and the shared host state, every
+process writes its own ``random_states_<rank>.pkl``, and the save ends in
+the done-marker
 barrier and process 0's commit (``checkpoint_async/commit.py``). A load at
 the saved world size restores each process's own RNG file. A checkpoint
 saved at another world size loads only with ``allow_reshape=True`` (the
@@ -57,6 +60,8 @@ from torch import nn
 from . import dist_checkpoint
 from .checkpoint_async import commit
 from .logging import get_logger
+from .parallel.mesh import mesh_shape_of
+from .parallel.sharding import is_dtensor, local_chunk, spec_of_placements
 from .utils import safetensors_io
 from .utils.environment import parse_flag_from_env
 from .utils.constants import (
@@ -122,6 +127,18 @@ def _checked_value(key: str, tleaf: Any, value: Any) -> Any:
     """``value`` in the form of the template leaf ``tleaf``, checked but not
     written: a tensor of the template's shape, or a Python number."""
     value = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+    if is_dtensor(tleaf):
+        # a sharded leaf takes its local chunk: read as such, or cut from a
+        # whole value
+        local = tleaf._local_tensor
+        if tuple(value.shape) == tuple(tleaf.shape) and tuple(local.shape) != tuple(value.shape):
+            spec = spec_of_placements(tleaf.placements, tleaf.ndim)
+            value = local_chunk(value, spec, tleaf.device_mesh.get_rank(), tleaf.device_mesh)
+        if tuple(value.shape) != tuple(local.shape):
+            raise ValueError(f"checkpoint tensor {key!r} has shape {tuple(value.shape)}, "
+                             f"template's local chunk {tuple(local.shape)} of "
+                             f"{tuple(tleaf.shape)}")
+        return value
     if isinstance(tleaf, torch.Tensor):
         if tuple(value.shape) != tuple(tleaf.shape):
             # only 1-element leaves may be reshaped; anything else is corruption
@@ -164,7 +181,7 @@ def apply_plan(template: Any, plan: dict[str, Any]) -> Any:
             return tleaf
         if isinstance(tleaf, torch.Tensor):
             with torch.no_grad():
-                tleaf.copy_(plan[key])
+                (tleaf._local_tensor if is_dtensor(tleaf) else tleaf).copy_(plan[key])
             return tleaf
         return plan[key]
 
@@ -185,9 +202,14 @@ def _tree_of(obj: Any) -> Any:
 
 
 def _to_named_tensors(tree: Any) -> dict[str, torch.Tensor]:
-    """Every storable leaf of ``tree`` as a named host tensor."""
+    """Every storable leaf of ``tree`` as a named host tensor; a sharded
+    (DTensor) leaf is gathered whole, so every process must call it."""
+    from .parallel.runtime import gather_full
+
     out = {}
     for key, leaf in flatten_tree(_tree_of(tree)).items():
+        if is_dtensor(leaf):
+            leaf = gather_full(leaf)
         t = dist_checkpoint.as_tensor_leaf(leaf)
         if t is not None:
             out[key] = t
@@ -362,9 +384,11 @@ def topology_metadata(accelerator) -> dict[str, Any]:
     """The save-time topology record: the world size (one device a
     process) and each process's pair of shard files."""
     world = accelerator.num_processes
+    mesh = getattr(accelerator.state, "mesh", None)
     return {
         "format_version": 2, "world_size": world, "num_devices": world,
-        "devices_per_process": 1, "num_slices": 1, "mesh_shape": {},
+        "devices_per_process": 1, "num_slices": 1,
+        "mesh_shape": {} if mesh is None else mesh_shape_of(mesh),
         "process_shard_files": {str(p): {
             "shard": dist_checkpoint.SHARD_FILE_PATTERN.format(p),
             "index": dist_checkpoint.INDEX_FILE_PATTERN.format(p), "fault_domain": 0}
@@ -485,11 +509,12 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, carry:
         if sharded:
             nbytes += dist_checkpoint.save_sharded_tree(tree, work_dir,
                                                         accelerator.process_index)
-        elif is_main:
-            named = _to_named_tensors(tree)
-            _save_named(named, os.path.join(work_dir, SAFE_WEIGHTS_NAME if safe_serialization
-                                            else MODEL_NAME + ".bin"), safe_serialization)
-            nbytes += _nbytes(named)
+        elif is_main or any(is_dtensor(v) for v in flatten_tree(tree).values()):
+            named = _to_named_tensors(tree)  # a sharded leaf gathers on every process
+            if is_main:
+                _save_named(named, os.path.join(work_dir, SAFE_WEIGHTS_NAME if safe_serialization
+                                                else MODEL_NAME + ".bin"), safe_serialization)
+                nbytes += _nbytes(named)
     if carry is None and is_main:
         for i, opt in enumerate(accelerator._optimizers):
             if opt.opt_state is not None:

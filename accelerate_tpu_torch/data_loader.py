@@ -27,7 +27,9 @@ process its rows. So a yielded batch has ``batch_size`` rows, while the
 counts the reference keeps in global samples stay global here:
 ``global_batch_size``, ``remainder`` (the real samples of a short last
 global batch), the cursor of ``state_dict`` and ``skip_first_batches`` (a
-global batch is one batch on every process).
+global batch is one batch on every process). Under a mesh the rows go by
+data-parallel rank (``AcceleratorState.data_parallel_rank``, over dp x
+fsdp): the processes of one tp group read the same rows.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 
 from .logging import get_logger
-from .state import AcceleratorState, GradientState
+from .state import AcceleratorState, GradientState, current_process_index
 from .utils.dataclasses import DataLoaderConfiguration
 from .utils.operations import (
     broadcast_object_list,
@@ -411,7 +413,9 @@ class DataLoaderDispatcher(DataLoaderShard):
             return
         self.begin()
         try:
-            source = self._source() if self.process_index == 0 else None
+            # the world's rank 0 reads: under tensor parallelism the data
+            # rank 0 is several processes
+            source = self._source() if current_process_index() == 0 else None
             skipped = 0
 
             def payload():
@@ -475,7 +479,9 @@ def prepare_data_loader(dataloader: Any, state: Optional[AcceleratorState] = Non
     microbatch and its true sample count is the loader's ``remainder``."""
     state = state or AcceleratorState()
     config = config or getattr(state, "dataloader_config", None) or DataLoaderConfiguration()
-    num_processes, process_index = state.num_processes, state.process_index
+    # the data-parallel ranks (dp x fsdp of a mesh): tp peers read the same rows
+    num_processes = getattr(state, "data_parallel_size", state.num_processes)
+    process_index = getattr(state, "data_parallel_rank", state.process_index)
     dataset = getattr(dataloader, "dataset", None)
     batch_size = getattr(dataloader, "batch_size", None)
     if dataset is not None and batch_size is not None and hasattr(dataset, "__len__"):

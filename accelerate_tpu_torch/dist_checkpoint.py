@@ -11,15 +11,22 @@ process ``p`` writes
 * ``state_index_{p:05d}.json``: its manifest, ``key -> {shape, dtype,
   chunks: [{file, stored, offset, shape}]}``.
 
-The port's state is data-parallel: every process holds every leaf whole,
-the same on each after the step's gradient mean. As in the reference for
-leaves that are not globally sharded, process 0 owns them all (each leaf
-one chunk at offset 0) and every other process writes an empty pair of
-files, so the chunks never overlap. Re-slicing chunks of a sharded state
-onto another mesh comes with sharding (ROADMAP.md, queue A7). The reader
-assembles any tiling of chunks, so it reads the reference's checkpoints,
-which may hold several chunks a leaf. The files go through the port's own
-codec (``utils/safetensors_io.py``).
+A leaf that is a DTensor on a mesh (a sharded carry under a
+``ParallelismPlugin``) is written by chunks: each process writes only its
+own chunk, at its offset (``parallel.sharding.local_bounds``), and of the
+processes that hold the same chunk only the first writes it (its
+coordinate 0 on every axis that does not split the leaf, the reference's
+``replica_id == 0``). Every other leaf is whole on every process, the same
+on each after the step's gradient mean; as in the reference for leaves
+that are not globally sharded, process 0 owns it (one chunk at offset 0).
+So the chunks never overlap, and a process that owns nothing writes an
+empty pair of files. A restore into a DTensor template reads, for each
+rank's chunk, only the chunks that overlap it (``_read_region``), so a
+checkpoint re-slices onto any other mesh, or whole onto a plain template
+(world 1, ``allow_reshape=True``). The reader assembles any tiling of
+chunks, so it reads the reference's checkpoints, which may hold several
+chunks a leaf. The files go through the port's own codec
+(``utils/safetensors_io.py``).
 
 A snapshot owns its memory: the train step updates params and moments in
 place, so a snapshot that shared storage with them would be written with
@@ -101,9 +108,18 @@ def _owned_host_copy(leaf: Any) -> Optional[torch.Tensor]:
 _ALIGN = 64  # bytes: every view of a buffer set starts on a 64-byte boundary
 
 
+def _local(leaf: Any) -> Any:
+    """A DTensor's local chunk (sharing its storage); anything else as it is."""
+    from .parallel.runtime import to_local
+
+    return to_local(leaf)
+
+
 def device_layout(named: dict[str, Any], prefix: str = "") -> list[tuple[str, tuple, torch.dtype]]:
     """``(prefix + key, shape, dtype)`` of every storable leaf of ``named``
-    that lives on an accelerator: what a set of host buffers must hold."""
+    that lives on an accelerator (a DTensor's local chunk): what a set of
+    host buffers must hold."""
+    named = {key: _local(leaf) for key, leaf in named.items()}
     return [(prefix + key, tuple(leaf.shape), leaf.dtype) for key, leaf in named.items()
             if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu"
             and leaf.dtype in _DTYPE_NAMES]
@@ -219,24 +235,35 @@ def snapshot_tree(tree: Any, buffers: Optional[HostBuffers] = None,
                   process_index: Optional[int] = None) -> ShardSnapshot:
     """This process's chunks of ``tree`` on the host, in memory the
     snapshot owns (``host_copies``; with ``buffers`` bound to
-    ``device_layout`` of the tree's leaves). Process 0 (``process_index``,
-    by default the group's rank) owns every storable leaf as one chunk; any
-    other process owns none and copies nothing."""
+    ``device_layout`` of the tree's leaves). A DTensor leaf: the chunk of
+    this process (``process_index``, by default the group's rank), when it
+    is the first holder of it, at its offset. Any other storable leaf:
+    process 0's, whole."""
     from .checkpointing import flatten_tree
-
+    from .parallel.sharding import is_dtensor, is_replica_zero, local_bounds, spec_of_placements
     from .state import current_process_index
 
     proc = current_process_index() if process_index is None else process_index
     fname = SHARD_FILE_PATTERN.format(proc)
+    owned, where = {}, {}
+    for key, leaf in flatten_tree(tree).items():
+        if is_dtensor(leaf):
+            spec = spec_of_placements(leaf.placements, leaf.ndim)
+            if not is_replica_zero(spec, proc, leaf.device_mesh):
+                continue
+            bounds = local_bounds(spec, leaf.shape, proc, leaf.device_mesh)
+            owned[key] = leaf._local_tensor
+            where[key] = (list(leaf.shape), [lo for lo, _ in bounds])
+        elif proc == 0:
+            owned[key] = leaf
     tensors, manifest = {}, {}
-    if proc != 0:
-        return ShardSnapshot(tensors=tensors, manifest=manifest, process_index=proc)
-    for key, t in host_copies(flatten_tree(tree), buffers).items():
+    for key, t in host_copies(owned, buffers).items():
         stored = f"{key}@0"
         tensors[stored] = t
+        shape, offset = where.get(key, (list(t.shape), [0] * t.dim()))
         manifest[key] = {
-            "shape": list(t.shape), "dtype": _DTYPE_NAMES[t.dtype],
-            "chunks": [{"file": fname, "stored": stored, "offset": [0] * t.dim(),
+            "shape": shape, "dtype": _DTYPE_NAMES[t.dtype],
+            "chunks": [{"file": fname, "stored": stored, "offset": offset,
                         "shape": list(t.shape)}],
         }
     return ShardSnapshot(tensors=tensors, manifest=manifest, process_index=proc)
@@ -363,19 +390,33 @@ class _FileCache:
 def _read_leaf(reader: _FileCache, entry: dict) -> torch.Tensor:
     """One leaf assembled whole from its chunks; fails if they do not
     cover it."""
-    shape = tuple(entry["shape"])
+    return _read_region(reader, entry, tuple((0, d) for d in entry["shape"]))
+
+
+def _read_region(reader: _FileCache, entry: dict, bounds: tuple) -> torch.Tensor:
+    """The half-open region ``bounds`` (``(start, stop)`` a dim) of one leaf,
+    assembled from the chunks that overlap it (reference :361); only those
+    are read. Fails if they do not cover it."""
+    region = tuple(hi - lo for lo, hi in bounds)
     out, filled = None, 0
     for chunk in entry["chunks"]:
-        piece = reader.read(chunk["file"], chunk["stored"]).reshape(chunk["shape"])
+        c_off, c_shape = chunk["offset"], chunk["shape"]
+        lo = [max(b[0], o) for b, o in zip(bounds, c_off)]
+        hi = [min(b[1], o + n) for b, o, n in zip(bounds, c_off, c_shape)]
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        piece = reader.read(chunk["file"], chunk["stored"]).reshape(c_shape)
         if out is None:
-            out = torch.empty(shape, dtype=piece.dtype)
-        dst = tuple(slice(o, o + s) for o, s in zip(chunk["offset"], chunk["shape"]))
-        out[dst] = piece
-        filled += piece.numel()
-    size = int(np.prod(shape))
+            out = torch.empty(region, dtype=piece.dtype)
+        src = tuple(slice(a - o, b - o) for a, b, o in zip(lo, hi, c_off))
+        dst = tuple(slice(a - r[0], b - r[0]) for a, b, r in zip(lo, hi, bounds))
+        out[dst] = piece[src]
+        filled += int(np.prod([b - a for a, b in zip(lo, hi)]))
+    size = int(np.prod(region))
     if out is None or filled != size:
-        raise ValueError(f"checkpoint chunks cover {filled} of {size} elements for a leaf of "
-                         f"shape {shape}: incomplete checkpoint?")
+        raise ValueError(f"checkpoint chunks cover {filled} of {size} elements for a region "
+                         f"{list(bounds)} of a leaf of shape {tuple(entry['shape'])}: "
+                         "incomplete checkpoint?")
     return out
 
 
@@ -387,13 +428,26 @@ def load_full_named(input_dir: str) -> dict[str, torch.Tensor]:
 
 
 def read_sharded_named(template: Any, input_dir: str) -> dict[str, torch.Tensor]:
-    """The checkpoint's leaves that ``template`` names, each read whole."""
+    """The checkpoint's leaves that ``template`` names: a DTensor leaf's
+    region of this process's chunk (its local shape), any other whole."""
     from .checkpointing import flatten_tree
+    from .parallel.sharding import is_dtensor, local_bounds, spec_of_placements
 
     manifest = _merged_manifest(input_dir)
+    out = {}
     with _FileCache(input_dir) as reader:
-        return {key: _read_leaf(reader, manifest[key])
-                for key in flatten_tree(template) if key in manifest}
+        for key, leaf in flatten_tree(template).items():
+            if key not in manifest:
+                continue
+            entry = manifest[key]
+            if is_dtensor(leaf) and tuple(entry["shape"]) == tuple(leaf.shape):
+                spec = spec_of_placements(leaf.placements, leaf.ndim)
+                bounds = local_bounds(spec, leaf.shape, leaf.device_mesh.get_rank(),
+                                      leaf.device_mesh)
+                out[key] = _read_region(reader, entry, bounds)
+            else:
+                out[key] = _read_leaf(reader, entry)
+    return out
 
 
 def load_sharded_tree(template: Any, input_dir: str, strict: bool = True) -> Any:

@@ -14,9 +14,16 @@ save_hf_checkpoint``). ``--hf_checkpoint DIR`` reads a directory of HF
 safetensors and its ``config.json`` (a Llama, Mistral, Qwen2 or Mixtral
 snapshot) instead. ``--quantize int8|int4`` also loads it weight-only
 quantized, tensor by tensor. ``--cpu`` runs on the CPU: the device budget
-then applies to the host tier, and what is past it goes to disk. The
-reference's GSPMD mode (``--tp``, ``--fsdp`` above 1) raises: ROADMAP.md,
-queue A7.
+then applies to the host tier, and what is past it goes to disk.
+
+``--tp``/``--fsdp`` above 1 add the reference's GSPMD mode: ``tp x fsdp``
+processes (CPU processes over gloo, ``--cpu``; one process a card is the
+launch command's, ROADMAP.md queue A10) each load their chunk of every
+weight onto the mesh (``load_checkpoint_and_dispatch(mesh=...)``) and
+decode greedily through ``parallel.runtime.apply_sharded``; the tokens must
+equal the resident load's.
+
+    python accelerate_tpu_torch/examples/big_model_inference.py --cpu --tp 2 --fsdp 2
 """
 
 import argparse
@@ -32,6 +39,7 @@ import torch  # noqa: E402
 
 from accelerate_tpu_torch import (  # noqa: E402
     CausalLM,
+    debug_launcher,
     TransformerConfig,
     infer_auto_device_map,
     init_empty_weights,
@@ -57,6 +65,29 @@ def as_model(cfg, placed):
     return model
 
 
+def mesh_worker(ckpt_dir, cfg, load_kwargs, prompt, new_tokens, tp, fsdp, out_file):
+    """One process of the mesh mode: its chunk of each weight loaded onto the
+    mesh under the rules, then greedy decoding by whole forwards through
+    ``apply_sharded`` (the decode cache holds one card's whole heads);
+    process 0 writes the tokens."""
+    from accelerate_tpu_torch import Accelerator, ParallelismPlugin
+    from accelerate_tpu_torch.parallel.runtime import apply_sharded
+
+    torch.set_num_threads(1)
+    acc = Accelerator(cpu=True, parallelism_plugin=ParallelismPlugin(
+        dp_size=-1, tp_size=tp, fsdp_size=fsdp, min_weight_size=1))
+    model = load_checkpoint_and_dispatch(init_empty_weights(CausalLM, cfg), ckpt_dir,
+                                         mesh=acc.mesh, plugin=acc.state.parallelism_plugin,
+                                         **load_kwargs)
+    ids = prompt
+    for _ in range(new_tokens):
+        logits = apply_sharded(model, ids)
+        ids = torch.cat([ids, logits[:, -1].argmax(-1, keepdim=True)], dim=1)
+    if acc.is_main_process:
+        torch.save(ids, out_file)
+    acc.wait_for_everyone()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--seq", type=int, default=16)
@@ -70,14 +101,18 @@ def main(argv=None):
                         "example's own checkpoint")
     parser.add_argument("--quantize", choices=["int8", "int4"], default=None,
                         help="Also load weight-only quantized, tensor by tensor")
-    parser.add_argument("--tp", type=int, default=1, help="The GSPMD mode: not ported (A7)")
-    parser.add_argument("--fsdp", type=int, default=1, help="The GSPMD mode: not ported (A7)")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="Tensor-parallel degree of the mesh mode (with --cpu)")
+    parser.add_argument("--fsdp", type=int, default=1,
+                        help="Weight-shard degree of the mesh mode (composes with --tp)")
     parser.add_argument("--workdir", type=str, default=None)
     parser.add_argument("--cpu", action="store_true", help="If passed, runs on the CPU.")
     args = parser.parse_args(argv)
-    if args.tp > 1 or args.fsdp > 1:
-        raise NotImplementedError("the GSPMD mode (--tp, --fsdp) loads onto a mesh, which is not "
-                                  "ported yet: ROADMAP.md, queue A7")
+    mesh_mode = args.tp > 1 or args.fsdp > 1
+    if mesh_mode and not args.cpu:
+        raise NotImplementedError(
+            "the mesh mode (--tp, --fsdp above 1) needs one process a card, which is the launch "
+            "command's (ROADMAP.md, queue A10): pass --cpu to run it over gloo")
     device = resolve_device(args.cpu)
     workdir = args.workdir or tempfile.mkdtemp(prefix="big_model_")
     offload_dir = os.path.join(workdir, "offload")
@@ -130,6 +165,18 @@ def main(argv=None):
     if not torch.equal(out, out2):
         raise SystemExit("the tiered load's tokens differ from the resident load's")
     print("outputs identical across placements: big-model inference OK")
+
+    # mode 4 (--tp, --fsdp): each of tp x fsdp processes loads its chunks onto
+    # the mesh and decodes through the sharded forward
+    if mesh_mode:
+        out_file = os.path.join(workdir, "mesh_tokens.pt")
+        debug_launcher(mesh_worker, (ckpt_dir, cfg, load_kwargs, prompt.cpu(), args.new_tokens,
+                                     args.tp, args.fsdp, out_file),
+                       num_processes=args.tp * args.fsdp)
+        out3 = torch.load(out_file)
+        print("mesh generate:", out3[0, -args.new_tokens:].tolist())
+        if not torch.equal(out.cpu(), out3):
+            raise SystemExit("the mesh load's tokens differ from the resident load's")
 
     # mode 3 (--quantize): weight-only int8/int4, quantized as it loads
     if args.quantize is not None:

@@ -50,6 +50,17 @@ and MoE blocks take attention adapters only. Under remat each layer's
 adapter tensors go into the checkpointed call as inputs, beside its
 parameters.
 
+Sharding (``parallel/``): each model declares its parameters' logical axes
+in the reference's layout (``logical_axes()``, from the reference's
+``nn.with_partitioning`` calls), which ``parallel.sharding`` maps to mesh
+axes. Inside a sharded step (``parallel.runtime.sharded_forward``) the
+layer loop gathers each layer's fsdp-split weights as it runs, and under tp
+the attention runs on the local heads (q and o_proj split, k and v whole of
+which each rank takes its heads' rows), the MLP on its columns and rows, the
+embedding and the lm_head on the local vocab, with Megatron's pair of
+collectives; ``tp_partial_leaves`` names the leaves whose gradients are
+partial over tp. Decoding, LoRA and MoE under tp raise.
+
 Not ported yet, and rejected when asked for (ROADMAP.md): the GPT-2
 architecture, the Gemma/Gemma-2 switches, ring attention, experts over an
 ``ep`` mesh, and ``fused_kernels=True`` on the classifier.
@@ -88,6 +99,8 @@ from ..ops.attention import (
 )
 from ..ops.fp8 import fp8_matmul
 from ..ops.rope import rope_inv_freqs
+from ..parallel import runtime as _shard
+from ..parallel.sharding import LeafAxes
 from ..state import resolve_device
 from .config import TransformerConfig
 
@@ -204,13 +217,16 @@ REMAT_POLICIES = {
 }
 
 
-def _remat(layer, remat: str, *args, lora: Optional[LayerLora] = None):
+def _remat(layer, remat: str, *args, lora: Optional[LayerLora] = None, gather=None):
     """``layer(*args, lora=lora)`` under torch.utils.checkpoint with the
     policy. The layer's parameters as they are now (inside
     ``unified_step``'s ``functional_call``, the compute-dtype copies) and
     its adapter tensors go in as inputs, so the recompute in the backward,
     which runs after that call has put the fp32 masters back, replays the
-    same ops on the same tensors, and the adapters' gradients flow."""
+    same ops on the same tensors, and the adapters' gradients flow. Under a
+    sharded step ``gather`` turns the layer's local shards into its whole
+    weights inside the checkpointed call, so the recompute gathers them
+    again."""
     policy = REMAT_POLICIES[remat]
     kw = {} if policy is None else {
         "context_fn": functools.partial(create_selective_checkpoint_contexts, policy)}
@@ -221,6 +237,8 @@ def _remat(layer, remat: str, *args, lora: Optional[LayerLora] = None):
 
     def run(*tensors):
         weights = dict(zip(names, tensors[:len(names)]))
+        if gather is not None:  # the recompute gathers again
+            weights = gather(weights)
         rest = tensors[len(names):]
         layer_lora = None if lora is None else lora.with_tensors(rest[:n_lora])
         return torch.func.functional_call(layer, weights, rest[n_lora:], {"lora": layer_lora})
@@ -389,6 +407,65 @@ def _decode_attention(q, k, v, positions, kv, window):
     return xla_attention(q, key, value, mask=keep)
 
 
+def _tp_refusals(kv=None, lora=None) -> None:
+    if kv is not None:
+        raise NotImplementedError("decoding with tensor-parallel weights is not ported: "
+                                  "the serving engine runs one card's whole model")
+    if lora is not None:
+        raise NotImplementedError("LoRA adapters under tensor parallelism are not ported: "
+                                  "train adapters with a plugin whose tp_size is 1")
+
+
+def _tp_heads(cfg: TransformerConfig, tp) -> tuple[int, int, slice]:
+    """This tp rank's query heads, kv heads and the kv rows (of k_proj's
+    and v_proj's ``(kv_heads * head_dim, in)`` weights) its query heads
+    read."""
+    if cfg.num_heads % tp.size or cfg.vocab_size % tp.size:
+        raise NotImplementedError(
+            f"tp_size {tp.size} must divide num_heads {cfg.num_heads} and vocab_size "
+            f"{cfg.vocab_size}: the port splits heads and the vocab evenly")
+    heads = cfg.num_heads // tp.size
+    group = cfg.num_heads // cfg.num_kv_heads
+    if heads % group == 0:
+        kv_heads = heads // group
+    elif group % heads == 0:
+        kv_heads = 1
+    else:
+        raise NotImplementedError(f"{heads} local query heads straddle kv groups of {group}: "
+                                  f"tp_size {tp.size} does not fit {cfg.num_heads}/"
+                                  f"{cfg.num_kv_heads} heads")
+    lo = (tp.rank * heads) // group
+    return heads, kv_heads, slice(lo * cfg.head_dim, (lo + kv_heads) * cfg.head_dim)
+
+
+class _Rows:
+    """A projection restricted to some of its output rows: its own forward
+    (``Dense`` or ``Fp8Dense``) on the sliced weight and bias."""
+
+    def __init__(self, proj: nn.Module, rows: slice):
+        self.proj = proj
+        self.weight = proj.weight[rows]
+        self.bias = None if proj.bias is None else proj.bias[rows]
+
+    def __call__(self, x):
+        params = {"weight": self.weight}
+        if self.bias is not None:
+            params["bias"] = self.bias
+        return torch.func.functional_call(self.proj, params, (x,))
+
+
+def tp_partial_leaves(config: TransformerConfig) -> frozenset:
+    """The name suffixes of a layer's parameters that each tp rank uses in
+    part, so that their gradients are partial sums over tp: k_proj and
+    v_proj (whole on tp, each rank reading its kv rows), and the attention
+    norm when the fused prologue applies it after the tp split."""
+    names = {"attn.k_proj.weight", "attn.v_proj.weight", "attn.k_proj.bias",
+             "attn.v_proj.bias"}
+    if config.fused_kernels:
+        names.add("attn_norm.weight")
+    return frozenset(names)
+
+
 class Attention(nn.Module):
     def __init__(self, config: TransformerConfig, device=None, generator=None):
         super().__init__()
@@ -418,16 +495,26 @@ class Attention(nn.Module):
         cfg = self.config
         b, s = x.shape[:2]
         dt = _dtype(cfg)
+        heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
+        k_proj, v_proj = self.k_proj, self.v_proj
+        tp = _shard.tp_state()
+        if tp is not None:
+            # the local heads: q and o_proj arrive split, k/v whole, of which
+            # this rank takes its q heads' kv rows
+            _tp_refusals(kv=kv, lora=lora)
+            heads, kv_heads, rows = _tp_heads(cfg, tp)
+            k_proj, v_proj = _Rows(self.k_proj, rows), _Rows(self.v_proj, rows)
+            x = tp.copy(x)
         lora_on_qkv = lora is not None and any(t in lora.pairs for t in _QKV)
         fused = (pre_norm_scale is not None and kv is None and not cfg.fp8 and not lora_on_qkv
-                 and fused_ops.prologue_supported(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                 and fused_ops.prologue_supported(heads, kv_heads, cfg.head_dim,
                                                   b, s, x.shape[-1], device=x.device, dtype=dt))
         if fused:
             q, k, v = fused_ops.fused_qkv_prologue(
-                x, pre_norm_scale, self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
-                self.q_proj.bias, self.k_proj.bias, self.v_proj.bias, positions,
-                eps=cfg.rms_norm_eps, norm_offset=cfg.norm_offset, num_heads=cfg.num_heads,
-                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, theta=cfg.rope_theta,
+                x, pre_norm_scale, self.q_proj.weight, k_proj.weight, v_proj.weight,
+                self.q_proj.bias, k_proj.bias, v_proj.bias, positions,
+                eps=cfg.rms_norm_eps, norm_offset=cfg.norm_offset, num_heads=heads,
+                num_kv_heads=kv_heads, head_dim=cfg.head_dim, theta=cfg.rope_theta,
                 scaling=cfg.rope_scaling, dtype=dt,
             )
         else:
@@ -435,11 +522,11 @@ class Attention(nn.Module):
                 x = fused_ops.rms_norm_reference(x, pre_norm_scale, eps=cfg.rms_norm_eps,
                                                  norm_offset=cfg.norm_offset)
             q = _add_delta(self.q_proj(x), lora, x, "q_proj")
-            k = _add_delta(self.k_proj(x), lora, x, "k_proj")
-            v = _add_delta(self.v_proj(x), lora, x, "v_proj")
-            q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-            k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-            v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+            k = _add_delta(k_proj(x), lora, x, "k_proj")
+            v = _add_delta(v_proj(x), lora, x, "v_proj")
+            q = q.reshape(b, s, heads, cfg.head_dim)
+            k = k.reshape(b, s, kv_heads, cfg.head_dim)
+            v = v.reshape(b, s, kv_heads, cfg.head_dim)
             q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
             k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         if kv is not None:
@@ -450,8 +537,9 @@ class Attention(nn.Module):
                 implementation=cfg.attention_impl, window=cfg.sliding_window,
             )
             out = checkpoint_name(out, "attn_out", cfg)
-        out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
-        return _add_delta(self.o_proj(out), lora, out, "o_proj")
+        out = out.reshape(b, s, heads * cfg.head_dim)
+        y = _add_delta(self.o_proj(out), lora, out, "o_proj")
+        return y if tp is None else tp.reduce(y)
 
 
 class MLP(nn.Module):
@@ -467,6 +555,10 @@ class MLP(nn.Module):
         self.down_proj = _proj(config, f, e, False, **kw)
 
     def forward(self, x, lora: Optional[LayerLora] = None):
+        tp = _shard.tp_state()
+        if tp is not None:  # gate/up split by columns, down by rows
+            _tp_refusals(lora=lora)
+            x = tp.copy(x)
         with named_products("mlp_gate_out"):
             gate = self.gate_proj(x)
         gate = _add_delta(gate, lora, x, "gate_proj")
@@ -474,7 +566,8 @@ class MLP(nn.Module):
             up = self.up_proj(x)
         up = _add_delta(up, lora, x, "up_proj")
         mid = F.silu(gate) * up
-        return _add_delta(self.down_proj(mid), lora, mid, "down_proj")
+        y = _add_delta(self.down_proj(mid), lora, mid, "down_proj")
+        return y if tp is None else tp.reduce(y)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -515,6 +608,9 @@ class MoE(nn.Module):
         self.aux_loss = None
 
     def forward(self, x):
+        if _shard.tp_state() is not None:
+            raise NotImplementedError("MoE experts under tensor parallelism are not ported yet: "
+                                      "ROADMAP.md, queue A7 part 4 (expert parallelism)")
         cfg = self.config
         dt = _dtype(cfg)
         E, K = cfg.num_experts, cfg.num_experts_per_tok
@@ -585,12 +681,20 @@ def _layer_stack(model: nn.Module, x, positions, mask=None, kv_lengths=None,
                  lora: Optional[LoraState] = None):
     """x through ``model.layers`` (the reference's ``_apply_layer_stack``),
     each layer under ``torch.utils.checkpoint`` with ``config.remat``'s
-    policy while autograd records, with layer i's slice of ``lora``."""
+    policy while autograd records, with layer i's slice of ``lora``. Inside
+    a sharded step (``parallel.runtime.sharded_forward``) each layer's
+    parameters are gathered just before it runs."""
     remat = model.config.remat
+    gather_all = _shard.layer_gather()
     for i, layer in enumerate(model.layers):
         layer_lora = None if lora is None else lora.layer(i)
+        gather = None if gather_all is None else functools.partial(gather_all, f"layers.{i}.")
         if remat is not None and torch.is_grad_enabled():
-            x = _remat(layer, remat, x, positions, mask, kv_lengths, lora=layer_lora)
+            x = _remat(layer, remat, x, positions, mask, kv_lengths, lora=layer_lora,
+                       gather=gather)
+        elif gather is not None:  # the layer's whole weights live while it runs
+            x = torch.func.functional_call(layer, gather(dict(layer.named_parameters())),
+                                           (x, positions, mask, kv_lengths), {"lora": layer_lora})
         else:
             x = layer(x, positions, mask, kv_lengths, lora=layer_lora)
     return x
@@ -627,6 +731,64 @@ def _embed_and_layers(model: nn.Module, config: TransformerConfig, device, gener
         Block(config, device, generator) for _ in range(config.num_layers)
     )
     model.final_norm = RMSNorm(config, e, device)
+
+
+def _embed_tokens(model: nn.Module, input_ids: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The embedding lookup; under tp a lookup into this rank's vocab rows,
+    summed over tp."""
+    tp = _shard.tp_state()
+    weight = model.embed.weight.to(dt)
+    if tp is None:
+        return F.embedding(input_ids, weight)
+    return tp.vocab_embedding(input_ids, weight)
+
+
+def _logical_axes(model: nn.Module) -> dict[str, LeafAxes]:
+    """Each parameter's logical axes as the reference declares them
+    (``nn.with_partitioning`` in ``accelerate_tpu/models/transformer.py``
+    :68, :156-159, :198-208, :565, :575, :751, :915, :1047, :1060) over the
+    reference's shape: a layer's leaf stacked to ``(layers, ...)`` with a
+    Dense kernel ``(in, out)``, so the port's ``(out, in)`` weight reads
+    the reference's dims (2, 1). A Dense bias the reference leaves
+    unannotated takes ``(None,)``, which the rules treat as the reference
+    treats an empty spec."""
+    cfg = model.config
+    layers = cfg.num_layers
+    kernels = {  # a Dense kernel's logical axes, (in, out)
+        "attn.q_proj": ("embed", "heads"), "attn.k_proj": ("embed", "kv"),
+        "attn.v_proj": ("embed", "kv"), "attn.o_proj": ("heads", "embed"),
+        "mlp.gate_proj": ("embed", "mlp"), "mlp.up_proj": ("embed", "mlp"),
+        "mlp.down_proj": ("mlp", "embed"), "moe.router": ("embed", None),
+        "lm_head": ("embed", "vocab"), "pooler": ("embed", None),
+        "classifier": ("embed", None),
+    }
+    biases = {"attn.q_proj": ("heads",), "attn.k_proj": ("kv",), "attn.v_proj": ("kv",)}
+    stacks = {"moe.gate_proj": ("expert", "embed", "mlp"),
+              "moe.up_proj": ("expert", "embed", "mlp"),
+              "moe.down_proj": ("expert", "mlp", "embed")}
+    out = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        stacked = name.startswith("layers.")
+        local = name.split(".", 2)[2] if stacked else name
+        module, _, leaf = local.rpartition(".")
+        if local in stacks:
+            logical, ref, dims = stacks[local], shape, tuple(range(len(shape)))
+        elif leaf == "weight" and module in kernels:
+            logical, ref, dims = kernels[module], (shape[1], shape[0]), (1, 0)
+        elif leaf == "bias":
+            logical, ref, dims = biases.get(module, (None,)), shape, (0,)
+        elif local.endswith("norm.weight"):
+            logical, ref, dims = ("norm",), shape, (0,)
+        elif local == "embed.weight":
+            logical, ref, dims = (("vocab", "zero"), "embed"), shape, (0, 1)
+        else:
+            raise KeyError(f"no logical axes for parameter {name!r}")
+        if stacked:
+            logical, ref = ("layers",) + tuple(logical), (layers,) + tuple(ref)
+            dims = tuple(d + 1 for d in dims)
+        out[name] = LeafAxes(tuple(logical), tuple(ref), dims)
+    return out
 
 
 def next_token_count(batch) -> torch.Tensor | float:
@@ -678,7 +840,9 @@ class CausalLM(nn.Module):
                 lora: Optional[LoraState] = None):
         cfg = self.config
         dt = _dtype(cfg)
-        x = F.embedding(input_ids, self.embed.weight.to(dt))
+        if decode and _shard.tp_state() is not None:
+            _tp_refusals(kv=True)
+        x = _embed_tokens(self, input_ids, dt)
         if decode:
             x = self._decode_layers(x, paged, cache, lora)
         elif paged is not None or cache is not None:
@@ -689,9 +853,19 @@ class CausalLM(nn.Module):
                 positions = positions[None, :].expand(input_ids.shape)
             x = _layer_stack(self, x, positions, lora=lora)
         x = self.final_norm(x)
+        tp = _shard.tp_state()
+        if tp is not None:  # vocab-split logits, gathered over tp for the loss
+            x = tp.copy(x)
         if cfg.tie_embeddings:
-            return x.to(dt) @ self.embed.weight.to(dt).t()
-        return self.lm_head(x)
+            logits = x.to(dt) @ self.embed.weight.to(dt).t()
+        else:
+            logits = self.lm_head(x)
+        return logits if tp is None else tp.gather(logits, -1)
+
+    def logical_axes(self) -> dict[str, LeafAxes]:
+        """Every parameter's logical axes in the reference's layout, for
+        ``parallel.sharding.infer_param_shardings``."""
+        return _logical_axes(self)
 
     def _decode_layers(self, x, paged, cache, lora=None):
         b, s = x.shape[:2]
@@ -797,7 +971,7 @@ class SequenceClassifier(nn.Module):
                 is_prefix = (keep[:, 1:] <= keep[:, :-1]).all(dim=-1)
             else:
                 mask4d = keep[:, None, None, :]
-        x = F.embedding(input_ids, self.embed.weight.to(_dtype(cfg)))
+        x = _embed_tokens(self, input_ids, _dtype(cfg))
         x = _layer_stack(self, x, positions, mask4d, kv_lengths)
         if is_prefix is not None:
             x = torch.where(is_prefix[:, None, None], x, torch.full_like(x, float("nan")))
@@ -808,6 +982,10 @@ class SequenceClassifier(nn.Module):
             w = attention_mask[:, :, None].to(x.dtype)
             pooled = (x * w).sum(dim=1) / w.sum(dim=1).clamp_min(1.0)
         return self.classifier(torch.tanh(self.pooler(pooled)))
+
+    def logical_axes(self) -> dict[str, LeafAxes]:
+        """Every parameter's logical axes in the reference's layout."""
+        return _logical_axes(self)
 
     @staticmethod
     def loss_fn(model: "SequenceClassifier"):

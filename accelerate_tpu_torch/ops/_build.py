@@ -126,6 +126,21 @@ def bind(name: str, signatures: dict, error_string: str, returns: dict = None) -
     return lib
 
 
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """Raise TypeError when any argument is a DTensor (or a list holding
+    one): a kernel reads raw pointers, and a DTensor's pointer is its
+    local shard's, not the tensor it stands for. The sharded step hands
+    the kernels plain local tensors (``parallel/runtime.py``)."""
+    from torch.distributed.tensor import DTensor
+
+    for t in tensors:
+        items = t if isinstance(t, (list, tuple)) else (t,)
+        if any(isinstance(x, DTensor) for x in items):
+            raise TypeError(f"{kernel}: a DTensor argument; the kernel takes plain local "
+                            "tensors (call .to_local() on the shard, or run the step, which "
+                            "does)")
+
+
 def launch(lib: ctypes.CDLL, fn_name: str, *args, device) -> None:
     """Call ``fn_name(*args, stream)`` on ``device``'s current stream;
     raise on a non-zero cudaError."""

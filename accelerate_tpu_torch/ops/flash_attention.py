@@ -260,6 +260,7 @@ def _launch(wrapper, tensors, q, k, scale, causal, window):
 def flash_fwd(q, k, v, scale, causal=True, kv_lengths=None, window=None):
     """(O, lse) — the forward kernel on CUDA tensors, its plain version on
     CPU tensors."""
+    _build.refuse_dtensor("flash_fwd", q, k, v, kv_lengths)
     if not q.is_cuda:
         return flash_fwd_reference(q, k, v, scale, causal, kv_lengths, window)
     _check_inputs(q, k, v, kv_lengths, window, causal)
@@ -273,6 +274,7 @@ def flash_fwd(q, k, v, scale, causal=True, kv_lengths=None, window=None):
 def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=None,
                  window=None):
     """dq — the dq kernel on CUDA tensors, its plain version on CPU tensors."""
+    _build.refuse_dtensor("flash_bwd_dq", q, k, v, dout, lse, delta, kv_lengths)
     if not q.is_cuda:
         return flash_bwd_dq_reference(q, k, v, dout, lse, delta, scale, causal,
                                       kv_lengths, window)
@@ -288,6 +290,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=None
                   window=None):
     """(dk, dv) — the dk/dv kernel on CUDA tensors, its plain version on CPU
     tensors."""
+    _build.refuse_dtensor("flash_bwd_dkv", q, k, v, dout, lse, delta, kv_lengths)
     if not q.is_cuda:
         return flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale, causal,
                                        kv_lengths, window)
@@ -304,6 +307,7 @@ def flash_bwd_fused(q, k, v, dout, lse, delta, scale, causal=True, kv_lengths=No
     """(dq, dk, dv) — the single-pass kernel on CUDA tensors, its plain
     version on CPU tensors. dq is summed in a zeroed fp32 buffer by the
     kernel's vector reductions, then cast to q's dtype."""
+    _build.refuse_dtensor("flash_bwd_fused", q, k, v, dout, lse, delta, kv_lengths)
     if not q.is_cuda:
         return flash_bwd_fused_reference(q, k, v, dout, lse, delta, scale, causal,
                                          kv_lengths, window)

@@ -239,6 +239,7 @@ def prologue_launch(x, scale, wq, wk, wv, bq, bk, bv, cosd, sind, q, k, v, *, ep
     / (B, S, Hkv, D) outputs, uncounted; returns the design it took.
     ``qkv_prologue`` is the counted entry; a check on the card calls this
     to write into outputs it placed itself."""
+    _build.refuse_dtensor("prologue_launch", x, scale, wq, wk, wv, bq, bk, bv, q, k, v)
     # the multiplier in the scale's own dtype, as rms_norm_reference forms it
     mult = ((1.0 + scale) if norm_offset else scale).float().contiguous()
     if mult.data_ptr() % 16:
@@ -271,6 +272,7 @@ def qkv_prologue(x, scale, wq, wk, wv, bq, bk, bv, cosd, sind, *, eps: float,
     """(q, k, v) — the prologue kernel on CUDA tensors, its plain version
     on CPU tensors. x is the raw (B, S, E) residual stream, the weights
     are (out, in), cos/sin the (B*S, D) tables of ``_rope_tables``."""
+    _build.refuse_dtensor("qkv_prologue", x, scale, wq, wk, wv, bq, bk, bv, cosd, sind)
     kw = dict(eps=eps, norm_offset=norm_offset, num_heads=num_heads,
               num_kv_heads=num_kv_heads, head_dim=head_dim, dtype=dtype)
     if not x.is_cuda:
@@ -413,6 +415,7 @@ def adamw_epilogue(grads, params, mus, nus, row, *, b1, b2, eps, eps_root, weigh
     """One AdamW step over lists of fp32 leaves, in place: one kernel
     launch over all of them on CUDA tensors, the plain version leaf by leaf
     on CPU tensors."""
+    _build.refuse_dtensor("adamw_epilogue", grads, params, mus, nus, row)
     hp = dict(b1=b1, b2=b2, eps=eps, eps_root=eps_root, weight_decay=weight_decay)
     leaves = list(zip(grads, params, mus, nus))
     _require(len(leaves) > 0 and len(leaves) == len(params),

@@ -53,17 +53,21 @@ def scale_loss(loss: torch.Tensor, ls: Optional[LossScaleState]) -> torch.Tensor
     return loss if ls is None else loss * ls.scale
 
 
-def unscale_and_check(grads: Params, ls: Optional[LossScaleState], policy=None):
+def unscale_and_check(grads: Params, ls: Optional[LossScaleState], policy=None,
+                      reduce_finite=None):
     """Unscale grads; return (grads, grads_finite, new_loss_scale_state).
     On overflow the step is skipped and the scale shrinks by the factor;
     after ``growth_interval`` clean steps it grows by it. ``grads_finite``
     is a host bool (the step branches on it). fp32 grads are unscaled in
-    place."""
+    place. ``reduce_finite`` turns this process's answer into every
+    process's (a sharded step holds only its shards)."""
     if ls is None:
         return grads, True, None
     inv = 1.0 / ls.scale
     grads = {k: g.float().mul_(inv) for k, g in grads.items()}
     finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+    if reduce_finite is not None:
+        finite = reduce_finite(finite)
     growth_interval = policy.loss_scale_growth_interval if policy else 2000
     factor = policy.loss_scale_factor if policy else 2.0
     count = ls.growth_count + 1 if finite else 0

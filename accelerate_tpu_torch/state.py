@@ -18,7 +18,11 @@ card and gloo under ``cpu=True`` (picked once, from the device), and
 ``num_processes``, ``process_index`` and ``distributed_type`` come from the
 group. A group that fails to come up raises: unlike the reference's
 single-process fallback (:87-91), a run asked for N processes never trains
-as one. A group of one is still a group, so its collectives run.
+as one. A group of one is still a group, so its collectives run. Under a
+``ParallelismPlugin`` ``AcceleratorState`` builds the device mesh over the
+group (``parallel/mesh.py``); a single process given a plugin and no
+launcher environment brings up a group of one on a free localhost port, and
+an axis the port does not run yet raises before any group comes up.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from .utils.constants import ENV_PREFIX
+from .utils.constants import ENV_PREFIX, MESH_AXIS_DATA
 from .utils.dataclasses import (
     DataLoaderConfiguration,
     DistributedInitKwargs,
@@ -287,17 +291,53 @@ class PartialState:
             dist.destroy_process_group()
 
 
+def _group_of_one() -> DistributedInitKwargs:
+    """A process group of one on a free localhost port (a mesh needs a
+    group; a single process given a plugin brings up its own)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return DistributedInitKwargs(coordinator_address=f"127.0.0.1:{port}", num_processes=1,
+                                 process_id=0)
+
+
 class AcceleratorState:
-    """PartialState plus the precision policy and the loader configuration."""
+    """PartialState plus the precision policy, the loader configuration
+    and, under a ``ParallelismPlugin``, the device mesh (reference
+    :292-346): ``mesh``, ``data_axis_names`` and ``data_parallel_size``
+    (dp x fsdp), and this process's ``data_parallel_rank``. The mesh is a
+    ``DeviceMesh`` over the process group; a single process given a plugin
+    and no launcher environment brings up a group of one. Without a plugin
+    there is no mesh and the data-parallel ranks are the processes."""
 
     _shared_state: dict[str, Any] = {}
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False,
-                 dataloader_config: Optional[DataLoaderConfiguration] = None, **kwargs):
+                 dataloader_config: Optional[DataLoaderConfiguration] = None,
+                 parallelism_plugin: Any = None, **kwargs):
         self.__dict__ = self._shared_state
         if self.initialized:
             return
-        self.partial_state = PartialState(cpu, **kwargs)
+        if parallelism_plugin is not None:
+            from .parallel.mesh import check_ported
+
+            check_ported(parallelism_plugin.mesh_shape)  # before any group comes up
+        own_group = False
+        if (parallelism_plugin is not None and kwargs.get("init_kwargs") is None
+                and not group_is_up() and not PartialState._shared_state
+                and not os.environ.get(ENV_PREFIX + "COORDINATOR_ADDRESS", "").strip()
+                and (_env_int("NUM_PROCESSES") or 1) == 1):
+            kwargs["init_kwargs"] = _group_of_one()
+            own_group = True
+        partial = PartialState(cpu, **kwargs)
+        if parallelism_plugin is not None and not partial.group_up:
+            raise RuntimeError(
+                "a ParallelismPlugin needs a process group, and this process's state was made "
+                "without one: make the Accelerator (or AcceleratorState) with the plugin before "
+                "any PartialState, or launch the processes with a coordinator")
+        self.partial_state = partial
         self.dataloader_config = dataloader_config or DataLoaderConfiguration()
         if mixed_precision is None:  # the launcher's setting, as the reference reads it
             mixed_precision = os.environ.get(ENV_PREFIX + "MIXED_PRECISION", "no")
@@ -305,6 +345,39 @@ class AcceleratorState:
         self.mixed_precision_policy = MixedPrecisionPolicy.from_precision(
             self.mixed_precision
         )
+        self.parallelism_plugin = parallelism_plugin
+        if parallelism_plugin is None:
+            self.mesh = None
+            self.data_axis_names = (MESH_AXIS_DATA,)
+            self.data_parallel_size = partial.num_processes
+            self.data_parallel_rank = partial.process_index
+        else:
+            from .parallel.mesh import (
+                build_mesh,
+                data_axes,
+                mesh_axis_size,
+                mesh_coordinate,
+                mesh_shape_of,
+            )
+
+            try:
+                self.mesh = build_mesh(parallelism_plugin)
+            except BaseException:
+                # leave nothing half set up: the state, and a group of one
+                # brought up for this plugin
+                self._shared_state.clear()
+                if own_group:
+                    partial.destroy_process_group()
+                    PartialState._reset_state()
+                raise
+            self.data_axis_names = data_axes(self.mesh)
+            self.data_parallel_size = mesh_axis_size(self.mesh, *self.data_axis_names)
+            shape = mesh_shape_of(self.mesh)
+            coord = mesh_coordinate(partial.process_index, shape)
+            rank = 0
+            for axis in self.data_axis_names:
+                rank = rank * shape[axis] + coord[axis]
+            self.data_parallel_rank = rank
 
     @property
     def initialized(self) -> bool:
@@ -326,7 +399,12 @@ class AcceleratorState:
         raise AttributeError(f"'AcceleratorState' object has no attribute '{name}'")
 
     def __repr__(self) -> str:
-        return repr(self.partial_state) + f"Mixed precision: {self.mixed_precision.value}\n"
+        out = repr(self.partial_state) + f"Mixed precision: {self.mixed_precision.value}\n"
+        if self.mesh is not None:
+            from .parallel.mesh import mesh_shape_of
+
+            out += f"Mesh: {mesh_shape_of(self.mesh)}\n"
+        return out
 
 
 class GradientState:

@@ -12,6 +12,7 @@ the gloo group that ``debug_launcher`` brought up, and fails by raising.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -60,10 +61,35 @@ def training_worker():
 
 
 def sharded_checkpoint_worker(tmpdir):
-    """Each process writing only its own shards of a sharded state waits for
-    sharding (FSDP2/DTensor)."""
-    raise NotImplementedError("a sharded state and its per-process shards are not ported yet: "
-                              "ROADMAP.md, queue A7")
+    """Each process writes only its own chunks; a restore reads each rank's
+    chunk back onto the live sharding (reference :56)."""
+    import glob
+
+    from accelerate_tpu_torch import Accelerator, ParallelismPlugin
+    from accelerate_tpu_torch.dist_checkpoint import load_sharded_tree, save_sharded_tree
+    from accelerate_tpu_torch.parallel.sharding import local_bounds, spec_of_placements
+
+    acc = Accelerator(cpu=True, parallelism_plugin=ParallelismPlugin(
+        dp_size=1, fsdp_size=2, min_weight_size=1))
+    assert acc.num_processes == 2
+    full = torch.arange(64.0, dtype=torch.float32).reshape(8, 8)
+    params = acc.prepare({"k": full.clone()})
+    save_sharded_tree(params, tmpdir)
+    acc.wait_for_everyone()
+    # one manifest and one shard file a process, half the data each
+    assert len(glob.glob(os.path.join(tmpdir, "state_index_*.json"))) == 2
+    mine = json.load(open(os.path.join(
+        tmpdir, f"state_index_{acc.process_index:05d}.json")))
+    # the heuristic splits the later of two equal dims
+    assert [(c["offset"], c["shape"]) for c in mine["k"]["chunks"]] == [
+        ([0, 4 * acc.process_index], [8, 4])], mine
+    template = {"k": torch.zeros_like(params["k"])}
+    restored = load_sharded_tree(template, tmpdir)
+    leaf = restored["k"]
+    bounds = local_bounds(spec_of_placements(leaf.placements, leaf.ndim), leaf.shape,
+                          acc.process_index, acc.mesh)
+    want = full[tuple(slice(lo, hi) for lo, hi in bounds)]
+    assert torch.equal(leaf.to_local(), want)
 
 
 def local_sgd_worker():
@@ -265,3 +291,4 @@ def tiny_lora_worker(out_dir: str, steps: int = 3, rows_per_process: int = 4, se
                      "adapter": {k: v.detach().clone()
                                  for k, v in flatten_tree(carry["params"]).items()}}
     torch.save(out, os.path.join(out_dir, f"lora_rank{rank}.pt"))
+

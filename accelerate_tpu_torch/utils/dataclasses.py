@@ -6,8 +6,9 @@ policy with torch dtypes (fp8 included, :163-167), gradient accumulation in
 both modes (:189-220, with its environment variables), the process-group
 bring-up knobs (``DistributedInitKwargs`` :176), the data-loader
 configuration (:225), the project configuration that names checkpoints,
-and ``TensorInformation``. Sharding plugins come with a later slice
-(ROADMAP.md, queue A7).
+``TensorInformation``, and the sharding configuration: ``ShardingStrategy``
+(:257-266) and ``ParallelismPlugin`` (:270-360, with its environment
+transport, its checks, ``mesh_shape`` and ``pure_dp``).
 """
 
 from __future__ import annotations
@@ -15,13 +16,21 @@ from __future__ import annotations
 import copy
 import enum
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from datetime import timedelta
 from typing import Any, Optional
 
 import torch
 
-from .constants import ENV_PREFIX
+from .constants import (
+    ENV_PREFIX,
+    MESH_AXIS_DATA,
+    MESH_AXIS_EXPERT,
+    MESH_AXIS_FSDP,
+    MESH_AXIS_PIPELINE,
+    MESH_AXIS_SEQUENCE,
+    MESH_AXIS_TENSOR,
+)
 from .environment import parse_flag_from_env
 
 
@@ -204,3 +213,83 @@ class TensorInformation:
 
     shape: tuple[int, ...]
     dtype: Any
+
+
+class ShardingStrategy(str, enum.Enum):
+    """How far the parameter, optimizer-state and gradient sharding goes
+    (reference :257): the union of FSDP's strategies and DeepSpeed's ZeRO
+    stages, named by what is sharded."""
+
+    NO_SHARD = "no_shard"  # data parallel (DDP / ZeRO-0)
+    SHARD_OPT = "shard_opt"  # the optimizer state (ZeRO-1)
+    SHARD_GRAD_OP = "shard_grad_op"  # and the gradient buffer (ZeRO-2)
+    FULL_SHARD = "full_shard"  # and the parameters (ZeRO-3 / FSDP)
+    HYBRID_SHARD = "hybrid_shard"  # FULL_SHARD inside a slice, data parallel across
+
+
+@dataclass
+class ParallelismPlugin(KwargsHandler):
+    """The parallelism configuration (reference :270): the degree of each
+    mesh axis and how far the state is sharded. ``dp * pp * fsdp * ep * sp
+    * tp`` must equal the world size; ``-1`` on exactly one axis takes the
+    rest. The launcher's environment (``ACCELERATE_TPU_DP_SIZE``, ...,
+    ``ACCELERATE_TPU_SHARDING_STRATEGY``) fills a field left at its default.
+    ``min_weight_size``: a leaf with fewer elements stays whole on the fsdp
+    axis (FSDP's ``min_num_params``). ``sharding_rules``: (logical axis,
+    mesh axis or None) pairs that override ``parallel.sharding``'s
+    defaults."""
+
+    dp_size: int = -1
+    fsdp_size: int = 1
+    tp_size: int = 1
+    sp_size: int = 1
+    ep_size: int = 1
+    pp_size: int = 1
+
+    sharding_strategy: ShardingStrategy = ShardingStrategy.FULL_SHARD
+    min_weight_size: int = 2**12
+    sharding_rules: Optional[list[tuple[str, Optional[str]]]] = None
+    num_micro_batches: int = 1
+
+    def __post_init__(self):
+        # the environment fills defaults only: a value passed wins
+        defaults = {f.name: f.default for f in fields(self.__class__)}
+        for name in ("dp_size", "fsdp_size", "tp_size", "sp_size", "ep_size",
+                     "pp_size", "num_micro_batches"):
+            env = os.environ.get(ENV_PREFIX + name.upper())
+            if env is not None and getattr(self, name) == defaults[name]:
+                setattr(self, name, int(env))
+        env = os.environ.get(ENV_PREFIX + "SHARDING_STRATEGY")
+        if env is not None and self.sharding_strategy == defaults["sharding_strategy"]:
+            self.sharding_strategy = ShardingStrategy(env)
+        self.sharding_strategy = ShardingStrategy(self.sharding_strategy)
+        sizes = [self.dp_size, self.pp_size, self.fsdp_size, self.tp_size,
+                 self.sp_size, self.ep_size]
+        if sizes.count(-1) > 1:
+            raise ValueError("at most one mesh axis may be -1 (auto)")
+        for s in sizes:
+            if s == 0 or s < -1:
+                raise ValueError(f"invalid mesh degree {s}")
+
+    @property
+    def mesh_shape(self) -> dict[str, int]:
+        """Axis name -> degree (an auto axis still -1; ``parallel.mesh.
+        resolve_mesh_shape`` resolves it against the world size)."""
+        return {
+            MESH_AXIS_DATA: self.dp_size,
+            MESH_AXIS_PIPELINE: self.pp_size,
+            MESH_AXIS_FSDP: self.fsdp_size,
+            MESH_AXIS_EXPERT: self.ep_size,
+            MESH_AXIS_SEQUENCE: self.sp_size,
+            MESH_AXIS_TENSOR: self.tp_size,
+        }
+
+    @property
+    def shards_parameters(self) -> bool:
+        return (self.sharding_strategy in (ShardingStrategy.FULL_SHARD,
+                                           ShardingStrategy.HYBRID_SHARD)
+                and self.fsdp_size != 1) or self.tp_size != 1
+
+    @classmethod
+    def pure_dp(cls) -> "ParallelismPlugin":
+        return cls(dp_size=-1, fsdp_size=1, sharding_strategy=ShardingStrategy.NO_SHARD)

@@ -165,37 +165,55 @@ def _on_group_device(x: Any, state) -> torch.Tensor:
     return t.to(want).contiguous()
 
 
-def gather(tensor: Any) -> Any:
+def _is_sharded(x: Any) -> bool:
+    from ..parallel.sharding import is_dtensor
+
+    return is_dtensor(x)
+
+
+def _whole(x: Any) -> torch.Tensor:
+    from ..parallel.runtime import gather_full
+
+    return gather_full(x)
+
+
+def gather(tensor: Any, group: Any = None) -> Any:
     """Every process's tensors concatenated along dim 0, in rank order, on
     every process (a 0-d tensor gives one value a process). The shapes must
-    agree across processes (``pad_across_processes`` first otherwise)."""
+    agree across processes (``pad_across_processes`` first otherwise).
+    ``group``: a sub-group of the processes (a mesh's data-parallel ranks)
+    instead of all of them. A sharded (DTensor) leaf is one global array
+    already: every process gets the whole of it (reference :205-209)."""
     import torch.distributed as dist
 
     state = _group()
 
     def _gather_one(x):
+        if _is_sharded(x):  # already one global array: every process gets all of it
+            return _whole(x)
         t = _as_tensor(x)
         if state is None:
             return t
         src = _on_group_device(t, state)
-        out = [torch.empty_like(src) for _ in range(state.num_processes)]
-        dist.all_gather(out, src)
+        n = state.num_processes if group is None else dist.get_world_size(group)
+        out = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(out, src, group=group)
         joined = torch.stack(out) if src.dim() == 0 else torch.cat(out, dim=0)
         return joined.to(t.device)
 
     return recursively_apply(_gather_one, tensor)
 
 
-def gather_object(object: Any) -> list[Any]:
+def gather_object(object: Any, group: Any = None) -> list[Any]:
     """Every process's picklable object, in rank order (sizes may differ);
-    one process: ``[object]``."""
+    one process: ``[object]``. ``group``: as in :func:`gather`."""
     import torch.distributed as dist
 
     state = _group()
     if state is None:
         return [object]
-    out = [None] * state.num_processes
-    dist.all_gather_object(out, object)
+    out = [None] * (state.num_processes if group is None else dist.get_world_size(group))
+    dist.all_gather_object(out, object, group=group)
     return out
 
 
@@ -232,7 +250,9 @@ def broadcast_object_list(object_list: list[Any], from_process: int = 0) -> list
 def reduce(tensor: Any, reduction: str = "mean", scale: float = 1.0) -> Any:
     """The elementwise sum over processes times ``scale``; ``"mean"``
     divides that by the number of processes (reference :278). One process:
-    its tensor times ``scale``."""
+    its tensor times ``scale``. A sharded (DTensor) leaf is one global array,
+    not per-process copies: the whole of it times ``scale``, as the
+    reference returns a globally sharded array (:283-287)."""
     import torch.distributed as dist
 
     if reduction not in ("sum", "mean"):
@@ -240,6 +260,8 @@ def reduce(tensor: Any, reduction: str = "mean", scale: float = 1.0) -> Any:
     state = _group()
 
     def _one(x):
+        if _is_sharded(x):  # one global array, not per-process copies: nothing to reduce
+            return _whole(x) * scale
         t = _as_tensor(x)
         if state is None:
             return t * scale
@@ -312,7 +334,7 @@ def verify_operation(function: Callable) -> Callable:
             return function(*args, **kwargs)
         tensor = kwargs.get("tensor", args[0] if args else None)
         shapes = recursively_apply(lambda x: tuple(x.shape), tensor)
-        all_shapes = gather_object(shapes)
+        all_shapes = gather_object(shapes, group=kwargs.get("group"))
         if not all(s == all_shapes[0] for s in all_shapes):
             raise DistributedOperationException(
                 "Cannot apply desired operation due to shape mismatches. All shapes across "

@@ -328,6 +328,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    and writes nothing, with it every param is bitwise process 0's, and two
    more steps on the card agree with two on the CPU (losses and grad norms
    RESTORE_TOL relative, params SMALL_UPDATE_TOL of the update).
+20. sharding (``--shard-only``), in an NCCL group of one brought up as in
+   19 (a): (a) the main path without a plugin, then under a
+   ``ParallelismPlugin`` with NO_SHARD, SHARD_OPT and FULL_SHARD (every
+   degree 1 at world 1: the params DTensors on a one-card mesh, the step's
+   sharded path over their local tensors), and SHARD_GRAD_OP at unfused
+   accumulation K 2 against a no-plugin K 2 run; (b) the fused path
+   (``fused_kernels=True``, ``fused_adamw``) under FULL_SHARD against the
+   fused path without a plugin. Hard: every run's losses, grad norms and
+   final params bitwise its no-plugin run's; B1-B3 20 launches in each run,
+   and on the fused path B5 20 and B6 5 (over the local shards). Each run
+   prints its median step of steps 2-5, its peak memory and one profiled
+   step's NCCL kernels and host all-reduce calls. B1-B3 are checked and
+   timed at the main shape, B5 checked and timed at the main path's
+   prologue shape, B6 checked bit for bit on the first layer's leaves and
+   timed over all 39, for their rows. (c) SHARD_WORLD CPU processes over
+   gloo train the tiny CausalLM under FULL_SHARD at fsdp 2 x tp 2 in fp32
+   and ``save_state`` through the multi-process commit, each process
+   writing only its own chunks (``validate_coverage`` passes, each chunk's
+   file its writer's); at world 1 on the CPU, on the card without a plugin
+   and on the card under FULL_SHARD, ``load_state(allow_reshape=True)``
+   gives every param bitwise, and two more steps on the card agree with two
+   on the CPU (RESTORE_TOL, SMALL_UPDATE_TOL).
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -385,7 +407,11 @@ phases 1 and 18 on a ``decode`` model it builds itself, and
 
     python3 chip_smoke.py --launch-only
 
-phases 1 and 19, each of the last three ending with the card's line and the
+phases 1 and 19, and
+
+    python3 chip_smoke.py --shard-only
+
+phases 1 and 20, each of the last four ending with the card's line and the
 ``{"ok": true, ...}`` line.
 
 Each kernel output is compared row by row: for every row of head_dim
@@ -1332,19 +1358,23 @@ def reset_counts(wrappers) -> None:
             w.by_design = dict.fromkeys(w.by_design, 0)
 
 
-def build_path(torch, port, fused_kernels: bool, fused_optimizer: bool, seed: int = 0):
+def build_path(torch, port, fused_kernels: bool, fused_optimizer: bool, seed: int = 0,
+               plugin=None, accum: int = 1):
     """The 4-layer llama3_8b-width CausalLM in bf16 (``fused_kernels`` as
     given) with ``fused_adamw`` or ``adamw`` (lr 3e-4) and global-norm
     clipping at 1.0, its weights and one batch of synthetic tokens made
     from ``seed``; the batch repeats every step, so the loss must fall.
-    Returns the step, its carry, the loader and the parameter count."""
+    ``plugin``: the Accelerator's ``ParallelismPlugin``; ``accum``: its
+    gradient accumulation steps (unfused). Returns the step, its carry, the
+    loader and the parameter count."""
     cfg = port.TransformerConfig.llama3_8b(num_layers=NUM_LAYERS, dtype="bfloat16",
                                            max_seq_len=MAIN["S"], fused_kernels=fused_kernels)
     gc.collect()
     torch.cuda.empty_cache()  # hand back what earlier phases cached
     port.AcceleratorState._reset_state(reset_partial_state=True)
     port.GradientState._reset_state()
-    acc = port.Accelerator(mixed_precision="bf16")
+    acc = port.Accelerator(mixed_precision="bf16", parallelism_plugin=plugin,
+                           gradient_accumulation_steps=accum)
     model = port.CausalLM(cfg, device=acc.device,
                           generator=torch.Generator(device=acc.device).manual_seed(seed))
     n_params = sum(p.numel() for p in model.parameters())
@@ -5703,7 +5733,7 @@ RESTORE = dict(steps=3, rows=4, more=2, lr=0.5, clip=1.0, seed=0, fresh_seed=5)
 RESTORE_TOL = 1e-4
 
 
-def nccl_profile(torch, step, carry, batch, rep: Report) -> int:
+def nccl_profile(torch, step, carry, batch, rep: Report, label: str = "launch (a)") -> int:
     """One step of the grouped path under torch.profiler: the device ms and
     launches of every kernel whose name names NCCL, and the host-side
     all-reduce calls, or a note that no NCCL kernel launched. Returns the
@@ -5722,13 +5752,13 @@ def nccl_profile(torch, step, carry, batch, rep: Report) -> int:
                 "allreduce" in key.lower().replace("_", "") or "nccl" in key.lower()):
             host[key[:60]] = evt.count
     if device:
-        rep.line(f"launch (a) profiled step: NCCL kernels (device ms, launches) "
+        rep.line(f"{label} profiled step: NCCL kernels (device ms, launches) "
                  f"{json.dumps(device)}, all-reduce device ms in all "
                  f"{sum(ms for ms, _ in device.values())}; host calls {json.dumps(host)}")
     else:
-        rep.line(f"launch (a) profiled step: no NCCL kernel launched (a group of one); "
+        rep.line(f"{label} profiled step: no NCCL kernel launched (a group of one); "
                  f"host calls {json.dumps(host)}")
-    return host.get("c10d::allreduce_", 0)
+    return host.get("c10d::allreduce_", 0), sum(n for _, n in device.values())
 
 
 def launch_main_path(torch, port, wrappers, rep: Report, checks: dict) -> dict:
@@ -5779,7 +5809,8 @@ def launch_main_path(torch, port, wrappers, rep: Report, checks: dict) -> dict:
                     torch.equal(carry["params"][k], v) for k, v in runs["params"].items())
                 # the step went through the group: one all-reduce a gradient
                 # leaf, one for the mask counts and one for the loss
-                calls, want = nccl_profile(torch, step, carry, batch, rep), len(carry["params"]) + 2
+                calls = nccl_profile(torch, step, carry, batch, rep)[0]
+                want = len(carry["params"]) + 2
                 rep.line(f"launch (a) profiled step: {calls} all-reduce calls, want {want}")
                 checks["launch_allreduce_calls"] = calls == want
             del step, carry, loader, batch
@@ -5944,6 +5975,311 @@ def phase19(torch, port, wrappers, rep: Report) -> list[dict]:
     return rows
 
 
+# phase 20: sharding. (a) the main path under each strategy at world 1 in an
+# NCCL group of one against the path without a plugin, (b) the fused path
+# under FULL_SHARD against the fused path without one, (c) a SHARD_WORLD
+# CPU checkpoint of the tiny CausalLM under FULL_SHARD at fsdp 2 x tp 2,
+# restored onto the card at world 1
+SHARD_WORLD = 4
+SHARD_RESTORE = dict(steps=3, rows=4, more=2, lr=0.5, clip=1.0, seed=0, fresh_seed=5,
+                     plugin=dict(dp_size=1, fsdp_size=2, tp_size=2))
+# (name, strategy or None, fused path, accumulation K); each plugin run is
+# held bit for bit against the no-plugin run before it
+SHARD_RUNS = (("none", None, False, 1), ("no_shard", "no_shard", False, 1),
+              ("shard_opt", "shard_opt", False, 1), ("full_shard", "full_shard", False, 1),
+              ("none_k2", None, False, 2), ("shard_grad_op_k2", "shard_grad_op", False, 2),
+              ("fused_none", None, True, 1), ("fused_full_shard", "full_shard", True, 1))
+
+
+def shard_runs(torch, port, wrappers, rep: Report, checks: dict) -> dict:
+    """Phase 20 (a) and (b) (SHARD_RUNS), every run in one NCCL group of
+    one. Returns each run's readings."""
+    from accelerate_tpu_torch.launchers import _free_port
+    from accelerate_tpu_torch.parallel.runtime import to_local
+    from accelerate_tpu_torch.parallel.sharding import is_dtensor
+
+    os.environ.update({"ACCELERATE_TPU_NUM_PROCESSES": "1", "ACCELERATE_TPU_PROCESS_ID": "0",
+                       "ACCELERATE_TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"})
+    runs, base = {}, None
+    try:
+        for name, strategy, fused_path, accum in SHARD_RUNS:
+            plugin = None if strategy is None else port.ParallelismPlugin(
+                sharding_strategy=port.ShardingStrategy(strategy))
+            step, carry, loader, _ = build_path(torch, port, fused_path, fused_path,
+                                                plugin=plugin, accum=accum)
+            state = port.AcceleratorState()
+            if state.distributed_type.value != "MULTI_GPU" or (plugin is None) != (
+                    state.mesh is None):
+                fail(f"shard {name}: {state.distributed_type}, mesh {state.mesh}")
+            params = carry["params"]
+            if plugin is not None and not all(is_dtensor(p) for p in params.values()):
+                fail(f"shard {name}: the carry's params are not DTensors")
+            reset_counts(wrappers)
+            torch.cuda.reset_peak_memory_stats()
+            carry, batch, losses, norms, times = run_steps(torch, step, carry, loader)
+            launches = {w.__name__: w.launches for w in wrappers}
+            by_design = {w.__name__: dict(w.by_design) for w in wrappers
+                         if hasattr(w, "by_design")}
+            peak = torch.cuda.max_memory_allocated()
+            per_layer = NUM_LAYERS * STEPS
+            want = {"flash_fwd": per_layer, "flash_bwd_dq": per_layer,
+                    "flash_bwd_dkv": per_layer}
+            if fused_path:
+                want.update(qkv_prologue=per_layer, adamw_epilogue=STEPS)
+            check_launches(f"shard {name}", launches, by_design, want)
+            median = statistics.median(times[1:])
+            runs[name] = {"losses": losses, "norms": norms, "median_s": median, "peak": peak,
+                          "launches": launches}
+            final = {k: to_local(v).detach() for k, v in carry["params"].items()}
+            if strategy is None:
+                # on the host, so the plugin runs' peaks read as the base run's
+                base = {k: v.cpu() for k, v in final.items()}
+                base_run = runs[name]
+            else:
+                checks[f"shard_{name}_params_bitwise"] = all(
+                    torch.equal(final[k].cpu(), v) for k, v in base.items())
+                checks[f"shard_{name}_losses_bitwise"] = losses == base_run["losses"]
+                checks[f"shard_{name}_norms_bitwise"] = (
+                    [x for x in norms if x == x] == [x for x in base_run["norms"] if x == x]
+                    and [x != x for x in norms] == [x != x for x in base_run["norms"]])
+                calls, kernels = nccl_profile(torch, step, carry, batch, rep, f"shard {name}")
+                runs[name].update(allreduce_calls=calls, nccl_kernels=kernels)
+            rep.line(f"shard {name}: losses {losses}, grad norms {norms}; step seconds {times}; "
+                     f"median of steps 2-{STEPS} {median} s; peak {peak / 2**30} GiB; "
+                     f"launches {json.dumps(launches)}")
+            del step, carry, loader, batch, params, final
+            if strategy is not None and name in ("full_shard", "shard_grad_op_k2",
+                                                 "fused_full_shard"):
+                base = None  # the last run held against this base
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        port.AcceleratorState().partial_state.destroy_process_group()
+        port.AcceleratorState._reset_state(reset_partial_state=True)
+        port.GradientState._reset_state()
+        for key in ("NUM_PROCESSES", "PROCESS_ID", "COORDINATOR_ADDRESS"):
+            os.environ.pop("ACCELERATE_TPU_" + key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def prologue_row(torch, fused, rep: Report, label: str) -> dict:
+    """B5 at the main path's prologue shape (llama3_8b's E 4096, (2, 2048)
+    rows, bf16): checked against its plain version (``check_prologue_case``)
+    and timed beside it."""
+    pro = dict(B=MAIN["B"], S=MAIN["S"], E=4096, H=MAIN["H"], Hkv=MAIN["Hkv"], D=MAIN["D"])
+    reading, err = check_prologue_case(torch, fused, f"{label}_main_bf16", **pro,
+                                       dtype=torch.bfloat16)
+    rep.line(json.dumps(reading))
+    if reading["bad"]:
+        fail(f"prologue at {label}'s shape: {reading['bad']}")
+    args, statics = prologue_inputs(torch, fused, **pro, dtype=torch.bfloat16, seed=2)
+    scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(torch, lambda: fused.qkv_prologue(*args, **statics), 20, scratch.zero_)
+    plain_ms = time_ms(torch, lambda: fused._prologue_reference_tables(*args, **statics), 5,
+                       scratch.zero_)
+    rows_, E, W, e = pro["B"] * pro["S"], pro["E"], (pro["H"] + 2 * pro["Hkv"]) * pro["D"], 2
+    work = (2 * rows_ * E * W,
+            rows_ * E * e + W * E * e + E * 4 + 2 * rows_ * pro["D"] * 4 + rows_ * W * e)
+    row = kernel_row("qkv_prologue", "+".join(reading["launched"]), ms, plain_ms, *work,
+                     PEAK_BF16_FLOPS, err, None)
+    row["shape"] = f"{label} prologue B{pro['B']} S{pro['S']} E{E} H{pro['H']} Hkv{pro['Hkv']} bf16"
+    rep.line(f"qkv_prologue_kernel at {label}'s shape: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}), max abs err {err}")
+    del args
+    torch.cuda.empty_cache()
+    return row
+
+
+def epilogue_row(torch, port, fused, rep: Report, label: str) -> dict:
+    """B6: bit for bit against its plain version over the first 10 leaves
+    of the main path (the embedding and layer 0), then timed over all 39
+    (``time_epilogue``)."""
+    cfg = port.TransformerConfig.llama3_8b(num_layers=NUM_LAYERS)
+    shapes = main_tree_shapes(cfg)[:10]
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4)
+    row = fused.epilogue_scalars(hp["b1"], hp["b2"], 3, -3e-4, True, "cuda")
+    leaves = [epilogue_leaf(torch, shape, i) for i, shape in enumerate(shapes)]
+    fused.adamw_epilogue(*[list(c) for c in zip(*leaves)], row, **hp)
+    worst = 0.0
+    for i, shape in enumerate(shapes):
+        want = list(epilogue_leaf(torch, shape, i))
+        fused.adamw_leaf_reference(*want, row, **hp)
+        for got, w in zip(leaves[i][1:], want[1:]):
+            worst = max(worst, float((got - w).abs().max()))
+        del want
+    del leaves
+    torch.cuda.empty_cache()
+    rep.line(f"adamw_epilogue at {label}: the first 10 leaves' max abs diff from the plain "
+             f"version {worst}")
+    if worst != 0.0:
+        fail(f"adamw_epilogue at {label} is not bitwise its plain version: {worst}")
+    scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    out = time_epilogue(torch, port, fused, rep, scratch.zero_, worst)
+    out["shape"] = f"{label}: main path leaves"
+    return out
+
+
+def shard_gloo(rep: Report, base: str) -> float:
+    """Phase 20 (c)'s source: SHARD_WORLD CPU processes over gloo train the
+    tiny CausalLM (fp32, weights seeded) SHARD_RESTORE["steps"] steps under
+    FULL_SHARD at fsdp 2 x tp 2 on global batches whose data ranks hold
+    different mask counts, save through the multi-process commit and write
+    the whole final state. Returns the launch's seconds."""
+    import torch
+
+    from accelerate_tpu_torch import CausalLM, TransformerConfig
+    from accelerate_tpu_torch.launchers import debug_launcher
+    from accelerate_tpu_torch.test_utils.scripts import sharding_workers
+    from accelerate_tpu_torch.test_utils.training import TINY_LM
+
+    init = CausalLM(TransformerConfig(**TINY_LM), device="cpu",
+                    generator=torch.Generator().manual_seed(SHARD_RESTORE["seed"])).state_dict()
+    torch.save(init, os.path.join(base, "init.pt"))
+    t0 = time.perf_counter()
+    debug_launcher(sharding_workers.sharded_lm_worker,
+                   (base, SHARD_RESTORE["plugin"], SHARD_RESTORE["steps"], SHARD_RESTORE["rows"],
+                    SHARD_RESTORE["lr"], SHARD_RESTORE["clip"]), num_processes=SHARD_WORLD)
+    seconds = time.perf_counter() - t0
+    rep.line(f"shard (c): {SHARD_WORLD} processes over gloo (fsdp 2 x tp 2, FULL_SHARD) trained "
+             f"and saved in {seconds} s")
+    return seconds
+
+
+def shard_restore_run(torch, port, path: str, device: str, full: dict, plugin) -> dict:
+    """A fresh tiny CausalLM (other weights) at world 1 on ``device``,
+    ``plugin`` None or FULL_SHARD in a group of one: the world-4 checkpoint
+    loaded with ``allow_reshape``, then SHARD_RESTORE["more"] steps on the
+    global batches that follow. Returns whether every param was bitwise the
+    saved state, the losses, grad norms and params before and after."""
+    import numpy as np
+
+    from accelerate_tpu_torch.parallel.runtime import gather_full
+    from accelerate_tpu_torch.test_utils.training import TINY_LM, MaskedTokens
+
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    acc = port.Accelerator(cpu=device == "cpu", parallelism_plugin=plugin)
+    model = port.CausalLM(port.TransformerConfig(**TINY_LM), device=acc.device,
+                          generator=torch.Generator(acc.device).manual_seed(
+                              SHARD_RESTORE["fresh_seed"]))
+    model, opt = acc.prepare(model, port.sgd(SHARD_RESTORE["lr"]))
+    step = acc.unified_step(port.CausalLM.loss_fn(model), max_grad_norm=SHARD_RESTORE["clip"])
+    carry = acc.init_carry(model, opt)
+    carry = acc.load_state(path, carry=carry, allow_reshape=True)
+    whole = {k: gather_full(v).detach().cpu().clone() for k, v in carry["params"].items()}
+    bitwise = all(torch.equal(whole[k], v) for k, v in full.items()) and (
+        carry["opt_step"] == SHARD_RESTORE["steps"])
+    gbs = SHARD_RESTORE["rows"] * 2  # two data ranks (fsdp 2) held each global batch
+    data = MaskedTokens((SHARD_RESTORE["steps"] + SHARD_RESTORE["more"]) * gbs,
+                        SHARD_RESTORE["rows"], seed=SHARD_RESTORE["seed"])
+    losses, norms = [], []
+    for i in range(SHARD_RESTORE["steps"], SHARD_RESTORE["steps"] + SHARD_RESTORE["more"]):
+        rows = range(i * gbs, (i + 1) * gbs)
+        batch = {k: torch.from_numpy(np.stack([data[r][k] for r in rows])).to(acc.device)
+                 for k in ("input_ids", "loss_mask")}
+        carry, metrics = step(carry, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    end = {k: gather_full(v).detach().cpu().clone() for k, v in carry["params"].items()}
+    if plugin is not None:
+        acc.state.partial_state.destroy_process_group()
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    return {"bitwise": bitwise, "losses": losses, "norms": norms, "start": whole, "end": end}
+
+
+def shard_restore(torch, port, rep: Report, base: str, checks: dict) -> None:
+    """Phase 20 (c): the world-4 checkpoint's chunks (each in its writer's
+    file, the coverage complete), restored at world 1 on the CPU, on the
+    card without a plugin and on the card under FULL_SHARD; two more steps
+    on the card against two on the CPU."""
+    from accelerate_tpu_torch import dist_checkpoint
+
+    path = os.path.join(base, "ckpt")
+    stats = dist_checkpoint.validate_coverage(path)
+    own = True
+    for proc in range(SHARD_WORLD):
+        with open(os.path.join(path, f"state_index_{proc:05d}.json")) as f:
+            frag = json.load(f)
+        own = own and all(c["file"] == f"state_shard_{proc:05d}.safetensors"
+                          for e in frag.values() for c in e["chunks"])
+    checks["shard_ckpt_coverage"] = stats["files"] == SHARD_WORLD and stats["chunks"] > stats[
+        "leaves"]
+    checks["shard_ckpt_own_chunks"] = own
+    rep.line(f"shard (c): coverage {json.dumps(stats)}, each chunk in its writer's file {own}")
+    full = torch.load(os.path.join(base, "full.pt"))
+    cpu = shard_restore_run(torch, port, path, "cpu", full, None)
+    from accelerate_tpu_torch.launchers import _free_port
+
+    results = {"cpu": cpu, "card": shard_restore_run(torch, port, path, "cuda", full, None)}
+    os.environ.update({"ACCELERATE_TPU_NUM_PROCESSES": "1", "ACCELERATE_TPU_PROCESS_ID": "0",
+                       "ACCELERATE_TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"})
+    try:
+        results["card_full_shard"] = shard_restore_run(
+            torch, port, path, "cuda", full,
+            port.ParallelismPlugin(sharding_strategy=port.ShardingStrategy.FULL_SHARD))
+    finally:
+        for key in ("NUM_PROCESSES", "PROCESS_ID", "COORDINATOR_ADDRESS"):
+            os.environ.pop("ACCELERATE_TPU_" + key, None)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    for name, run in results.items():
+        checks[f"shard_restore_{name}_bitwise"] = run["bitwise"]
+        if name == "cpu":
+            continue
+        loss_rel = [rel(a, b) for a, b in zip(run["losses"], cpu["losses"])]
+        norm_rel = [rel(a, b) for a, b in zip(run["norms"], cpu["norms"])]
+        num = sum(float((run["end"][k] - cpu["end"][k]).float().norm() ** 2) for k in cpu["end"])
+        den = sum(float((cpu["end"][k] - cpu["start"][k]).float().norm() ** 2)
+                  for k in cpu["end"])
+        update_rel = math.sqrt(num / den)
+        checks[f"shard_restore_{name}_vs_cpu"] = (max(loss_rel + norm_rel) <= RESTORE_TOL
+                                                  and update_rel <= SMALL_UPDATE_TOL)
+        rep.line(f"shard (c) {name}: losses {run['losses']} CPU {cpu['losses']} (rel "
+                 f"{loss_rel}), grad norms {run['norms']} CPU {cpu['norms']} (rel {norm_rel}), "
+                 f"params ||card - CPU|| / ||update|| {update_rel}; limits {RESTORE_TOL} and "
+                 f"{SMALL_UPDATE_TOL}")
+
+
+def phase20(torch, port, wrappers, rep: Report) -> list[dict]:
+    """Phase 20 (``--shard-only``): see SHARD_RUNS and the functions above.
+    Returns B1-B3's rows at the main shape (their launches the FULL_SHARD
+    run's) and B5's and B6's (their launches the fused FULL_SHARD run's)."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused
+
+    t0 = time.perf_counter()
+    checks: dict = {}
+    runs = shard_runs(torch, port, wrappers, rep, checks)
+    summary = {name: {k: run[k] for k in ("median_s", "peak", "allreduce_calls", "nccl_kernels")
+                      if k in run} for name, run in runs.items()}
+    rep.line(f"shard (a)(b) by run: {json.dumps(summary)}")
+    t1 = time.perf_counter()
+    rows = time_flash_shape(torch, fa, rep, "shard", MAIN["B"], MAIN["S"], MAIN["H"],
+                            MAIN["Hkv"], MAIN["D"], bwd_library_on_dq=True)
+    for row in rows:
+        row["launches"] = runs["full_shard"]["launches"][WRAPPER_OF[row["name"]]]
+    for row in (prologue_row(torch, fused, rep, "shard"),
+                epilogue_row(torch, port, fused, rep, "shard")):
+        row["launches"] = runs["fused_full_shard"]["launches"][WRAPPER_OF[row["name"]]]
+        rows.append(row)
+    t2 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="shard_")
+    try:
+        shard_gloo(rep, base)
+        shard_restore(torch, port, rep, base, checks)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    rep.line(f"shard checks {json.dumps(checks)}")
+    rep.line(f"phase 20: (a)(b) {t1 - t0:.1f} s, kernel rows {t2 - t1:.1f} s, (c) "
+             f"{time.perf_counter() - t2:.1f} s, in all {time.perf_counter() - t0:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"shard: hard checks failed: {failed}")
+    return rows
+
+
 def main() -> None:
     script_t0 = time.perf_counter()
     import torch
@@ -6033,6 +6369,16 @@ def main() -> None:
             "count": torch.cuda.device_count(),
         }}))
         return
+    if "--shard-only" in sys.argv[1:]:
+        rows = phase20(torch, port, wrappers, rep)
+        print(json.dumps({"kernels": rows}))
+        rep.line("shard-only: the sharding phase passed")
+        print(rep.card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return
     if "--lora-only" in sys.argv[1:]:
         rows = phase17(torch, port, wrappers, rep)
         print(json.dumps({"kernels": rows}))
@@ -6087,6 +6433,7 @@ def main() -> None:
     variant_rows += phase17(torch, port, wrappers, rep)
     variant_rows += load_rows
     variant_rows += phase19(torch, port, wrappers, rep)
+    variant_rows += phase20(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

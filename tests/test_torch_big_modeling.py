@@ -1,7 +1,8 @@
 """The port's big-model loading against the JAX reference's, on the CPU.
 
-Mirrors ``tests/test_big_modeling.py`` but for the GSPMD test (queue A7)
-and the memory-helper tests that ``tests/test_torch_raw_loop.py`` mirrors:
+Mirrors ``tests/test_big_modeling.py`` but for the memory-helper tests that
+``tests/test_torch_raw_loop.py`` mirrors (the GSPMD test loads at world 4
+over gloo, at the end):
 on the same seeded nested dict, ``compute_module_sizes``,
 ``get_balanced_memory``, ``infer_auto_device_map`` and
 ``check_device_map`` give the reference's results; the tiers hold the
@@ -10,8 +11,9 @@ folder and checkpoint, and offloaded, streamed and whole-tree forwards
 agree within ``FP32_TOL`` (bit for bit inside the port). Then the port's
 own: the meta-device model (nothing allocated, nothing drawn, the weights
 on the CPU as before), a model loaded over the host and disk tiers and its
-layers streamed from disk, the refusals (a mesh, a device index without
-CUDA), and the example ``big_model_inference.py`` at a tiny size on the CPU.
+layers streamed from disk, the refusals (a mesh that is not a DeviceMesh, a
+device index without CUDA), and the example ``big_model_inference.py`` at a
+tiny size on the CPU, in its tiered and its mesh modes.
 """
 
 import hashlib
@@ -417,9 +419,12 @@ def test_model_loads_over_the_host_and_disk_tiers_and_streams_its_layers(tmp_pat
 
 
 def test_load_checkpoint_and_dispatch_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A7"):
+    """A load onto a mesh is ported (the world-4 tests below); what it
+    refuses is a mesh that is not a torch ``DeviceMesh``, and a plugin or
+    logical axes with no mesh to place on."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         bm.load_checkpoint_and_dispatch({}, str(tmp_path), mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A7"):
+    with pytest.raises(ValueError, match="pass mesh="):
         bm.load_checkpoint_and_dispatch({}, str(tmp_path), logical_specs={})
 
 
@@ -463,3 +468,61 @@ def test_reference_checkpoints_of_every_dtype_load(tmp_path):
                 assert got.numpy().dtype == arr.dtype, name
                 np.testing.assert_array_equal(got.numpy(), arr, err_msg=name)
             assert read.dtype(name) == named[name].dtype
+
+
+# ---------------------------------------------------------------------- #
+# a load onto a mesh (queue A7 part 2), at world 4 over gloo
+# ---------------------------------------------------------------------- #
+def test_load_checkpoint_and_dispatch_gspmd(tmp_path):
+    """Mirror of ``test_big_modeling.py::test_load_checkpoint_and_dispatch_gspmd``:
+    the reference test's tree, saved, streams onto a world-4 fsdp mesh
+    (``min_weight_size`` 16): every leaf whole again equals what was saved,
+    each leaf placed as the reference places it on its own fsdp mesh, the
+    layer kernel split over fsdp."""
+    import json
+
+    from accelerate_tpu.parallel.mesh import build_mesh as jax_build_mesh
+    from accelerate_tpu.parallel.sharding import infer_param_shardings as jax_infer
+    from accelerate_tpu.utils.dataclasses import ParallelismPlugin as JaxPlugin
+
+    from accelerate_tpu_torch.checkpointing import flatten_tree
+    from accelerate_tpu_torch.launchers import debug_launcher
+    from accelerate_tpu_torch.test_utils.scripts import sharding_workers
+
+    arrays = _arrays()
+    ckpt = tmp_path / "ckpt"
+    save_model_weights(_ours(arrays), str(ckpt))
+    named = flatten_tree(_ours(arrays))
+    with open(ckpt / "shapes.json", "w") as f:
+        json.dump({k: list(v.shape) for k, v in named.items()}, f)
+    case = dict(name="gspmd", plugin=dict(dp_size=1, fsdp_size=4, min_weight_size=16),
+                checkpoint=str(ckpt), kind="tree")
+    debug_launcher(sharding_workers.mesh_load_worker, (str(tmp_path), [case]), num_processes=4)
+    rec = torch.load(tmp_path / "gspmd.pt")
+    for k, v in named.items():
+        assert torch.equal(rec["whole"][k], v), k
+    assert rec["specs"]["layer1//kernel"] == (None, "fsdp")
+    mesh = jax_build_mesh(JaxPlugin(dp_size=1, fsdp_size=4, min_weight_size=16),
+                          devices=jax.devices()[:4])
+    ref = jax_infer(_theirs(arrays), mesh, JaxPlugin(dp_size=1, fsdp_size=4,
+                                                     min_weight_size=16))
+    for k, spec in rec["specs"].items():
+        outer, inner = k.split("//")
+        want = tuple(ref[outer][inner].spec) + (None,) * (len(spec) - len(ref[outer][inner].spec))
+        assert spec == want, k
+
+
+def test_big_model_inference_example_mesh_mode(tmp_path):
+    """The example's GSPMD mode on the CPU: 4 processes (tp 2 x fsdp 2) each
+    load their chunks onto the mesh and decode through the sharded forward;
+    the tokens equal the resident load's."""
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=str(REPO))
+    result = subprocess.run(
+        [sys.executable, str(REPO / "accelerate_tpu_torch" / "examples" /
+                             "big_model_inference.py"),
+         "--cpu", "--tp", "2", "--fsdp", "2", "--workdir", str(tmp_path)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert result.returncode == 0, result.stderr[-3000:]
+    lines = dict(line.split(": ", 1) for line in result.stdout.splitlines() if ": " in line)
+    assert lines["mesh generate"] == lines["resident generate"]
+    assert len(eval(lines["mesh generate"])) == 8

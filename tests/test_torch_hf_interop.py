@@ -15,8 +15,9 @@ tolerances and the reference's logits within ``FP32_TOL`` (bf16 within
 and load in transformers. Then ``tests/test_adapters.py::
 test_peft_export_layout_map``; ``tests/test_torch_hf_quantization.py``
 holds ``tests/test_quantization.py``'s HF loads. The GPT-2, Gemma, Gemma-2
-and mixed-window tests wait on the port's models (queue A8), the GSPMD ones
-on A7.
+and mixed-window tests wait on the port's models (queue A8). The GSPMD ones
+(``test_gspmd_and_device_map_paths_identical``,
+``test_hf_load_onto_tp_fsdp_mesh``) load at world 4 over gloo in one launch.
 """
 
 import dataclasses
@@ -474,3 +475,62 @@ def test_peft_export_layout_map():
     with pytest.raises(ValueError, match="layer dim"):
         adapter_to_peft({t: {k: v[:1] for k, v in pair.items()} for t, pair in ad.items()},
                         lcfg, pcfg)
+
+
+# ---------------------------------------------------------------------- #
+# loads onto a mesh (queue A7 part 2): one world-4 launch over gloo
+# ---------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def mesh_loads(tmp_path_factory):
+    """An HF Llama checkpoint built here, loaded at world 4 onto fsdp 4 and
+    onto fsdp 2 x tp 2 (the model's logical axes passed explicitly, as the
+    reference passes ``get_logical_specs``); returns the checkpoint, the
+    transformers model, the port's config and each load's record."""
+    from accelerate_tpu_torch.launchers import debug_launcher
+    from accelerate_tpu_torch.test_utils.scripts import sharding_workers
+
+    out = tmp_path_factory.mktemp("hf_mesh")
+    hf_model, path = _save_hf_llama(out)
+    config = hi.infer_config_from_hf(path, attention_impl="xla")
+    with open(out / "config.json", "w") as f:
+        json.dump(dataclasses.asdict(config), f)
+    torch.save(torch.from_numpy(_IDS).long(), out / "ids.pt")
+    cases = [dict(name="hf_fsdp4", plugin=dict(dp_size=1, fsdp_size=4, min_weight_size=16),
+                  checkpoint=path, kind="model", hf=True, config=str(out / "config.json")),
+             dict(name="hf_tp_fsdp", plugin=dict(dp_size=1, fsdp_size=2, tp_size=2,
+                                                 min_weight_size=16,
+                                                 sharding_strategy="full_shard"),
+                  checkpoint=path, kind="model", hf=True, logical=True,
+                  config=str(out / "config.json"))]
+    debug_launcher(sharding_workers.mesh_load_worker, (str(out), cases), num_processes=4)
+    records = {c["name"]: torch.load(out / f"{c['name']}.pt") for c in cases}
+    return path, hf_model, config, records
+
+
+def test_gspmd_and_device_map_paths_identical(mesh_loads):
+    """The same HF checkpoint loaded onto the mesh (fsdp 4) and through the
+    cpu device map: the weights bit for bit, the logits (the mesh's through
+    ``apply_sharded``) within the reference test's fp32 bounds."""
+    path, _, config, records = mesh_loads
+    rec = records["hf_fsdp4"]
+    host = bm.load_checkpoint_and_dispatch(bm.init_empty_weights(port.CausalLM, config), path,
+                                           device_map={"": "cpu"})
+    assert set(rec["whole"]) == set(host)
+    for name, t in host.items():
+        assert torch.equal(rec["whole"][name], t), name
+    assert any("fsdp" in str(s) for s in rec["specs"].values())
+    logits_host = _port_logits(_port_model(config, host), _IDS)
+    np.testing.assert_allclose(rec["logits"].numpy(), logits_host, rtol=1e-5, atol=1e-6)
+
+
+def test_hf_load_onto_tp_fsdp_mesh(mesh_loads):
+    """HF weights onto a tp x fsdp mesh: the embedding takes its (vocab ->
+    (tp, fsdp)) layout, the projections pick up tp, and the forward matches
+    transformers' within the reference test's bound."""
+    _, hf_model, _, records = mesh_loads
+    rec = records["hf_tp_fsdp"]
+    assert rec["specs"]["embed.weight"] == (("tp", "fsdp"), None)
+    assert "tp" in str(rec["specs"]["layers.0.attn.q_proj.weight"])
+    assert "tp" in str(rec["specs"]["layers.0.mlp.down_proj.weight"])
+    np.testing.assert_allclose(rec["logits"].numpy(), _torch_logits(hf_model, _IDS),
+                               rtol=5e-4, atol=5e-4)

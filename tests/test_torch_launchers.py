@@ -5,7 +5,7 @@ them slow because each JAX child recompiles; the port's children import
 torch and the port only, so they run here in tier 1): the notebook launcher
 at one and at two processes, the collectives, training and local-SGD
 workers, the whole assertion script at world 2 and 4, and the
-sharded-checkpoint worker, which raises naming queue A7. Then:
+sharded-checkpoint worker, each process writing its own chunk. Then:
 
 * a rank that never reaches a collective makes the launch raise within the
   group's timeout, instead of hanging;
@@ -113,11 +113,14 @@ def test_debug_launcher_training():
 
 
 def test_debug_launcher_sharded_checkpoint(tmp_path):
-    """A sharded state's per-process shards wait for sharding (queue A7)."""
-    with pytest.raises(NotImplementedError, match="queue A7"):
-        workers.sharded_checkpoint_worker(str(tmp_path))
-    with pytest.raises(RuntimeError, match="workers failed"):
-        debug_launcher(workers.sharded_checkpoint_worker, (str(tmp_path),), num_processes=2)
+    """The reference's worker at world 2: each process writes only its own
+    chunk of an fsdp-2 leaf (half the data each), and a restore reads each
+    rank's chunk back onto the live sharding."""
+    debug_launcher(workers.sharded_checkpoint_worker, (str(tmp_path),), num_processes=2)
+    named = dist_checkpoint.load_full_named(str(tmp_path))
+    assert torch.equal(named["k"], torch.arange(64.0).reshape(8, 8))
+    assert dist_checkpoint.validate_coverage(str(tmp_path)) == {"leaves": 1, "chunks": 2,
+                                                                "files": 2}
 
 
 def test_debug_launcher_local_sgd():

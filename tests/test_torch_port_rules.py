@@ -401,9 +401,10 @@ def test_lora_slice_refusals_name_their_queue_items(tmp_path):
     """What the lora slice left: ``load_and_quantize_model`` and the PEFT
     helpers are ported since the big-model slice and work (a native
     checkpoint quantized on load, an adapter through PEFT's names and back);
-    the tracker bridge (A10) and a load onto a mesh (A7) still raise, each
-    matched by name; the helpers' forms across several processes (A4) work
-    since the processes-and-data slice."""
+    a load onto a mesh works since the sharding slice (its checks here, the
+    load itself in ``test_torch_big_modeling.py``); the tracker bridge (A10)
+    still raises, matched by name; the helpers' forms across several
+    processes (A4) work since the processes-and-data slice."""
     from accelerate_tpu_torch import adapters, big_modeling, tracking
     from accelerate_tpu_torch.checkpointing import save_model_weights
     from accelerate_tpu_torch.state import PartialState
@@ -419,8 +420,12 @@ def test_lora_slice_refusals_name_their_queue_items(tmp_path):
     adapter = adapters.init_adapter(torch.Generator().manual_seed(0), cfg, lcfg)
     back = adapters.peft_to_adapter(adapters.adapter_to_peft(adapter, lcfg, cfg), lcfg, cfg)
     assert torch.equal(back["q_proj"]["lora_a"], adapter["q_proj"]["lora_a"])
-    with pytest.raises(NotImplementedError, match="queue A7"):
+    # a load onto a mesh is ported since the sharding slice: a mesh that is
+    # not a DeviceMesh is refused by name, and plugin= without a mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         big_modeling.load_checkpoint_and_dispatch({}, str(tmp_path), mesh=object())
+    with pytest.raises(ValueError, match="pass mesh="):
+        big_modeling.load_checkpoint_and_dispatch({}, str(tmp_path), logical_specs={})
     with pytest.raises(NotImplementedError, match="queue A10"):
         tracking.telemetry_bridge([])
     # the A4 forms are ported: an adapter saved by two processes (here two
@@ -478,22 +483,54 @@ def test_launch_modules_import_and_run_without_jax():
 
 def test_refusals_left_by_the_launch_slice_name_their_queue_items():
     """What part 1 of queue A4 left: a sharded state's per-process shards
-    and pipelines across processes wait for A7, the elastic supervisor for
-    A4's last part; each refusal names its queue item."""
-    from accelerate_tpu_torch.test_utils.scripts.multiprocess_worker import (
-        sharded_checkpoint_worker,
-    )
+    are ported since the sharding slice (part 2; the worker runs in
+    ``test_torch_launchers.py``); pipelines wait for part 3, sequence and
+    expert parallelism for part 4, each refusal naming its part, raised
+    before any process group comes up; the elastic supervisor waits for
+    A4's last part."""
+    from accelerate_tpu_torch.state import group_is_up
     from accelerate_tpu_torch.test_utils.scripts.test_script import pipeline_check
 
     with pytest.raises(NotImplementedError, match="queue A7"):
-        sharded_checkpoint_worker(".")
-    with pytest.raises(NotImplementedError, match="queue A7"):
         pipeline_check(port.Accelerator(cpu=True))
-    with pytest.raises(NotImplementedError, match="queue A7"):
-        port.Accelerator(cpu=True, parallelism_plugin=object())
+    for kwargs, part in ((dict(pp_size=2), "part 3"), (dict(sp_size=2), "part 4"),
+                         (dict(ep_size=2), "part 4")):
+        port.AcceleratorState._reset_state(reset_partial_state=True)
+        with pytest.raises(NotImplementedError, match=f"queue A7 {part}"):
+            port.Accelerator(cpu=True, parallelism_plugin=port.ParallelismPlugin(**kwargs))
+        assert not group_is_up() and not port.AcceleratorState._shared_state
     import accelerate_tpu_torch.fault_tolerance as ft
 
     assert "queue A4" in ft.__doc__ and "elastic" in ft.__doc__
+
+
+def test_parallel_and_compat_import_without_jax():
+    """``parallel/`` (mesh, sharding rules, the step's collectives) and
+    ``utils/compat.py``, each imported on its own with jax blocked; the
+    rules place the tiny model's leaves there with no process group."""
+    code = textwrap.dedent("""
+        import importlib
+        for name in ("accelerate_tpu_torch.parallel", "accelerate_tpu_torch.parallel.mesh",
+                     "accelerate_tpu_torch.parallel.sharding",
+                     "accelerate_tpu_torch.parallel.runtime",
+                     "accelerate_tpu_torch.utils.compat"):
+            importlib.import_module(name)
+        import accelerate_tpu_torch as port
+        from accelerate_tpu_torch.parallel.sharding import (get_logical_specs,
+                                                            infer_param_shardings)
+        from accelerate_tpu_torch.utils.compat import DeepSpeedPlugin
+        model = port.CausalLM(port.TransformerConfig.tiny(), device="meta")
+        params = {k: tuple(v.shape) for k, v in model.named_parameters()}
+        specs = infer_param_shardings(params, {"fsdp": 2, "tp": 2},
+                                      port.ParallelismPlugin(dp_size=1, fsdp_size=2, tp_size=2),
+                                      get_logical_specs(model))
+        assert specs["embed.weight"] == (("tp", "fsdp"), None), specs["embed.weight"]
+        assert DeepSpeedPlugin(zero_stage=3).fsdp_size == -1
+        print("ok")
+    """)
+    result = _run_blocked(code)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.strip().endswith("ok")
 
 
 def test_big_model_modules_import_and_run_without_jax():
@@ -575,8 +612,13 @@ def test_unported_accelerator_and_model_paths_raise(tmp_path):
     from accelerate_tpu_torch.checkpoint_async import commit as commit_mod
 
     assert port.Accelerator(mixed_precision="fp8", cpu=True).state.mixed_precision_policy.fp8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.Accelerator(cpu=True, parallelism_plugin=object())
+    # sharding is ported (queue A7 part 2); what it leaves raises by name
+    for kwargs, part in ((dict(pp_size=2), "part 3"), (dict(sp_size=2), "part 4"),
+                         (dict(ep_size=2), "part 4")):
+        port.AcceleratorState._reset_state(reset_partial_state=True)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue A7 {part}"):
+            port.Accelerator(cpu=True, parallelism_plugin=port.ParallelismPlugin(**kwargs))
+    port.AcceleratorState._reset_state(reset_partial_state=True)
     # diagnostics is ported: the item 2b refusal is gone
     assert port.Accelerator(cpu=True, diagnostics=True).telemetry.diagnostics is not None
     # a load onto another topology is ported (queue A4, part 1): a world-2
