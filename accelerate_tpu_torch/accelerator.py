@@ -5,7 +5,7 @@ topology properties and process helpers :207-290,
 ``print`` :291, ``prepare`` :297-424 with ``prepare_optimizer`` :408 and
 ``prepare_scheduler`` :416, ``unified_step`` :429-748 in both
 accumulation modes with ``_sync_apply`` :505-554 and ``_fused_step``
-:560-627, ``_wrap_step`` :901-1020 without its XLA-only AOT warmup and
+:560-627, ``unified_pipeline_step`` :750-899, ``_wrap_step`` :901-1020 without its XLA-only AOT warmup and
 compile monitor, ``init_carry`` :1146, ``sync_from_carry`` :1225, the raw
 loop :1240-1310, ``gather``/``gather_for_metrics`` :1375-1407,
 ``set_trigger``/``check_trigger`` :1419, ``register_for_checkpointing``/
@@ -59,15 +59,17 @@ the global batch as one array. Two things keep the reference's numbers:
   change no bit.
 
 Under a ``ParallelismPlugin`` (reference :227, :297-351, :484-660,
-:1150-1225, :1520) the state holds a mesh over dp, fsdp and tp, and
+:1150-1225, :1520) the state holds a mesh over dp, pp, fsdp, ep, sp and tp, and
 ``prepare`` places the params (a model's parameters become DTensors) by
 ``parallel.sharding``'s rules, the moments by ``moment_shardings`` and the
 unfused accumulation buffer by ZeRO-2's specs. The step then runs on each
 rank's local tensors through ``parallel/runtime.py``'s ``ShardedLayout``:
 leaves split over fsdp are gathered as they are used (a port model's layers
-one at a time), products split over tp, and the loss weight, the gradient
-mean and the reported loss run over the data-parallel ranks (dp x fsdp) only,
-so a tp group's rows count once. The epilogue's norm, non-finite check and
+one at a time), products split over tp, each sp rank takes its chunk of the
+sequence and each ep rank its experts, and the loss weight, the gradient
+mean and the reported loss run over the ranks that hold other tokens (dp x
+fsdp x ep x sp) only, so a tp group's rows count once; a pipeline's stages
+train through ``unified_pipeline_step`` (``parallel/pipeline.py``). The epilogue's norm, non-finite check and
 update are the mesh's (ZeRO-1/2 update each rank's fsdp slice and gather
 it). A kernel never sees a DTensor. At world size 1 every degree is 1 and
 the step is the unsharded one bit for bit.
@@ -109,7 +111,7 @@ from .optimizer import (
     scale_loss,
     unscale_and_check,
 )
-from .parallel.runtime import build_layout, gather_full
+from .parallel.runtime import build_layout, gather_full, layout_of_placements
 from .parallel.sharding import get_logical_specs, is_dtensor
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
@@ -243,6 +245,37 @@ def _mean_across_processes_(grads: dict, world: int) -> None:
         dist.all_reduce(g)
         if world > 1:
             g.div_(world)
+
+
+def _apply_update(acc, lay, optimizer, policy, max_grad_norm, grads: dict, opt_state,
+                  params: dict, ls):
+    """The optimizer epilogue on the mean gradients, shared by
+    ``unified_step`` and ``unified_pipeline_step``: unscale and check
+    (fp16), the global norm and clip, the update (one fused kernel launch
+    for a ``fused_adamw`` optimizer), the hold on a non-finite step. Under a
+    layout the check and the norm run over the mesh and the update on each
+    rank's shards (``parallel/runtime.py``). Returns the new loss scale, the
+    norm and whether the gradients were finite."""
+    reduce_finite = None if lay is None else (lambda f: lay.all_finite(f, acc.device))
+    grads, finite, new_ls = unscale_and_check(grads, ls, policy, reduce_finite=reduce_finite)
+    gnorm = global_norm(grads) if lay is None else lay.global_norm(grads)
+    scale_c = None if max_grad_norm is None else _clip_scale(gnorm, max_grad_norm)
+    finish = None
+    if lay is not None:
+        grads, params, opt_state, finish = lay.work_set(grads, params, opt_state)
+    # fused epilogue (ops/fused.py): for a fused_adamw optimizer the clip
+    # multiply -> moment update -> apply -> non-finite hold tail runs as one
+    # kernel launch, bitwise the plain chain below in fp32
+    if maybe_fused_epilogue(optimizer.optimizer, grads, opt_state, params,
+                            clip_scale=scale_c, finite=finite) is None:
+        if scale_c is not None:
+            for g in grads.values():
+                g.mul_(scale_c)
+        if finite:  # fp16 overflow: keep params and optimizer state
+            optimizer.apply_gradients(grads, params, opt_state)
+    if finish is not None:
+        finish()
+    return new_ls, gnorm, finite
 
 
 def _is_dataloader(obj: Any) -> bool:
@@ -649,29 +682,8 @@ class Accelerator:
             mean_grads = accum
             if num_accum > 1:
                 mean_grads = {k: a.div_(num_accum) for k, a in accum.items()}
-            reduce_finite = None if lay is None else (
-                lambda f: lay.all_finite(f, self.device))
-            mean_grads, finite, new_ls = unscale_and_check(mean_grads, ls, policy,
-                                                           reduce_finite=reduce_finite)
-            gnorm = global_norm(mean_grads) if lay is None else lay.global_norm(mean_grads)
-            scale_c = None if max_grad_norm is None else _clip_scale(gnorm, max_grad_norm)
-            finish = None
-            if lay is not None:
-                mean_grads, params, opt_state, finish = lay.work_set(mean_grads, params,
-                                                                     opt_state)
-            # fused epilogue (ops/fused.py): for a fused_adamw optimizer the
-            # clip multiply -> moment update -> apply -> non-finite hold tail
-            # runs as one kernel launch, bitwise the plain chain below in fp32
-            if maybe_fused_epilogue(optimizer.optimizer, mean_grads, opt_state, params,
-                                    clip_scale=scale_c, finite=finite) is None:
-                if scale_c is not None:
-                    for g in mean_grads.values():
-                        g.mul_(scale_c)
-                if finite:  # fp16 overflow: keep params and optimizer state
-                    optimizer.apply_gradients(mean_grads, params, opt_state)
-            if finish is not None:
-                finish()
-            return new_ls, gnorm, finite
+            return _apply_update(self, lay, optimizer, policy, max_grad_norm, mean_grads,
+                                 opt_state, params, ls)
 
         def _compute_leaves(params):
             """The params cast to the compute dtype as autograd leaves: the
@@ -686,10 +698,12 @@ class Accelerator:
             and aux; the loss sees ``compute`` in ``tree``'s nesting. With a
             group, the loss is weighted into the global batch's (the module
             docstring) and the one reported is the global batch's."""
-            factor = (_loss_factor(loss_fn, batch, world, self.device, data_group)
-                      if self._reduces_across_processes else None)
             context = contextlib.nullcontext() if lay is None else lay.forward_context()
             with context:  # the backward (and a remat recompute) gathers inside it too
+                # inside the context: under sp the weight counts this rank's
+                # share of the sequence
+                factor = (_loss_factor(loss_fn, batch, world, self.device, data_group)
+                          if self._reduces_across_processes else None)
                 seen = compute if lay is None else lay.loss_params(compute)
                 scaled, loss, aux = micro_loss(_like_tree(tree, seen),
                                                _cast_floating(batch, policy.compute_dtype), ls,
@@ -798,6 +812,96 @@ class Accelerator:
         return self._wrap_step(_step, label, microbatches=1, dispatches=num_accum,
                                fused_kernels=fused_kernels)
 
+    def unified_pipeline_step(
+        self,
+        block_fn: Callable[[dict, torch.Tensor], torch.Tensor],
+        loss_fn: Callable[[torch.Tensor, Any], torch.Tensor],
+        optimizer: Optional[AcceleratedOptimizer] = None,
+        max_grad_norm: Optional[float] = None,
+        donate: bool = True,
+    ) -> Callable:
+        """The train step of a pipelined model (reference :750-899): the
+        1F1B schedule (``parallel.pipeline.pipeline_train_step``), then the
+        epilogue of :meth:`unified_step`: unscale and check under fp16,
+        clip to ``max_grad_norm`` by the global norm (every stage's layers
+        counted once), the update (one fused kernel launch for a
+        ``fused_adamw`` optimizer) and the hold on a non-finite step.
+
+        ``block_fn(stage_params, x_micro) -> y_micro`` is a stage's layer
+        stack; ``loss_fn(y_micro, target_micro) -> scalar`` must decompose
+        over microbatches. Under fp16 each microbatch's loss is scaled, so
+        the cotangents the last stage seeds and the stages pass back run
+        scaled. ``ParallelismPlugin.num_micro_batches`` microbatches make
+        the step, so build the Accelerator with
+        ``gradient_accumulation_steps=1``. ``donate`` is accepted for the
+        reference's signature.
+
+        Returns ``step_fn(carry, x, targets) -> (carry, metrics)`` with
+        ``carry = accelerator.init_carry(stacked_params, optimizer)``, the
+        params placed by ``stacked_layer_shardings``; stage 0 reads ``x``
+        and the last stage ``targets`` (the others may pass None). Metrics
+        as ``unified_step``'s: ``loss``, ``grad_norm``, ``grads_finite``,
+        ``is_sync_step``."""
+        from .parallel import pipeline
+
+        optimizer = optimizer or (self._optimizers[0] if self._optimizers else None)
+        if optimizer is None:
+            raise ValueError("prepare() an optimizer before building the step")
+        if self.gradient_state.num_steps > 1:
+            raise ValueError("unified_pipeline_step microbatches via num_micro_batches; use "
+                             "gradient_accumulation_steps=1")
+        plugin = self.state.parallelism_plugin
+        if plugin is None:
+            raise ValueError("unified_pipeline_step needs a ParallelismPlugin (the pp axis)")
+        policy = self.state.mixed_precision_policy
+        num_micro = plugin.num_micro_batches
+        mesh = self.mesh
+
+        def _step(carry: dict, x: Any, targets: Any):
+            params = carry["params"]
+            lay = self._layout
+            ls = carry.get("loss_scale")
+            if lay is None and self.mesh is not None and self.state.num_processes > 1:
+                raise ValueError("place the stacked params on the mesh first "
+                                 "(parallel.pipeline.stacked_layer_shardings + "
+                                 "parallel.sharding.shard_params), then init_carry")
+            local = params if lay is None else lay.local(params)  # this stage's layers
+            compute = {k: _cast_floating(p.detach(), policy.compute_dtype)
+                       for k, p in local.items()}
+            cx = None if x is None else send_to_device(_cast_floating(x, policy.compute_dtype),
+                                                       self.device)
+            ct = None if targets is None else send_to_device(
+                _cast_floating(targets, policy.compute_dtype), self.device)
+
+            def scaled_loss_fn(y, t):
+                # fp16: scaling each microbatch's loss scales the cotangent
+                # the last stage seeds, so the whole backward runs scaled
+                return scale_loss(loss_fn(y, t).float(), ls)
+
+            loss, grads = pipeline.pipeline_train_step(block_fn, scaled_loss_fn, compute, cx, ct,
+                                                       mesh=mesh, num_micro_batches=num_micro)
+            grads = {k: g.float() for k, g in grads.items()}
+            with record_function("unified_pipeline_step.sync_apply"):
+                new_ls, gnorm, finite = _apply_update(self, lay, optimizer, policy,
+                                                      max_grad_norm, grads,
+                                                      carry["opt_state"], params, ls)
+            new_carry = dict(carry)
+            new_carry["opt_step"] = carry["opt_step"] + 1
+            loss = loss.float()
+            if ls is not None:
+                new_carry["loss_scale"] = new_ls
+                loss = loss / ls.scale  # the schedule averaged scaled losses
+            metrics = {"loss": loss, "grad_norm": gnorm,
+                       "grads_finite": finite if ls is not None else bool(torch.isfinite(gnorm)),
+                       "is_sync_step": True}
+            return new_carry, metrics
+
+        label = f"unified_pipeline_step#{self._built_steps}"
+        self._built_steps += 1
+        # every call is an optimizer step over num_micro microbatches
+        return self._wrap_step(_step, label, microbatches=num_micro, dispatches=1,
+                               fused_kernels=bool(getattr(optimizer.optimizer, "fused", False)))
+
     def _wrap_step(self, step_impl: Callable, label: str, *, microbatches: int,
                    dispatches: int, fused_kernels: bool) -> Callable:
         """The step function's host bookkeeping (reference ``_wrap_step``
@@ -843,6 +947,12 @@ class Accelerator:
         for p in flat.values():
             if not p.requires_grad:
                 p.requires_grad_(True)
+        if (self._layout is None and self.state.parallelism_plugin is not None
+                and any(is_dtensor(p) for p in flat.values())):
+            # params placed by hand (the stacked layers of a pipeline,
+            # ``parallel.pipeline.stacked_layer_shardings``): the step's
+            # layout is theirs
+            self._layout = layout_of_placements(flat, self.state.parallelism_plugin)
         if optimizer.opt_state is None:
             self._init_optimizer(optimizer, flat)
         policy = self.state.mixed_precision_policy
@@ -1019,7 +1129,7 @@ class Accelerator:
         data-parallel ranks', so a tp group's rows come once). On the last batch of
         a loader whose global tail was wrapped or padded, only the first
         ``remainder`` (global) rows are real, and the rest are dropped."""
-        group = None if self._layout is None else self._layout.data_group
+        group = None if self._layout is None else self._layout.rows_group
         if use_gather_object or not _all_tensor_leaves(input_data):
             data = operations.gather_object(input_data, group=group)
             return [x for sub in data for x in (sub if isinstance(sub, list) else [sub])]

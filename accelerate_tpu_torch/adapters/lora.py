@@ -21,6 +21,8 @@ keeps the reference's orientation).
 
 from __future__ import annotations
 
+import functools
+
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -166,7 +168,7 @@ def lora_loss_fn(model, base_params: Any, lora_config: LoraConfig,
     ``compute_dtype`` at each call, and every base tensor is detached. LoRA
     dropout runs only when the config asks for it and the batch carries a
     ``dropout_seed``."""
-    from ..models.transformer import next_token_count
+    from ..models.transformer import next_token_count, next_token_loss
     from ..utils.quantization import dequantize_tree
 
     if isinstance(base_params, torch.nn.Module):
@@ -180,18 +182,12 @@ def lora_loss_fn(model, base_params: Any, lora_config: LoraConfig,
                                  deterministic=not use_dropout,
                                  dropout_seed=int(batch["dropout_seed"]) if use_dropout else None)
         logits = torch.func.functional_call(model, base, (ids,), {"lora": state})
-        targets = ids[:, 1:]
-        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-        nll = -logp.gather(-1, targets[..., None])[..., 0]
-        mask = batch.get("loss_mask")
-        if mask is not None:
-            mask = mask[:, 1:].float()
-            return (nll * mask).sum() / mask.sum().clamp_min(1.0)
-        return nll.mean()
+        return next_token_loss(logits, batch, ring)
 
+    ring = getattr(model.config, "attention_impl", None) == "ring"
     fn.fused_kernels = bool(getattr(model.config, "fused_kernels", False))
     # read by the step across processes: the loss is the global batch's
-    fn.loss_weight = next_token_count
+    fn.loss_weight = functools.partial(next_token_count, ring=ring)
     return fn
 
 

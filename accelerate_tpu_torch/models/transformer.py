@@ -59,11 +59,21 @@ the attention runs on the local heads (q and o_proj split, k and v whole of
 which each rank takes its heads' rows), the MLP on its columns and rows, the
 embedding and the lm_head on the local vocab, with Megatron's pair of
 collectives; ``tp_partial_leaves`` names the leaves whose gradients are
-partial over tp. Decoding, LoRA and MoE under tp raise.
+partial over tp. Decoding, LoRA and MoE under tp raise. Under sp with
+``attention_impl="ring"`` the causal LM takes its rank's contiguous chunk
+of the sequence after the embedding (``parallel.sharding.
+constrain_activations``), with the chunk's global positions for rope, and
+attention runs the ring over sp (``ops/ring_attention.py``); its loss
+builds the targets and the mask from the whole row before it takes the
+chunk (the reference shifts over the whole row, :945-952), so each token
+counts once across chunk boundaries. Under ep the MoE block runs
+``ops/moe.moe_ragged_ep`` on its shard of the expert stacks (``"auto"``
+and ``"ragged"``), or gathers the stacks for ``"dense"`` and, with the
+tokens, for ``"capacity"``, whose capacity is the global batch's.
 
 Not ported yet, and rejected when asked for (ROADMAP.md): the GPT-2
-architecture, the Gemma/Gemma-2 switches, ring attention, experts over an
-``ep`` mesh, and ``fused_kernels=True`` on the classifier.
+architecture, the Gemma/Gemma-2 switches, and ``fused_kernels=True`` on the
+classifier.
 """
 
 from __future__ import annotations
@@ -100,7 +110,7 @@ from ..ops.attention import (
 from ..ops.fp8 import fp8_matmul
 from ..ops.rope import rope_inv_freqs
 from ..parallel import runtime as _shard
-from ..parallel.sharding import LeafAxes
+from ..parallel.sharding import LeafAxes, constrain_activations, sequence_chunk_bounds
 from ..state import resolve_device
 from .config import TransformerConfig
 
@@ -115,8 +125,6 @@ def _dtype(config: TransformerConfig) -> torch.dtype:
 def _unsupported(cfg: TransformerConfig) -> Optional[str]:
     if cfg.arch != "llama":
         return f"arch={cfg.arch!r} (queue A8)"
-    if cfg.attention_impl == "ring":
-        return "ring attention (queue A7)"
     gemma = [name for name, on in (
         ("norm_offset", cfg.norm_offset), ("embed_scale", cfg.embed_scale),
         ("mlp_activation", cfg.mlp_activation != "silu"), ("post_norms", cfg.post_norms),
@@ -409,11 +417,13 @@ def _decode_attention(q, k, v, positions, kv, window):
 
 def _tp_refusals(kv=None, lora=None) -> None:
     if kv is not None:
-        raise NotImplementedError("decoding with tensor-parallel weights is not ported: "
-                                  "the serving engine runs one card's whole model")
+        raise NotImplementedError("decoding with tensor-parallel weights is not ported yet "
+                                  "(the serving engine runs one card's whole model): ROADMAP.md, "
+                                  "queue A7 part 4 (its remainder)")
     if lora is not None:
-        raise NotImplementedError("LoRA adapters under tensor parallelism are not ported: "
-                                  "train adapters with a plugin whose tp_size is 1")
+        raise NotImplementedError("LoRA adapters under tensor parallelism are not ported yet "
+                                  "(train adapters with a plugin whose tp_size is 1): "
+                                  "ROADMAP.md, queue A7 part 4 (its remainder)")
 
 
 def _tp_heads(cfg: TransformerConfig, tp) -> tuple[int, int, slice]:
@@ -610,7 +620,8 @@ class MoE(nn.Module):
     def forward(self, x):
         if _shard.tp_state() is not None:
             raise NotImplementedError("MoE experts under tensor parallelism are not ported yet: "
-                                      "ROADMAP.md, queue A7 part 4 (expert parallelism)")
+                                      "ROADMAP.md, queue A7 part 4 (its remainder; expert "
+                                      "parallelism runs with tp_size 1)")
         cfg = self.config
         dt = _dtype(cfg)
         E, K = cfg.num_experts, cfg.num_experts_per_tok
@@ -620,7 +631,29 @@ class MoE(nn.Module):
         weights = weights / weights.sum(dim=-1, keepdim=True)
         w_gate, w_up, w_down = (w.to(dt) for w in (self.gate_proj, self.up_proj, self.down_proj))
         xc = x.to(dt)
+        # "auto" is the grouped products: exact on one device, the
+        # shard-capacity schedule under ep (reference :588-604)
         dispatch = "ragged" if cfg.moe_dispatch == "auto" else cfg.moe_dispatch
+        ep = _shard.ep_state()
+        sharded = ep is not None and w_gate.shape[0] != E  # this rank's shard of the stacks
+        if ep is not None and dispatch == "ragged":
+            sp = _shard.sp_state()
+            split = (b, sp.size, s) if sp is not None and _shard.sequence_split() else None
+            out = moe_ops.moe_ragged_ep(
+                xc.reshape(b * s, h), sel.reshape(b * s, K), weights.reshape(b * s, K),
+                w_gate, w_up, w_down, capacity_factor=cfg.moe_capacity_factor,
+                experts_sharded=sharded, tokens=_shard.token_state(), seq_split=split)
+            self.aux_loss = moe_ops.load_balancing_loss(logits, sel, E)
+            return out.reshape(b, s, h).to(x.dtype)
+        if sharded:  # the capacity and dense dispatches run every expert
+            w_gate, w_up, w_down = (moe_ops.gather_experts(w) for w in (w_gate, w_up, w_down))
+        if dispatch == "capacity" and ep is not None:
+            # the reference's capacity is the global batch's: the tokens of
+            # every token rank go through it, and this rank keeps its rows
+            out = self._global_capacity(xc.reshape(b * s, h), sel.reshape(b * s, K),
+                                        weights.reshape(b * s, K), w_gate, w_up, w_down)
+            self.aux_loss = moe_ops.load_balancing_loss(logits, sel, E)
+            return out.reshape(b, s, h).to(x.dtype)
         if dispatch == "ragged":
             out = moe_ops.moe_ragged(xc.reshape(b * s, h), sel.reshape(b * s, K),
                                      weights.reshape(b * s, K), w_gate, w_up, w_down)
@@ -641,6 +674,29 @@ class MoE(nn.Module):
             out = torch.einsum("ebsh,bse->bsh", expert_out, combine.to(dt))
         self.aux_loss = moe_ops.load_balancing_loss(logits, sel, E)
         return out.reshape(b, s, h).to(x.dtype)
+
+    def _global_capacity(self, x, sel, weights, w_gate, w_up, w_down):
+        """The capacity dispatch over every token rank's tokens (gathered in
+        the global batch's order), this rank's rows of the result."""
+        cfg = self.config
+        tokens = _shard.token_state()
+        n, T = tokens.size, x.shape[0]
+        if _shard.sequence_split() and _shard.sp_state() is not None:
+            raise NotImplementedError(
+                "moe_dispatch='capacity' under ep with the sequence split over sp: use "
+                "'auto'/'ragged' (the shard-capacity schedule), or 'dense'")
+        xs = moe_ops._GatherRows.apply(x, tokens.group, n) if n > 1 else x
+        sels = moe_ops._gather_plain(sel, tokens.group, n) if n > 1 else sel
+        ws = moe_ops._GatherRows.apply(weights, tokens.group, n) if n > 1 else weights
+
+        def experts_fn(buf):  # (E, C, h) -> (E, C, h)
+            hidden = F.silu(torch.einsum("ech,ehf->ecf", buf, w_gate)) * torch.einsum(
+                "ech,ehf->ecf", buf, w_up)
+            return torch.einsum("ecf,efh->ech", hidden, w_down)
+
+        out = moe_ops.moe_dispatch_combine(xs, sels, ws, experts_fn, cfg.num_experts,
+                                           capacity_factor=cfg.moe_capacity_factor)
+        return out.narrow(0, tokens.rank * T, T) if n > 1 else out
 
 
 class Block(nn.Module):
@@ -791,17 +847,77 @@ def _logical_axes(model: nn.Module) -> dict[str, LeafAxes]:
     return out
 
 
-def next_token_count(batch) -> torch.Tensor | float:
+def next_token_targets(ids: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    """``(targets, weights)`` over every position of the whole rows: the
+    next token of each position and its weight in the loss (``loss_mask``
+    of the next position, or 1; 0 at the last position, which has no
+    next token). The reference shifts the whole row (``ids[:, 1:]``
+    against ``logits[:, :-1]``); taking a chunk of these keeps every
+    target across chunk boundaries."""
+    targets = torch.cat([ids[:, 1:], ids[:, -1:]], dim=1)
+    w = torch.ones_like(ids, dtype=torch.float32) if mask is None else mask.float()
+    weights = torch.cat([w[:, 1:], torch.zeros_like(w[:, :1])], dim=1)
+    return targets, weights
+
+
+def _target_share(length: int, ring: bool):
+    """Under sp, the positions of the whole rows whose targets this rank's
+    loss counts: its sequence chunk where the model splits the sequence
+    (ring attention on a length sp tiles, ``CausalLM._sequence_chunk``),
+    else its share of a near-even split (every sp rank then computes the
+    whole sequence); None without sp."""
+    sp = _shard.sp_state()
+    if sp is None:
+        return None
+    bounds = sequence_chunk_bounds(length, sp.size, sp.rank) if ring else None
+    if bounds is None:
+        bounds = (length * sp.rank // sp.size, length * (sp.rank + 1) // sp.size)
+    return bounds
+
+
+def next_token_count(batch, ring: bool = False) -> torch.Tensor | float:
     """The terms a next-token loss averages over in ``batch``: the target
-    tokens under ``loss_mask``, or every target token without one. The
-    ``loss_weight`` of ``CausalLM.loss_fn`` and ``adapters.lora_loss_fn``,
-    read by ``Accelerator`` to give the global batch's loss across
-    processes."""
+    tokens under ``loss_mask``, or every target token without one; under
+    sp, those of this rank's share of the positions (``ring``: the model
+    runs ring attention). The ``loss_weight`` of ``CausalLM.loss_fn`` and
+    ``adapters.lora_loss_fn``, read by ``Accelerator`` to give the global
+    batch's loss across processes."""
     mask = batch.get("loss_mask")
+    ids = batch["input_ids"]
+    share = _target_share(ids.shape[1], ring)
+    if share is not None:
+        _, weights = next_token_targets(ids, mask)
+        return weights[:, share[0]:share[1]].sum()
     if mask is not None:
         return mask[:, 1:].float().sum()
-    ids = batch["input_ids"]
     return float(ids.shape[0] * (ids.shape[1] - 1))
+
+
+def next_token_loss(logits: torch.Tensor, batch, ring: bool = False) -> torch.Tensor:
+    """The masked mean next-token cross-entropy of ``logits`` against
+    ``batch["input_ids"]`` (the reference's ``CausalLM.loss_fn`` :938);
+    under sp over this rank's share of the positions, its targets and mask
+    taken from the whole rows (the logits hold only the chunk where the
+    model split the sequence)."""
+    ids = batch["input_ids"]
+    mask = batch.get("loss_mask")
+    share = _target_share(ids.shape[1], ring)
+    if share is not None:
+        targets, weights = next_token_targets(ids, mask)
+        lo, hi = share
+        if logits.shape[1] == ids.shape[1]:
+            logits = logits[:, lo:hi]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, targets[:, lo:hi, None])[..., 0]
+        w = weights[:, lo:hi]
+        return (nll * w).sum() / w.sum().clamp_min(1.0)
+    targets = ids[:, 1:]
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    if mask is not None:
+        mask = mask[:, 1:].float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
 
 
 class CausalLM(nn.Module):
@@ -851,6 +967,8 @@ class CausalLM(nn.Module):
             if positions is None:
                 positions = torch.arange(input_ids.shape[1], device=input_ids.device)
                 positions = positions[None, :].expand(input_ids.shape)
+            if _shard.sp_state() is not None:
+                x, positions = self._sequence_chunk(x, positions)
             x = _layer_stack(self, x, positions, lora=lora)
         x = self.final_norm(x)
         tp = _shard.tp_state()
@@ -866,6 +984,18 @@ class CausalLM(nn.Module):
         """Every parameter's logical axes in the reference's layout, for
         ``parallel.sharding.infer_param_shardings``."""
         return _logical_axes(self)
+
+    def _sequence_chunk(self, x, positions):
+        """Under sp: this rank's chunk of the sequence and its global
+        positions, where ring attention runs and sp tiles the length; the
+        whole sequence otherwise (every sp rank then computes it, and the
+        loss counts each rank's share of the targets)."""
+        chunk = constrain_activations(x) if self.config.attention_impl == "ring" else x
+        split = chunk is not x
+        _shard.set_sequence_split(split)
+        if split:
+            positions = constrain_activations(positions)
+        return chunk, positions
 
     def _decode_layers(self, x, paged, cache, lora=None):
         b, s = x.shape[:2]
@@ -898,22 +1028,16 @@ class CausalLM(nn.Module):
         ``loss_fn(params, batch)`` with ``params`` a name -> tensor dict of
         the model's parameters and ``batch`` {input_ids, [loss_mask]}."""
 
+        ring = model.config.attention_impl == "ring"
+
         def fn(params, batch):
-            ids = batch["input_ids"]
-            logits = torch.func.functional_call(model, params, (ids,))
-            targets = ids[:, 1:]
-            logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-            nll = -logp.gather(-1, targets[..., None])[..., 0]
-            mask = batch.get("loss_mask")
-            if mask is not None:
-                mask = mask[:, 1:].float()
-                return (nll * mask).sum() / mask.sum().clamp_min(1.0)
-            return nll.mean()
+            logits = torch.func.functional_call(model, params, (batch["input_ids"],))
+            return next_token_loss(logits, batch, ring)
 
         # read by the step's telemetry: whether the model runs the fused prologue
         fn.fused_kernels = bool(model.config.fused_kernels)
         # read by the step across processes: the loss is the global batch's
-        fn.loss_weight = next_token_count
+        fn.loss_weight = functools.partial(next_token_count, ring=ring)
         return fn
 
 

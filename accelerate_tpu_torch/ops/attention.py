@@ -291,7 +291,9 @@ def dot_product_attention(
     ``implementation``: None (auto) | "xla" | "flash" | "ring". Auto picks
     flash for causal or bidirectional self-attention on a CUDA device with
     no dense mask or bias, else the plain path — decided before any
-    launch. Score soft-capping and per-layer windows (Gemma-2) are not
+    launch. "ring" runs ``ops/ring_attention.py`` over the running sharded
+    step's sp group on the model's sequence chunks (the plain path at sp
+    1, dense attention where the model kept a length sp does not tile). Score soft-capping and per-layer windows (Gemma-2) are not
     ported yet (ROADMAP.md, queue A8).
     """
     if implementation is None:
@@ -319,7 +321,21 @@ def dot_product_attention(
             q, k, v, scale=scale, causal=causal, kv_lengths=kv_lengths, window=window
         )
     if implementation == "ring":
-        raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP.md, queue A7)"
-        )
+        from ..parallel import runtime
+        from . import ring_attention as ring
+
+        if mask is not None or bias is not None or kv_lengths is not None:
+            raise ValueError("ring attention supports no custom mask/bias")
+        if window is not None:
+            raise ValueError(
+                "ring attention supports neither sliding windows nor score soft-capping — "
+                "use implementation='flash' or 'xla' (at window << seq the flash band-skip "
+                "already bounds memory and work)"
+            )
+        sp = runtime.sp_state()
+        if sp is None:  # no sp above 1 in the running step: the whole sequence here
+            return xla_attention(q, k, v, scale=scale, causal=causal)
+        if not runtime.sequence_split():  # the model kept a length sp does not tile
+            return ring.dense_fallback(q, k, v, scale=scale, causal=causal, sp_size=sp.size)
+        return ring.ring_attention(q, k, v, scale=scale, causal=causal)
     raise ValueError(f"unknown attention implementation {implementation!r}")

@@ -6,6 +6,12 @@ from .mesh import (
     resolve_mesh_shape,
     single_device_mesh,
 )
+from .pipeline import (
+    pipeline_apply,
+    pipeline_train_step,
+    stacked_layer_shardings,
+    validate_pipeline_plugin,
+)
 from .sharding import (
     DEFAULT_LOGICAL_RULES,
     batch_sharding,

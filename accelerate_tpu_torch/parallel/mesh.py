@@ -10,10 +10,13 @@ at the mesh coordinate of ``r`` in row-major order over those axes
 (:func:`mesh_coordinate`), as the reference's ``devices.reshape(dims)``
 places device ``r``.
 
-What the port does not run raises, naming the part of ROADMAP.md's queue
-A7 it waits for: pipeline stages (``pp > 1``, part 3), sequence and expert
-parallelism (``sp > 1``, ``ep > 1``, part 4). The shape checks and the
-env-driven slice helpers need no process group.
+Every axis runs above 1: pipeline stages (``pp``, ``parallel/pipeline.py``),
+sequence parallelism (``sp``, ring attention) and expert parallelism
+(``ep``, ``ops/moe.moe_ragged_ep``) beside dp, fsdp and tp. A mesh across
+several slices raises, naming part 5 of ROADMAP.md's queue A7. A pp mesh
+is validated on its resolved degrees (``pipeline.validate_pipeline_plugin``,
+reference :113-117), so ``pp_size=-1`` cannot skip the check. The shape
+checks and the env-driven slice helpers need no process group.
 """
 
 from __future__ import annotations
@@ -29,22 +32,15 @@ from ..utils.constants import (
     MESH_AXIS_EXPERT,
     MESH_AXIS_FSDP,
     MESH_AXIS_PIPELINE,
-    MESH_AXIS_SEQUENCE,
 )
 from ..utils.dataclasses import ParallelismPlugin
 
 NUM_SLICES_ENV = f"{ENV_PREFIX}NUM_SLICES"
 FAULT_DOMAIN_ENV = f"{ENV_PREFIX}FAULT_DOMAIN"
 
-# the axes whose degree above 1 waits for a later part of queue A7
-UNPORTED_AXES = {
-    MESH_AXIS_PIPELINE: "pipeline stages (pp_size > 1) are not ported yet: ROADMAP.md, "
-                        "queue A7 part 3",
-    MESH_AXIS_SEQUENCE: "sequence parallelism and ring attention (sp_size > 1) are not ported "
-                        "yet: ROADMAP.md, queue A7 part 4",
-    MESH_AXIS_EXPERT: "expert parallelism (ep_size > 1) is not ported yet: ROADMAP.md, "
-                      "queue A7 part 4",
-}
+# the axes whose degree above 1 waits for a later part of queue A7: none
+# since pipelines (part 3) and sequence and expert parallelism (part 4)
+UNPORTED_AXES: dict[str, str] = {}
 
 
 def resolve_num_slices() -> int:
@@ -127,6 +123,11 @@ def build_mesh(plugin: Optional[ParallelismPlugin] = None, device_type: Optional
     check_ported(plugin.mesh_shape)
     shape = resolve_mesh_shape(plugin, dist.get_world_size())
     check_ported(shape)
+    if shape[MESH_AXIS_PIPELINE] > 1:
+        from .pipeline import validate_pipeline_plugin
+
+        # on the RESOLVED degrees, so that pp_size=-1 cannot skip the check
+        validate_pipeline_plugin(plugin, resolved_shape=shape)
     num_slices = resolve_num_slices()
     if num_slices > 1:
         outer = shape[MESH_AXIS_DATA] * shape[MESH_AXIS_PIPELINE]
@@ -146,6 +147,27 @@ def single_device_mesh(device_type: Optional[str] = None):
     """A mesh of one process (every axis 1), so the sharded paths run at a
     world size of one; needs a group of one."""
     return build_mesh(ParallelismPlugin(dp_size=1), device_type)
+
+
+def rank_at(coord: dict[str, int], shape: dict[str, int]) -> int:
+    """The rank at mesh coordinate ``coord`` (the inverse of
+    :func:`mesh_coordinate`)."""
+    rank = 0
+    for axis in MESH_AXES:
+        rank = rank * shape.get(axis, 1) + coord.get(axis, 0)
+    return rank
+
+
+def axis_peers(rank: int, shape: dict[str, int], axes) -> list[int]:
+    """The ranks that share ``rank``'s coordinate on every axis but
+    ``axes``, in row-major order over ``axes`` (a sub-group's ranks)."""
+    axes = [a for a in MESH_AXES if a in set(axes)]
+    coord = mesh_coordinate(rank, shape)
+    peers = [rank_at(coord, shape)]
+    for axis in axes:
+        peers = [rank_at({**mesh_coordinate(r, shape), axis: i}, shape)
+                 for r in peers for i in range(shape[axis])]
+    return sorted(peers)
 
 
 def mesh_shape_of(mesh: Union[Any, dict]) -> dict[str, int]:

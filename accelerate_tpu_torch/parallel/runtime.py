@@ -28,9 +28,14 @@ get_group``), on plain local tensors: a kernel never sees a DTensor.
   the fused prologue the attention norm's, are partial sums that
   :meth:`ShardedLayout.reduce_grads_` adds over tp exactly once (the
   model names them, ``models.transformer.tp_partial_leaves``).
-* **The epilogue.** Gradients are summed over the data-parallel ranks only
-  (dp x fsdp: the fsdp part by the gather's reduce-scatter for a leaf split
-  over fsdp), then divided by their count. The clip's norm sums each
+* **The epilogue.** A gradient is summed over the ranks that hold other
+  tokens of the global batch and the same shard of the leaf: the token
+  axes dp, fsdp, ep and sp, less the axes that split the leaf (an expert
+  stack split over ep sums over dp x fsdp x sp; the fsdp part comes from the
+  gather's reduce-scatter for a leaf split over fsdp), then divided by the
+  number of token ranks (dp x fsdp x ep x sp), the count the loss's weights
+  were made over. Pipeline stages (pp) and tp peers are not token ranks: a
+  stage's layers are its own, and tp peers hold the same tokens. The clip's norm sums each
   leaf's squares once per distinct shard; under fp16 the non-finite flag
   is all-reduced, so an inf on one rank holds every rank's step. ZeRO-1
   (SHARD_OPT) updates each rank's fsdp slice of a whole parameter with its
@@ -51,9 +56,21 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..utils.constants import MESH_AXES, MESH_AXIS_DATA, MESH_AXIS_FSDP, MESH_AXIS_TENSOR
+from ..utils.constants import (
+    MESH_AXES,
+    MESH_AXIS_DATA,
+    MESH_AXIS_EXPERT,
+    MESH_AXIS_FSDP,
+    MESH_AXIS_SEQUENCE,
+    MESH_AXIS_TENSOR,
+)
 from ..utils.dataclasses import ParallelismPlugin, ShardingStrategy
-from .mesh import mesh_coordinate, mesh_shape_of
+from .mesh import axis_peers, mesh_coordinate, mesh_shape_of
+
+# the axes over which ranks hold different rows of the global batch, and
+# with sp the axes over which they hold different tokens
+ROW_AXES = (MESH_AXIS_DATA, MESH_AXIS_FSDP, MESH_AXIS_EXPERT)
+TOKEN_AXES = ROW_AXES + (MESH_AXIS_SEQUENCE,)
 from .sharding import (
     Spec,
     _entry_axes,
@@ -192,9 +209,27 @@ class TensorParallel:
 
 
 @dataclass
+class AxisGroup:
+    """One mesh axis (or several) as the forward reads it: the sub-group,
+    its size, this rank's index in it, and the group's global ranks in
+    group order. The sequence-parallel chunk and the expert shard of a port
+    model come from here."""
+    group: Any
+    size: int
+    rank: int
+    ranks: tuple = ()
+
+
+@dataclass
 class _ForwardContext:
     gather: Optional[Callable[[str, dict], dict]]
     tp: Optional[TensorParallel]
+    sp: Optional[AxisGroup] = None
+    ep: Optional[AxisGroup] = None
+    tokens: Optional[AxisGroup] = None
+    rows: Optional[AxisGroup] = None
+    # set by a port model's forward: whether it split its sequence over sp
+    seq_split: bool = False
 
 
 # a module global, not a thread-local: autograd may run the backward (and
@@ -204,13 +239,22 @@ _ACTIVE: Optional[_ForwardContext] = None
 
 @contextlib.contextmanager
 def sharded_forward(gather: Optional[Callable[[str, dict], dict]] = None,
-                    tp: Optional[TensorParallel] = None):
+                    tp: Optional[TensorParallel] = None, sp: Optional[AxisGroup] = None,
+                    ep: Optional[AxisGroup] = None, tokens: Optional[AxisGroup] = None,
+                    rows: Optional[AxisGroup] = None):
     """Inside: a port model gathers each layer's parameters through
     ``gather(prefix, {name: tensor}) -> {name: tensor}`` as the layer runs,
-    and splits its products over ``tp``."""
+    splits its products over ``tp``, takes its sequence chunk over ``sp``
+    (ring attention) and its expert shard over ``ep``; ``tokens`` is the
+    group of the ranks that hold other tokens (the MoE's window), ``rows``
+    of those that hold other rows."""
     global _ACTIVE
     prev = _ACTIVE
-    _ACTIVE = _ForwardContext(gather, tp if tp is not None and tp.size > 1 else None)
+
+    def live(g):
+        return g if g is not None and g.size > 1 else None
+
+    _ACTIVE = _ForwardContext(gather, live(tp), live(sp), live(ep), tokens, rows)
     try:
         yield
     finally:
@@ -223,6 +267,39 @@ def layer_gather() -> Optional[Callable[[str, dict], dict]]:
 
 def tp_state() -> Optional[TensorParallel]:
     return None if _ACTIVE is None else _ACTIVE.tp
+
+
+def sp_state() -> Optional[AxisGroup]:
+    """The sequence-parallel group of the running sharded step (sp above
+    1), else None."""
+    return None if _ACTIVE is None else _ACTIVE.sp
+
+
+def ep_state() -> Optional[AxisGroup]:
+    """The expert-parallel group of the running sharded step (ep above
+    1), else None."""
+    return None if _ACTIVE is None else _ACTIVE.ep
+
+
+def token_state() -> Optional[AxisGroup]:
+    """The ranks that hold other tokens of the global batch than this one,
+    in the global batch's order, under a running sharded step: dp x fsdp x
+    ep x sp where the model split its sequence over sp, else the ranks
+    that hold other rows (dp x fsdp x ep)."""
+    if _ACTIVE is None:
+        return None
+    return _ACTIVE.tokens if _ACTIVE.seq_split else _ACTIVE.rows
+
+
+def set_sequence_split(split: bool) -> None:
+    """A port model's forward says whether it split its sequence over sp
+    (ring attention on a length sp tiles) or kept it whole."""
+    if _ACTIVE is not None:
+        _ACTIVE.seq_split = bool(split)
+
+
+def sequence_split() -> bool:
+    return _ACTIVE is not None and _ACTIVE.seq_split
 
 
 # ---------------------------------------------------------------------- #
@@ -274,13 +351,22 @@ class ShardedLayout:
         self.fsdp = self.shape[MESH_AXIS_FSDP]
         self.tp = TensorParallel(self.groups[MESH_AXIS_TENSOR], self.shape[MESH_AXIS_TENSOR],
                                  self.coord[MESH_AXIS_TENSOR])
-        self.data_size = self.shape[MESH_AXIS_DATA] * self.fsdp
-        self.data_group = data_parallel_group(mesh)
+        self.sp = self.axis(MESH_AXIS_SEQUENCE)
+        self.ep = self.axis(MESH_AXIS_EXPERT)
+        # the loss's weights and the gradient means run over the token ranks
+        self.data_size = math.prod(self.shape[a] for a in TOKEN_AXES)
+        self.data_group = axes_group(mesh, TOKEN_AXES)
+        self.rows_group = axes_group(mesh, ROW_AXES)
+        self.tokens = self._axes(self.data_group, TOKEN_AXES)
+        self.rows = self._axes(self.rows_group, ROW_AXES)
         self.zero12 = zero12_shards(plugin, mesh)
         self.zero2 = self.zero12 and plugin.sharding_strategy == ShardingStrategy.SHARD_GRAD_OP
         self.gather_dims = {k: _axis_dim(s, MESH_AXIS_FSDP, mesh) for k, s in param_specs.items()}
         self.moment_dims = {k: _axis_dim(s, MESH_AXIS_FSDP, mesh)
                             for k, s in moment_specs.items()}
+        # each leaf's gradient is summed over the token axes that do not
+        # split it; every rank makes the same groups in the same order
+        self.reduce_groups = {k: self._replica_group(k) for k in sorted(param_specs)}
         if self.zero12 and self.tp.size > 1:
             raise NotImplementedError(
                 "SHARD_OPT/SHARD_GRAD_OP with fsdp and tp both above 1: the reference's "
@@ -288,6 +374,26 @@ class ShardedLayout:
                 f"tp-split step does not hold (mesh {self.shape}); use FULL_SHARD")
 
     # ---------------------------------------------------------------- #
+    def axis(self, axis: str) -> AxisGroup:
+        return AxisGroup(self.groups[axis], self.shape[axis], self.coord[axis],
+                         tuple(axis_peers(self.rank, self.shape, (axis,))))
+
+    def _axes(self, group, axes) -> AxisGroup:
+        return AxisGroup(group, math.prod(self.shape[a] for a in axes),
+                         _axes_index(self.coord, self.shape, axes),
+                         tuple(axis_peers(self.rank, self.shape, axes)))
+
+    def _replica_group(self, name: str):
+        """The group a gradient of leaf ``name`` is summed over: the token
+        axes that split neither the leaf nor (ZeRO-2) its buffer, and not
+        fsdp where the gather's reduce-scatter has summed over it."""
+        used = set(sharded_axes(self.param_specs[name], self.mesh))
+        if self.gather_dims.get(name) is not None or (
+                self.zero2 and _axis_dim(self.buffer_specs[name], MESH_AXIS_FSDP,
+                                         self.mesh) is not None):
+            used.add(MESH_AXIS_FSDP)
+        return axes_group(self.mesh, tuple(a for a in TOKEN_AXES if a not in used))
+
     @property
     def trivial(self) -> bool:
         return self.world == 1
@@ -314,8 +420,15 @@ class ShardedLayout:
     def _gather_prefix(self, prefix: str, tensors: dict) -> dict:
         return {n: self.gather_leaf(prefix + n, t) for n, t in tensors.items()}
 
-    def forward_context(self):
-        return sharded_forward(self._gather_prefix if self.lazy_prefix else None, self.tp)
+    def forward_context(self, whole_batch: bool = False):
+        """The step's forward context. ``whole_batch``: every rank holds the
+        same whole batch (``apply_sharded``): no sequence chunk over sp, and
+        the MoE's windows over this rank's tokens alone."""
+        gather = self._gather_prefix if self.lazy_prefix else None
+        if whole_batch:
+            alone = AxisGroup(None, 1, 0, (self.rank,))
+            return sharded_forward(gather, self.tp, None, self.ep, alone, alone)
+        return sharded_forward(gather, self.tp, self.sp, self.ep, self.tokens, self.rows)
 
     # ---------------------------------------------------------------- #
     # gradients
@@ -329,11 +442,12 @@ class ShardedLayout:
         return reduce_scatter_dim(g, d, self.groups[MESH_AXIS_FSDP], self.fsdp)
 
     def reduce_grads_(self, grads: dict, scattered: bool = False) -> dict:
-        """The gradients summed over the data-parallel ranks and divided by
-        their count, the tp-partial ones summed over tp first. A leaf the
-        gather split over fsdp (or, ``scattered``, a ZeRO-2 buffer chunk)
-        already holds its fsdp sum: only dp remains. Returns the dict (a
-        ZeRO-2 scatter replaces entries)."""
+        """The gradients summed over the token ranks that share the leaf's
+        shard (the module docstring) and divided by the number of token
+        ranks, the tp-partial ones summed over tp first. A leaf the gather
+        split over fsdp (or, ``scattered``, a ZeRO-2 buffer chunk) already
+        holds its fsdp sum. Returns the dict (a ZeRO-2 scatter replaces
+        entries)."""
         dist = _dist()
         out = {}
         for k, g in grads.items():
@@ -341,10 +455,7 @@ class ShardedLayout:
                 dist.all_reduce(g, group=self.tp.group)
             if self.zero2 and not scattered:
                 g = self.zero2_scatter(k, g)
-            split = (self.gather_dims.get(k) is not None
-                     or (self.zero2 and _axis_dim(self.buffer_specs[k], MESH_AXIS_FSDP,
-                                                  self.mesh) is not None))
-            dist.all_reduce(g, group=self.groups[MESH_AXIS_DATA] if split else self.data_group)
+            dist.all_reduce(g, group=self.reduce_groups[k])
             if self.data_size > 1:
                 g.div_(self.data_size)
             out[k] = g
@@ -463,27 +574,52 @@ class ShardedLayout:
         return out
 
 
-def data_parallel_group(mesh):
-    """The group of the ranks that share this rank's tp (and pp, ep, sp)
-    coordinate: dp x fsdp. The whole world when tp is 1; every rank makes
-    every such group, in order, as ``new_group`` asks."""
+def _axes_index(coord: dict, shape: dict, axes) -> int:
+    """A rank's index among the ranks that differ from it only on
+    ``axes``: row-major over them in mesh order."""
+    idx = 0
+    for a in MESH_AXES:
+        if a in axes:
+            idx = idx * shape[a] + coord[a]
+    return idx
+
+
+def axes_group(mesh, axes):
+    """The group of the ranks that differ from this one only on ``axes``:
+    the whole world when those are every axis above 1, the axis's own
+    sub-group (``DeviceMesh.get_group``) when one axis is, and otherwise a
+    group made for each bucket of ranks, made once a mesh and in the same
+    order on every rank, as ``new_group`` asks."""
     dist = _dist()
     shape = mesh_shape_of(mesh)
-    others = [a for a in MESH_AXES if a not in (MESH_AXIS_DATA, MESH_AXIS_FSDP)]
-    if all(shape[a] == 1 for a in others):
+    live = tuple(a for a in MESH_AXES if a in axes and shape[a] > 1)
+    others = tuple(a for a in MESH_AXES if a not in live and shape[a] > 1)
+    if not others:
         return dist.group.WORLD
-    world = math.prod(shape.values())
-    rank = dist.get_rank()
-    mine = None
-    buckets: dict[tuple, list[int]] = {}
-    for r in range(world):
-        c = mesh_coordinate(r, shape)
-        buckets.setdefault(tuple(c[a] for a in others), []).append(r)
-    for key in sorted(buckets):
-        group = dist.new_group(buckets[key])
-        if rank in buckets[key]:
-            mine = group
-    return mine
+    if len(live) == 1:
+        return mesh.get_group(live[0])
+    if not live:  # a group of this rank alone: any axis of degree 1
+        return mesh.get_group(next(a for a in MESH_AXES if shape[a] == 1))
+    cache = mesh.__dict__.setdefault("_accelerate_axes_groups", {})
+    if live not in cache:
+        world = math.prod(shape.values())
+        rank = dist.get_rank()
+        buckets: dict[tuple, list[int]] = {}
+        for r in range(world):
+            c = mesh_coordinate(r, shape)
+            buckets.setdefault(tuple(c[a] for a in others), []).append(r)
+        for key in sorted(buckets):
+            group = dist.new_group(buckets[key])
+            if rank in buckets[key]:
+                cache[live] = group
+    return cache[live]
+
+
+def data_parallel_group(mesh):
+    """The group of the ranks that hold other tokens of the global batch
+    than this one (dp x fsdp x ep x sp), sharing its tp and pp coordinate;
+    the whole world when no other axis is above 1."""
+    return axes_group(mesh, TOKEN_AXES)
 
 
 def gather_full(t: Any) -> torch.Tensor:
@@ -523,16 +659,26 @@ def build_layout(mesh, plugin: ParallelismPlugin, params: dict, logical_specs=No
                          lazy_prefix=lazy_prefix, tp_partial=tp_partial)
 
 
+def layout_of_placements(params: dict, plugin: Optional[ParallelismPlugin] = None,
+                         lazy_prefix: Optional[str] = None) -> ShardedLayout:
+    """The layout of parameters already placed: each DTensor's spec read
+    from its placements (a plain tensor whole), moments and buffer alike."""
+    sharded = [v for v in params.values() if is_dtensor(v)]
+    specs = {k: spec_of_placements(v.placements, v.ndim) if is_dtensor(v)
+             else (None,) * v.ndim for k, v in params.items()}
+    return ShardedLayout(sharded[0].device_mesh, plugin or ParallelismPlugin.pure_dp(), specs,
+                         specs, specs, lazy_prefix=lazy_prefix)
+
+
 def apply_sharded(model, *args, **kwargs):
     """``model(*args, **kwargs)`` for a module whose parameters are
     DTensors (a module prepared under a plugin, or loaded onto a mesh by
     ``big_modeling.load_checkpoint_and_dispatch(mesh=...)``), without a
     gradient: the local shards go in, a leaf split over fsdp is gathered as
-    it is used (a port model's layers one at a time) and the products split
-    over tp, as in the train step. Every rank of the mesh calls it."""
+    it is used (a port model's layers one at a time), the products split
+    over tp and the experts over ep, as in the train step. Every rank of the
+    mesh calls it with the same whole batch, and gets the whole output."""
     from torch import nn
-
-    from ..utils.dataclasses import ParallelismPlugin
 
     params = dict(model.named_parameters())
     sharded = [v for v in params.values() if is_dtensor(v)]
@@ -540,13 +686,10 @@ def apply_sharded(model, *args, **kwargs):
         return model(*args, **kwargs)
     layout = getattr(model, "_apply_layout", None)
     if layout is None or set(layout.param_specs) != set(params):
-        specs = {k: spec_of_placements(v.placements, v.ndim) if is_dtensor(v)
-                 else (None,) * v.ndim for k, v in params.items()}
         transformer = (callable(getattr(model, "logical_axes", None))
                        and isinstance(getattr(model, "layers", None), nn.ModuleList))
-        layout = ShardedLayout(sharded[0].device_mesh, ParallelismPlugin.pure_dp(), specs, specs,
-                               specs, lazy_prefix="layers." if transformer else None)
+        layout = layout_of_placements(params, lazy_prefix="layers." if transformer else None)
         model._apply_layout = layout
-    with torch.no_grad(), layout.forward_context():
+    with torch.no_grad(), layout.forward_context(whole_batch=True):
         return torch.func.functional_call(model, layout.loss_params(layout.local(params)), args,
                                           kwargs)

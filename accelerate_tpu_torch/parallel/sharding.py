@@ -38,8 +38,14 @@ the axis the mesh puts first, which gives the reference's chunk order (tp
 major). ``local_bounds`` computes a rank's chunk of a spec by the same
 order, which the step, the checkpoints and the loads read.
 
-Waiting for later parts of queue A7: ``hierarchical_psum`` (part 5),
-``constrain_activations`` and ``live_mesh`` (part 4, sp), and
+``live_mesh`` and ``constrain_activations`` (reference :98-140) pin no
+layout here: the port's step is eager, so they decide what a rank holds.
+The rows come from the loader (``data_loader.py``: the data axes dp x fsdp
+x ep split the batch; sp, pp and tp peers read the same rows), and
+``constrain_activations`` takes a rank's contiguous chunk of the sequence
+over sp, which is where the reference's constraint puts it.
+
+Waiting for later parts of queue A7: ``hierarchical_psum`` (part 5), and
 ``wants_collective_overlap`` and the ``collective_contract_*`` functions
 (A10's ``hlo_audit``).
 """
@@ -127,6 +133,46 @@ def get_logical_specs(model: Any) -> Optional[dict[str, LeafAxes]]:
     leaves then take the fsdp heuristic."""
     fn = getattr(model, "logical_axes", None)
     return fn() if callable(fn) else None
+
+
+def live_mesh():
+    """The AcceleratorState's mesh when one is initialised and spans more
+    than one process, else None (reference :98)."""
+    from ..state import AcceleratorState
+
+    if not AcceleratorState._shared_state:
+        return None
+    mesh = getattr(AcceleratorState(), "mesh", None)
+    if mesh is None or math.prod(mesh_shape_of(mesh).values()) == 1:
+        return None
+    return mesh
+
+
+def sequence_chunk_bounds(length: int, sp_size: int, sp_rank: int) -> Optional[tuple[int, int]]:
+    """``(start, stop)`` of sp rank ``sp_rank``'s contiguous chunk of a
+    sequence of ``length``, or None when sp is 1 or does not divide it
+    (the reference's constraint then leaves the sequence whole)."""
+    if sp_size <= 1 or length % sp_size:
+        return None
+    step = length // sp_size
+    return sp_rank * step, (sp_rank + 1) * step
+
+
+def constrain_activations(x: torch.Tensor, seq_dim: Optional[int] = 1) -> torch.Tensor:
+    """This rank's part of an activation that holds the whole sequence of
+    its rows (reference :110): its contiguous chunk of ``seq_dim`` under the
+    running sharded step's sp group when sp divides the length, else ``x``
+    as it is (no step running, sp 1, or a length sp does not tile). The
+    rows are this rank's already (the loader's)."""
+    from .runtime import sp_state
+
+    sp = sp_state()
+    if sp is None or seq_dim is None or seq_dim >= x.dim():
+        return x
+    bounds = sequence_chunk_bounds(x.shape[seq_dim], sp.size, sp.rank)
+    if bounds is None:
+        return x
+    return x.narrow(seq_dim, bounds[0], bounds[1] - bounds[0])
 
 
 def _fsdp_spec_for_leaf(shape: tuple, fsdp_size: int, min_weight_size: int) -> Spec:
@@ -394,10 +440,16 @@ def replicated(mesh: Any) -> list:
     return [Replicate() for _ in MESH_AXES]
 
 
-def batch_sharding(mesh: Any) -> list:
+def batch_sharding(mesh: Any, *, seq_dim: Optional[int] = None) -> list:
     """A batch's placements: its leading dim over the data axes (dp x fsdp
-    x ep, in mesh order, as the reference's ``P(data_axes)``)."""
-    return placements_for((data_axes(mesh),), mesh)
+    x ep, in mesh order, as the reference's ``P(data_axes)``), and
+    ``seq_dim`` over sp when given (reference :85)."""
+    spec: list = [data_axes(mesh)]
+    if seq_dim is not None:
+        spec += [None] * (seq_dim + 1 - len(spec))
+        if mesh_shape_of(mesh)[MESH_AXIS_SEQUENCE] > 1:
+            spec[seq_dim] = MESH_AXIS_SEQUENCE
+    return placements_for(tuple(spec), mesh)
 
 
 def shard_params(params: dict, specs: dict[str, Spec], mesh: Any, rank: Optional[int] = None,

@@ -183,7 +183,8 @@ def _train_run(out_dir: str, run: dict) -> None:
         cfg = _lm_config(run)
         model = CausalLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
         if run.get("init", "file") == "file":
-            model.load_state_dict(torch.load(os.path.join(out_dir, "init.pt")))
+            model.load_state_dict(torch.load(os.path.join(out_dir, run.get("init_file",
+                                                                           "init.pt"))))
         data, tree = _lm_rows(run, cfg, calls, rows), model
     elif kind == "mlp":
         init = np.load(os.path.join(out_dir, "mlp_init.npz"))
@@ -252,7 +253,8 @@ def train_runs_worker(out_dir: str, runs: list, kernel_checks: bool = False):
     ``out_dir/init.pt`` unless ``init="seed"``; ``base="tiny"`` for the
     reference's ``tiny()`` widths; ``config`` overrides; ``data``
     ``"fixed_ids"`` for one batch of 8 x 32 every call, else
-    ``MaskedTokens``), ``"mlp"`` (the reference ZeRO tests' toy, from
+    ``MaskedTokens``; ``init_file`` another file of ``out_dir`` than
+    ``init.pt``), ``"mlp"`` (the reference ZeRO tests' toy, from
     ``out_dir/mlp_init.npz``) or ``"vec"`` (a shardable vector weight on
     ``RegressionDataset``); ``rows`` of each global batch; ``calls`` (or
     ``steps`` x ``accum``); ``optimizer``, ``lr`` and ``weight_decay``;

@@ -7,9 +7,7 @@ the object collectives :137, the dispatcher :166, the checkpoint round
 trip :184, ``run_all_checks`` :291). Run it under the launcher
 (``debug_launcher(run_all_checks, num_processes=N)``) or as a script on one
 process (``python -m accelerate_tpu_torch.test_utils.scripts.test_script``,
-on the CPU). The reference's ``pipeline_check`` (:214) waits for pipelines
-(ROADMAP.md, queue A7) and raises naming it; ``run_all_checks`` leaves it
-out.
+on the CPU), with the reference's ``pipeline_check`` (:214) last.
 """
 
 from __future__ import annotations
@@ -168,10 +166,57 @@ def checkpoint_check(accelerator: Accelerator):
 
 
 def pipeline_check(accelerator: Accelerator):
-    """1F1B pipeline training across the process group waits for
-    pipelines."""
-    raise NotImplementedError("pipeline training across processes is not ported yet: "
-                              "ROADMAP.md, queue A7")
+    """1F1B pipeline training across the process group (reference :214):
+    the pp axis spans processes, so the stage activations and cotangents
+    go between processes by P2P. Runs at even world sizes above 1 (a
+    2-stage mesh, dp the rest) on a mesh of its own over the same group;
+    the loss must equal the sequential run's on the whole stack."""
+    n = accelerator.num_processes
+    if n < 2 or n % 2:
+        accelerator.print("pipeline check skipped (needs even world > 1)")
+        return
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.parallel.mesh import build_mesh
+    from accelerate_tpu_torch.parallel.pipeline import (
+        pipeline_train_step,
+        stacked_layer_shardings,
+    )
+    from accelerate_tpu_torch.parallel.sharding import shard_params
+    from accelerate_tpu_torch.utils.dataclasses import ParallelismPlugin, ShardingStrategy
+
+    plugin = ParallelismPlugin(dp_size=-1, pp_size=2, num_micro_batches=4,
+                               sharding_strategy=ShardingStrategy.NO_SHARD)
+    mesh = build_mesh(plugin, device_type="cpu")
+    L, H = 4, 16
+    gen = torch.Generator().manual_seed(0)
+    # every process draws the same stack: the oracle's whole copy below
+    host_stack = {"w": torch.randn(L, H, H, generator=gen) / H ** 0.5,
+                  "b": torch.randn(L, H, generator=gen) * 0.01}
+    params = shard_params(host_stack, stacked_layer_shardings(host_stack, mesh), mesh)
+
+    def block_fn(local, h):
+        for i in range(local["w"].shape[0]):
+            h = h + torch.tanh(h @ local["w"][i] + local["b"][i])
+        return h
+
+    def loss_fn(y, t):
+        return ((y - t) ** 2).mean()
+
+    x = torch.randn(8, H, generator=gen)
+    tgt = torch.randn(8, H, generator=gen)
+    loss, grads = pipeline_train_step(block_fn, loss_fn, params, x, tgt, mesh=mesh,
+                                      num_micro_batches=4)
+    # the stages' gradients are split over pp: the norm sums every stage once
+    sq = sum(torch.sum(g.to_local() ** 2) for g in grads.values())
+    dist.all_reduce(sq, group=mesh.get_group("pp"))
+    gnorm = float(torch.sqrt(sq))
+    xm, tm = x.reshape(4, 2, H), tgt.reshape(4, 2, H)
+    want = torch.stack([loss_fn(block_fn(host_stack, xm[j]), tm[j]) for j in range(4)]).mean()
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    assert np.isfinite(gnorm) and gnorm > 0
+    accelerator.print(f"pipeline check passed (1F1B over {n}-process pp mesh, "
+                      f"loss={float(loss):.4f})")
 
 
 def run_all_checks():
@@ -192,6 +237,7 @@ def main():
     split_between_processes_check(accelerator)
     checkpoint_check(accelerator)
     training_check(accelerator)
+    pipeline_check(accelerator)
     accelerator.print("All checks passed!")
 
 

@@ -3,12 +3,11 @@
 Port of ``accelerate_tpu/utils/compat.py``: ``DeepSpeedPlugin`` (:42, ZeRO
 stages 0-3 to the sharding strategies), ``FullyShardedDataParallelPlugin``
 (:83, torch's strategy names and integer codes) and ``MegatronLMPlugin``
-(:130, the tp degree). A script ported from DeepSpeed, FSDP or Megatron
-keeps its constructor call and gets a plain :class:`ParallelismPlugin`;
-engine options with no meaning here (offload devices, bucket sizes, ...)
-are ignored with the reference's log line. ``MegatronLMPlugin(pp_degree >
-1)`` raises naming queue A7 part 3, where the reference runs its pipeline
-validator: the port has no pipeline stages yet.
+(:130, the tp and pp degrees and the microbatches, through the pipeline
+validator). A script ported from DeepSpeed, FSDP or Megatron keeps its
+constructor call and gets a plain :class:`ParallelismPlugin`; engine
+options with no meaning here (offload devices, bucket sizes, ...) are
+ignored with the reference's log line.
 """
 
 from __future__ import annotations
@@ -96,13 +95,11 @@ def FullyShardedDataParallelPlugin(sharding_strategy: Any = "FULL_SHARD",
 def MegatronLMPlugin(tp_degree: int = 1, pp_degree: int = 1, num_micro_batches: int = 1,
                      sequence_parallelism: bool = False, num_experts: Optional[int] = None,
                      **ignored: Any) -> ParallelismPlugin:
-    """The tensor-parallel degree carries over; model-definition options
-    (num_layers, hidden_size, ...) belong to ``TransformerConfig`` and are
-    ignored. Pipeline stages raise, naming their part of queue A7."""
-    if pp_degree > 1:
-        raise NotImplementedError(
-            f"MegatronLMPlugin(tp_degree={tp_degree}, pp_degree={pp_degree}): pipeline stages "
-            "(pp_size > 1) are not ported yet: ROADMAP.md, queue A7 part 3")
+    """Megatron's degrees (reference :130-170): tensor and pipeline degrees
+    and the microbatches (clamped up to ``pp_degree``) carry over;
+    model-definition options (num_layers, hidden_size, ...) belong to
+    ``TransformerConfig`` and are ignored. The plugin goes through the
+    pipeline validator here, where the migration's context is visible."""
     if sequence_parallelism:
         logger.info("MegatronLMPlugin: sequence_parallelism maps to the sp mesh axis (ring "
                     "attention); set ParallelismPlugin.sp_size explicitly")
@@ -110,5 +107,13 @@ def MegatronLMPlugin(tp_degree: int = 1, pp_degree: int = 1, num_micro_batches: 
         logger.info("MegatronLMPlugin: expert parallelism is the ep mesh axis; set "
                     "ParallelismPlugin.ep_size to shard experts")
     _warn_ignored("MegatronLMPlugin", ignored)
-    return ParallelismPlugin(tp_size=tp_degree, pp_size=pp_degree,
-                             num_micro_batches=max(num_micro_batches, pp_degree))
+    plugin = ParallelismPlugin(tp_size=tp_degree, pp_size=pp_degree,
+                               num_micro_batches=max(num_micro_batches, pp_degree))
+    from ..parallel.pipeline import validate_pipeline_plugin
+
+    try:
+        validate_pipeline_plugin(plugin)
+    except NotImplementedError as e:
+        raise NotImplementedError(
+            f"MegatronLMPlugin(tp_degree={tp_degree}, pp_degree={pp_degree}): {e}") from None
+    return plugin

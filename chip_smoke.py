@@ -350,6 +350,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    and on the card under FULL_SHARD, ``load_state(allow_reshape=True)``
    gives every param bitwise, and two more steps on the card agree with two
    on the CPU (RESTORE_TOL, SMALL_UPDATE_TOL).
+21. pipelines, sequence and expert parallelism (``--pipe-only``). One card
+   holds one rank, so each mechanism's rank bodies run in one process
+   (``test_utils/pipeline_runner.py``, through the library's tick table,
+   ring order and shard window) at llama3_8b widths in bf16: (a)
+   ``unified_pipeline_step`` at pp 1 in an NCCL group of one (NUM_LAYERS
+   stacked as the block, the embedding an input, the final norm and lm_head
+   a frozen loss; MAIN's batch in 2 microbatches, STEPS steps) against
+   ``unified_step`` over the same microbatch loop, with adamw and with
+   fused_adamw: bit for bit, B1-B3 40 launches a run, B6 5 on the fused
+   runs; (b) 1F1B at 2 stages (layers 0-1 and 2-3, 8 microbatches of B 1
+   x S 2048) and GPipe with autograd against the sequential autograd run
+   (PIPE_LOSS_TOL, PIPE_GRAD_TOL), launches exactly 64/32/32 and 32/32/32,
+   the 1F1B peak below GPipe's; (c) the 4 ranks' ring bodies at
+   LONGSEQ_CFG's attention against the flash kernels (RING_TOL), the ring's
+   and dense attention's peaks; (d) the ep 2 and ep 4 shard windows summed
+   at MOE_CFG's MoE against ``moe_ragged`` (EP_TOL, no drop), and the drop
+   share at capacity_factor 1.25. B1-B3 checked and timed at the main
+   shape and B6 over the main path's leaves for their rows, with (a)'s
+   launches.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -411,7 +430,11 @@ phases 1 and 19, and
 
     python3 chip_smoke.py --shard-only
 
-phases 1 and 20, each of the last four ending with the card's line and the
+phases 1 and 20, and
+
+    python3 chip_smoke.py --pipe-only
+
+phases 1 and 21, each of the last five ending with the card's line and the
 ``{"ok": true, ...}`` line.
 
 Each kernel output is compared row by row: for every row of head_dim
@@ -6280,6 +6303,361 @@ def phase20(torch, port, wrappers, rep: Report) -> list[dict]:
     return rows
 
 
+# Phase 21 (``--pipe-only``): the pipeline, ring and expert-shard bodies of
+# queue A7 parts 3 and 4 on the card, every rank's body in one process
+PIPE = dict(micro_a=2, stages=2, micro_b=8, rows_b=1, sp=4, eps=(2, 4),
+            moe_tokens=16 * 1024, drop_cf=1.25)
+# limits, worst row's max error over its RMS (bf16) unless said: about 3x
+# the reading on an H100 (PERF.md's parity table)
+PIPE_LOSS_TOL = 1e-6  # relative: 1F1B and GPipe losses against the sequential run (read 0.0)
+PIPE_GRAD_TOL = 0.3  # each leaf's gradient against the sequential run (1F1B read 0.102)
+# the ring's output, dq, dk, dv against the flash kernels' (read 0.032, 0.198, 0.044, 0.039)
+RING_TOL = {"out": 0.1, "dq": 0.6, "dk": 0.15, "dv": 0.12}
+EP_TOL = 0.0  # the summed shards' output and expert gradients against moe_ragged (read 0.0)
+
+
+def pipe_model(torch, port, seed: int = 0):
+    """The llama3_8b-width 4-layer CausalLM in bf16 on the card, made from
+    ``seed``; its layers' fp32 parameters stacked (leading NUM_LAYERS dim)
+    as the pipeline's block, a Block on the meta device to run them, and
+    the frozen final norm and lm_head of the loss."""
+    cfg = port.TransformerConfig.llama3_8b(num_layers=NUM_LAYERS, dtype="bfloat16",
+                                           max_seq_len=MAIN["S"])
+    model = port.CausalLM(cfg, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(seed))
+    names = [n for n, _ in model.layers[0].named_parameters()]
+    stack = {n: torch.stack([dict(layer.named_parameters())[n].detach()
+                             for layer in model.layers]) for n in names}
+    from accelerate_tpu_torch.models.transformer import Block
+
+    template = Block(cfg, device="meta")
+    head = model.lm_head.weight.detach().to(torch.bfloat16)
+    norm = model.final_norm
+    embed = model.embed.weight.detach()
+    del model
+    return cfg, stack, template, head, norm, embed
+
+
+def pipe_block(torch, template, seq: int):
+    """``block_fn(local, x)``: ``x`` (B, S, E) through the layers of the
+    stacked ``local`` in order, each a functional call of the Block."""
+    def block_fn(local, x):
+        positions = torch.arange(seq, device=x.device)[None, :].expand(x.shape[0], seq)
+        for i in range(next(iter(local.values())).shape[0]):
+            x = torch.func.functional_call(template, {k: v[i] for k, v in local.items()},
+                                           (x, positions))
+        return x
+
+    return block_fn
+
+
+def pipe_loss(torch, norm, head):
+    """``loss_fn(y, t)``: the frozen final norm and lm_head, then the mean
+    cross-entropy of the fp32 logits against ``t``."""
+    import torch.nn.functional as F
+
+    def loss_fn(y, t):
+        logits = norm(y) @ head.t().to(y.dtype)
+        return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]), t.reshape(-1))
+
+    return loss_fn
+
+
+def pipe_data(torch, cfg, embed, rows: int, seed: int):
+    """Inputs: the embedding of seeded tokens (bf16), and seeded targets."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (rows, MAIN["S"]), generator=gen).cuda()
+    targets = torch.randint(0, cfg.vocab_size, (rows, MAIN["S"]), generator=gen).cuda()
+    return embed[ids].to(torch.bfloat16), targets
+
+
+def pipe_step_runs(torch, port, wrappers, rep: Report, checks: dict) -> dict:
+    """(a): ``unified_pipeline_step`` at pp 1 (NUM_LAYERS stacked as the
+    block, MAIN's B 2 x S 2048 in PIPE["micro_a"] microbatches, STEPS
+    steps, clip 1.0) against ``unified_step`` whose loss runs the same
+    microbatch loop, with adamw and with fused_adamw, in an NCCL group of
+    one: bit for bit, B1-B3 once per layer and microbatch a step, B6 once a
+    step on the fused runs."""
+    from accelerate_tpu_torch.launchers import _free_port
+
+    os.environ.update({"ACCELERATE_TPU_NUM_PROCESSES": "1", "ACCELERATE_TPU_PROCESS_ID": "0",
+                       "ACCELERATE_TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"})
+    runs = {}
+    M = PIPE["micro_a"]
+    try:
+        cfg, stack, template, head, norm, embed = pipe_model(torch, port)
+        block_fn = pipe_block(torch, template, MAIN["S"])
+        loss_fn = pipe_loss(torch, norm, head)
+        x, t = pipe_data(torch, cfg, embed, MAIN["B"], seed=1)
+        del embed
+        for fused in (False, True):
+            for kind in ("pipeline", "unified"):
+                port.AcceleratorState._reset_state(reset_partial_state=True)
+                port.GradientState._reset_state()
+                acc = port.Accelerator(mixed_precision="bf16", parallelism_plugin=(
+                    port.ParallelismPlugin(num_micro_batches=M)))
+                params = {k: v.clone() for k, v in stack.items()}
+                opt = acc.prepare((port.fused_adamw if fused else port.adamw)(3e-4))
+                carry = acc.init_carry(params, opt)
+                if kind == "pipeline":
+                    step = acc.unified_pipeline_step(block_fn, loss_fn, max_grad_norm=1.0)
+                    call = lambda c: step(c, x, t)  # noqa: E731
+                else:
+                    def micro_loss(p, batch):
+                        xm = batch["x"].reshape((M, -1) + tuple(batch["x"].shape[1:]))
+                        tm = batch["t"].reshape((M, -1) + tuple(batch["t"].shape[1:]))
+                        return torch.stack([loss_fn(block_fn(p, xm[j]), tm[j]).float()
+                                            for j in range(M)]).mean()
+
+                    step = acc.unified_step(micro_loss, max_grad_norm=1.0)
+                    call = lambda c: step(c, {"x": x, "t": t})  # noqa: E731
+                reset_counts(wrappers)
+                torch.cuda.reset_peak_memory_stats()
+                losses, norms, times = [], [], []
+                for _ in range(STEPS):
+                    t0 = time.perf_counter()
+                    carry, m = call(carry)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                launches = {w.__name__: w.launches for w in wrappers}
+                by_design = {w.__name__: dict(w.by_design) for w in wrappers
+                             if hasattr(w, "by_design")}
+                want = {w: NUM_LAYERS * M * STEPS
+                        for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                if fused:
+                    want["adamw_epilogue"] = STEPS
+                name = f"{kind}_{'fused_adamw' if fused else 'adamw'}"
+                check_launches(f"pipe (a) {name}", launches, by_design, want)
+                peak = torch.cuda.max_memory_allocated()
+                runs[name] = {"losses": losses, "norms": norms, "launches": launches,
+                              "median_s": statistics.median(times[1:]), "peak": peak,
+                              "params": {k: v.detach().cpu() for k, v in carry["params"].items()}}
+                rep.line(f"pipe (a) {name}: losses {losses}, grad norms {norms}; step seconds "
+                         f"{times}; median of steps 2-{STEPS} {runs[name]['median_s']} s; peak "
+                         f"{peak / 2**30} GiB")
+                del acc, opt, carry, step, call, params
+                gc.collect()
+                torch.cuda.empty_cache()
+            opt_name = "fused_adamw" if fused else "adamw"
+            a, b = runs[f"pipeline_{opt_name}"], runs[f"unified_{opt_name}"]
+            checks[f"pipe_a_{opt_name}_bitwise"] = (
+                a["losses"] == b["losses"] and a["norms"] == b["norms"]
+                and all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"]))
+        del stack, template, head, norm, x, t
+    finally:
+        port.AcceleratorState().partial_state.destroy_process_group()
+        port.AcceleratorState._reset_state(reset_partial_state=True)
+        port.GradientState._reset_state()
+        for key in ("NUM_PROCESSES", "PROCESS_ID", "COORDINATOR_ADDRESS"):
+            os.environ.pop("ACCELERATE_TPU_" + key, None)
+    for run in runs.values():
+        del run["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def pipe_schedules(torch, port, wrappers, rep: Report, checks: dict) -> None:
+    """(b): 1F1B at PIPE["stages"] stages on the card: both stages' bodies
+    in one process through the library's tick table (layers 0-1 and 2-3,
+    PIPE["micro_b"] microbatches of B 1 x S 2048, bf16), and GPipe through
+    its tick table with autograd; each against the sequential autograd run
+    (loss PIPE_LOSS_TOL relative, each leaf's gradient PIPE_GRAD_TOL);
+    exact launches; the 1F1B peak below GPipe's."""
+    from accelerate_tpu_torch.test_utils import pipeline_runner as runner
+
+    cfg, stack, template, head, norm, embed = pipe_model(torch, port, seed=2)
+    M, S = PIPE["micro_b"], PIPE["stages"]
+    per = NUM_LAYERS // S
+    block_fn = pipe_block(torch, template, MAIN["S"])
+    loss_fn = pipe_loss(torch, norm, head)
+    x, t = pipe_data(torch, cfg, embed, M * PIPE["rows_b"], seed=3)
+    del embed
+    xm = x.reshape(M, PIPE["rows_b"], MAIN["S"], -1)
+    tm = t.reshape(M, PIPE["rows_b"], MAIN["S"])
+    compute = {k: v.to(torch.bfloat16) for k, v in stack.items()}
+    del stack
+    stages = [{k: v[i * per:(i + 1) * per] for k, v in compute.items()} for i in range(S)]
+    want = {"1f1b": {"flash_fwd": 2 * NUM_LAYERS * M, "flash_bwd_dq": NUM_LAYERS * M,
+                     "flash_bwd_dkv": NUM_LAYERS * M},
+            "gpipe": {w: NUM_LAYERS * M for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+            "sequential": {w: NUM_LAYERS * M
+                           for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}
+    rep.line(f"pipe (b) predicted launches: {json.dumps(want)}")
+    out = {}
+    for name in ("sequential", "gpipe", "1f1b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if name == "1f1b":
+            loss, grads, bodies = runner.run_1f1b([block_fn] * S, stages, loss_fn, xm, tm)
+            extra = {"peak_inputs": [b.peak_inputs for b in bodies]}
+            del bodies
+        elif name == "gpipe":
+            loss, grads = runner.run_gpipe([block_fn] * S, stages, loss_fn, xm, tm)
+            extra = {}
+        else:
+            loss, grads = runner.run_gpipe([block_fn], [compute], loss_fn, xm, tm)
+            grads = [{k: g[i * per:(i + 1) * per] for k, g in grads[0].items()}
+                     for i in range(S)]
+            extra = {}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {w.__name__: w.launches for w in wrappers}
+        by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
+        check_launches(f"pipe (b) {name}", launches, by_design, want[name])
+        out[name] = {"loss": float(loss), "grads": grads, "peak": peak, "seconds": seconds,
+                     **extra}
+        rep.line(f"pipe (b) {name}: loss {float(loss)}, peak above the start "
+                 f"{peak / 2**30} GiB, {seconds} s, launches {json.dumps(launches)} "
+                 f"{json.dumps(extra)}")
+    seq = out["sequential"]
+    for name in ("1f1b", "gpipe"):
+        loss_rel = abs(out[name]["loss"] - seq["loss"]) / abs(seq["loss"])
+        worst = max(row_err(torch, out[name]["grads"][i][k], seq["grads"][i][k])
+                    for i in range(S) for k in seq["grads"][i])
+        checks[f"pipe_b_{name}_vs_sequential"] = loss_rel <= PIPE_LOSS_TOL and \
+            worst <= PIPE_GRAD_TOL
+        rep.line(f"pipe (b) {name} against the sequential run: loss rel {loss_rel}, worst "
+                 f"gradient row error {worst}; limits {PIPE_LOSS_TOL}, {PIPE_GRAD_TOL}")
+    ratio = out["gpipe"]["peak"] / max(out["1f1b"]["peak"], 1)
+    checks["pipe_b_1f1b_peak_below_gpipe"] = out["1f1b"]["peak"] < out["gpipe"]["peak"]
+    rep.line(f"pipe (b) peaks above the start: 1F1B {out['1f1b']['peak'] / 2**30} GiB, GPipe "
+             f"{out['gpipe']['peak'] / 2**30} GiB, sequential "
+             f"{out['sequential']['peak'] / 2**30} GiB; GPipe / 1F1B {ratio}")
+    del out, stages, compute, xm, tm, x, t, head, norm, template
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pipe_ring(torch, fa, rep: Report, checks: dict) -> None:
+    """(c): ring attention at LONGSEQ_CFG's attention (B 1, S 8192, 32
+    heads, 8 kv heads, head_dim 128, bf16, causal), every one of PIPE["sp"]
+    ranks' bodies in one process through the ring order, against the flash
+    kernels (B1-B3) on the same inputs: the output and dq, dk, dv by row
+    (RING_TOL, by quantity); the peaks of the ring and of the dense
+    ``xla_attention``."""
+    from accelerate_tpu_torch.ops.attention import xla_attention
+    from accelerate_tpu_torch.test_utils import pipeline_runner as runner
+
+    S, H, Hkv, D = LONGSEQ_CFG["max_seq_len"], LONGSEQ_CFG["num_heads"], \
+        LONGSEQ_CFG["num_kv_heads"], LONGSEQ_CFG["hidden_size"] // LONGSEQ_CFG["num_heads"]
+    q, k, v, dout = make_inputs(torch, 1, S, H, Hkv, D, torch.bfloat16, seed=7)
+    results = {}
+    for name, fn in (("flash", lambda a, b, c: fa.flash_attention(a, b, c, causal=True)),
+                     ("ring", lambda a, b, c: runner.ring_rank_bodies(a, b, c, PIPE["sp"])),
+                     ("dense", lambda a, b, c: xla_attention(a, b, c, causal=True))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        results[name] = {"out": out.detach(), "grads": grads, "peak": peak}
+        del out, leaves
+        if name == "dense":
+            results[name] = {"peak": peak}
+    errs = {"out": row_err(torch, results["ring"]["out"], results["flash"]["out"])}
+    for i, g in enumerate(("dq", "dk", "dv")):
+        errs[g] = row_err(torch, results["ring"]["grads"][i], results["flash"]["grads"][i])
+    checks["pipe_c_ring_vs_flash"] = all(errs[k] <= RING_TOL[k] for k in RING_TOL)
+    rep.line(f"pipe (c) ring (sp {PIPE['sp']}) against flash at B 1 S {S} H {H} Hkv {Hkv} "
+             f"D {D} bf16: row errors {json.dumps(errs)}, limits {json.dumps(RING_TOL)}; peaks "
+             f"above the start: ring {results['ring']['peak'] / 2**30} GiB, dense xla "
+             f"{results['dense']['peak'] / 2**30} GiB, flash {results['flash']['peak'] / 2**30} "
+             "GiB (every rank's ring body in one process)")
+    del results, q, k, v, dout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pipe_experts(torch, rep: Report, checks: dict) -> None:
+    """(d): MOE_CFG's MoE (T = PIPE["moe_tokens"] tokens, 8 experts, top 2,
+    h 4096, f 3584, bf16): the ep 2 and ep 4 shard windows in one process,
+    summed, at capacity_factor ep against ``moe_ragged`` (output and expert
+    gradients by row within EP_TOL: bit for bit, zero drops); at
+    PIPE["drop_cf"] the share of token choices dropped (a reading)."""
+    from accelerate_tpu_torch.ops import moe
+    from accelerate_tpu_torch.test_utils import pipeline_runner as runner
+
+    T, h, f = PIPE["moe_tokens"], MOE_CFG["hidden_size"], MOE_CFG["intermediate_size"]
+    E, K = MOE_CFG["num_experts"], MOE_CFG["num_experts_per_tok"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(T, h, device="cuda", generator=gen).to(torch.bfloat16)
+    router = torch.randn(h, E, device="cuda", generator=gen) * h ** -0.5
+    weights, sel = torch.topk(torch.softmax(x.float() @ router, -1), K)
+    weights = weights / weights.sum(-1, keepdim=True)
+    stacks = [(torch.randn(shape, device="cuda", generator=gen) * shape[1] ** -0.5).to(
+        torch.bfloat16) for shape in ((E, h, f), (E, h, f), (E, f, h))]
+    g = torch.randn(T, h, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def run(fn):
+        leaves = [w.detach().requires_grad_(True) for w in stacks]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, g)
+
+    want_out, want_grads = run(lambda a, b, c: moe.moe_ragged(x, sel, weights, a, b, c))
+    readings = {}
+    for ep in PIPE["eps"]:
+        out, grads = run(lambda a, b, c: runner.expert_shards(x, sel, weights, a, b, c, ep,
+                                                           float(ep)))
+        errs = [row_err(torch, out, want_out)] + [row_err(torch, gg, w)
+                                                  for gg, w in zip(grads, want_grads)]
+        dropped = T * K - sum(moe.shard_coverage(sel, E, ep, float(ep)))
+        tight = T * K - sum(moe.shard_coverage(sel, E, ep, PIPE["drop_cf"]))
+        readings[ep] = {"row_errs": errs, "dropped_at_ep": dropped,
+                        "drop_share_at_1.25": tight / (T * K)}
+        checks[f"pipe_d_ep{ep}_vs_ragged"] = max(errs) <= EP_TOL and dropped == 0
+        del out, grads
+    rep.line(f"pipe (d) expert shards at T {T} E {E} K {K} h {h} f {f} bf16 against moe_ragged: "
+             f"{json.dumps(readings)}, limit {EP_TOL}")
+    del x, stacks, g, want_out, want_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase21(torch, port, wrappers, rep: Report) -> list[dict]:
+    """Phase 21 (``--pipe-only``): (a)-(d) above, then B1-B3 checked and
+    timed at the main shape and B6 at the main path's leaves for their rows
+    (launches: (a)'s pipeline runs)."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused
+
+    t0 = time.perf_counter()
+    checks: dict = {}
+    runs = pipe_step_runs(torch, port, wrappers, rep, checks)
+    t1 = time.perf_counter()
+    pipe_schedules(torch, port, wrappers, rep, checks)
+    t2 = time.perf_counter()
+    pipe_ring(torch, fa, rep, checks)
+    pipe_experts(torch, rep, checks)
+    t3 = time.perf_counter()
+    rows = time_flash_shape(torch, fa, rep, "pipe", MAIN["B"], MAIN["S"], MAIN["H"],
+                            MAIN["Hkv"], MAIN["D"], bwd_library_on_dq=True)
+    for row in rows:
+        row["launches"] = runs["pipeline_adamw"]["launches"][WRAPPER_OF[row["name"]]]
+    row = epilogue_row(torch, port, fused, rep, "pipe")
+    row["launches"] = runs["pipeline_fused_adamw"]["launches"]["adamw_epilogue"]
+    rows.append(row)
+    rep.line(f"pipe checks {json.dumps(checks)}")
+    rep.line(f"phase 21: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c)(d) {t3 - t2:.1f} s, "
+             f"kernel rows {time.perf_counter() - t3:.1f} s, in all "
+             f"{time.perf_counter() - t0:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"pipe: hard checks failed: {failed}")
+    return rows
+
+
 def main() -> None:
     script_t0 = time.perf_counter()
     import torch
@@ -6379,6 +6757,16 @@ def main() -> None:
             "count": torch.cuda.device_count(),
         }}))
         return
+    if "--pipe-only" in sys.argv[1:]:
+        rows = phase21(torch, port, wrappers, rep)
+        print(json.dumps({"kernels": rows}))
+        rep.line("pipe-only: the pipelines phase passed")
+        print(rep.card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return
     if "--lora-only" in sys.argv[1:]:
         rows = phase17(torch, port, wrappers, rep)
         print(json.dumps({"kernels": rows}))
@@ -6434,6 +6822,7 @@ def main() -> None:
     variant_rows += load_rows
     variant_rows += phase19(torch, port, wrappers, rep)
     variant_rows += phase20(torch, port, wrappers, rep)
+    variant_rows += phase21(torch, port, wrappers, rep)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

@@ -1,13 +1,11 @@
 """The port's migration shims against the reference's (``utils/compat.py``).
 
 Mirrors ``tests/test_compat.py``: DeepSpeed's ZeRO stages, FSDP's names and
-torch's integer codes, and Megatron's tp degree give the same
-``ParallelismPlugin`` fields in both packages, and the plugins resolve to
-the same meshes. Where the reference maps ``pp_degree`` and runs its
-pipeline validator, the port raises naming queue A7 part 3
-(``test_megatron_plugin_rejects_unsupported_combo_early`` becomes that
-refusal). ``test_estimate_includes_activations`` is the ``estimate``
-command's (queue A10) and is not mirrored here.
+torch's integer codes, and Megatron's tp and pp degrees (through the
+pipeline validator) give the same ``ParallelismPlugin`` fields in both
+packages, and the plugins resolve to the same meshes.
+``test_estimate_includes_activations`` is the ``estimate`` command's
+(queue A10) and is not mirrored here.
 """
 
 import pytest
@@ -72,18 +70,27 @@ def test_megatron_plugin_mapping():
     assert p.tp_size == 4 and p.pp_size == 1
     _same(p, jax_compat.MegatronLMPlugin(tp_degree=4, sequence_parallelism=True,
                                          num_layers=32))
-    # the reference maps pipeline stages, clamping the microbatches up
-    ref = jax_compat.MegatronLMPlugin(pp_degree=2, num_micro_batches=1)
-    assert ref.pp_size == 2 and ref.num_micro_batches == 2
+    # pipeline stages map, clamping the microbatches up to pp_degree
+    p = compat.MegatronLMPlugin(pp_degree=2, num_micro_batches=1)
+    assert p.pp_size == 2 and p.num_micro_batches == 2
+    _same(p, jax_compat.MegatronLMPlugin(pp_degree=2, num_micro_batches=1))
 
 
-def test_megatron_plugin_rejects_pipeline_stages_naming_part_3():
-    """The port has no pipeline stages: ``pp_degree > 1`` raises at the
-    shim, naming queue A7 part 3, alone or with tp."""
-    for kwargs in (dict(pp_degree=2, num_micro_batches=1),
-                   dict(tp_degree=2, pp_degree=2, num_micro_batches=2)):
-        with pytest.raises(NotImplementedError, match="MegatronLMPlugin.*queue A7 part 3"):
-            compat.MegatronLMPlugin(**kwargs)
+def test_megatron_plugin_rejects_unsupported_combo_early():
+    """Degree combinations the pipeline validator rejects fail at the shim;
+    the shim tracks the live validator, which admits pp x tp in both
+    packages (reference tests/test_compat.py:62)."""
+    from accelerate_tpu.parallel.pipeline import validate_pipeline_plugin as jax_validate
+
+    from accelerate_tpu_torch.parallel.pipeline import validate_pipeline_plugin
+
+    from accelerate_tpu.utils.dataclasses import ParallelismPlugin as JaxPlugin
+
+    validate_pipeline_plugin(ParallelismPlugin(tp_size=2, pp_size=2, num_micro_batches=2))
+    jax_validate(JaxPlugin(tp_size=2, pp_size=2, num_micro_batches=2))
+    p = compat.MegatronLMPlugin(tp_degree=2, pp_degree=2, num_micro_batches=2)
+    assert p.tp_size == 2 and p.pp_size == 2
+    _same(p, jax_compat.MegatronLMPlugin(tp_degree=2, pp_degree=2, num_micro_batches=2))
 
 
 @pytest.mark.parametrize("devices", [4, 8])

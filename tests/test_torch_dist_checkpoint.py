@@ -12,6 +12,10 @@ process:
   merge command is queue A10's);
 * every chunk of a world-4 checkpoint is written once, by the process that
   holds it;
+* a world-4 pp 2 x ep 2 checkpoint (a stacked leaf split over pp, an
+  expert stack over ep, one AdamW step): each chunk written by its own
+  process, restored bit for bit at world 1 and in the reference through
+  ``carry_to_jax``;
 * across packages: the port's world-4 FULL_SHARD checkpoint (fsdp 2 x tp 2,
   each process writing its own chunks) loads in the reference through
   ``carry_to_jax`` bit for bit, and the reference's 4-way sharded checkpoint
@@ -237,3 +241,81 @@ def test_reference_4way_checkpoint_loads_into_the_port_at_world_two(worlds):
         got = rec["ref4"]
         for k, v in worlds["ref_source"].items():
             assert np.array_equal(got[k].numpy(), v), k
+
+
+# ---------------------------------------------------------------------- #
+# pipeline and expert shards (queue A7 parts 3 and 4)
+# ---------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def pp_ep(tmp_path_factory):
+    from accelerate_tpu_torch.test_utils.scripts import pipeline_workers
+
+    out = tmp_path_factory.mktemp("ckpt_pp_ep")
+    debug_launcher(pipeline_workers.pp_ep_checkpoint_worker, (str(out),), num_processes=4)
+    return torch.load(os.path.join(out, "ppep.pt"))
+
+
+def test_pp_ep_checkpoint_chunks_and_restores_at_world_one(pp_ep):
+    """The pp-split stacked leaf and the ep-split expert stack save as two
+    chunks each, written by the processes that hold them (pp or ep
+    coordinate 1 with every other coordinate 0); the whole carry comes back
+    bit for bit at world 1."""
+    path, whole = pp_ep["path"], pp_ep["whole"]
+    writers = _chunks_by_writer(path)
+    count = {}
+    for proc, chunks in writers.items():
+        for key, _ in chunks:
+            count.setdefault(key, set()).add(proc)
+    # ranks: pp major, ep minor (mesh order dp, pp, fsdp, ep, sp, tp)
+    assert count["params//stack.bias"] == {0, 2}
+    assert count["params//moe.gate_proj"] == {0, 1}
+    assert count["params//norm.weight"] == {0}
+    named = dist_checkpoint.load_full_named(path)
+    for k, v in whole["params"].items():
+        assert torch.equal(named[f"params//{k}"], v), k
+    for k, v in whole["mu"].items():
+        assert torch.equal(named[f"opt_state//mu//{k}"], v), k
+    acc = port.Accelerator(cpu=True)
+    opt = acc.prepare(port.adamw(1e-2))
+    template = {k: torch.zeros_like(v) for k, v in whole["params"].items()}
+    carry = acc.init_carry(template, opt)
+    back = acc.load_state(path, carry=carry, allow_reshape=True)
+    for k, v in whole["params"].items():
+        assert torch.equal(back["params"][k], v), k
+    for k, v in whole["nu"].items():
+        assert torch.equal(back["opt_state"]["nu"][k], v), k
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+
+
+def test_pp_ep_checkpoint_loads_in_the_reference(pp_ep, tmp_path):
+    """The same checkpoint in the reference's names (``stack/bias``,
+    ``moe/gate_proj``, ``norm/scale``) through ``carry_to_jax``, loaded by
+    the reference's ``load_state`` bit for bit."""
+    named = dist_checkpoint.load_full_named(pp_ep["path"])
+    whole = pp_ep["whole"]["params"]
+    jax_pkg.state.AcceleratorState._reset_state(reset_partial_state=True)
+    jax_pkg.state.GradientState._reset_state()
+    jacc = jax_pkg.Accelerator()
+    tree = {"stack": {"bias": jnp.zeros((4, 16))}, "moe": {"gate_proj": jnp.zeros((4, 16, 8))},
+            "norm": {"scale": jnp.zeros((16,))}}
+    params, opt = jacc.prepare(tree, optax.adamw(1e-2))
+    jcarry = jacc.init_carry(params, opt)
+    like = {k: np.asarray(v) for k, v in jax_flatten(jcarry).items()}
+    as_ref = port.carry_to_jax(named, like)
+    ref_dir = str(tmp_path / "as_ref")
+    work = commit_mod.work_dir_for(ref_dir)
+    dist_checkpoint.save_sharded_tree(as_ref, work, process_index=0)
+    commit_mod.commit(work, ref_dir, 0, 1, topology={"world_size": 1, "num_devices": 8})
+    loaded = jacc.load_state(ref_dir, carry=jcarry, allow_reshape=True)
+    assert np.array_equal(np.asarray(loaded["params"]["stack"]["bias"]),
+                          whole["stack.bias"].numpy())
+    assert np.array_equal(np.asarray(loaded["params"]["moe"]["gate_proj"]),
+                          whole["moe.gate_proj"].numpy())
+    assert np.array_equal(np.asarray(loaded["params"]["norm"]["scale"]),
+                          whole["norm.weight"].numpy())
+    flat = jax_flatten(loaded)
+    for k, v in as_ref.items():
+        assert np.array_equal(np.asarray(flat[k]), v), k
+    jax_pkg.state.AcceleratorState._reset_state(reset_partial_state=True)
+    jax_pkg.state.GradientState._reset_state()

@@ -4,7 +4,8 @@ Mirrors ``tests/test_launchers.py``'s seven tests (the reference marks six of
 them slow because each JAX child recompiles; the port's children import
 torch and the port only, so they run here in tier 1): the notebook launcher
 at one and at two processes, the collectives, training and local-SGD
-workers, the whole assertion script at world 2 and 4, and the
+workers, the whole assertion script at world 2 and 4 (its pipeline check
+runs 1F1B across the processes), and the
 sharded-checkpoint worker, each process writing its own chunk. Then:
 
 * a rank that never reaches a collective makes the launch raise within the

@@ -1,12 +1,13 @@
 """The port's MoE against the JAX reference's, on the CPU in fp32.
 
-Mirrors ``tests/test_moe.py`` (:45-157; the expert-parallel cases wait for
-queue A7): ``moe_ragged`` and ``moe_dispatch_combine`` (with and without
-drops) against ``accelerate_tpu.ops.moe`` on the same inputs, forward and
-gradients; ``expert_capacity`` and ``load_balancing_loss`` equal; a tiny
-MoE ``CausalLM`` (4 experts, top-2) in every dispatch mode on parameters
-carried over from the reference's tree (the expert stacks untransposed);
-three ``unified_step``s against the reference's.
+Mirrors ``tests/test_moe.py``: ``moe_ragged`` and ``moe_dispatch_combine``
+(with and without drops) against ``accelerate_tpu.ops.moe`` on the same
+inputs, forward and gradients; ``expert_capacity`` and
+``load_balancing_loss`` equal; a tiny MoE ``CausalLM`` (4 experts, top-2)
+in every dispatch mode on parameters carried over from the reference's
+tree (the expert stacks untransposed); three ``unified_step``s against the
+reference's. The expert-parallel cases (:197-352) are
+``test_torch_moe_ep.py``'s.
 
 Tolerance: fp32 on both sides, the products summed in another order:
 1e-5 for the ops (outputs and gradients over their largest reference
@@ -257,9 +258,16 @@ def test_three_unified_steps_match_jax():
 
 
 def test_expert_parallel_raises_naming_a7():
-    with pytest.raises(NotImplementedError, match="queue A7"):
-        moe.moe_ragged_ep(torch.zeros(4, 8), torch.zeros(4, 2, dtype=torch.long),
-                          torch.ones(4, 2), None, None, None)
+    """Expert parallelism is ported (queue A7 part 4); MoE experts under
+    tensor parallelism are what part 4 leaves, and raise naming it."""
+    from accelerate_tpu_torch.parallel import runtime
+
+    model = port.CausalLM(port.TransformerConfig(**MODEL), device="cpu")
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    with runtime.sharded_forward(tp=runtime.TensorParallel(None, 2, 0)):
+        with pytest.raises(NotImplementedError, match="queue A7 part 4"):
+            model.layers[0].moe(torch.zeros(1, 8, MODEL["hidden_size"]))
+    assert model(ids).shape == (1, 8, MODEL["vocab_size"])
 
 
 def test_top_k_takes_the_lower_index_on_ties():

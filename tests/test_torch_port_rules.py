@@ -63,9 +63,12 @@ def test_every_module_and_chip_smoke_import_without_jax():
             accelerate_tpu_torch.__path__, "accelerate_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        # the async checkpoint slice's modules are among them
+        # the async checkpoint slice's modules are among them, and the
+        # pipeline and ring attention (queue A7 parts 3 and 4)
         for name in ("accelerate_tpu_torch.fault_tolerance",
-                     "accelerate_tpu_torch.checkpoint_async.writer"):
+                     "accelerate_tpu_torch.checkpoint_async.writer",
+                     "accelerate_tpu_torch.parallel.pipeline",
+                     "accelerate_tpu_torch.ops.ring_attention"):
             assert name in names, name
         sys.path.insert(0, "tools")  # where the tools import their shared helper from
         for script in ("chip_smoke.py", "tools/port_copies.py", "tools/flash_mutants.py",
@@ -146,8 +149,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 ])
 def test_unported_model_features_raise(field, value):
     cfg = port.TransformerConfig.tiny(**{field: value})
-    queue = "A7" if field == "attention_impl" else "A8"
-    with pytest.raises(NotImplementedError, match=f"queue {queue}.*ROADMAP"):
+    if field == "attention_impl":
+        # ring attention is ported (queue A7 part 4): the model builds and,
+        # with no sp above 1, attends over the whole sequence; what the
+        # reference refuses with it, a sliding window, raises as there
+        model = port.CausalLM(cfg, device="cpu")
+        assert model(torch.zeros(1, 8, dtype=torch.long)).shape == (1, 8, cfg.vocab_size)
+        with pytest.raises(ValueError, match="ring attention"):
+            port.TransformerConfig.tiny(attention_impl="ring", sliding_window=4)
+        return
+    with pytest.raises(NotImplementedError, match="queue A8.*ROADMAP"):
         port.CausalLM(cfg, device="cpu")
 
 
@@ -174,10 +185,32 @@ def test_ported_model_features_build_and_train(field, value):
 
 
 def test_expert_parallel_raises_naming_a7():
+    """Expert parallelism is ported (queue A7 part 4: ``moe_ragged_ep``);
+    what part 4 leaves raises naming it: MoE experts, decoding and LoRA
+    under tensor parallelism (no process group needed to refuse)."""
+    from accelerate_tpu_torch.adapters import LoraConfig, build_lora_state, init_adapter
     from accelerate_tpu_torch.ops import moe
+    from accelerate_tpu_torch.parallel import runtime
 
-    with pytest.raises(NotImplementedError, match="queue A7"):
-        moe.moe_ragged_ep()
+    assert moe.ragged_ep_supported() and callable(moe.moe_ragged_ep)
+    cfg = port.TransformerConfig.tiny(num_layers=1, num_experts=4)
+    model = port.CausalLM(cfg, device="cpu")
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    tp = runtime.TensorParallel(None, 2, 0)
+    with runtime.sharded_forward(tp=tp):
+        with pytest.raises(NotImplementedError, match="queue A7 part 4"):
+            model.layers[0].moe(torch.zeros(1, 8, cfg.hidden_size))
+        with pytest.raises(NotImplementedError, match="queue A7 part 4"):
+            model(ids, decode=True)
+    dense = port.CausalLM(port.TransformerConfig.tiny(num_layers=1), device="cpu")
+    lcfg = LoraConfig(rank=2, target_modules=("q_proj",))
+    lora = build_lora_state(init_adapter(torch.Generator().manual_seed(0), dense.config, lcfg),
+                            lcfg, 1)
+    x = torch.zeros(1, 8, dense.config.hidden_size)
+    positions = torch.arange(8)[None, :]
+    with runtime.sharded_forward(tp=tp):
+        with pytest.raises(NotImplementedError, match="queue A7 part 4"):
+            dense.layers[0].attn(x, positions, lora=lora.layer(0))
 
 
 def test_moe_and_fp8_modules_follow_the_model_device():
@@ -483,21 +516,25 @@ def test_launch_modules_import_and_run_without_jax():
 
 def test_refusals_left_by_the_launch_slice_name_their_queue_items():
     """What part 1 of queue A4 left: a sharded state's per-process shards
-    are ported since the sharding slice (part 2; the worker runs in
-    ``test_torch_launchers.py``); pipelines wait for part 3, sequence and
-    expert parallelism for part 4, each refusal naming its part, raised
-    before any process group comes up; the elastic supervisor waits for
-    A4's last part."""
+    are ported since the sharding slice (part 2); pipelines (part 3) and
+    sequence and expert parallelism (part 4) since the slice after it, so
+    no axis refuses and ``pipeline_check`` runs (it needs an even world
+    above 1: the world-2 and world-4 launches of ``test_torch_launchers.py``
+    run it; at world 1 it says it skipped); a plugin whose degrees do not
+    cover the world still raises, with no group left up; the elastic
+    supervisor waits for A4's last part."""
+    from accelerate_tpu_torch.parallel import mesh as mesh_mod
     from accelerate_tpu_torch.state import group_is_up
     from accelerate_tpu_torch.test_utils.scripts.test_script import pipeline_check
 
-    with pytest.raises(NotImplementedError, match="queue A7"):
-        pipeline_check(port.Accelerator(cpu=True))
-    for kwargs, part in ((dict(pp_size=2), "part 3"), (dict(sp_size=2), "part 4"),
-                         (dict(ep_size=2), "part 4")):
+    assert mesh_mod.UNPORTED_AXES == {}
+    mesh_mod.check_ported({"dp": 1, "pp": 2, "fsdp": 1, "ep": 2, "sp": 2, "tp": 1})
+    pipeline_check(port.Accelerator(cpu=True))
+    for kwargs in (dict(pp_size=2), dict(sp_size=2), dict(ep_size=2)):
         port.AcceleratorState._reset_state(reset_partial_state=True)
-        with pytest.raises(NotImplementedError, match=f"queue A7 {part}"):
-            port.Accelerator(cpu=True, parallelism_plugin=port.ParallelismPlugin(**kwargs))
+        with pytest.raises(ValueError, match="device count"):
+            port.Accelerator(cpu=True, parallelism_plugin=port.ParallelismPlugin(
+                dp_size=1, num_micro_batches=2, **kwargs))
         assert not group_is_up() and not port.AcceleratorState._shared_state
     import accelerate_tpu_torch.fault_tolerance as ft
 
@@ -612,12 +649,19 @@ def test_unported_accelerator_and_model_paths_raise(tmp_path):
     from accelerate_tpu_torch.checkpoint_async import commit as commit_mod
 
     assert port.Accelerator(mixed_precision="fp8", cpu=True).state.mixed_precision_policy.fp8
-    # sharding is ported (queue A7 part 2); what it leaves raises by name
-    for kwargs, part in ((dict(pp_size=2), "part 3"), (dict(sp_size=2), "part 4"),
-                         (dict(ep_size=2), "part 4")):
+    # sharding (queue A7 part 2), pipelines (part 3) and sequence and expert
+    # parallelism (part 4) are ported: a plugin of every axis at 1 builds a
+    # mesh of one, and one above 1 needs that many processes (the gloo
+    # tests at world 4); a mesh across slices raises naming part 5
+    from accelerate_tpu_torch.parallel import mesh as mesh_mod
+
+    for kwargs in (dict(pp_size=1), dict(sp_size=1), dict(ep_size=1)):
         port.AcceleratorState._reset_state(reset_partial_state=True)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue A7 {part}"):
-            port.Accelerator(cpu=True, parallelism_plugin=port.ParallelismPlugin(**kwargs))
+        acc = port.Accelerator(cpu=True, parallelism_plugin=port.ParallelismPlugin(
+            dp_size=1, **kwargs))
+        assert acc.mesh is not None
+        acc.state.partial_state.destroy_process_group()
+    assert "part 5" in mesh_mod.build_mesh.__code__.co_consts.__repr__()
     port.AcceleratorState._reset_state(reset_partial_state=True)
     # diagnostics is ported: the item 2b refusal is gone
     assert port.Accelerator(cpu=True, diagnostics=True).telemetry.diagnostics is not None
@@ -687,8 +731,12 @@ def test_auto_dispatch_on_cpu_takes_the_plain_path():
     out = attention.dot_product_attention(q, k, k, causal=True)
     torch.testing.assert_close(out, attention.xla_attention(q, k, k, causal=True))
     assert [w.launches for w in fa.KERNEL_WRAPPERS] == before
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.dot_product_attention(q, k, k, implementation="ring")
+    # ring attention is ported (queue A7 part 4): with no sp above 1 it is
+    # the plain path over the whole sequence, and refuses a window
+    ring = attention.dot_product_attention(q, k, k, causal=True, implementation="ring")
+    torch.testing.assert_close(ring, attention.xla_attention(q, k, k, causal=True))
+    with pytest.raises(ValueError, match="sliding windows"):
+        attention.dot_product_attention(q, k, k, causal=True, implementation="ring", window=8)
 
 
 def test_build_target_changes_when_a_header_changes(tmp_path, monkeypatch):

@@ -8,7 +8,9 @@ the reference's ``infer_param_shardings`` spec on a JAX mesh of the same
 shape (``build_mesh(plugin, devices=jax.devices()[:4])``), read through the
 port's layout (a layer's leaf unstacked, a Dense kernel's two dims
 swapped); so do the moments' (``infer_opt_state_shardings``) and the
-logical axes against ``get_logical_specs``. Then the mirrors of
+logical axes against ``get_logical_specs``; under sp 2 and ep 2 (the tiny
+MoE LM's expert stacks over ep) as well, and the pipeline's stacked layers
+over pp against ``stacked_layer_shardings``. Then the mirrors of
 ``test_models.py::test_tp_sharding_placement`` and
 ``::test_fsdp_sharding_placement`` and
 ``test_zero.py::test_zero1_keeps_embedding_replicated``, the specs as
@@ -43,6 +45,13 @@ CASES = {
     "shard_grad_op_fsdp4": dict(dp_size=1, fsdp_size=4, sharding_strategy="shard_grad_op",
                                 min_weight_size=8),
 }
+
+
+MOE = dict(num_experts=4, num_experts_per_tok=2)
+# the axes of queue A7 part 4: the sequence over sp, the experts over ep
+PART4_CASES = {"dp2_sp2": dict(dp_size=2, sp_size=2),
+               "dp2_ep2": dict(dp_size=2, ep_size=2),
+               "fsdp2_ep2": dict(dp_size=1, fsdp_size=2, ep_size=2, min_weight_size=1024)}
 
 
 def _plugins(kwargs):
@@ -101,6 +110,9 @@ def _both(model_name, kwargs, opt=False):
     if model_name == "lm":
         variables = _reference_tree(JaxCausalLM, JaxConfig.tiny())
         model = port.CausalLM(port.TransformerConfig.tiny(), device="meta")
+    elif model_name == "moe":
+        variables = _reference_tree(JaxCausalLM, JaxConfig.tiny(**MOE))
+        model = port.CausalLM(port.TransformerConfig.tiny(**MOE), device="meta")
     else:
         jcfg = JaxConfig.tiny(causal=False, attention_impl="xla")
         variables = _reference_tree(JaxClassifier, jcfg, num_labels=3)
@@ -138,6 +150,43 @@ def test_moment_placements_match_the_reference(case):
         params, _ = _both("lm", CASES[case])
         assert all("fsdp" not in str(s) for s in params.values())
         assert any("fsdp" in str(s) for s in got.values())
+
+
+@pytest.mark.parametrize("model", ["lm", "moe"])
+@pytest.mark.parametrize("case", sorted(PART4_CASES))
+def test_sp_and_ep_placements_match_the_reference(case, model):
+    """Every leaf of the tiny LM and the tiny MoE LM under sp 2 and ep 2
+    (with dp, and with fsdp) takes the reference's spec; the expert stacks
+    split over ep."""
+    got, want = _both(model, PART4_CASES[case])
+    assert got == want
+    if model == "moe" and "ep" in case:
+        assert all("ep" in str(v) for k, v in got.items()
+                   if k.endswith(("moe.gate_proj", "moe.up_proj", "moe.down_proj")))
+
+
+def test_pp_stacked_placements_match_the_reference():
+    """The stacked layers of a pipeline: each leaf's layer dim over pp where
+    pp divides it, else whole, as the reference's
+    ``stacked_layer_shardings``."""
+    from accelerate_tpu.parallel.pipeline import stacked_layer_shardings as jax_stacked
+
+    import torch
+
+    from accelerate_tpu_torch.parallel.pipeline import stacked_layer_shardings
+
+    mesh = jax_build_mesh(JaxPlugin(dp_size=2, pp_size=2, num_micro_batches=2),
+                          devices=jax.devices()[:4])
+    tree = {"w": np.zeros((4, 16, 32), np.float32), "v": np.zeros((4, 32, 16), np.float32),
+            "b": np.zeros((4, 16), np.float32), "odd": np.zeros((3, 8), np.float32),
+            "scalar": np.zeros((), np.float32)}
+    ref = jax_stacked(tree, mesh)
+    ours = stacked_layer_shardings({k: torch.from_numpy(v) for k, v in tree.items()},
+                                   {"dp": 2, "pp": 2})
+    for name, sharding_ in ref.items():
+        want = tuple(_norm(e) for e in sharding_.spec) + (None,) * tree[name].ndim
+        assert ours[name] == want[:tree[name].ndim], name
+    assert ours["w"] == ("pp", None, None) and ours["odd"] == (None, None)
 
 
 @pytest.mark.parametrize("case", ["fsdp4_min1024", "dp2_tp2", "fsdp2_tp2"])
@@ -245,3 +294,18 @@ def test_stacked_dim_choice_refuses():
                                                               min_weight_size=1),
                                        sharding.get_logical_specs(model))
     assert np.prod(shapes["embed.weight"]) == 36
+
+
+@pytest.mark.parametrize("kwargs", [dict(dp_size=2, sp_size=2), dict(dp_size=2, ep_size=2),
+                                    dict(dp_size=4)])
+def test_batch_sharding_puts_the_sequence_on_sp(kwargs):
+    """``batch_sharding(mesh, seq_dim=1)``: the rows over the data axes and
+    the sequence over sp, the reference's spec (the port's took no
+    ``seq_dim`` before the sp axis was ported)."""
+    jplugin, _ = _plugins(kwargs)
+    mesh = jax_build_mesh(jplugin, devices=jax.devices()[:4])
+    ref = tuple(_norm(e) for e in jax_sharding.batch_sharding(mesh, seq_dim=1).spec)
+    ref = (ref + (None, None))[:2]
+    ours = sharding.spec_of_placements(sharding.batch_sharding(dict(mesh.shape), seq_dim=1), 2)
+    assert ours == ref
+    assert sharding.spec_of_placements(sharding.batch_sharding(dict(mesh.shape)), 1) == ref[:1]
