@@ -21,10 +21,11 @@ NCCL on the card, gloo on the CPU; the collectives, each process's rows of
 every global batch, the cross-process gradient mean, checkpoints saved by
 every process and restored onto another world size, ``LocalSGD``, and
 ``debug_launcher``/``notebook_launcher``), sharded training on a device mesh
-(``ParallelismPlugin``: dp, fsdp and tp; ZeRO-1/2/3 and tensor parallelism
-with parameters as DTensors placed by ``parallel.sharding``'s rules, the
-compat plugins in ``utils.compat``, sharded checkpoints and loads onto a
-mesh),
+(``ParallelismPlugin``: dp, fsdp, tp, pp, sp and ep; ZeRO-1/2/3 and tensor
+parallelism with parameters as DTensors placed by ``parallel.sharding``'s
+rules, the compat plugins in ``utils.compat``, sharded checkpoints and loads
+onto a mesh, decoding, LoRA and MoE over a sharded model, the raw loop on
+DTensor params),
 experiment trackers (``tracking``), the optax-faithful ``adamw``,
 its fused-epilogue form ``fused_adamw``, ``sgd`` and
 ``warmup_cosine_decay_schedule``, and hand-written kernels for Hopper:
@@ -34,6 +35,14 @@ unless the caller asks for the CPU (``Accelerator(cpu=True)``).
 """
 
 from .accelerator import Accelerator
+from .adapters import (
+    AdapterRegistry,
+    LoraConfig,
+    init_adapter,
+    load_adapter,
+    lora_loss_fn,
+    save_adapter,
+)
 from .big_modeling import (
     OffloadedLeaf,
     cpu_offload,
@@ -46,23 +55,46 @@ from .big_modeling import (
     materialize_offloaded,
     streamed_apply,
 )
-from .data_loader import DataLoader
-from .diagnostics import DiagnosticsConfig, DiagnosticsManager
+from .checkpoint_async import AsyncCheckpointer, save_accelerator_state_async
+from .data_loader import DataLoader, prepare_data_loader, skip_first_batches
+from .diagnostics import (
+    AnomalyDetector,
+    DiagnosticsConfig,
+    DiagnosticsManager,
+    FlightRecorder,
+    GoodputAccounting,
+    TraceCapture,
+    build_report,
+    format_report,
+    list_dumps,
+)
 from .fault_tolerance import CheckpointManager
 from .launchers import debug_launcher, notebook_launcher
 from .local_sgd import LocalSGD
+from .logging import get_logger
 from .models.config import TransformerConfig
 from .models.transformer import CausalLM, SequenceClassifier
 from .ops.fused import fused_adamw
 from .optimizer import AcceleratedOptimizer, adamw, sgd
+from .profiling import BufferCensus
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
+from .serving import SLOConfig, ServingEngine, TokenEvent
 from .state import AcceleratorState, GradientState, PartialState
-from .telemetry import HeartbeatMonitor, StepTelemetry, TelemetryConfig, scan_heartbeats
+from .telemetry import (
+    HeartbeatMonitor,
+    JSONLSink,
+    PrometheusTextSink,
+    RecompileDetector,
+    StepTelemetry,
+    TelemetryConfig,
+    scan_heartbeats,
+)
 from .utils.dataclasses import (
     DataLoaderConfiguration,
     DistributedInitKwargs,
     DistributedType,
     GradientAccumulationPlugin,
+    MixedPrecisionPolicy,
     ParallelismPlugin,
     ProjectConfiguration,
     ShardingStrategy,
@@ -77,29 +109,45 @@ __all__ = [
     "AcceleratedScheduler",
     "Accelerator",
     "AcceleratorState",
+    "AdapterRegistry",
+    "AnomalyDetector",
+    "AsyncCheckpointer",
+    "BufferCensus",
     "CausalLM",
     "CheckpointManager",
     "DataLoader",
     "DataLoaderConfiguration",
     "DiagnosticsConfig",
+    "DiagnosticsManager",
     "DistributedInitKwargs",
     "DistributedType",
-    "DiagnosticsManager",
+    "FlightRecorder",
+    "GoodputAccounting",
     "GradientAccumulationPlugin",
     "GradientState",
     "HeartbeatMonitor",
+    "JSONLSink",
     "LocalSGD",
+    "LoraConfig",
+    "MixedPrecisionPolicy",
     "OffloadedLeaf",
     "ParallelismPlugin",
     "PartialState",
     "ProfileKwargs",
     "ProjectConfiguration",
+    "PrometheusTextSink",
+    "RecompileDetector",
+    "SLOConfig",
     "SequenceClassifier",
+    "ServingEngine",
     "ShardingStrategy",
     "StepTelemetry",
     "TelemetryConfig",
+    "TokenEvent",
+    "TraceCapture",
     "TransformerConfig",
     "adamw",
+    "build_report",
     "carry_from_jax",
     "carry_to_jax",
     "cpu_offload",
@@ -107,17 +155,27 @@ __all__ = [
     "disk_offload",
     "dispatch_params",
     "find_executable_batch_size",
+    "format_report",
     "fused_adamw",
+    "get_logger",
     "infer_auto_device_map",
+    "init_adapter",
     "init_empty_weights",
     "init_on_device",
+    "list_dumps",
+    "load_adapter",
     "load_checkpoint_and_dispatch",
+    "lora_loss_fn",
     "materialize_offloaded",
     "notebook_launcher",
     "params_from_jax",
+    "prepare_data_loader",
+    "save_accelerator_state_async",
+    "save_adapter",
     "scan_heartbeats",
     "set_seed",
     "sgd",
+    "skip_first_batches",
     "streamed_apply",
     "warmup_cosine_decay_schedule",
 ]

@@ -71,7 +71,9 @@ mean and the reported loss run over the ranks that hold other tokens (dp x
 fsdp x ep x sp) only, so a tp group's rows count once; a pipeline's stages
 train through ``unified_pipeline_step`` (``parallel/pipeline.py``). The epilogue's norm, non-finite check and
 update are the mesh's (ZeRO-1/2 update each rank's fsdp slice and gather
-it). A kernel never sees a DTensor. At world size 1 every degree is 1 and
+it). The raw loop's ``backward`` runs the same way on DTensor params and
+returns gradients split as the params are. A kernel never sees a DTensor.
+At world size 1 every degree is 1 and
 the step is the unsharded one bit for bit.
 """
 
@@ -111,7 +113,16 @@ from .optimizer import (
     scale_loss,
     unscale_and_check,
 )
-from .parallel.runtime import build_layout, gather_full, layout_of_placements
+from .parallel.runtime import (
+    build_layout,
+    dtensor_global_norm,
+    gather_full,
+    layout_for,
+    layout_of_placements,
+    place_like,
+    place_live,
+    to_local,
+)
 from .parallel.sharding import get_logical_specs, is_dtensor
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
@@ -545,14 +556,17 @@ class Accelerator:
             module = model.get_submodule(owner) if owner else model
             module.register_parameter(
                 leaf, nn.Parameter(dt, requires_grad=full[name].requires_grad))
+        model._apply_layout = layout  # its forwards outside the step read it too
         return model
 
     def _init_optimizer(self, optimizer: AcceleratedOptimizer, params: dict) -> None:
         """The optimizer's state for ``params``; under a plugin its moments
-        placed by ``moment_shardings`` (ZeRO-1/2 split them over fsdp)."""
+        placed by ``moment_shardings`` (ZeRO-1/2 split them over fsdp), and
+        the layout kept for the raw loop's ``step``."""
         optimizer.init(params)
         if self._layout is not None:
             optimizer.opt_state = self._layout.place_opt_state(optimizer.opt_state)
+            optimizer.layout = self._layout
 
     def prepare_optimizer(self, optimizer, params: Any = None) -> AcceleratedOptimizer:
         """Wrap ``optimizer`` (unless it is wrapped already), make its state
@@ -1033,9 +1047,7 @@ class Accelerator:
         if isinstance(params, nn.Module):
             params = dict(params.named_parameters())
         if any(is_dtensor(p) for p in params.values()):
-            raise NotImplementedError(
-                "the raw loop's backward on sharded (DTensor) params is not ported: under a "
-                "ParallelismPlugin train with unified_step (ROADMAP.md, queue A7)")
+            return self._sharded_backward(loss_or_fn, params, rest, kwargs)
         dtype = self.state.mixed_precision_policy.compute_dtype
         compute = {k: _cast_floating(p.detach(), dtype).requires_grad_(True)
                    for k, p in params.items()}
@@ -1052,6 +1064,38 @@ class Accelerator:
             _mean_across_processes_(grads, world)
             loss = _global_loss(loss, factor, world)
         return loss, grads
+
+    def _sharded_backward(self, loss_fn, params: dict, rest: tuple, kwargs: dict):
+        """``backward`` on DTensor params (reference :1272-1295, whose
+        ``value_and_grad`` takes the sharded arrays): the loss runs on each
+        rank's local shards inside the step's sharded context, as
+        ``unified_step``'s microbatch does; the gradients are the global
+        batch's mean (summed over the token ranks that share a shard, the
+        tp-partial ones over tp), scaled by 1 / ``num_steps`` and returned
+        as DTensors split as their params are, on the mesh's axes above 1
+        (``parallel.runtime.place_live``: two such trees add cheaply).
+
+        That sub-mesh is not the params' six-axis mesh, on which the first
+        DTensor op of each placement spends tens of seconds in sharding
+        propagation. So the gradients add to one another, and go to
+        ``clip_grad_norm_`` and ``AcceleratedOptimizer.step`` as they are,
+        but DTensor arithmetic that mixes them with the params (``p - lr *
+        g``) raises torch's "different meshes" error: a hand-written update
+        works on ``p.to_local()`` and ``g.to_local()``, which hold the same
+        shard."""
+        lay = layout_for(params, self._layout, self.state.parallelism_plugin)
+        dtype = self.state.mixed_precision_policy.compute_dtype
+        compute = {k: _cast_floating(p.detach(), dtype).requires_grad_(True)
+                   for k, p in lay.local(params).items()}
+        world, group = lay.data_size, lay.data_group
+        with lay.forward_context():
+            factor = _loss_factor(loss_fn, rest[0] if rest else None, world, self.device, group)
+            loss = loss_fn(lay.loss_params(compute), *rest, **kwargs)
+            grads = torch.autograd.grad(loss * factor, list(compute.values()))
+        scale = 1.0 / self.gradient_state.num_steps
+        grads = lay.reduce_grads_({k: g.float() * scale for k, g in zip(compute, grads)},
+                                  placed=True)
+        return _global_loss(loss.detach(), factor, world, group), place_live(grads, params)
 
     @contextmanager
     def join_uneven_inputs(self, joinables=None, even_batches: Optional[bool] = None):
@@ -1082,7 +1126,14 @@ class Accelerator:
                 shard.even_batches = prev
 
     def clip_grad_norm_(self, grads: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
-        """Global-norm clip: returns (clipped grads, the norm before)."""
+        """Global-norm clip: returns (clipped grads, the norm before). On
+        DTensor gradients (the raw loop under a plugin) the norm is every
+        shard's, each counted once, and the clipped gradients keep their
+        placements."""
+        if any(is_dtensor(g) for g in grads.values()):
+            gnorm = dtensor_global_norm(grads)
+            scale = _clip_scale(gnorm, max_norm)
+            return place_like({k: to_local(g) * scale for k, g in grads.items()}, grads), gnorm
         gnorm = global_norm(grads)
         scale = _clip_scale(gnorm, max_norm)
         return {k: g * scale for k, g in grads.items()}, gnorm

@@ -167,21 +167,40 @@ def lora_loss_fn(model, base_params: Any, lora_config: LoraConfig,
     quantize_params`); quantized entries are dequantized to
     ``compute_dtype`` at each call, and every base tensor is detached. LoRA
     dropout runs only when the config asks for it and the batch carries a
-    ``dropout_seed``."""
+    ``dropout_seed``.
+
+    A base that ``Accelerator.prepare`` sharded under a plugin (DTensors by
+    the model's parameter names, the model's own or another prepared set)
+    runs on its local shards inside the step's sharded context
+    (``parallel.runtime.module_forward``: its layers gathered over fsdp as
+    they run, its products split over tp, with each adapter's delta split
+    alike, ``LayerLora.delta``). A sharded base with quantized entries
+    raises (queue A item 1)."""
     from ..models.transformer import next_token_count, next_token_loss
+    from ..parallel import runtime as _shard
     from ..utils.quantization import dequantize_tree
 
     if isinstance(base_params, torch.nn.Module):
         base_params = dict(base_params.named_parameters())
+    sharded = any(_shard.is_dtensor(v) for v in base_params.values())
+    if sharded and not all(isinstance(v, torch.Tensor) for v in base_params.values()):
+        raise NotImplementedError(
+            "a quantized base under a parallelism plugin (QLoRA over a sharded model) is "
+            "not ported yet: queue A item 1")
 
     def fn(adapter_params, batch):
         ids = batch["input_ids"]
-        base = {k: v.detach() for k, v in dequantize_tree(base_params, compute_dtype).items()}
         use_dropout = lora_config.dropout > 0.0 and "dropout_seed" in batch
         state = build_lora_state(adapter_params, lora_config, ids.shape[0],
                                  deterministic=not use_dropout,
                                  dropout_seed=int(batch["dropout_seed"]) if use_dropout else None)
-        logits = torch.func.functional_call(model, base, (ids,), {"lora": state})
+        if sharded:
+            with _shard.module_forward(model, base_params) as base:
+                logits = torch.func.functional_call(model, base, (ids,), {"lora": state})
+        else:
+            base = {k: v.detach()
+                    for k, v in dequantize_tree(base_params, compute_dtype).items()}
+            logits = torch.func.functional_call(model, base, (ids,), {"lora": state})
         return next_token_loss(logits, batch, ring)
 
     ring = getattr(model.config, "attention_impl", None) == "ring"

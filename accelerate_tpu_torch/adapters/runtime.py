@@ -100,15 +100,34 @@ class LayerLora:
         pairs = {t: (tensors[2 * i], tensors[2 * i + 1]) for i, t in enumerate(self.pairs)}
         return dataclasses.replace(self, pairs=pairs, slot_ids=tensors[-2], scales=tensors[-1])
 
-    def delta(self, x: torch.Tensor, target: str) -> Optional[torch.Tensor]:
+    def delta(self, x: torch.Tensor, target: str, tp=None, cols: Optional[slice] = None,
+              rows: Optional[slice] = None) -> Optional[torch.Tensor]:
         """The delta of projection ``target`` on its input ``x``, or None
-        when the layer's adapters do not target it."""
+        when the layer's adapters do not target it.
+
+        Under tensor parallelism (``tp``, a ``parallel.runtime.
+        TensorParallel``) the projection is split and so is its delta: a
+        column-split projection's output holds ``cols`` of its features, so
+        B keeps those columns; a row-split projection's input holds ``rows``
+        of them, so A keeps those rows, and the delta is a partial sum that
+        joins the projection's before the sum over tp. A and B are whole on
+        every tp rank and enter through ``tp.copy``, whose backward sums
+        each rank's share of their gradients over tp. Dropout draws its mask
+        over the whole input and keeps ``rows`` of it, as one card would."""
         pair = self.pairs.get(target)
         if pair is None:
             return None
+        a, b = pair
+        if tp is not None:
+            a, b = tp.copy(a), tp.copy(b)
         if self.dropout_rate > 0.0 and not self.deterministic:
-            x = _dropout(x, self.dropout_rate, self._seed(target))
-        return lora_delta(x, {A_KEY: pair[0], B_KEY: pair[1]}, self.slot_ids, self.scales)
+            x = _dropout(x, self.dropout_rate, self._seed(target),
+                         None if rows is None else (a.shape[1], rows))
+        if rows is not None:
+            a = a[:, rows]
+        if cols is not None:
+            b = b[..., cols]
+        return lora_delta(x, {A_KEY: a, B_KEY: b}, self.slot_ids, self.scales)
 
     def _seed(self, target: str) -> int:
         from .lora import ALL_TARGETS  # the target's index names its stream
@@ -117,11 +136,16 @@ class LayerLora:
         return (base * 1_000_003 + self.layer * 31 + ALL_TARGETS.index(target)) % (2**63)
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, seed: int, part=None) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep with probability
-    ``1 - rate`` and scale the kept values by ``1 / (1 - rate)``."""
+    ``1 - rate`` and scale the kept values by ``1 / (1 - rate)``. ``part``:
+    ``(width, features)`` when ``x`` holds those features of a ``width``
+    wide input, whose mask is drawn whole and cut."""
     g = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    shape = x.shape if part is None else x.shape[:-1] + (part[0],)
+    keep = torch.rand(shape, generator=g, device=x.device) < 1.0 - rate
+    if part is not None:
+        keep = keep[..., part[1]]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -2,7 +2,7 @@
 <command>``.
 
 Port of ``accelerate_tpu/commands/accelerate_cli.py`` with the ``diagnose``
-subcommand; the others wait for ROADMAP.md, queue A item 6.
+subcommand; the others wait for ROADMAP.md, queue A10.
 """
 
 from __future__ import annotations

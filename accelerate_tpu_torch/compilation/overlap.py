@@ -11,7 +11,7 @@ the Chrome JSON traces that ``torch.profiler`` exports
 ``gpu_memcpy`` and ``gpu_memset`` are the work on the CUDA device, every
 other complete event is host work. The XLA scheduler options of the
 reference's module wait for the rest of ``compilation/`` (ROADMAP.md,
-queue A item 6).
+queue A10).
 
 Everything here is best-effort: a missing or garbled trace yields None,
 never an exception on the train loop.

@@ -4,8 +4,8 @@ heartbeat files into one report.
 Port of ``accelerate_tpu/diagnostics/diagnose.py``, copied so that the
 report and its text are the reference's: it reads the port's
 ``checkpoint_async/commit.py`` and ``loadgen/report.py``. The OOM section
-reads ``profiling/oom.py``, which is not ported yet (ROADMAP.md, queue A
-item 6), so its lazy import fails and the section stays None, as the
+reads ``profiling/oom.py``, which is not ported yet (ROADMAP.md, queue
+A10), so its lazy import fails and the section stays None, as the
 reference's ``try`` allows.
 
 ``diagnose <dir>`` answers the three questions an

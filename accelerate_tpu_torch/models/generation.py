@@ -13,6 +13,16 @@ device assert a row of -inf or NaN would fire. Random streams therefore
 differ from the reference's ``jax.random``; greedy decoding (temperature 0)
 is the reference's argmax exactly. The model's parameters live in the
 module, so the reference's ``params`` argument has no counterpart.
+
+A model that ``Accelerator.prepare`` sharded under a ``ParallelismPlugin``
+(its parameters DTensors) decodes as the reference's ``generate`` on
+sharded params does: every rank of the mesh takes the same whole prompt
+and returns the same tokens. Each forward runs inside the model's sharded
+context (``parallel.runtime.module_forward``): a layer's fsdp shards are
+gathered as it runs, the products stay split over tp, and each tp rank's
+cache holds only the kv heads its query heads read
+(``models.transformer._tp_heads``). No tp-split weight is gathered: the tp
+group carries the activations' sums and one gather of the logits a step.
 """
 
 from __future__ import annotations
@@ -22,8 +32,9 @@ from typing import Optional
 import torch
 
 from ..ops.attention import PagedKVCache
+from ..parallel import runtime as _shard
 from ..utils.cuda_graph import StepProgram
-from .transformer import CausalLM, DecodeCache, _dtype
+from .transformer import CausalLM, DecodeCache, _dtype, _tp_heads
 
 
 def _filter_logits(logits: torch.Tensor, top_k: Optional[int],
@@ -66,7 +77,32 @@ def _sample_logits(logits: torch.Tensor, generator: torch.Generator, temperature
 
 
 def _device(model: CausalLM) -> torch.device:
-    return model.embed.weight.device
+    return _shard.to_local(model.embed.weight).device
+
+
+def _forward(model: CausalLM):
+    """``step(ids, cache) -> logits``: the model's decode forward, inside
+    its sharded context when its parameters are DTensors."""
+    if not _shard.is_sharded_module(model):
+        return lambda ids, cache: model(ids, decode=True, cache=cache)
+
+    def step(ids, cache):
+        with _shard.module_forward(model) as params:
+            return torch.func.functional_call(model, params, (ids,),
+                                              {"decode": True, "cache": cache})
+
+    return step
+
+
+def _cache_kv_heads(model: CausalLM) -> int:
+    """The kv heads a decode cache of ``model`` holds: this tp rank's share
+    of a model sharded over tp, else all."""
+    cfg = model.config
+    if _shard.is_sharded_module(model):
+        tp = _shard.module_layout(model).tp
+        if tp.size > 1:
+            return _tp_heads(cfg, tp).kv_heads
+    return cfg.num_kv_heads
 
 
 def init_cache(model: CausalLM, batch_size: int = 1, *, num_blocks: Optional[int] = None,
@@ -77,7 +113,10 @@ def init_cache(model: CausalLM, batch_size: int = 1, *, num_blocks: Optional[int
     their fp32 scale arrays with ``kv_dtype="int8"``)."""
     cfg = model.config
     if num_blocks is None:
-        return DecodeCache.zeros(cfg, batch_size, _device(model))
+        return DecodeCache.zeros(cfg, batch_size, _device(model), _cache_kv_heads(model))
+    if _shard.is_sharded_module(model):
+        raise NotImplementedError("a paged cache for a sharded model: the serving engine over "
+                                  "a sharded model is ROADMAP.md, queue A7 part 4 (the engine)")
     return PagedKVCache.zeros(cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
                               cfg.head_dim, _dtype(cfg), _device(model), kv_dtype=kv_dtype)
 
@@ -125,11 +164,13 @@ def generate(model: CausalLM, input_ids, max_new_tokens: int = 32, temperature: 
     generator = generator if generator is not None else torch.Generator(device).manual_seed(0)
     cache = init_cache(model, B)
 
+    forward = _forward(model)
+
     def sample(logits):
         return _sample_logits(logits, generator, temperature, top_k, top_p)
 
-    first = sample(model(ids, decode=True, cache=cache)[:, -1])
-    new = _continue(first, lambda tok: model(tok[:, None], decode=True, cache=cache)[:, -1],
+    first = sample(forward(ids, cache)[:, -1])
+    new = _continue(first, lambda tok: forward(tok[:, None], cache)[:, -1],
                     max_new_tokens, eos_token_id, sample)
     return torch.cat([ids, new], dim=1)
 
@@ -167,6 +208,7 @@ def make_generate_fn(model: CausalLM, max_new_tokens: int = 32, temperature: flo
     chunk_shapes: set[tuple[int, int]] = set()
     programs: dict[int, tuple] = {}
     device = _device(model)
+    forward = _forward(model)
 
     def decode_program(batch: int):
         if batch not in programs:
@@ -175,8 +217,7 @@ def make_generate_fn(model: CausalLM, max_new_tokens: int = 32, temperature: flo
             with torch.no_grad():
                 # the capture's warm-up call writes at index 0 of a cache
                 # every call resets first
-                program = StepProgram(
-                    lambda: model(token, decode=True, cache=cache)[:, -1], device)
+                program = StepProgram(lambda: forward(token, cache)[:, -1], device)
             traces["decode"] += 1
             programs[batch] = (cache, token, program)
         return programs[batch]
@@ -195,7 +236,7 @@ def make_generate_fn(model: CausalLM, max_new_tokens: int = 32, temperature: flo
             if (B, width) not in chunk_shapes:
                 chunk_shapes.add((B, width))
                 traces["prefill"] += 1
-            last = model(ids[:, offset:offset + width], decode=True, cache=cache)[:, -1]
+            last = forward(ids[:, offset:offset + width], cache)[:, -1]
             offset += width
 
         def sample(logits):

@@ -59,7 +59,13 @@ the attention runs on the local heads (q and o_proj split, k and v whole of
 which each rank takes its heads' rows), the MLP on its columns and rows, the
 embedding and the lm_head on the local vocab, with Megatron's pair of
 collectives; ``tp_partial_leaves`` names the leaves whose gradients are
-partial over tp. Decoding, LoRA and MoE under tp raise. Under sp with
+partial over tp. A tp share that cuts a head (or groups the heads unevenly
+over the kv heads, ``_HeadSplit``) gathers q over tp, attends over the heads
+it touches and keeps its columns, as GSPMD runs the reference's even split
+of the columns. Decoding under tp keeps each rank's kv heads in its cache;
+an adapter's delta is split like its projection (``LayerLora.delta``); the
+MoE stacks' ``mlp`` dim is split over tp, every dispatch computing a
+partial sum summed over tp at the end. Under sp with
 ``attention_impl="ring"`` the causal LM takes its rank's contiguous chunk
 of the sequence after the embedding (``parallel.sharding.
 constrain_activations``), with the chunk's global positions for rope, and
@@ -69,7 +75,8 @@ chunk (the reference shifts over the whole row, :945-952), so each token
 counts once across chunk boundaries. Under ep the MoE block runs
 ``ops/moe.moe_ragged_ep`` on its shard of the expert stacks (``"auto"``
 and ``"ragged"``), or gathers the stacks for ``"dense"`` and, with the
-tokens, for ``"capacity"``, whose capacity is the global batch's.
+tokens, for ``"capacity"``, whose capacity is the global batch's (with the
+sequence split over sp, the chunks are put back in row order first).
 
 Not ported yet, and rejected when asked for (ROADMAP.md): the GPT-2
 architecture, the Gemma/Gemma-2 switches, and ``fused_kernels=True`` on the
@@ -260,10 +267,13 @@ _MLP_TARGETS = ("gate_proj", "up_proj", "down_proj")
 
 
 def _add_delta(y: torch.Tensor, lora: Optional[LayerLora], x: torch.Tensor,
-               target: str) -> torch.Tensor:
+               target: str, tp=None, cols: Optional[slice] = None,
+               rows: Optional[slice] = None) -> torch.Tensor:
     """``y`` (projection ``target``'s output on ``x``) plus its adapter
-    delta, if the layer's adapters target it."""
-    delta = None if lora is None else lora.delta(x, target)
+    delta, if the layer's adapters target it; under tp the delta of the
+    split projection (``LayerLora.delta``: a column split keeps ``cols`` of
+    the output, a row split ``rows`` of the input)."""
+    delta = None if lora is None else lora.delta(x, target, tp, cols=cols, rows=rows)
     return y if delta is None else y + delta
 
 
@@ -376,9 +386,11 @@ class DecodeCache:
     index: torch.Tensor
 
     @classmethod
-    def zeros(cls, config: TransformerConfig, batch_size: int, device) -> "DecodeCache":
-        shape = (config.num_layers, batch_size, config.max_seq_len, config.num_kv_heads,
-                 config.head_dim)
+    def zeros(cls, config: TransformerConfig, batch_size: int, device,
+              kv_heads: Optional[int] = None) -> "DecodeCache":
+        """``kv_heads``: the kv heads held (a tp rank's share), else all."""
+        heads = config.num_kv_heads if kv_heads is None else kv_heads
+        shape = (config.num_layers, batch_size, config.max_seq_len, heads, config.head_dim)
         dt = _dtype(config)
         return cls(torch.zeros(shape, dtype=dt, device=device),
                    torch.zeros(shape, dtype=dt, device=device),
@@ -391,14 +403,17 @@ class DecodeCache:
         self.index.zero_()
 
 
-def _decode_attention(q, k, v, positions, kv, window):
+def _decode_attention(q, k, v, positions, kv, window, kv_map=None):
     """The decode branch of ``Attention``: write this call's k/v into the
     layer's cache, then attend over the whole cache with the band anchored
     at global positions. ``kv`` is (key, value, paged, key_scale,
     value_scale) of one layer: the block pools, the call's
     ``PagedKVState`` and, for int8 pools, their scale arrays (else None;
     ``accelerate_tpu/models/transformer.py:354-438``), or the dense cache's
-    (B, max_seq_len, Hkv, D) slices and three Nones."""
+    (B, max_seq_len, Hkv, D) slices and three Nones. ``kv_map``: a tp
+    rank's query heads that do not group evenly over its kv heads read the
+    cache through it (``_HeadSplit``; the dense cache only, since the
+    engine, the paged cache's one user, takes no sharded model)."""
     key, value, paged, key_scale, value_scale = kv
     if paged is not None:
         paged_update(key, value, k, v, paged, key_scale, value_scale)
@@ -412,40 +427,60 @@ def _decode_attention(q, k, v, positions, kv, window):
     keep = cols <= rows  # positions not yet written are masked
     if window is not None:
         keep = keep & (cols > rows - window)
-    return xla_attention(q, key, value, mask=keep)
+    return xla_attention(q, _expand_kv(key, kv_map), _expand_kv(value, kv_map), mask=keep)
 
 
-def _tp_refusals(kv=None, lora=None) -> None:
-    if kv is not None:
-        raise NotImplementedError("decoding with tensor-parallel weights is not ported yet "
-                                  "(the serving engine runs one card's whole model): ROADMAP.md, "
-                                  "queue A7 part 4 (its remainder)")
-    if lora is not None:
-        raise NotImplementedError("LoRA adapters under tensor parallelism are not ported yet "
-                                  "(train adapters with a plugin whose tp_size is 1): "
-                                  "ROADMAP.md, queue A7 part 4 (its remainder)")
+@dataclass(frozen=True)
+class _HeadSplit:
+    """What one tp rank's attention computes. Its ``q_cols`` of the query
+    projection's output (and of o_proj's input) are an even share of
+    ``num_heads * head_dim``; they touch the query heads ``[head_lo,
+    head_lo + heads)``, which read ``kv_heads`` kv heads, ``kv_rows`` of
+    k_proj's and v_proj's ``(kv_heads * head_dim, in)`` weights.
+    ``gather_q``: the columns cut through a head, so the rank gathers q
+    over tp, attends over the heads it touches and keeps its columns.
+    ``kv_map``: each touched head's kv head (local index) where the heads
+    do not group evenly over the kv heads, else None."""
+
+    heads: int
+    kv_heads: int
+    kv_rows: slice
+    q_cols: slice
+    head_lo: int
+    gather_q: bool
+    kv_map: Optional[tuple]
 
 
-def _tp_heads(cfg: TransformerConfig, tp) -> tuple[int, int, slice]:
-    """This tp rank's query heads, kv heads and the kv rows (of k_proj's
-    and v_proj's ``(kv_heads * head_dim, in)`` weights) its query heads
-    read."""
-    if cfg.num_heads % tp.size or cfg.vocab_size % tp.size:
+def _tp_heads(cfg: TransformerConfig, tp) -> _HeadSplit:
+    """This tp rank's share of the attention (:class:`_HeadSplit`). The
+    reference gives GSPMD an even split of the query projection's columns
+    and of the vocab over tp, whether or not it falls on whole heads or kv
+    groups, and refuses a size that does not divide them (``device_put``);
+    so does the port."""
+    hd, width = cfg.head_dim, cfg.num_heads * cfg.head_dim
+    if width % tp.size or cfg.vocab_size % tp.size:
         raise NotImplementedError(
-            f"tp_size {tp.size} must divide num_heads {cfg.num_heads} and vocab_size "
-            f"{cfg.vocab_size}: the port splits heads and the vocab evenly")
-    heads = cfg.num_heads // tp.size
+            f"tp_size {tp.size} must divide num_heads * head_dim {width} and vocab_size "
+            f"{cfg.vocab_size}: the reference refuses an uneven split too")
+    share = width // tp.size
+    c0, c1 = tp.rank * share, (tp.rank + 1) * share
+    h0, h1 = c0 // hd, -(-c1 // hd)
     group = cfg.num_heads // cfg.num_kv_heads
-    if heads % group == 0:
-        kv_heads = heads // group
-    elif group % heads == 0:
-        kv_heads = 1
-    else:
-        raise NotImplementedError(f"{heads} local query heads straddle kv groups of {group}: "
-                                  f"tp_size {tp.size} does not fit {cfg.num_heads}/"
-                                  f"{cfg.num_kv_heads} heads")
-    lo = (tp.rank * heads) // group
-    return heads, kv_heads, slice(lo * cfg.head_dim, (lo + kv_heads) * cfg.head_dim)
+    k0, k1 = h0 // group, (h1 - 1) // group + 1
+    heads, kv_heads = h1 - h0, k1 - k0
+    owners = tuple(h // group - k0 for h in range(h0, h1))
+    even = heads % kv_heads == 0 and owners == tuple(
+        i // (heads // kv_heads) for i in range(heads))
+    return _HeadSplit(heads, kv_heads, slice(k0 * hd, k1 * hd), slice(c0, c1), h0,
+                      c0 % hd != 0 or c1 % hd != 0, None if even else owners)
+
+
+def _expand_kv(t: torch.Tensor, kv_map: Optional[tuple]) -> torch.Tensor:
+    """(B, S, kv_heads, D) k or v as one kv head for each query head, where
+    the heads do not group evenly over the kv heads (``_HeadSplit``)."""
+    if kv_map is None:
+        return t
+    return t.index_select(2, torch.tensor(kv_map, device=t.device))
 
 
 class _Rows:
@@ -508,15 +543,19 @@ class Attention(nn.Module):
         heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
         k_proj, v_proj = self.k_proj, self.v_proj
         tp = _shard.tp_state()
+        split = q_cols = kv_rows = None
         if tp is not None:
-            # the local heads: q and o_proj arrive split, k/v whole, of which
-            # this rank takes its q heads' kv rows
-            _tp_refusals(kv=kv, lora=lora)
-            heads, kv_heads, rows = _tp_heads(cfg, tp)
-            k_proj, v_proj = _Rows(self.k_proj, rows), _Rows(self.v_proj, rows)
+            # this rank's share: q and o_proj arrive split, k/v whole, of
+            # which it takes the kv rows its query heads read
+            split = _tp_heads(cfg, tp)
+            heads, kv_heads = split.heads, split.kv_heads
+            q_cols, kv_rows = split.q_cols, split.kv_rows
+            k_proj, v_proj = _Rows(self.k_proj, kv_rows), _Rows(self.v_proj, kv_rows)
             x = tp.copy(x)
         lora_on_qkv = lora is not None and any(t in lora.pairs for t in _QKV)
+        uneven = split is not None and (split.gather_q or split.kv_map is not None)
         fused = (pre_norm_scale is not None and kv is None and not cfg.fp8 and not lora_on_qkv
+                 and not uneven
                  and fused_ops.prologue_supported(heads, kv_heads, cfg.head_dim,
                                                   b, s, x.shape[-1], device=x.device, dtype=dt))
         if fused:
@@ -531,24 +570,32 @@ class Attention(nn.Module):
             if pre_norm_scale is not None:
                 x = fused_ops.rms_norm_reference(x, pre_norm_scale, eps=cfg.rms_norm_eps,
                                                  norm_offset=cfg.norm_offset)
-            q = _add_delta(self.q_proj(x), lora, x, "q_proj")
-            k = _add_delta(k_proj(x), lora, x, "k_proj")
-            v = _add_delta(v_proj(x), lora, x, "v_proj")
+            q = _add_delta(self.q_proj(x), lora, x, "q_proj", tp, cols=q_cols)
+            k = _add_delta(k_proj(x), lora, x, "k_proj", tp, cols=kv_rows)
+            v = _add_delta(v_proj(x), lora, x, "v_proj", tp, cols=kv_rows)
+            if split is not None and split.gather_q:  # the whole heads this rank touches
+                lo = split.head_lo * cfg.head_dim
+                q = tp.gather_summed(q, -1)[..., lo:lo + heads * cfg.head_dim]
             q = q.reshape(b, s, heads, cfg.head_dim)
             k = k.reshape(b, s, kv_heads, cfg.head_dim)
             v = v.reshape(b, s, kv_heads, cfg.head_dim)
             q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
             k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        kv_map = None if split is None else split.kv_map
         if kv is not None:
-            out = _decode_attention(q, k, v, positions, kv, cfg.sliding_window)
+            out = _decode_attention(q, k, v, positions, kv, cfg.sliding_window, kv_map)
         else:
             out = dot_product_attention(
-                q, k, v, mask=mask, causal=cfg.causal, kv_lengths=kv_lengths,
-                implementation=cfg.attention_impl, window=cfg.sliding_window,
+                q, _expand_kv(k, kv_map), _expand_kv(v, kv_map), mask=mask, causal=cfg.causal,
+                kv_lengths=kv_lengths, implementation=cfg.attention_impl,
+                window=cfg.sliding_window,
             )
             out = checkpoint_name(out, "attn_out", cfg)
         out = out.reshape(b, s, heads * cfg.head_dim)
-        y = _add_delta(self.o_proj(out), lora, out, "o_proj")
+        if split is not None and split.gather_q:  # back to this rank's columns
+            lo = q_cols.start - split.head_lo * cfg.head_dim
+            out = out[..., lo:lo + q_cols.stop - q_cols.start]
+        y = _add_delta(self.o_proj(out), lora, out, "o_proj", tp, rows=q_cols)
         return y if tp is None else tp.reduce(y)
 
 
@@ -566,17 +613,19 @@ class MLP(nn.Module):
 
     def forward(self, x, lora: Optional[LayerLora] = None):
         tp = _shard.tp_state()
+        cols = None
         if tp is not None:  # gate/up split by columns, down by rows
-            _tp_refusals(lora=lora)
+            width = self.gate_proj.weight.shape[0]  # this rank's share
+            cols = slice(tp.rank * width, (tp.rank + 1) * width)
             x = tp.copy(x)
         with named_products("mlp_gate_out"):
             gate = self.gate_proj(x)
-        gate = _add_delta(gate, lora, x, "gate_proj")
+        gate = _add_delta(gate, lora, x, "gate_proj", tp, cols=cols)
         with named_products("mlp_up_out"):
             up = self.up_proj(x)
-        up = _add_delta(up, lora, x, "up_proj")
+        up = _add_delta(up, lora, x, "up_proj", tp, cols=cols)
         mid = F.silu(gate) * up
-        y = _add_delta(self.down_proj(mid), lora, mid, "down_proj")
+        y = _add_delta(self.down_proj(mid), lora, mid, "down_proj", tp, rows=cols)
         return y if tp is None else tp.reduce(y)
 
 
@@ -618,11 +667,19 @@ class MoE(nn.Module):
         self.aux_loss = None
 
     def forward(self, x):
-        if _shard.tp_state() is not None:
-            raise NotImplementedError("MoE experts under tensor parallelism are not ported yet: "
-                                      "ROADMAP.md, queue A7 part 4 (its remainder; expert "
-                                      "parallelism runs with tp_size 1)")
+        """Under tp the stacks' ``mlp`` dim is split (gate/up by columns,
+        down by rows: the reference's ``mlp -> tp``), so every dispatch
+        computes a partial sum of each expert's output, summed over tp at
+        the end. The router is whole and routes alike on every tp rank; the
+        combine weights enter through ``tp.copy``, whose backward sums the
+        partial gradients the experts' partial outputs give them."""
+        out = self._dispatch(x)
+        tp = _shard.tp_state()
+        return out if tp is None else tp.reduce(out)
+
+    def _dispatch(self, x):
         cfg = self.config
+        tp = _shard.tp_state()
         dt = _dtype(cfg)
         E, K = cfg.num_experts, cfg.num_experts_per_tok
         b, s, h = x.shape
@@ -631,6 +688,8 @@ class MoE(nn.Module):
         weights = weights / weights.sum(dim=-1, keepdim=True)
         w_gate, w_up, w_down = (w.to(dt) for w in (self.gate_proj, self.up_proj, self.down_proj))
         xc = x.to(dt)
+        if tp is not None:
+            xc, weights = tp.copy(xc), tp.copy(weights)
         # "auto" is the grouped products: exact on one device, the
         # shard-capacity schedule under ep (reference :588-604)
         dispatch = "ragged" if cfg.moe_dispatch == "auto" else cfg.moe_dispatch
@@ -651,7 +710,7 @@ class MoE(nn.Module):
             # the reference's capacity is the global batch's: the tokens of
             # every token rank go through it, and this rank keeps its rows
             out = self._global_capacity(xc.reshape(b * s, h), sel.reshape(b * s, K),
-                                        weights.reshape(b * s, K), w_gate, w_up, w_down)
+                                        weights.reshape(b * s, K), w_gate, w_up, w_down, b)
             self.aux_loss = moe_ops.load_balancing_loss(logits, sel, E)
             return out.reshape(b, s, h).to(x.dtype)
         if dispatch == "ragged":
@@ -675,19 +734,23 @@ class MoE(nn.Module):
         self.aux_loss = moe_ops.load_balancing_loss(logits, sel, E)
         return out.reshape(b, s, h).to(x.dtype)
 
-    def _global_capacity(self, x, sel, weights, w_gate, w_up, w_down):
-        """The capacity dispatch over every token rank's tokens (gathered in
-        the global batch's order), this rank's rows of the result."""
+    def _global_capacity(self, x, sel, weights, w_gate, w_up, w_down, rows: int):
+        """The capacity dispatch over every token rank's tokens, gathered
+        in the global batch's order (the reference's, :631-645: it runs on
+        the global arrays), this rank's rows of the result. With the
+        sequence split over sp each rank holds ``rows`` rows of one chunk,
+        and the gathered chunks are put back in row order first."""
         cfg = self.config
         tokens = _shard.token_state()
         n, T = tokens.size, x.shape[0]
-        if _shard.sequence_split() and _shard.sp_state() is not None:
-            raise NotImplementedError(
-                "moe_dispatch='capacity' under ep with the sequence split over sp: use "
-                "'auto'/'ragged' (the shard-capacity schedule), or 'dense'")
         xs = moe_ops._GatherRows.apply(x, tokens.group, n) if n > 1 else x
         sels = moe_ops._gather_plain(sel, tokens.group, n) if n > 1 else sel
         ws = moe_ops._GatherRows.apply(weights, tokens.group, n) if n > 1 else weights
+        sp = _shard.sp_state()
+        order = None
+        if _shard.sequence_split() and sp is not None:
+            order = moe_ops._token_order(n // sp.size, rows, sp.size, T // rows, x.device)
+            xs, sels, ws = xs[order], sels[order], ws[order]
 
         def experts_fn(buf):  # (E, C, h) -> (E, C, h)
             hidden = F.silu(torch.einsum("ech,ehf->ecf", buf, w_gate)) * torch.einsum(
@@ -696,6 +759,8 @@ class MoE(nn.Module):
 
         out = moe_ops.moe_dispatch_combine(xs, sels, ws, experts_fn, cfg.num_experts,
                                            capacity_factor=cfg.moe_capacity_factor)
+        if order is not None:
+            out = moe_ops.rank_major(out, order)
         return out.narrow(0, tokens.rank * T, T) if n > 1 else out
 
 
@@ -956,8 +1021,6 @@ class CausalLM(nn.Module):
                 lora: Optional[LoraState] = None):
         cfg = self.config
         dt = _dtype(cfg)
-        if decode and _shard.tp_state() is not None:
-            _tp_refusals(kv=True)
         x = _embed_tokens(self, input_ids, dt)
         if decode:
             x = self._decode_layers(x, paged, cache, lora)
@@ -1011,13 +1074,19 @@ class CausalLM(nn.Module):
             if not isinstance(cache, DecodeCache):
                 raise ValueError("decode=True needs a cache: models.generation.init_cache")
             positions = (cache.index + ar)[None, :].expand(b, s)
+        gather = _shard.layer_gather()
         for i, layer in enumerate(self.layers):
             if paged is not None:
                 key, value, key_scale, value_scale = cache.layer(i)
                 kv = (key, value, paged, key_scale, value_scale)
             else:
                 kv = (cache.key[i], cache.value[i], None, None, None)
-            x = layer(x, positions, kv=kv, lora=None if lora is None else lora.layer(i))
+            kw = {"kv": kv, "lora": None if lora is None else lora.layer(i)}
+            if gather is None:
+                x = layer(x, positions, **kw)
+            else:  # under a sharded forward: the layer's fsdp shards gathered
+                weights = gather(f"layers.{i}.", dict(layer.named_parameters()))
+                x = torch.func.functional_call(layer, weights, (x, positions), kw)
         if paged is None:
             cache.index += s
         return x

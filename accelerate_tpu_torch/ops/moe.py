@@ -305,6 +305,14 @@ def _token_order(n_groups: int, rows: int, sp: int, length: int, device) -> torc
     return idx.view(n_groups, sp, rows, length).transpose(1, 2).reshape(-1)
 
 
+def rank_major(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Rows taken in ``_token_order``'s global order back to the gathered
+    (rank-major) order."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    return x[inv]
+
+
 def moe_ragged_ep(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
                   w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor, *,
                   mesh=None, capacity_factor: float = 1.25, axis_name: str = "ep",
@@ -351,10 +359,8 @@ def moe_ragged_ep(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
                            num_experts=E, capacity_factor=capacity_factor)
     if ep.size > 1:
         contrib = _SumOver.apply(contrib, ep.group)
-    if order is not None:  # back to the gathered (rank-major) order
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(order.numel(), device=order.device)
-        contrib = contrib[inv]
+    if order is not None:
+        contrib = rank_major(contrib, order)
     return contrib.narrow(0, tokens.rank * T, T) if n > 1 else contrib
 
 

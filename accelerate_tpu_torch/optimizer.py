@@ -190,6 +190,9 @@ class AcceleratedOptimizer:
         self.opt_state: Optional[dict] = None
         self.gradient_state = GradientState()
         self._step_was_skipped = False
+        # under a plugin: the ShardedLayout of the params its state was made
+        # for (``Accelerator.prepare``), which the raw loop's step updates by
+        self.layout = None
 
     def init(self, params: Params) -> dict:
         self.opt_state = self.optimizer.init(params)
@@ -209,13 +212,28 @@ class AcceleratedOptimizer:
 
     def step(self, params: Params, grads: Params) -> Params:
         """The raw loop's update: applied in place on a sync boundary only
-        (``GradientState.sync_gradients``), and ``params`` returned."""
+        (``GradientState.sync_gradients``), and ``params`` returned. DTensor
+        params and gradients (``Accelerator.backward`` under a plugin) are
+        updated on each rank's local shards, under ZeRO-1/2 on its slice of
+        the moments, by the layout the state was placed for
+        (``parallel.runtime.ShardedLayout.work_set``)."""
         if self.opt_state is None:
             self.init(params)
         if not self.gradient_state.sync_gradients:
             self._step_was_skipped = True
             return params
         self._step_was_skipped = False
+        from .parallel.runtime import layout_for, to_local
+        from .parallel.sharding import is_dtensor
+
+        if any(is_dtensor(p) for p in params.values()):
+            lay = layout_for(params, self.layout)
+            local = {k: to_local(g) for k, g in grads.items()}
+            grads, work, state, finish = lay.work_set(local, params, self.opt_state,
+                                                      scattered=False)
+            self.apply_gradients(grads, work, state)
+            finish()
+            return params
         self.apply_gradients(grads, params, self.opt_state)
         return params
 

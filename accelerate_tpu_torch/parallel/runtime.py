@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -123,7 +124,8 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor
 
 
 class _GatherFsdp(torch.autograd.Function):
-    """All-gather over fsdp along a dim; the backward reduce-scatters."""
+    """All-gather over a group along a dim (fsdp's gather at use, and tp's
+    gather of the query columns); the backward reduce-scatters."""
 
     @staticmethod
     def forward(ctx, x, dim, group, n):
@@ -194,7 +196,15 @@ class TensorParallel:
         return _ReduceFromTP.apply(x, self.group)
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The tp ranks' chunks along ``dim``, for a value every rank then
+        uses alike (the logits): the backward keeps the local chunk."""
         return _GatherFromTP.apply(x, dim % x.dim(), self.group, self.size, self.rank)
+
+    def gather_summed(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The tp ranks' chunks along ``dim``, for a value each rank uses
+        in part (the query heads a rank's columns cut through): the
+        backward sums every rank's gradient of the local chunk."""
+        return _GatherFsdp.apply(x, dim % x.dim(), self.group, self.size)
 
     def vocab_embedding(self, ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         """A lookup into this rank's rows of a vocab-split table, summed over
@@ -263,6 +273,32 @@ def sharded_forward(gather: Optional[Callable[[str, dict], dict]] = None,
 
 def layer_gather() -> Optional[Callable[[str, dict], dict]]:
     return None if _ACTIVE is None else _ACTIVE.gather
+
+
+@contextlib.contextmanager
+def module_forward(model, params: Optional[dict] = None):
+    """Inside: a port model whose parameters are DTensors (or that runs on
+    ``params``, DTensors by its parameter names) runs on their local shards,
+    and ``module_forward`` yields those (the leaves split over fsdp
+    gathered, a port model's layers as each layer runs, detached). In a
+    running sharded step (an adapter's, whose layout is not the model's)
+    the step's context stays and only the layer gather becomes the model's;
+    outside one, the model's own context with the whole batch on every rank
+    (``apply_sharded``)."""
+    global _ACTIVE
+    layout = module_layout(model, params)
+    params = dict(model.named_parameters()) if params is None else params
+    params = {k: v.detach() for k, v in layout.local(params).items()}
+    if _ACTIVE is None:
+        with layout.forward_context(whole_batch=True):
+            yield layout.loss_params(params)
+        return
+    prev = _ACTIVE.gather
+    _ACTIVE.gather = layout._gather_prefix if layout.lazy_prefix else None
+    try:
+        yield layout.loss_params(params)
+    finally:
+        _ACTIVE.gather = prev
 
 
 def tp_state() -> Optional[TensorParallel]:
@@ -367,11 +403,10 @@ class ShardedLayout:
         # each leaf's gradient is summed over the token axes that do not
         # split it; every rank makes the same groups in the same order
         self.reduce_groups = {k: self._replica_group(k) for k in sorted(param_specs)}
-        if self.zero12 and self.tp.size > 1:
-            raise NotImplementedError(
-                "SHARD_OPT/SHARD_GRAD_OP with fsdp and tp both above 1: the reference's "
-                "moments then shard the whole parameter over fsdp alone, which the port's "
-                f"tp-split step does not hold (mesh {self.shape}); use FULL_SHARD")
+        # the raw loop's gradients keep the params' placements, ZeRO-2's too
+        self.param_reduce_groups = (
+            {k: self._replica_group(k, zero2=False) for k in sorted(param_specs)}
+            if self.zero2 else self.reduce_groups)
 
     # ---------------------------------------------------------------- #
     def axis(self, axis: str) -> AxisGroup:
@@ -383,14 +418,15 @@ class ShardedLayout:
                          _axes_index(self.coord, self.shape, axes),
                          tuple(axis_peers(self.rank, self.shape, axes)))
 
-    def _replica_group(self, name: str):
+    def _replica_group(self, name: str, zero2: Optional[bool] = None):
         """The group a gradient of leaf ``name`` is summed over: the token
         axes that split neither the leaf nor (ZeRO-2) its buffer, and not
         fsdp where the gather's reduce-scatter has summed over it."""
+        zero2 = self.zero2 if zero2 is None else zero2
         used = set(sharded_axes(self.param_specs[name], self.mesh))
         if self.gather_dims.get(name) is not None or (
-                self.zero2 and _axis_dim(self.buffer_specs[name], MESH_AXIS_FSDP,
-                                         self.mesh) is not None):
+                zero2 and _axis_dim(self.buffer_specs[name], MESH_AXIS_FSDP,
+                                    self.mesh) is not None):
             used.add(MESH_AXIS_FSDP)
         return axes_group(self.mesh, tuple(a for a in TOKEN_AXES if a not in used))
 
@@ -441,21 +477,24 @@ class ShardedLayout:
             return g
         return reduce_scatter_dim(g, d, self.groups[MESH_AXIS_FSDP], self.fsdp)
 
-    def reduce_grads_(self, grads: dict, scattered: bool = False) -> dict:
+    def reduce_grads_(self, grads: dict, scattered: bool = False,
+                      placed: bool = False) -> dict:
         """The gradients summed over the token ranks that share the leaf's
         shard (the module docstring) and divided by the number of token
         ranks, the tp-partial ones summed over tp first. A leaf the gather
         split over fsdp (or, ``scattered``, a ZeRO-2 buffer chunk) already
-        holds its fsdp sum. Returns the dict (a ZeRO-2 scatter replaces
-        entries)."""
+        holds its fsdp sum. ``placed``: each gradient keeps its parameter's
+        placement (the raw loop), with no ZeRO-2 scatter. Returns the dict
+        (a ZeRO-2 scatter replaces entries)."""
         dist = _dist()
+        groups = self.param_reduce_groups if placed else self.reduce_groups
         out = {}
         for k, g in grads.items():
             if self.tp.size > 1 and k in self.tp_partial:
                 dist.all_reduce(g, group=self.tp.group)
-            if self.zero2 and not scattered:
+            if self.zero2 and not scattered and not placed:
                 g = self.zero2_scatter(k, g)
-            dist.all_reduce(g, group=self.reduce_groups[k])
+            dist.all_reduce(g, group=groups[k])
             if self.data_size > 1:
                 g.div_(self.data_size)
             out[k] = g
@@ -493,14 +532,15 @@ class ShardedLayout:
     # ---------------------------------------------------------------- #
     # the update
     # ---------------------------------------------------------------- #
-    def work_set(self, grads: dict, params: dict, opt_state: dict):
+    def work_set(self, grads: dict, params: dict, opt_state: dict, scattered: bool = True):
         """``(grads, params, state, finish)``: plain tensors the optimizer
         updates in place, and ``finish()`` to run after it. Without ZeRO-1/2
         the local shards themselves. Under ZeRO-1/2 each leaf whose moment
-        is split over fsdp takes this rank's slice of its whole parameter
-        (and of its whole gradient under ZeRO-1); ``finish`` all-gathers
-        the updated slices into the whole parameter and hands the count
-        back."""
+        is split over fsdp takes this rank's fsdp slice of its local
+        parameter (whole on fsdp; under tp its tp-local slice), and of its
+        gradient unless the gradient is already ZeRO-2's scattered chunk
+        (``scattered``); ``finish`` all-gathers the updated slices over fsdp
+        into the local parameter and hands the count back."""
         lp = self.local(params)
         lstate = {k: (self.local(v) if isinstance(v, dict) else v) for k, v in opt_state.items()}
         if not self.zero12:
@@ -514,10 +554,10 @@ class ShardedLayout:
             if d is None:
                 wp[k], wg[k] = p, grads[k]
                 continue
-            (lo, hi) = local_bounds(self.moment_specs[k], p.shape, self.rank, self.mesh)[d]
+            lo, hi = self.moment_bounds(k, params[k].shape)
             wp[k] = p.narrow(d, lo, hi - lo).contiguous()
             g = grads[k]
-            wg[k] = g if self.zero2 else g.narrow(d, lo, hi - lo).contiguous()
+            wg[k] = g if (self.zero2 and scattered) else g.narrow(d, lo, hi - lo).contiguous()
             gathers.append((k, d))
 
         def finish():
@@ -527,6 +567,16 @@ class ShardedLayout:
                     lp[k].copy_(all_gather_dim(wp[k], d, self.groups[MESH_AXIS_FSDP], self.fsdp))
 
         return wg, wp, lstate, finish
+
+    def moment_bounds(self, name: str, shape) -> tuple[int, int]:
+        """This rank's moment chunk of leaf ``name`` (global ``shape``) along
+        its fsdp dim, as offsets into the local parameter: the moment's
+        bounds less the parameter's (under tp the parameter is its tp-local
+        slice, of which fsdp splits the moment further)."""
+        d = self.moment_dims[name]
+        lo, hi = local_bounds(self.moment_specs[name], shape, self.rank, self.mesh)[d]
+        base = local_bounds(self.param_specs[name], shape, self.rank, self.mesh)[d][0]
+        return lo - base, hi - base
 
     # ---------------------------------------------------------------- #
     # placing trees
@@ -670,6 +720,117 @@ def layout_of_placements(params: dict, plugin: Optional[ParallelismPlugin] = Non
                          specs, specs, lazy_prefix=lazy_prefix)
 
 
+def layout_for(params: dict, prepared: Optional[ShardedLayout] = None,
+               plugin: Optional[ParallelismPlugin] = None,
+               lazy_prefix: Optional[str] = None) -> ShardedLayout:
+    """The layout of DTensor ``params``: ``prepared`` (the one
+    ``Accelerator.prepare`` made) when it names them, else one read from
+    their placements under ``plugin``, or else ``prepared``'s plugin."""
+    if prepared is not None and set(prepared.param_specs) == set(params):
+        return prepared
+    return layout_of_placements(params, plugin or getattr(prepared, "plugin", None),
+                                lazy_prefix=lazy_prefix)
+
+
+# mesh -> (its sub-mesh of the axes above 1, their dims), one per mesh
+_LIVE_SUBMESH: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def live_submesh(mesh):
+    """The sub-mesh of ``mesh``'s axes above 1 (its first axis when none
+    is), made once a mesh. DTensor's sharding propagation is quick on it: on
+    the six-axis mesh the first op on each placement takes tens of
+    seconds."""
+    if mesh not in _LIVE_SUBMESH:
+        names = mesh.mesh_dim_names
+        live = tuple(n for i, n in enumerate(names) if mesh.size(i) > 1) or names[:1]
+        _LIVE_SUBMESH[mesh] = (mesh[live] if len(live) > 1 else mesh[live[0]],
+                               tuple(names.index(n) for n in live))
+    return _LIVE_SUBMESH[mesh]
+
+
+def place_live(local: dict, like: dict) -> dict:
+    """Each local tensor of ``local`` as a DTensor split as its namesake of
+    ``like`` (a parameter on the mesh) is, on the mesh's axes above 1
+    (:func:`live_submesh`), so that a caller can add such trees cheaply."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    out = {}
+    for k, t in local.items():
+        ref = like[k]
+        sub, dims = live_submesh(ref.device_mesh)
+        placements = tuple(ref.placements[d] if ref.device_mesh.size(d) > 1 else Replicate()
+                           for d in dims)
+        out[k] = DTensor.from_local(t, sub, placements, run_check=False, shape=ref.shape,
+                                    stride=ref.stride())
+    return out
+
+
+def dtensor_global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the squares of every DTensor leaf of ``tree`` (any mesh),
+    each distinct shard counted once: every rank adds its local squares
+    over the number of ranks holding the same shard, and the sum runs over
+    the world (``optimizer.global_norm`` of the local tensors at a world of
+    one)."""
+    from ..optimizer import global_norm
+
+    local = {k: to_local(v) for k, v in tree.items()}
+    dist = _dist()
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return global_norm(local)
+    world = dist.get_world_size()
+    total = None
+    for k, t in tree.items():
+        mesh = t.device_mesh
+        shards = math.prod(mesh.size(d) for d, p in enumerate(t.placements)
+                           if not p.is_replicate())
+        term = torch.sum(local[k].float() ** 2) / (world // shards)
+        total = term if total is None else total + term
+    dist.all_reduce(total)
+    return torch.sqrt(total)
+
+
+def place_like(local: dict, like: dict) -> dict:
+    """Each local tensor of ``local`` as a DTensor with the mesh,
+    placements, shape and stride of its namesake in ``like`` (a plain
+    namesake: the tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for k, t in local.items():
+        ref = like[k]
+        out[k] = (DTensor.from_local(t, ref.device_mesh, ref.placements, run_check=False,
+                                     shape=ref.shape, stride=ref.stride())
+                  if is_dtensor(ref) else t)
+    return out
+
+
+def module_layout(model, params: Optional[dict] = None) -> ShardedLayout:
+    """The layout of a module whose parameters are DTensors: the one
+    ``Accelerator.prepare`` made for it, else one read from the placements
+    (a port transformer gathering each layer as it runs), kept on the
+    module. ``params`` (DTensors by the module's parameter names) other than
+    the module's own: the layout read from their placements."""
+    from torch import nn
+
+    mine = dict(model.named_parameters())
+    own = params is None or (params.keys() == mine.keys()
+                             and all(params[k] is v for k, v in mine.items()))
+    params = mine if params is None else params
+    transformer = (callable(getattr(model, "logical_axes", None))
+                   and isinstance(getattr(model, "layers", None), nn.ModuleList))
+    layout = layout_for(params, getattr(model, "_apply_layout", None) if own else None,
+                        lazy_prefix="layers." if transformer else None)
+    if own:
+        model._apply_layout = layout
+    return layout
+
+
+def is_sharded_module(model) -> bool:
+    """Whether any parameter of ``model`` is a DTensor."""
+    return any(is_dtensor(p) for p in model.parameters())
+
+
 def apply_sharded(model, *args, **kwargs):
     """``model(*args, **kwargs)`` for a module whose parameters are
     DTensors (a module prepared under a plugin, or loaded onto a mesh by
@@ -678,18 +839,7 @@ def apply_sharded(model, *args, **kwargs):
     it is used (a port model's layers one at a time), the products split
     over tp and the experts over ep, as in the train step. Every rank of the
     mesh calls it with the same whole batch, and gets the whole output."""
-    from torch import nn
-
-    params = dict(model.named_parameters())
-    sharded = [v for v in params.values() if is_dtensor(v)]
-    if not sharded:
+    if not is_sharded_module(model):
         return model(*args, **kwargs)
-    layout = getattr(model, "_apply_layout", None)
-    if layout is None or set(layout.param_specs) != set(params):
-        transformer = (callable(getattr(model, "logical_axes", None))
-                       and isinstance(getattr(model, "layers", None), nn.ModuleList))
-        layout = layout_of_placements(params, lazy_prefix="layers." if transformer else None)
-        model._apply_layout = layout
-    with torch.no_grad(), layout.forward_context(whole_batch=True):
-        return torch.func.functional_call(model, layout.loss_params(layout.local(params)), args,
-                                          kwargs)
+    with torch.no_grad(), module_forward(model) as params:
+        return torch.func.functional_call(model, params, args, kwargs)

@@ -52,6 +52,7 @@ Waiting for later parts of queue A7: ``hierarchical_psum`` (part 5), and
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
@@ -306,7 +307,7 @@ def grad_buffer_shardings(params: dict, mesh: Any, plugin: Optional[ParallelismP
                           ) -> dict[str, Spec]:
     """The accumulated-gradient buffer's specs under ZeRO-2 (reference
     :280): the moments'."""
-    return infer_opt_state_shardings(params, mesh, plugin, logical_specs)
+    return moment_shardings(params, mesh, plugin, logical_specs)
 
 
 def zero12_shards(plugin: Optional[ParallelismPlugin], mesh: Any) -> bool:
@@ -322,8 +323,15 @@ def moment_shardings(params: dict, mesh: Any, plugin: Optional[ParallelismPlugin
                      logical_specs: Optional[dict[str, LeafAxes]] = None) -> dict[str, Spec]:
     """The moments' specs: ``infer_opt_state_shardings``' under ZeRO-1/2
     with fsdp above 1, else their parameters' (the reference's moments
-    follow their parameters there)."""
+    follow their parameters there). Under ZeRO-1/2 with tp above 1 too,
+    each rank's parameter is its tp-local slice, whole on fsdp, and its
+    moments split that slice over fsdp: FULL_SHARD's spec. The reference
+    splits the whole parameter over fsdp alone there; AdamW is elementwise,
+    so either split updates the same values."""
     if zero12_shards(plugin, mesh):
+        if mesh_shape_of(mesh)[MESH_AXIS_TENSOR] > 1:
+            full = dataclasses.replace(plugin, sharding_strategy=ShardingStrategy.FULL_SHARD)
+            return infer_param_shardings(params, mesh, full, logical_specs)
         return infer_opt_state_shardings(params, mesh, plugin, logical_specs)
     return infer_param_shardings(params, mesh, plugin, logical_specs)
 

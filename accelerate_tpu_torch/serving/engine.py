@@ -218,6 +218,13 @@ class ServingEngine:
             raise ValueError("max_retained_results must be >= 1 (or None)")
         if gauge_interval < 0:
             raise ValueError("gauge_interval must be >= 0 (0 disables)")
+        from ..parallel.runtime import is_sharded_module
+
+        if is_sharded_module(model):
+            raise NotImplementedError(
+                "ServingEngine over a sharded (DTensor) model is not ported yet (ROADMAP.md, "
+                "queue A7 part 4 (the engine)); decode it with models.generation's generate "
+                "or make_generate_fn")
         self.model = model
         self.device = model.embed.weight.device
         if adapters is not None and adapters.device != self.device:

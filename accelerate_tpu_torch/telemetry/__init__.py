@@ -6,7 +6,7 @@ training step records, its serving and soak records and its buffer census
 :class:`TelemetryConfig`, the sinks (:class:`JSONLSink`,
 :class:`PrometheusTextSink`) and the heartbeat watchdog
 (:class:`HeartbeatMonitor`, :func:`scan_heartbeats`). The HTTP exporter
-and ``TrackerBridgeSink`` are not ported yet (ROADMAP.md, queue A item 6).
+and ``TrackerBridgeSink`` are not ported yet (ROADMAP.md, queue A10).
 """
 
 from .collector import StepTelemetry

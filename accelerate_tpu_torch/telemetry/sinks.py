@@ -47,7 +47,7 @@ renamed to ``step_time_seconds``, ``dispatch_seconds``,
 gives ``accelerate_tpu_goodput_pct`` and ``accelerate_tpu_badput_*_s``);
 ``anomaly`` records, like every other kind the reference does not render,
 are ignored (they travel through JSONL and the flight recorder). ``audit``
-records and ``TrackerBridgeSink`` wait for ROADMAP.md, queue A item 6.
+records and ``TrackerBridgeSink`` wait for ROADMAP.md, queue A10.
 
 Training record kinds (the reference's schema, :254-283): ``step``,
 ``compile``, ``checkpoint``; and with diagnostics ``goodput`` (``step``,

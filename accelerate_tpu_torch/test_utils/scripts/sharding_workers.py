@@ -175,7 +175,8 @@ def _train_run(out_dir: str, run: dict) -> None:
     calls = run.get("calls", run.get("steps", 3) * accum)
     lr = run.get("lr", 0.5)
     name = run.get("optimizer", "sgd")
-    wd = {} if name == "sgd" else {"weight_decay": run.get("weight_decay", 1e-4)}
+    wd = {} if name == "sgd" else {"weight_decay": run.get("weight_decay", 1e-4),
+                                    "eps": run.get("eps", 1e-8)}
     opt = {"sgd": sgd, "adamw": adamw, "fused_adamw": fused_adamw}[name](lr, **wd)
     kind = run.get("model", "tiny_lm")
     model = None
@@ -225,6 +226,8 @@ def _train_run(out_dir: str, run: dict) -> None:
             norms.append(float(metrics["grad_norm"]))
             finite.append(bool(metrics["grads_finite"]))
     _unplant_inf()
+    if run.get("save"):
+        acc.save_state(os.path.join(out_dir, run["save"]), carry=carry)
     state = (acc.get_state_dict(tree) if model is not None
              else {k: gather_full(v).detach().clone() for k, v in params.items()})
     opt_state = carry["opt_state"]
@@ -236,9 +239,12 @@ def _train_run(out_dir: str, run: dict) -> None:
         dist.all_gather_object(everyone, mine)
     else:  # one process, no group: the unsharded run the tests compare with
         everyone = [mine]
+    whole_moments = ({key: {k: gather_full(v).detach().clone() for k, v in opt_state[key].items()}
+                      for key in ("mu", "nu")} if run.get("save") else None)
     if rank == 0:
         _save(out_dir, f"{run['name']}.pt", {
             "losses": losses, "norms": norms, "finite": finite, "params": state,
+            "whole_moments": whole_moments,
             "specs": shardings_of(params), "moments": moments, "buffer": buffer,
             "ranks": everyone, "data_size": data_size,
             "loss_scale": (float(carry["loss_scale"].scale) if "loss_scale" in carry
@@ -257,10 +263,12 @@ def train_runs_worker(out_dir: str, runs: list, kernel_checks: bool = False):
     ``init.pt``), ``"mlp"`` (the reference ZeRO tests' toy, from
     ``out_dir/mlp_init.npz``) or ``"vec"`` (a shardable vector weight on
     ``RegressionDataset``); ``rows`` of each global batch; ``calls`` (or
-    ``steps`` x ``accum``); ``optimizer``, ``lr`` and ``weight_decay``;
+    ``steps`` x ``accum``); ``optimizer``, ``lr``, ``weight_decay`` and ``eps``;
     ``max_grad_norm``;
     ``remat``; ``step_before_carry``; ``plant_inf``: ``(call, rank)``, an
-    inf put into that rank's gradient shards. Process 0 writes
+    inf put into that rank's gradient shards; ``save``: a directory of
+    ``out_dir`` the final carry is saved into (``save_state``), and the
+    record then holds the whole moments too. Process 0 writes
     ``out_dir/<name>.pt``: losses, grad norms and finite flags of the
     optimizer steps, the whole final params, the specs of the params, the
     moments and the buffer, and every rank's rows, held flag and metrics.

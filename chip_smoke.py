@@ -349,7 +349,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    file its writer's); at world 1 on the CPU, on the card without a plugin
    and on the card under FULL_SHARD, ``load_state(allow_reshape=True)``
    gives every param bitwise, and two more steps on the card agree with two
-   on the CPU (RESTORE_TOL, SMALL_UPDATE_TOL).
+   on the CPU (RESTORE_TOL, SMALL_UPDATE_TOL). (d)-(f), in an NCCL group of
+   one, each on FULL_SHARD DTensor params against its run without a plugin:
+   (d) the main path's model decoded greedily, ``make_generate_fn`` and
+   ``generate`` of SHARD_DECODE["new"] tokens from a seeded (2, 512) prompt
+   (the forward inside the model's sharded context); (e) the raw loop over
+   the main path's model, ``accumulate`` at K 2 over MAIN's batch for 2
+   optimizer steps with ``backward``, the gradients' sum, ``clip_grad_norm_``
+   and adamw's ``step``; (f) phase 17's adapter step over the bf16 base (an
+   adapter whose B is not zero). Hard: (d)'s tokens bitwise, ``generate``'s
+   equal to ``make_generate_fn``'s and its decode step one CUDA graph; (e)'s
+   losses, grad norms and params bitwise, B1-B3 exactly the run without a
+   plugin's launches (16 each); (f)'s losses and adapter bitwise, B1-B3 20
+   each. Each prints its s/token or median step and its peak.
 21. pipelines, sequence and expert parallelism (``--pipe-only``). One card
    holds one rank, so each mechanism's rank bodies run in one process
    (``test_utils/pipeline_runner.py``, through the library's tick table,
@@ -460,6 +472,7 @@ import sys
 import threading
 import tempfile
 import time
+from contextlib import contextmanager
 
 MAIN = dict(B=2, S=2048, H=32, Hkv=8, D=128)  # llama3_8b attention at the main path's batch
 STEPS = 5
@@ -1381,6 +1394,49 @@ def reset_counts(wrappers) -> None:
             w.by_design = dict.fromkeys(w.by_design, 0)
 
 
+@contextmanager
+def nccl_group_of_one(port):
+    """The launcher's environment for a group of one (NCCL on the card) set
+    while inside; on the way out the group is ended, the singletons reset
+    and the environment cleared."""
+    import torch
+
+    from accelerate_tpu_torch.launchers import _free_port
+
+    os.environ.update({"ACCELERATE_TPU_NUM_PROCESSES": "1", "ACCELERATE_TPU_PROCESS_ID": "0",
+                       "ACCELERATE_TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"})
+    try:
+        yield
+    finally:
+        if port.AcceleratorState._shared_state:
+            port.AcceleratorState().partial_state.destroy_process_group()
+        port.AcceleratorState._reset_state(reset_partial_state=True)
+        port.GradientState._reset_state()
+        for key in ("NUM_PROCESSES", "PROCESS_ID", "COORDINATOR_ADDRESS"):
+            os.environ.pop("ACCELERATE_TPU_" + key, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def fresh_accelerator(torch, port, plugin=None, **kw):
+    """A fresh bf16 Accelerator under ``plugin`` (None: none), what earlier
+    runs cached handed back first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    port.AcceleratorState._reset_state(reset_partial_state=True)
+    port.GradientState._reset_state()
+    return port.Accelerator(mixed_precision="bf16", parallelism_plugin=plugin, **kw)
+
+
+def main_model(torch, port, acc, seed: int = 0, fused_kernels: bool = False):
+    """The main path's 4-layer llama3_8b-width CausalLM in bf16 on the card,
+    its weights from ``seed``."""
+    cfg = port.TransformerConfig.llama3_8b(num_layers=NUM_LAYERS, dtype="bfloat16",
+                                           max_seq_len=MAIN["S"], fused_kernels=fused_kernels)
+    return cfg, port.CausalLM(cfg, device=acc.device,
+                              generator=torch.Generator(device=acc.device).manual_seed(seed))
+
+
 def build_path(torch, port, fused_kernels: bool, fused_optimizer: bool, seed: int = 0,
                plugin=None, accum: int = 1):
     """The 4-layer llama3_8b-width CausalLM in bf16 (``fused_kernels`` as
@@ -1390,16 +1446,8 @@ def build_path(torch, port, fused_kernels: bool, fused_optimizer: bool, seed: in
     ``plugin``: the Accelerator's ``ParallelismPlugin``; ``accum``: its
     gradient accumulation steps (unfused). Returns the step, its carry, the
     loader and the parameter count."""
-    cfg = port.TransformerConfig.llama3_8b(num_layers=NUM_LAYERS, dtype="bfloat16",
-                                           max_seq_len=MAIN["S"], fused_kernels=fused_kernels)
-    gc.collect()
-    torch.cuda.empty_cache()  # hand back what earlier phases cached
-    port.AcceleratorState._reset_state(reset_partial_state=True)
-    port.GradientState._reset_state()
-    acc = port.Accelerator(mixed_precision="bf16", parallelism_plugin=plugin,
-                           gradient_accumulation_steps=accum)
-    model = port.CausalLM(cfg, device=acc.device,
-                          generator=torch.Generator(device=acc.device).manual_seed(seed))
+    acc = fresh_accelerator(torch, port, plugin, gradient_accumulation_steps=accum)
+    cfg, model = main_model(torch, port, acc, seed, fused_kernels=fused_kernels)
     n_params = sum(p.numel() for p in model.parameters())
     tokens = torch.randint(0, cfg.vocab_size, (MAIN["B"], MAIN["S"]),
                            generator=torch.Generator().manual_seed(seed)).numpy()
@@ -6008,6 +6056,10 @@ SHARD_RESTORE = dict(steps=3, rows=4, more=2, lr=0.5, clip=1.0, seed=0, fresh_se
                      plugin=dict(dp_size=1, fsdp_size=2, tp_size=2))
 # (name, strategy or None, fused path, accumulation K); each plugin run is
 # held bit for bit against the no-plugin run before it
+# (d)-(f): a decode of the main path's model, its raw loop and phase 17's
+# adapter step, each on FULL_SHARD DTensor params against its run without
+SHARD_DECODE = dict(prompt=512, new=16, seed=3)
+SHARD_RAW = dict(K=2, steps=2)
 SHARD_RUNS = (("none", None, False, 1), ("no_shard", "no_shard", False, 1),
               ("shard_opt", "shard_opt", False, 1), ("full_shard", "full_shard", False, 1),
               ("none_k2", None, False, 2), ("shard_grad_op_k2", "shard_grad_op", False, 2),
@@ -6017,14 +6069,11 @@ SHARD_RUNS = (("none", None, False, 1), ("no_shard", "no_shard", False, 1),
 def shard_runs(torch, port, wrappers, rep: Report, checks: dict) -> dict:
     """Phase 20 (a) and (b) (SHARD_RUNS), every run in one NCCL group of
     one. Returns each run's readings."""
-    from accelerate_tpu_torch.launchers import _free_port
     from accelerate_tpu_torch.parallel.runtime import to_local
     from accelerate_tpu_torch.parallel.sharding import is_dtensor
 
-    os.environ.update({"ACCELERATE_TPU_NUM_PROCESSES": "1", "ACCELERATE_TPU_PROCESS_ID": "0",
-                       "ACCELERATE_TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"})
     runs, base = {}, None
-    try:
+    with nccl_group_of_one(port):
         for name, strategy, fused_path, accum in SHARD_RUNS:
             plugin = None if strategy is None else port.ParallelismPlugin(
                 sharding_strategy=port.ShardingStrategy(strategy))
@@ -6076,15 +6125,168 @@ def shard_runs(torch, port, wrappers, rep: Report, checks: dict) -> dict:
                 base = None  # the last run held against this base
             gc.collect()
             torch.cuda.empty_cache()
-    finally:
-        port.AcceleratorState().partial_state.destroy_process_group()
-        port.AcceleratorState._reset_state(reset_partial_state=True)
-        port.GradientState._reset_state()
-        for key in ("NUM_PROCESSES", "PROCESS_ID", "COORDINATOR_ADDRESS"):
-            os.environ.pop("ACCELERATE_TPU_" + key, None)
-    gc.collect()
-    torch.cuda.empty_cache()
     return runs
+
+
+def shard_decode_run(torch, port, plugin, rep: Report, label: str) -> dict:
+    """Phase 20 (d), one run: the main path's model prepared under ``plugin``,
+    ``make_generate_fn`` and ``generate`` of SHARD_DECODE["new"] greedy
+    tokens from a seeded (MAIN["B"], SHARD_DECODE["prompt"]) prompt; the
+    decode step's s/token from replays of its program."""
+    from accelerate_tpu_torch.models.generation import generate, make_generate_fn
+
+    acc = fresh_accelerator(torch, port, plugin)
+    cfg, model = main_model(torch, port, acc)
+    model = acc.prepare(model)
+    prompt = torch.randint(0, cfg.vocab_size, (MAIN["B"], SHARD_DECODE["prompt"]),
+                           generator=torch.Generator().manual_seed(SHARD_DECODE["seed"]))
+    prompt = prompt.to(acc.device)
+    torch.cuda.reset_peak_memory_stats()
+    fn = make_generate_fn(model, max_new_tokens=SHARD_DECODE["new"])
+    tokens = fn(prompt)
+    eager = generate(model, prompt, max_new_tokens=SHARD_DECODE["new"])
+    _, _, program = fn.decode_programs[MAIN["B"]]
+    times = []
+    for _ in range(SHARD_DECODE["new"]):  # the cache holds prompt + new; room for as many
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out = {"tokens": tokens.cpu(), "eager": eager.cpu(), "traces": fn.trace_counts(),
+           "graph": len(fn.decode_programs) == 1 and program.graph is not None,
+           "s_per_token": statistics.median(times), "peak": torch.cuda.max_memory_allocated()}
+    rep.line(f"shard (d) {label}: decode step {out['s_per_token']} s/token (median of "
+             f"{len(times)} replays), one CUDA graph {out['graph']}, traces "
+             f"{json.dumps(out['traces'])}, peak {out['peak'] / 2**30} GiB, new tokens "
+             f"{tokens[:, SHARD_DECODE['prompt']:].tolist()}")
+    del model, fn, program, acc
+    return out
+
+
+def shard_raw_run(torch, port, wrappers, plugin, rep: Report, label: str) -> dict:
+    """Phase 20 (e), one run: the raw loop over the main path's model under
+    ``plugin``: ``accumulate`` at K SHARD_RAW["K"] over MAIN's batch,
+    ``backward``, the sum of the microbatches' gradients, ``clip_grad_norm_``
+    (1.0) and adamw's ``step`` on each boundary, SHARD_RAW["steps"]
+    optimizer steps; every launch counter set to 0 just before."""
+    from accelerate_tpu_torch.parallel.runtime import to_local
+
+    K = SHARD_RAW["K"]
+    acc = fresh_accelerator(torch, port, plugin, gradient_accumulation_steps=K)
+    cfg, model = main_model(torch, port, acc)
+    tokens = torch.randint(0, cfg.vocab_size, (K * SHARD_RAW["steps"] * MAIN["B"], MAIN["S"]),
+                           generator=torch.Generator().manual_seed(0)).numpy()
+    model, opt, loader = acc.prepare(model, port.adamw(3e-4), port.DataLoader(
+        [{"input_ids": row} for row in tokens], batch_size=MAIN["B"]))
+    params = dict(model.named_parameters())
+    loss_fn = port.CausalLM.loss_fn(model)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    total, losses, norms, times = None, [], [], []
+    for batch in loader:
+        t0 = time.perf_counter()
+        with acc.accumulate(model):
+            loss, grads = acc.backward(loss_fn, params, batch)
+            total = grads if total is None else {k: total[k] + g for k, g in grads.items()}
+            del grads
+            if acc.sync_gradients:
+                total, norm = acc.clip_grad_norm_(total, 1.0)
+                opt.step(params, total)
+                norms.append(float(norm))
+                total = None
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
+    n = NUM_LAYERS * K * SHARD_RAW["steps"]
+    check_launches(f"shard (e) {label}", launches, by_design,
+                   {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n})
+    out = {"losses": losses, "norms": norms, "launches": launches,
+           "median_s": statistics.median(times[1:]), "peak": torch.cuda.max_memory_allocated(),
+           "params": {k: to_local(v).detach().cpu() for k, v in params.items()}}
+    rep.line(f"shard (e) {label}: losses {losses}, grad norms {norms}; microbatch seconds "
+             f"{times}, median of calls 2-{len(times)} {out['median_s']} s; peak "
+             f"{out['peak'] / 2**30} GiB; launches {json.dumps(launches)}")
+    del model, opt, loader, params, acc
+    return out
+
+
+def shard_lora_run(torch, port, wrappers, plugin, rep: Report, label: str) -> dict:
+    """Phase 20 (f), one run: phase 17's adapter step (ACCUM_CFG's model in
+    bf16, rank LORA["rank"] on LORA["targets"], adamw 3e-4, clip 1.0,
+    ``lora_timed``'s warmup and timed steps), over the bf16 base prepared
+    under ``plugin``, with an adapter whose B is not zero."""
+    import numpy as np
+
+    from accelerate_tpu_torch import adapters
+    from accelerate_tpu_torch.accelerator import _flat_params
+    from accelerate_tpu_torch.parallel.runtime import to_local
+
+    acc = fresh_accelerator(torch, port, plugin)
+    cfg = port.TransformerConfig(**ACCUM_CFG)
+    model = port.CausalLM(cfg, device=acc.device,
+                          generator=torch.Generator(device=acc.device).manual_seed(0))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (LORA["B"], cfg.max_seq_len))
+    batch = {"input_ids": torch.from_numpy(ids).to(acc.device)}
+    model.requires_grad_(False)
+    model = acc.prepare(model)
+    lcfg = adapters.LoraConfig(rank=LORA["rank"], alpha=LORA["alpha"],
+                               target_modules=LORA["targets"])
+    adapter = acc.prepare(nonzero_adapter(torch, adapters, cfg, lcfg, 1, acc.device))
+    opt = acc.prepare(port.adamw(3e-4))
+    step = acc.unified_step(adapters.lora_loss_fn(model, model, lcfg,
+                                                  compute_dtype=torch.bfloat16),
+                            max_grad_norm=1.0)
+    carry, losses, seconds, launches, by_design, peak = lora_timed(
+        torch, wrappers, step, acc.init_carry(adapter, opt), batch)
+    check_launches(f"shard (f) {label}", launches, by_design, lora_flash_launches(cfg))
+    out = {"losses": losses, "step_s": seconds, "peak": peak, "launches": launches,
+           "adapter": {k: to_local(v).detach().cpu() for k, v in _flat_params(adapter).items()}}
+    rep.line(f"shard (f) {label}: losses {losses}; {seconds} s a timed step; peak "
+             f"{peak / 2**30} GiB; launches {json.dumps(launches)}")
+    del model, adapter, opt, step, carry, acc
+    return out
+
+
+def shard_paths(torch, port, wrappers, rep: Report, checks: dict) -> dict:
+    """Phase 20 (d)-(f) in an NCCL group of one: decoding, the raw loop and
+    the LoRA step with the params as FULL_SHARD DTensors, each held bit for
+    bit against its run without a plugin. Returns each run's launches."""
+    full = lambda: port.ParallelismPlugin(  # noqa: E731
+        sharding_strategy=port.ShardingStrategy.FULL_SHARD)
+    out = {}
+    with nccl_group_of_one(port):
+        base = shard_decode_run(torch, port, None, rep, "without a plugin")
+        dec = shard_decode_run(torch, port, full(), rep, "FULL_SHARD")
+        checks["shard_decode_tokens_bitwise"] = torch.equal(dec["tokens"], base["tokens"])
+        checks["shard_decode_generate_bitwise"] = (torch.equal(dec["eager"], base["eager"])
+                                                   and torch.equal(dec["eager"], dec["tokens"]))
+        checks["shard_decode_one_graph"] = dec["graph"] and base["graph"]
+        out["decode"] = {k: {"s_per_token": r["s_per_token"], "peak": r["peak"]}
+                         for k, r in (("none", base), ("full_shard", dec))}
+        del base, dec
+        base = shard_raw_run(torch, port, wrappers, None, rep, "without a plugin")
+        raw = shard_raw_run(torch, port, wrappers, full(), rep, "FULL_SHARD")
+        checks["shard_raw_losses_bitwise"] = raw["losses"] == base["losses"]
+        checks["shard_raw_norms_bitwise"] = raw["norms"] == base["norms"]
+        checks["shard_raw_params_bitwise"] = all(torch.equal(raw["params"][k], v)
+                                                 for k, v in base["params"].items())
+        checks["shard_raw_launches"] = raw["launches"] == base["launches"]
+        out["raw"] = {k: {"median_s": r["median_s"], "peak": r["peak"],
+                          "launches": r["launches"]} for k, r in (("none", base),
+                                                                  ("full_shard", raw))}
+        del base, raw
+        base = shard_lora_run(torch, port, wrappers, None, rep, "without a plugin")
+        lora = shard_lora_run(torch, port, wrappers, full(), rep, "FULL_SHARD")
+        checks["shard_lora_losses_bitwise"] = lora["losses"] == base["losses"]
+        checks["shard_lora_adapter_bitwise"] = all(torch.equal(lora["adapter"][k], v)
+                                                   for k, v in base["adapter"].items())
+        out["lora"] = {k: {"step_s": r["step_s"], "peak": r["peak"], "launches": r["launches"]}
+                       for k, r in (("none", base), ("full_shard", lora))}
+        del base, lora
+    return out
 
 
 def prologue_row(torch, fused, rep: Report, label: str) -> dict:
@@ -6278,6 +6480,9 @@ def phase20(torch, port, wrappers, rep: Report) -> list[dict]:
     summary = {name: {k: run[k] for k in ("median_s", "peak", "allreduce_calls", "nccl_kernels")
                       if k in run} for name, run in runs.items()}
     rep.line(f"shard (a)(b) by run: {json.dumps(summary)}")
+    t_paths = time.perf_counter()
+    paths = shard_paths(torch, port, wrappers, rep, checks)
+    rep.line(f"shard (d)-(f) by run: {json.dumps(paths)}")
     t1 = time.perf_counter()
     rows = time_flash_shape(torch, fa, rep, "shard", MAIN["B"], MAIN["S"], MAIN["H"],
                             MAIN["Hkv"], MAIN["D"], bwd_library_on_dq=True)
@@ -6295,7 +6500,8 @@ def phase20(torch, port, wrappers, rep: Report) -> list[dict]:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     rep.line(f"shard checks {json.dumps(checks)}")
-    rep.line(f"phase 20: (a)(b) {t1 - t0:.1f} s, kernel rows {t2 - t1:.1f} s, (c) "
+    rep.line(f"phase 20: (a)(b) {t_paths - t0:.1f} s, (d)-(f) {t1 - t_paths:.1f} s, kernel "
+             f"rows {t2 - t1:.1f} s, (c) "
              f"{time.perf_counter() - t2:.1f} s, in all {time.perf_counter() - t0:.1f} s")
     failed = [k for k, ok in checks.items() if not ok]
     if failed:

@@ -258,16 +258,41 @@ def test_three_unified_steps_match_jax():
 
 
 def test_expert_parallel_raises_naming_a7():
-    """Expert parallelism is ported (queue A7 part 4); MoE experts under
-    tensor parallelism are what part 4 leaves, and raise naming it."""
+    """MoE experts under tensor parallelism, which queue A7 part 4 left and
+    refused, now compute: each tp rank runs the dispatch on its slice of the
+    stacks' ``mlp`` dim (gate/up by columns, down by rows) and returns a
+    partial sum, which the block sums over tp. Here, with no process group,
+    the two ranks' partial outputs of each dispatch add up to the whole
+    stacks' output within MODEL_TOL, and the model runs as before outside a
+    tp context. (The tp-2 run over two gloo processes is
+    ``test_torch_port_rules.py``'s test of this name.)"""
     from accelerate_tpu_torch.parallel import runtime
 
-    model = port.CausalLM(port.TransformerConfig(**MODEL), device="cpu")
+    x = torch.randn(2, 8, MODEL["hidden_size"], generator=torch.Generator().manual_seed(1))
+    f = MODEL["intermediate_size"] // 2
+    for dispatch in ("ragged", "capacity", "dense"):
+        kw = dict(MODEL, num_layers=1, moe_dispatch=dispatch, moe_capacity_factor=1.0)
+        model = port.CausalLM(port.TransformerConfig(**kw), device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+        moe = model.layers[0].moe
+        with torch.no_grad():
+            whole = moe(x)
+            stacks = {k: getattr(moe, k).detach().clone()
+                      for k in ("gate_proj", "up_proj", "down_proj")}
+            partial = []
+            for rank in range(2):
+                cut = slice(rank * f, (rank + 1) * f)
+                moe.gate_proj = torch.nn.Parameter(stacks["gate_proj"][:, :, cut])
+                moe.up_proj = torch.nn.Parameter(stacks["up_proj"][:, :, cut])
+                moe.down_proj = torch.nn.Parameter(stacks["down_proj"][:, cut, :])
+                with runtime.sharded_forward(tp=runtime.TensorParallel(None, 2, rank)):
+                    partial.append(moe._dispatch(x))
+        np.testing.assert_allclose((partial[0] + partial[1]).numpy(), whole.numpy(),
+                                   atol=MODEL_TOL, rtol=MODEL_TOL, err_msg=dispatch)
+        assert not torch.allclose(partial[0], whole, atol=MODEL_TOL), dispatch
     ids = torch.zeros(1, 8, dtype=torch.long)
-    with runtime.sharded_forward(tp=runtime.TensorParallel(None, 2, 0)):
-        with pytest.raises(NotImplementedError, match="queue A7 part 4"):
-            model.layers[0].moe(torch.zeros(1, 8, MODEL["hidden_size"]))
-    assert model(ids).shape == (1, 8, MODEL["vocab_size"])
+    assert port.CausalLM(port.TransformerConfig(**MODEL), device="cpu")(ids).shape == (
+        1, 8, MODEL["vocab_size"])
 
 
 def test_top_k_takes_the_lower_index_on_ties():
