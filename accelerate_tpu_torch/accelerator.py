@@ -135,6 +135,7 @@ from .utils.dataclasses import (
     ProjectConfiguration,
 )
 from .utils.memory import release_memory
+from .utils.quantization import QuantizedTensor
 from .utils.profiling import ProfileKwargs
 from .utils.random import KeyChain, set_seed
 
@@ -173,11 +174,22 @@ def _like_tree(tree: dict, flat: dict, prefix: str = "") -> dict:
 
 
 def _is_param_tree(obj: Any) -> bool:
-    """A (nested) dict whose leaves are all tensors."""
+    """A (nested) dict whose leaves are all tensors (or quantized weights,
+    ``utils.quantization.QuantizedTensor``)."""
     if not isinstance(obj, dict) or not obj:
         return False
-    return all(_is_param_tree(v) if isinstance(v, dict) else isinstance(v, torch.Tensor)
-               for v in obj.values())
+    return all(_is_param_tree(v) if isinstance(v, dict)
+               else isinstance(v, (torch.Tensor, QuantizedTensor)) for v in obj.values())
+
+
+def _dense_like(leaf: Any) -> torch.Tensor:
+    """A leaf as the layout rules read it: a tensor detached, a quantized
+    weight as its dense shape (on the meta device), so that its codes and
+    scales are placed by the dense weight's spec."""
+    if isinstance(leaf, QuantizedTensor):
+        shape = leaf.shape[:-2] + leaf.shape[:-3:-1] if leaf.transposed else leaf.shape
+        return torch.empty(shape, dtype=leaf.dtype, device="meta")
+    return leaf.detach()
 
 
 def _detach(tree: Any) -> Any:
@@ -531,7 +543,7 @@ class Accelerator:
         """The ShardedLayout of a prepared parameter set; the step and the
         carry read the last one made."""
         self._layout = build_layout(self.mesh, self.state.parallelism_plugin,
-                                    {k: v.detach() for k, v in flat.items()}, logical_specs,
+                                    {k: _dense_like(v) for k, v in flat.items()}, logical_specs,
                                     lazy_prefix=lazy_prefix, tp_partial=tp_partial)
         return self._layout
 

@@ -174,19 +174,17 @@ def lora_loss_fn(model, base_params: Any, lora_config: LoraConfig,
     runs on its local shards inside the step's sharded context
     (``parallel.runtime.module_forward``: its layers gathered over fsdp as
     they run, its products split over tp, with each adapter's delta split
-    alike, ``LayerLora.delta``). A sharded base with quantized entries
-    raises (queue A item 1)."""
+    alike, ``LayerLora.delta``). Its quantized entries (placed by
+    ``Accelerator.prepare``, codes and scales as DTensors) are dequantized to
+    ``compute_dtype`` as each is gathered, on the rank's tp shard."""
     from ..models.transformer import next_token_count, next_token_loss
     from ..parallel import runtime as _shard
-    from ..utils.quantization import dequantize_tree
+    from ..utils.quantization import dequantize_tree, is_quantized
 
     if isinstance(base_params, torch.nn.Module):
         base_params = dict(base_params.named_parameters())
-    sharded = any(_shard.is_dtensor(v) for v in base_params.values())
-    if sharded and not all(isinstance(v, torch.Tensor) for v in base_params.values()):
-        raise NotImplementedError(
-            "a quantized base under a parallelism plugin (QLoRA over a sharded model) is "
-            "not ported yet: queue A item 1")
+    sharded = any(_shard.is_dtensor(v.codes if is_quantized(v) else v)
+                  for v in base_params.values())
 
     def fn(adapter_params, batch):
         ids = batch["input_ids"]
@@ -195,7 +193,7 @@ def lora_loss_fn(model, base_params: Any, lora_config: LoraConfig,
                                  deterministic=not use_dropout,
                                  dropout_seed=int(batch["dropout_seed"]) if use_dropout else None)
         if sharded:
-            with _shard.module_forward(model, base_params) as base:
+            with _shard.module_forward(model, base_params, compute_dtype) as base:
                 logits = torch.func.functional_call(model, base, (ids,), {"lora": state})
         else:
             base = {k: v.detach()

@@ -10,6 +10,12 @@ tensors in place (:func:`.runtime.write_adapter_row`), so their shapes and
 their memory never change: a decode step captured as a CUDA graph reads
 every later load where it was made. Names, slots, refcounts and the LRU
 order are host bookkeeping.
+
+Under tensor parallelism (an engine over a model split over tp) the stacks
+hold one rank's share (:meth:`AdapterRegistry.split_tp`): B's output
+columns of a column-split projection, A's input rows of a row-split one,
+as ``LayerLora.delta`` cuts them for training. A load writes its share of
+the adapter into them in place, as it writes a whole row otherwise.
 """
 
 from __future__ import annotations
@@ -59,6 +65,35 @@ class AdapterRegistry:
         self._lru: list[str] = []  # least recent first
         self.load_total = 0
         self.evict_total = 0
+        #: {target: (leaf, slice)} when the stacks hold one tp rank's share
+        self.tp_slices: Optional[dict] = None
+
+    def split_tp(self, slices: dict) -> None:
+        """Keep only one tensor-parallel rank's share of every stack:
+        ``slices`` maps each target to ``("lora_b", columns)`` (a
+        column-split projection) or ``("lora_a", rows)`` (a row-split one),
+        ``models.transformer.tp_adapter_slices``. The resident rows keep
+        their share. Done once, before any program reads the stacks (the
+        tensors are new); the same split again is a no-op."""
+        if self.tp_slices is not None:
+            if self.tp_slices != slices:
+                raise ValueError("the registry's stacks are split for another tp rank")
+            return
+        for target, pair in self._stacks.items():
+            leaf, part = slices[target]
+            pair[leaf] = _cut(pair[leaf], leaf, part).contiguous()
+        self.tp_slices = dict(slices)
+
+    def _share(self, adapter_params: dict) -> dict:
+        """An adapter tree cut to the stacks' tp share (whole when they are
+        whole)."""
+        if self.tp_slices is None:
+            return adapter_params
+        out = {}
+        for target, pair in adapter_params.items():
+            leaf, part = self.tp_slices[target]
+            out[target] = {**pair, leaf: _cut(torch.as_tensor(pair[leaf]), leaf, part)}
+        return out
 
     # ------------------------------------------------------------------ #
     # residency
@@ -75,7 +110,7 @@ class AdapterRegistry:
             slot = self._free_slot()
             self._slots[name] = slot
             self._refcounts[name] = 0
-        write_adapter_row(self._stacks, slot, adapter_params, r_max=self.max_rank)
+        write_adapter_row(self._stacks, slot, self._share(adapter_params), r_max=self.max_rank)
         self._scales[slot] = config.scaling
         self._touch(name)
         self.load_total += 1
@@ -186,3 +221,10 @@ class AdapterRegistry:
         if name in self._lru:
             self._lru.remove(name)
         self._lru.append(name)
+
+
+def _cut(t: torch.Tensor, leaf: str, part: slice) -> torch.Tensor:
+    """A's rows (its ``in`` axis, second to last) or B's columns (its
+    ``out`` axis, last) in ``part``."""
+    dim = t.dim() - 2 if leaf == A_KEY else t.dim() - 1
+    return t.narrow(dim, part.start, part.stop - part.start)

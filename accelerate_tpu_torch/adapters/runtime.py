@@ -48,7 +48,10 @@ class LoraState:
     ``dropout_rate > 0`` and not ``deterministic``; its masks are drawn
     from ``dropout_seed`` (the reference's per-step ``dropout_seed``), one
     generator a layer and target, so a recompute under remat draws the
-    same masks."""
+    same masks. ``presplit``: under tensor parallelism the stacks hold this
+    rank's share already (a serving registry split by
+    :meth:`~.registry.AdapterRegistry.split_tp`), so the delta cuts
+    nothing."""
 
     stacks: Any
     slot_ids: torch.Tensor
@@ -56,6 +59,7 @@ class LoraState:
     dropout_rate: float = 0.0
     deterministic: bool = True
     dropout_seed: Optional[int] = None
+    presplit: bool = False
 
     def context(self) -> "LoraState":
         """Everything but the stacks."""
@@ -66,7 +70,7 @@ class LoraState:
         target, with the shared slot ids, scales and dropout settings."""
         pairs = {t: (pair[A_KEY][i], pair[B_KEY][i]) for t, pair in self.stacks.items()}
         return LayerLora(pairs, self.slot_ids, self.scales, self.dropout_rate,
-                         self.deterministic, self.dropout_seed, i)
+                         self.deterministic, self.dropout_seed, i, self.presplit)
 
 
 @dataclass
@@ -81,6 +85,7 @@ class LayerLora:
     deterministic: bool = True
     dropout_seed: Optional[int] = None
     layer: int = 0
+    presplit: bool = False
 
     def only(self, targets) -> Optional["LayerLora"]:
         """The same adapters restricted to ``targets``; None if none is
@@ -113,11 +118,15 @@ class LayerLora:
         joins the projection's before the sum over tp. A and B are whole on
         every tp rank and enter through ``tp.copy``, whose backward sums
         each rank's share of their gradients over tp. Dropout draws its mask
-        over the whole input and keeps ``rows`` of it, as one card would."""
+        over the whole input and keeps ``rows`` of it, as one card would.
+        ``presplit`` stacks hold the rank's rows of A and columns of B
+        already."""
         pair = self.pairs.get(target)
         if pair is None:
             return None
         a, b = pair
+        if self.presplit:
+            rows = cols = None
         if tp is not None:
             a, b = tp.copy(a), tp.copy(b)
         if self.dropout_rate > 0.0 and not self.deterministic:

@@ -64,6 +64,7 @@ from .parallel.mesh import mesh_shape_of
 from .parallel.sharding import is_dtensor, local_chunk, spec_of_placements
 from .utils import safetensors_io
 from .utils.environment import parse_flag_from_env
+from .utils.quantization import QuantizedTensor
 from .utils.constants import (
     ENV_PREFIX,
     CUSTOM_STATE_NAME,
@@ -89,7 +90,10 @@ _STORABLE = (torch.Tensor, np.ndarray, np.generic, int, float, bool)
 # ---------------------------------------------------------------------- #
 def _children(tree: Any) -> Optional[list[tuple[str, Any]]]:
     """(name, child) pairs of a container node, or None for a leaf: dicts by
-    key, lists and tuples by index, dataclasses by field name."""
+    key, lists and tuples by index, dataclasses by field name, a quantized
+    weight by its codes and scales."""
+    if isinstance(tree, QuantizedTensor):
+        return [("codes", tree.codes), ("scales", tree.scales)]
     if isinstance(tree, dict):
         return [(str(k), v) for k, v in tree.items()]
     if isinstance(tree, (list, tuple)):
@@ -111,6 +115,9 @@ def _rebuild(tree: Any, fn: Callable[[str, Any], Any], prefix: str = "") -> Any:
     if isinstance(tree, (list, tuple)):
         items = [new[str(i)] for i in range(len(tree))]
         return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(new["codes"], new["scales"], tree.bits, tree.shape,
+                               tree.block_size, tree.transposed)
     return dataclasses.replace(tree, **new)
 
 

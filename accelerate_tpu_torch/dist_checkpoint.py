@@ -63,7 +63,7 @@ INDEX_FILE_PATTERN = "state_index_{:05d}.json"
 # manifest dtype names (numpy's, as the reference writes them), one per codec dtype
 _DTYPE_NAMES = {
     torch.float32: "float32", torch.float16: "float16", torch.bfloat16: "bfloat16",
-    torch.int32: "int32", torch.int64: "int64", torch.uint8: "uint8",
+    torch.int32: "int32", torch.int64: "int64", torch.uint8: "uint8", torch.int8: "int8",
 }
 
 

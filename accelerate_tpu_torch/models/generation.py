@@ -23,6 +23,7 @@ gathered as it runs, the products stay split over tp, and each tp rank's
 cache holds only the kv heads its query heads read
 (``models.transformer._tp_heads``). No tp-split weight is gathered: the tp
 group carries the activations' sums and one gather of the logits a step.
+The paged pools of ``init_cache`` (the serving engine's) split the same way.
 """
 
 from __future__ import annotations
@@ -81,15 +82,16 @@ def _device(model: CausalLM) -> torch.device:
 
 
 def _forward(model: CausalLM):
-    """``step(ids, cache) -> logits``: the model's decode forward, inside
-    its sharded context when its parameters are DTensors."""
+    """``step(ids, cache, **kw) -> logits``: the model's decode forward
+    (``kw``: the paged state and adapters), inside its sharded context
+    when its parameters are DTensors."""
     if not _shard.is_sharded_module(model):
-        return lambda ids, cache: model(ids, decode=True, cache=cache)
+        return lambda ids, cache, **kw: model(ids, decode=True, cache=cache, **kw)
 
-    def step(ids, cache):
+    def step(ids, cache, **kw):
         with _shard.module_forward(model) as params:
             return torch.func.functional_call(model, params, (ids,),
-                                              {"decode": True, "cache": cache})
+                                              {"decode": True, "cache": cache, **kw})
 
     return step
 
@@ -110,14 +112,13 @@ def init_cache(model: CausalLM, batch_size: int = 1, *, num_blocks: Optional[int
     """A zeroed cache on the model's device, in its compute dtype: the dense
     decode cache for ``batch_size`` rows of ``max_seq_len``, or, given
     ``num_blocks`` and ``block_size``, the paged block pools (int8 codes and
-    their fp32 scale arrays with ``kv_dtype="int8"``)."""
+    their fp32 scale arrays with ``kv_dtype="int8"``). Under tp either holds
+    this rank's kv heads only (:func:`_cache_kv_heads`); the paged pools'
+    blocks, and the int8 scale arrays, are whole on every rank."""
     cfg = model.config
     if num_blocks is None:
         return DecodeCache.zeros(cfg, batch_size, _device(model), _cache_kv_heads(model))
-    if _shard.is_sharded_module(model):
-        raise NotImplementedError("a paged cache for a sharded model: the serving engine over "
-                                  "a sharded model is ROADMAP.md, queue A7 part 4 (the engine)")
-    return PagedKVCache.zeros(cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+    return PagedKVCache.zeros(cfg.num_layers, num_blocks, block_size, _cache_kv_heads(model),
                               cfg.head_dim, _dtype(cfg), _device(model), kv_dtype=kv_dtype)
 
 

@@ -403,7 +403,7 @@ class DecodeCache:
         self.index.zero_()
 
 
-def _decode_attention(q, k, v, positions, kv, window, kv_map=None):
+def _decode_attention(q, k, v, positions, kv, window, kv_map=None, tp=None):
     """The decode branch of ``Attention``: write this call's k/v into the
     layer's cache, then attend over the whole cache with the band anchored
     at global positions. ``kv`` is (key, value, paged, key_scale,
@@ -412,13 +412,16 @@ def _decode_attention(q, k, v, positions, kv, window, kv_map=None):
     ``accelerate_tpu/models/transformer.py:354-438``), or the dense cache's
     (B, max_seq_len, Hkv, D) slices and three Nones. ``kv_map``: a tp
     rank's query heads that do not group evenly over its kv heads read the
-    cache through it (``_HeadSplit``; the dense cache only, since the
-    engine, the paged cache's one user, takes no sharded model)."""
+    cache through it (``_HeadSplit``), dense or paged. ``tp``: the running
+    tensor-parallel group, whose ranks each hold their kv heads' share of
+    the cache; an int8 paged write takes each token's amax over the group,
+    so the scale arrays are whole and equal on every rank."""
     key, value, paged, key_scale, value_scale = kv
     if paged is not None:
-        paged_update(key, value, k, v, paged, key_scale, value_scale)
+        paged_update(key, value, k, v, paged, key_scale, value_scale,
+                     amax_group=None if tp is None else tp.group)
         return paged_attention(q, key, value, paged, window=window, key_scale=key_scale,
-                               value_scale=value_scale)
+                               value_scale=value_scale, kv_map=kv_map)
     write = positions[0]  # the dense cache's positions are the same in every row
     key.index_copy_(1, write, k.to(key.dtype))
     value.index_copy_(1, write, v.to(value.dtype))
@@ -473,6 +476,20 @@ def _tp_heads(cfg: TransformerConfig, tp) -> _HeadSplit:
         i // (heads // kv_heads) for i in range(heads))
     return _HeadSplit(heads, kv_heads, slice(k0 * hd, k1 * hd), slice(c0, c1), h0,
                       c0 % hd != 0 or c1 % hd != 0, None if even else owners)
+
+
+def tp_adapter_slices(cfg: TransformerConfig, tp) -> dict:
+    """Each LoRA target's share on tp rank ``tp.rank``, as the forward cuts
+    the adapters (``LayerLora.delta``): ``("lora_b", columns)`` of the
+    column-split projections' outputs (q, gate, up; k and v their kv rows),
+    ``("lora_a", rows)`` of the row-split ones' inputs (o, down)."""
+    split = _tp_heads(cfg, tp)
+    width = cfg.intermediate_size // tp.size
+    mlp = slice(tp.rank * width, (tp.rank + 1) * width)
+    return {"q_proj": ("lora_b", split.q_cols), "k_proj": ("lora_b", split.kv_rows),
+            "v_proj": ("lora_b", split.kv_rows), "o_proj": ("lora_a", split.q_cols),
+            "gate_proj": ("lora_b", mlp), "up_proj": ("lora_b", mlp),
+            "down_proj": ("lora_a", mlp)}
 
 
 def _expand_kv(t: torch.Tensor, kv_map: Optional[tuple]) -> torch.Tensor:
@@ -583,7 +600,7 @@ class Attention(nn.Module):
             k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         kv_map = None if split is None else split.kv_map
         if kv is not None:
-            out = _decode_attention(q, k, v, positions, kv, cfg.sliding_window, kv_map)
+            out = _decode_attention(q, k, v, positions, kv, cfg.sliding_window, kv_map, tp)
         else:
             out = dot_product_attention(
                 q, _expand_kv(k, kv_map), _expand_kv(v, kv_map), mask=mask, causal=cfg.causal,

@@ -108,7 +108,7 @@ class PagedKVCache:
 KV_SCALE_EPS = 1e-8
 
 
-def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv(x: torch.Tensor, amax_group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-token int8 quantisation of a K or V tensor: ``x`` (B,
     S, Hkv, D) -> int8 codes of the same shape and (B, S) fp32 scales, one
     amax scale a token row over all kv heads and head dims. A decode write
@@ -116,9 +116,19 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     requantise every earlier row whenever it grew. ``torch.round`` is
     half to even, as ``jnp.round`` is. Both divisions are tensor by tensor:
     PyTorch's CUDA division by a host scalar multiplies by its reciprocal,
-    which is not the reference's correctly rounded quotient."""
+    which is not the reference's correctly rounded quotient.
+
+    ``amax_group``: the process group over which ``x``'s kv heads are split
+    (a tensor-parallel rank holds some of them): each row's amax is the
+    maximum over the group, so the scale is the one over every kv head, as
+    on one card, and equal on every rank. A head two ranks both hold (an
+    uneven split) changes no maximum."""
     xf = x.float()
     amax = xf.abs().amax(dim=(2, 3))
+    if amax_group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=amax_group)
     scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=KV_SCALE_EPS)
     q = torch.round(xf / scale[:, :, None, None])
     return torch.clamp(q, -127.0, 127.0).to(torch.int8), scale
@@ -140,7 +150,8 @@ def _need_scales(state: PagedKVState, key_scale, value_scale) -> bool:
 
 def paged_update(key_pool: torch.Tensor, value_pool: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, state: PagedKVState, key_scale: Optional[torch.Tensor] = None,
-                 value_scale: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, ...]:
+                 value_scale: Optional[torch.Tensor] = None,
+                 amax_group=None) -> tuple[torch.Tensor, ...]:
     """Scatter one call's K/V (B, S, Hkv, D) into one layer's pools
     (num_blocks, block_size, Hkv, D), in place; returns the pools. Token i
     of slot b goes to table entry (cache_len[b] + i) // block_size at
@@ -149,7 +160,8 @@ def paged_update(key_pool: torch.Tensor, value_pool: torch.Tensor, k: torch.Tens
     of block 0, which is harmless because nothing reads it unmasked. Under
     ``kv_dtype="int8"`` the rows are quantised on the way in, their scales
     go to ``key_scale``/``value_scale`` (num_blocks, block_size) at the same
-    places, and the return is the four arrays."""
+    places, and the return is the four arrays; ``amax_group`` is
+    :func:`quantize_kv`'s."""
     b, s = k.shape[:2]
     bs = state.block_size
     pos = _slot_positions(state, s)
@@ -159,8 +171,8 @@ def paged_update(key_pool: torch.Tensor, value_pool: torch.Tensor, k: torch.Tens
     blocks = torch.where(valid, blocks, torch.zeros_like(blocks))
     index = (blocks.reshape(-1), (pos % bs).reshape(-1))
     if _need_scales(state, key_scale, value_scale):
-        k, k_s = quantize_kv(k)
-        v, v_s = quantize_kv(v)
+        k, k_s = quantize_kv(k, amax_group)
+        v, v_s = quantize_kv(v, amax_group)
         key_scale.index_put_(index, k_s.reshape(-1))
         value_scale.index_put_(index, v_s.reshape(-1))
     key_pool.index_put_(index, k.reshape(b * s, *k.shape[2:]).to(key_pool.dtype))
@@ -173,7 +185,8 @@ def paged_update(key_pool: torch.Tensor, value_pool: torch.Tensor, k: torch.Tens
 def paged_attention(q: torch.Tensor, key_pool: torch.Tensor, value_pool: torch.Tensor,
                     state: PagedKVState, scale: Optional[float] = None,
                     window: Optional[int] = None, key_scale: Optional[torch.Tensor] = None,
-                    value_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    value_scale: Optional[torch.Tensor] = None,
+                    kv_map: Optional[tuple] = None) -> torch.Tensor:
     """Attention read through the block table: each slot's blocks are
     gathered into a (B, max_blocks*block_size, Hkv, D) view, so gathered
     column j is global position j, and the plain path runs over it with the
@@ -182,7 +195,9 @@ def paged_attention(q: torch.Tensor, key_pool: torch.Tensor, value_pool: torch.T
     past a slot's blocks point at block 0, whose columns sit past every
     row and are masked. Under ``kv_dtype="int8"`` the gathered codes are
     dequantised (code times its row's scale, in fp32) to the query's dtype
-    before the math; the pools stay int8."""
+    before the math; the pools stay int8. ``kv_map``: each query head's kv
+    head (a tensor-parallel rank whose query heads do not group evenly over
+    the kv heads it holds), else None."""
     b, s = q.shape[:2]
     width = state.block_table.shape[1] * state.block_size
     table = state.block_table.long()
@@ -198,6 +213,9 @@ def paged_attention(q: torch.Tensor, key_pool: torch.Tensor, value_pool: torch.T
     keep = cols <= rows  # (B, 1, S, width)
     if window is not None:
         keep = keep & (cols > rows - window)
+    if kv_map is not None:
+        heads = torch.tensor(kv_map, device=k.device)
+        k, v = k.index_select(2, heads), v.index_select(2, heads)
     return xla_attention(q, k, v, mask=keep, scale=scale)
 
 

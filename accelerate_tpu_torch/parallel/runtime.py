@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -82,11 +81,13 @@ from .sharding import (
     grad_buffer_shardings,
     infer_param_shardings,
     placements_for,
+    quantized_specs,
     shard_params,
     sharded_axes,
     spec_of_placements,
     zero12_shards,
 )
+from ..utils.quantization import QuantizedTensor, is_quantized
 
 
 def _dist():
@@ -276,7 +277,7 @@ def layer_gather() -> Optional[Callable[[str, dict], dict]]:
 
 
 @contextlib.contextmanager
-def module_forward(model, params: Optional[dict] = None):
+def module_forward(model, params: Optional[dict] = None, dtype: Optional[torch.dtype] = None):
     """Inside: a port model whose parameters are DTensors (or that runs on
     ``params``, DTensors by its parameter names) runs on their local shards,
     and ``module_forward`` yields those (the leaves split over fsdp
@@ -284,11 +285,18 @@ def module_forward(model, params: Optional[dict] = None):
     running sharded step (an adapter's, whose layout is not the model's)
     the step's context stays and only the layer gather becomes the model's;
     outside one, the model's own context with the whole batch on every rank
-    (``apply_sharded``)."""
+    (``apply_sharded``). A :class:`QuantizedTensor` of ``params`` (a QLoRA
+    base, its codes and scales DTensors) is dequantized to ``dtype`` (None:
+    its scales' dtype) where its leaf is gathered
+    (:meth:`ShardedLayout.dequantized`): the forward carries its local codes
+    until then."""
     global _ACTIVE
     layout = module_layout(model, params)
     params = dict(model.named_parameters()) if params is None else params
-    params = {k: v.detach() for k, v in layout.local(params).items()}
+    # kept after the context: a remat recompute in the backward gathers again
+    layout.quantized = {k: (v, dtype) for k, v in params.items() if is_quantized(v)}
+    params = {k: to_local(v.codes if is_quantized(v) else v).detach()
+              for k, v in params.items()}
     if _ACTIVE is None:
         with layout.forward_context(whole_batch=True):
             yield layout.loss_params(params)
@@ -407,6 +415,9 @@ class ShardedLayout:
         self.param_reduce_groups = (
             {k: self._replica_group(k, zero2=False) for k in sorted(param_specs)}
             if self.zero2 else self.reduce_groups)
+        # quantized leaves of a running forward: name -> (the QuantizedTensor
+        # of DTensor codes and scales, the dtype to dequantize to)
+        self.quantized: dict = {}
 
     # ---------------------------------------------------------------- #
     def axis(self, axis: str) -> AxisGroup:
@@ -439,7 +450,11 @@ class ShardedLayout:
 
     def gather_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """Leaf ``name``'s local shard (in the compute dtype) gathered over
-        fsdp, differentiably; as it is when fsdp does not split it."""
+        fsdp, differentiably; as it is when fsdp does not split it. A
+        quantized leaf of the running forward comes back dense
+        (:meth:`dequantized`)."""
+        if name in self.quantized:
+            return self.dequantized(*self.quantized[name])
         d = self.gather_dims.get(name)
         if d is None:
             return t
@@ -449,6 +464,37 @@ class ShardedLayout:
         """The leaves the loss receives: gathered now, except those the
         model's layer loop gathers as each layer runs."""
         return {k: t if self._lazy(k) else self.gather_leaf(k, t) for k, t in compute.items()}
+
+    def dequantized(self, q: QuantizedTensor, dtype) -> torch.Tensor:
+        """A quantized leaf (DTensor codes and scales) as this rank's dense
+        shard in ``dtype``: codes and scales gathered over fsdp as a dense
+        leaf is, then dequantized on the local tp shard. Where tp splits the
+        codes' ``in`` but not the scales' blocks (a split cuts an int4
+        block), the codes are gathered over tp first and the rank keeps its
+        rows of the dense result. No gradient reaches it."""
+        fsdp = self.groups[MESH_AXIS_FSDP]
+        parts = []
+        for t in (q.codes, q.scales):
+            spec = spec_of_placements(t.placements, t.ndim) if is_dtensor(t) else (None,) * t.ndim
+            local = to_local(t).detach()
+            d = _axis_dim(spec, MESH_AXIS_FSDP, self.mesh)
+            if d is not None:
+                local = all_gather_dim(local, d, fsdp, self.fsdp)
+            parts.append((local, spec))
+        (codes, cspec), (scales, sspec) = parts
+        row = codes.dim() - 2
+        cut = (q.bits == 4 and MESH_AXIS_TENSOR in _entry_axes(live_axes(cspec, self.mesh)[row])
+               and MESH_AXIS_TENSOR not in _entry_axes(live_axes(sspec, self.mesh)[row]))
+        if cut:
+            codes = all_gather_dim(codes, row, self.tp.group, self.tp.size)
+        rows = codes.shape[-2] * (2 if q.bits == 4 else 1)
+        local = QuantizedTensor(codes, scales, q.bits, (*codes.shape[:-2], rows, codes.shape[-1]),
+                                q.block_size)
+        dense = local.dequantize(dtype)
+        if cut:
+            share = rows // self.tp.size
+            dense = dense.narrow(row, self.tp.rank * share, share)
+        return dense.transpose(-1, -2) if q.transposed else dense
 
     def _lazy(self, name: str) -> bool:
         return self.lazy_prefix is not None and name.startswith(self.lazy_prefix)
@@ -582,8 +628,20 @@ class ShardedLayout:
     # placing trees
     # ---------------------------------------------------------------- #
     def place(self, tree: dict, specs: dict[str, Spec]) -> dict:
-        """Whole tensors as DTensors under ``specs`` (this rank's chunks)."""
-        return shard_params(tree, specs, self.mesh, self.rank)
+        """Whole tensors as DTensors under ``specs`` (this rank's chunks); a
+        :class:`QuantizedTensor` (a frozen base's weight) as one of DTensor
+        codes and scales, placed by the rule of its dense weight's spec
+        (``parallel.sharding.quantized_specs``)."""
+        dense = {k: v for k, v in tree.items() if not is_quantized(v)}
+        out = shard_params(dense, {k: specs[k] for k in dense}, self.mesh, self.rank)
+        for k, q in tree.items():
+            if is_quantized(q):
+                cspec, sspec = quantized_specs(q, specs[k], self.mesh)
+                placed = shard_params({"codes": q.codes, "scales": q.scales},
+                                      {"codes": cspec, "scales": sspec}, self.mesh, self.rank)
+                out[k] = QuantizedTensor(placed["codes"], placed["scales"], q.bits, q.shape,
+                                         q.block_size, q.transposed)
+        return {k: out[k] for k in tree}
 
     def place_opt_state(self, opt_state: Any) -> Any:
         """An optimizer state made for the DTensor params, with each
@@ -713,11 +771,22 @@ def layout_of_placements(params: dict, plugin: Optional[ParallelismPlugin] = Non
                          lazy_prefix: Optional[str] = None) -> ShardedLayout:
     """The layout of parameters already placed: each DTensor's spec read
     from its placements (a plain tensor whole), moments and buffer alike."""
-    sharded = [v for v in params.values() if is_dtensor(v)]
-    specs = {k: spec_of_placements(v.placements, v.ndim) if is_dtensor(v)
+    sharded = [v.codes if is_quantized(v) else v for v in params.values()]
+    sharded = [v for v in sharded if is_dtensor(v)]
+    specs = {k: _dense_spec(v) if is_quantized(v)
+             else spec_of_placements(v.placements, v.ndim) if is_dtensor(v)
              else (None,) * v.ndim for k, v in params.items()}
-    return ShardedLayout(sharded[0].device_mesh, plugin or ParallelismPlugin.pure_dp(), specs,
-                         specs, specs, lazy_prefix=lazy_prefix)
+    return ShardedLayout(_live_mesh(sharded[0].device_mesh), plugin or ParallelismPlugin.pure_dp(),
+                         specs, specs, specs, lazy_prefix=lazy_prefix)
+
+
+def _dense_spec(q: QuantizedTensor) -> Spec:
+    """The spec of a quantized leaf's dense weight, read from its codes'
+    placements (``parallel.sharding.quantized_specs`` inverted)."""
+    codes = q.codes
+    spec = (spec_of_placements(codes.placements, codes.ndim) if is_dtensor(codes)
+            else (None,) * codes.ndim)
+    return spec[:-2] + (spec[-1], spec[-2]) if q.transposed else spec
 
 
 def layout_for(params: dict, prepared: Optional[ShardedLayout] = None,
@@ -732,21 +801,31 @@ def layout_for(params: dict, prepared: Optional[ShardedLayout] = None,
                                 lazy_prefix=lazy_prefix)
 
 
-# mesh -> (its sub-mesh of the axes above 1, their dims), one per mesh
-_LIVE_SUBMESH: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+def _live_mesh(mesh):
+    """``mesh``, or the running state's mesh where the two are equal.
+    PyTorch compares meshes by value, not by their groups, and a DTensor
+    made on a mesh may hold an older equal one, made before the process
+    group was ended and brought up again, whose groups no longer
+    resolve."""
+    from ..state import AcceleratorState
+
+    running = AcceleratorState._shared_state.get("mesh")
+    return running if running is not None and running == mesh else mesh
 
 
 def live_submesh(mesh):
     """The sub-mesh of ``mesh``'s axes above 1 (its first axis when none
-    is), made once a mesh. DTensor's sharding propagation is quick on it: on
+    is), made once a mesh (the running state's where it equals ``mesh``,
+    kept on that object). DTensor's sharding propagation is quick on it: on
     the six-axis mesh the first op on each placement takes tens of
     seconds."""
-    if mesh not in _LIVE_SUBMESH:
+    mesh = _live_mesh(mesh)
+    if "_accelerate_live_submesh" not in mesh.__dict__:
         names = mesh.mesh_dim_names
         live = tuple(n for i, n in enumerate(names) if mesh.size(i) > 1) or names[:1]
-        _LIVE_SUBMESH[mesh] = (mesh[live] if len(live) > 1 else mesh[live[0]],
-                               tuple(names.index(n) for n in live))
-    return _LIVE_SUBMESH[mesh]
+        mesh.__dict__["_accelerate_live_submesh"] = (
+            mesh[live] if len(live) > 1 else mesh[live[0]], tuple(names.index(n) for n in live))
+    return mesh.__dict__["_accelerate_live_submesh"]
 
 
 def place_live(local: dict, like: dict) -> dict:

@@ -481,6 +481,31 @@ def shard_params(params: dict, specs: dict[str, Spec], mesh: Any, rank: Optional
     return out
 
 
+def quantized_specs(q: Any, spec: Spec, mesh: Any) -> tuple[Spec, Spec]:
+    """The specs of a :class:`~..utils.quantization.QuantizedTensor`'s codes
+    and scales when its dense weight's spec is ``spec``: each axis stays on
+    the dim it splits (``in`` and ``out`` swap places for an ``nn.Linear``
+    weight, quantized through its transpose). The scales' ``out`` follows
+    the codes'. Their row axis (int8: one row; int4: one a block) is split
+    as ``in`` is only where that falls on whole blocks; where a split cuts
+    a block, the scales stay whole along it and the codes are gathered
+    before they are dequantized (``parallel.runtime``). The codes' ``in``
+    stays whole where a split would cut a packed byte."""
+    spec = _pad(tuple(spec), len(q.shape))
+    lead, (s_a, s_b) = spec[:-2], spec[-2:]
+    s_in, s_out = (s_b, s_a) if q.transposed else (s_a, s_b)
+    shape = mesh_shape_of(mesh)
+
+    def degree(entry) -> int:
+        return math.prod(shape.get(a, 1) for a in _entry_axes(entry))
+
+    n = degree(s_in)
+    codes_in = s_in if q.codes.shape[-2] % n == 0 else None
+    blocks = q.scales.shape[-2]
+    scales_in = s_in if q.bits == 4 and codes_in is not None and blocks % n == 0 else None
+    return lead + (codes_in, s_out), lead + (scales_in, s_out)
+
+
 def is_dtensor(x: Any) -> bool:
     from torch.distributed.tensor import DTensor
 

@@ -13,6 +13,10 @@ claims is ``census_unowned_bytes``: ``torch.cuda.memory_allocated()`` less
 the owners' device bytes on a CUDA machine, 0 without one (there is no
 allocator total to read on the CPU).
 
+A DTensor (a parameter ``Accelerator.prepare`` sharded) counts at its
+whole size in its owner's bytes, as the reference's ``nbytes`` of a global
+array does; the device bytes set against the allocator are its shard's.
+
 Providers, not captured tensors, so a cache that is replaced stays
 attributed without registering again. A provider that raises counts 0
 and ``sample`` never raises.
@@ -28,6 +32,7 @@ from typing import Any, Callable, Iterator, Optional, Union
 import torch
 
 from ..logging import get_logger
+from ..parallel.sharding import is_dtensor
 
 logger = get_logger(__name__)
 
@@ -108,13 +113,18 @@ class BufferCensus:
             for t in tensors:
                 if t.device.type == "meta":
                     continue
-                storage = t.untyped_storage()
-                key = (str(t.device), storage.data_ptr())
+                # a DTensor (a sharded parameter) counts at its whole size,
+                # as the reference counts a global array; its device bytes
+                # are its local shard's
+                local = t._local_tensor if is_dtensor(t) else t
+                storage = local.untyped_storage()
+                key = (str(local.device), storage.data_ptr())
                 if key in seen:
                     continue
                 seen.add(key)
-                claimed += storage.nbytes()
-                if t.device.type == "cuda":
+                claimed += (t.numel() * t.element_size() if local is not t
+                            else storage.nbytes())
+                if local.device.type == "cuda":
                     device_claimed += storage.nbytes()
             owner_bytes[name] = claimed
         claimed_all = sum(owner_bytes.values())

@@ -82,6 +82,23 @@ step and stays there; ``verify`` is one a width used; ``prefill`` is the
 number of distinct buckets; ``swap_out`` and ``swap_in`` one a width used;
 a draft proposer adds ``draft_prefill`` and ``draft_step``.
 
+A model that ``Accelerator.prepare`` sharded under a ``ParallelismPlugin``
+(its parameters DTensors) is served as the reference's engine serves
+sharded params: every rank of the mesh runs the same engine on the same
+requests and makes the same decisions (block tables, admission, sampling
+from one seed over logits gathered whole). Every model call runs inside
+the model's sharded context (``models.generation._forward``): the fsdp
+shards gathered as each layer runs, the products split over tp, the decode
+and verify graphs capturing those collectives. Under tp each rank's pools
+hold its kv heads (``models.transformer._tp_heads``) while the blocks and
+the int8 scale arrays are whole; a preemption swaps the rank's heads, a
+hand-off's manifest carries every kv head (gathered over tp on the way out,
+cut to the rank's heads on the way in, so a tp engine and an unsharded one
+hand off both ways), and every byte count (``kv_bytes_per_token``, swap
+bytes, manifests, the transfer gauges) is the whole model's, as the
+reference's ``nbytes`` of a global array is. A registry's adapter stacks
+hold the rank's share (``AdapterRegistry.split_tp``).
+
 The reference's options for paths not ported yet (the HTTP plane and
 program capture) raise NotImplementedError naming ROADMAP.md's queue item,
 A10; none is ignored. The model's parameters live in the module,
@@ -100,6 +117,7 @@ import numpy as np
 import torch
 
 from ..adapters.runtime import LoraState
+from ..models import generation
 from ..models.generation import init_cache
 from ..ops.attention import PagedKVState
 from ..utils.cuda_graph import StepProgram
@@ -120,6 +138,25 @@ class TokenEvent:
     request_id: str
     token: int
     done: bool
+
+
+def _tp_split(model) -> tuple:
+    """Where the model's parameters are split over tp (above 1): its
+    ``TensorParallel`` group and each tp rank's kv heads ``[lo, hi)`` (equal
+    shares, or overlapping ones where the query heads do not group evenly,
+    ``models.transformer._tp_heads``); else (None, ())."""
+    from ..models.transformer import _tp_heads
+    from ..parallel import runtime as _shard
+
+    if not _shard.is_sharded_module(model):
+        return None, ()
+    tp = _shard.module_layout(model).tp
+    if tp.size == 1:
+        return None, ()
+    hd = model.config.head_dim
+    rows = [_tp_heads(model.config, _shard.TensorParallel(None, tp.size, r)).kv_rows
+            for r in range(tp.size)]
+    return tp, tuple((r.start // hd, r.stop // hd) for r in rows)
 
 
 def _next_pow2(n: int) -> int:
@@ -218,18 +255,18 @@ class ServingEngine:
             raise ValueError("max_retained_results must be >= 1 (or None)")
         if gauge_interval < 0:
             raise ValueError("gauge_interval must be >= 0 (0 disables)")
-        from ..parallel.runtime import is_sharded_module
-
-        if is_sharded_module(model):
-            raise NotImplementedError(
-                "ServingEngine over a sharded (DTensor) model is not ported yet (ROADMAP.md, "
-                "queue A7 part 4 (the engine)); decode it with models.generation's generate "
-                "or make_generate_fn")
         self.model = model
-        self.device = model.embed.weight.device
+        self.device = generation._device(model)
+        # the model's calls, inside its sharded context when it has one
+        self._forward = generation._forward(model)
+        self._tp, self._kv_spans = _tp_split(model)
         if adapters is not None and adapters.device != self.device:
             raise ValueError(f"the adapter registry is on {adapters.device} but the model is on "
                              f"{self.device}")
+        if adapters is not None and self._tp is not None:
+            from ..models.transformer import tp_adapter_slices
+
+            adapters.split_tp(tp_adapter_slices(model.config, self._tp))
         self.adapters = adapters
         self._role = role
         self._plane = transfer_plane
@@ -291,8 +328,9 @@ class ServingEngine:
         self.cache = init_cache(model, num_blocks=num_blocks, block_size=block_size,
                                 kv_dtype=self._kv_state_dtype)
         # bytes of KV per cached token across every layer's pools (and the
-        # int8 scale arrays)
-        self.kv_bytes_per_token = self.cache.nbytes / (num_blocks * block_size)
+        # int8 scale arrays), the whole model's under tp
+        self.kv_bytes_per_token = self._whole_nbytes(self.cache.tensors()) / (
+            num_blocks * block_size)
         # preemption: the swap programs' widths built so far, the requests
         # parked on the host, and the counts the gauges export
         self._swap_widths: dict[str, set[int]] = {"swap_out": set(), "swap_in": set()}
@@ -312,6 +350,7 @@ class ServingEngine:
             "slot_ids": torch.zeros(max_slots, dtype=torch.long, device=self.device),
         }
         self._decode_program: Optional[StepProgram] = None
+        self._census_views: Optional[list] = None
         # speculation: verify programs and their token buffers by width,
         # warm proposers by config instance
         self._verify: dict[int, tuple[torch.Tensor, StepProgram]] = {}
@@ -584,8 +623,8 @@ class ServingEngine:
                             torch.full((1,), start, dtype=torch.long, device=dev),
                             torch.full((1,), n, dtype=torch.long, device=dev))
         row = torch.full((1,), int(self._slot_adapter[slot.index]), dtype=torch.long, device=dev)
-        logits = self.model(torch.from_numpy(ids).to(dev), decode=True, paged=state,
-                            cache=self.cache, lora=self._lora(row))
+        logits = self._forward(torch.from_numpy(ids).to(dev), self.cache, paged=state,
+                               lora=self._lora(row))
         # the last valid row of the padded bucket, not the padded tail
         return table, logits[:, n - 1]
 
@@ -594,7 +633,8 @@ class ServingEngine:
         ``slot_ids`` (None without a registry)."""
         if self.adapters is None:
             return None
-        return LoraState(self.adapters.stacks(), slot_ids, self.adapters.scales())
+        return LoraState(self.adapters.stacks(), slot_ids, self.adapters.scales(),
+                         presplit=self.adapters.tp_slices is not None)
 
     def _pin_adapter(self, slot: Slot) -> None:
         """Pin the seated request's adapter (an eviction is refused while a
@@ -757,21 +797,60 @@ class ServingEngine:
         idx[:len(blocks)] = blocks
         return torch.from_numpy(idx).to(self.device)
 
-    def _swap_out_blocks(self, blocks: list[int]) -> tuple[list[torch.Tensor], int]:
+    def _swap_out_blocks(self, blocks: list[int], whole: bool = False
+                         ) -> tuple[list[torch.Tensor], int]:
         """The contents of ``blocks`` in every pool and scale array, copied
         to host memory (pinned on a CUDA device) before this returns:
-        returns the host tensors (axis 1 the table position) and their
-        bytes."""
+        returns the host tensors (axis 1 the table position) and the whole
+        model's bytes of them. Under tp a rank's images hold its kv heads;
+        with ``whole`` (a hand-off) every kv head, gathered over tp."""
         n = len(blocks)
         idx = self._swap_index(blocks, "swap_out")
         pin = self.device.type == "cuda"
         data = []
         for t in self.cache.tensors():
             gathered = t.index_select(1, idx)[:, :n]
+            if whole:
+                gathered = self._whole_heads(gathered)
             host = torch.empty(gathered.shape, dtype=t.dtype, pin_memory=pin)
             host.copy_(gathered)  # synchronous: the ids are recycled next
             data.append(host)
-        return data, sum(d.nbytes for d in data)
+        return data, self._whole_nbytes(data)
+
+    # ------------------------------------------------------------------ #
+    # the kv heads of a model split over tp
+    # ------------------------------------------------------------------ #
+    def _whole_nbytes(self, tensors) -> int:
+        """Bytes of pool-shaped tensors (pools and their images, kv heads on
+        axis 3) counted at every kv head of the model, as the reference
+        counts a global array; scale arrays as they are."""
+        heads = self.model.config.num_kv_heads
+        return sum(t.nbytes // t.shape[3] * heads if t.dim() == 5 else t.nbytes
+                   for t in tensors)
+
+    def _whole_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """A pool image of this tp rank's kv heads as one of every kv head:
+        each head written by the first rank that holds it and the rest
+        zeros, summed over tp. Scale arrays are whole already."""
+        if self._tp is None or t.dim() != 5:
+            return t
+        lo, hi = self._kv_spans[self._tp.rank]
+        out = torch.zeros((*t.shape[:3], self.model.config.num_kv_heads, t.shape[4]),
+                          dtype=t.dtype, device=t.device)
+        first = max(lo, max((h for _, h in self._kv_spans[:self._tp.rank]), default=0))
+        if first < hi:
+            out[:, :, :, first:hi] = t[:, :, :, first - lo:]
+        import torch.distributed as dist
+
+        dist.all_reduce(out, group=self._tp.group)
+        return out
+
+    def _local_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """This tp rank's kv heads of a whole pool image (a manifest's)."""
+        if self._tp is None or t.dim() != 5:
+            return t
+        lo, hi = self._kv_spans[self._tp.rank]
+        return t[:, :, :, lo:hi]
 
     def _restore_blocks(self, blocks: list[int], data: list[torch.Tensor]) -> None:
         """Scatter saved images into ``blocks`` in place (table position i
@@ -904,7 +983,7 @@ class ServingEngine:
         blocks free at once: a prefill replica's pool funds ingestion only."""
         req = slot.request
         used = -(-slot.cache_len // self.block_size)
-        data, nbytes = self._swap_out_blocks(slot.blocks[:used])
+        data, nbytes = self._swap_out_blocks(slot.blocks[:used], whole=True)
         keys = req.prefix_keys
         if keys is None:
             # admission computes keys only with the prefix cache on; the
@@ -985,7 +1064,8 @@ class ServingEngine:
         tail = used - reused
         moved_bytes = m.bytes_per_block() * tail
         if tail:
-            self._restore_blocks(new[:tail], [d[:, reused:used] for d in m.data])
+            self._restore_blocks(new[:tail],
+                                 [self._local_heads(d[:, reused:used]) for d in m.data])
         # index the restored full prompt blocks: the next manifest of this
         # chain dedups against them (a decode pool never prefills, so this
         # is its whole warm set)
@@ -1048,9 +1128,9 @@ class ServingEngine:
     def _decode_forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """The model over the static buffers: (max_slots, width, V) logits."""
         buf = self._decode_in
-        return self.model(tokens, decode=True, cache=self.cache,
-                          paged=self._state(buf["tables"], buf["cache_lens"], buf["lengths"]),
-                          lora=self._lora(buf["slot_ids"]))
+        return self._forward(tokens, self.cache,
+                             paged=self._state(buf["tables"], buf["cache_lens"], buf["lengths"]),
+                             lora=self._lora(buf["slot_ids"]))
 
     def _build(self, fn: Callable[[], torch.Tensor]) -> StepProgram:
         """Build a step over the static buffers with every row's length at
@@ -1360,6 +1440,34 @@ class ServingEngine:
     def _emit_slo(self) -> None:
         self._tele("record_slo", **self.slo_tracker.snapshot(self._now()))
 
+    def _census_kv(self):
+        """The KV cache as the census counts it: its pools and scale arrays;
+        under tp each pool as a DTensor view of every kv head over the
+        rank's storage, so the census (which counts a DTensor at its whole
+        size) reads the whole model's bytes and the device's are the
+        rank's. The views are made once: the pools are never rebound."""
+        if self._tp is None:
+            return self.cache
+        if self._census_views is None:
+            from torch.distributed.tensor import DTensor, Replicate, Shard
+
+            from ..utils.constants import MESH_AXIS_TENSOR
+
+            mesh = next(p.device_mesh for p in self.model.parameters()
+                        if hasattr(p, "device_mesh"))
+            placements = [Shard(3) if name == MESH_AXIS_TENSOR else Replicate()
+                          for name in mesh.mesh_dim_names]
+            heads = self.model.config.num_kv_heads
+            views = []
+            for t in self.cache.tensors():
+                if t.dim() == 5:
+                    shape = (*t.shape[:3], heads, t.shape[4])
+                    t = DTensor.from_local(t, mesh, placements, run_check=False, shape=shape,
+                                           stride=torch.empty(shape, device="meta").stride())
+                views.append(t)
+            self._census_views = views
+        return self._census_views
+
     def _register_census_owners(self) -> None:
         """Point the telemetry's buffer census (if it has one) at the
         engine's parameters, its KV cache (pools and int8 scale arrays) and
@@ -1369,7 +1477,7 @@ class ServingEngine:
         if census is None:
             return
         census.set_owner("params", lambda: self.model)
-        census.set_owner("kv_cache", lambda: self.cache)
+        census.set_owner("kv_cache", self._census_kv)
         census.set_owner("adapter_stack", lambda: (
             (self.adapters.stacks(), self.adapters.scales())
             if self.adapters is not None else None))

@@ -32,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..models import generation
 from ..models.generation import init_cache
 from ..ops.attention import PagedKVState
 from ..utils.cuda_graph import StepProgram
@@ -151,7 +152,9 @@ class DraftModelProposer:
             raise ValueError(
                 f"draft max_seq_len ({dcfg.max_seq_len}) must cover the target's "
                 f"({target_config.max_seq_len})")
-        self.device = self.model.embed.weight.device
+        self.device = generation._device(self.model)
+        # the draft's calls, inside its own sharded context when it has one
+        self._forward = generation._forward(self.model)
         if self.device != tables.device:
             raise ValueError(f"the draft model is on {self.device}, the engine on "
                              f"{tables.device}")
@@ -181,8 +184,8 @@ class DraftModelProposer:
         each slot's last valid position, (max_slots,). A row of length 0
         writes only the garbage block, and its output is ignored."""
         buf = self._step_in
-        logits = self.model(buf["tokens"], decode=True, cache=self.cache,
-                            paged=self._state(self._tables, buf["cache_lens"], buf["lengths"]))
+        logits = self._forward(buf["tokens"], self.cache,
+                               paged=self._state(self._tables, buf["cache_lens"], buf["lengths"]))
         last = (buf["lengths"] - 1).clamp_min(0)
         rows = logits.gather(1, last[:, None, None].expand(-1, 1, logits.shape[-1]))[:, 0]
         return torch.argmax(rows, dim=-1)
@@ -198,9 +201,9 @@ class DraftModelProposer:
         table = torch.zeros((1, self._tables.shape[1]), dtype=torch.long)
         table[0, :len(slot.blocks)] = torch.as_tensor(slot.blocks)
         dev = self.device
-        self.model(ids.to(dev), decode=True, cache=self.cache,
-                   paged=self._state(table.to(dev), torch.full((1,), start, device=dev),
-                                     torch.full((1,), n, device=dev)))
+        self._forward(ids.to(dev), self.cache,
+                      paged=self._state(table.to(dev), torch.full((1,), start, device=dev),
+                                        torch.full((1,), n, device=dev)))
 
     # ------------------------------------------------------------------ #
     # engine hooks

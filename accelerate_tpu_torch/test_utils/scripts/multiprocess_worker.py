@@ -60,6 +60,18 @@ def training_worker():
     assert abs(a - 2.0) < 0.3, a
 
 
+def sequence_worker(names: tuple):
+    """The workers of this module named ``names``, one after another in one
+    launch, each on a fresh accelerator state (the process group kept): one
+    spawn of the processes for several checks."""
+    from accelerate_tpu_torch import AcceleratorState, GradientState
+
+    for name in names:
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+        globals()[name]()
+
+
 def sharded_checkpoint_worker(tmpdir):
     """Each process writes only its own chunks; a restore reads each rank's
     chunk back onto the live sharding (reference :56)."""

@@ -376,12 +376,14 @@ def optim_worker(out_dir: str, runs: list, raw_cases: list) -> None:
 # ---------------------------------------------------------------------- #
 def tp_compute_case(out_dir: str, tp_size: int) -> None:
     """At ``tp_size`` (2 over gloo, or 1 unsharded): the tiny MoE model's
-    logits, greedy decoding of the dense one, and a LoRA loss over it on
-    q/v/o/gate/down; ``out_dir/tp<tp_size>.pt``."""
+    logits, greedy decoding of the dense one by ``generate`` and by the
+    serving engine (int8 KV), and a LoRA loss over it on q/v/o/gate/down;
+    ``out_dir/tp<tp_size>.pt``."""
     from accelerate_tpu_torch import CausalLM, TransformerConfig
     from accelerate_tpu_torch.adapters import LoraConfig, init_adapter, lora_loss_fn
     from accelerate_tpu_torch.models.generation import generate
     from accelerate_tpu_torch.parallel.runtime import apply_sharded
+    from accelerate_tpu_torch.serving import ServingEngine
 
     plugin = dict(dp_size=1, tp_size=tp_size) if tp_size > 1 else None
     ids = torch.randint(0, 1024, (2, 8), generator=torch.Generator().manual_seed(0))
@@ -395,6 +397,11 @@ def tp_compute_case(out_dir: str, tp_size: int) -> None:
     cfg = TransformerConfig.tiny(num_layers=1, num_kv_heads=2)
     dense = acc.prepare(CausalLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
     rec["tokens"] = generate(dense, ids[:, :4], max_new_tokens=3)
+    rec["engine_tokens"] = ServingEngine(dense, max_slots=2, block_size=8).generate(
+        ids[:, :4], max_new_tokens=3)
+    rec["int8_engine_tokens"] = ServingEngine(dense, max_slots=2, block_size=8,
+                                              kv_dtype="int8").generate(ids[:, :4],
+                                                                        max_new_tokens=3)
     lcfg = LoraConfig(rank=2, target_modules=("q_proj", "v_proj", "o_proj", "gate_proj",
                                               "down_proj"))
     adapter = init_adapter(torch.Generator().manual_seed(1), cfg, lcfg)

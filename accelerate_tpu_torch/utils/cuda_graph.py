@@ -11,10 +11,17 @@ card. Several programs may read the same buffers and caches (a serving
 engine's decode step, its verify step of each width and a draft model's
 step share the block-table buffer and the KV pools): each keeps its own
 graph and memory pool, and whatever one writes in place the next reads.
+
+Python's garbage collector is off while a step is captured: an object that
+holds a built step and is part of a reference cycle (an engine holds its
+programs, whose functions hold the engine) is freed only by the collector,
+and a collection that ran inside another step's capture would destroy that
+step's graph there, which invalidates the capture.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -42,8 +49,14 @@ class StepProgram:
             fn()
         stream.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = fn()
+        finally:
+            if collecting:
+                gc.enable()
 
     def __call__(self) -> torch.Tensor:
         if self.graph is None:

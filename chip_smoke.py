@@ -228,8 +228,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 16. fleet: the reference benchmark's ``fleet_soak`` and ``disagg_soak``
    variants (``measure.py:_run_fleet_soak`` at ``(decode, 2, 16, 48, 0)``
    and ``_run_disagg_soak`` at ``(decode, 2, 16, 32, 0)``, registry.py:335-342,
-   nothing cut) on phase 8's ``decode`` model, every arm on the virtual clock
-   (``step_dt_s`` 0.01) through ``SoakHarness`` and a ``FleetRouter`` over
+   each with half its offered requests since PR 22) on phase 8's ``decode``
+   model, every arm on the virtual clock (``step_dt_s`` 0.01) through
+   ``SoakHarness`` and a ``FleetRouter`` over
    fresh replicas, each primed colocated (every prefill bucket and the
    decode step) and then given its role: round robin, least loaded and
    prefix affinity on one templated-cohort trace and prefix affinity under
@@ -361,7 +362,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    equal to ``make_generate_fn``'s and its decode step one CUDA graph; (e)'s
    losses, grad norms and params bitwise, B1-B3 exactly the run without a
    plugin's launches (16 each); (f)'s losses and adapter bitwise, B1-B3 20
-   each. Each prints its s/token or median step and its peak.
+   each. Each prints its s/token or median step and its peak. (g) the
+   serving engine over the main path's model (SHARD_ENGINE: prefix caching
+   with a copy on write, n-gram speculation at k 2, a priority preemption
+   swapped out and back in), with bf16 and with int8 KV; hard: the tokens
+   bitwise, ``trace_counts`` equal with one decode graph, each lever taken,
+   the int8 scale arrays bitwise; printed: s/token, tokens/s, the peak and
+   a profiled decode step's busy share. (h) phase 17's QLoRA step over the
+   int8 base placed by ``Accelerator.prepare``; hard: losses and adapter
+   bitwise, B1-B3 20 each; printed: the step and the peak.
 21. pipelines, sequence and expert parallelism (``--pipe-only``). One card
    holds one rank, so each mechanism's rank bodies run in one process
    (``test_utils/pipeline_runner.py``, through the library's tick table,
@@ -549,14 +558,20 @@ SPEC_K, SPEC_PROMPTS = 4, 8  # measure.py:896-897
 # round apart in fp32
 SPEC_ACCEPT_MIN = 0.97
 SENTINEL = -768.0  # what the pools hold before the trace (exact in bf16)
+# phase 6's example trains one epoch over a quarter of its 16,384 rows (256
+# steps of B 16): the step is host-bound, and the full epoch's ~146 s (H100
+# 80GB HBM3, 700 W) took the whole script past its limit on a slower host
+EXAMPLE_ROWS_CUT = 4
 CARD = "cuda"  # where the serving phase puts its models
 # the reference's serve_soak variant: measure.py:_run_serve_soak(decode, 4, 16, 64, 0)
 # (registry.py:329-330)
 SOAK = dict(max_slots=4, block_size=16, target_requests=64, seed=0)
 # the reference's fleet variants (registry.py:335-342): (decode, 2, 16, 48, 0)
-# and (decode, 2, 16, 32, 0)
-FLEET = dict(max_slots=2, block_size=16, target_requests=48, seed=0)
-DISAGG = dict(max_slots=2, block_size=16, target_requests=32, seed=0)
+# and (decode, 2, 16, 32, 0), each with half its offered requests (the arms
+# are host-bound: cut for the whole script's time; every check holds, as a
+# CPU run of the same plans shows, the arms reading no token)
+FLEET = dict(max_slots=2, block_size=16, target_requests=24, seed=0)
+DISAGG = dict(max_slots=2, block_size=16, target_requests=16, seed=0)
 # int8 paged_attention in bf16 against its fp32 computation from the same
 # codes and scales: worst row's max error over its RMS (PERF.md's parity table)
 INT8_ATTN_TOL = 0.06  # about 3x the reading 0.0203 on an H100
@@ -1879,11 +1894,13 @@ def bert_phase(torch, port, wrappers, rep: Report) -> dict:
 def example_phase(torch, port, wrappers, rep: Report) -> None:
     """``accelerate_tpu_torch/examples/checkpointing.py``'s training function
     at bert_base width, bf16, one epoch (its config's ``num_epochs``; the
-    example reads ``TESTING_NUM_EPOCHS`` only with its tiny model),
-    ``--checkpointing_steps epoch``: step time and tokens/s from the train
-    step's calls, the epoch's accuracy; then ``epoch_0`` loaded into a fresh
-    accelerator and a model from another seed must give the same accuracy.
-    At S 128 both packages take plain attention: B1-B3 launch 0 times."""
+    example reads ``TESTING_NUM_EPOCHS`` only with its tiny model) over
+    1/EXAMPLE_ROWS_CUT of its dataset's rows (the epoch is host-bound; the
+    whole script's time), ``--checkpointing_steps epoch``: step time and
+    tokens/s from the train step's calls, the epoch's accuracy; then
+    ``epoch_0`` loaded into a fresh accelerator and a model from another
+    seed must give the same accuracy. At S 128 both packages take plain
+    attention: B1-B3 launch 0 times."""
     import argparse
     import tempfile
 
@@ -1907,56 +1924,66 @@ def example_phase(torch, port, wrappers, rep: Report) -> None:
             return timed
 
     config = {"lr": 2e-4, "num_epochs": 1, "seed": 42, "batch_size": 16}
-    with tempfile.TemporaryDirectory() as tmp:
-        args = argparse.Namespace(cpu=False, mixed_precision="bf16", gradient_accumulation_steps=1,
-                                  checkpointing_steps="epoch", output_dir=tmp,
-                                  resume_from_checkpoint=None)
-        gc.collect()
-        torch.cuda.empty_cache()
-        port.AcceleratorState._reset_state(reset_partial_state=True)
-        port.GradientState._reset_state()
-        reset_counts(wrappers)
-        example.Accelerator = TimedAccelerator
-        try:
-            t0 = time.perf_counter()
-            metric = example.training_function(config, args)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            example.Accelerator = port.Accelerator
-        launches = {w.__name__: w.launches for w in wrappers}
-        gaps = [b - a for a, b in zip(stamps[10:], stamps[11:])]
-        step_s = statistics.median(gaps)
-        real_per_step = float(torch.stack(real).float().mean())
-        rep.line(f"example checkpointing.py (bert_base, bf16, B 16, S 128, 1 epoch): "
-                 f"{len(stamps)} steps, {wall} s in all (data, set-up, the epoch, eval, "
-                 f"save_state), train steps {stamps[-1] - stamps[0]} s from first to last call, "
-                 f"step {step_s} s (median gap between calls after the 10th), "
-                 f"{16 * 128 / step_s} tokens/s padded, {real_per_step / step_s} tokens/s real; "
-                 f"accuracy {metric['accuracy']}; launches {json.dumps(launches)}")
-        flash = {w: n for w, n in launches.items() if w.startswith("flash_")}
-        if any(flash.values()):
-            fail(f"example: the flash kernels launched at S 128: {flash}")
+    make_dataset = nlp_example.make_paraphrase_dataset
+    nlp_example.make_paraphrase_dataset = (  # train and eval sets alike
+        lambda n, **kw: make_dataset(n // EXAMPLE_ROWS_CUT, **kw))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            args = argparse.Namespace(cpu=False, mixed_precision="bf16",
+                                      gradient_accumulation_steps=1, checkpointing_steps="epoch",
+                                      output_dir=tmp, resume_from_checkpoint=None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            port.AcceleratorState._reset_state(reset_partial_state=True)
+            port.GradientState._reset_state()
+            reset_counts(wrappers)
+            example.Accelerator = TimedAccelerator
+            try:
+                t0 = time.perf_counter()
+                metric = example.training_function(config, args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                example.Accelerator = port.Accelerator
+            launches = {w.__name__: w.launches for w in wrappers}
+            gaps = [b - a for a, b in zip(stamps[10:], stamps[11:])]
+            step_s = statistics.median(gaps)
+            real_per_step = float(torch.stack(real).float().mean())
+            rep.line(f"example checkpointing.py (bert_base, bf16, B 16, S 128, 1 epoch of "
+                     f"1/{EXAMPLE_ROWS_CUT} of the rows): "
+                     f"{len(stamps)} steps, {wall} s in all (data, set-up, the epoch, eval, "
+                     f"save_state), train steps {stamps[-1] - stamps[0]} s from first to last "
+                     f"call, step {step_s} s (median gap between calls after the 10th), "
+                     f"{16 * 128 / step_s} tokens/s padded, {real_per_step / step_s} tokens/s "
+                     f"real; accuracy {metric['accuracy']}; launches {json.dumps(launches)}")
+            flash = {w: n for w, n in launches.items() if w.startswith("flash_")}
+            if any(flash.values()):
+                fail(f"example: the flash kernels launched at S 128: {flash}")
 
-        port.AcceleratorState._reset_state(reset_partial_state=True)
-        port.GradientState._reset_state()
-        acc = port.Accelerator(mixed_precision="bf16")
-        model, cfg = nlp_example.model_and_config(acc, seed=7)
-        train, evals = nlp_example.get_dataloaders(acc, config["batch_size"], cfg)
-        model, opt, train, evals = acc.prepare(model, port.adamw(2e-4, weight_decay=0.01),
-                                               train, evals)
-        carry = acc.load_state(os.path.join(tmp, "epoch_0"), carry=acc.init_carry(model, opt))
-        again = nlp_example.evaluate(acc, model, evals)
-        rep.line(f"example epoch_0 loaded into a fresh accelerator: accuracy {again['accuracy']} "
-                 f"(trained {metric['accuracy']}), opt_step {carry['opt_step']}")
-        if again != metric:
-            fail(f"example: epoch_0 re-evaluates to {again}, the epoch gave {metric}")
-        # one step of the example's shape under the profiler: device busy share
-        step = acc.unified_step(port.SequenceClassifier.loss_fn(model), opt, max_grad_norm=1.0)
-        ran = profile_step(torch, step, carry, next(iter(train)), rep, "example")
-        if ran:
-            fail(f"example profiled step ran the port's kernels {sorted(ran)}, want none")
-        del acc, model, opt, train, evals, carry, step
+            port.AcceleratorState._reset_state(reset_partial_state=True)
+            port.GradientState._reset_state()
+            acc = port.Accelerator(mixed_precision="bf16")
+            model, cfg = nlp_example.model_and_config(acc, seed=7)
+            train, evals = nlp_example.get_dataloaders(acc, config["batch_size"], cfg)
+            model, opt, train, evals = acc.prepare(
+                model, port.adamw(2e-4, weight_decay=0.01), train, evals)
+            carry = acc.load_state(os.path.join(tmp, "epoch_0"),
+                                   carry=acc.init_carry(model, opt))
+            again = nlp_example.evaluate(acc, model, evals)
+            rep.line(f"example epoch_0 loaded into a fresh accelerator: accuracy "
+                     f"{again['accuracy']} (trained {metric['accuracy']}), opt_step "
+                     f"{carry['opt_step']}")
+            if again != metric:
+                fail(f"example: epoch_0 re-evaluates to {again}, the epoch gave {metric}")
+            # one step of the example's shape under the profiler: device busy share
+            step = acc.unified_step(port.SequenceClassifier.loss_fn(model), opt,
+                                    max_grad_norm=1.0)
+            ran = profile_step(torch, step, carry, next(iter(train)), rep, "example")
+            if ran:
+                fail(f"example profiled step ran the port's kernels {sorted(ran)}, want none")
+            del acc, model, opt, train, evals, carry, step
+    finally:
+        nlp_example.make_paraphrase_dataset = make_dataset
 
 
 def decode_model(torch, port, seed: int = 0):
@@ -5902,9 +5929,9 @@ def launch_main_path(torch, port, wrappers, rep: Report, checks: dict) -> dict:
 
 
 def launch_gloo(rep: Report, base: str) -> dict:
-    """Phase 19 (b): the reference's workers and the whole assertion script,
-    each in LAUNCH_WORLD CPU processes over gloo (a failure in any process
-    raises); then (c)'s source: the tiny CausalLM trained RESTORE["steps"]
+    """Phase 19 (b): the reference's workers (one launch) and the whole
+    assertion script, each in LAUNCH_WORLD CPU processes over gloo (a
+    failure in any process raises); then (c)'s source: the tiny CausalLM trained RESTORE["steps"]
     steps by LAUNCH_WORLD processes on global batches whose processes hold
     different mask counts, and saved through the done-marker commit.
     Returns the seconds of each launch."""
@@ -5917,10 +5944,11 @@ def launch_gloo(rep: Report, base: str) -> dict:
     from accelerate_tpu_torch.test_utils.training import TINY_LM
 
     seconds = {}
-    for fn in (workers.collective_worker, workers.training_worker, workers.local_sgd_worker,
-               run_all_checks):
+    # the three workers in one launch (a spawn of the processes costs 10-20 s)
+    checks = ("collective_worker", "training_worker", "local_sgd_worker")
+    for fn, args in ((workers.sequence_worker, (checks,)), (run_all_checks, ())):
         t0 = time.perf_counter()
-        debug_launcher(fn, num_processes=LAUNCH_WORLD)
+        debug_launcher(fn, args, num_processes=LAUNCH_WORLD)
         seconds[fn.__name__] = time.perf_counter() - t0
     init = CausalLM(TransformerConfig(**TINY_LM), device="cpu",
                     generator=torch.Generator().manual_seed(RESTORE["seed"])).state_dict()
@@ -6060,6 +6088,14 @@ SHARD_RESTORE = dict(steps=3, rows=4, more=2, lr=0.5, clip=1.0, seed=0, fresh_se
 # adapter step, each on FULL_SHARD DTensor params against its run without
 SHARD_DECODE = dict(prompt=512, new=16, seed=3)
 SHARD_RAW = dict(K=2, steps=2)
+# (g): the serving engine over the main path's model, serve_trace's first
+# requests cut to ``trace`` (new tokens at most ``new``) beside a 32-token
+# template of 8 seeded tokens four times (the n-gram proposer's prompt)
+# submitted twice (the second a full-prompt prefix hit, a copy on write),
+# and at step ``late`` one request of priority 1 while every seat is taken
+# (a preemption, swapped out and back in); n-gram speculation at k 2
+SHARD_ENGINE = dict(max_slots=4, block_size=16, spec_k=2, trace=3, new=40, template_new=16,
+                    late=3, seed=7)
 SHARD_RUNS = (("none", None, False, 1), ("no_shard", "no_shard", False, 1),
               ("shard_opt", "shard_opt", False, 1), ("full_shard", "full_shard", False, 1),
               ("none_k2", None, False, 2), ("shard_grad_op_k2", "shard_grad_op", False, 2),
@@ -6250,10 +6286,131 @@ def shard_lora_run(torch, port, wrappers, plugin, rep: Report, label: str) -> di
     return out
 
 
+def shard_engine_traffic(cfg) -> list:
+    """(g)'s requests: (submit step, prompt, max_new_tokens, priority)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SHARD_ENGINE["seed"])
+    template = np.tile(rng.integers(0, cfg.vocab_size, 8), 4).tolist()
+    trace = serve_trace(cfg.vocab_size, cfg.max_seq_len)[:SHARD_ENGINE["trace"] + 1]
+    out = [(0, template, SHARD_ENGINE["template_new"], 0),
+           (1, template, SHARD_ENGINE["template_new"], 0)]
+    for prompt, new in trace[:-1]:
+        out.append((1, prompt.tolist(), min(int(new) * 8, SHARD_ENGINE["new"]), 0))
+    prompt, new = trace[-1]
+    out.append((SHARD_ENGINE["late"], prompt.tolist(), min(int(new) * 8, SHARD_ENGINE["new"]), 1))
+    return out
+
+
+def shard_engine_run(torch, port, plugin, rep: Report, label: str, kv_dtype: str) -> dict:
+    """Phase 20 (g), one run: the serving engine over the main path's model
+    prepared under ``plugin`` (prefix caching, n-gram speculation, preemption,
+    ``kv_dtype``) on ``shard_engine_traffic``; the tokens, the counts, the
+    int8 scale arrays, tokens/s over the trace, the decode program's
+    s/token from its replays, the peak and one profiled decode step."""
+    from accelerate_tpu_torch.serving import ServingEngine
+    from accelerate_tpu_torch.serving.speculation import SpecConfig
+
+    acc = fresh_accelerator(torch, port, plugin)
+    cfg, model = main_model(torch, port, acc)
+    if plugin is not None:
+        model = acc.prepare(model)
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(model, max_slots=SHARD_ENGINE["max_slots"],
+                           block_size=SHARD_ENGINE["block_size"], seed=0, prefix_cache=True,
+                           spec_decode=SpecConfig(k=SHARD_ENGINE["spec_k"]), preemption=True,
+                           kv_dtype=kv_dtype)
+    traffic = shard_engine_traffic(cfg)
+    rids, step, generated = [], 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while step == 0 or engine.has_work or any(t >= step for t, *_ in traffic):
+        for i, (at, prompt, new, priority) in enumerate(traffic):
+            if at == step:
+                rids.append(engine.add_request(prompt, max_new_tokens=new, priority=priority,
+                                               request_id=f"g{i}"))
+        generated += len(engine.step())
+        step += 1
+        if step > 2000:
+            fail(f"shard (g) {label}: the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scales = [t.cpu() for t in engine.cache.tensors()[2:]]
+    program = engine._decode_program
+    engine._decode_in["lengths"].zero_()
+    times = []
+    for _ in range(16):  # every row empty: the replays write the garbage block only
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        program()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    out = {"tokens": {r: engine.result(r) for r in rids}, "traces": engine.trace_counts(),
+           "cow": engine.prefix_cache.cow_copies_total, "preempts": sum(
+               engine._preempt_counts.values()), "resumes": engine._resumes_total,
+           "proposed": engine._spec_proposed_total, "accepted": engine._spec_accepted_total,
+           "graph": program.graph is not None, "s_per_token": statistics.median(times),
+           "tokens_per_s": generated / wall, "generated": generated, "steps": step,
+           "wall_s": wall, "peak": torch.cuda.max_memory_allocated(),
+           "kv_bytes_per_token": engine.kv_bytes_per_token, "scales": scales}
+    rep.line(f"shard (g) {label} kv {kv_dtype}: {generated} tokens in {step} steps, {wall} s "
+             f"({out['tokens_per_s']} tokens/s); decode step {out['s_per_token']} s/token "
+             f"(median of {len(times)} replays), one CUDA graph {out['graph']}; traces "
+             f"{json.dumps(out['traces'])}; copies on write {out['cow']}, preemptions "
+             f"{out['preempts']}, resumes {out['resumes']}, drafts {out['accepted']}/"
+             f"{out['proposed']} accepted; peak {out['peak'] / 2**30} GiB")
+    profile_call(torch, program, rep, f"shard (g) {label} kv {kv_dtype} decode step")
+    del engine, model, program, acc
+    return out
+
+
+def shard_qlora_run(torch, port, wrappers, plugin, rep: Report, label: str) -> dict:
+    """Phase 20 (h), one run: phase 17's QLoRA step (ACCUM_CFG's model, its
+    weights quantized to int8 whole, rank LORA["rank"] on LORA["targets"],
+    ``lora_timed``) over the int8 base as it is (no plugin) or placed by
+    ``Accelerator.prepare`` under ``plugin`` (codes and scales DTensors),
+    with an adapter whose B is not zero."""
+    import numpy as np
+
+    from accelerate_tpu_torch import adapters
+    from accelerate_tpu_torch.accelerator import _flat_params
+    from accelerate_tpu_torch.parallel.runtime import to_local
+    from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize_params
+
+    acc = fresh_accelerator(torch, port, plugin)
+    cfg = port.TransformerConfig(**ACCUM_CFG)
+    model = port.CausalLM(cfg, device=acc.device,
+                          generator=torch.Generator(device=acc.device).manual_seed(0))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (LORA["B"], cfg.max_seq_len))
+    batch = {"input_ids": torch.from_numpy(ids).to(acc.device)}
+    model.requires_grad_(False)
+    qbase = quantize_params(model, QuantizationConfig(load_in_8bit=True))
+    if plugin is not None:
+        qbase = acc.prepare(qbase, logical_specs=model)
+    lcfg = adapters.LoraConfig(rank=LORA["rank"], alpha=LORA["alpha"],
+                               target_modules=LORA["targets"])
+    adapter = acc.prepare(nonzero_adapter(torch, adapters, cfg, lcfg, 1, acc.device))
+    opt = acc.prepare(port.adamw(3e-4))
+    step = acc.unified_step(adapters.lora_loss_fn(model, qbase, lcfg,
+                                                  compute_dtype=torch.bfloat16),
+                            max_grad_norm=1.0)
+    carry, losses, seconds, launches, by_design, peak = lora_timed(
+        torch, wrappers, step, acc.init_carry(adapter, opt), batch)
+    check_launches(f"shard (h) {label}", launches, by_design, lora_flash_launches(cfg))
+    out = {"losses": losses, "step_s": seconds, "peak": peak, "launches": launches,
+           "adapter": {k: to_local(v).detach().cpu() for k, v in _flat_params(adapter).items()}}
+    rep.line(f"shard (h) {label}: losses {losses}; {seconds} s a timed step; peak "
+             f"{peak / 2**30} GiB; launches {json.dumps(launches)}")
+    del model, qbase, adapter, opt, step, carry, acc
+    return out
+
+
 def shard_paths(torch, port, wrappers, rep: Report, checks: dict) -> dict:
-    """Phase 20 (d)-(f) in an NCCL group of one: decoding, the raw loop and
-    the LoRA step with the params as FULL_SHARD DTensors, each held bit for
-    bit against its run without a plugin. Returns each run's launches."""
+    """Phase 20 (d)-(h) in an NCCL group of one: decoding, the raw loop, the
+    LoRA step, the serving engine (native and int8 KV) and the QLoRA step
+    with the params (the int8 base's codes and scales) as FULL_SHARD
+    DTensors, each held bit for bit against its run without a plugin.
+    Returns each run's readings."""
     full = lambda: port.ParallelismPlugin(  # noqa: E731
         sharding_strategy=port.ShardingStrategy.FULL_SHARD)
     out = {}
@@ -6286,6 +6443,37 @@ def shard_paths(torch, port, wrappers, rep: Report, checks: dict) -> dict:
         out["lora"] = {k: {"step_s": r["step_s"], "peak": r["peak"], "launches": r["launches"]}
                        for k, r in (("none", base), ("full_shard", lora))}
         del base, lora
+        t0 = time.perf_counter()
+        for kv in ("bf16", "int8"):
+            base = shard_engine_run(torch, port, None, rep, "without a plugin", kv)
+            eng = shard_engine_run(torch, port, full(), rep, "FULL_SHARD", kv)
+            checks[f"shard_engine_{kv}_tokens_bitwise"] = (
+                eng["tokens"] == base["tokens"] and all(v for v in base["tokens"].values()))
+            checks[f"shard_engine_{kv}_traces"] = (eng["traces"] == base["traces"]
+                                                   and eng["traces"]["decode"] == 1
+                                                   and eng["graph"] and base["graph"])
+            checks[f"shard_engine_{kv}_levers"] = all(
+                r["cow"] >= 1 and r["preempts"] >= 1 and r["resumes"] == r["preempts"]
+                and r["traces"]["verify"] >= 1 and r["proposed"] > 0 for r in (base, eng))
+            if kv == "int8":
+                checks["shard_engine_int8_scales_bitwise"] = all(
+                    torch.equal(a, b) for a, b in zip(eng["scales"], base["scales"])) and len(
+                    eng["scales"]) == 2
+            out[f"engine_{kv}"] = {k: {f: r[f] for f in ("s_per_token", "tokens_per_s", "peak",
+                                                        "generated", "wall_s",
+                                                        "kv_bytes_per_token")}
+                                   for k, r in (("none", base), ("full_shard", eng))}
+            del base, eng
+        t1 = time.perf_counter()
+        base = shard_qlora_run(torch, port, wrappers, None, rep, "without a plugin")
+        qlora = shard_qlora_run(torch, port, wrappers, full(), rep, "FULL_SHARD")
+        checks["shard_qlora_losses_bitwise"] = qlora["losses"] == base["losses"]
+        checks["shard_qlora_adapter_bitwise"] = all(torch.equal(qlora["adapter"][k], v)
+                                                    for k, v in base["adapter"].items())
+        out["qlora"] = {k: {"step_s": r["step_s"], "peak": r["peak"], "launches": r["launches"]}
+                        for k, r in (("none", base), ("full_shard", qlora))}
+        del base, qlora
+        rep.line(f"phase 20: (g) {t1 - t0:.1f} s, (h) {time.perf_counter() - t1:.1f} s")
     return out
 
 
@@ -6482,7 +6670,7 @@ def phase20(torch, port, wrappers, rep: Report) -> list[dict]:
     rep.line(f"shard (a)(b) by run: {json.dumps(summary)}")
     t_paths = time.perf_counter()
     paths = shard_paths(torch, port, wrappers, rep, checks)
-    rep.line(f"shard (d)-(f) by run: {json.dumps(paths)}")
+    rep.line(f"shard (d)-(h) by run: {json.dumps(paths)}")
     t1 = time.perf_counter()
     rows = time_flash_shape(torch, fa, rep, "shard", MAIN["B"], MAIN["S"], MAIN["H"],
                             MAIN["Hkv"], MAIN["D"], bwd_library_on_dq=True)
@@ -6500,7 +6688,7 @@ def phase20(torch, port, wrappers, rep: Report) -> list[dict]:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     rep.line(f"shard checks {json.dumps(checks)}")
-    rep.line(f"phase 20: (a)(b) {t_paths - t0:.1f} s, (d)-(f) {t1 - t_paths:.1f} s, kernel "
+    rep.line(f"phase 20: (a)(b) {t_paths - t0:.1f} s, (d)-(h) {t1 - t_paths:.1f} s, kernel "
              f"rows {t2 - t1:.1f} s, (c) "
              f"{time.perf_counter() - t2:.1f} s, in all {time.perf_counter() - t0:.1f} s")
     failed = [k for k, ok in checks.items() if not ok]

@@ -188,9 +188,10 @@ def test_ported_model_features_build_and_train(field, value):
 def test_expert_parallel_raises_naming_a7(tmp_path):
     """Expert parallelism is ported (queue A7 part 4: ``moe_ragged_ep``), and
     so is what part 4 left under tensor parallelism: at tp 2 over two gloo
-    processes MoE experts, greedy decoding and LoRA adapters compute, each
-    as world 1 does. The serving engine over a sharded model is what
-    remains, and raises naming its queue item."""
+    processes MoE experts, greedy decoding, the serving engine (native and
+    int8 KV) and LoRA adapters compute, each as world 1 does. The engine
+    over a sharded model is ported too: it runs on a prepared model, and no
+    NotImplementedError of the port names its queue item any more."""
     from accelerate_tpu_torch.launchers import debug_launcher
     from accelerate_tpu_torch.ops import moe
     from accelerate_tpu_torch.test_utils.scripts import tp_workers
@@ -201,13 +202,20 @@ def test_expert_parallel_raises_naming_a7(tmp_path):
     two, one = (torch.load(tmp_path / f"tp{n}.pt") for n in (2, 1))
     assert torch.allclose(two["moe"], one["moe"], atol=2e-5, rtol=2e-5)
     assert torch.equal(two["tokens"], one["tokens"])
+    assert torch.equal(two["engine_tokens"], one["engine_tokens"])
+    assert torch.equal(two["engine_tokens"], one["tokens"])
+    assert torch.equal(two["int8_engine_tokens"], one["int8_engine_tokens"])
     assert abs(two["lora_loss"] - one["lora_loss"]) <= 2e-5 * abs(one["lora_loss"])
     port.AcceleratorState._reset_state(reset_partial_state=True)
     acc = port.Accelerator(cpu=True, parallelism_plugin=port.ParallelismPlugin(dp_size=1))
     model = acc.prepare(port.CausalLM(port.TransformerConfig.tiny(num_layers=1), device="cpu"))
-    with pytest.raises(NotImplementedError, match=r"queue A7 part 4 \(the engine\)"):
-        port.ServingEngine(model)
+    out = port.ServingEngine(model, max_slots=1, block_size=16).generate([[1, 2, 3]],
+                                                                         max_new_tokens=2)
+    assert out.shape == (1, 5)
     acc.state.partial_state.destroy_process_group()
+    pattern = re.compile(r"queue A7 part 4 \(the engine\)|queue A item 1\b")
+    for path in [*(REPO / "accelerate_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
 
 
 # the reference's public names the port does not export yet, by the queue

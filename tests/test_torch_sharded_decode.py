@@ -18,7 +18,8 @@ run every configuration in turn, each on one process group:
   head a rank) and dp 2 x tp 2: the prefill's and every decode step's logits
   within 2e-5 of world 1, and ``make_generate_fn``'s tokens and
   ``trace_counts`` as the reference's (``tests/test_generation.py:85-103``);
-* the serving engine over a sharded model raises naming its queue item.
+* the serving engine and a paged cache over a sharded model run (the
+  engine's own tests are ``test_torch_sharded_engine.py``).
 
 Tp sizes that cut heads or kv groups are ``test_torch_uneven_tp.py``'s.
 """
@@ -187,16 +188,27 @@ def test_make_generate_fn_trace_counts_match_the_reference(records):
 
 
 def test_the_engine_over_a_sharded_model_names_its_queue_item(records):
-    """The serving engine over a sharded model is not ported; it raises
-    naming its queue item, and so does a paged cache for one."""
+    """The serving engine over a sharded model is ported (it raised naming
+    its queue item before): over a prepared model it decodes the unsharded
+    model's greedy tokens, and ``init_cache`` gives it paged pools of every
+    kv head (one rank) with whole int8 scale arrays."""
     from accelerate_tpu_torch.models import generation
 
     _reset()
+    cfg = port.TransformerConfig.tiny(num_layers=1, **GQA)
+    prompt = torch.tensor([[5, 6, 7, 8]])
+    plain = port.CausalLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    want = generation.generate(plain, prompt, max_new_tokens=3)
     acc = port.Accelerator(cpu=True, parallelism_plugin=port.ParallelismPlugin(dp_size=1))
-    model = acc.prepare(port.CausalLM(port.TransformerConfig.tiny(num_layers=1), device="cpu"))
-    with pytest.raises(NotImplementedError, match=r"queue A7 part 4 \(the engine\)"):
-        port.ServingEngine(model)
-    with pytest.raises(NotImplementedError, match=r"queue A7 part 4 \(the engine\)"):
-        generation.init_cache(model, 1, num_blocks=4, block_size=16)
-    acc.state.partial_state.destroy_process_group()
-    _reset()
+    model = acc.prepare(port.CausalLM(cfg, device="cpu",
+                                      generator=torch.Generator().manual_seed(0)))
+    try:
+        got = port.ServingEngine(model, max_slots=1, block_size=16).generate(
+            prompt, max_new_tokens=3)
+        assert torch.equal(got, want)
+        cache = generation.init_cache(model, 1, num_blocks=4, block_size=16, kv_dtype="int8")
+        assert cache.key.shape == (1, 4, 16, cfg.num_kv_heads, cfg.head_dim)
+        assert cache.key.dtype == torch.int8 and cache.key_scale.shape == (1, 4, 16)
+    finally:
+        acc.state.partial_state.destroy_process_group()
+        _reset()

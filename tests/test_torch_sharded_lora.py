@@ -182,17 +182,60 @@ def test_lora_on_a_sharded_base_reads_the_base_it_is_given():
 
 
 def test_lora_on_a_quantized_sharded_base_raises_naming_its_queue_item():
+    """QLoRA over a sharded base is ported (it raised naming its queue item
+    before): a base quantized whole and placed by ``Accelerator.prepare``
+    (codes and scales DTensors) gives the loss of the same quantized base
+    unsharded, bit for bit at one rank. The world-4 cases are
+    ``test_torch_sharded_qlora.py``'s."""
     from accelerate_tpu_torch.adapters import lora_loss_fn
+    from accelerate_tpu_torch.parallel.sharding import is_dtensor
     from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize_params
 
-    acc, a, _, lcfg, _, _ = _world_one_lora_models()
+    acc, _, _, lcfg, adapter, batch = _world_one_lora_models()
     try:
-        base = dict(a.named_parameters())
+        cfg = port.TransformerConfig.tiny(num_layers=1, **LORA_CFG)
+        plain = port.CausalLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        whole = quantize_params(plain, QuantizationConfig(load_in_8bit=True, min_weight_size=1))
         name = "layers.0.mlp.gate_proj.weight"
-        base[name] = quantize_params({name: base[name].to_local().detach()},
-                                     QuantizationConfig(load_in_8bit=True, min_weight_size=1))[name]
-        with pytest.raises(NotImplementedError, match="queue A item 1"):
-            lora_loss_fn(a, base, lcfg)
+        base = acc.prepare(whole, logical_specs=plain)
+        assert is_dtensor(base[name].codes) and is_dtensor(base[name].scales)
+        with torch.no_grad():
+            got = lora_loss_fn(plain, base, lcfg)(adapter, batch)
+            want = lora_loss_fn(plain, whole, lcfg)(adapter, batch)
+        assert torch.equal(got, want), (float(got), float(want))
     finally:
+        acc.state.partial_state.destroy_process_group()
+        _reset()
+
+
+def test_a_stale_equal_mesh_on_a_sharded_base_resolves_to_the_running_one():
+    """A base whose DTensors hold a mesh equal to the running one by value
+    but whose groups no longer resolve (one made before the process group
+    was ended and brought up again: PyTorch compares meshes by value, and a
+    DTensor may keep the older equal mesh) runs on the running mesh's
+    groups: its loss is the live base's."""
+    import copy
+
+    from torch.distributed.tensor import DTensor
+
+    from accelerate_tpu_torch.adapters import lora_loss_fn
+
+    acc, a, b, lcfg, adapter, batch = _world_one_lora_models()
+    live = next(iter(b.parameters())).device_mesh
+    stale = copy.copy(live)
+    try:
+        stale._dim_group_names = ["ended"] * len(live._dim_group_names)
+        base = dict(b.named_parameters())
+        moved = {k: DTensor.from_local(v.to_local(), stale, v.placements, run_check=False,
+                                       shape=v.shape, stride=v.stride())
+                 for k, v in base.items()}
+        assert next(iter(moved.values())).device_mesh is stale
+        with torch.no_grad():
+            got = lora_loss_fn(a, moved, lcfg)(adapter, batch)
+            want = lora_loss_fn(a, base, lcfg)(adapter, batch)
+        assert torch.equal(got, want), (float(got), float(want))
+    finally:
+        # the copy may stay cached inside DTensor: leave its groups resolvable
+        stale._dim_group_names = list(live._dim_group_names)
         acc.state.partial_state.destroy_process_group()
         _reset()
