@@ -103,7 +103,7 @@ from .data_loader import (
     skip_first_batches,
 )
 from .logging import get_logger
-from .models.transformer import REMAT_POLICIES, convert_model, tp_partial_leaves
+from .models.transformer import REMAT_POLICIES, convert_model, tp_partial_names
 from .ops.fused import maybe_fused_epilogue
 from .optimizer import (
     AcceleratedOptimizer,
@@ -555,11 +555,7 @@ class Accelerator:
         logical = get_logical_specs(model)
         transformer = logical is not None and isinstance(getattr(model, "layers", None),
                                                          nn.ModuleList)
-        tp_partial = frozenset()
-        if transformer:
-            suffixes = tp_partial_leaves(model.config)
-            tp_partial = frozenset(n for n in full if n.startswith("layers.")
-                                   and n.split(".", 2)[2] in suffixes)
+        tp_partial = tp_partial_names(model) if logical is not None else frozenset()
         layout = self._build_layout(full, logical, "layers." if transformer else None,
                                     tp_partial)
         placed = layout.place(full, layout.param_specs)

@@ -24,6 +24,13 @@ cache holds only the kv heads its query heads read
 (``models.transformer._tp_heads``). No tp-split weight is gathered: the tp
 group carries the activations' sums and one gather of the logits a step.
 The paged pools of ``init_cache`` (the serving engine's) split the same way.
+
+``generate`` and ``make_generate_fn`` run ``GPT2LM`` as they run
+``CausalLM``: its ``wpe`` position under decode is the dense cache's index,
+so the captured decode step reads it on the card. ``init_cache`` also makes
+``Seq2SeqLM``'s decode state (``source_len``: the decoder's self-attention
+cache and the cross-attention's keys and values), which its own greedy
+``generate`` steps.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from ..ops.attention import PagedKVCache
 from ..parallel import runtime as _shard
 from ..utils.cuda_graph import StepProgram
+from .seq2seq import Seq2SeqCache, Seq2SeqLM
 from .transformer import CausalLM, DecodeCache, _dtype, _tp_heads
 
 
@@ -78,7 +86,7 @@ def _sample_logits(logits: torch.Tensor, generator: torch.Generator, temperature
 
 
 def _device(model: CausalLM) -> torch.device:
-    return _shard.to_local(model.embed.weight).device
+    return _shard.to_local(next(model.parameters())).device
 
 
 def _forward(model: CausalLM):
@@ -108,14 +116,21 @@ def _cache_kv_heads(model: CausalLM) -> int:
 
 
 def init_cache(model: CausalLM, batch_size: int = 1, *, num_blocks: Optional[int] = None,
-               block_size: Optional[int] = None, kv_dtype: str = "native"):
+               block_size: Optional[int] = None, kv_dtype: str = "native",
+               source_len: Optional[int] = None):
     """A zeroed cache on the model's device, in its compute dtype: the dense
     decode cache for ``batch_size`` rows of ``max_seq_len``, or, given
     ``num_blocks`` and ``block_size``, the paged block pools (int8 codes and
     their fp32 scale arrays with ``kv_dtype="int8"``). Under tp either holds
     this rank's kv heads only (:func:`_cache_kv_heads`); the paged pools'
-    blocks, and the int8 scale arrays, are whole on every rank."""
+    blocks, and the int8 scale arrays, are whole on every rank. For a
+    ``Seq2SeqLM``, its ``Seq2SeqCache`` over sources of ``source_len``."""
     cfg = model.config
+    if isinstance(model, Seq2SeqLM):
+        if source_len is None:
+            raise ValueError("a Seq2SeqLM's cache needs the source length: source_len=")
+        return Seq2SeqCache.zeros(cfg, batch_size, source_len, _device(model),
+                                  _cache_kv_heads(model))
     if num_blocks is None:
         return DecodeCache.zeros(cfg, batch_size, _device(model), _cache_kv_heads(model))
     return PagedKVCache.zeros(cfg.num_layers, num_blocks, block_size, _cache_kv_heads(model),

@@ -78,9 +78,25 @@ and ``"ragged"``), or gathers the stacks for ``"dense"`` and, with the
 tokens, for ``"capacity"``, whose capacity is the global batch's (with the
 sequence split over sp, the chunks are put back in row order first).
 
-Not ported yet, and rejected when asked for (ROADMAP.md): the GPT-2
-architecture, the Gemma/Gemma-2 switches, and ``fused_kernels=True`` on the
-classifier.
+The Gemma and Gemma-2 switches (the reference's :59-76, :257-262, :437,
+:466, :476, :520-521, :717-735, :790-800, :882, :890, :920-925): ``RMSNorm``
+multiplies by ``1 + scale`` with zero-initialised scales under
+``norm_offset``; ``query_pre_attn_scalar`` sets the attention scale;
+``attn_softcap`` soft-caps the scores in every attention call (training,
+dense decode, paged decode), so those calls take the plain path;
+``mlp_activation="gelu_tanh"`` gates the MLP with the tanh GELU;
+``post_norms`` adds a norm after attention and after the MLP;
+``embed_scale`` multiplies the embedding by sqrt(hidden) rounded to the
+compute dtype; ``layer_windows`` gives each layer its window as a 0-d tensor
+(a full-attention layer carries a sentinel wider than any sequence), the
+reference's traced per-layer window, which only the plain path takes; and
+``final_softcap`` soft-caps the logits in fp32. The GPT-2 architecture is
+``models/gpt2.GPT2LM`` and the encoder-decoder ``models/seq2seq.Seq2SeqLM``;
+they share :func:`_layer_stack` (the reference's ``_apply_layer_stack``
+with its ``block_cls``, ``num_layers`` and ``per_layer``).
+
+Not ported yet, and rejected when asked for (ROADMAP.md): ``fused_kernels=
+True`` on the classifier (queue A5).
 """
 
 from __future__ import annotations
@@ -88,6 +104,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
+import re
 import threading
 from dataclasses import dataclass
 from typing import Optional
@@ -129,26 +147,17 @@ def _dtype(config: TransformerConfig) -> torch.dtype:
     return getattr(torch, config.dtype)
 
 
-def _unsupported(cfg: TransformerConfig) -> Optional[str]:
-    if cfg.arch != "llama":
-        return f"arch={cfg.arch!r} (queue A8)"
-    gemma = [name for name, on in (
-        ("norm_offset", cfg.norm_offset), ("embed_scale", cfg.embed_scale),
-        ("mlp_activation", cfg.mlp_activation != "silu"), ("post_norms", cfg.post_norms),
-        ("attn_softcap", cfg.attn_softcap is not None),
-        ("final_softcap", cfg.final_softcap is not None),
-        ("query_pre_attn_scalar", cfg.query_pre_attn_scalar is not None),
-        ("layer_windows", cfg.layer_windows is not None),
-    ) if on]
-    if gemma:
-        return f"the Gemma/Gemma-2 switches {gemma} (queue A8)"
-    return None
+def count_params(params) -> int:
+    """The number of parameter values of a module, or of a (nested) dict of
+    tensors or arrays (the reference's :40 over a pytree's leaves)."""
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return math.prod(getattr(params, "shape", ()))
 
 
 def _check_config(cfg: TransformerConfig) -> None:
-    why = _unsupported(cfg)
-    if why is not None:
-        raise NotImplementedError(f"not ported yet: {why}; see ROADMAP.md")
     if cfg.remat is not None and cfg.remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {cfg.remat!r}; use one of "
                          f"{sorted(REMAT_POLICIES)}")
@@ -350,15 +359,22 @@ def convert_model(model: nn.Module) -> nn.Module:
 
 
 class RMSNorm(nn.Module):
+    """RMSNorm in fp32. Under ``norm_offset`` (Gemma) the scale is stored
+    zero-centred and multiplies as ``1 + scale``, initialised to zeros, so
+    a fresh norm is the identity either way."""
+
     def __init__(self, config: TransformerConfig, dim: int, device=None):
         super().__init__()
         self.eps = config.rms_norm_eps
-        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+        self.offset = config.norm_offset
+        init = torch.zeros if self.offset else torch.ones
+        self.weight = nn.Parameter(init(dim, dtype=torch.float32, device=device))
 
     def forward(self, x):
         xf = x.float()
         y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
-        return (y * self.weight).to(x.dtype)
+        mult = 1.0 + self.weight if self.offset else self.weight
+        return (y * mult).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -403,7 +419,8 @@ class DecodeCache:
         self.index.zero_()
 
 
-def _decode_attention(q, k, v, positions, kv, window, kv_map=None, tp=None):
+def _decode_attention(q, k, v, positions, kv, window, kv_map=None, tp=None, scale=None,
+                      softcap=None):
     """The decode branch of ``Attention``: write this call's k/v into the
     layer's cache, then attend over the whole cache with the band anchored
     at global positions. ``kv`` is (key, value, paged, key_scale,
@@ -415,13 +432,16 @@ def _decode_attention(q, k, v, positions, kv, window, kv_map=None, tp=None):
     cache through it (``_HeadSplit``), dense or paged. ``tp``: the running
     tensor-parallel group, whose ranks each hold their kv heads' share of
     the cache; an int8 paged write takes each token's amax over the group,
-    so the scale arrays are whole and equal on every rank."""
+    so the scale arrays are whole and equal on every rank. ``scale`` and
+    ``softcap``: the attention's (Gemma-2's query_pre_attn_scalar and score
+    soft-capping)."""
     key, value, paged, key_scale, value_scale = kv
     if paged is not None:
         paged_update(key, value, k, v, paged, key_scale, value_scale,
                      amax_group=None if tp is None else tp.group)
-        return paged_attention(q, key, value, paged, window=window, key_scale=key_scale,
-                               value_scale=value_scale, kv_map=kv_map)
+        return paged_attention(q, key, value, paged, scale=scale, window=window,
+                               key_scale=key_scale, value_scale=value_scale, kv_map=kv_map,
+                               softcap=softcap)
     write = positions[0]  # the dense cache's positions are the same in every row
     key.index_copy_(1, write, k.to(key.dtype))
     value.index_copy_(1, write, v.to(value.dtype))
@@ -430,7 +450,8 @@ def _decode_attention(q, k, v, positions, kv, window, kv_map=None, tp=None):
     keep = cols <= rows  # positions not yet written are masked
     if window is not None:
         keep = keep & (cols > rows - window)
-    return xla_attention(q, _expand_kv(key, kv_map), _expand_kv(value, kv_map), mask=keep)
+    return xla_attention(q, _expand_kv(key, kv_map), _expand_kv(value, kv_map), mask=keep,
+                         scale=scale, softcap=softcap)
 
 
 @dataclass(frozen=True)
@@ -542,7 +563,7 @@ class Attention(nn.Module):
         self.o_proj = _proj(cfg, q_dim, e, False, **kw)
 
     def forward(self, x, positions, mask=None, kv_lengths=None, pre_norm_scale=None, kv=None,
-                lora: Optional[LayerLora] = None):
+                lora: Optional[LayerLora] = None, layer_window=None):
         """``mask``: a (B, 1, 1, S) bool key mask (True = attend);
         ``kv_lengths``: (B,) int32 right-padding lengths; both go to
         ``dot_product_attention``, which routes a mask to the plain path and
@@ -553,8 +574,13 @@ class Attention(nn.Module):
         compute); otherwise the norm is applied here and the unfused chain
         follows. ``kv``: this layer's decode cache (see
         ``_decode_attention``). ``lora``: this layer's attention adapters;
-        one on q, k or v takes the unfused chain."""
+        one on q, k or v takes the unfused chain. ``layer_window``: this
+        layer's window of ``config.layer_windows`` (a 0-d tensor), in place
+        of ``config.sliding_window``."""
         cfg = self.config
+        window = cfg.sliding_window if layer_window is None else layer_window
+        scale = (None if cfg.query_pre_attn_scalar is None
+                 else cfg.query_pre_attn_scalar ** -0.5)
         b, s = x.shape[:2]
         dt = _dtype(cfg)
         heads, kv_heads = cfg.num_heads, cfg.num_kv_heads
@@ -600,12 +626,13 @@ class Attention(nn.Module):
             k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         kv_map = None if split is None else split.kv_map
         if kv is not None:
-            out = _decode_attention(q, k, v, positions, kv, cfg.sliding_window, kv_map, tp)
+            out = _decode_attention(q, k, v, positions, kv, window, kv_map, tp, scale,
+                                    cfg.attn_softcap)
         else:
             out = dot_product_attention(
                 q, _expand_kv(k, kv_map), _expand_kv(v, kv_map), mask=mask, causal=cfg.causal,
-                kv_lengths=kv_lengths, implementation=cfg.attention_impl,
-                window=cfg.sliding_window,
+                kv_lengths=kv_lengths, implementation=cfg.attention_impl, window=window,
+                scale=scale, softcap=cfg.attn_softcap,
             )
             out = checkpoint_name(out, "attn_out", cfg)
         out = out.reshape(b, s, heads * cfg.head_dim)
@@ -616,8 +643,17 @@ class Attention(nn.Module):
         return y if tp is None else tp.reduce(y)
 
 
+def _gate_activation(cfg: TransformerConfig):
+    """The MLP gate's activation: SiLU (Llama), or the tanh GELU (Gemma's
+    ``gelu_pytorch_tanh``)."""
+    if cfg.mlp_activation == "silu":
+        return F.silu
+    return functools.partial(F.gelu, approximate="tanh")
+
+
 class MLP(nn.Module):
-    """SwiGLU feed-forward (Llama family)."""
+    """Gated feed-forward: SwiGLU (Llama family), or the tanh GELU gate
+    under ``mlp_activation="gelu_tanh"`` (Gemma)."""
 
     def __init__(self, config: TransformerConfig, device=None, generator=None):
         super().__init__()
@@ -641,7 +677,7 @@ class MLP(nn.Module):
         with named_products("mlp_up_out"):
             up = self.up_proj(x)
         up = _add_delta(up, lora, x, "up_proj", tp, cols=cols)
-        mid = F.silu(gate) * up
+        mid = _gate_activation(self.config)(gate) * up
         y = _add_delta(self.down_proj(mid), lora, mid, "down_proj", tp, rows=cols)
         return y if tp is None else tp.reduce(y)
 
@@ -794,48 +830,78 @@ class Block(nn.Module):
             self.moe = MoE(config, device, generator)
         else:
             self.mlp = MLP(config, device, generator)
+        if config.post_norms:  # Gemma-2: a norm after each sublayer too
+            self.post_attn_norm = RMSNorm(config, e, device)
+            self.post_mlp_norm = RMSNorm(config, e, device)
 
-    def forward(self, x, positions, mask=None, kv_lengths=None, kv=None,
+    def forward(self, x, positions, mask=None, kv_lengths=None, layer_window=None, kv=None,
                 lora: Optional[LayerLora] = None):
         attn_lora = None if lora is None else lora.only(_ATTN_TARGETS)
         if self.fused_kernels:
             # the fused prologue normalises inside its kernel: hand Attention
             # the raw residual stream and the norm's scale
             attn_out = self.attn(x, positions, mask, kv_lengths,
-                                 pre_norm_scale=self.attn_norm.weight, kv=kv, lora=attn_lora)
+                                 pre_norm_scale=self.attn_norm.weight, kv=kv, lora=attn_lora,
+                                 layer_window=layer_window)
         else:
             attn_out = self.attn(self.attn_norm(x), positions, mask, kv_lengths, kv=kv,
-                                 lora=attn_lora)
+                                 lora=attn_lora, layer_window=layer_window)
+        if self.config.post_norms:
+            attn_out = self.post_attn_norm(attn_out)
         h = checkpoint_name(x + attn_out, "attn_res", self.config)
         if self.config.num_experts > 0:
             # MoE blocks take attention adapters only: the experts are the
             # specialisation there
-            return h + self.moe(self.mlp_norm(h))
-        mlp_lora = None if lora is None else lora.only(_MLP_TARGETS)
-        return h + self.mlp(self.mlp_norm(h), lora=mlp_lora)
+            ff_out = self.moe(self.mlp_norm(h))
+        else:
+            mlp_lora = None if lora is None else lora.only(_MLP_TARGETS)
+            ff_out = self.mlp(self.mlp_norm(h), lora=mlp_lora)
+        if self.config.post_norms:
+            ff_out = self.post_mlp_norm(ff_out)
+        return h + ff_out
 
 
-def _layer_stack(model: nn.Module, x, positions, mask=None, kv_lengths=None,
-                 lora: Optional[LoraState] = None):
-    """x through ``model.layers`` (the reference's ``_apply_layer_stack``),
-    each layer under ``torch.utils.checkpoint`` with ``config.remat``'s
-    policy while autograd records, with layer i's slice of ``lora``. Inside
-    a sharded step (``parallel.runtime.sharded_forward``) each layer's
-    parameters are gathered just before it runs."""
+def _layer_stack(model: nn.Module, x, *args, lora: Optional[LoraState] = None, layers=None,
+                 prefix: str = "layers.", per_layer=None):
+    """x through a block stack (the reference's ``_apply_layer_stack``):
+    ``layers`` (``model.layers`` unless given: the seq2seq encoder's or
+    decoder's, whose parameters are named ``prefix<i>.``), each layer called
+    as ``layer(x, *args[, per_layer[i]], lora=...)`` — ``args`` are the
+    broadcast arguments (positions, masks, the encoder's memory) and
+    ``per_layer`` one value a layer (the reference's ``per_layer``: a
+    Gemma-2 layer's window) — under ``torch.utils.checkpoint`` with
+    ``config.remat``'s policy while autograd records, with layer i's slice
+    of ``lora``. Inside a sharded step (``parallel.runtime.sharded_forward``)
+    each layer's parameters are gathered just before it runs."""
     remat = model.config.remat
     gather_all = _shard.layer_gather()
-    for i, layer in enumerate(model.layers):
+    for i, layer in enumerate(model.layers if layers is None else layers):
+        layer_args = args if per_layer is None else (*args, per_layer[i])
         layer_lora = None if lora is None else lora.layer(i)
-        gather = None if gather_all is None else functools.partial(gather_all, f"layers.{i}.")
+        gather = None if gather_all is None else functools.partial(gather_all, f"{prefix}{i}.")
         if remat is not None and torch.is_grad_enabled():
-            x = _remat(layer, remat, x, positions, mask, kv_lengths, lora=layer_lora,
-                       gather=gather)
+            x = _remat(layer, remat, x, *layer_args, lora=layer_lora, gather=gather)
         elif gather is not None:  # the layer's whole weights live while it runs
             x = torch.func.functional_call(layer, gather(dict(layer.named_parameters())),
-                                           (x, positions, mask, kv_lengths), {"lora": layer_lora})
+                                           (x, *layer_args), {"lora": layer_lora})
         else:
-            x = layer(x, positions, mask, kv_lengths, lora=layer_lora)
+            x = layer(x, *layer_args, lora=layer_lora)
     return x
+
+
+_FULL_WINDOW = 1 << 30  # a full-attention layer's window in a per-layer pattern
+
+
+def layer_windows(config: TransformerConfig, device) -> Optional[list]:
+    """Each layer's window of ``config.layer_windows`` as a 0-d int64 tensor
+    on ``device`` (a full-attention layer's the sentinel ``_FULL_WINDOW``,
+    wider than any sequence, so one band formula covers every layer: the
+    reference's ``_layer_windows_array``), or None. ``torch.full`` makes
+    each on the device, so a captured decode step makes them too."""
+    if config.layer_windows is None:
+        return None
+    return [torch.full((), _FULL_WINDOW if w is None else w, dtype=torch.long, device=device)
+            for w in config.layer_windows]
 
 
 def _model_device(device) -> torch.device:
@@ -871,62 +937,103 @@ def _embed_and_layers(model: nn.Module, config: TransformerConfig, device, gener
     model.final_norm = RMSNorm(config, e, device)
 
 
-def _embed_tokens(model: nn.Module, input_ids: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """The embedding lookup; under tp a lookup into this rank's vocab rows,
-    summed over tp."""
+def _embed_tokens(model: nn.Module, input_ids: torch.Tensor, dt: torch.dtype,
+                  embed: Optional[nn.Module] = None) -> torch.Tensor:
+    """The embedding lookup (``model.embed`` unless ``embed`` is given);
+    under tp a lookup into this rank's vocab rows, summed over tp."""
     tp = _shard.tp_state()
-    weight = model.embed.weight.to(dt)
+    weight = (model.embed if embed is None else embed).weight.to(dt)
     if tp is None:
         return F.embedding(input_ids, weight)
     return tp.vocab_embedding(input_ids, weight)
 
 
+def _scale_embedding(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
+    """Gemma's ``embed_scale``: x times sqrt(hidden_size) rounded to x's
+    dtype (the reference's ``jnp.asarray(np.sqrt(h), x.dtype)``)."""
+    if not cfg.embed_scale:
+        return x
+    return x * float(torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype))
+
+
+def _final_softcap(cfg: TransformerConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Gemma-2's final-logit soft-capping, in fp32, back to the logits'
+    dtype."""
+    if cfg.final_softcap is None:
+        return logits
+    cap = cfg.final_softcap
+    return (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
+
+
+_STACKED = re.compile(r"^((?:\w+\.)?layers)\.\d+\.")  # a layer of a stack (the seq2seq's too)
+
+
 def _logical_axes(model: nn.Module) -> dict[str, LeafAxes]:
     """Each parameter's logical axes as the reference declares them
     (``nn.with_partitioning`` in ``accelerate_tpu/models/transformer.py``
-    :68, :156-159, :198-208, :565, :575, :751, :915, :1047, :1060) over the
-    reference's shape: a layer's leaf stacked to ``(layers, ...)`` with a
-    Dense kernel ``(in, out)``, so the port's ``(out, in)`` weight reads
-    the reference's dims (2, 1). A Dense bias the reference leaves
+    :68, :156-159, :198-208, :565, :575, :751, :915, :1047, :1060, and the
+    seq2seq model's, which reuses them) over the reference's shape: a
+    layer's leaf stacked to ``(layers, ...)`` (the stack's own depth: the
+    seq2seq encoder's and decoder's), with a Dense kernel ``(in, out)``, so
+    the port's ``(out, in)`` weight reads the reference's dims (2, 1). A
+    projection is known by its own name (``q_proj`` in ``attn``,
+    ``self_attn`` or ``cross_attn``). A Dense bias the reference leaves
     unannotated takes ``(None,)``, which the rules treat as the reference
     treats an empty spec."""
-    cfg = model.config
-    layers = cfg.num_layers
     kernels = {  # a Dense kernel's logical axes, (in, out)
-        "attn.q_proj": ("embed", "heads"), "attn.k_proj": ("embed", "kv"),
-        "attn.v_proj": ("embed", "kv"), "attn.o_proj": ("heads", "embed"),
-        "mlp.gate_proj": ("embed", "mlp"), "mlp.up_proj": ("embed", "mlp"),
-        "mlp.down_proj": ("mlp", "embed"), "moe.router": ("embed", None),
-        "lm_head": ("embed", "vocab"), "pooler": ("embed", None),
-        "classifier": ("embed", None),
+        "q_proj": ("embed", "heads"), "k_proj": ("embed", "kv"), "v_proj": ("embed", "kv"),
+        "o_proj": ("heads", "embed"), "gate_proj": ("embed", "mlp"),
+        "up_proj": ("embed", "mlp"), "down_proj": ("mlp", "embed"), "router": ("embed", None),
+        "lm_head": ("embed", "vocab"), "pooler": ("embed", None), "classifier": ("embed", None),
     }
-    biases = {"attn.q_proj": ("heads",), "attn.k_proj": ("kv",), "attn.v_proj": ("kv",)}
+    biases = {"q_proj": ("heads",), "k_proj": ("kv",), "v_proj": ("kv",)}
     stacks = {"moe.gate_proj": ("expert", "embed", "mlp"),
               "moe.up_proj": ("expert", "embed", "mlp"),
               "moe.down_proj": ("expert", "mlp", "embed")}
     out = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)
-        stacked = name.startswith("layers.")
-        local = name.split(".", 2)[2] if stacked else name
+        stack = _STACKED.match(name)
+        local = name[stack.end():] if stack else name
         module, _, leaf = local.rpartition(".")
+        proj = module.rpartition(".")[2]
         if local in stacks:
             logical, ref, dims = stacks[local], shape, tuple(range(len(shape)))
-        elif leaf == "weight" and module in kernels:
-            logical, ref, dims = kernels[module], (shape[1], shape[0]), (1, 0)
+        elif leaf == "weight" and proj in kernels:
+            logical, ref, dims = kernels[proj], (shape[1], shape[0]), (1, 0)
         elif leaf == "bias":
-            logical, ref, dims = biases.get(module, (None,)), shape, (0,)
+            logical, ref, dims = biases.get(proj, (None,)), shape, (0,)
         elif local.endswith("norm.weight"):
             logical, ref, dims = ("norm",), shape, (0,)
         elif local == "embed.weight":
             logical, ref, dims = (("vocab", "zero"), "embed"), shape, (0, 1)
         else:
             raise KeyError(f"no logical axes for parameter {name!r}")
-        if stacked:
-            logical, ref = ("layers",) + tuple(logical), (layers,) + tuple(ref)
+        if stack:
+            depth = len(model.get_submodule(stack.group(1)))
+            logical, ref = ("layers",) + tuple(logical), (depth,) + tuple(ref)
             dims = tuple(d + 1 for d in dims)
         out[name] = LeafAxes(tuple(logical), tuple(ref), dims)
     return out
+
+
+def tp_partial_names(model: nn.Module) -> frozenset:
+    """The parameters of ``model`` whose gradients are partial sums over tp
+    (:func:`tp_partial_leaves`, in any layer of any stack, the seq2seq
+    decoder's self- and cross-attention included)."""
+    cfg = getattr(model, "config", None)
+    if cfg is None:
+        return frozenset()
+    suffixes = tp_partial_leaves(cfg)
+    names = set()
+    for name, _ in model.named_parameters():
+        stack = _STACKED.match(name)
+        if stack is None:
+            continue
+        local = re.sub(r"^(self_attn|cross_attn)\.", "attn.", name[stack.end():])
+        if local in suffixes:
+            names.add(name)
+    return frozenset(names)
 
 
 def next_token_targets(ids: torch.Tensor, mask: Optional[torch.Tensor] = None):
@@ -1038,7 +1145,7 @@ class CausalLM(nn.Module):
                 lora: Optional[LoraState] = None):
         cfg = self.config
         dt = _dtype(cfg)
-        x = _embed_tokens(self, input_ids, dt)
+        x = _scale_embedding(cfg, _embed_tokens(self, input_ids, dt))
         if decode:
             x = self._decode_layers(x, paged, cache, lora)
         elif paged is not None or cache is not None:
@@ -1049,7 +1156,8 @@ class CausalLM(nn.Module):
                 positions = positions[None, :].expand(input_ids.shape)
             if _shard.sp_state() is not None:
                 x, positions = self._sequence_chunk(x, positions)
-            x = _layer_stack(self, x, positions, lora=lora)
+            x = _layer_stack(self, x, positions, None, None, lora=lora,
+                             per_layer=layer_windows(cfg, x.device))
         x = self.final_norm(x)
         tp = _shard.tp_state()
         if tp is not None:  # vocab-split logits, gathered over tp for the loss
@@ -1058,7 +1166,9 @@ class CausalLM(nn.Module):
             logits = x.to(dt) @ self.embed.weight.to(dt).t()
         else:
             logits = self.lm_head(x)
-        return logits if tp is None else tp.gather(logits, -1)
+        if tp is not None:
+            logits = tp.gather(logits, -1)
+        return _final_softcap(cfg, logits)
 
     def logical_axes(self) -> dict[str, LeafAxes]:
         """Every parameter's logical axes in the reference's layout, for
@@ -1092,13 +1202,15 @@ class CausalLM(nn.Module):
                 raise ValueError("decode=True needs a cache: models.generation.init_cache")
             positions = (cache.index + ar)[None, :].expand(b, s)
         gather = _shard.layer_gather()
+        windows = layer_windows(self.config, x.device)
         for i, layer in enumerate(self.layers):
             if paged is not None:
                 key, value, key_scale, value_scale = cache.layer(i)
                 kv = (key, value, paged, key_scale, value_scale)
             else:
                 kv = (cache.key[i], cache.value[i], None, None, None)
-            kw = {"kv": kv, "lora": None if lora is None else lora.layer(i)}
+            kw = {"kv": kv, "lora": None if lora is None else lora.layer(i),
+                  "layer_window": None if windows is None else windows[i]}
             if gather is None:
                 x = layer(x, positions, **kw)
             else:  # under a sharded forward: the layer's fsdp shards gathered
@@ -1172,9 +1284,12 @@ class SequenceClassifier(nn.Module):
         mask4d = kv_lengths = is_prefix = None
         if attention_mask is not None:
             keep = attention_mask > 0
-            use_flash = cfg.attention_impl == "flash" or (
+            # softcap and per-layer windows take the plain path, which reads
+            # the exact key mask: no lowering to lengths (reference :1000-1004)
+            flash_compatible = cfg.attn_softcap is None and cfg.layer_windows is None
+            use_flash = flash_compatible and (cfg.attention_impl == "flash" or (
                 cfg.attention_impl is None
-                and flash_self_attention_eligible(s, input_ids.device))
+                and flash_self_attention_eligible(s, input_ids.device)))
             if use_flash:
                 # the flash wrapper takes a contiguous (B,) int32 tensor
                 kv_lengths = keep.sum(dim=-1, dtype=torch.int32).contiguous()
@@ -1182,7 +1297,8 @@ class SequenceClassifier(nn.Module):
             else:
                 mask4d = keep[:, None, None, :]
         x = _embed_tokens(self, input_ids, _dtype(cfg))
-        x = _layer_stack(self, x, positions, mask4d, kv_lengths)
+        x = _layer_stack(self, x, positions, mask4d, kv_lengths,
+                         per_layer=layer_windows(cfg, x.device))
         if is_prefix is not None:
             x = torch.where(is_prefix[:, None, None], x, torch.full_like(x, float("nan")))
         x = self.final_norm(x)

@@ -184,9 +184,10 @@ def paged_update(key_pool: torch.Tensor, value_pool: torch.Tensor, k: torch.Tens
 
 def paged_attention(q: torch.Tensor, key_pool: torch.Tensor, value_pool: torch.Tensor,
                     state: PagedKVState, scale: Optional[float] = None,
-                    window: Optional[int] = None, key_scale: Optional[torch.Tensor] = None,
+                    window=None, key_scale: Optional[torch.Tensor] = None,
                     value_scale: Optional[torch.Tensor] = None,
-                    kv_map: Optional[tuple] = None) -> torch.Tensor:
+                    kv_map: Optional[tuple] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """Attention read through the block table: each slot's blocks are
     gathered into a (B, max_blocks*block_size, Hkv, D) view, so gathered
     column j is global position j, and the plain path runs over it with the
@@ -197,7 +198,9 @@ def paged_attention(q: torch.Tensor, key_pool: torch.Tensor, value_pool: torch.T
     dequantised (code times its row's scale, in fp32) to the query's dtype
     before the math; the pools stay int8. ``kv_map``: each query head's kv
     head (a tensor-parallel rank whose query heads do not group evenly over
-    the kv heads it holds), else None."""
+    the kv heads it holds), else None. ``window`` may be a 0-d tensor (a
+    layer's window of a per-layer pattern); ``softcap``: the scores'
+    Gemma-2 soft-capping (:func:`xla_attention`)."""
     b, s = q.shape[:2]
     width = state.block_table.shape[1] * state.block_size
     table = state.block_table.long()
@@ -216,15 +219,14 @@ def paged_attention(q: torch.Tensor, key_pool: torch.Tensor, value_pool: torch.T
     if kv_map is not None:
         heads = torch.tensor(kv_map, device=k.device)
         k, v = k.index_select(2, heads), v.index_select(2, heads)
-    return xla_attention(q, k, v, mask=keep, scale=scale)
+    return xla_attention(q, k, v, mask=keep, scale=scale, softcap=softcap)
 
 
-def make_causal_mask(
-    q_len: int, kv_len: int, window: Optional[int] = None, device=None
-) -> torch.Tensor:
+def make_causal_mask(q_len: int, kv_len: int, window=None, device=None) -> torch.Tensor:
     """Lower-triangular (q_len, kv_len) bool mask aligned at the end
-    (decode: q_len < kv_len). ``window``: query row r additionally sees
-    only cols > r + offset - window, self included (HF semantics)."""
+    (decode: q_len < kv_len). ``window`` (an int, or a 0-d tensor of a
+    per-layer pattern): query row r additionally sees only cols > r +
+    offset - window, self included (HF semantics)."""
     offset = kv_len - q_len
     rows = torch.arange(q_len, device=device)[:, None]
     cols = torch.arange(kv_len, device=device)[None, :]
@@ -256,12 +258,16 @@ def xla_attention(
     scale: Optional[float] = None,
     causal: bool = False,
     kv_lengths: Optional[torch.Tensor] = None,
-    window: Optional[int] = None,
+    window=None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """The plain path (named after the reference's): fp32 scores and
     softmax whatever the input dtype, masked entries set to the fp32
     minimum, probabilities cast back to the input dtype before p.v. A fully
-    masked row averages v, as the reference's does."""
+    masked row averages v, as the reference's does. ``window`` (requires
+    ``causal``) may be a 0-d tensor: only this path takes a per-layer one.
+    ``softcap``: Gemma-2's tanh soft-capping of the scaled scores, ``cap *
+    tanh(s / cap)``, before any mask (the reference's :252-276)."""
     if window is not None and not causal:
         raise ValueError("sliding window requires causal attention")
     orig_dtype = q.dtype
@@ -270,6 +276,8 @@ def xla_attention(
     v = _repeat_kv(v, n_rep)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
     if bias is not None:
         logits = logits + bias.float()
     fmin = torch.finfo(torch.float32).min
@@ -302,21 +310,28 @@ def dot_product_attention(
     causal: bool = False,
     kv_lengths: Optional[torch.Tensor] = None,
     implementation: Optional[str] = None,
-    window: Optional[int] = None,
+    window=None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention entry point, shapes (batch, seq, heads, head_dim).
 
     ``implementation``: None (auto) | "xla" | "flash" | "ring". Auto picks
     flash for causal or bidirectional self-attention on a CUDA device with
-    no dense mask or bias, else the plain path — decided before any
-    launch. "ring" runs ``ops/ring_attention.py`` over the running sharded
-    step's sp group on the model's sequence chunks (the plain path at sp
-    1, dense attention where the model kept a length sp does not tile). Score soft-capping and per-layer windows (Gemma-2) are not
-    ported yet (ROADMAP.md, queue A8).
+    no dense mask or bias, no ``softcap`` and a static ``window`` (an int or
+    None), else the plain path — decided before any launch. "ring" runs
+    ``ops/ring_attention.py`` over the running sharded step's sp group on
+    the model's sequence chunks (the plain path at sp 1, dense attention
+    where the model kept a length sp does not tile). ``softcap`` (Gemma-2's
+    score soft-capping) and a per-layer window (a 0-d tensor, one layer of
+    Gemma-2's pattern; the reference's traced window) run only on the plain
+    path: an explicit "flash" or "ring" with either raises, as in the
+    reference (:325-399).
     """
+    window_static = window is None or isinstance(window, int)
     if implementation is None:
         flash_ok = (
             bias is None and mask is None
+            and softcap is None and window_static
             and q.shape[1] == k.shape[1]
             and flash_self_attention_eligible(q.shape[1], q.device)
         )
@@ -324,7 +339,7 @@ def dot_product_attention(
     if implementation == "xla":
         return xla_attention(
             q, k, v, mask=mask, bias=bias, scale=scale, causal=causal,
-            kv_lengths=kv_lengths, window=window,
+            kv_lengths=kv_lengths, window=window, softcap=softcap,
         )
     if implementation == "flash":
         from .flash_attention import flash_attention
@@ -335,6 +350,11 @@ def dot_product_attention(
                 "right-padding via kv_lengths, or implementation='xla' for "
                 "arbitrary masks"
             )
+        if softcap is not None or not window_static:
+            raise ValueError(
+                "flash attention supports neither score soft-capping nor traced per-layer "
+                "windows — use implementation='xla'"
+            )
         return flash_attention(
             q, k, v, scale=scale, causal=causal, kv_lengths=kv_lengths, window=window
         )
@@ -344,7 +364,7 @@ def dot_product_attention(
 
         if mask is not None or bias is not None or kv_lengths is not None:
             raise ValueError("ring attention supports no custom mask/bias")
-        if window is not None:
+        if window is not None or softcap is not None:
             raise ValueError(
                 "ring attention supports neither sliding windows nor score soft-capping — "
                 "use implementation='flash' or 'xla' (at window << seq the flash band-skip "

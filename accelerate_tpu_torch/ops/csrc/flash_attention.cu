@@ -84,7 +84,10 @@
 // shared memory by synchronous loads, products run through nvcuda::wmma
 // (bf16/fp16 in, fp32 out) and the fp32 tiles (scores, accumulators) live
 // in shared memory. float32 inputs take a scalar fp32 path (no TF32) with
-// smaller tiles; it exists for exact comparisons.
+// smaller tiles; it exists for exact comparisons. Head dims above 128 (up to
+// 256, Gemma's) take shorter tiles (Tile), so that every kernel's shared
+// tiles fit the 227 KB a block may opt into; the launcher checks each carve
+// before the launch and refuses a shape no tile fits.
 //
 // Both designs skip tiles wholly above the diagonal, below the window band
 // or in the padded kv tail, and apply the element mask only to tiles that
@@ -111,16 +114,27 @@ constexpr float NEG_INF = -1e30f;  // the reference's sentinel (not -inf: no inf
 constexpr int NTHREADS = 512;
 constexpr int NWARPS = NTHREADS / 32;
 
-template <typename T>
-struct Tile {  // bf16 / fp16: 64 x 64 tiles
-  static constexpr int BQ = 64;
-  static constexpr int BK = 64;
+// The wmma design's tiles (BQ q rows x BK kv rows) by element type and by
+// head_dim: the shared tiles grow with D, so D > 128 (WIDE) takes shorter
+// tiles. bf16 / fp16 take 64 x 64 (32 x 32 when wide); fp32, twice as wide
+// per element, 32 x 32 (16 x 32 when wide). BK stays a multiple of 32 (the
+// forward's softmax gives each lane BK / 32 columns) and BQ a multiple of
+// the 16 warps. The launcher checks every carve against the opt-in maximum
+// of dynamic shared memory before the launch (at D 256 the largest, the
+// single pass's, is ~182 KB for bf16 and ~192 KB for fp32).
+template <typename T, bool WIDE>
+struct Tile {
+  static constexpr int BQ = WIDE ? 32 : 64;
+  static constexpr int BK = WIDE ? 32 : 64;
 };
-template <>
-struct Tile<float> {  // fp32 tiles are twice as wide per element
-  static constexpr int BQ = 32;
+template <bool WIDE>
+struct Tile<float, WIDE> {
+  static constexpr int BQ = WIDE ? 16 : 32;
   static constexpr int BK = 32;
 };
+constexpr int WMMA_NARROW_MAX_D = 128;  // above it, the WIDE tiles
+// cudaDevAttrMaxSharedMemoryPerBlockOptin on an H100: 227 KB
+constexpr size_t MAX_DYNAMIC_SMEM = 232448;
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -298,12 +312,11 @@ __device__ __forceinline__ void visible_cols(const Params& p, int q0, int qmax, 
 // ------------------------------------------------------------------------
 // forward
 // ------------------------------------------------------------------------
-template <typename T>
+template <typename T, int BQ, int BK>
 struct FwdSmem {
   T *q, *k, *v, *p;
   float *s, *o, *m, *l;
   __host__ __device__ static size_t carve(unsigned char* base, int D, FwdSmem* out) {
-    constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
     Carve c(base);
     FwdSmem s;
     s.q = c.take<T>(BQ * ld_t<T>(D));
@@ -319,12 +332,11 @@ struct FwdSmem {
   }
 };
 
-template <typename T>
+template <typename T, int BQ, int BK>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_wmma_kernel(Params p) {
-  constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  FwdSmem<T> sm;
-  FwdSmem<T>::carve(smem, p.D, &sm);
+  FwdSmem<T, BQ, BK> sm;
+  FwdSmem<T, BQ, BK>::carve(smem, p.D, &sm);
   const int D = p.D, LT = ld_t<T>(D), LP = ld_t<T>(BK), LS = ld_f(BK), LO = ld_f(D);
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
@@ -441,12 +453,11 @@ __device__ void load_rowstats(float* lse_s, float* delta_s, const Params& p, int
 // ------------------------------------------------------------------------
 // dq
 // ------------------------------------------------------------------------
-template <typename T>
+template <typename T, int BQ, int BK>
 struct DqSmem {
   T *q, *dout, *k, *v, *ds;
   float *s, *dp, *dq, *lse, *delta;
   __host__ __device__ static size_t carve(unsigned char* base, int D, DqSmem* out) {
-    constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
     Carve c(base);
     DqSmem s;
     s.q = c.take<T>(BQ * ld_t<T>(D));
@@ -464,12 +475,11 @@ struct DqSmem {
   }
 };
 
-template <typename T>
+template <typename T, int BQ, int BK>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_wmma_kernel(Params p) {
-  constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  DqSmem<T> sm;
-  DqSmem<T>::carve(smem, p.D, &sm);
+  DqSmem<T, BQ, BK> sm;
+  DqSmem<T, BQ, BK>::carve(smem, p.D, &sm);
   const int D = p.D, LT = ld_t<T>(D), LP = ld_t<T>(BK), LS = ld_f(BK), LO = ld_f(D);
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
@@ -509,12 +519,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_wmma_kernel(Params p) {
 // ------------------------------------------------------------------------
 // dk / dv
 // ------------------------------------------------------------------------
-template <typename T>
+template <typename T, int BQ, int BK>
 struct DkvSmem {
   T *k, *v, *q, *dout, *p, *ds;
   float *s, *dp, *dk, *dv, *lse, *delta;
   __host__ __device__ static size_t carve(unsigned char* base, int D, DkvSmem* out) {
-    constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
     Carve c(base);
     DkvSmem s;
     s.k = c.take<T>(BK * ld_t<T>(D));
@@ -534,12 +543,11 @@ struct DkvSmem {
   }
 };
 
-template <typename T>
+template <typename T, int BQ, int BK>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_wmma_kernel(Params p) {
-  constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  DkvSmem<T> sm;
-  DkvSmem<T>::carve(smem, p.D, &sm);
+  DkvSmem<T, BQ, BK> sm;
+  DkvSmem<T, BQ, BK>::carve(smem, p.D, &sm);
   const int D = p.D, LT = ld_t<T>(D), LP = ld_t<T>(BK), LS = ld_f(BK), LO = ld_f(D);
   const int ik = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = p.H / p.Hkv;
@@ -601,12 +609,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_wmma_kernel(Params p) 
 // grid steps (accelerate_tpu/ops/flash_attention.py:393-417); a CTA here
 // owns its dk/dv tile, so no partials are needed. dq's sum over kv tiles
 // runs in whatever order the atomics land: not bitwise reproducible.
-template <typename T>
+template <typename T, int BQ, int BK>
 struct FusedSmem {
   T *k, *v, *q, *dout, *p, *ds;
   float *s, *dp, *dk, *dv, *dq, *lse, *delta;
   __host__ __device__ static size_t carve(unsigned char* base, int D, FusedSmem* out) {
-    constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
     Carve c(base);
     FusedSmem s;
     s.k = c.take<T>(BK * ld_t<T>(D));
@@ -627,12 +634,11 @@ struct FusedSmem {
   }
 };
 
-template <typename T>
+template <typename T, int BQ, int BK>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_fused_wmma_kernel(Params p) {
-  constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  FusedSmem<T> sm;
-  FusedSmem<T>::carve(smem, p.D, &sm);
+  FusedSmem<T, BQ, BK> sm;
+  FusedSmem<T, BQ, BK>::carve(smem, p.D, &sm);
   const int D = p.D, LT = ld_t<T>(D), LP = ld_t<T>(BK), LS = ld_f(BK), LO = ld_f(D);
   const int ik = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = p.H / p.Hkv;
@@ -1391,25 +1397,40 @@ cudaError_t launch_wgmma_d(Kind kind, const Params& p, cudaStream_t stream) {
   return p.D == 128 ? launch_wgmma<T, 128>(kind, p, stream) : launch_wgmma<T, 64>(kind, p, stream);
 }
 
-// the wmma design
+// the wmma design at one tile size: every kernel's carve is checked against
+// the opt-in maximum of dynamic shared memory before its launch
+template <typename T, int BQ, int BK>
+cudaError_t launch_tiles(Kind kind, const Params& p, cudaStream_t stream) {
+  const void* fn;
+  size_t bytes;
+  dim3 grid;
+  if (kind == FWD) {
+    fn = reinterpret_cast<const void*>(&flash_fwd_wmma_kernel<T, BQ, BK>);
+    bytes = FwdSmem<T, BQ, BK>::carve(nullptr, p.D, nullptr);
+    grid = dim3((p.S + BQ - 1) / BQ, p.H, p.B);
+  } else if (kind == DQ) {
+    fn = reinterpret_cast<const void*>(&flash_bwd_dq_wmma_kernel<T, BQ, BK>);
+    bytes = DqSmem<T, BQ, BK>::carve(nullptr, p.D, nullptr);
+    grid = dim3((p.S + BQ - 1) / BQ, p.H, p.B);
+  } else if (kind == DKV) {
+    fn = reinterpret_cast<const void*>(&flash_bwd_dkv_wmma_kernel<T, BQ, BK>);
+    bytes = DkvSmem<T, BQ, BK>::carve(nullptr, p.D, nullptr);
+    grid = dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B);
+  } else {
+    fn = reinterpret_cast<const void*>(&flash_bwd_fused_wmma_kernel<T, BQ, BK>);
+    bytes = FusedSmem<T, BQ, BK>::carve(nullptr, p.D, nullptr);
+    grid = dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B);
+  }
+  if (bytes > MAX_DYNAMIC_SMEM) return cudaErrorInvalidConfiguration;  // no tile fits
+  return launch_fn(fn, grid, NTHREADS, bytes, p, stream);
+}
+
+// the wmma design: the tiles by element type and head_dim (Tile)
 template <typename T>
 cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
-  constexpr int BQ = Tile<T>::BQ, BK = Tile<T>::BK;
-  if (kind == FWD)
-    return launch_fn(reinterpret_cast<const void*>(&flash_fwd_wmma_kernel<T>),
-                     dim3((p.S + BQ - 1) / BQ, p.H, p.B), NTHREADS,
-                     FwdSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
-  if (kind == DQ)
-    return launch_fn(reinterpret_cast<const void*>(&flash_bwd_dq_wmma_kernel<T>),
-                     dim3((p.S + BQ - 1) / BQ, p.H, p.B), NTHREADS,
-                     DqSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
-  if (kind == DKV)
-    return launch_fn(reinterpret_cast<const void*>(&flash_bwd_dkv_wmma_kernel<T>),
-                     dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B), NTHREADS,
-                     DkvSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
-  return launch_fn(reinterpret_cast<const void*>(&flash_bwd_fused_wmma_kernel<T>),
-                   dim3((p.Skv + BK - 1) / BK, p.Hkv, p.B), NTHREADS,
-                   FusedSmem<T>::carve(nullptr, p.D, nullptr), p, stream);
+  if (p.D > WMMA_NARROW_MAX_D)
+    return launch_tiles<T, Tile<T, true>::BQ, Tile<T, true>::BK>(kind, p, stream);
+  return launch_tiles<T, Tile<T, false>::BQ, Tile<T, false>::BK>(kind, p, stream);
 }
 
 // dtype codes: 0 float32, 1 bfloat16, 2 float16
@@ -1513,6 +1534,36 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, cons
 extern "C" int flash_design(int kind, int dtype, int D) {
   if (kind < FWD || kind > FUSED) return -1;
   return wgmma_design(dtype, D) ? 1 : 0;
+}
+
+namespace {
+template <typename T, int BQ, int BK>
+int smem_at(int kind, int D) {
+  switch (kind) {
+    case FWD: return (int)FwdSmem<T, BQ, BK>::carve(nullptr, D, nullptr);
+    case DQ: return (int)DqSmem<T, BQ, BK>::carve(nullptr, D, nullptr);
+    case DKV: return (int)DkvSmem<T, BQ, BK>::carve(nullptr, D, nullptr);
+    case FUSED: return (int)FusedSmem<T, BQ, BK>::carve(nullptr, D, nullptr);
+    default: return -1;
+  }
+}
+template <typename T>
+int smem_of(int kind, int D) {
+  if (D > WMMA_NARROW_MAX_D) return smem_at<T, Tile<T, true>::BQ, Tile<T, true>::BK>(kind, D);
+  return smem_at<T, Tile<T, false>::BQ, Tile<T, false>::BK>(kind, D);
+}
+}  // namespace
+
+// the dynamic shared memory the wmma design's kernel of this kind takes at
+// this dtype code and head_dim (what the launcher checks before a launch);
+// ops/flash_attention.wmma_smem_bytes computes the same on the host
+extern "C" int flash_wmma_smem(int kind, int dtype, int D) {
+  switch (dtype) {
+    case 0: return smem_of<float>(kind, D);
+    case 1: return smem_of<__nv_bfloat16>(kind, D);
+    case 2: return smem_of<__half>(kind, D);
+    default: return -1;
+  }
 }
 
 extern "C" const char* flash_error_string(int err) {

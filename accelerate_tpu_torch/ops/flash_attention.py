@@ -17,7 +17,9 @@ Each kernel has two designs, chosen before the launch by ``kernel_design``
 from the dtype and head_dim alone, by one rule for all four: ``"wgmma"``
 (Hopper wgmma, softmax or p and ds in registers, tiles streamed by TMA) for
 bf16/fp16 at head_dim 64 or 128, ``"wmma"`` (the first port's kernels)
-otherwise. The wgmma dk/dv kernel is the single pass's body without its dq
+otherwise, every head_dim that is a multiple of 16 up to 256 (Gemma's) in
+bf16, fp16 and fp32; above 128 the wmma tiles are shorter
+(``wmma_tiles``), so that each kernel's shared tiles fit a block. The wgmma dk/dv kernel is the single pass's body without its dq
 part, so the two give the same dk and dv bit for bit; the wgmma dq kernel
 keeps dq in registers over its q tile's sweep (no atomics).
 
@@ -52,8 +54,13 @@ NEG_INF = -1e30  # large-negative instead of -inf: avoids NaN from inf - inf
 # dq accumulates in device memory, so there is no such limit.
 FUSED_BWD = False
 
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128)
+# the wmma design's tiles (q rows, kv rows) by element type, narrow (head_dim
+# <= 128) and wide (above): ``Tile`` in csrc/flash_attention.cu
+_WMMA_TILES = {"narrow": {2: (64, 64), 4: (32, 32)}, "wide": {2: (32, 32), 4: (16, 32)}}
+# the opt-in maximum of dynamic shared memory a block may take on an H100
+MAX_DYNAMIC_SMEM = 232448
 
 
 def kernel_design(dtype: torch.dtype, head_dim: int) -> str:
@@ -65,6 +72,36 @@ def kernel_design(dtype: torch.dtype, head_dim: int) -> str:
     if dtype in (torch.bfloat16, torch.float16) and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "wmma"
+
+
+def wmma_tiles(dtype: torch.dtype, head_dim: int) -> tuple[int, int]:
+    """(q rows, kv rows) of the wmma design's tiles for these inputs: the
+    launcher's ``Tile`` rule (shorter tiles above head_dim 128, where the
+    shared tiles would not fit)."""
+    width = "wide" if head_dim > 128 else "narrow"
+    return _WMMA_TILES[width][4 if dtype == torch.float32 else 2]
+
+
+def wmma_smem_bytes(kind: str, dtype: torch.dtype, head_dim: int) -> int:
+    """The dynamic shared memory of one wmma-design kernel (``kind``: fwd,
+    dq, dkv, fused) at these inputs: the C ``*Smem::carve`` on the host,
+    each tile padded by 16 bytes a row and rounded up to 128 bytes."""
+    bq, bk = wmma_tiles(dtype, head_dim)
+    size = 4 if dtype == torch.float32 else 2
+    ld_t = lambda cols: cols + 16 // size  # noqa: E731
+    ld_f = lambda cols: cols + 4  # noqa: E731
+
+    def take(n, elem):
+        return (n * elem + 127) & ~127
+
+    t_rows = {"fwd": (bq, bk, bk), "dq": (bq, bq, bk, bk)}.get(kind, (bk, bk, bq, bq))
+    total = sum(take(r * ld_t(head_dim), size) for r in t_rows)  # q/k/v/do tiles
+    n_p = {"fwd": 1, "dq": 1}.get(kind, 2)  # p and/or ds
+    total += n_p * take(bq * ld_t(bk), size)
+    total += (1 if kind == "fwd" else 2) * take(bq * ld_f(bk), 4)  # s (and dp)
+    acc_rows = {"fwd": (bq,), "dq": (bq,), "dkv": (bk, bk), "fused": (bk, bk, bq)}[kind]
+    total += sum(take(r * ld_f(head_dim), 4) for r in acc_rows)
+    return total + 2 * take(bq, 4)  # m and l, or lse and delta
 
 
 # ---------------------------------------------------------------------- #
@@ -198,6 +235,7 @@ _SIGNATURES = {
     "flash_bwd_dkv": [_P] * 9 + _SHAPE_ARGS,
     "flash_bwd_fused": [_P] * 10 + _SHAPE_ARGS,
     "flash_design": [_I, _I, _I],
+    "flash_wmma_smem": [_I, _I, _I],
 }
 
 

@@ -21,9 +21,15 @@ kept untransposed (E, in, out) as in the reference, stack HF's per-expert
 ``block_sparse_moe.gate``. A tied checkpoint omits ``lm_head.weight``; an
 untied model reading one re-ties it from the embedding.
 
-``infer_config_from_hf`` reads every family the reference reads, GPT-2 and
-Gemma included, but the port's models refuse GPT-2 and the Gemma switches
-(ROADMAP.md, queue A8), and ``_plan_for`` refuses GPT-2's names.
+Gemma-2's four norms a block map as in the reference: ``post_attn_norm``
+is HF's ``post_attention_layernorm`` and ``mlp_norm`` its
+``pre_feedforward_layernorm`` (:345-355). GPT-2 (``arch="gpt2"``,
+``models/gpt2.GPT2LM``) maps ``wte``, ``wpe``, ``ln_f`` and each layer's
+``ln_1``, ``ln_2``, ``attn.c_attn``, ``attn.c_proj``, ``mlp.c_fc`` and
+``mlp.c_proj`` onto ``transformer.*`` (reference ``_plan_for_gpt2``
+:384-422); HF's Conv1D stores (in, out), so the port's (out, in)
+projection weights transpose both ways. The hub's unprefixed GPT-2 layout
+(``wte.weight``, ``h.0.attn.c_attn.weight``) reads as the prefixed one.
 """
 
 from __future__ import annotations
@@ -199,27 +205,49 @@ def infer_config_from_hf(checkpoint: str, **overrides) -> Any:
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
 _NORMS = {"attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm"}
+# Gemma-2's four norms a block: HF's post_attention_layernorm is the norm
+# after attention, and the MLP's pre-norm is pre_feedforward_layernorm
+_NORMS_POST = {"attn_norm": "input_layernorm", "post_attn_norm": "post_attention_layernorm",
+               "mlp_norm": "pre_feedforward_layernorm",
+               "post_mlp_norm": "post_feedforward_layernorm"}
+# GPT-2: the port's top-level and per-layer names -> HF's (``transformer.``)
+_GPT2_TOP = {"wte.weight": "transformer.wte.weight", "wpe.weight": "transformer.wpe.weight",
+             "ln_f.weight": "transformer.ln_f.weight", "ln_f.bias": "transformer.ln_f.bias"}
+_GPT2_INNER = ("ln_1", "ln_2", "attn.c_attn", "attn.c_proj", "mlp.c_fc", "mlp.c_proj")
 _MOE_EXPERT = {"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}  # Mixtral's
 
 
 class _HfPlanEntry:
     """How one of the port's tensors is made of HF tensors: ``keys``, one
-    name, or (``experts``) one name an expert, each transposed and stacked
-    on a new leading axis."""
+    name (transposed when ``transpose``: GPT-2's Conv1D weights), or
+    (``experts``) one name an expert, each transposed and stacked on a new
+    leading axis."""
 
-    __slots__ = ("keys", "experts")
+    __slots__ = ("keys", "experts", "transpose")
 
-    def __init__(self, keys: list[str], experts: bool = False):
-        self.keys, self.experts = keys, experts
+    def __init__(self, keys: list[str], experts: bool = False, transpose: bool = False):
+        self.keys, self.experts, self.transpose = keys, experts, transpose
+
+
+def _plan_for_gpt2(name: str) -> _HfPlanEntry:
+    """GPT-2's plan (reference :384-422): ``transformer.h.<i>.*`` a layer,
+    the Conv1D weights transposed."""
+    if name in _GPT2_TOP:
+        return _HfPlanEntry([_GPT2_TOP[name]])
+    m = re.fullmatch(r"layers\.(\d+)\.(.+)\.(weight|bias)", name)
+    if m and m.group(2) in _GPT2_INNER:
+        conv = m.group(2).startswith(("attn.", "mlp.")) and m.group(3) == "weight"
+        return _HfPlanEntry([f"transformer.h.{m.group(1)}.{m.group(2)}.{m.group(3)}"],
+                            transpose=conv)
+    raise KeyError(f"no GPT-2 HF mapping for the port's parameter {name!r}")
 
 
 def _plan_for(name: str, config) -> _HfPlanEntry:
     """The plan for one of the port's parameter names (dotted, or
     ``//``-joined); raises KeyError for a name with no HF counterpart."""
-    if getattr(config, "arch", "llama") == "gpt2":
-        raise NotImplementedError("the GPT-2 HF mapping is not ported yet (the port has no "
-                                  "GPT-2 model): ROADMAP.md, queue A8")
     name = name.replace("//", ".")
+    if getattr(config, "arch", "llama") == "gpt2":
+        return _plan_for_gpt2(name)
     top = {"embed.weight": "model.embed_tokens.weight", "final_norm.weight": "model.norm.weight",
            "lm_head.weight": "lm_head.weight"}
     if name in top:
@@ -232,8 +260,9 @@ def _plan_for(name: str, config) -> _HfPlanEntry:
         if (len(rest) == 3 and rest[0] == "attn" and rest[1] in _ATTN[:3] and rest[2] == "bias"
                 and getattr(config, "qkv_bias", False)):
             return _HfPlanEntry([f"{p}.self_attn.{rest[1]}.bias"])  # Qwen2
-        if len(rest) == 2 and rest[0] in _NORMS and rest[1] == "weight":
-            return _HfPlanEntry([f"{p}.{_NORMS[rest[0]]}.weight"])
+        norms = _NORMS_POST if getattr(config, "post_norms", False) else _NORMS
+        if len(rest) == 2 and rest[0] in norms and rest[1] == "weight":
+            return _HfPlanEntry([f"{p}.{norms[rest[0]]}.weight"])
         if len(rest) == 3 and rest[0] == "mlp" and rest[1] in _MLP and rest[2] == "weight":
             return _HfPlanEntry([f"{p}.mlp.{rest[1]}.weight"])
         if rest == ["moe", "router", "weight"]:
@@ -253,6 +282,11 @@ class _HfReader(safetensors_io.ShardedReader):
         super().__init__(_key_files(checkpoint))
         self.config = config
         self.consumed: set[str] = set()
+        # the name each HF key is stored under: the hub's GPT-2 checkpoints
+        # keep the base model's names unprefixed (reference :526-532)
+        gpt2 = getattr(config, "arch", "llama") == "gpt2"
+        self.stored = {(f"transformer.{k}" if gpt2 and _is_unprefixed_gpt2_key(k) else k): k
+                       for k in self.files}
 
     def _retie(self, name: str) -> bool:
         # tied HF checkpoints omit lm_head: an untied model re-ties it
@@ -260,12 +294,14 @@ class _HfReader(safetensors_io.ShardedReader):
 
     def _read(self, key: str) -> torch.Tensor:
         self.consumed.add(key)
-        return self.get(key)
+        return self.get(self.stored.get(key, key))
 
     def __call__(self, name: str) -> torch.Tensor:
         if self._retie(name):
             return self._read("model.embed_tokens.weight")
         plan = _plan_for(name, self.config)
+        if plan.transpose:
+            return self._read(plan.keys[0]).t().contiguous()
         if not plan.experts:
             return self._read(plan.keys[0])
         # filled expert by expert: the host holds the stack and one tensor
@@ -280,11 +316,12 @@ class _HfReader(safetensors_io.ShardedReader):
     def dtype(self, name: str) -> torch.dtype:
         if self._retie(name):
             return super().dtype("model.embed_tokens.weight")
-        return super().dtype(_plan_for(name, self.config).keys[0])
+        key = _plan_for(name, self.config).keys[0]
+        return super().dtype(self.stored.get(key, key))
 
     def unconsumed(self) -> list[str]:
         inert = {"lm_head.weight"} if self.config.tie_embeddings else set()
-        return sorted(k for k in self.files
+        return sorted(k for k in self.stored
                       if k not in self.consumed and k not in inert
                       and not k.endswith((".rotary_emb.inv_freq", ".attn.bias",
                                           ".attn.masked_bias")))
@@ -318,7 +355,9 @@ def native_to_hf(params: Any, config) -> Iterator[tuple[str, torch.Tensor]]:
     for name, t in sorted(_named(params).items()):
         plan = _plan_for(name, config)
         t = t.detach()
-        if not plan.experts:
+        if plan.transpose:
+            yield plan.keys[0], t.t().contiguous()
+        elif not plan.experts:
             yield plan.keys[0], t
         else:
             for key, expert in zip(plan.keys, t):
@@ -390,6 +429,13 @@ def _export_arch(config) -> tuple[str, str]:
 
 def _hf_config(config) -> dict:
     """The ``config.json`` that :func:`infer_config_from_hf` reads back."""
+    if getattr(config, "arch", "llama") == "gpt2":  # reference :826-835
+        return {"architectures": ["GPT2LMHeadModel"], "model_type": "gpt2",
+                "vocab_size": config.vocab_size, "n_embd": config.hidden_size,
+                "n_inner": config.intermediate_size, "n_layer": config.num_layers,
+                "n_head": config.num_heads, "n_positions": config.max_seq_len,
+                "n_ctx": config.max_seq_len, "layer_norm_epsilon": config.rms_norm_eps,
+                "activation_function": "gelu_new", "tie_word_embeddings": True}
     arch_name, mt = _export_arch(config)
     hf_cfg = {
         "architectures": [arch_name], "model_type": mt, "vocab_size": config.vocab_size,

@@ -1,12 +1,14 @@
 """Carry a flax parameter tree, or a training state, of the JAX package
 over to the port.
 
-``params_from_jax(tree, cfg)`` maps the reference ``CausalLM``'s or
-``SequenceClassifier``'s tree — layers scanned (one ``layers`` subtree
-whose leaves carry a leading ``num_layers`` axis) or unrolled
+``params_from_jax(tree, cfg)`` maps the reference ``CausalLM``'s,
+``SequenceClassifier``'s, ``GPT2LM``'s or ``Seq2SeqLM``'s tree — layers
+scanned (a ``layers`` subtree whose leaves carry a leading layer axis, at
+the top or inside the seq2seq ``encoder`` and ``decoder``) or unrolled
 (``layer_<i>`` subtrees) — onto the port's state dict, ready for
-``load_state_dict(strict=True)``; top-level modules (``pooler``,
-``classifier``) map by the same rule. Leaf names map ``kernel`` ->
+``load_state_dict(strict=True)``; other modules (``pooler``,
+``classifier``, GPT-2's ``wte``/``wpe``/``ln_f``, the seq2seq
+``encoder_norm``, Gemma-2's post norms) map by the same rule. Leaf names map ``kernel`` ->
 ``weight`` transposed from flax's (in, out) to torch's (out, in),
 ``scale`` and ``embedding`` -> ``weight``, ``bias`` -> ``bias``. The MoE
 block's expert stacks (``moe/gate_proj``, ``up_proj``, ``down_proj``: raw
@@ -52,9 +54,24 @@ def _leaf(name: str, value) -> tuple[str, np.ndarray]:
     raise ValueError(f"unknown flax parameter leaf {name!r} of shape {arr.shape}")
 
 
+def _depth(tree: Mapping) -> int:
+    """The leading (layer) axis of a scanned stack's leaves."""
+    for value in tree.values():
+        return _depth(value) if isinstance(value, Mapping) else int(np.shape(value)[0])
+    raise ValueError("an empty scanned layer stack")
+
+
 def _flatten(tree: Mapping, prefix: str, out: dict, layer=None) -> None:
     for name, value in tree.items():
-        if isinstance(value, Mapping):
+        match = _LAYER.match(name)
+        if isinstance(value, Mapping) and layer is None and name == "layers":
+            # scanned: slice every leaf's layer axis (a stack at any depth:
+            # the seq2seq encoder's and decoder's)
+            for i in range(_depth(value)):
+                _flatten(value, f"{prefix}layers.{i}.", out, layer=i)
+        elif isinstance(value, Mapping) and layer is None and match:
+            _flatten(value, f"{prefix}layers.{match.group(1)}.", out)
+        elif isinstance(value, Mapping):
             _flatten(value, f"{prefix}{name}.", out, layer)
         else:
             if layer is not None:
@@ -84,15 +101,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg) -> dict[str, Any]:
                        for leaf, value in pair.items()}
                 for name, pair in tree.items()}
     flat: dict[str, np.ndarray] = {}
-    for name, sub in tree.items():
-        match = _LAYER.match(name)
-        if name == "layers":  # scanned: slice every leaf's layer axis
-            for i in range(cfg.num_layers):
-                _flatten(sub, f"layers.{i}.", flat, layer=i)
-        elif match:
-            _flatten(sub, f"layers.{match.group(1)}.", flat)
-        else:
-            _flatten(sub, f"{name}.", flat)
+    _flatten(tree, "", flat)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in flat.items()}
 
 

@@ -29,8 +29,12 @@ EXAMPLES = REPO / "accelerate_tpu_torch" / "examples"
 
 
 def _run(name, args, epochs) -> str:
+    # one thread: beside busy processes (the suite's other workers) torch's
+    # OpenMP threads oversubscribe the cores; one tiny checkpointing epoch
+    # read 115.5 s at 4 threads against 28.1 s at 1 beside five busy
+    # processes on 8 cores (11.3 s and 19.8 s alone)
     env = dict(os.environ, TESTING_TINY_MODEL="1", TESTING_NUM_EPOCHS=str(epochs),
-               OMP_NUM_THREADS="4", PYTHONPATH=str(REPO))
+               OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
     result = subprocess.run([sys.executable, str(EXAMPLES / f"{name}.py"), "--cpu", *args],
                             cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert result.returncode == 0, result.stderr[-3000:]

@@ -182,6 +182,11 @@ def test_wrappers_count_no_launch_on_cpu():
     (torch.float16, 80, "wmma"),
     (torch.bfloat16, 96, "wmma"),
     (torch.float16, 112, "wmma"),
+    # Gemma's head_dim and the other wide ones: the wmma design's short tiles
+    (torch.bfloat16, 256, "wmma"),
+    (torch.float16, 256, "wmma"),
+    (torch.float32, 256, "wmma"),
+    (torch.bfloat16, 144, "wmma"),
 ])
 def test_kernel_design_is_a_function_of_dtype_and_head_dim(dtype, head_dim, design):
     """All four flash kernels (forward, dq, dk/dv and the single pass) take

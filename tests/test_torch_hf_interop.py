@@ -14,8 +14,11 @@ tolerances and the reference's logits within ``FP32_TOL`` (bf16 within
 ``BF16_LOGITS_TOL``); its exports equal the reference's tensor for tensor
 and load in transformers. Then ``tests/test_adapters.py::
 test_peft_export_layout_map``; ``tests/test_torch_hf_quantization.py``
-holds ``tests/test_quantization.py``'s HF loads. The GPT-2, Gemma, Gemma-2
-and mixed-window tests wait on the port's models (queue A8). The GSPMD ones
+holds ``tests/test_quantization.py``'s HF loads. Then the GPT-2 tests (the
+prefixed and the hub's unprefixed layouts, greedy generation, the export,
+the attention-math refusal), Gemma's and Gemma-2's logits (every Gemma-2
+switch live) and greedy tokens, and Qwen2's mixed sliding/full layers, at
+the reference tests' tolerances against transformers. The GSPMD ones
 (``test_gspmd_and_device_map_paths_identical``,
 ``test_hf_load_onto_tp_fsdp_mesh``) load at world 4 over gloo in one launch.
 """
@@ -37,6 +40,7 @@ from accelerate_tpu import big_modeling as ref_bm  # noqa: E402
 from accelerate_tpu.adapters import LoraConfig as JaxLoraConfig  # noqa: E402
 from accelerate_tpu.adapters import init_adapter as jax_init_adapter  # noqa: E402
 from accelerate_tpu.models import CausalLM as JaxCausalLM  # noqa: E402
+from accelerate_tpu.models import causal_model_for as jax_causal_model_for  # noqa: E402
 from accelerate_tpu.models import TransformerConfig as JaxConfig  # noqa: E402
 from accelerate_tpu.models.generation import generate as jax_generate  # noqa: E402
 from accelerate_tpu.utils import hf_interop as ref  # noqa: E402
@@ -45,6 +49,7 @@ import accelerate_tpu_torch as port  # noqa: E402
 from accelerate_tpu_torch import big_modeling as bm  # noqa: E402
 from accelerate_tpu_torch.adapters import LoraConfig, adapter_to_peft, peft_to_adapter  # noqa: E402
 from accelerate_tpu_torch.adapters.runtime import A_KEY, B_KEY  # noqa: E402
+from accelerate_tpu_torch.models import GPT2LM, causal_model_for  # noqa: E402
 from accelerate_tpu_torch.models.generation import generate  # noqa: E402
 from accelerate_tpu_torch.utils import hf_interop as hi  # noqa: E402
 from accelerate_tpu_torch.utils import safetensors_io  # noqa: E402
@@ -100,19 +105,24 @@ def _torch_logits(model, ids: np.ndarray) -> np.ndarray:
         return model(torch.from_numpy(ids).long()).logits.float().numpy()
 
 
+def _port_cls(config):
+    """The port's decoder class for ``config.arch`` (``causal_model_for``'s)."""
+    return GPT2LM if config.arch == "gpt2" else port.CausalLM
+
+
 def _ref_abstract(config):
-    model = JaxCausalLM(config)
+    model = jax_causal_model_for(config)
     return ref_bm.init_empty_weights(
         lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
 
 
 def _ref_logits(config, params, ids) -> np.ndarray:
-    return np.asarray(JaxCausalLM(config).apply({"params": params}, jnp.asarray(ids)),
+    return np.asarray(jax_causal_model_for(config).apply({"params": params}, jnp.asarray(ids)),
                       dtype=np.float32)
 
 
 def _port_model(config, tree):
-    model = bm.init_empty_weights(port.CausalLM, config)
+    model = bm.init_empty_weights(_port_cls(config), config)
     model.load_state_dict(tree, assign=True)
     return model.eval()
 
@@ -132,7 +142,7 @@ def _load_both(path, **cfg_kw):
                                                   device_map={"": "cpu"})
     pcfg = hi.infer_config_from_hf(path, attention_impl="xla", **cfg_kw)
     assert dataclasses.asdict(pcfg) == dataclasses.asdict(rcfg)
-    meta = bm.init_empty_weights(port.CausalLM, pcfg)
+    meta = bm.init_empty_weights(_port_cls(pcfg), pcfg)
     tree = bm.load_checkpoint_and_dispatch(meta, path, device_map={"": "cpu"})
     assert list(tree) == list(meta.state_dict())
     want = port.params_from_jax(nn.unbox(rparams), pcfg)
@@ -282,7 +292,7 @@ def _greedy_three_ways(path, hf_model, new_tokens):
     pcfg, model, _, rcfg, rparams = _load_both(path)
     prompt = _IDS[:, :8]
     ours = generate(model, torch.from_numpy(prompt).long(), max_new_tokens=new_tokens)
-    theirs = jax_generate(JaxCausalLM(rcfg), rparams, jnp.asarray(prompt),
+    theirs = jax_generate(jax_causal_model_for(rcfg), rparams, jnp.asarray(prompt),
                           max_new_tokens=new_tokens)
     with torch.no_grad():
         hf = hf_model.generate(torch.from_numpy(prompt).long(), max_new_tokens=new_tokens,
@@ -435,16 +445,20 @@ def test_gemma3_rejected(tmp_path):
 
 
 def test_gpt2_reads_as_the_reference_and_waits_for_its_model(tmp_path):
-    """A GPT-2 checkpoint's config reads as the reference's; its model and
-    its name mapping are not ported (queue A8)."""
+    """A GPT-2 checkpoint's config reads as the reference's, and its model
+    and its name mapping are ported now (the slice of the model zoo): the
+    config builds ``GPT2LM``, whose names map onto ``transformer.*``, and a
+    Llama name has no GPT-2 counterpart."""
     cfg = transformers.GPT2Config(vocab_size=256, n_embd=64, n_layer=2, n_head=4, n_positions=64)
     _, path = _save_hf(tmp_path, transformers.GPT2LMHeadModel, cfg, 8, "hf_gpt2")
     assert hi.is_hf_checkpoint(path)
     pcfg = hi.infer_config_from_hf(path)
     assert dataclasses.asdict(pcfg) == dataclasses.asdict(ref.infer_config_from_hf(path))
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        port.CausalLM(pcfg, device="meta")
-    with pytest.raises(NotImplementedError, match="queue A8"):
+    assert isinstance(causal_model_for(pcfg, device="meta"), GPT2LM)
+    assert hi._plan_for("wte.weight", pcfg).keys == ["transformer.wte.weight"]
+    plan = hi._plan_for("layers.1.mlp.c_fc.weight", pcfg)
+    assert plan.keys == ["transformer.h.1.mlp.c_fc.weight"] and plan.transpose
+    with pytest.raises(KeyError, match="GPT-2"):
         hi._plan_for("embed.weight", pcfg)
 
 
@@ -534,3 +548,148 @@ def test_hf_load_onto_tp_fsdp_mesh(mesh_loads):
     assert "tp" in str(rec["specs"]["layers.0.mlp.down_proj.weight"])
     np.testing.assert_allclose(rec["logits"].numpy(), _torch_logits(hf_model, _IDS),
                                rtol=5e-4, atol=5e-4)
+
+
+# ---------------------------------------------------------------------- #
+# GPT-2 (reference :440-622)
+# ---------------------------------------------------------------------- #
+def _save_hf_gpt2(tmp_path, seed=8):
+    cfg = transformers.GPT2Config(
+        vocab_size=_TINY["vocab_size"], n_embd=64, n_inner=None, n_layer=2, n_head=4,
+        n_positions=64, layer_norm_epsilon=1e-5, activation_function="gelu_new",
+        resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    return _save_hf(tmp_path, transformers.GPT2LMHeadModel, cfg, seed, "hf_gpt2")
+
+
+def test_gpt2_checkpoint_logits_match_torch(tmp_path):
+    hf_model, path = _save_hf_gpt2(tmp_path)
+    assert hi.is_hf_checkpoint(path)
+    pcfg, model, tree, _ = _check_logits(path, hf_model, 2e-4)
+    assert pcfg.arch == "gpt2" and pcfg.tie_embeddings
+    assert isinstance(causal_model_for(pcfg, device="meta"), GPT2LM)
+    # Conv1D's (in, out) transposed to the port's (out, in)
+    assert tree["layers.0.attn.c_attn.weight"].shape == (192, 64)
+
+
+def test_gpt2_unprefixed_hub_layout_loads(tmp_path):
+    hf_model, path = _save_hf_gpt2(tmp_path)
+    named = _files(path)
+    unprefixed = {k.removeprefix("transformer."): t for k, t in named.items()}
+    assert any(k.startswith("h.0.") for k in unprefixed)
+    out = tmp_path / "hf_gpt2_unprefixed"
+    out.mkdir()
+    safetensors_io.save_file(unprefixed, str(out / "model.safetensors"),
+                             metadata={"format": "pt"})
+    (out / "config.json").write_text(open(os.path.join(path, "config.json")).read())
+    assert hi.is_hf_checkpoint(str(out))
+    _check_logits(str(out), hf_model, 2e-4)
+
+
+def test_gpt2_generate_matches_torch_greedy(tmp_path):
+    hf_model, path = _save_hf_gpt2(tmp_path, seed=9)
+    _greedy_three_ways(path, hf_model, 6)
+
+
+def test_gpt2_export_loads_in_transformers(tmp_path):
+    rcfg = JaxConfig.gpt2(vocab_size=_TINY["vocab_size"], hidden_size=64, intermediate_size=256,
+                          num_layers=2, num_heads=4, max_seq_len=64, attention_impl="xla")
+    rparams = nn.unbox(jax_causal_model_for(rcfg).init(jax.random.PRNGKey(10),
+                                                      jnp.zeros((1, 8), jnp.int32))["params"])
+    pcfg = port.TransformerConfig(**dataclasses.asdict(rcfg))
+    params = port.params_from_jax(rparams, pcfg)
+    out, cfg = _exports_agree(params, pcfg, rparams, rcfg, tmp_path, "gpt2_export")
+    assert cfg["model_type"] == "gpt2"
+    hf_model = transformers.GPT2LMHeadModel.from_pretrained(out).eval()
+    ours = _port_logits(_port_model(pcfg, params), _IDS)
+    np.testing.assert_allclose(ours, _torch_logits(hf_model, _IDS), rtol=2e-4, atol=2e-4)
+
+
+def test_gpt2_attention_math_variants_rejected(tmp_path):
+    _, path = _save_hf_gpt2(tmp_path)
+    cfg_path = os.path.join(path, "config.json")
+    hf_cfg = json.load(open(cfg_path))
+    for field in ("scale_attn_by_inverse_layer_idx", "reorder_and_upcast_attn"):
+        json.dump({**hf_cfg, field: True}, open(cfg_path, "w"))
+        for pkg in (hi, ref):
+            with pytest.raises(ValueError, match="attention math"):
+                pkg.infer_config_from_hf(path)
+
+
+# ---------------------------------------------------------------------- #
+# Gemma, Gemma-2 and Qwen2's mixed windows (reference :688-712, :855-926,
+# :995-1035)
+# ---------------------------------------------------------------------- #
+def test_gemma_checkpoint_logits_match_torch(tmp_path):
+    cfg = transformers.GemmaConfig(**_hf_kw(head_dim=32))
+    hf_model, path = _save_hf(tmp_path, transformers.GemmaForCausalLM, cfg, 15, "hf_gemma")
+    pcfg, model, tree, ours = _check_logits(path, hf_model, 3e-4)
+    assert pcfg.norm_offset and pcfg.embed_scale and pcfg.mlp_activation == "gelu_tanh"
+    assert pcfg.tie_embeddings and pcfg.head_dim == 32
+    _, rcfg = None, ref.infer_config_from_hf(path, attention_impl="xla")
+    rparams = ref_bm.load_checkpoint_and_dispatch(_ref_abstract(rcfg), path,
+                                                  device_map={"": "cpu"})
+    out, json_cfg = _exports_agree(tree, pcfg, nn.unbox(rparams), rcfg, tmp_path, "gemma")
+    assert json_cfg["model_type"] == "gemma"
+    hf2 = transformers.GemmaForCausalLM.from_pretrained(out).eval()
+    np.testing.assert_allclose(_torch_logits(hf2, _IDS), _torch_logits(hf_model, _IDS),
+                               rtol=3e-4, atol=3e-4)
+
+
+def _save_hf_gemma2(tmp_path, seed=21):
+    """The reference test's Gemma-2: head_dim 16 with the scale decoupled
+    (32), a window of 4 on every other layer, tiny caps (1 and 5) and q/k
+    and the embedding amplified so every switch bends the numbers; eager
+    attention (transformers' sdpa path drops the softcap)."""
+    cfg = transformers.Gemma2Config(
+        vocab_size=_TINY["vocab_size"], hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+        query_pre_attn_scalar=32.0, sliding_window=4, attn_logit_softcapping=1.0,
+        final_logit_softcapping=5.0, max_position_embeddings=64, rope_theta=10000.0,
+        rms_norm_eps=1e-5, hidden_activation="gelu_pytorch_tanh", attention_dropout=0.0)
+    cfg._attn_implementation = "eager"
+    torch.manual_seed(seed)
+    model = transformers.Gemma2ForCausalLM(cfg).eval()
+    with torch.no_grad():
+        for layer in model.model.layers:
+            layer.self_attn.q_proj.weight *= 10.0
+            layer.self_attn.k_proj.weight *= 10.0
+        model.model.embed_tokens.weight *= 4.0
+    path = str(tmp_path / "hf_gemma2")
+    model.save_pretrained(path, safe_serialization=True)
+    return model, path
+
+
+def test_gemma2_checkpoint_logits_match_torch(tmp_path):
+    hf_model, path = _save_hf_gemma2(tmp_path)
+    pcfg, model, tree, ours = _check_logits(path, hf_model, 3e-4)
+    assert pcfg.layer_windows == (4, None) and pcfg.post_norms and pcfg.attn_softcap == 1.0
+    assert pcfg.query_pre_attn_scalar == 32.0 and pcfg.tie_embeddings
+    assert "layers.0.post_attn_norm.weight" in tree
+    for off in ({"layer_windows": (None, None)}, {"attn_softcap": None},
+                {"final_softcap": None}, {"query_pre_attn_scalar": None}):
+        moved = _port_logits(_port_model(dataclasses.replace(pcfg, **off), tree), _IDS)
+        assert float(np.abs(moved - ours).max()) > 1e-3, off
+    rcfg = ref.infer_config_from_hf(path, attention_impl="xla")
+    rparams = ref_bm.load_checkpoint_and_dispatch(_ref_abstract(rcfg), path,
+                                                  device_map={"": "cpu"})
+    out, json_cfg = _exports_agree(tree, pcfg, nn.unbox(rparams), rcfg, tmp_path, "gemma2")
+    assert json_cfg["model_type"] == "gemma2"
+    assert json_cfg["layer_types"] == ["sliding_attention", "full_attention"]
+    hf2 = transformers.Gemma2ForCausalLM.from_pretrained(out, attn_implementation="eager").eval()
+    np.testing.assert_allclose(_torch_logits(hf2, _IDS), _torch_logits(hf_model, _IDS),
+                               rtol=3e-4, atol=3e-4)
+
+
+def test_gemma2_generate_matches_torch_greedy(tmp_path):
+    hf_model, path = _save_hf_gemma2(tmp_path, seed=22)
+    _greedy_three_ways(path, hf_model, 8)
+
+
+def test_qwen2_mixed_window_layers_load(tmp_path):
+    hf_model, path = _save_hf_qwen2(tmp_path, seed=14, use_sliding_window=True,
+                                    sliding_window=4, max_window_layers=1)
+    pcfg, model, tree, ours = _check_logits(path, hf_model, 2e-4)
+    assert pcfg.sliding_window is None and pcfg.layer_windows == (None, 4)
+    full = _port_logits(_port_model(dataclasses.replace(pcfg, layer_windows=(None, None)), tree),
+                        _IDS)
+    assert float(np.abs(full - ours).max()) > 1e-2
