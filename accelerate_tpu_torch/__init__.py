@@ -27,7 +27,8 @@ rules, the compat plugins in ``utils.compat``, sharded checkpoints and loads
 onto a mesh, decoding, LoRA and MoE over a sharded model, the raw loop on
 DTensor params),
 experiment trackers (``tracking``), the optax-faithful ``adamw``,
-its fused-epilogue form ``fused_adamw``, ``sgd`` and
+its fused-epilogue form ``fused_adamw``, ``sgd``, ``optax.contrib``'s
+``schedule_free_adamw`` with ``schedule_free_eval_params``, and
 ``warmup_cosine_decay_schedule``, and hand-written kernels for Hopper:
 flash attention (``ops/csrc/flash_attention.cu``) and the fused prologue
 and AdamW epilogue (``ops/csrc/fused.cu``). Imports no JAX; runs on CUDA
@@ -75,7 +76,13 @@ from .logging import get_logger
 from .models.config import TransformerConfig
 from .models.transformer import CausalLM, SequenceClassifier
 from .ops.fused import fused_adamw
-from .optimizer import AcceleratedOptimizer, adamw, sgd
+from .optimizer import (
+    AcceleratedOptimizer,
+    adamw,
+    schedule_free_adamw,
+    schedule_free_eval_params,
+    sgd,
+)
 from .profiling import BufferCensus
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
 from .serving import SLOConfig, ServingEngine, TokenEvent
@@ -174,6 +181,8 @@ __all__ = [
     "save_adapter",
     "scan_heartbeats",
     "set_seed",
+    "schedule_free_adamw",
+    "schedule_free_eval_params",
     "sgd",
     "skip_first_batches",
     "streamed_apply",

@@ -18,9 +18,10 @@ and ``diagnostics=``/``profile_kwargs=`` :183-200), one device a process.
 The step keeps the reference's contract and arithmetic:
 ``step_fn(carry, batch, **kw) -> (carry, metrics)``; the loss runs on
 parameters cast to the policy's compute dtype while the fp32 masters
-receive fp32 gradients (``_cast_floating`` :1667); K-step accumulation sums
-into an fp32 buffer across calls, or, fused, over a stacked batch in one
-call; every optimizer step takes the mean, unscales and checks it (fp16),
+receive gradients in the policy's ``grad_dtype``, fp32 unless set
+(``_cast_floating`` :1667, the casts at :592, :603, :652 and :1180);
+K-step accumulation sums into a buffer of that dtype across calls, or,
+fused, over a stacked batch in one call; every optimizer step takes the mean, unscales and checks it (fp16),
 clips it to ``max_grad_norm`` by the global norm, applies the optimizer
 (AdamW as one fused kernel launch over every leaf for a ``fused_adamw``
 optimizer), and on a non-finite step holds params and optimizer state.
@@ -132,6 +133,7 @@ from .utils.dataclasses import (
     DataLoaderConfiguration,
     DistributedType,
     GradientAccumulationPlugin,
+    MixedPrecisionPolicy,
     ProjectConfiguration,
 )
 from .utils.memory import release_memory
@@ -151,6 +153,12 @@ def _cast_floating(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
+
+
+def _accum_dtype(policy: MixedPrecisionPolicy) -> torch.dtype:
+    """The dtype gradients are accumulated in: the policy's ``grad_dtype``,
+    fp32 when it is None."""
+    return policy.grad_dtype or torch.float32
 
 
 def _flat_params(tree: dict) -> dict:
@@ -322,7 +330,11 @@ class Accelerator:
     ``DiagnosticsConfig``) adds goodput accounting, anomaly detection,
     triggered ``torch.profiler`` captures and the flight recorder on top,
     and turns telemetry on. ``profile_kwargs``: a ``ProfileKwargs`` for
-    :meth:`profile`, whose tracer options the triggered captures take too."""
+    :meth:`profile`, whose tracer options the triggered captures take too.
+    ``mixed_precision_policy`` replaces the policy ``mixed_precision``
+    names (its ``grad_dtype`` sets the gradients' dtype in the step);
+    ``device_placement`` and ``rng_types`` are kept as the reference keeps
+    them."""
 
     def __init__(
         self,
@@ -341,6 +353,9 @@ class Accelerator:
         diagnostics: Any = None,
         profile_kwargs: Optional[ProfileKwargs] = None,
         log_with: Optional[Union[str, list]] = None,
+        device_placement: bool = True,
+        rng_types: Optional[list[str]] = None,
+        mixed_precision_policy: Optional[MixedPrecisionPolicy] = None,
     ):
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
@@ -353,9 +368,15 @@ class Accelerator:
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
                                       dataloader_config=dataloader_config,
                                       parallelism_plugin=parallelism_plugin)
+        if mixed_precision_policy is not None:  # an explicit policy replaces the state's
+            self.state.mixed_precision_policy = mixed_precision_policy
         self._layout = None  # the prepared params' ShardedLayout under a plugin
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        # kept as the reference keeps them: ``prepare`` always places on the
+        # device, and the step's randomness comes from ``keys``
+        self.device_placement = device_placement
+        self.rng_types = rng_types or ["generator"]
         self.keys = KeyChain(seed)
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
@@ -647,12 +668,15 @@ class Accelerator:
         """Build the train step: forward, backward, accumulation, clipping
         and update. ``loss_fn(params, batch, **kw) -> loss`` (or ``(loss,
         aux)`` with ``has_aux``) takes a name -> tensor dict of params cast to
-        the compute dtype; the fp32 masters receive fp32 gradients.
+        the compute dtype; the fp32 masters receive gradients in the
+        policy's ``grad_dtype`` (fp32 unless set), which the epilogue takes
+        as they are.
 
         Two accumulation modes (``GradientState.num_steps = K``):
 
         * unfused (default): one call per microbatch; gradients add into a
-          carried fp32 buffer and every K-th call is the optimizer step;
+          carried ``grad_dtype`` buffer and every K-th call is the optimizer
+          step;
         * fused (``fused_accumulation=True``, or the plugin's ``fused``): one
           call per optimizer step over a stacked ``[K, micro, ...]`` batch
           (``prepare`` makes the loader stack them), the params cast to the
@@ -681,6 +705,9 @@ class Accelerator:
         num_accum = self.gradient_state.num_steps
         fused = self.gradient_state.fused if fused_accumulation is None else fused_accumulation
         fused = bool(fused) and num_accum > 1  # K = 1 carries no buffer anyway
+        # gradients are cast to, and summed in, the policy's grad_dtype
+        # (fp32 unless set; bf16 halves the buffer at some precision), at K 1 too
+        accum_dtype = _accum_dtype(policy)
         micro_loss = _micro_loss_fn(loss_fn, has_aux, remat_policy)
         world = self.num_processes
         # under a plugin: the prepared params' layout, whose collectives run
@@ -716,8 +743,8 @@ class Accelerator:
                     for k, p in params.items()}
 
         def _microbatch(compute, batch, ls, kw, tree):
-            """One microbatch's fp32 gradients (by name), unscaled fp32 loss
-            and aux; the loss sees ``compute`` in ``tree``'s nesting. With a
+            """One microbatch's gradients in ``accum_dtype`` (by name), unscaled
+            fp32 loss and aux; the loss sees ``compute`` in ``tree``'s nesting. With a
             group, the loss is weighted into the global batch's (the module
             docstring) and the one reported is the global batch's."""
             context = contextlib.nullcontext() if lay is None else lay.forward_context()
@@ -735,7 +762,7 @@ class Accelerator:
                     scaled = scaled * factor
                 grads = torch.autograd.grad(scaled, list(compute.values()))
             del scaled
-            grads = {k: g.float() for k, g in zip(compute, grads)}
+            grads = {k: g.to(accum_dtype) for k, g in zip(compute, grads)}
             loss = loss.detach().float()
             if factor is not None:
                 loss = _global_loss(loss, factor, world, data_group)
@@ -796,7 +823,7 @@ class Accelerator:
             batch = send_to_device(batch, self.device)
             local = params if lay is None else lay.local(params)
             compute = _compute_leaves(local)  # cast once for the K microbatches
-            accum = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in local.items()}
+            accum = {k: torch.zeros_like(p, dtype=accum_dtype) for k, p in local.items()}
             losses, auxes = [], []
             for i in range(find_batch_size(batch)):  # the stacked K axis, in order
                 micro = operations.recursively_apply(lambda x: x[i], batch)
@@ -956,8 +983,9 @@ class Accelerator:
                    fused_accumulation: Optional[bool] = None) -> dict:
         """The train-step carry: params (the model's own parameter tensors,
         updated in place; DTensors under a plugin), optimizer state,
-        counters, the fp32 accumulation buffer when K > 1 and unfused (under
-        ZeRO-2 split over fsdp), and the loss scale under fp16.
+        counters, the accumulation buffer (the policy's ``grad_dtype``, fp32
+        unless set) when K > 1 and unfused (under ZeRO-2 split over fsdp),
+        and the loss scale under fp16.
         ``fused_accumulation`` must match the step's mode (None: the
         plugin's); the fused carry has no ``micro_step`` and no buffer."""
         optimizer = optimizer or (self._optimizers[0] if self._optimizers else None)
@@ -985,11 +1013,12 @@ class Accelerator:
         if not fused:
             carry["micro_step"] = 0
             if num_accum > 1:
+                accum_dtype = _accum_dtype(policy)
                 if self._layout is not None:  # the params' specs, or ZeRO-2's fsdp chunks
-                    carry["accum_grads"] = self._layout.zeros_buffer(flat)
+                    carry["accum_grads"] = self._layout.zeros_buffer(flat, accum_dtype)
                 else:
                     carry["accum_grads"] = {
-                        k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()}
+                        k: torch.zeros_like(p, dtype=accum_dtype) for k, p in flat.items()}
         if policy.uses_loss_scaling:
             carry["loss_scale"] = init_loss_scale(policy, self.device)
         return carry

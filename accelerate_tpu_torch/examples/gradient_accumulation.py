@@ -38,8 +38,11 @@ from accelerate_tpu_torch.utils.random import set_seed  # noqa: E402
 def training_function(config, args):
     gradient_accumulation_steps = int(args.gradient_accumulation_steps)
     # Initialize accelerator
-    accelerator = Accelerator(cpu=args.cpu, mixed_precision=args.mixed_precision,
-                              gradient_accumulation_steps=gradient_accumulation_steps)
+    accelerator = Accelerator(
+        cpu=args.cpu,
+        mixed_precision=args.mixed_precision,
+        gradient_accumulation_steps=gradient_accumulation_steps,
+    )
     lr = config["lr"]
     num_epochs = int(config["num_epochs"])
     seed = int(config["seed"])
@@ -57,8 +60,10 @@ def training_function(config, args):
         init_value=0.0, peak_value=lr, warmup_steps=steps_per_epoch // 4,
         decay_steps=steps_per_epoch * num_epochs // gradient_accumulation_steps,
     )
+    optimizer = adamw(schedule, weight_decay=0.01)
     model, optimizer, train_dataloader, eval_dataloader = accelerator.prepare(
-        model, adamw(schedule, weight_decay=0.01), train_dataloader, eval_dataloader)
+        model, optimizer, train_dataloader, eval_dataloader
+    )
 
     # New code: nothing else changes; the step accumulates K microbatches
     carry = accelerator.init_carry(model, optimizer)

@@ -33,6 +33,7 @@ from accelerate_tpu_torch import (  # noqa: E402
     adamw,
     warmup_cosine_decay_schedule,
 )
+from accelerate_tpu_torch.parallel.runtime import apply_sharded  # noqa: E402
 from accelerate_tpu_torch.utils.random import set_seed  # noqa: E402
 
 MAX_SEQ_LENGTH = 128
@@ -120,7 +121,9 @@ def evaluate(accelerator: Accelerator, model: SequenceClassifier, eval_dataloade
     short last batch repeats."""
     correct = total = 0
     for batch in eval_dataloader:
-        predictions = model(batch["input_ids"], batch["attention_mask"]).argmax(dim=-1)
+        # a model prepared under a ParallelismPlugin runs on its shards
+        logits = apply_sharded(model, batch["input_ids"], batch["attention_mask"])
+        predictions = logits.argmax(dim=-1)
         predictions, references = accelerator.gather_for_metrics(
             (predictions, batch["labels"]))
         correct += int((predictions == references).sum())

@@ -94,9 +94,6 @@ reference's traced per-layer window, which only the plain path takes; and
 ``models/gpt2.GPT2LM`` and the encoder-decoder ``models/seq2seq.Seq2SeqLM``;
 they share :func:`_layer_stack` (the reference's ``_apply_layer_stack``
 with its ``block_cls``, ``num_layers`` and ``per_layer``).
-
-Not ported yet, and rejected when asked for (ROADMAP.md): ``fused_kernels=
-True`` on the classifier (queue A5).
 """
 
 from __future__ import annotations
@@ -1256,6 +1253,12 @@ class SequenceClassifier(nn.Module):
     (left padding, holes) is set to NaN after the layers, so a wrong mask
     fails loudly; such masks need ``attention_impl="xla"``.
 
+    With ``config.fused_kernels`` each layer's norm -> q/k/v -> rope runs as
+    the fused prologue (B5 on CUDA, its plain version on the CPU), the
+    masks routed as above. Its ``loss_fn`` sets no ``fused_kernels``
+    attribute, so its step records say ``fused_kernels: false``, as the
+    reference's do.
+
     Parameters are made on ``device`` (CUDA unless the caller passes
     ``device="cpu"``) from ``generator`` (a fresh one seeded 0 if none).
     """
@@ -1264,9 +1267,6 @@ class SequenceClassifier(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_config(config)
-        if config.fused_kernels:
-            raise NotImplementedError("not ported yet: fused_kernels=True on the classifier "
-                                      "(the fused BERT path, queue A5); see ROADMAP.md")
         self.config = config
         self.num_labels = num_labels
         device = _model_device(device)

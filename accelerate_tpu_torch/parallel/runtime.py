@@ -553,19 +553,20 @@ class ShardedLayout:
         return self.param_specs[name]
 
     def global_norm(self, grads: dict) -> torch.Tensor:
-        """sqrt of every leaf's squares summed once per distinct shard
-        (``optimizer.global_norm`` at a world size of one)."""
-        from ..optimizer import global_norm
+        """sqrt of every leaf's squares summed once per distinct shard: the
+        leaves' whole square sums, one all-reduce of their vector, added as
+        ``optimizer.global_norm`` adds them at a world size of one."""
+        from ..optimizer import global_norm, norm_of_square_sums, square_sum
 
         if self.trivial:
             return global_norm(grads)
-        total = None
+        terms = []
         for k, g in grads.items():
             n = math.prod(self.shape[a] for a in sharded_axes(self.held_spec(k), self.mesh))
-            term = torch.sum(g.float() ** 2) / (self.world // n)
-            total = term if total is None else total + term
-        _dist().all_reduce(total)
-        return torch.sqrt(total)
+            terms.append(square_sum(g) / (self.world // n))
+        sums = torch.stack(terms)
+        _dist().all_reduce(sums)
+        return norm_of_square_sums(sums.unbind(), [g.dtype for g in grads.values()])
 
     def all_finite(self, finite: bool, device) -> bool:
         """Every rank's non-finite check, all-reduced."""
@@ -665,16 +666,16 @@ class ShardedLayout:
         full = gather_full(t) if is_dtensor(t) else t
         return shard_params({"_": full}, {"_": spec}, self.mesh, self.rank)["_"]
 
-    def zeros_buffer(self, params: dict) -> dict:
-        """The unfused accumulation buffer: fp32 zeros under the buffer's
-        specs."""
+    def zeros_buffer(self, params: dict, dtype: torch.dtype = torch.float32) -> dict:
+        """The unfused accumulation buffer: zeros of ``dtype`` (the policy's
+        ``grad_dtype``) under the buffer's specs."""
         from torch.distributed.tensor import DTensor
 
         out = {}
         for k, p in params.items():
             spec = self.buffer_specs[k]
             bounds = local_bounds(spec, p.shape, self.rank, self.mesh)
-            local = torch.zeros(tuple(hi - lo for lo, hi in bounds), dtype=torch.float32,
+            local = torch.zeros(tuple(hi - lo for lo, hi in bounds), dtype=dtype,
                                 device=to_local(p).device)
             out[k] = DTensor.from_local(local, self.mesh, placements_for(spec, self.mesh),
                                         run_check=False, shape=p.shape,
@@ -847,26 +848,27 @@ def place_live(local: dict, like: dict) -> dict:
 
 def dtensor_global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the squares of every DTensor leaf of ``tree`` (any mesh),
-    each distinct shard counted once: every rank adds its local squares
-    over the number of ranks holding the same shard, and the sum runs over
-    the world (``optimizer.global_norm`` of the local tensors at a world of
-    one)."""
-    from ..optimizer import global_norm
+    each distinct shard counted once: every rank takes each leaf's local
+    squares over the number of ranks holding the same shard, one
+    all-reduce of their vector sums them over the world, and the leaves add
+    as ``optimizer.global_norm`` of the local tensors adds them at a world
+    of one."""
+    from ..optimizer import global_norm, norm_of_square_sums, square_sum
 
     local = {k: to_local(v) for k, v in tree.items()}
     dist = _dist()
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return global_norm(local)
     world = dist.get_world_size()
-    total = None
+    terms = []
     for k, t in tree.items():
         mesh = t.device_mesh
         shards = math.prod(mesh.size(d) for d, p in enumerate(t.placements)
                            if not p.is_replicate())
-        term = torch.sum(local[k].float() ** 2) / (world // shards)
-        total = term if total is None else total + term
-    dist.all_reduce(total)
-    return torch.sqrt(total)
+        terms.append(square_sum(local[k]) / (world // shards))
+    sums = torch.stack(terms)
+    dist.all_reduce(sums)
+    return norm_of_square_sums(sums.unbind(), [t.dtype for t in local.values()])
 
 
 def place_like(local: dict, like: dict) -> dict:

@@ -5,8 +5,11 @@ a plain callable ``step -> lr`` (the optimizer evaluates it at its own step
 count), so stepping the scheduler is bookkeeping that keeps the
 reference's rules: with ``step_with_optimizer`` it is frozen while
 gradients accumulate and does not advance when an optimizer skipped its
-step; without, every call advances it. One process, so ``split_batches``
-changes nothing: the count is not scaled by the process count.
+step; without, every call advances it by 1. A synced step advances it by
+the process count (``AcceleratorState().num_processes``), so a schedule
+written for one process keeps its pace under data parallelism, unless
+``split_batches`` (each process then takes a share of one batch) keeps it
+at 1.
 
 ``warmup_cosine_decay_schedule`` is optax's (the reference's examples take
 it from optax), written with optax's formula in float32.
@@ -19,7 +22,7 @@ from typing import Any, Callable
 
 import numpy as np
 
-from .state import GradientState
+from .state import AcceleratorState, GradientState, group_is_up
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
@@ -47,6 +50,19 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return schedule
 
 
+def _num_processes() -> int:
+    """``AcceleratorState().num_processes``, as the reference reads it; before
+    any state is made, the process group's size (1 without one): making the
+    state here would pick a device for the whole process."""
+    if AcceleratorState._shared_state:
+        return AcceleratorState().num_processes
+    if group_is_up():
+        import torch.distributed as dist
+
+        return dist.get_world_size()
+    return 1
+
+
 class AcceleratedScheduler:
     def __init__(self, scheduler: Callable[[int], float], optimizers: Any = None,
                  step_with_optimizer: bool = True, split_batches: bool = False):
@@ -56,26 +72,30 @@ class AcceleratedScheduler:
         self.step_with_optimizer = step_with_optimizer
         self.split_batches = split_batches
         self.gradient_state = GradientState()
-        self.step_count = 0
+        self._step_count = 0
+
+    @property
+    def step_count(self) -> int:
+        return self._step_count
 
     def step(self, *args, **kwargs) -> None:
         if not self.step_with_optimizer:
-            self.step_count += 1
+            self._step_count += 1
             return
         if not self.gradient_state.sync_gradients:
             return  # frozen while accumulating
         if any(getattr(opt, "step_was_skipped", False) for opt in self.optimizers):
             return
-        self.step_count += 1  # one process: no scaling by the process count
+        self._step_count += 1 if self.split_batches else _num_processes()
 
     def get_last_lr(self) -> list[float]:
-        return [float(self.scheduler(max(0, self.step_count - 1)))]
+        return [float(self.scheduler(max(0, self._step_count - 1)))]
 
     def get_lr(self) -> list[float]:
-        return [float(self.scheduler(self.step_count))]
+        return [float(self.scheduler(self._step_count))]
 
     def state_dict(self) -> dict:
-        return {"step_count": self.step_count}
+        return {"step_count": self._step_count}
 
     def load_state_dict(self, state: dict) -> None:
-        self.step_count = int(state["step_count"])
+        self._step_count = int(state["step_count"])

@@ -304,3 +304,23 @@ def tiny_lora_worker(out_dir: str, steps: int = 3, rows_per_process: int = 4, se
                                  for k, v in flatten_tree(carry["params"]).items()}}
     torch.save(out, os.path.join(out_dir, f"lora_rank{rank}.pt"))
 
+
+
+def scheduler_worker(out_dir: str):
+    """``AcceleratedScheduler``'s count after one synced step across the
+    group, without and with ``split_batches``, and after a step while
+    accumulating: written to ``out_dir/scheduler_<rank>.json``."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.scheduler import AcceleratedScheduler
+
+    acc = Accelerator(cpu=True)
+    counts = {}
+    for split in (False, True):
+        sched = AcceleratedScheduler(lambda count: 1.0, split_batches=split)
+        acc.gradient_state.sync_gradients = True
+        sched.step()
+        acc.gradient_state.sync_gradients = False
+        sched.step()  # frozen while accumulating
+        counts["split" if split else "plain"] = sched.step_count
+    with open(os.path.join(out_dir, f"scheduler_{acc.process_index}.json"), "w") as f:
+        json.dump({"num_processes": acc.num_processes, **counts}, f)

@@ -157,19 +157,45 @@ def _lm_rows(run, cfg, calls: int, rows: int):
     return MaskedTokens(calls * rows, 2, seed=run.get("seed", 0), vocab=cfg.vocab_size)
 
 
+def _classifier_rows(cfg, calls: int, rows: int, seed: int) -> _Rows:
+    """Right-padded classifier rows (lengths 5-32 of 32, the first row
+    whole), ids past a row's length 0, seeded labels."""
+    rng = np.random.default_rng(seed)
+    n, seq = calls * rows, 32
+    lens = rng.integers(5, seq + 1, n)
+    lens[0] = seq
+    mask = (np.arange(seq)[None, :] < lens[:, None]).astype(np.int32)
+    ids = rng.integers(4, cfg.vocab_size, (n, seq)).astype(np.int64) * mask
+    return _Rows(input_ids=ids, attention_mask=mask,
+                 labels=rng.integers(0, 2, n).astype(np.int64))
+
+
 def _train_run(out_dir: str, run: dict) -> None:
     """One run of :func:`train_runs_worker` (its docstring)."""
     import torch.distributed as dist
 
-    from accelerate_tpu_torch import CausalLM, DataLoader, adamw, fused_adamw, sgd
+    from accelerate_tpu_torch import (
+        CausalLM,
+        DataLoader,
+        SequenceClassifier,
+        adamw,
+        fused_adamw,
+        sgd,
+    )
     from accelerate_tpu_torch.parallel.runtime import gather_full, to_local
     from accelerate_tpu_torch.parallel.sharding import shardings_of
     from accelerate_tpu_torch.test_utils.training import RegressionDataset
 
     accum = run.get("accum", 1)
+    policy = {}
+    if run.get("grad_dtype"):
+        from accelerate_tpu_torch import MixedPrecisionPolicy
+
+        policy["mixed_precision_policy"] = MixedPrecisionPolicy(
+            grad_dtype=getattr(torch, run["grad_dtype"]))
     acc = _fresh_accelerator(mixed_precision=run.get("mixed_precision", "no"),
                              parallelism_plugin=_plugin(run.get("plugin")),
-                             gradient_accumulation_steps=accum)
+                             gradient_accumulation_steps=accum, **policy)
     rank, data_size = acc.process_index, acc.state.data_parallel_size
     rows = run.get("rows", 8)
     calls = run.get("calls", run.get("steps", 3) * accum)
@@ -187,6 +213,10 @@ def _train_run(out_dir: str, run: dict) -> None:
             model.load_state_dict(torch.load(os.path.join(out_dir, run.get("init_file",
                                                                            "init.pt"))))
         data, tree = _lm_rows(run, cfg, calls, rows), model
+    elif kind == "classifier":
+        cfg = _lm_config(run)
+        model = SequenceClassifier(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        data, tree = _classifier_rows(cfg, calls, rows, run.get("seed", 0)), model
     elif kind == "mlp":
         init = np.load(os.path.join(out_dir, "mlp_init.npz"))
         tree = {k: torch.from_numpy(init[k].copy()) for k in ("w1", "w2")}
@@ -204,7 +234,8 @@ def _train_run(out_dir: str, run: dict) -> None:
     else:
         tree, opt, loader = acc.prepare(tree, opt, loader)
     loss_fn = {"tiny_lm": lambda: CausalLM.loss_fn(tree), "mlp": lambda: _mlp_loss,
-               "vec": lambda: _vec_loss}[kind]()
+               "vec": lambda: _vec_loss,
+               "classifier": lambda: SequenceClassifier.loss_fn(tree)}[kind]()
     step = acc.unified_step(loss_fn, max_grad_norm=run.get("max_grad_norm"),
                             remat_policy=run.get("remat"))
     carry = acc.init_carry(tree, opt)
@@ -230,6 +261,8 @@ def _train_run(out_dir: str, run: dict) -> None:
         acc.save_state(os.path.join(out_dir, run["save"]), carry=carry)
     state = (acc.get_state_dict(tree) if model is not None
              else {k: gather_full(v).detach().clone() for k, v in params.items()})
+    low_norms = _low_precision_norms(acc, params, run["grad_dtype"]) if run.get(
+        "grad_dtype") else None
     opt_state = carry["opt_state"]
     moments = shardings_of(opt_state["mu"]) if isinstance(opt_state.get("mu"), dict) else {}
     buffer = shardings_of(carry["accum_grads"]) if "accum_grads" in carry else {}
@@ -246,10 +279,34 @@ def _train_run(out_dir: str, run: dict) -> None:
             "losses": losses, "norms": norms, "finite": finite, "params": state,
             "whole_moments": whole_moments,
             "specs": shardings_of(params), "moments": moments, "buffer": buffer,
-            "ranks": everyone, "data_size": data_size,
+            "ranks": everyone, "data_size": data_size, "low_norms": low_norms,
             "loss_scale": (float(carry["loss_scale"].scale) if "loss_scale" in carry
                            else None)})
     acc.wait_for_everyone()
+
+
+def _low_precision_norms(acc, params: dict, dtype: str) -> dict:
+    """The final params cast to ``dtype`` as a gradient tree, its norm three
+    ways: the step's (the layout's over the local shards, or
+    ``optimizer.global_norm`` with no plugin), the raw loop's over DTensors
+    (``dtensor_global_norm``), and ``optimizer.global_norm`` of the whole
+    leaves on one process."""
+    from accelerate_tpu_torch.optimizer import global_norm
+    from accelerate_tpu_torch.parallel.runtime import (
+        dtensor_global_norm,
+        gather_full,
+        place_like,
+        to_local,
+    )
+
+    low = getattr(torch, dtype)
+    local = {k: to_local(v).detach().to(low) for k, v in params.items()}
+    cast = place_like(local, params)  # no DTensor op: no sharding propagation
+    lay = acc._layout
+    step = lay.global_norm(local) if lay is not None else global_norm(local)
+    raw = dtensor_global_norm(cast) if lay is not None else step
+    whole = global_norm({k: gather_full(v) for k, v in cast.items()})
+    return {"step": float(step), "raw": float(raw), "whole": float(whole)}
 
 
 def train_runs_worker(out_dir: str, runs: list, kernel_checks: bool = False):
@@ -261,10 +318,14 @@ def train_runs_worker(out_dir: str, runs: list, kernel_checks: bool = False):
     ``"fixed_ids"`` for one batch of 8 x 32 every call, else
     ``MaskedTokens``; ``init_file`` another file of ``out_dir`` than
     ``init.pt``), ``"mlp"`` (the reference ZeRO tests' toy, from
-    ``out_dir/mlp_init.npz``) or ``"vec"`` (a shardable vector weight on
-    ``RegressionDataset``); ``rows`` of each global batch; ``calls`` (or
+    ``out_dir/mlp_init.npz``), ``"vec"`` (a shardable vector weight on
+    ``RegressionDataset``) or ``"classifier"`` (a ``SequenceClassifier`` of
+    the tiny LM's widths and ``config``, its own init from seed 0, on
+    right-padded rows of 32); ``rows`` of each global batch; ``calls`` (or
     ``steps`` x ``accum``); ``optimizer``, ``lr``, ``weight_decay`` and ``eps``;
-    ``max_grad_norm``;
+    ``max_grad_norm``; ``grad_dtype`` (a torch dtype's name: the policy's
+    ``grad_dtype``, and the record's ``low_norms`` from
+    :func:`_low_precision_norms`);
     ``remat``; ``step_before_carry``; ``plant_inf``: ``(call, rank)``, an
     inf put into that rank's gradient shards; ``save``: a directory of
     ``out_dir`` the final carry is saved into (``save_state``), and the

@@ -93,12 +93,18 @@ class PrecisionType(str, enum.Enum):
 
 @dataclass
 class MixedPrecisionPolicy:
-    """What dtype each tensor class uses inside the train step: params and
-    gradients stay fp32, compute runs in ``compute_dtype``. ``fp8``: the
-    models' projections run as fp8 products (``ops/fp8.py``; ``prepare``
-    converts a model), everything else in bf16."""
+    """What dtype each tensor class uses inside the train step: the fp32
+    masters, compute in ``compute_dtype``, gradients accumulated in
+    ``grad_dtype`` (None: fp32; bf16 halves the carried buffer at some
+    precision). ``param_dtype`` and ``output_dtype`` are the reference's
+    fields, which its step does not read either. ``fp8``: the models'
+    projections run as fp8 products (``ops/fp8.py``; ``prepare`` converts a
+    model), everything else in bf16."""
 
+    param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
+    output_dtype: Any = torch.float32
+    grad_dtype: Any = None  # the accumulation buffer's dtype; None -> float32
     fp8: bool = False
     # fp16 only: dynamic loss scaling (GradScaler semantics)
     loss_scale_init: float = 2.0**15

@@ -86,13 +86,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    (the trace with telemetry, gauges, SLO and spans off, then on, in
    OBS_ROUNDS interleaved rounds; tokens unchanged, the decode step built
    once, ``serve_gauge`` and ``slo`` lines in the scrape text); the prefix
-   A/B on it (a 24-block template, 12 prompts with 8-token suffixes drained
-   one at a time, cold then warm: TTFT, exactly 12 x 384 prefill tokens
+   A/B on it (a 24-block template, PREFIX_COHORT (6) prompts with 8-token
+   suffixes drained one at a time, cold then warm: TTFT, exactly 6 x 384
+   prefill tokens
    saved, no new build, first-token logits warm against cold within
    PREFIX_LOGITS_TOL); and the speculation A/B with the target in fp32 at
    the decode config (o_proj and down_proj of layers >= 1 at zero) and a
    1-layer draft holding its layer 0: off, n-gram and draft model at k 4 on
-   8 prompts of 180 new tokens, each a fresh engine, warm then timed
+   8 prompts of SPEC_NEW (90) new tokens, each a fresh engine, warm then timed
    (n-gram and draft outputs equal off's token for token, nothing rebuilt
    after warmup, one verify and one draft-step build, the draft's accept
    rate at least SPEC_ACCEPT_MIN).
@@ -158,7 +159,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    bf16, adamw, clip 1.0, telemetry on): B1-B4 against their plain versions
    at its attention shape (B 4, S 512, 16/8 heads of 64; gated) and B1-B3
    timed there; the unfused and the fused step from one seeded init and
-   batch, run unfused, fused, fused, unfused, each for 2 + 8 optimizer
+   batch, run unfused then fused (once each), each for 2 + 8 optimizer
    steps: the step records must read 1 microbatch and 8 calls an optimizer
    step (unfused) and 8 and 1 (fused), B1-B3 launch exactly 2 x 8 x 10
    times, every loss is finite, and the fused params and losses equal the
@@ -415,6 +416,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    Gemma-2 ``CausalLM`` (every switch) on the card against the CPU: logits,
    loss, grads, greedy tokens, and a 4-slot engine's tokens. B1-B4 timed at
    Gemma-2B's shape, B1-B3 at GPT-2's and T5's (D 64) for their rows.
+23. A8's remainder (``--a8-only``): (a) B5 at bert_base's layout (B 32, S
+   512, E 768, 12/12 heads of 64: ``H == Hkv``) and a multi-head case with
+   bias on rows that fill no tile, each against its plain version row by
+   row at the prologue TOL, repeated bit for bit into guarded outputs and
+   counted under ``prologue_kernel_design``'s design; B5 timed at
+   bert_base's shape beside its plain version and ``F.linear`` of x with
+   the q/k/v weight. (b) bert_base's ``SequenceClassifier`` with
+   ``fused_kernels=True`` against the unfused one (phase 7's run in the
+   whole script, its own with ``--a8-only``), from one seed on
+   ``bert_phase``'s data: 6 ``unified_step``s each (and the fused run's eval
+   pass) with the counters set to 0 just before: B5 12 a forward, B1 the same, B2 and B3 12 a step,
+   all wgmma; step 1's loss and grad norm within A8_LOSS_TOL/A8_GNORM_TOL
+   of the unfused run's; step time, busy share and peak side by side. (c)
+   ``examples/cv_example.py``, ``seq2seq_example.py`` and
+   ``schedule_free.py`` on the card at their own widths and data, their
+   epochs cut (A8_EXAMPLES' comment), each at least its reference test's
+   bound. (d) ``grad_dtype=bfloat16`` at accum's config, fused and unfused,
+   against the fp32 buffer: the carried buffer bf16 at half the bytes, the
+   peaks, the last optimizer step's losses within A8_GRAD_DTYPE_LOSS_TOL
+   and, in both modes, not all equal to the fp32 run's.
 
 Prints one JSON line describing the kernels (each with the shape it was
 timed at), then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Needs one
@@ -484,7 +505,11 @@ phases 1 and 21, and
 
     python3 chip_smoke.py --zoo-only
 
-phases 1 and 22, each of the last six ending with the card's line and the
+phases 1 and 22, and
+
+    python3 chip_smoke.py --a8-only
+
+phases 1 and 23, each of the last seven ending with the card's line and the
 ``{"ok": true, ...}`` line.
 
 Each kernel output is compared row by row: for every row of head_dim
@@ -566,43 +591,55 @@ WRAPPER_OF = {spec[0]: wrapper for wrapper, spec in KERNELS.items()}  # kernel -
 # 5,496,836,096 params, 96 KiB of bf16 KV a token
 DECODE_CFG = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=24,
                   num_heads=32, num_kv_heads=8, max_seq_len=512, dtype="bfloat16")
-# the reference's serve and decode variants (registry.py:318-328)
+# the reference's serve and decode variants (registry.py:318-328); generate
+# is timed over one rep of the reference's three (cut for phase 23's time:
+# the eager loop's 3 reps took 11.1 s, H100 80GB HBM3 at 700 W)
 SERVE = dict(max_slots=4, block_size=16, n_requests=8, seed=0, prompt=128, new_tokens=64,
-             reps=3, graph_steps=8)
+             reps=1, graph_steps=8)
 # paged against dense prefill, first-token logits in bf16: worst row's max
 # error over its RMS. An H100 read 0.0 on all 8 prompts (the padded and
 # unpadded products picked the same cuBLAS kernels), so the limit is not 3x
 # the reading but a few bf16 spacings (2^-8) of a logit row (PERF.md)
 SERVE_PREFILL_TOL = 0.02
-OBS_ROUNDS = 2  # interleaved off/on rounds of the observability A/B (measure.py:733)
-PREFIX_COHORT, PREFIX_NEW = 12, 8  # the templated cohort: 12 requests of 8 new tokens
+# interleaved off/on rounds of the observability A/B: one of the reference's
+# two (measure.py:733; cut for phase 23's time)
+OBS_ROUNDS = 1
+# the templated cohort: 6 requests of 8 new tokens, half the reference's 12
+# (measure.py:758-856; its four passes took 13.6 s, cut for phase 23's time)
+PREFIX_COHORT, PREFIX_NEW = 6, 8
 # warm against cold first-token logits in bf16 (an M of 8 against a bucket
 # of 512), worst row's max error over its RMS: about 3x the largest reading
 # on an H100 (0.180 over 12 prompts; PERF.md). The same tail padded to the
 # cold bucket is held within SERVE_PREFILL_TOL
 PREFIX_LOGITS_TOL = 0.55
 SPEC_K, SPEC_PROMPTS = 4, 8  # measure.py:896-897
+# new tokens a prompt in the speculation A/B: half the reference's 180 (the
+# three arms, each warm then timed, took 37.1 s at 180; cut for phase 23)
+SPEC_NEW = 90
 # the draft arm's accept rate: an H100 read 1.0 (2,304 of 2,304); the margin
 # is for argmax ties that the draft step (M 8) and the verify step (M 20)
 # round apart in fp32
 SPEC_ACCEPT_MIN = 0.97
 SENTINEL = -768.0  # what the pools hold before the trace (exact in bf16)
-# phase 6's example trains one epoch over a quarter of its 16,384 rows (256
+# phase 6's example trains one epoch over a sixteenth of its 16,384 rows (64
 # steps of B 16): the step is host-bound, and the full epoch's ~146 s (H100
-# 80GB HBM3, 700 W) took the whole script past its limit on a slower host
-EXAMPLE_ROWS_CUT = 4
+# 80GB HBM3, 700 W) took the whole script past its limit on a slower host; a
+# quarter (34.6 s) was cut to a sixteenth for phase 23's time
+EXAMPLE_ROWS_CUT = 16
 CARD = "cuda"  # where the serving phase puts its models
 # the reference's serve_soak variant: measure.py:_run_serve_soak(decode, 4, 16, 64, 0)
 # (registry.py:329-330)
 SOAK = dict(max_slots=4, block_size=16, target_requests=64, seed=0)
 # the serve_soak A/B arms (chunked, preempt) on the virtual clock run each
-# phase and the pressure fault at half the reference's length: the arms are
-# host-bound (107.9 s of phase 12's 132.3 s on an H100 80GB HBM3 at 700 W),
-# cut for the whole script's time when phase 22 came. Every check holds at
-# half length, as a CPU run of the halved plans shows (the arms read no
-# token): chunked p95 TTFT 0.1397 against 0.1525 s, fault-window sheds 12
-# against 34, 48 preemptions
-SOAK_ARM_SCALE = 0.5
+# phase and the pressure fault at a quarter of the reference's length: the
+# arms are host-bound (107.9 s of phase 12's 132.3 s on an H100 80GB HBM3 at
+# 700 W in full, 48.2 s at half), cut to half when phase 22 came and to a
+# quarter when phase 23 came. Every check holds at a quarter, as a CPU run
+# of the quartered plans shows (the arms read no token; the same CPU run of
+# the halved plans reads the card's numbers exactly): chunked p95 TTFT
+# 0.0740 against 0.0818 s with 75 chunks, fault-window sheds 2 against 4,
+# 17 preemptions, 11 preempted requests held against the control
+SOAK_ARM_SCALE = 0.25
 # the reference's fleet variants (registry.py:335-342): (decode, 2, 16, 48, 0)
 # and (decode, 2, 16, 32, 0), each with half its offered requests (the arms
 # are host-bound: cut for the whole script's time; every check holds, as a
@@ -689,6 +726,37 @@ LLAMA3_ROPE = dict(theta=500000.0, scaling={
     "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     "original_max_position_embeddings": 8192,
 })
+
+
+# phase 23 (A8's remainder). (a) B5 at BERT's layout (H == Hkv, E 768) and a
+# multi-head case with bias on rows that fill no tile, at the prologue TOL.
+# (b) bert_base with fused_kernels=True against the unfused classifier from
+# the same weights and batches: step 1's loss and grad norm, relative
+# difference, limits about 3x the readings on an H100 80GB HBM3 at 700 W
+# (2.43e-4 and 8.4e-5; PERF.md's parity table)
+A8_PROLOGUE_CASES = (
+    ("bert_mha", dict(B=32, S=512, E=768, H=12, Hkv=12, D=64,
+                      rope=dict(theta=500000.0, scaling=None))),
+    ("mha_bias_rows", dict(B=1, S=200, E=512, H=8, Hkv=8, D=64, bias=True)),
+)
+A8_LOSS_TOL = 7.5e-4
+A8_GNORM_TOL = 2.5e-4
+# (c) the examples at their own widths and data, each held to its reference
+# test's bound (tests/test_examples.py), their epochs cut (every step is
+# host-bound): cv_example 1 of its 3 epochs (accuracy 1.0 after the first),
+# seq2seq_example 14 of its 30 (15 read 0.987 in 66.4-74.5 s, 12 read 0.807,
+# under the bound; the 30-epoch run's loss after 14 epochs 0.0188, after 15
+# 0.0175; 1.0 in 129.0 s at 30), schedule_free
+# one epoch over 1/A8_ROWS_CUT of its rows (bert_base; 0.907 after 256
+# steps, 42.2 s; 0.824 after 128, 25.9 s)
+A8_EXAMPLES = {"cv_example": 0.70, "seq2seq_example": 0.9, "schedule_free": 0.60}
+A8_ROWS_CUT = 8
+# (d) grad_dtype bf16 at accum's config, 3 optimizer steps: the last
+# optimizer step's microbatch losses against the fp32 buffer's, relative;
+# about 3x the reading (7.12e-4, both modes, since AdamW takes a bf16
+# gradient times bf16(1-b1) and bf16(1-b2) as optax does; 2.26e-4 before)
+A8_ACCUM_STEPS = 3
+A8_GRAD_DTYPE_LOSS_TOL = 2.1e-3
 
 
 def fail(msg: str) -> None:
@@ -1605,12 +1673,14 @@ def check_path_losses(losses, fused_losses, rep: Report) -> None:
              f"relative differences {rel}, limits {list(PATH_LOSS_TOL)}")
 
 
-def profile_step(torch, step, carry, batch, rep: Report, name: str):
+def profile_step(torch, step, carry, batch, rep: Report, name: str,
+                 readings: dict | None = None):
     """One more step of the path (after its counts were read) under
     torch.profiler: device time by kernel group, the optimizer epilogue's
     device range, and the device's busy share of the step's wall time (the
-    profiler's own cost included). Returns the names of the port's kernels
-    that ran, or None when the profiler saw no device time."""
+    profiler's own cost included; written to ``readings["busy"]`` when
+    ``readings`` is given). Returns the names of the port's kernels that
+    ran, or None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1643,6 +1713,8 @@ def profile_step(torch, step, carry, batch, rep: Report, name: str):
             groups["matmul (cuBLAS)"] += ms
         else:
             groups["other"] += ms
+    if readings is not None:
+        readings["busy"] = busy_ms / wall_ms
     rep.line(f"{name} profiled step: wall {wall_ms} ms, device busy {busy_ms} ms "
              f"({100 * busy_ms / wall_ms} %), by kernel group ms {json.dumps(groups)}, "
              f"optimizer epilogue (unified_step.sync_apply) {epilogue_ms} ms on the device")
@@ -1793,8 +1865,9 @@ def bert_rows(n: int, vocab: int, seed: int) -> list[dict]:
             for i in range(n)]
 
 
-def bert_trainer(torch, port, seed: int):
-    """bert_base at full width and depth, bf16 compute with fp32 masters,
+def bert_trainer(torch, port, seed: int, fused_kernels: bool = False):
+    """bert_base at full width and depth (``fused_kernels``: each layer's
+    norm -> q/k/v -> rope through B5), bf16 compute with fp32 masters,
     adamw with the examples' warmup-cosine schedule and weight decay 0.01,
     clip 1.0; a shuffled torch loader of the training rows and an eval
     loader whose size is not a multiple of its batch."""
@@ -1807,7 +1880,7 @@ def bert_trainer(torch, port, seed: int):
     port.AcceleratorState._reset_state(reset_partial_state=True)
     port.GradientState._reset_state()
     acc = port.Accelerator(mixed_precision="bf16")
-    cfg = port.TransformerConfig.bert_base(dtype="bfloat16")
+    cfg = port.TransformerConfig.bert_base(dtype="bfloat16", fused_kernels=fused_kernels)
     model = port.SequenceClassifier(cfg, num_labels=2, device=acc.device,
                                     generator=torch.Generator(acc.device).manual_seed(seed))
     B = BERT["B"]
@@ -1825,30 +1898,34 @@ def bert_trainer(torch, port, seed: int):
 def train_bert(torch, step, carry, loader, n: int):
     """At most ``n`` batches of ``loader`` through ``step``: the carry, the
     losses, each step's seconds (host clock ending in a synchronise), the
-    real tokens (the attention mask's sum) of each batch, and the last
-    batch."""
-    losses, times, real = [], [], []
+    real tokens (the attention mask's sum) of each batch, the last batch
+    and the grad norms."""
+    losses, times, real, norms = [], [], [], []
     for i, batch in enumerate(loader):
         if i == n:
             break
         t0 = time.perf_counter()
         carry, metrics = step(carry, batch)
         losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         real.append(int(batch["attention_mask"].sum()))
         last = batch
-    return carry, losses, times, real, last
+    return carry, losses, times, real, last, norms
 
 
-def bert_phase(torch, port, wrappers, rep: Report) -> dict:
+def bert_phase(torch, port, wrappers, rep: Report) -> tuple[dict, dict]:
     """The BERT path: bert_base (12 layers, 768 wide, 12 heads of 64) at
     B 32, S 512, where auto-dispatch itself takes B1-B3 (non-causal, the
     mask lowered to kv_lengths): 6 unified_steps and one eval pass, with
     every launch counter set to 0 just before and read just after; then the
     resume: 3 steps, save_state, a fresh accelerator and a model from
     another seed, load_state, skip_first_batches(3), 3 steps, which must
-    equal the uninterrupted run bit for bit. Returns the launch counts."""
+    equal the uninterrupted run bit for bit. Returns the launch counts and
+    the readings phase 23 (b) takes as its unfused run (the same seed, data
+    and steps): losses, grad norms, median step seconds, peak bytes and the
+    profiled step's busy share."""
     import tempfile
 
     B, S, steps = BERT["B"], BERT["S"], BERT["steps"]
@@ -1859,7 +1936,7 @@ def bert_phase(torch, port, wrappers, rep: Report) -> dict:
              f"of 64), {time.perf_counter() - t0:.2f} s")
     reset_counts(wrappers)
     torch.cuda.reset_peak_memory_stats()
-    carry, losses, times, real, batch = train_bert(torch, step, carry, train, steps)
+    carry, losses, times, real, batch, norms = train_bert(torch, step, carry, train, steps)
     peak = torch.cuda.max_memory_allocated()
     correct = total = 0
     with torch.no_grad():
@@ -1900,7 +1977,8 @@ def bert_phase(torch, port, wrappers, rep: Report) -> dict:
     straight = {k: t.detach().clone() for k, t in carry["params"].items()}
     # one more step under the profiler (after the counts were read): the
     # port's kernels in it must be B1-B3's wgmma ones
-    ran = profile_step(torch, step, carry, batch, rep, "bert phase")
+    readings = {"losses": losses, "norms": norms, "step_s": steady, "peak": peak, "busy": None}
+    ran = profile_step(torch, step, carry, batch, rep, "bert phase", readings)
     want_ran = {KERNELS[w][0] for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     if ran is not None and ran != want_ran:
         fail(f"bert phase profiled step ran the port's kernels {sorted(ran)}, want "
@@ -1932,7 +2010,7 @@ def bert_phase(torch, port, wrappers, rep: Report) -> dict:
              f"{losses}, {len(unequal)} params differ ({unequal[:4]}), largest "
              f"{max(diffs.values())}")
     del acc, model, train, step, carry, straight
-    return launches
+    return launches, readings
 
 
 def example_phase(torch, port, wrappers, rep: Report) -> None:
@@ -2246,7 +2324,8 @@ def serve_phase(torch, port, wrappers, rep: Report, model) -> None:
     timings = {}
     for name, call in (("make_generate_fn (decode as one CUDA graph)", lambda: gen(ids)),
                        ("generate (eager)", lambda: generate(model, ids, max_new_tokens=N))):
-        call()[:, -1].cpu()  # warm: builds and captures
+        if name.startswith("make"):  # warm: builds and captures (the eager loop builds nothing)
+            call()[:, -1].cpu()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -2645,7 +2724,7 @@ def speculation_ab(torch, port, rep: Report) -> None:
     rng = np.random.default_rng(SERVE["seed"] + 2)
     prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(4, 12)))
                for _ in range(SPEC_PROMPTS)]
-    new = min(180, cfg.max_seq_len - 16 - SPEC_K)
+    new = min(SPEC_NEW, cfg.max_seq_len - 16 - SPEC_K)
     arms = {}
     for name, spec in (("off", None), ("ngram", SpecConfig(k=SPEC_K)),
                        ("draft", SpecConfig(k=SPEC_K, method="draft_model", draft_model=draft))):
@@ -4212,11 +4291,12 @@ def variant_phases(torch, port, wrappers, rep: Report) -> tuple[list[dict], floa
 # phase 13: the reference benchmark's accum variant and the long-sequence
 # flash-against-plain pair
 # ---------------------------------------------------------------------- #
-def accum_trainer(torch, port, fused: bool):
+def accum_trainer(torch, port, fused: bool, policy=None):
     """``measure.py:_run_accum``'s set-up in one mode on the ``small``
     config: the model and one batch of tokens from seed 0, adamw (lr 3e-4),
     clip 1.0, telemetry on, K microbatches an optimizer step (fused: the
-    batch stacked K times, one call; unfused: K calls). Returns the accelerator, the step,
+    batch stacked K times, one call; unfused: K calls); ``policy`` replaces
+    the bf16 policy (phase 23 (d)'s grad_dtype). Returns the accelerator, the step,
     its carry, the batch, the calls an optimizer step takes and the
     parameter count."""
     B, K = ACCUM["B"], ACCUM["K"]
@@ -4227,7 +4307,7 @@ def accum_trainer(torch, port, fused: bool):
     port.GradientState._reset_state()
     acc = port.Accelerator(mixed_precision="bf16", telemetry=True,
                            gradient_accumulation_plugin=port.GradientAccumulationPlugin(
-                               num_steps=K, fused=fused))
+                               num_steps=K, fused=fused), mixed_precision_policy=policy)
     model = port.CausalLM(port.TransformerConfig(**ACCUM_CFG), device=acc.device,
                           generator=torch.Generator(device=acc.device).manual_seed(0))
     model, opt = acc.prepare(model, port.adamw(3e-4))
@@ -4292,7 +4372,8 @@ def accum_mode(torch, port, wrappers, fused: bool, rep: Report) -> dict:
 
 def accum_phase(torch, port, wrappers, rep: Report) -> list[dict]:
     """The ``accum`` variant: fused and unfused from one init and batch, in
-    the order unfused, fused, fused, unfused; their records, launches and
+    the order unfused, fused (once each: the repeat of each mode, 7.6 s, was
+    cut for phase 23's time); their records, launches and
     times, the params bit for bit, a profiled optimizer step of each and the
     kernels whose launch counts differ between the two. Returns B1-B3's
     rows at its attention shape."""
@@ -4303,7 +4384,7 @@ def accum_phase(torch, port, wrappers, rep: Report) -> list[dict]:
     rows = time_flash_shape(torch, fa, rep, "accum", ACCUM["B"], ACCUM_CFG["max_seq_len"], H,
                             Hkv, ACCUM_CFG["hidden_size"] // H)
     timed, params, losses, counts = {False: [], True: []}, {}, {}, {}
-    for fused in (False, True, True, False):
+    for fused in (False, True):
         run = accum_mode(torch, port, wrappers, fused, rep)
         want = (K, 1) if fused else (1, K)
         got = (run["microbatches"], run["dispatches_per_opt_step"])
@@ -4346,7 +4427,7 @@ def accum_phase(torch, port, wrappers, rep: Report) -> list[dict]:
              f"worst differing tensor max|diff| / max|unfused| {worst}; losses equal: "
              f"{losses[True] == losses[False]}")
     u, f = statistics.median(timed[False]), statistics.median(timed[True])
-    rep.line(f"accum: median optimizer-step seconds over both runs of each mode: unfused {u} "
+    rep.line(f"accum: median optimizer-step seconds of each mode: unfused {u} "
              f"(runs {timed[False]}), fused {f} (runs {timed[True]}); vs_baseline "
              f"(unfused / fused) {u / f}")
     if bad or losses[True] != losses[False]:
@@ -7495,6 +7576,239 @@ def phase22(torch, port, wrappers, rep: Report) -> list[dict]:
     return rows
 
 
+def a8_prologue_cases(torch, fused, rep: Report) -> dict:
+    """Phase 23 (a): A8_PROLOGUE_CASES through ``check_prologue_case`` (row
+    by row at the prologue TOL, counted under ``prologue_kernel_design``'s
+    design, repeated bit for bit into guarded outputs), then B5 timed at
+    bert_base's prologue shape (rows 16384, E 768, 12/12 x 64, bf16) beside
+    its plain version and ``F.linear`` of x with the concatenated q/k/v
+    weight. Returns the kernel row."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    for name, kw in A8_PROLOGUE_CASES:
+        reading, err = check_prologue_case(torch, fused, name, **kw, dtype=bf16)
+        rep.line(json.dumps(reading))
+        if reading["bad"]:
+            fail(f"prologue {name}: {reading['bad']}")
+        if name == "bert_mha":
+            bert_err = err
+    kw = dict(A8_PROLOGUE_CASES[0][1])
+    args, statics = prologue_inputs(torch, fused, **kw, dtype=bf16, seed=2)
+    x, wq, wk, wv = args[0], args[2], args[3], args[4]
+    rows, E = kw["B"] * kw["S"], kw["E"]
+    x2, wcat = x.reshape(rows, E), torch.cat([wq, wk, wv])
+    scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(torch, lambda: fused.qkv_prologue(*args, **statics), 20, scratch.zero_)
+    plain_ms = time_ms(torch, lambda: fused._prologue_reference_tables(*args, **statics), 5,
+                       scratch.zero_)
+    library_ms = time_ms(torch, lambda: F.linear(x2, wcat), 20, scratch.zero_)
+    W, e = wcat.shape[0], 2
+    work = (2 * rows * E * W, rows * E * e + W * E * e + E * 4 + 2 * rows * kw["D"] * 4
+            + rows * W * e)
+    design = fused.prologue_kernel_design(bf16, kw["H"], kw["Hkv"], kw["D"], E)
+    row = kernel_row("qkv_prologue", design, ms, plain_ms, *work, PEAK_BF16_FLOPS, bert_err,
+                     library_ms)
+    row["shape"] = f"bert_base prologue B{kw['B']} S{kw['S']} E{E} H{kw['H']} Hkv{kw['Hkv']} bf16"
+    rep.line(f"qkv_prologue_kernel at bert_base's shape ({design}): {ms:.4f} ms (plain "
+             f"{plain_ms:.4f} ms, F.linear of x with the q/k/v weight {library_ms:.4f} ms, bound "
+             f"{row['bound_ms']:.4f} ms by {row['bound_by']}), max abs err {bert_err}")
+    del args, x2, wcat, scratch
+    torch.cuda.empty_cache()
+    return row
+
+
+def a8_bert_run(torch, port, wrappers, rep: Report, fused_kernels: bool) -> dict:
+    """bert_base (``bert_trainer``, seed 0) for BERT["steps"] unified_steps
+    and, fused, the eval pass, every launch counter set to 0 just before and
+    read just after; then one profiled step. Returns the readings."""
+    name = "a8 bert fused" if fused_kernels else "a8 bert unfused"
+    acc, model, opt, train, evals, step, carry = bert_trainer(torch, port, seed=0,
+                                                              fused_kernels=fused_kernels)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    carry, losses, times, _, last, norms = train_bert(torch, step, carry, train, BERT["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    n_eval = 0
+    if fused_kernels:
+        with torch.no_grad():
+            for batch in evals:
+                model(batch["input_ids"], batch["attention_mask"])
+                n_eval += 1
+        torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    by_design = {w.__name__: dict(w.by_design) for w in wrappers if hasattr(w, "by_design")}
+    steady = statistics.median(times[1:])
+    rep.line(f"{name}: losses {losses}, grad norms {norms}; step seconds {times}, median of "
+             f"steps 2-{BERT['steps']} {steady} s; peak memory {peak / 2**30} GiB; launches "
+             f"{json.dumps(launches)}, by design {json.dumps(by_design)}")
+    if not all(math.isfinite(v) for v in losses + norms):
+        fail(f"{name}: a loss or grad norm is not finite: {losses}, {norms}")
+    out = {"losses": losses, "norms": norms, "step_s": steady, "peak": peak,
+           "launches": launches, "by_design": by_design, "n_eval": n_eval,
+           "layers": model.config.num_layers, "busy": None}
+    out["ran"] = profile_step(torch, step, carry, last, rep, name, out)
+    del acc, model, opt, train, evals, step, carry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def a8_bert_fused(torch, port, wrappers, rep: Report, unfused: dict | None) -> dict:
+    """Phase 23 (b): the unfused and the fused bert_base runs from the same
+    weights and batches. The fused run's launches exactly: B5 once a layer a
+    forward (steps and eval), B1 the same, B2 and B3 once a layer a step,
+    every one on the wgmma design; step 1's loss and grad norm within
+    A8_LOSS_TOL / A8_GNORM_TOL of the unfused run's; step time, busy share
+    and peak side by side. ``unfused``: phase 7's readings in the whole
+    script (``bert_phase``: the same seed, data and steps, its losses read
+    equal); None (``--a8-only``) runs the unfused run here. Returns the
+    fused run's launch counts."""
+    if unfused is not None:
+        plain = unfused
+        rep.line("a8 bert unfused: phase 7's run (bert_phase) is the baseline")
+    else:
+        plain = a8_bert_run(torch, port, wrappers, rep, fused_kernels=False)
+    fused_run = a8_bert_run(torch, port, wrappers, rep, fused_kernels=True)
+    L, steps, n_eval = fused_run["layers"], BERT["steps"], fused_run["n_eval"]
+    fwd = L * (steps + n_eval)
+    want = {"flash_fwd": fwd, "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
+            "flash_bwd_fused": 0, "qkv_prologue": fwd, "adamw_epilogue": 0}
+    if fused_run["launches"] != want:
+        fail(f"a8 bert fused: launches {fused_run['launches']}, want {want}")
+    want_design = {w: {"wgmma": want[w], "wmma": 0} for w in fused_run["by_design"]}
+    if fused_run["by_design"] != want_design:
+        fail(f"a8 bert fused: launches by design {fused_run['by_design']}, want {want_design}")
+    want_ran = {KERNELS[w][0] for w in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    want_ran |= {"qkv_prologue_rstd_kernel", "qkv_prologue_kernel"}
+    if fused_run["ran"] is not None and fused_run["ran"] != want_ran:
+        fail(f"a8 bert fused: the profiled step ran {sorted(fused_run['ran'])}, want "
+             f"{sorted(want_ran)}")
+    loss_gap = abs(fused_run["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+    norm_gap = abs(fused_run["norms"][0] - plain["norms"][0]) / abs(plain["norms"][0])
+    rep.line(f"a8 bert: step 1 fused against unfused: loss {fused_run['losses'][0]} vs "
+             f"{plain['losses'][0]} (relative {loss_gap}, limit {A8_LOSS_TOL}), grad norm "
+             f"{fused_run['norms'][0]} vs {plain['norms'][0]} (relative {norm_gap}, limit "
+             f"{A8_GNORM_TOL}); median step {fused_run['step_s']} vs {plain['step_s']} s; busy "
+             f"share {fused_run['busy']} vs {plain['busy']}; "
+             f"peak {fused_run['peak'] / 2**30} vs {plain['peak'] / 2**30} GiB")
+    if not (loss_gap <= A8_LOSS_TOL and norm_gap <= A8_GNORM_TOL):
+        fail(f"a8 bert: step 1 of the fused classifier is off the unfused one: loss "
+             f"{loss_gap}, grad norm {norm_gap}")
+    return fused_run["launches"]
+
+
+def a8_examples(torch, port, wrappers, rep: Report) -> None:
+    """Phase 23 (c): the port's ``cv_example`` (8192 shapes, 1 epoch, lr
+    3e-3, B 32), ``seq2seq_example`` (256 wide, 2048 rows, 14 epochs, lr
+    1e-3, bf16) and ``schedule_free`` (bert_base, bf16, one epoch over
+    1/A8_ROWS_CUT of its rows) on the card, each at least its reference
+    test's bound (A8_EXAMPLES), with its seconds. None of them reaches a
+    port kernel (S 128, S 12 and convolutions)."""
+    import argparse
+
+    from accelerate_tpu_torch.examples import cv_example, nlp_example, schedule_free
+    from accelerate_tpu_torch.examples import seq2seq_example
+
+    runs = (
+        (cv_example, {"lr": 3e-3, "num_epochs": 1, "seed": 42, "batch_size": 32}, None),
+        (seq2seq_example, {"lr": 1e-3, "num_epochs": 14, "seed": 42, "batch_size": 32}, "bf16"),
+        (schedule_free, {"lr": 2e-4, "num_epochs": 1, "seed": 42, "batch_size": 16}, "bf16"),
+    )
+    make_dataset = nlp_example.make_paraphrase_dataset
+    nlp_example.make_paraphrase_dataset = (  # train and eval sets alike
+        lambda n, **kw: make_dataset(n // A8_ROWS_CUT, **kw))
+    try:
+        for module, config, precision in runs:
+            name = module.__name__.rsplit(".", 1)[-1]
+            gc.collect()
+            torch.cuda.empty_cache()
+            port.AcceleratorState._reset_state(reset_partial_state=True)
+            port.GradientState._reset_state()
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            metric = module.training_function(
+                config, argparse.Namespace(cpu=False, mixed_precision=precision))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {w.__name__: w.launches for w in wrappers}
+            rep.line(f"a8 example {name} ({json.dumps(config)}, mixed_precision {precision}): "
+                     f"{metric}, {seconds} s; launches {json.dumps(launches)}")
+            if not metric["accuracy"] >= A8_EXAMPLES[name]:
+                fail(f"a8 example {name}: accuracy {metric['accuracy']} under its bound "
+                     f"{A8_EXAMPLES[name]}")
+            if any(launches.values()):
+                fail(f"a8 example {name} launched the port's kernels: {launches}")
+    finally:
+        nlp_example.make_paraphrase_dataset = make_dataset
+
+
+def a8_grad_dtype(torch, port, wrappers, rep: Report) -> None:
+    """Phase 23 (d): ``grad_dtype=bfloat16`` at accum's config (small, B 4,
+    S 512, K 8), unfused and fused, against the fp32 buffer, A8_ACCUM_STEPS
+    optimizer steps each from one init and batch: the carried buffer is bf16
+    at half the bytes, the peaks are read, and the last optimizer step's
+    losses stay within A8_GRAD_DTYPE_LOSS_TOL of the fp32 run's without all
+    equalling them (a bf16 run that ignored ``grad_dtype`` would)."""
+    runs = {}
+    for fused in (False, True):
+        for grad_dtype in (None, torch.bfloat16):
+            policy = port.MixedPrecisionPolicy(compute_dtype=torch.bfloat16, grad_dtype=grad_dtype)
+            acc, step, carry, batch, calls, _ = accum_trainer(torch, port, fused, policy=policy)
+            buffer = carry.get("accum_grads")
+            buf = (None if buffer is None else
+                   (sorted({str(t.dtype) for t in buffer.values()}),
+                    sum(t.numel() * t.element_size() for t in buffer.values())))
+            torch.cuda.reset_peak_memory_stats()
+            carry, losses, times = accum_steps(torch, step, carry, batch, calls, A8_ACCUM_STEPS)
+            key = ("fused" if fused else "unfused", "bf16" if grad_dtype else "fp32")
+            runs[key] = {"losses": losses, "peak": torch.cuda.max_memory_allocated(),
+                         "buffer": buf, "times": times}
+            rep.line(f"a8 grad_dtype {key}: losses {losses}; optimizer-step seconds {times}; "
+                     f"peak {runs[key]['peak'] / 2**30} GiB; carried buffer {buf}")
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"a8 grad_dtype {key}: a loss is not finite")
+            del acc, step, carry, batch
+    K = ACCUM["K"]
+    for mode in ("unfused", "fused"):
+        low, full = runs[(mode, "bf16")], runs[(mode, "fp32")]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(low["losses"][-K:], full["losses"][-K:]))
+        rep.line(f"a8 grad_dtype {mode}: last optimizer step's losses bf16 against fp32 buffer, "
+                 f"largest relative difference {gap} (limit {A8_GRAD_DTYPE_LOSS_TOL}); peak "
+                 f"{low['peak'] / 2**30} vs {full['peak'] / 2**30} GiB")
+        if not gap <= A8_GRAD_DTYPE_LOSS_TOL:
+            fail(f"a8 grad_dtype {mode}: losses {gap} off the fp32 buffer's")
+        if low["losses"] == full["losses"]:  # grad_dtype reached the step
+            fail(f"a8 grad_dtype {mode}: the bf16 run's losses equal the fp32 buffer's")
+    low, full = runs[("unfused", "bf16")]["buffer"], runs[("unfused", "fp32")]["buffer"]
+    if low[0] != ["torch.bfloat16"] or full[0] != ["torch.float32"] or 2 * low[1] != full[1]:
+        fail(f"a8 grad_dtype: the unfused carried buffer is {low}, the fp32 one {full}")
+    if runs[("fused", "bf16")]["buffer"] is not None:
+        fail("a8 grad_dtype: the fused carry holds a buffer")
+
+
+def phase23(torch, port, wrappers, rep: Report, bert_unfused: dict | None = None
+            ) -> list[dict]:
+    """Phase 23 (``--a8-only``): (a)-(d) above, (b) against
+    ``bert_unfused`` (phase 7's readings) when given. Returns B5's row at
+    bert_base's shape, its launches those of (b)'s fused run."""
+    from accelerate_tpu_torch.ops import fused
+
+    t0 = time.perf_counter()
+    row = a8_prologue_cases(torch, fused, rep)
+    t1 = time.perf_counter()
+    launches = a8_bert_fused(torch, port, wrappers, rep, bert_unfused)
+    row["launches"] = launches["qkv_prologue"]
+    t2 = time.perf_counter()
+    a8_examples(torch, port, wrappers, rep)
+    t3 = time.perf_counter()
+    a8_grad_dtype(torch, port, wrappers, rep)
+    t4 = time.perf_counter()
+    rep.line(f"phase 23: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, "
+             f"(d) {t4 - t3:.1f} s, in all {t4 - t0:.1f} s")
+    return [row]
+
+
 def main() -> None:
     script_t0 = time.perf_counter()
     import torch
@@ -7614,6 +7928,16 @@ def main() -> None:
             "count": torch.cuda.device_count(),
         }}))
         return
+    if "--a8-only" in sys.argv[1:]:
+        rows = phase23(torch, port, wrappers, rep)
+        print(json.dumps({"kernels": rows}))
+        rep.line("a8-only: the A8 remainder phase passed")
+        print(rep.card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return
     if "--lora-only" in sys.argv[1:]:
         rows = phase17(torch, port, wrappers, rep)
         print(json.dumps({"kernels": rows}))
@@ -7629,7 +7953,7 @@ def main() -> None:
         if failed:
             fail(f"kernel outputs beyond tolerance: {'; '.join(failed)}")
         rows = time_bert_kernels(torch, fa, rep)
-        bert_launches = bert_phase(torch, port, wrappers, rep)
+        bert_launches, _ = bert_phase(torch, port, wrappers, rep)
         example_phase(torch, port, wrappers, rep)
         for row in rows:
             row["launches"] = bert_launches[WRAPPER_OF[row["name"]]]
@@ -7651,7 +7975,7 @@ def main() -> None:
     finally:
         fa.FUSED_BWD = False
     check_path_losses(losses, fused_losses, rep)
-    bert_launches = bert_phase(torch, port, wrappers, rep)
+    bert_launches, bert_unfused = bert_phase(torch, port, wrappers, rep)
     example_phase(torch, port, wrappers, rep)
     model = build_decode_model(torch, port, rep)
     serve_phase(torch, port, wrappers, rep, model)
@@ -7671,6 +7995,7 @@ def main() -> None:
     variant_rows += phase20(torch, port, wrappers, rep)
     variant_rows += phase21(torch, port, wrappers, rep)
     variant_rows += phase22(torch, port, wrappers, rep)
+    variant_rows += phase23(torch, port, wrappers, rep, bert_unfused)
     runs_on_fused_path = ("flash_bwd_fused", "qkv_prologue", "adamw_epilogue")
     for row in rows:
         wrapper = WRAPPER_OF[row["name"]]

@@ -776,9 +776,21 @@ def test_unported_accelerator_and_model_paths_raise(tmp_path):
         acc.load_state(out, params={"w": torch.zeros(4)})
     got = acc.load_state(out, params={"w": torch.zeros(4)}, allow_reshape=True)
     assert torch.equal(got["w"], params["w"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.SequenceClassifier(port.TransformerConfig.tiny(causal=False, fused_kernels=True),
-                                device="cpu")
+    # the fused classifier is ported (queue A5's remainder): it builds and
+    # runs through the fused prologue's plain version on the CPU
+    model = port.SequenceClassifier(port.TransformerConfig.tiny(causal=False,
+                                                                fused_kernels=True),
+                                    device="cpu")
+    ids = torch.randint(0, 64, (2, 8), generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(model(ids, torch.ones(2, 8, dtype=torch.long))).all()
+
+
+def test_no_message_names_queue_a5():
+    """The fused BERT path (queue A5's remainder) is ported: no message of
+    the port or of chip_smoke.py names queue A5 any more."""
+    pattern = re.compile(r"queue A5\b|\(A5\)|A5 remainder")
+    for path in [*(REPO / "accelerate_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
 
 
 def test_sequence_classifier_builds_and_runs_on_the_cpu():

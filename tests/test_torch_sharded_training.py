@@ -23,6 +23,9 @@ One world-4 launch runs every configuration in turn on one process group:
   every rank holds the step;
 * ``get_state_dict`` under FULL_SHARD equals the unsharded state bit for
   bit;
+* ``grad_dtype=bfloat16`` at fsdp 2 x tp 2 with clip 1.0 against the
+  port's world-1 run under the same policy: the layout's and the raw
+  loop's norms add the leaves as ``optimizer.global_norm`` does;
 * a DTensor handed to each kernel wrapper raises;
 * each layer under ``remat="full"`` at fsdp 2 x tp 2 (the recompute gathers
   again), and the reference's plugin names (DeepSpeed's ZeRO stages 0-3,
@@ -51,6 +54,9 @@ from accelerate_tpu_torch.test_utils.training import TINY_LM, TINY_SEQ, MaskedTo
 
 TOL = 2e-5
 SMALL_UPDATE_TOL = 3e-4  # chip_smoke.py's bound for the fused path's params
+# bf16 gradients at fsdp 2 x tp 2 against world 1's: 3x the reading, 2.44e-4
+# after five steps (a bf16 gradient rounded from a differently summed fp32)
+BF16_GRAD_PARAMS_TOL = 7.5e-4
 STEPS, ROWS = 5, 8
 PARITY = {"fsdp4": dict(dp_size=1, fsdp_size=4),
           "dp2_tp2": dict(dp_size=2, tp_size=2),
@@ -90,7 +96,8 @@ RUNS = (
             mixed_precision="fp16", steps=4, rows=ROWS, plant_inf=(2, 2)),
        dict(name="fp16_clean", plugin=dict(dp_size=1, fsdp_size=4, min_weight_size=1),
             mixed_precision="fp16", steps=4, rows=ROWS),
-       dict(name="state_dict_lr0", plugin=PARITY["fsdp2_tp2"], lr=0.0, steps=1, rows=ROWS)]
+       dict(name="state_dict_lr0", plugin=PARITY["fsdp2_tp2"], lr=0.0, steps=1, rows=ROWS),
+       _parity_run("grad_bf16_fsdp2_tp2", PARITY["fsdp2_tp2"], grad_dtype="bfloat16")]
 )
 
 
@@ -109,7 +116,8 @@ def runs(tmp_path_factory):
     debug_launcher(sharding_workers.train_runs_worker, (str(out), RUNS, True), num_processes=4)
     records = {r["name"]: torch.load(os.path.join(out, f"{r['name']}.pt")) for r in RUNS}
     # the port's unsharded world-1 runs, in this process (no group)
-    for name, kw in (("world1", {}), ("world1_fused", FUSED)):
+    for name, kw in (("world1", {}), ("world1_fused", FUSED),
+                     ("world1_grad_bf16", dict(grad_dtype="bfloat16"))):
         sharding_workers._train_run(str(out), _parity_run(name, None, **kw))
         records[name] = torch.load(os.path.join(out, f"{name}.pt"))
     port.AcceleratorState._reset_state(reset_partial_state=True)
@@ -303,3 +311,25 @@ def test_a_dtensor_handed_to_a_kernel_wrapper_raises(runs):
                             "qkv_prologue", "prologue_launch", "adamw_epilogue"}
     for name, err in refused.items():
         assert err is not None and err.startswith("TypeError") and "DTensor" in err, (name, err)
+
+
+def test_bf16_gradients_clip_under_a_plugin_as_at_world_one(runs):
+    """``grad_dtype=bfloat16`` at fsdp 2 x tp 2, clip 1.0 scaling every step:
+    each step's loss and grad norm within TOL of the port's world-1 run
+    under the same policy, the params within BF16_GRAD_PARAMS_TOL, and a
+    bf16 tree's norm from the layout (the step's) and from its DTensors
+    (the raw loop's) within TOL of ``optimizer.global_norm`` of the whole
+    leaves; the fp32 run's norms are not those (the dtype reaches the
+    step)."""
+    _, _, records = runs
+    rec, one = records["grad_bf16_fsdp2_tp2"], records["world1_grad_bf16"]
+    low = rec["low_norms"]
+    _close([low["step"], low["raw"]], [low["whole"]] * 2, "bf16 tree norms vs the whole leaves'")
+    assert min(one["norms"]) > 1.0, one["norms"]  # the clip scales every step
+    _close(rec["losses"], one["losses"], "losses vs world 1")
+    _close(rec["norms"], one["norms"], "grad norms vs world 1")
+    f32 = records["parity_fsdp2_tp2"]["norms"]
+    assert all(abs(a - b) > 10 * TOL * b for a, b in zip(f32, one["norms"])), (f32, one["norms"])
+    for k, v in one["params"].items():
+        np.testing.assert_allclose(np.asarray(rec["params"][k]), np.asarray(v), rtol=0,
+                                   atol=BF16_GRAD_PARAMS_TOL, err_msg=k)
